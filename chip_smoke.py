@@ -8,12 +8,14 @@ Phases, each printed as it ends:
      kernels under jwas_tpu_torch/csrc/;
   2. each kernel against its plain PyTorch version on identical inputs on
      the card, with the tolerance stated and both times;
-  3. the main path at full width: a 2-bit store of N = 50,000 x
+  3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
-     (single-trait BayesC, b = 128, gb = 128, nreps = 128, sync_every = 8)
-     for three outer iterations, with the launch count of every kernel;
-  4. a statistical check: a small simulation run through run_st on the
-     card and on the CPU (plain versions); EBV accuracy must hold.
+     (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
+     three outer iterations of BayesC and then of BayesR on the same store
+     and Grams, with the launch count of every kernel in each path;
+  4. a statistical check: a small simulation run through run_st, BayesC
+     on the card and on the CPU (plain versions), BayesR on the card; EBV
+     accuracy must hold.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -36,14 +38,21 @@ DELTA_AGREE = 0.999   # K1: inclusion indicators equal on >= 99.9% of markers
 # 0.7119); the floor is that minus 0.1
 ACC_FLOOR = 0.6043
 ACC_MARGIN = 0.05     # kernel path may trail the plain path by at most this
+# EBV accuracy of jwas_tpu.runMCMC BayesR (storage='2bit', default class
+# prior) on the phase-4 data, measured on the CPU with the same chain
+# settings, seeds 5, 6, 7: 0.9327, 0.9389, 0.9490; the floor is the lowest
+# minus 0.1
+ACC_FLOOR_BAYESR = 0.8327
 
 REPLACES = {
     "abc_inner_rounds": "jwas_tpu/ops/pallas_sweep.py:68",
+    "bayesr_inner_rounds": "jwas_tpu/ops/pallas_sweep.py:327",
     "packed_rhs": "jwas_tpu/ops/pallas_packed_gemv.py:55",
     "packed_matvec": "jwas_tpu/ops/pallas_packed_gemv.py:105",
 }
 SOURCES = {
     "abc_inner_rounds": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
+    "bayesr_inner_rounds": "jwas_tpu_torch/csrc/bayesr_inner_rounds.cu",
     "packed_rhs": "jwas_tpu_torch/csrc/packed_gemv.cu",
     "packed_matvec": "jwas_tpu_torch/csrc/packed_gemv.cu",
 }
@@ -131,6 +140,84 @@ def check_k1(n, b, nblocks, nreps, dev, time_it):
     return rec
 
 
+def k3_inputs(n, b, nblocks, nreps, seed, dev):
+    """Random Gram tiles of n-observation blocks, the default class prior,
+    a few markers in each slab class, and the last 3 markers padding (zero
+    Gram rows, xpx 1, rhs 0, class prior [1, 0, 0, 0])."""
+    from jwas_tpu_torch.engine.mcmc import DEFAULT_BAYESR_PI
+    from jwas_tpu_torch.ops.grouped import gumbel_panel
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    x = torch.randn((nblocks, b, n), generator=g, device=dev)
+    x[-1, -3:] = 0.0
+    grams = torch.bmm(x, x.transpose(1, 2))
+    xpx = torch.diagonal(grams, dim1=1, dim2=2).contiguous()
+    xpx[-1, -3:] = 1.0
+    rhs = torch.bmm(x, torch.randn((nblocks, n, 1), generator=g, device=dev))[..., 0]
+    pi = torch.tensor(DEFAULT_BAYESR_PI, device=dev).expand(nblocks, b, 4).clone()
+    pi[-1, -3:] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    cum = torch.cumsum(torch.tensor(DEFAULT_BAYESR_PI, device=dev), 0)
+    u = torch.rand((nblocks, b), generator=g, device=dev)
+    delta = (u[..., None] > cum[:3]).sum(-1).to(torch.int32)
+    delta[-1, -3:] = 0
+    alpha = torch.where(delta > 0, 0.1 * torch.randn((nblocks, b), generator=g,
+                                                      device=dev), 0.0)
+    return dict(
+        grams=grams, xpx=xpx, log_pi=torch.log(torch.clamp(pi, 1e-12, 1.0)),
+        alpha=alpha, delta=delta, rhs=rhs.contiguous(),
+        gumbel=gumbel_panel((nreps * b, nblocks, 4), g, dev),
+        zs=torch.randn((nreps * b, nblocks), generator=g, device=dev),
+        inv_vare=torch.tensor([1.0 / 1.3], device=dev),
+        # class 3 (variance sigma^2) explains ~n / 1.3 * sigma^2 of a
+        # marker's rhs variance: a few percent land in classes 1-3
+        sigma_sq=torch.tensor([0.5 / n], device=dev),
+    )
+
+
+def check_k3(n, b, nblocks, nreps, dev, time_it):
+    from jwas_tpu_torch.ops.inner_rounds import (bayesr_inner_rounds,
+                                                 bayesr_inner_rounds_ref,
+                                                 gram_resident)
+
+    inp = k3_inputs(n, b, nblocks, nreps, 9, dev)
+    fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
+    a = fresh()
+    bayesr_inner_rounds(**a, nreps=nreps)
+    r = fresh()
+    bayesr_inner_rounds_ref(**r, nreps=nreps)
+    torch.cuda.synchronize()
+    same = a["delta"] == r["delta"]
+    agree = same.float().mean().item()
+    ok_blocks = same.all(dim=1)          # blocks whose chains never parted
+    err = 0.0
+    for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("rhs", 1e-4, 1e-5)):
+        x, y = a[name][ok_blocks], r[name][ok_blocks]
+        err = max(err, (x - y).abs().max().item())
+        torch.testing.assert_close(x, y, rtol=rtol, atol=atol)
+    if agree < DELTA_AGREE:
+        raise AssertionError(f"K3 b={b}: class agreement {agree:.5f} < {DELTA_AGREE}")
+    if not ((a["delta"][-1, -3:] == 0).all() and (a["alpha"][-1, -3:] == 0).all()):
+        raise AssertionError(f"K3 b={b}: a padded marker left class 0")
+    shares = torch.bincount(a["delta"].view(-1).long(), minlength=4).float()
+    shares = (shares / shares.sum()).tolist()
+    line = (f"K3 b={b} nblocks={nblocks} reps={nreps} "
+            f"gram={'resident' if gram_resident(b, nreps, 'BayesR') else 'global'}: "
+            f"class agree {agree:.6f}, max |err| {err:.3g} (alpha rtol 1e-5 "
+            f"atol 1e-6, rhs rtol 1e-4 atol 1e-5); class shares "
+            f"{', '.join(f'{x:.4f}' for x in shares)}")
+    rec = None
+    if time_it:
+        a = fresh()
+        ms = cuda_ms(lambda: bayesr_inner_rounds(**a, nreps=nreps), 20)
+        r = fresh()
+        plain = cuda_ms(lambda: bayesr_inner_rounds_ref(**r, nreps=nreps), 1)
+        line += f"; kernel {ms:.4f} ms, plain {plain:.2f} ms"
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    say(line)
+    return rec
+
+
 def check_gemv(n, G, dev, missing, permuted, time_it):
     from jwas_tpu_torch.ops.grouped import pad_w, unpad
     from jwas_tpu_torch.ops.packed_gemv import (packed_matvec,
@@ -183,6 +270,9 @@ def phase2(dev):
     check_k1(64, 8, 256, 3, dev, time_it=False)    # tests/test_pallas_sweep.py:21
     recs = {"abc_inner_rounds": check_k1(512, 128, 128, 8, dev, time_it=True)}
     check_k1(512, 256, 64, 2, dev, time_it=True)   # global-memory Gram branch
+    check_k3(64, 8, 256, 3, dev, time_it=False)
+    recs["bayesr_inner_rounds"] = check_k3(512, 128, 128, 8, dev, time_it=True)
+    check_k3(512, 256, 64, 2, dev, time_it=True)   # global-memory Gram branch
     recs.update(check_gemv(50_000, 16_384, dev, missing=False, permuted=False,
                            time_it=True))
     check_gemv(50_000, 16_384, dev, missing=True, permuted=True, time_it=False)
@@ -215,38 +305,47 @@ def device_store(n, p, seed, dev):
     return packed, freqs
 
 
-def default_priors(y, sum2pq, pi0=0.0, df=4.0):
+def default_priors(y, sum2pq, pi0=0.0, df=4.0, method="BayesC"):
     """The priors jwas_tpu's prepare_workspace derives for y = intercept +
-    geno: h2 = 0.5 split of the phenotypic variance (setup.py:163-277)."""
+    geno: h2 = 0.5 split of the phenotypic variance (setup.py:163-277).
+    BayesR's marker variance is sigma^2 = genetic variance /
+    (sum2pq * sum_k gamma_k pi_k) (setup.py:234-239), pi0 0 meaning the
+    default class prior."""
+    from jwas_tpu_torch.engine.mcmc import bayesr_pi0
+    from jwas_tpu_torch.ops.markers import BAYESR_GAMMA
+
     var = float(np.var(y, ddof=1))
     vare0 = 0.5 * var
-    marker_var0 = 0.5 * var / ((1.0 - pi0) * sum2pq)
+    if method == "BayesR":
+        pi0 = bayesr_pi0(pi0)
+        denom = sum2pq * float(np.dot(BAYESR_GAMMA, pi0))
+    else:
+        denom = (1.0 - pi0) * sum2pq
+    marker_var0 = 0.5 * var / denom
     return dict(vare0=vare0, scale_R=vare0 * (df - 2.0) / df, df_R=df,
                 marker_var0=marker_var0,
                 marker_scale0=marker_var0 * (df - 2.0) / df, df_marker=df,
                 pi0=pi0)
 
 
-def phase3(dev, n=50_000, p=2_097_152):
+def full_width_problem(dev, n=50_000, p=2_097_152):
+    """The main paths' problem: a device-generated store of n x p, its Gram
+    tiles at b = gb = 128, 0.1% QTL and h2 = 0.5. Returns gm, the centred
+    phenotype and true breeding values on the host, sum 2pq, and the
+    set-up seconds of the store and of the Grams."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.ops.grouped import grouped_matvec
 
-    say(f"== phase 3: main path at full width, N={n} x P={p}")
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     packed, freqs = device_store(n, p, 1, dev)
     torch.cuda.synchronize(dev)
     t_store = time.perf_counter() - t0
-    say(f"store: {packed.numel() / 1e9:.2f} GB packed on the device in {t_store:.1f} s")
-
     b, gb = jt.pick_stable_blocks(n, 128, p)     # fast_blocks=128, as bench.py
     t0 = time.perf_counter()
     gm = jt.build_grouped_markers(packed, 2.0 * freqs, n, b, gb, dev,
                                   exact_bf16=True)
     torch.cuda.synchronize()
     t_gram = time.perf_counter() - t0
-    say(f"Gram tiles (b={b}, gb={gb}, {gm.store.shape[0]} groups, exact bf16): "
-        f"{t_gram:.1f} s, {gm.grams.numel() * 4 / 1e9:.2f} GB")
 
     g = torch.Generator(device=dev)
     g.manual_seed(2)
@@ -256,32 +355,58 @@ def phase3(dev, n=50_000, p=2_097_152):
     y = tbv + torch.randn(n, generator=g, device=dev) * tbv.std()
     y = (y - y.mean()).cpu().numpy()
     sum2pq = float(torch.sum(2.0 * freqs * (1.0 - freqs)))
-    priors = default_priors(y, sum2pq)
+    return gm, y, tbv.cpu().numpy(), sum2pq, t_store, t_gram
 
-    jt.reset_launches()
-    res = jt.run_st(gm, y, **priors, chain_length=3 * b,
-                    output_samples_frequency=b, seed=3)
-    launches = {k.__name__: k.launches for k in jt.KERNELS}
+
+def phase3(dev, n=50_000, p=2_097_152):
+    import jwas_tpu_torch as jt
+
+    say(f"== phase 3: main path at full width, N={n} x P={p}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    gm, y, tbv, sum2pq, t_store, t_gram = full_width_problem(dev, n, p)
+    nblocks, b, _ = gm.grams.shape
+    say(f"store: {gm.store.numel() / 1e9:.2f} GB packed on the device in {t_store:.1f} s")
+    say(f"Gram tiles (b={b}, gb={nblocks // gm.store.shape[0]}, "
+        f"{gm.store.shape[0]} groups, exact bf16): "
+        f"{t_gram:.1f} s, {gm.grams.numel() * 4 / 1e9:.2f} GB")
+    paths = {"BayesC": ("abc_inner_rounds", "packed_rhs", "packed_matvec"),
+             "BayesR": ("bayesr_inner_rounds", "packed_rhs", "packed_matvec")}
+    launches = {}
+    for method, kernels in paths.items():
+        priors = default_priors(y, sum2pq, method=method)
+        jt.reset_launches()
+        res = jt.run_st(gm, y, **priors, method=method, chain_length=3 * b,
+                        output_samples_frequency=b, seed=3)
+        counts = {k.__name__: k.launches for k in jt.KERNELS}
+        report_path(method, res, counts, p, n, tbv, dev)
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"phase 3 {method}: kernels never launched: {missing}")
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + counts[k]
+    return launches
+
+
+def report_path(method, res, launches, p, n, tbv, dev):
+    """Print one full-width run's times, rates, memory, launches and
+    samples; raise on non-finite samples or EBVs."""
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     secs = res["window_seconds"]
     rates = [p * res["nreps"] / s for s in secs]
-    say(f"run_st: nreps={res['nreps']}, seconds per outer iteration "
+    say(f"run_st {method}: nreps={res['nreps']}, seconds per outer iteration "
         f"{', '.join(f'{s:.3f}' for s in secs)}; effective marker updates/s "
         f"{', '.join(f'{r:.4g}' for r in rates)}")
     say(f"peak device memory {peak:.2f} GB; launches {launches}")
     track = {k: res["samples"][k].tolist() for k in ("vare", "varg", "pi")}
-    acc = float(np.corrcoef(res["ebv"], tbv.cpu().numpy())[0, 1])
+    acc = float(np.corrcoef(res["ebv"], tbv)[0, 1])
     say(f"samples: {track}; EBV accuracy after {len(secs)} outer iterations "
         f"{acc:.4f}")
     for k, v in track.items():
         if not np.all(np.isfinite(v)):
-            raise AssertionError(f"phase 3: non-finite {k} samples {v}")
+            raise AssertionError(f"phase 3 {method}: non-finite {k} samples {v}")
     if res["ebv"].shape != (n,) or not np.isfinite(acc):
-        raise AssertionError(f"phase 3: EBV shape {res['ebv'].shape}, accuracy {acc}")
-    missing = [k for k, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"phase 3: kernels never launched: {missing}")
-    return launches
+        raise AssertionError(f"phase 3 {method}: EBV shape {res['ebv'].shape}, "
+                             f"accuracy {acc}")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -334,6 +459,18 @@ def phase4(dev):
         raise AssertionError(
             f"phase 4: kernel-path accuracy {acc['cuda']:.4f} vs plain "
             f"{acc['cpu']:.4f} (margin {ACC_MARGIN}, floor {ACC_FLOOR})")
+
+    t0 = time.perf_counter()
+    gm = jt.setup_markers(store, store.obs_ids, dev)
+    res = jt.run_st(gm, y, **default_priors(y, store.sum2pq, method="BayesR"),
+                    method="BayesR", chain_length=1024, burnin=256, seed=5)
+    acc_r = float(np.corrcoef(res["ebv"], bv)[0, 1])
+    say(f"cuda BayesR: EBV accuracy {acc_r:.4f}, vare {res['vare']:.4g}, "
+        f"sigma^2 {res['varg']:.4g}, pi {', '.join(f'{x:.4f}' for x in res['pi'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not acc_r >= ACC_FLOOR_BAYESR:
+        raise AssertionError(f"phase 4: BayesR kernel-path accuracy {acc_r:.4f} "
+                             f"< floor {ACC_FLOOR_BAYESR}")
 
 
 def main():

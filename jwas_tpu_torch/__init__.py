@@ -1,25 +1,26 @@
 """jwas_tpu_torch: the PyTorch / CUDA port of jwas_tpu, for NVIDIA Hopper.
 
-This first slice runs single-trait BayesC with fast blocks over the 2-bit
+It runs single-trait BayesC and BayesR with fast blocks over the 2-bit
 packed genotype store on the group-sequential schedule, the path jwas_tpu's
 runMCMC takes for storage='2bit' on one device. It imports torch, numpy and
 scipy only; never jax, pandas or jwas_tpu.
 
 Entry points: io.packed.Packed2BitStore.load (a store written by jwas_tpu),
 engine.mcmc.setup_markers (block sizes, Gram tiles, on a device) and
-engine.mcmc.run_st (the chain). On a CUDA device the sweep runs three
-hand-written kernels (csrc/), built with nvcc on first use; on the CPU it
-runs their plain PyTorch versions.
+engine.mcmc.run_st (the chain, method="BayesC" or "BayesR"). On a CUDA
+device the sweep runs hand-written kernels (csrc/), built with nvcc on
+first use: the BayesC or BayesR inner rounds between the two packed GEMVs.
+On the CPU it runs their plain PyTorch versions.
 """
 
 from jwas_tpu_torch.engine.mcmc import run_st, setup_markers
 from jwas_tpu_torch.io.packed import Packed2BitStore, pack_codes
 from jwas_tpu_torch.ops.grouped import build_grouped_markers, pick_stable_blocks
-from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds
+from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds, bayesr_inner_rounds
 from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 
 # the kernel wrappers, each counting its own launches
-KERNELS = (abc_inner_rounds, packed_rhs, packed_matvec)
+KERNELS = (abc_inner_rounds, bayesr_inner_rounds, packed_rhs, packed_matvec)
 
 
 def reset_launches() -> None:
@@ -28,7 +29,8 @@ def reset_launches() -> None:
 
 
 __all__ = [
-    "KERNELS", "Packed2BitStore", "abc_inner_rounds", "build_grouped_markers",
+    "KERNELS", "Packed2BitStore", "abc_inner_rounds", "bayesr_inner_rounds",
+    "build_grouped_markers",
     "pack_codes", "packed_matvec", "packed_rhs", "pick_stable_blocks",
     "reset_launches", "run_st", "setup_markers",
 ]

@@ -11,7 +11,8 @@ returns ``cudaGetLastError()``; ``check`` raises when that is not 0. There is
 no fallback: a failed build or launch raises.
 
 No ``--use_fast_math``: the inclusion test ``u < p`` of the spike-slab
-update has to see the same ``expf`` and division as the plain version.
+update and the class argmax of BayesR have to see the same ``expf``,
+``logf`` and division as the plain versions.
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "jt_abc_inner_rounds": [_P] * 12 + [_I] * 3 + [_P],
     # b, nreps -> 1 resident Gram tile, 0 global, <0 -cudaError
     "jt_abc_resident": [_I, _I],
+    # grams, xpx, log_pi, alpha, delta, rhs, gumbel, zs, inv_vare, sigma_sq,
+    # b, nblocks, nreps, stream
+    "jt_bayesr_inner_rounds": [_P] * 10 + [_I] * 3 + [_P],
+    "jt_bayesr_resident": [_I, _I],
     # rows, means, w_pad, wsum, out, G, bpm, stream
     "jt_packed_rhs": [_P] * 5 + [_I] * 2 + [_P],
     # rows, means, v, mv, partial, out, G, bpm, nchunks, stream
@@ -67,7 +72,7 @@ def _sources():
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(_CSRC.glob("*.cu*")):       # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD / f"libjwas_tpu_torch-{h.hexdigest()[:16]}.so"

@@ -37,14 +37,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_plan.cuh"
+
 namespace {
 
 constexpr int kStateArrays = 11;   // per-marker arrays kept in shared memory
-
-int max_threads(int b) {
-  int t = ((b + 31) / 32) * 32;
-  return t > 1024 ? 1024 : t;
-}
 
 __global__ void abc_inner_rounds_kernel(
     const float* __restrict__ grams, const float* __restrict__ xpx,
@@ -159,25 +156,10 @@ __global__ void abc_inner_rounds_kernel(
   }
 }
 
-// Shared-memory plan: returns the bytes to launch with (0 if b is too large)
-// and sets resident / reps_per_chunk.
 size_t plan(int b, int nreps, int* resident, int* reps_per_chunk, int* err) {
-  int dev = 0, optin = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err == 0)
-    *err = cudaDeviceGetAttribute(&optin,
-                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (*err != 0) return 0;
   const size_t state = (4 + static_cast<size_t>(kStateArrays) * b) * 4;
-  const size_t gram = static_cast<size_t>(b) * b * 4;
-  const size_t rep_bytes = static_cast<size_t>(b) * 8;   // u and z per rep
-  *resident = state + gram + rep_bytes <= static_cast<size_t>(optin);
-  const size_t fixed = state + (*resident ? gram : 0);
-  if (fixed + rep_bytes > static_cast<size_t>(optin)) return 0;
-  size_t r = (optin - fixed) / rep_bytes;
-  if (r > static_cast<size_t>(nreps)) r = nreps;
-  *reps_per_chunk = static_cast<int>(r);
-  return fixed + r * rep_bytes;
+  return jt::smem_plan(b, nreps, state, static_cast<size_t>(b) * 8,  // u, z
+                       resident, reps_per_chunk, err);
 }
 
 }  // namespace
@@ -204,7 +186,7 @@ extern "C" int jt_abc_inner_rounds(
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != 0) return err;
-  abc_inner_rounds_kernel<<<nblocks, max_threads(b), smem,
+  abc_inner_rounds_kernel<<<nblocks, jt::max_threads(b), smem,
                             static_cast<cudaStream_t>(stream)>>>(
       grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta, delta, rhs, us,
       zs, inv_vare, b, nblocks, nreps, rpc, resident);

@@ -1,10 +1,11 @@
 """Conjugate draws used by the single-trait Gibbs sampler.
 
 Counterpart of jwas_tpu/ops/dists.py:21-124 (sample_chi2,
-sample_scaled_inv_chi2, sample_beta, sample_pi_beta). Every draw takes the
-chain's torch.Generator and returns a 0-d tensor on its device, so a chain
-step never waits for the host. The reference's parameterisations are those
-of variance_components.jl and markers/Pi.jl.
+sample_scaled_inv_chi2, sample_beta, sample_pi_beta) and of
+jax.random.dirichlet. Every draw takes the chain's torch.Generator and
+returns a tensor on its device, so a chain step never waits for the host.
+The reference's parameterisations are those of variance_components.jl and
+markers/Pi.jl.
 """
 
 from __future__ import annotations
@@ -37,6 +38,13 @@ def sample_beta(gen: torch.Generator, a, b):
     ga = sample_gamma(gen, a)
     gb = sample_gamma(gen, b)
     return ga / (ga + gb)
+
+
+def sample_dirichlet(gen: torch.Generator, conc):
+    """Dirichlet(conc) as normalised Gamma(conc_k) draws on the chain's
+    generator (torch.distributions.Dirichlet takes none)."""
+    g = sample_gamma(gen, conc)
+    return g / g.sum()
 
 
 def sample_pi_beta(gen: torch.Generator, n_included, n_total):

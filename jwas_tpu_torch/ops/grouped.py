@@ -1,17 +1,20 @@
-"""Group-sequential fast-blocks BayesC over a device-resident 2-bit store.
+"""Group-sequential fast-blocks BayesC and BayesR over a device-resident
+2-bit store.
 
 Counterpart of jwas_tpu/ops/grouped.py: GroupedPackedMarkers (:47),
 STALE_FRACTION and pick_stable_blocks (:117-162), grouped_matvec and
-grouped_rhs (:411-454), sweep_blocks_abc_grouped (:460-617), grouped_stats
-(:808-882) and build_grouped_markers (:885-969).
+grouped_rhs (:411-454), sweep_blocks_abc_grouped (:460-617),
+sweep_blocks_bayesr_grouped (:623-764), grouped_stats (:808-882) and
+build_grouped_markers (:885-969).
 
 The store lives in device memory as (ngroups, G, bpm) uint8. Groups are
 visited in order (exact across groups); within a group the b * gb markers
 of gb blocks update in parallel against a residual that is reconciled every
 sync round. Each round is one X'w GEMV (packed_rhs), one inner-rounds launch
-(abc_inner_rounds) and one Xv GEMV (packed_matvec); on a CUDA device all
-three are hand-written kernels. Host streaming of stores larger than device
-memory (the JAX package's _stage / hybridize / prefetch) is not ported yet.
+(abc_inner_rounds or bayesr_inner_rounds) and one Xv GEMV (packed_matvec);
+on a CUDA device all three are hand-written kernels. Host streaming of
+stores larger than device memory (the JAX package's _stage / hybridize /
+prefetch) is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from jwas_tpu_torch.ops import markers as mk
-from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds
+from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds, bayesr_inner_rounds
 from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 
 # Parallel-update stability cap b * gb <= STALE_FRACTION * n: see the JAX
@@ -32,6 +35,9 @@ from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 STALE_FRACTION = 0.4
 
 Draws = Callable[[int, int, int], Tuple[torch.Tensor, torch.Tensor]]
+
+# float32 tiny: the lower end of the uniforms under jax.random.gumbel
+_TINY = torch.finfo(torch.float32).tiny
 
 
 class GroupedPackedMarkers(NamedTuple):
@@ -113,6 +119,30 @@ def grouped_rhs(gm: GroupedPackedMarkers, w):
                                  w_pad) for g in range(ngroups)])
 
 
+def _walk_groups(gm: GroupedPackedMarkers, alpha_b, ycorr, nreps: int,
+                 sync_every: Optional[int], inner) -> None:
+    """The grouped schedule shared by the sweeps: groups in order, sync
+    rounds within a group. A round is X'w of the group (K4), then
+    inner(blk, rhs, g, r, reps), which updates alpha_b[blk] in place, then
+    X times the change in alpha (K5) into ycorr, in place."""
+    ngroups, G, bpm = gm.store.shape
+    nblocks, b = alpha_b.shape
+    gb = nblocks // ngroups
+    rounds = mk.sync_rounds(nreps, mk.resolve_sync_every(nreps, sync_every))
+    for g in range(ngroups):
+        rows = gm.store[g]
+        mns = gm.means[g * G:(g + 1) * G]
+        blk = slice(g * gb, (g + 1) * gb)
+        a_g = alpha_b[blk]
+        for r, reps in enumerate(rounds):
+            rhs = packed_rhs(rows, mns, pad_w(ycorr, bpm, gm.row_perm))
+            a_start = a_g.clone()
+            inner(blk, rhs.view(gb, b), g, r, reps)
+            d_alpha = (a_start - a_g).view(-1)
+            ycorr += unpad(packed_matvec(rows, mns, d_alpha), gm.n_obs,
+                           gm.row_perm)
+
+
 def sweep_blocks_abc_grouped(gm: GroupedPackedMarkers, alpha, beta, delta,
                              ycorr, vare, var_eff, pi,
                              gen: Optional[torch.Generator], nreps: int = 1,
@@ -127,9 +157,8 @@ def sweep_blocks_abc_grouped(gm: GroupedPackedMarkers, alpha, beta, delta,
     from draws(g, r, reps) when given (tests inject the JAX package's),
     else from the chain's generator gen, in group and round order.
     """
-    ngroups, G, bpm = gm.store.shape
     nblocks, b, _ = gm.grams.shape
-    gb = nblocks // ngroups
+    gb = nblocks // gm.store.shape[0]
     p_pad = nblocks * b
     inv_vare = (1.0 / vare).reshape(1)
     var_eff_b = var_eff.reshape(1).expand(p_pad).contiguous().view(nblocks, b)
@@ -138,30 +167,65 @@ def sweep_blocks_abc_grouped(gm: GroupedPackedMarkers, alpha, beta, delta,
     log_pi_comp = torch.log1p(-pi_c + 1e-12).view(nblocks, b)
     xpx_b = gm.xpx.view(nblocks, b)
     alpha_b, beta_b, delta_b = (x.view(nblocks, b) for x in (alpha, beta, delta))
-    rounds = mk.sync_rounds(nreps, mk.resolve_sync_every(nreps, sync_every))
     if draws is None:
         def draws(g, r, reps):
             return (torch.rand((reps * b, gb), generator=gen, device=ycorr.device),
                     torch.randn((reps * b, gb), generator=gen, device=ycorr.device))
 
-    for g in range(ngroups):
-        rows = gm.store[g]
-        mns = gm.means[g * G:(g + 1) * G]
-        blk = slice(g * gb, (g + 1) * gb)
-        a_g = alpha_b[blk]
-        for r, reps in enumerate(rounds):
-            rhs = packed_rhs(rows, mns, pad_w(ycorr, bpm, gm.row_perm))
-            a_start = a_g.clone()
-            us, zs = draws(g, r, reps)
-            abc_inner_rounds(
-                gm.grams[blk], xpx_b[blk], var_eff_b[blk], log_pi[blk],
-                log_pi_comp[blk], a_g, beta_b[blk], delta_b[blk],
-                rhs.view(gb, b), us, zs, inv_vare, reps,
-            )
-            d_alpha = (a_start - a_g).view(-1)
-            ycorr += unpad(packed_matvec(rows, mns, d_alpha), gm.n_obs,
-                           gm.row_perm)
+    def inner(blk, rhs, g, r, reps):
+        us, zs = draws(g, r, reps)
+        abc_inner_rounds(gm.grams[blk], xpx_b[blk], var_eff_b[blk],
+                         log_pi[blk], log_pi_comp[blk], alpha_b[blk],
+                         beta_b[blk], delta_b[blk], rhs, us, zs, inv_vare,
+                         reps)
+
+    _walk_groups(gm, alpha_b, ycorr, nreps, sync_every, inner)
     return alpha, beta, delta, ycorr
+
+
+def gumbel_panel(shape, gen: Optional[torch.Generator], device):
+    """Standard Gumbel draws -log(-log(u)), u uniform on [float32 tiny, 1)
+    as jax.random.gumbel draws it: always finite."""
+    u = torch.rand(shape, generator=gen, device=device).clamp_(min=_TINY)
+    return u.log_().neg_().log_().neg_()
+
+
+def sweep_blocks_bayesr_grouped(gm: GroupedPackedMarkers, alpha, delta,
+                                ycorr, vare, sigma_sq, pi_mat,
+                                gen: Optional[torch.Generator],
+                                nreps: int = 1,
+                                sync_every: Optional[int] = None,
+                                draws: Optional[Draws] = None):
+    """Group-sequential fast-blocks BayesR sweep (BayesR.jl:45-97) on the
+    schedule of sweep_blocks_abc_grouped.
+
+    alpha (p_pad,) float32, delta (p_pad,) int32 class labels 0..3 and
+    ycorr (n_obs,) are updated in place and returned. vare and sigma_sq are
+    0-d tensors; pi_mat (p_pad, 4) class priors, padded rows [1, 0, 0, 0].
+    Round r of group g takes its (reps * b, gb, 4) Gumbel and (reps * b, gb)
+    normal panels from draws(g, r, reps) when given (tests inject the JAX
+    package's), else from gen, in group and round order.
+    """
+    nblocks, b, _ = gm.grams.shape
+    gb = nblocks // gm.store.shape[0]
+    inv_vare = (1.0 / vare).reshape(1)
+    sigma = sigma_sq.reshape(1)
+    log_pi = torch.log(torch.clamp(pi_mat, 1e-12, 1.0)).view(nblocks, b, 4)
+    xpx_b = gm.xpx.view(nblocks, b)
+    alpha_b, delta_b = alpha.view(nblocks, b), delta.view(nblocks, b)
+    if draws is None:
+        def draws(g, r, reps):
+            return (gumbel_panel((reps * b, gb, 4), gen, ycorr.device),
+                    torch.randn((reps * b, gb), generator=gen, device=ycorr.device))
+
+    def inner(blk, rhs, g, r, reps):
+        gum, zs = draws(g, r, reps)
+        bayesr_inner_rounds(gm.grams[blk], xpx_b[blk], log_pi[blk],
+                            alpha_b[blk], delta_b[blk], rhs, gum, zs,
+                            inv_vare, sigma, reps)
+
+    _walk_groups(gm, alpha_b, ycorr, nreps, sync_every, inner)
+    return alpha, delta, ycorr
 
 
 @contextlib.contextmanager

@@ -1,15 +1,21 @@
-"""Fast-blocks BayesC inner rounds: the CUDA kernel and its plain version.
+"""Fast-blocks inner rounds (BayesC and BayesR): CUDA kernels and their
+plain versions.
 
-Counterpart of jwas_tpu/ops/pallas_sweep.py:243 (abc_inner_rounds_pallas,
-with the kernel bodies _abc_kernel :68 and _abc_kernel_resident :162) and of
-the XLA scan of jwas_tpu/ops/grouped.py:532-568. The CUDA kernel is
-csrc/abc_inner_rounds.cu; residency of the Gram tile in shared memory is its
-own launch-time choice.
+BayesC: counterpart of jwas_tpu/ops/pallas_sweep.py:243
+(abc_inner_rounds_pallas, with the kernel bodies _abc_kernel :68 and
+_abc_kernel_resident :162) and of the XLA scan of
+jwas_tpu/ops/grouped.py:532-568; the CUDA kernel is csrc/abc_inner_rounds.cu.
+BayesR: counterpart of pallas_sweep.py:412 (bayesr_inner_rounds_pallas, with
+the kernel body _bayesr_kernel_resident :327) and of the XLA scan of
+grouped.py:684-719; the CUDA kernel is csrc/bayesr_inner_rounds.cu. Each
+kernel keeps the Gram tile in shared memory when it fits, its own
+launch-time choice.
 
 Layouts are block-major, unlike the JAX package's j-major ones:
 grams (nblocks, b, b) with grams[k, j] = row j of block k's Gram;
-per-marker tiles (nblocks, b), a view of the flat (p_pad,) arrays; draws
-(nreps * b, nblocks) exactly as the JAX sweep draws them.
+per-marker tiles (nblocks, b), a view of the flat (p_pad,) arrays (BayesR
+log class priors (nblocks, b, 4)); draws (nreps * b, nblocks), BayesR's
+Gumbel panel (nreps * b, nblocks, 4), exactly as the JAX sweeps draw them.
 """
 
 from __future__ import annotations
@@ -49,21 +55,21 @@ def abc_inner_rounds_ref(grams, xpx, var_eff, log_pi, log_pi_comp, alpha,
     return alpha, beta, delta, rhs
 
 
-def _check_cuda_args(tensors, b, nblocks, nreps):
+def _check_cuda_args(what, tensors, shapes):
+    """Device, dtype, shape and contiguity of a kernel's arguments; shapes
+    maps each name that is not a (nblocks, b) tile to its shape."""
     f32 = torch.float32
-    dev = tensors["grams"].device
-    shapes = {
-        "grams": (nblocks, b, b), "us": (nreps * b, nblocks),
-        "zs": (nreps * b, nblocks), "inv_vare": (1,),
-    }
+    grams = tensors["grams"]
+    dev = grams.device
+    nblocks, b, _ = grams.shape
     for name, t in tensors.items():
         want = shapes.get(name, (nblocks, b))
         dtype = torch.int32 if name == "delta" else f32
         if t.device != dev:
-            raise ValueError(f"abc_inner_rounds: {name} is on {t.device}, grams on {dev}")
+            raise ValueError(f"{what}: {name} is on {t.device}, grams on {dev}")
         if t.dtype != dtype or tuple(t.shape) != want or not t.is_contiguous():
             raise ValueError(
-                f"abc_inner_rounds: {name} must be a contiguous {dtype} "
+                f"{what}: {name} must be a contiguous {dtype} "
                 f"{want}, got {t.dtype} {tuple(t.shape)}"
             )
 
@@ -86,7 +92,9 @@ def abc_inner_rounds(grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta,
     args = dict(grams=grams, xpx=xpx, var_eff=var_eff, log_pi=log_pi,
                 log_pi_comp=log_pi_comp, alpha=alpha, beta=beta, delta=delta,
                 rhs=rhs, us=us, zs=zs, inv_vare=inv_vare)
-    _check_cuda_args(args, b, nblocks, nreps)
+    _check_cuda_args("abc_inner_rounds", args, {
+        "grams": (nblocks, b, b), "us": (nreps * b, nblocks),
+        "zs": (nreps * b, nblocks), "inv_vare": (1,)})
     lib = _build.library()
     err = lib.jt_abc_inner_rounds(
         *(t.data_ptr() for t in args.values()), b, nblocks, nreps,
@@ -100,10 +108,71 @@ def abc_inner_rounds(grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta,
 abc_inner_rounds.launches = 0
 
 
-def gram_resident(b: int, nreps: int) -> bool:
-    """Whether the kernel keeps the b x b Gram tile in shared memory on the
-    current CUDA device (otherwise it reads row j from global memory/L2)."""
-    r = _build.library().jt_abc_resident(b, nreps)
+def gram_resident(b: int, nreps: int, method: str = "BayesC") -> bool:
+    """Whether the method's kernel keeps the b x b Gram tile in shared
+    memory on the current CUDA device (otherwise it reads row j from
+    global memory/L2)."""
+    fn = {"BayesC": "jt_abc_resident", "BayesR": "jt_bayesr_resident"}[method]
+    r = getattr(_build.library(), fn)(b, nreps)
     if r < 0:
-        _build.check(-r, "abc_inner_rounds shared-memory plan")
+        _build.check(-r, f"{method} inner rounds shared-memory plan")
     return bool(r)
+
+
+def bayesr_inner_rounds_ref(grams, xpx, log_pi, alpha, delta, rhs, gumbel,
+                            zs, inv_vare, sigma_sq, nreps: int):
+    """Plain PyTorch version of the BayesR kernel: same math, same update
+    order. Updates alpha, delta and rhs in place and returns them."""
+    b = grams.shape[1]
+    inv_vare = inv_vare.reshape(())
+    k = mk.bayesr_constants(xpx, inv_vare, sigma_sq)
+    k_j = [mk.BayesRConstants(*c) for c in zip(*(x.unbind(1) for x in k))]
+    xpx_j, lp_j, alpha_j, delta_j, rhs_j = (
+        x.unbind(1) for x in (xpx, log_pi, alpha, delta, rhs))
+    gram_j = grams.unbind(1)
+    for t, (g, z) in enumerate(zip(gumbel.unbind(0), zs.unbind(0))):
+        j = t % b
+        a_old = alpha_j[j].clone()
+        a_new, klass = mk.bayesr_update(rhs_j[j], a_old, xpx_j[j], inv_vare,
+                                        k_j[j], lp_j[j], g, z)
+        alpha_j[j].copy_(a_new)
+        delta_j[j].copy_(klass)
+        rhs.add_((a_old - a_new)[:, None] * gram_j[j])
+    return alpha, delta, rhs
+
+
+def bayesr_inner_rounds(grams, xpx, log_pi, alpha, delta, rhs, gumbel, zs,
+                        inv_vare, sigma_sq, nreps: int):
+    """Run nreps rounds of the within-block BayesR chain on every block.
+
+    CUDA tensors launch the kernel (and raise if it cannot run); CPU tensors
+    take bayesr_inner_rounds_ref. alpha, delta (class labels 0..3) and rhs
+    are updated in place and returned. inv_vare and sigma_sq are 1-element
+    tensors, so no host sync is needed.
+    """
+    if grams.device.type == "cpu":
+        return bayesr_inner_rounds_ref(grams, xpx, log_pi, alpha, delta, rhs,
+                                       gumbel, zs, inv_vare, sigma_sq, nreps)
+    if grams.device.type != "cuda":
+        raise ValueError(f"bayesr_inner_rounds: unsupported device {grams.device}")
+    nblocks, b, _ = grams.shape
+    args = dict(grams=grams, xpx=xpx, log_pi=log_pi, alpha=alpha,
+                delta=delta, rhs=rhs, gumbel=gumbel, zs=zs,
+                inv_vare=inv_vare, sigma_sq=sigma_sq)
+    _check_cuda_args("bayesr_inner_rounds", args, {
+        "grams": (nblocks, b, b), "log_pi": (nblocks, b, 4),
+        "gumbel": (nreps * b, nblocks, 4), "zs": (nreps * b, nblocks),
+        "inv_vare": (1,), "sigma_sq": (1,)})
+    if gumbel.data_ptr() % 16:
+        raise ValueError("bayesr_inner_rounds: gumbel must be 16-byte aligned")
+    lib = _build.library()
+    err = lib.jt_bayesr_inner_rounds(
+        *(t.data_ptr() for t in args.values()), b, nblocks, nreps,
+        _build.stream_of(grams),
+    )
+    _build.check(err, "bayesr_inner_rounds")
+    bayesr_inner_rounds.launches += 1
+    return alpha, delta, rhs
+
+
+bayesr_inner_rounds.launches = 0

@@ -1,8 +1,9 @@
 """Marker-update math and the sync-round schedule of the blocked sweeps.
 
-Counterpart of jwas_tpu/ops/markers.py: default_block_size (:74),
-_abc_update (:118-137), resolve_sync_every (:208, with the default of
-jwas_tpu/engine/setup.py:105-113) and _sync_rounds (:215-238).
+Counterpart of jwas_tpu/ops/markers.py: BAYESR_GAMMA (:52),
+default_block_size (:74), _abc_update (:118-137), bayesr_class_logprobs
+and _bayesr_update (:150-188), resolve_sync_every (:208, with the default
+of jwas_tpu/engine/setup.py:105-113) and _sync_rounds (:215-238).
 
 Marker state stays flat (p_pad,); a block-major view x.view(nblocks, b)
 takes the place of the JAX package's _to_jmajor / _from_jmajor (:241-248).
@@ -56,6 +57,59 @@ def abc_update(rhs_j, alpha_j, xpx_j, inv_vare, k: ABCConstants, log_pi_j,
     alpha_new = torch.where(include, beta_in, 0.0)
     beta_new = torch.where(include, beta_in, z * k.sq_var_eff)
     return alpha_new, beta_new, include
+
+
+# BayesR class variance scales: class k has effect variance gamma_k * sigma^2
+BAYESR_GAMMA = (0.0, 0.01, 0.1, 1.0)
+
+
+class BayesRConstants(NamedTuple):
+    """Per-marker terms of the BayesR update that do not change during a
+    round, for the slab classes k = 1..3 (last axis)."""
+
+    inv_lhs: torch.Tensor     # 1 / (xpx / vare + 1 / var_k)
+    d: torch.Tensor           # log(inv_lhs) - log(var_k)
+    sq_inv_lhs: torch.Tensor  # sqrt(inv_lhs)
+
+
+def bayesr_constants(xpx, inv_vare, sigma_sq) -> BayesRConstants:
+    """xpx (...,) -> (..., 3) per-class constants; inv_vare and sigma_sq
+    are 0-d or 1-element tensors. Each operation is the one jwas_tpu's
+    bayesr_class_logprobs applies, in its order, so precomputing changes
+    no rounding."""
+    var = torch.stack([g * sigma_sq.reshape(()) for g in BAYESR_GAMMA[1:]])
+    lhs = xpx[..., None] * inv_vare.reshape(()) + 1.0 / var
+    inv_lhs = 1.0 / lhs
+    return BayesRConstants(inv_lhs, torch.log(inv_lhs) - torch.log(var),
+                           torch.sqrt(inv_lhs))
+
+
+def bayesr_update(rhs_j, alpha_j, xpx_j, inv_vare, k: BayesRConstants,
+                  log_pi_j, gumbel, z):
+    """BayesR 4-class mixture update (BayesR.jl:45-97), the math of
+    jwas_tpu's _bayesr_update with its round constants precomputed in k.
+
+    rhs_j, alpha_j, xpx_j, z: (B,); k fields, log_pi_j, gumbel: (B, 3) and
+    (B, 4). The class is the Gumbel-max draw: scores (lp_k + ll_k) + g_k,
+    class 0 scoring lp_0 + g_0, the first maximum winning ties as argmax
+    does. Returns (alpha_new, class) with class int32 in {0, 1, 2, 3}.
+    """
+    r = (rhs_j + xpx_j * alpha_j) * inv_vare
+    best = log_pi_j[:, 0] + gumbel[:, 0]
+    klass = torch.zeros_like(r, dtype=torch.int32)
+    bh_b = torch.zeros_like(r)
+    sq_b = torch.zeros_like(r)
+    for c in range(3):
+        bh = k.inv_lhs[:, c] * r
+        ll = 0.5 * (k.d[:, c] + bh * r)
+        score = (log_pi_j[:, c + 1] + ll) + gumbel[:, c + 1]
+        upd = score > best
+        best = torch.where(upd, score, best)
+        klass = torch.where(upd, c + 1, klass)
+        bh_b = torch.where(upd, bh, bh_b)
+        sq_b = torch.where(upd, k.sq_inv_lhs[:, c], sq_b)
+    alpha_new = torch.where(klass == 0, 0.0, bh_b + z * sq_b)
+    return alpha_new, klass
 
 
 def resolve_sync_every(nreps: int, sync_every: Optional[int] = None) -> int:

@@ -10,9 +10,10 @@ may not have.) Inputs are made with numpy or torch from a seed; both
 versions get identical inputs and draws. Tolerances: the inner-rounds
 chain follows the plain version's rounding operation by operation, so
 blocks whose inclusion indicators agree are held to the tolerances of
-tests/test_pallas_sweep.py:42-45; an indicator may flip only where u lies
-within an ulp of the inclusion probability (expf/logf differ by an ulp
-from the host's). The GEMVs sum n float32 terms in another order:
+tests/test_pallas_sweep.py:42-45; an indicator (a BayesR class) may flip
+only where u lies within an ulp of the inclusion probability (two Gumbel
+scores within an ulp of each other): expf/logf differ by an ulp from the
+host's. The GEMVs sum n float32 terms in another order:
 rtol 1e-4, atol 1e-4 * sqrt(n).
 """
 
@@ -25,6 +26,8 @@ from jwas_tpu_torch.io.packed import Packed2BitStore, pack_codes
 from jwas_tpu_torch.ops import grouped as gr
 from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds,
                                              abc_inner_rounds_ref,
+                                             bayesr_inner_rounds,
+                                             bayesr_inner_rounds_ref,
                                              gram_resident)
 from jwas_tpu_torch.ops.packed_gemv import (packed_matvec, packed_matvec_ref,
                                             packed_rhs, packed_rhs_ref)
@@ -87,6 +90,109 @@ def test_inner_rounds_kernel_matches_plain(cuda):
     t["rhs"] = t["rhs"].t().contiguous().t()
     with pytest.raises(ValueError):
         abc_inner_rounds(**t, nreps=1)
+
+
+def _bayesr_inputs(nblocks, b, nreps, seed, device):
+    """Random Grams, a few markers in each slab class, the last 3 markers
+    padding (zero Gram rows, xpx 1, rhs 0, class priors [1, 0, 0, 0])."""
+    rng = np.random.default_rng(seed)
+    pi = np.array([0.95, 0.03, 0.015, 0.005])
+    x = rng.normal(size=(nblocks, b, 4 * b)).astype(np.float32)
+    x[-1, -3:] = 0.0
+    grams = np.einsum("kjn,krn->kjr", x, x).astype(np.float32)
+    xpx = np.einsum("kjj->kj", grams).copy()
+    xpx[-1, -3:] = 1.0
+    delta = rng.choice(4, size=(nblocks, b), p=pi).astype(np.int32)
+    delta[-1, -3:] = 0
+    lp = np.broadcast_to(pi, (nblocks, b, 4)).copy()
+    lp[-1, -3:] = [1.0, 0.0, 0.0, 0.0]
+    u = rng.uniform(np.finfo(np.float32).tiny, 1.0, size=(nreps * b, nblocks, 4))
+    inp = dict(
+        grams=grams, xpx=xpx, log_pi=np.log(np.clip(lp, 1e-12, 1.0)),
+        alpha=np.where(delta > 0, 0.1 * rng.normal(size=(nblocks, b)), 0.0),
+        delta=delta,
+        rhs=np.einsum("kjn,n->kj", x, rng.normal(size=4 * b)),
+        gumbel=-np.log(-np.log(u)), zs=rng.normal(size=(nreps * b, nblocks)),
+        inv_vare=np.asarray([1.0 / 1.3]), sigma_sq=np.asarray([0.01]),
+    )
+    return {k: torch.from_numpy(v.astype(np.int32 if k == "delta" else np.float32)).to(device)
+            for k, v in inp.items()}
+
+
+def test_bayesr_kernel_and_path_on_card(cuda):
+    """The BayesR kernel against its plain version: b = 128 keeps the Gram
+    tile resident, b = 256 reads rows from global memory, b = 224 keeps it
+    resident with room for 3 reps of draws, so 8 reps refill the chunk
+    mid-call. Then the grouped BayesR sweep on the kernels against the
+    plain versions with the same draws, and a short run_st(BayesR)."""
+    for b, nblocks, nreps, resident in ((8, 256, 3, True), (128, 128, 8, True),
+                                        (256, 16, 2, False), (224, 8, 8, True)):
+        assert gram_resident(b, nreps, "BayesR") == resident
+        k = _bayesr_inputs(nblocks, b, nreps, b, cuda)
+        r = {n: t.clone() for n, t in k.items()}
+        before = bayesr_inner_rounds.launches
+        bayesr_inner_rounds(**k, nreps=nreps)
+        bayesr_inner_rounds_ref(**r, nreps=nreps)
+        torch.cuda.synchronize()
+        assert bayesr_inner_rounds.launches == before + 1
+        assert (k["delta"] == r["delta"]).float().mean().item() >= 0.999, b
+        same = (k["delta"] == r["delta"]).all(dim=1)
+        assert same.float().mean().item() >= 0.99, b
+        for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("rhs", 1e-4, 1e-5)):
+            torch.testing.assert_close(k[name][same], r[name][same], rtol=rtol,
+                                       atol=atol)
+        assert (k["delta"][-1, -3:] == 0).all() and (k["alpha"][-1, -3:] == 0).all()
+        share = (k["delta"] > 0).float().mean().item()
+        assert 0.005 < share < 0.3, (b, share)
+    t = _bayesr_inputs(4, 16, 1, 1, cuda)
+    t["gumbel"] = t["gumbel"].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        bayesr_inner_rounds(**t, nreps=1)
+
+    store = _store()
+    b, gb = 8, 4
+    gms = {d: gr.build_grouped_markers(store.packed, store.means, store.n_obs,
+                                       b, gb, d) for d in ("cpu", cuda)}
+    rng = np.random.default_rng(4)
+    p_pad = gms["cpu"].xpx.shape[0]
+    y = rng.normal(size=store.n_obs).astype(np.float32)
+    panels = {}
+
+    def draws_on(device):
+        def draws(g, r, reps):
+            if (g, r) not in panels:
+                u = rng.uniform(1e-30, 1.0, size=(reps * b, gb, 4))
+                panels[g, r] = ((-np.log(-np.log(u))).astype(np.float32),
+                                rng.normal(size=(reps * b, gb)).astype(np.float32))
+            return tuple(torch.from_numpy(a).to(device) for a in panels[g, r])
+        return draws
+
+    out = {}
+    for d in ("cpu", cuda):
+        pi_mat = torch.tensor([0.9, 0.05, 0.03, 0.02], device=d).expand(p_pad, 4)
+        out[d] = gr.sweep_blocks_bayesr_grouped(
+            gms[d], torch.zeros(p_pad, device=d),
+            torch.zeros(p_pad, dtype=torch.int32, device=d),
+            torch.from_numpy(y.copy()).to(d), torch.tensor(1.1, device=d),
+            torch.tensor(0.05, device=d), pi_mat, None, nreps=3, sync_every=2,
+            draws=draws_on(d))
+    agree = (out[cuda][1].cpu() == out["cpu"][1]).float().mean().item()
+    assert agree >= 0.99
+    if agree == 1.0:
+        for a, c in zip(out[cuda], out["cpu"]):
+            torch.testing.assert_close(a.cpu(), c.to(a.dtype), rtol=1e-4, atol=1e-4)
+
+    store = _store(n=400, p=1000, missing=False)
+    y = np.random.default_rng(5).normal(size=400)
+    gm = setup_markers(store, store.obs_ids, cuda)
+    before = bayesr_inner_rounds.launches
+    res = run_st(gm, y, vare0=0.5, scale_R=0.25, df_R=4.0, marker_var0=0.05,
+                 marker_scale0=0.025, df_marker=4.0, pi0=0.0, method="BayesR",
+                 chain_length=256, burnin=64, seed=1)
+    assert bayesr_inner_rounds.launches > before
+    assert np.isfinite(res["vare"]) and np.isfinite(res["varg"])
+    assert res["pi"].shape == (4,) and abs(res["pi"].sum() - 1.0) < 1e-5
+    assert np.isfinite(res["ebv"]).all()
 
 
 def _store(n=300, p=960, seed=0, missing=True):

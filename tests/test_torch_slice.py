@@ -79,7 +79,7 @@ def test_run_st_options(problem):
     option. Each draw that is switched off keeps its starting value; the
     scale draw moves the scale; nreps sets the sweeps per saved sample."""
     for option, value in (
-            ("method", "BayesR"), ("rinv", np.ones(400)), ("dtype", torch.float64),
+            ("method", "BayesB"), ("rinv", np.ones(400)), ("dtype", torch.float64),
             ("random_effects", ["ID"]), ("trait_type", "categorical"),
             ("annotations", np.ones((2000, 1))), ("n_genotype_categories", 2)):
         with pytest.raises(NotImplementedError, match=option):
