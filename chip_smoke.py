@@ -7,7 +7,9 @@ Phases, each printed as it ends:
   1. the card (nvidia-smi name and power limit) and the nvcc build of the
      kernels under jwas_tpu_torch/csrc/;
   2. each kernel against its plain PyTorch version on identical inputs on
-     the card, with the tolerance stated and both times;
+     the card, with the tolerance stated, both times and the kernel's bound
+     (the larger of its bytes over 3.35 TB/s and its operations over
+     67 TFLOP/s float32, H100 SXM);
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -62,11 +64,18 @@ def say(*args):
     print(*args, flush=True)
 
 
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+F32_FLOPS = 67e12             # float32 outside the tensor cores
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds of fn() over iters calls, after one warm-up."""
+    """Mean device milliseconds of fn() over iters calls, after one warm-up.
+    The device first spins ~10 ms while the host queues the launches, so a
+    short kernel's time is the device's and not the host's."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -76,6 +85,20 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 # ---------------------------------------------------------------- phase 2
+
+
+def chain_bounds(inp, written, b, nblocks, nreps):
+    """Roofline bound of one inner-rounds call (every input read once, the
+    updated arrays written once; a step's rank-1 update of 2 b operations
+    and ~20 for the marker itself). The chain of nreps * b dependent steps
+    keeps a call far above it: the line prints the measured time a step."""
+    nbytes = sum(t.numel() * t.element_size() for t in inp.values())
+    nbytes += sum(inp[k].numel() * inp[k].element_size() for k in written)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nreps * b * nblocks * (2 * b + 20) / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
 
 
 def k1_inputs(n, b, nblocks, nreps, seed, dev):
@@ -134,8 +157,13 @@ def check_k1(n, b, nblocks, nreps, dev, time_it):
         ms = cuda_ms(lambda: abc_inner_rounds(**a, nreps=nreps), 20)
         r = fresh()
         plain = cuda_ms(lambda: abc_inner_rounds_ref(**r, nreps=nreps), 1)
-        line += f"; kernel {ms:.4f} ms, plain {plain:.2f} ms"
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                   **chain_bounds(inp, ("alpha", "beta", "delta", "rhs"), b,
+                                  nblocks, nreps))
+        rec["step_ns"] = ms * 1e6 / (nreps * b)
+        line += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.0f} ns a dependent "
+                 f"step), plain {plain:.2f} ms, bound {rec['bound_ms']:.4f} ms "
+                 f"({rec['bound_by']})")
     say(line)
     return rec
 
@@ -212,17 +240,25 @@ def check_k3(n, b, nblocks, nreps, dev, time_it):
         ms = cuda_ms(lambda: bayesr_inner_rounds(**a, nreps=nreps), 20)
         r = fresh()
         plain = cuda_ms(lambda: bayesr_inner_rounds_ref(**r, nreps=nreps), 1)
-        line += f"; kernel {ms:.4f} ms, plain {plain:.2f} ms"
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                   **chain_bounds(inp, ("alpha", "delta", "rhs"), b, nblocks,
+                                  nreps))
+        rec["step_ns"] = ms * 1e6 / (nreps * b)
+        line += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.0f} ns a dependent "
+                 f"step), plain {plain:.2f} ms, bound {rec['bound_ms']:.4f} ms "
+                 f"({rec['bound_by']})")
     say(line)
     return rec
 
 
 def check_gemv(n, G, dev, missing, permuted, time_it):
-    from jwas_tpu_torch.ops.grouped import pad_w, unpad
-    from jwas_tpu_torch.ops.packed_gemv import (packed_matvec,
-                                                packed_matvec_ref,
-                                                packed_rhs, packed_rhs_ref)
+    """K4 and K5 against their plain versions on one tile: K4 with the
+    missing-code table and, on a tile without code 3, also without it; K5
+    with none, 95%, 99.9% and all of v zero. A last slab of K4 is ragged
+    whenever ceil(n / 4) is no multiple of 128 (or 64), as at every shape
+    here."""
+    from jwas_tpu_torch.ops import packed_gemv as pg
+    from jwas_tpu_torch.ops.grouped import _decode_codes, pad_w, unpad
 
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -236,32 +272,71 @@ def check_gemv(n, G, dev, missing, permuted, time_it):
     means = 2.0 * torch.rand(G, generator=g, device=dev)
     perm = torch.randperm(n, generator=g, device=dev) if permuted else None
     w = torch.randn(n, generator=g, device=dev)
-    v = torch.randn(G, generator=g, device=dev)
+    v_full = torch.randn(G, generator=g, device=dev)
+    keep = torch.rand(G, generator=g, device=dev)
     w_pad = pad_w(w, bpm, perm)
-    rhs_k = packed_rhs(rows, means, w_pad)
-    rhs_p = packed_rhs_ref(rows, means, w_pad)
-    mv_k = unpad(packed_matvec(rows, means, v), n, perm)
-    mv_p = unpad(packed_matvec_ref(rows, means, v), n, perm)
     atol = ATOL_GEMV * n ** 0.5
-    torch.testing.assert_close(rhs_k, rhs_p, rtol=RTOL_GEMV, atol=atol)
-    torch.testing.assert_close(mv_k, mv_p, rtol=RTOL_GEMV, atol=atol)
-    errs = ((rhs_k - rhs_p).abs().max().item(), (mv_k - mv_p).abs().max().item())
+
+    def err_of(got, want):
+        torch.testing.assert_close(got, want, rtol=RTOL_GEMV, atol=atol)
+        return (got - want).abs().max().item()
+
+    rhs_p = pg.packed_rhs_ref(rows, means, w_pad)
+    flags = (True,) if missing else (False, True)
+    err_rhs = max(err_of(pg.packed_rhs(rows, means, w_pad, f), rhs_p)
+                  for f in flags)
+    vs = {share: torch.where(keep >= share, v_full, torch.zeros_like(v_full))
+          for share in (*pg.ZERO_SHARES, 1.0)}
+    err_mv = max(err_of(unpad(pg.packed_matvec(rows, means, v), n, perm),
+                        unpad(pg.packed_matvec_ref(rows, means, v), n, perm))
+                 for v in vs.values())
     say(f"K4/K5 n={n} G={G} missing={missing} row_perm={permuted}: "
-        f"max |err| X'w {errs[0]:.3g}, Xv {errs[1]:.3g} "
-        f"(rtol {RTOL_GEMV}, atol {ATOL_GEMV}*sqrt(n) = {atol:.3g})")
+        f"max |err| X'w {err_rhs:.3g} (missing table {flags}), Xv {err_mv:.3g} "
+        f"(v zero shares {list(vs)}) (rtol {RTOL_GEMV}, atol "
+        f"{ATOL_GEMV}*sqrt(n) = {atol:.3g})")
     if not time_it:
         return None
+
+    # the yardstick no path calls: one torch.mv on the decoded float32 tile
+    m = means[:, None]
+    x = _decode_codes(rows, n, perm).to(torch.float32)
+    x = torch.where(x == 3.0, m, x) - m
+    err_of(torch.mv(x, w), rhs_p)
+    mv_ms = {"packed_rhs": cuda_ms(lambda: torch.mv(x, w), 5),
+             "packed_matvec": cuda_ms(lambda: torch.mv(x.T, v_full), 5)}
+    del x
     out = {}
-    for name, kern, plain, arg in (
-            ("packed_rhs", packed_rhs, packed_rhs_ref, w_pad),
-            ("packed_matvec", packed_matvec, packed_matvec_ref, v)):
-        ms = cuda_ms(lambda: kern(rows, means, arg), 20)
-        plain_ms = cuda_ms(lambda: plain(rows, means, arg), 3)
-        gbs = G * bpm / ms / 1e6
-        say(f"  {name}: kernel {ms:.4f} ms ({gbs:.0f} GB/s of packed bytes), "
-            f"plain {plain_ms:.3f} ms")
-        out[name] = dict(max_abs_err=errs[name == "packed_matvec"], ms=ms,
-                         plain_ms=plain_ms)
+    ms = cuda_ms(lambda: pg.packed_rhs(rows, means, w_pad, False), 20)
+    out["packed_rhs"] = dict(
+        max_abs_err=err_rhs, ms=ms,
+        ms_missing_table=cuda_ms(lambda: pg.packed_rhs(rows, means, w_pad, True), 20),
+        plain_ms=cuda_ms(lambda: pg.packed_rhs_ref(rows, means, w_pad), 3),
+        bound_ms=pg.bound_ms(G, bpm, G))
+    sparse = {}
+    for share in pg.ZERO_SHARES:
+        v = vs[share]
+        nnz = int((v != 0).sum())
+        sparse[f"{share:.1%}"] = dict(
+            nnz=nnz, ms=cuda_ms(lambda: pg.packed_matvec(rows, means, v), 20),
+            bound_ms=pg.bound_ms(G, bpm, nnz))
+    dense = sparse.pop(f"{pg.ZERO_SHARES[0]:.1%}")
+    out["packed_matvec"] = dict(
+        max_abs_err=err_mv, ms=dense["ms"],
+        plain_ms=cuda_ms(lambda: pg.packed_matvec_ref(rows, means, v_full), 3),
+        bound_ms=dense["bound_ms"], zero_rows=sparse)
+    for name, rec in out.items():
+        rec.update(bound_by="bytes", library_ms=None, decoded_mv_ms=mv_ms[name])
+        say(f"  {name}: kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"(bytes; {rec['bound_ms'] / rec['ms']:.1%} of it reached), plain "
+            f"{rec['plain_ms']:.3f} ms; no PyTorch call takes the packed tile "
+            f"(library_ms null), torch.mv on the decoded float32 tile "
+            f"{mv_ms[name]:.3f} ms")
+    say(f"  packed_rhs with the missing-code table: "
+        f"{out['packed_rhs']['ms_missing_table']:.4f} ms")
+    for share, r in sparse.items():
+        say(f"  packed_matvec, {share} of v zero ({r['nnz']} rows read): kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_ms'] / r['ms']:.1%} of it reached)")
     return out
 
 
@@ -277,6 +352,7 @@ def phase2(dev):
                            time_it=True))
     check_gemv(50_000, 16_384, dev, missing=True, permuted=True, time_it=False)
     check_gemv(1_001, 4_096, dev, missing=True, permuted=True, time_it=False)
+    check_gemv(4_000, 1_023, dev, missing=False, permuted=False, time_it=False)
     return recs
 
 
@@ -343,7 +419,7 @@ def full_width_problem(dev, n=50_000, p=2_097_152):
     b, gb = jt.pick_stable_blocks(n, 128, p)     # fast_blocks=128, as bench.py
     t0 = time.perf_counter()
     gm = jt.build_grouped_markers(packed, 2.0 * freqs, n, b, gb, dev,
-                                  exact_bf16=True)
+                                  has_missing=False)
     torch.cuda.synchronize()
     t_gram = time.perf_counter() - t0
 

@@ -52,10 +52,13 @@ _SIGNATURES = {
     # b, nblocks, nreps, stream
     "jt_bayesr_inner_rounds": [_P] * 10 + [_I] * 3 + [_P],
     "jt_bayesr_resident": [_I, _I],
-    # rows, means, w_pad, wsum, out, G, bpm, stream
-    "jt_packed_rhs": [_P] * 5 + [_I] * 2 + [_P],
-    # rows, means, v, mv, partial, out, G, bpm, nchunks, stream
-    "jt_packed_matvec": [_P] * 6 + [_I] * 3 + [_P],
+    # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
+    # rows_per_cta, stream
+    "jt_packed_rhs": [_P] * 5 + [_I] * 5 + [_P],
+    # -> resident CTAs of the Xv kernel per SM, <0 -cudaError
+    "jt_packed_matvec_ctas_per_sm": [],
+    # rows, means, v, partial, out, G, bpm, rows_per_chunk, stream
+    "jt_packed_matvec": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

@@ -117,7 +117,7 @@ def setup_markers(store: Packed2BitStore, obs_ids, device,
                    else store_has_missing(store.packed))
     return build_grouped_markers(
         store.packed, store.means, n, b, gb, device, row_perm=perm,
-        exact_bf16=perm is None and not has_missing,
+        has_missing=has_missing,
     )
 
 

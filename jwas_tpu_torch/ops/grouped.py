@@ -52,6 +52,7 @@ class GroupedPackedMarkers(NamedTuple):
     grams: torch.Tensor               # (nblocks, b, b) block-major Grams
     valid: torch.Tensor               # (p_pad,) 1 real marker, 0 padding
     n_obs: int
+    has_missing: bool = True          # False: the store holds no code 3
 
 
 def pick_stable_blocks(n_obs: int, block_size: int, p: int,
@@ -86,7 +87,10 @@ def pick_stable_blocks(n_obs: int, block_size: int, p: int,
 
 
 def pad_w(w, bpm: int, row_perm):
-    """Observation vector -> store-ordered (4 * bpm,) GEMV source."""
+    """Observation vector -> store-ordered (4 * bpm,) GEMV source (w itself
+    when it already is one: identity order and n_obs == 4 * bpm)."""
+    if row_perm is None and w.shape[0] == 4 * bpm and w.is_contiguous():
+        return w
     w_pad = torch.zeros(4 * bpm, dtype=w.dtype, device=w.device)
     if row_perm is None:
         w_pad[: w.shape[0]] = w
@@ -116,7 +120,8 @@ def grouped_rhs(gm: GroupedPackedMarkers, w):
     ngroups, G, bpm = gm.store.shape
     w_pad = pad_w(w, bpm, gm.row_perm)
     return torch.cat([packed_rhs(gm.store[g], gm.means[g * G:(g + 1) * G],
-                                 w_pad) for g in range(ngroups)])
+                                 w_pad, gm.has_missing)
+                      for g in range(ngroups)])
 
 
 def _walk_groups(gm: GroupedPackedMarkers, alpha_b, ycorr, nreps: int,
@@ -135,7 +140,8 @@ def _walk_groups(gm: GroupedPackedMarkers, alpha_b, ycorr, nreps: int,
         blk = slice(g * gb, (g + 1) * gb)
         a_g = alpha_b[blk]
         for r, reps in enumerate(rounds):
-            rhs = packed_rhs(rows, mns, pad_w(ycorr, bpm, gm.row_perm))
+            rhs = packed_rhs(rows, mns, pad_w(ycorr, bpm, gm.row_perm),
+                             gm.has_missing)
             a_start = a_g.clone()
             inner(blk, rhs.view(gb, b), g, r, reps)
             d_alpha = (a_start - a_g).view(-1)
@@ -322,14 +328,17 @@ def grouped_stats(store, means, valid, row_perm, b: int, n_obs: int,
 
 def build_grouped_markers(packed, means, n_obs: int, block_size: int,
                           group_blocks: int, device, row_perm=None,
-                          exact_bf16: bool = False) -> GroupedPackedMarkers:
+                          has_missing: bool = True) -> GroupedPackedMarkers:
     """Place a (p, bpm) 2-bit store on `device` in the grouped layout and
     compute its Gram tiles.
 
     packed: numpy array (a memmap is copied in chunks) or a tensor (used
     without a copy when it is already on the device and p needs no
     padding). means: (p,) marker means. row_perm: (n_obs,) store column of
-    each observation, or None for the identity.
+    each observation, or None for the identity. has_missing=False promises
+    that no code is 3 (the store's flag): X'w then builds one lookup table
+    instead of two, and with the identity row order the Gram tiles take
+    the exact bf16 path.
     """
     device = torch.device(device)
     p, bpm = packed.shape
@@ -373,7 +382,7 @@ def build_grouped_markers(packed, means, n_obs: int, block_size: int,
     if row_perm is not None:
         perm = torch.from_numpy(row_perm).to(device)
     grams, xpx = grouped_stats(store, means_d, valid, perm, b, n_obs,
-                               exact_bf16=exact_bf16)
+                               exact_bf16=perm is None and not has_missing)
     return GroupedPackedMarkers(store=store, means=means_d, row_perm=perm,
                                 xpx=xpx, grams=grams, valid=valid,
-                                n_obs=n_obs)
+                                n_obs=n_obs, has_missing=has_missing)

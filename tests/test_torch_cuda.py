@@ -207,31 +207,42 @@ def _store(n=300, p=960, seed=0, missing=True):
 
 def test_gemvs_and_grouped_path_on_card(cuda):
     """The GEMV kernels against their plain versions (bpm % 4 == 0 at
-    n = 4000 takes the 4-byte path, n = 53 the byte path; every third v is
-    0, rows the Xv kernel skips); the whole sweep (30 groups of 4 blocks,
-    missing codes, permuted rows) on the kernels against the plain versions
-    with the same draws; the exact bf16 Gram path against the f32 one; a
-    short chain of run_st."""
-    for n in (53, 4000):
+    n = 4000 takes the 4-byte path, n = 53 the byte path; G = 3001 is no
+    multiple of 4 or 32; neither bpm fills its last slab of 64 or 128 byte
+    positions). X'w with the missing-code table and, on a tile without
+    code 3, also without it; Xv with every third v zero, with 95% and 99.9%
+    of v zero (rows the kernel never reads) and with every v zero. Then the
+    whole sweep (30 groups of 4 blocks, missing codes, permuted rows) on the
+    kernels against the plain versions with the same draws; the exact bf16
+    Gram path against the f32 one; a short chain of run_st."""
+    for n, missing in ((53, True), (4000, True), (4000, False)):
         rng = np.random.default_rng(n)
-        p = 3000
-        codes = rng.integers(0, 4, size=(n, p)).astype(np.uint8)
+        p = 3001
+        codes = rng.integers(0, 4 if missing else 3, size=(n, p)).astype(np.uint8)
         packed = torch.from_numpy(pack_codes(codes)).to(cuda)
         means = torch.rand(p, device=cuda) * 2
         perm = torch.from_numpy(rng.permutation(n)).to(cuda)
         w = gr.pad_w(torch.randn(n, device=cuda), packed.shape[1], perm)
-        v = torch.randn(p, device=cuda)
-        v[::3] = 0.0
         atol = 1e-4 * n ** 0.5
         before = (packed_rhs.launches, packed_matvec.launches)
-        torch.testing.assert_close(packed_rhs(packed, means, w),
-                                   packed_rhs_ref(packed, means, w),
-                                   rtol=1e-4, atol=atol)
-        torch.testing.assert_close(packed_matvec(packed, means, v),
-                                   packed_matvec_ref(packed, means, v),
-                                   rtol=1e-4, atol=atol)
+        want = packed_rhs_ref(packed, means, w)
+        flags = (True,) if missing else (False, True)
+        for flag in flags:
+            torch.testing.assert_close(packed_rhs(packed, means, w, flag), want,
+                                       rtol=1e-4, atol=atol)
+        v_full = torch.randn(p, device=cuda)
+        keep = torch.rand(p, device=cuda)
+        third = v_full.clone()
+        third[::3] = 0.0
+        vs = [third] + [torch.where(keep >= share, v_full, torch.zeros_like(v_full))
+                        for share in (0.0, 0.95, 0.999, 1.0)]
+        assert (vs[-1] == 0).all()
+        for v in vs:
+            torch.testing.assert_close(packed_matvec(packed, means, v),
+                                       packed_matvec_ref(packed, means, v),
+                                       rtol=1e-4, atol=atol)
         assert (packed_rhs.launches, packed_matvec.launches) == (
-            before[0] + 1, before[1] + 1)
+            before[0] + len(flags), before[1] + len(vs))
     store = _store()
     obs = list(np.random.default_rng(1).permutation(store.obs_ids))
     b, gb = 8, 4
@@ -273,7 +284,7 @@ def test_gemvs_and_grouped_path_on_card(cuda):
 
     store = _store(missing=False)
     exact = gr.build_grouped_markers(store.packed, store.means, store.n_obs,
-                                     8, 4, cuda, exact_bf16=True)
+                                     8, 4, cuda, has_missing=False)
     f32 = gr.build_grouped_markers(store.packed, store.means, store.n_obs,
                                    8, 4, "cpu")
     torch.testing.assert_close(exact.grams.cpu(), f32.grams, rtol=1e-4, atol=1e-3)
