@@ -9,7 +9,12 @@ Phases, each printed as it ends:
   2. each kernel against its plain PyTorch version on identical inputs on
      the card, with the tolerance stated, both times and the kernel's bound
      (the larger of its bytes over 3.35 TB/s and its operations over
-     67 TFLOP/s float32, H100 SXM);
+     67 TFLOP/s float32, H100 SXM); the chain kernels K1 and K3 also in the
+     main path's three regimes at its shape (every step changes an effect,
+     almost none does, the default BayesR class prior from alpha = 0), with
+     ns a dependent step, the share of the steps that changed an effect and
+     the evaluations a window of 32 markers, and at ragged and large block
+     sizes;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -101,8 +106,18 @@ def chain_bounds(inp, written, b, nblocks, nreps):
                 library_ms=None)
 
 
-def k1_inputs(n, b, nblocks, nreps, seed, dev):
-    """Random Gram tiles of n-observation blocks and a random chain state."""
+K1_REGIMES = {
+    # pi0 (the sweep clamps it to [1e-10, 1], ops/grouped.py), effects start at 0
+    "mixed": (0.9, False),     # random effects, a third of the steps change one
+    "dense": (0.0, False),     # every marker is included: every step changes
+    "sparse": (0.999, True),   # from alpha = 0: almost no step changes
+}
+
+
+def k1_inputs(n, b, nblocks, nreps, seed, dev, regime="mixed"):
+    """Random Gram tiles of n-observation blocks and a chain state of one of
+    K1_REGIMES."""
+    pi0, from_zero = K1_REGIMES[regime]
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     x = torch.randn((nblocks, b, n), generator=g, device=dev)
@@ -110,13 +125,15 @@ def k1_inputs(n, b, nblocks, nreps, seed, dev):
     xpx = torch.diagonal(grams, dim1=1, dim2=2).contiguous()
     rhs = torch.bmm(x, torch.randn((nblocks, n, 1), generator=g, device=dev))[..., 0]
     alpha = 0.1 * torch.randn((nblocks, b), generator=g, device=dev)
-    pi = torch.full((nblocks, b), 0.9, device=dev)
+    if from_zero:
+        alpha.zero_()
+    pi = torch.clamp(torch.full((nblocks, b), pi0, device=dev), 1e-10, 1.0)
     return dict(
         grams=grams, xpx=xpx,
         var_eff=torch.full((nblocks, b), 0.02, device=dev),
         log_pi=torch.log(pi), log_pi_comp=torch.log1p(-pi + 1e-12),
         alpha=alpha, beta=alpha.clone(),
-        delta=torch.ones((nblocks, b), dtype=torch.int32, device=dev),
+        delta=(alpha != 0).to(torch.int32),
         rhs=rhs.contiguous(),
         us=torch.rand((nreps * b, nblocks), generator=g, device=dev),
         zs=torch.randn((nreps * b, nblocks), generator=g, device=dev),
@@ -124,12 +141,42 @@ def k1_inputs(n, b, nblocks, nreps, seed, dev):
     )
 
 
-def check_k1(n, b, nblocks, nreps, dev, time_it):
+def window_stats(window_ref, inp, outs, plain, nreps):
+    """Share of the steps that changed an effect and evaluations a window,
+    counted by the plain model of the kernels' schedule (ops/inner_rounds.py)
+    on the same inputs; its outputs must equal the step-by-step plain
+    version's, `plain`, to the last bit."""
+    w = {k: v.clone() for k, v in inp.items()}
+    stats = {}
+    window_ref(**w, nreps=nreps, stats=stats)
+    for k in outs:
+        if not torch.equal(w[k], plain[k]):
+            raise AssertionError(f"window model and plain version part in {k}")
+    nblocks, b = inp["xpx"].shape
+    return dict(changed_share=stats["changes"] / (nreps * b * nblocks),
+                evals_per_window=stats["evaluations"] / stats["windows"])
+
+
+def chain_line(rec, ms, plain, stats, steps):
+    """The timing part of a K1/K3 line; fills rec."""
+    rec.update(ms=ms, plain_ms=plain, step_ns=ms * 1e6 / steps)
+    line = (f"; kernel {ms:.4f} ms ({rec['step_ns']:.1f} ns a dependent step), "
+            f"plain {plain:.2f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    if stats:
+        rec.update(stats)
+        line += (f"; {stats['changed_share']:.2%} of the steps changed an "
+                 f"effect, {stats['evals_per_window']:.2f} evaluations a window")
+    return line
+
+
+def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed"):
     from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds,
                                                  abc_inner_rounds_ref,
+                                                 abc_inner_rounds_window_ref,
                                                  gram_resident)
 
-    inp = k1_inputs(n, b, nblocks, nreps, 7, dev)
+    inp = k1_inputs(n, b, nblocks, nreps, 7, dev, regime)
     fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
     a = fresh()
     abc_inner_rounds(**a, nreps=nreps)
@@ -147,7 +194,7 @@ def check_k1(n, b, nblocks, nreps, dev, time_it):
         torch.testing.assert_close(x, y, rtol=rtol, atol=atol)
     if agree < DELTA_AGREE:
         raise AssertionError(f"K1 b={b}: delta agreement {agree:.5f} < {DELTA_AGREE}")
-    line = (f"K1 b={b} nblocks={nblocks} reps={nreps} "
+    line = (f"K1 {regime} b={b} nblocks={nblocks} reps={nreps} "
             f"gram={'resident' if gram_resident(b, nreps) else 'global'}: "
             f"delta agree {agree:.6f}, max |err| {err:.3g} "
             f"(alpha/beta rtol 1e-5 atol 1e-6, rhs rtol 1e-4 atol 1e-5)")
@@ -155,22 +202,24 @@ def check_k1(n, b, nblocks, nreps, dev, time_it):
     if time_it:
         a = fresh()
         ms = cuda_ms(lambda: abc_inner_rounds(**a, nreps=nreps), 20)
-        r = fresh()
-        plain = cuda_ms(lambda: abc_inner_rounds_ref(**r, nreps=nreps), 1)
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+        t = fresh()
+        plain = cuda_ms(lambda: abc_inner_rounds_ref(**t, nreps=nreps), 1)
+        rec = dict(max_abs_err=err,
                    **chain_bounds(inp, ("alpha", "beta", "delta", "rhs"), b,
                                   nblocks, nreps))
-        rec["step_ns"] = ms * 1e6 / (nreps * b)
-        line += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.0f} ns a dependent "
-                 f"step), plain {plain:.2f} ms, bound {rec['bound_ms']:.4f} ms "
-                 f"({rec['bound_by']})")
+        stats = None
+        if regime != "mixed":
+            stats = window_stats(abc_inner_rounds_window_ref, inp,
+                                 ("alpha", "beta", "delta", "rhs"), r, nreps)
+        line += chain_line(rec, ms, plain, stats, nreps * b)
     say(line)
     return rec
 
 
-def k3_inputs(n, b, nblocks, nreps, seed, dev):
+def k3_inputs(n, b, nblocks, nreps, seed, dev, from_zero=False):
     """Random Gram tiles of n-observation blocks, the default class prior,
-    a few markers in each slab class, and the last 3 markers padding (zero
+    a few markers in each slab class (none when from_zero: every effect
+    starts at 0, as a chain does), and the last 3 markers padding (zero
     Gram rows, xpx 1, rhs 0, class prior [1, 0, 0, 0])."""
     from jwas_tpu_torch.engine.mcmc import DEFAULT_BAYESR_PI
     from jwas_tpu_torch.ops.grouped import gumbel_panel
@@ -189,6 +238,8 @@ def k3_inputs(n, b, nblocks, nreps, seed, dev):
     u = torch.rand((nblocks, b), generator=g, device=dev)
     delta = (u[..., None] > cum[:3]).sum(-1).to(torch.int32)
     delta[-1, -3:] = 0
+    if from_zero:
+        delta.zero_()
     alpha = torch.where(delta > 0, 0.1 * torch.randn((nblocks, b), generator=g,
                                                       device=dev), 0.0)
     return dict(
@@ -203,12 +254,13 @@ def k3_inputs(n, b, nblocks, nreps, seed, dev):
     )
 
 
-def check_k3(n, b, nblocks, nreps, dev, time_it):
+def check_k3(n, b, nblocks, nreps, dev, time_it, from_zero=False):
     from jwas_tpu_torch.ops.inner_rounds import (bayesr_inner_rounds,
                                                  bayesr_inner_rounds_ref,
+                                                 bayesr_inner_rounds_window_ref,
                                                  gram_resident)
 
-    inp = k3_inputs(n, b, nblocks, nreps, 9, dev)
+    inp = k3_inputs(n, b, nblocks, nreps, 9, dev, from_zero)
     fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
     a = fresh()
     bayesr_inner_rounds(**a, nreps=nreps)
@@ -227,26 +279,29 @@ def check_k3(n, b, nblocks, nreps, dev, time_it):
         raise AssertionError(f"K3 b={b}: class agreement {agree:.5f} < {DELTA_AGREE}")
     if not ((a["delta"][-1, -3:] == 0).all() and (a["alpha"][-1, -3:] == 0).all()):
         raise AssertionError(f"K3 b={b}: a padded marker left class 0")
+    exact = all(torch.equal(a[k], r[k]) for k in ("alpha", "delta", "rhs"))
     shares = torch.bincount(a["delta"].view(-1).long(), minlength=4).float()
     shares = (shares / shares.sum()).tolist()
-    line = (f"K3 b={b} nblocks={nblocks} reps={nreps} "
+    line = (f"K3 {'from alpha = 0 ' if from_zero else ''}b={b} nblocks={nblocks} "
+            f"reps={nreps} "
             f"gram={'resident' if gram_resident(b, nreps, 'BayesR') else 'global'}: "
             f"class agree {agree:.6f}, max |err| {err:.3g} (alpha rtol 1e-5 "
-            f"atol 1e-6, rhs rtol 1e-4 atol 1e-5); class shares "
-            f"{', '.join(f'{x:.4f}' for x in shares)}")
+            f"atol 1e-6, rhs rtol 1e-4 atol 1e-5; bit for bit: {exact}); class "
+            f"shares {', '.join(f'{x:.4f}' for x in shares)}")
     rec = None
     if time_it:
         a = fresh()
         ms = cuda_ms(lambda: bayesr_inner_rounds(**a, nreps=nreps), 20)
-        r = fresh()
-        plain = cuda_ms(lambda: bayesr_inner_rounds_ref(**r, nreps=nreps), 1)
-        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+        t = fresh()
+        plain = cuda_ms(lambda: bayesr_inner_rounds_ref(**t, nreps=nreps), 1)
+        rec = dict(max_abs_err=err,
                    **chain_bounds(inp, ("alpha", "delta", "rhs"), b, nblocks,
                                   nreps))
-        rec["step_ns"] = ms * 1e6 / (nreps * b)
-        line += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.0f} ns a dependent "
-                 f"step), plain {plain:.2f} ms, bound {rec['bound_ms']:.4f} ms "
-                 f"({rec['bound_by']})")
+        stats = None
+        if from_zero:
+            stats = window_stats(bayesr_inner_rounds_window_ref, inp,
+                                 ("alpha", "delta", "rhs"), r, nreps)
+        line += chain_line(rec, ms, plain, stats, nreps * b)
     say(line)
     return rec
 
@@ -344,10 +399,22 @@ def phase2(dev):
     say("== phase 2: kernels against their plain versions on the card")
     check_k1(64, 8, 256, 3, dev, time_it=False)    # tests/test_pallas_sweep.py:21
     recs = {"abc_inner_rounds": check_k1(512, 128, 128, 8, dev, time_it=True)}
+    # the path's two BayesC regimes at its shape: pi0 = 0 and pi0 = 0.999
+    regimes = {r: check_k1(512, 128, 128, 8, dev, time_it=True, regime=r)
+               for r in ("dense", "sparse")}
+    recs["abc_inner_rounds"]["regimes"] = regimes
     check_k1(512, 256, 64, 2, dev, time_it=True)   # global-memory Gram branch
+    check_k1(512, 152, 128, 2, dev, time_it=False)  # a last window of 24
+    check_k1(256, 1040, 2, 1, dev, time_it=False)   # 4 markers a thread
     check_k3(64, 8, 256, 3, dev, time_it=False)
     recs["bayesr_inner_rounds"] = check_k3(512, 128, 128, 8, dev, time_it=True)
+    # the path's BayesR regime: the default class prior from alpha = 0
+    recs["bayesr_inner_rounds"]["regimes"] = {
+        "from_zero": check_k3(512, 128, 128, 8, dev, time_it=True,
+                              from_zero=True)}
     check_k3(512, 256, 64, 2, dev, time_it=True)   # global-memory Gram branch
+    check_k3(512, 152, 128, 2, dev, time_it=False)
+    check_k3(256, 1040, 2, 1, dev, time_it=False)
     recs.update(check_gemv(50_000, 16_384, dev, missing=False, permuted=False,
                            time_it=True))
     check_gemv(50_000, 16_384, dev, missing=True, permuted=True, time_it=False)
@@ -567,7 +634,8 @@ def main():
     say(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s)")
     say("\n".join(line for line in _build.build_log.splitlines()
-                  if "registers" in line or "spill" in line))
+                  if "registers" in line or "spill" in line
+                  or line.endswith(" s")))      # seconds a source
 
     recs = phase2(dev)
     launches = phase3(dev)

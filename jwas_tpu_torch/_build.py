@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (nvcc + ctypes).
 
 The kernels under ``csrc/`` have a plain C interface. On first use they are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library under
+compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` a source and all
+at once, and linked into one shared library under
 ``jwas_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``. The library's file name carries a hash of the sources and the
 flags, so an edited source is never served by a stale build.
@@ -24,6 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -33,7 +35,7 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -52,6 +54,8 @@ _SIGNATURES = {
     # b, nblocks, nreps, stream
     "jt_bayesr_inner_rounds": [_P] * 10 + [_I] * 3 + [_P],
     "jt_bayesr_resident": [_I, _I],
+    # which, io (16 floats), steps, stream: csrc/chain_probe.cu
+    "jt_chain_probe": [_I, _P, _I, _P],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
     # rows_per_cta, stream
     "jt_packed_rhs": [_P] * 5 + [_I] * 5 + [_P],
@@ -81,25 +85,51 @@ def _lib_path() -> Path:
     return _BUILD / f"libjwas_tpu_torch-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> str:
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return f"{Path(cmd[-1]).name}: {time.perf_counter() - t0:.1f} s\n{log}"
+
+
+def _compile_and_link(path: Path) -> str:
+    """Compile every source to an object, all at once (one nvcc a source),
+    and link them into `path`; returns nvcc's output."""
+    nvcc = _nvcc()
+    stem = f"{path.stem}.{os.getpid()}"
+    srcs = _sources()
+    objs = [_BUILD / f"{stem}.{src.stem}.o" for src in srcs]
+    tmp = _BUILD / f"{stem}.tmp"
+    try:
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            logs = list(pool.map(
+                lambda so: _run([nvcc, *_NVCC_FLAGS, "-c", "-o", str(so[1]),
+                                 str(so[0])]), zip(srcs, objs)))
+        logs.append(_run([nvcc, *_NVCC_FLAGS, "-shared", *map(str, objs),
+                          "-o", str(tmp)]))
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return "".join(logs)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use. Raises if nvcc fails."""
     global _lib, build_seconds, build_log
+    if _lib is not None:          # the hot path: no lock once it is loaded
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
         path = _lib_path()
         if not path.exists():
             _BUILD.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, _sources())]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_log = _compile_and_link(path)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-            os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -7,21 +7,28 @@
 // tile resident in VMEM). Both become one kernel here; residency of the
 // b x b Gram tile in shared memory is a launch-time choice.
 //
-// Design. One CTA per marker block; thread i owns row i of the block (rows
-// i, i+T, ... when b > T). Step j of a rep: the owner of marker j computes
-// the _abc_update of jwas_tpu/ops/markers.py:118 from shared-memory state,
-// writes a_old - a_new to a two-slot shared scalar, one __syncthreads, then
-// every thread adds (a_old - a_new) * Gram[j][i] to its own rhs[i]. A step
-// is skipped by all threads when a_old == a_new (both 0: most markers of a
-// sparse BayesC model). The two slots let the next step's owner write
-// while slower threads still read, so a step costs one barrier.
+// What bounds it: latency, not bytes or operations. A call moves a Gram
+// tile and a few vectors once, but its nreps * b steps depend on each
+// other through rhs: step j reads rhs[j], which every earlier step that
+// changed its marker's effect has updated. The time is (steps on the
+// critical path) x (latency of one step).
 //
-// What bounds it: the chain of b * nreps dependent steps, each a barrier
-// plus one expf and one division on the owner thread (latency, not bytes:
-// the Gram tile is read once per call when resident, b * nreps rows of
-// it from L2 otherwise). Per-marker constants that do not depend on the
-// chain (1/lhs, log lhs + log var_eff, square roots) are computed once per
-// call; the plain version computes the same values the same way.
+// What the design (smem_plan.cuh::run_chain) does about it:
+//  - A marker's rhs, effect, xpx, draws and round constants (1/lhs,
+//    log lhs + log var_eff, the square roots, the log priors) live in its
+//    owner thread's registers for the whole call, so a step waits for no
+//    shared-memory load; the next pass's draws are fetched from global
+//    memory while the current pass runs.
+//  - The 32 markers of a warp are one window: d = a_old - a_new travels by
+//    shuffle, and one __syncthreads a window (not a step) hands the
+//    window's changes to the other warps, whose row updates leave the
+//    critical path.
+//  - All 32 lanes evaluate at once; the null steps (a_old = a_new = 0: most
+//    markers of a sparse model) before the first marker whose effect
+//    changes are resolved together, so a window costs 1 + (markers that
+//    change) evaluations. When every marker changes, a step is one
+//    evaluation (an expf and a reciprocal among ~25 dependent operations),
+//    one shuffle from the next lane and one multiply-add.
 //
 // Rounding follows the plain PyTorch version operation by operation: the
 // __f*_rn intrinsics keep nvcc from contracting a*b+c into an FMA, so the
@@ -41,135 +48,161 @@
 
 namespace {
 
-constexpr int kStateArrays = 11;   // per-marker arrays kept in shared memory
+// The R markers one thread owns, in registers.
+template <int R>
+struct AbcMarkers {
+  float alpha[R], beta[R], xpx[R];
+  int delta[R];
+  float inv_lhs[R], c[R], sq_inv[R], sq_ve[R], lp[R], lpc[R];
+  float u[R], z[R], next_u[R], next_z[R];
+  float a_new, b_new;              // the candidate of the last eval
+  int inc;
+  float kept_a, kept_b;            // shadow state of the window's marker
+  int kept_inc;
+  float inv_vare;
+  const float* us;                 // column k of the draw panels
+  const float* zs;
+  int b, nblocks, nreps;
 
-__global__ void abc_inner_rounds_kernel(
+  __device__ __forceinline__ void fetch(int rep) {
+    if (rep >= nreps) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = r * blockDim.x + threadIdx.x;
+      if (i < b) {
+        const size_t t = (static_cast<size_t>(rep) * b + i) * nblocks;
+        next_u[r] = us[t];
+        next_z[r] = zs[t];
+      }
+    }
+  }
+
+  __device__ __forceinline__ void advance() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      u[r] = next_u[r];
+      z[r] = next_z[r];
+    }
+  }
+
+  // jwas_tpu/ops/markers.py:118 (_abc_update), constants precomputed
+  __device__ __forceinline__ float eval(int r, float rhs) {
+    const float a_old = alpha[r];
+    const float t =
+        __fmul_rn(__fadd_rn(rhs, __fmul_rn(xpx[r], a_old)), inv_vare);
+    const float g = __fmul_rn(t, inv_lhs[r]);
+    const float ld1 = __fadd_rn(
+        __fmul_rn(-0.5f, __fsub_rn(c[r], __fmul_rn(g, t))), lpc[r]);
+    // (__frcp_rn gives the same bits and measured 8 ns a step slower on
+    // an H100)
+    const float prob =
+        __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(__fsub_rn(lp[r], ld1))));
+    inc = u[r] < prob;
+    const float b_in = __fadd_rn(g, __fmul_rn(z[r], sq_inv[r]));
+    a_new = inc ? b_in : 0.0f;
+    b_new = inc ? b_in : __fmul_rn(z[r], sq_ve[r]);
+    return __fsub_rn(a_old, a_new);
+  }
+
+  __device__ __forceinline__ void keep() {
+    kept_a = a_new;
+    kept_b = b_new;
+    kept_inc = inc;
+  }
+
+  __device__ __forceinline__ float finish(int r) {
+    const float d = __fsub_rn(alpha[r], kept_a);
+    alpha[r] = kept_a;
+    beta[r] = kept_b;
+    delta[r] = kept_inc;
+    return d;
+  }
+};
+
+template <int R>
+__global__ void __launch_bounds__(jt::kMaxThreads) abc_inner_rounds_kernel(
     const float* __restrict__ grams, const float* __restrict__ xpx,
     const float* __restrict__ var_eff, const float* __restrict__ log_pi,
     const float* __restrict__ log_pi_comp, float* __restrict__ alpha,
     float* __restrict__ beta, int32_t* __restrict__ delta,
     float* __restrict__ rhs, const float* __restrict__ us,
     const float* __restrict__ zs, const float* __restrict__ inv_vare_ptr,
-    int b, int nblocks, int nreps, int reps_per_chunk, int resident) {
-  extern __shared__ float smem[];
+    int b, int nblocks, int nreps, int resident) {
+  extern __shared__ float4 smem4[];
   const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-
-  float* s_dd = smem;                       // 2 slots (4 for alignment)
-  float* s_rhs = smem + 4;
-  float* s_alpha = s_rhs + b;
-  float* s_beta = s_alpha + b;
-  int* s_delta = reinterpret_cast<int*>(s_beta + b);
-  float* s_xpx = s_beta + 2 * b;
-  float* s_inv_lhs = s_xpx + b;
-  float* s_c = s_inv_lhs + b;               // log(lhs) + log(var_eff)
-  float* s_sq_inv = s_c + b;                // sqrt(1 / lhs)
-  float* s_sq_ve = s_sq_inv + b;            // sqrt(var_eff)
-  float* s_lp = s_sq_ve + b;
-  float* s_lpc = s_lp + b;
-  float* s_us = s_lpc + b;                  // reps_per_chunk * b
-  float* s_zs = s_us + reps_per_chunk * b;
-  float* s_gram = s_zs + reps_per_chunk * b;  // b * b when resident
-
-  const float inv_vare = *inv_vare_ptr;
   const size_t base = static_cast<size_t>(k) * b;
-  const float* G = grams + base * b;
 
-  for (int i = tid; i < b; i += T) {
-    const float ve = var_eff[base + i];
-    const float x = xpx[base + i];
+  AbcMarkers<R> m;
+  float rhs_r[R];
+  m.inv_vare = *inv_vare_ptr;
+  m.us = us + k;
+  m.zs = zs + k;
+  m.b = b;
+  m.nblocks = nblocks;
+  m.nreps = nreps;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r * blockDim.x + threadIdx.x;
+    const bool own = i < b;
+    const float ve = own ? var_eff[base + i] : 1.0f;
+    const float x = own ? xpx[base + i] : 1.0f;
     const float inv_ve = __fdiv_rn(1.0f, ve);
-    const float lhs = __fadd_rn(__fmul_rn(x, inv_vare), inv_ve);
+    const float lhs = __fadd_rn(__fmul_rn(x, m.inv_vare), inv_ve);
     const float inv_lhs = __fdiv_rn(1.0f, lhs);
-    s_rhs[i] = rhs[base + i];
-    s_alpha[i] = alpha[base + i];
-    s_beta[i] = beta[base + i];
-    s_delta[i] = delta[base + i];
-    s_xpx[i] = x;
-    s_inv_lhs[i] = inv_lhs;
-    s_c[i] = __fadd_rn(logf(lhs), logf(ve));
-    s_sq_inv[i] = __fsqrt_rn(inv_lhs);
-    s_sq_ve[i] = __fsqrt_rn(ve);
-    s_lp[i] = log_pi[base + i];
-    s_lpc[i] = log_pi_comp[base + i];
+    rhs_r[r] = own ? rhs[base + i] : 0.0f;
+    m.alpha[r] = own ? alpha[base + i] : 0.0f;
+    m.beta[r] = own ? beta[base + i] : 0.0f;
+    m.delta[r] = own ? delta[base + i] : 0;
+    m.xpx[r] = x;
+    m.inv_lhs[r] = inv_lhs;
+    m.c[r] = __fadd_rn(logf(lhs), logf(ve));
+    m.sq_inv[r] = __fsqrt_rn(inv_lhs);
+    m.sq_ve[r] = __fsqrt_rn(ve);
+    m.lp[r] = own ? log_pi[base + i] : 0.0f;
+    m.lpc[r] = own ? log_pi_comp[base + i] : 0.0f;
+    m.next_u[r] = 0.0f;
+    m.next_z[r] = 0.0f;
   }
-  if (resident) {
-    for (int i = tid; i < b * b; i += T) s_gram[i] = G[i];
-  }
+  m.fetch(0);
+  m.advance();
 
-  int r0 = 0;
-  for (int rep = 0; rep < nreps; ++rep) {
-    if (rep == r0) {
-      // (re)fill the draw chunk: reps [r0, r0 + reps_per_chunk). Every
-      // read of the previous chunk happened before the last step's barrier.
-      const int nr = min(reps_per_chunk, nreps - r0);
-      for (int i = tid; i < nr * b; i += T) {
-        const size_t t = static_cast<size_t>(r0) * b + i;
-        s_us[i] = us[t * nblocks + k];
-        s_zs[i] = zs[t * nblocks + k];
-      }
-      __syncthreads();
-    }
-    const float* cu = s_us + (rep - r0) * b;
-    const float* cz = s_zs + (rep - r0) * b;
-    for (int j = 0; j < b; ++j) {
-      const int slot = (rep * b + j) & 1;
-      if (tid == j % T) {
-        const float a_old = s_alpha[j];
-        const float r = __fmul_rn(
-            __fadd_rn(s_rhs[j], __fmul_rn(s_xpx[j], a_old)), inv_vare);
-        const float g = __fmul_rn(r, s_inv_lhs[j]);
-        const float ld1 = __fadd_rn(
-            __fmul_rn(-0.5f, __fsub_rn(s_c[j], __fmul_rn(g, r))), s_lpc[j]);
-        const float prob =
-            __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(__fsub_rn(s_lp[j], ld1))));
-        const float z = cz[j];
-        const bool inc = cu[j] < prob;
-        const float b_in = __fadd_rn(g, __fmul_rn(z, s_sq_inv[j]));
-        const float a_new = inc ? b_in : 0.0f;
-        s_beta[j] = inc ? b_in : __fmul_rn(z, s_sq_ve[j]);
-        s_alpha[j] = a_new;
-        s_delta[j] = inc ? 1 : 0;
-        s_dd[slot] = __fsub_rn(a_old, a_new);
-      }
-      __syncthreads();
-      const float d = s_dd[slot];
-      if (d != 0.0f) {
-        const float* row = resident ? s_gram + j * b : G + static_cast<size_t>(j) * b;
-        for (int i = tid; i < b; i += T)
-          s_rhs[i] = __fadd_rn(s_rhs[i], __fmul_rn(d, row[i]));
-      }
-    }
-    if (rep + 1 - r0 == reps_per_chunk) {
-      r0 = rep + 1;
-      __syncthreads();
-    }
-  }
+  jt::run_chain<R>(m, rhs_r, grams + base * b, smem4, b, nreps, resident);
 
-  // each thread wrote only its own rows: no barrier needed before this
-  for (int i = tid; i < b; i += T) {
-    rhs[base + i] = s_rhs[i];
-    alpha[base + i] = s_alpha[i];
-    beta[base + i] = s_beta[i];
-    delta[base + i] = s_delta[i];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r * blockDim.x + threadIdx.x;
+    if (i < b) {
+      rhs[base + i] = rhs_r[r];
+      alpha[base + i] = m.alpha[r];
+      beta[base + i] = m.beta[r];
+      delta[base + i] = m.delta[r];
+    }
   }
 }
 
-size_t plan(int b, int nreps, int* resident, int* reps_per_chunk, int* err) {
-  const size_t state = (4 + static_cast<size_t>(kStateArrays) * b) * 4;
-  return jt::smem_plan(b, nreps, state, static_cast<size_t>(b) * 8,  // u, z
-                       resident, reps_per_chunk, err);
+template <int R>
+int launch(const jt::ChainPlan& p, const float* grams, const float* xpx,
+           const float* var_eff, const float* log_pi,
+           const float* log_pi_comp, float* alpha, float* beta,
+           int32_t* delta, float* rhs, const float* us, const float* zs,
+           const float* inv_vare, int b, int nblocks, int nreps,
+           cudaStream_t stream) {
+  static bool ready[jt::kMaxDevices];
+  const int err = jt::allow_smem(abc_inner_rounds_kernel<R>, p, ready);
+  if (err != 0) return err;
+  abc_inner_rounds_kernel<R><<<nblocks, p.threads, p.smem, stream>>>(
+      grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta, delta, rhs, us,
+      zs, inv_vare, b, nblocks, nreps, p.resident);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int jt_abc_resident(int b, int nreps) {
-  int resident = 0, rpc = 0, err = 0;
-  const size_t smem = plan(b, nreps, &resident, &rpc, &err);
-  if (err != 0) return -err;
-  if (smem == 0) return -static_cast<int>(cudaErrorInvalidValue);
-  return resident;
+  (void)nreps;                     // the draws take no shared memory
+  jt::ChainPlan p;
+  const int err = jt::chain_plan(b, &p);
+  return err != 0 ? -err : p.resident;
 }
 
 extern "C" int jt_abc_inner_rounds(
@@ -178,17 +211,19 @@ extern "C" int jt_abc_inner_rounds(
     int32_t* delta, float* rhs, const float* us, const float* zs,
     const float* inv_vare, int b, int nblocks, int nreps, void* stream) {
   if (b <= 0 || nblocks <= 0 || nreps <= 0) return cudaErrorInvalidValue;
-  int resident = 0, rpc = 0, err = 0;
-  const size_t smem = plan(b, nreps, &resident, &rpc, &err);
+  if (reinterpret_cast<uintptr_t>(grams) % 16)
+    return cudaErrorMisalignedAddress;
+  jt::ChainPlan p;
+  const int err = jt::chain_plan(b, &p);
   if (err != 0) return err;
-  if (smem == 0) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(abc_inner_rounds_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != 0) return err;
-  abc_inner_rounds_kernel<<<nblocks, jt::max_threads(b), smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta, delta, rhs, us,
-      zs, inv_vare, b, nblocks, nreps, rpc, resident);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define JT_ABC_LAUNCH(R)                                                     \
+  launch<R>(p, grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta, delta, \
+            rhs, us, zs, inv_vare, b, nblocks, nreps, s)
+  switch (p.rows) {
+    case 1: return JT_ABC_LAUNCH(1);
+    case 2: return JT_ABC_LAUNCH(2);
+    default: return JT_ABC_LAUNCH(4);
+  }
+#undef JT_ABC_LAUNCH
 }

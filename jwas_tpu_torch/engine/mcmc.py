@@ -89,15 +89,23 @@ class Accum(NamedTuple):
     ebv_m2: torch.Tensor
 
 
-def setup_markers(store: Packed2BitStore, obs_ids, device,
+def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
                   fast_blocks=True) -> GroupedPackedMarkers:
     """Block sizes, row order and Gram tiles for a store, as runMCMC picks
     them for storage='2bit' (jwas_tpu/engine/mcmc.py:786-844).
 
-    fast_blocks: True for the default block size (from the number of
-    observations) or an int block size. The exact bf16 Gram path is taken
-    when the store has no missing codes and no row permutation is needed.
+    device: where the store and the chain live; the GPU unless the caller
+    asks for another (a missing GPU raises, the CPU is never taken
+    silently). fast_blocks: True for the default block size (from the
+    number of observations) or an int block size. The exact bf16 Gram path
+    is taken when the store has no missing codes and no row permutation is
+    needed.
     """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "setup_markers: no CUDA device (torch.cuda.is_available() is "
+            "false); pass device='cpu' to run the plain versions on the CPU")
     n = len(obs_ids)
     if fast_blocks is True or not fast_blocks:
         bs = mk.default_block_size(n)

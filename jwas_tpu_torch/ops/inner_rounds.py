@@ -11,6 +11,14 @@ grouped.py:684-719; the CUDA kernel is csrc/bayesr_inner_rounds.cu. Each
 kernel keeps the Gram tile in shared memory when it fits, its own
 launch-time choice.
 
+Both kernels run the chain on the window schedule of csrc/smem_plan.cuh:
+the 32 markers of a warp evaluate together, the null steps before the first
+marker whose effect changes are committed at once, and a window's changes
+reach the other rows at its end. abc_inner_rounds_window_ref and
+bayesr_inner_rounds_window_ref model that schedule in plain PyTorch; they
+equal the step-by-step plain versions bit for bit, which is what lets the
+kernels keep the sequential chain's result.
+
 Layouts are block-major, unlike the JAX package's j-major ones:
 grams (nblocks, b, b) with grams[k, j] = row j of block k's Gram;
 per-marker tiles (nblocks, b), a view of the flat (p_pad,) arrays (BayesR
@@ -58,20 +66,20 @@ def abc_inner_rounds_ref(grams, xpx, var_eff, log_pi, log_pi_comp, alpha,
 def _check_cuda_args(what, tensors, shapes):
     """Device, dtype, shape and contiguity of a kernel's arguments; shapes
     maps each name that is not a (nblocks, b) tile to its shape."""
-    f32 = torch.float32
     grams = tensors["grams"]
     dev = grams.device
-    nblocks, b, _ = grams.shape
+    tile = grams.shape[:2]
     for name, t in tensors.items():
-        want = shapes.get(name, (nblocks, b))
-        dtype = torch.int32 if name == "delta" else f32
-        if t.device != dev:
-            raise ValueError(f"{what}: {name} is on {t.device}, grams on {dev}")
-        if t.dtype != dtype or tuple(t.shape) != want or not t.is_contiguous():
+        want = shapes.get(name, tile)
+        dtype = torch.int32 if name == "delta" else torch.float32
+        if (t.shape != want or t.dtype is not dtype or t.device != dev
+                or not t.is_contiguous()):
             raise ValueError(
-                f"{what}: {name} must be a contiguous {dtype} "
-                f"{want}, got {t.dtype} {tuple(t.shape)}"
+                f"{what}: {name} must be a contiguous {dtype} {tuple(want)} "
+                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
+    if grams.data_ptr() % 16:
+        raise ValueError(f"{what}: grams must be 16-byte aligned")
 
 
 def abc_inner_rounds(grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta,
@@ -163,8 +171,9 @@ def bayesr_inner_rounds(grams, xpx, log_pi, alpha, delta, rhs, gumbel, zs,
         "grams": (nblocks, b, b), "log_pi": (nblocks, b, 4),
         "gumbel": (nreps * b, nblocks, 4), "zs": (nreps * b, nblocks),
         "inv_vare": (1,), "sigma_sq": (1,)})
-    if gumbel.data_ptr() % 16:
-        raise ValueError("bayesr_inner_rounds: gumbel must be 16-byte aligned")
+    if gumbel.data_ptr() % 16 or log_pi.data_ptr() % 16:
+        raise ValueError("bayesr_inner_rounds: gumbel and log_pi must be "
+                         "16-byte aligned")
     lib = _build.library()
     err = lib.jt_bayesr_inner_rounds(
         *(t.data_ptr() for t in args.values()), b, nblocks, nreps,
@@ -176,3 +185,115 @@ def bayesr_inner_rounds(grams, xpx, log_pi, alpha, delta, rhs, gumbel, zs,
 
 
 bayesr_inner_rounds.launches = 0
+
+
+# ------------------------------------------------ the window schedule, plain
+
+
+def _window_schedule(grams, rhs, nreps: int, window: int, evaluate, commit,
+                     stats=None):
+    """The schedule of csrc/smem_plan.cuh::run_chain on all blocks at once.
+
+    evaluate(rep, sl) -> (d, candidate): the candidate update of the
+    markers in slice sl from the current state, d = a_old - a_new of shape
+    (nblocks, len(sl)); commit(sl, mask, candidate) makes it the state
+    where mask is set. Within a window each block commits the markers up
+    to its first changing one, adds d * Gram row to the window's rhs and
+    evaluates the rest again; at the window's end the changes reach the
+    other rows, in order. rhs is updated in place. stats, when given,
+    receives the counts of windows, evaluations and changes, summed over
+    the blocks.
+    """
+    nblocks, b, _ = grams.shape
+    blocks = torch.arange(nblocks, device=grams.device)
+    count = dict(windows=0, evaluations=0, changes=0)
+    for rep in range(nreps):
+        for j0 in range(0, b, window):
+            sl = slice(j0, min(b, j0 + window))
+            nact = sl.stop - j0
+            lanes = torch.arange(nact, device=grams.device)
+            pos = torch.zeros(nblocks, dtype=torch.long, device=grams.device)
+            live = torch.ones(nblocks, dtype=torch.bool, device=grams.device)
+            handed = []
+            count["windows"] += nblocks
+            while bool(live.any()):
+                count["evaluations"] += int(live.sum())
+                d, cand = evaluate(rep, sl)
+                todo = live[:, None] & (lanes >= pos[:, None])
+                changing = todo & (d != 0)
+                moved = changing.any(dim=1)
+                first = torch.where(moved, changing.to(torch.int8).argmax(dim=1),
+                                    nact)
+                commit(sl, todo & (lanes <= first[:, None]), cand)
+                j = j0 + first.clamp(max=nact - 1)
+                d_f = d[blocks, j - j0]
+                row = grams[blocks, j]
+                rhs[:, sl] = torch.where(moved[:, None],
+                                         rhs[:, sl] + d_f[:, None] * row[:, sl],
+                                         rhs[:, sl])
+                handed.append((moved, d_f, row))
+                count["changes"] += int(moved.sum())
+                pos = first + 1
+                live = moved & (pos < nact)
+            other = torch.ones(b, dtype=torch.bool, device=grams.device)
+            other[sl] = False
+            for moved, d_f, row in handed:
+                rhs[:, other] = torch.where(
+                    moved[:, None],
+                    rhs[:, other] + d_f[:, None] * row[:, other],
+                    rhs[:, other])
+    if stats is not None:
+        stats.update(count)
+
+
+def abc_inner_rounds_window_ref(grams, xpx, var_eff, log_pi, log_pi_comp,
+                                alpha, beta, delta, rhs, us, zs, inv_vare,
+                                nreps: int, window: int = 32, stats=None):
+    """abc_inner_rounds_ref on the kernel's window schedule: same arguments,
+    same in-place contract, the same result bit for bit."""
+    b = grams.shape[1]
+    inv_vare = inv_vare.reshape(())
+    k = mk.abc_constants(xpx, var_eff, inv_vare)
+
+    def evaluate(rep, sl):
+        t = slice(rep * b + sl.start, rep * b + sl.stop)
+        cand = mk.abc_update(
+            rhs[:, sl], alpha[:, sl], xpx[:, sl], inv_vare,
+            mk.ABCConstants(*(c[:, sl] for c in k)), log_pi[:, sl],
+            log_pi_comp[:, sl], us[t].T, zs[t].T)
+        return alpha[:, sl] - cand[0], cand
+
+    def commit(sl, mask, cand):
+        for state, new in zip((alpha, beta, delta), cand):
+            state[:, sl] = torch.where(mask, new.to(state.dtype), state[:, sl])
+
+    _window_schedule(grams, rhs, nreps, window, evaluate, commit, stats)
+    return alpha, beta, delta, rhs
+
+
+def bayesr_inner_rounds_window_ref(grams, xpx, log_pi, alpha, delta, rhs,
+                                   gumbel, zs, inv_vare, sigma_sq, nreps: int,
+                                   window: int = 32, stats=None):
+    """bayesr_inner_rounds_ref on the kernel's window schedule: same
+    arguments, same in-place contract, the same result bit for bit."""
+    nblocks, b, _ = grams.shape
+    inv_vare = inv_vare.reshape(())
+    k = mk.bayesr_constants(xpx, inv_vare, sigma_sq)
+
+    def evaluate(rep, sl):
+        t = slice(rep * b + sl.start, rep * b + sl.stop)
+        a_new, klass = mk.bayesr_update(
+            rhs[:, sl].reshape(-1), alpha[:, sl].reshape(-1),
+            xpx[:, sl].reshape(-1), inv_vare,
+            mk.BayesRConstants(*(c[:, sl].reshape(-1, 3) for c in k)),
+            log_pi[:, sl].reshape(-1, 4),
+            gumbel[t].transpose(0, 1).reshape(-1, 4), zs[t].T.reshape(-1))
+        a_new, klass = a_new.view(nblocks, -1), klass.view(nblocks, -1)
+        return alpha[:, sl] - a_new, (a_new, klass)
+
+    def commit(sl, mask, cand):
+        for state, new in zip((alpha, delta), cand):
+            state[:, sl] = torch.where(mask, new, state[:, sl])
+
+    _window_schedule(grams, rhs, nreps, window, evaluate, commit, stats)
+    return alpha, delta, rhs

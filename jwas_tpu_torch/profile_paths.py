@@ -16,8 +16,17 @@ b = gb = 128) and, for each named path:
   2. runs run_st again for two outer iterations under torch.profiler and
      prints the device busy share, the sum of the self device times of all
      CUDA events over the host wall time of that run_st call (its set-up,
-     one X alpha, included), and the ten largest device-time rows with
-     their share of the device time.
+     one X alpha, included), the device time a round (that sum over the
+     rounds run), and the ten largest device-time rows with their share of
+     the device time;
+  3. measures the host's time a round directly: the sweep of one group (its
+     16 rounds, ~250 launches, fewer than the launch queue holds) is
+     enqueued on an idle device and never waits for it, so the wall time
+     until the last launch is queued is the host's alone; beside it the
+     time between CUDA events around the same rounds, which is the larger
+     of the host's and the device's, and the host's time for the same
+     rounds queued behind a device spin, where no launch finds the stream
+     empty.
 
 Paths: BayesC from pi0 = 0 (every marker moves), BayesC0999 from
 pi0 = 0.999 (most effects stay 0), BayesR from the default class prior.
@@ -35,6 +44,8 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 import jwas_tpu_torch as jt
+from jwas_tpu_torch.engine.mcmc import bayesr_pi0
+from jwas_tpu_torch.ops import grouped as gr
 
 PATHS = {"BayesC": ("BayesC", 0.0), "BayesC0999": ("BayesC", 0.999),
          "BayesR": ("BayesR", 0.0)}
@@ -43,6 +54,69 @@ PATHS = {"BayesC": ("BayesC", 0.0), "BayesC0999": ("BayesC", 0.999),
 def device_us(e) -> float:
     return (getattr(e, "self_device_time_total", None)
             or getattr(e, "self_cuda_time_total", 0) or 0)
+
+
+def host_ms_a_round(name, gm, y, sum2pq, repeats=5):
+    """Host and elapsed milliseconds a round of the first group's sweep
+    (nreps = b, sync every 8: the path's schedule), medians of `repeats`
+    sweeps after a warm-up one. The chain state carries on from sweep to
+    sweep, as it does from one outer iteration to the next."""
+    method, pi0 = PATHS[name]
+    dev = gm.grams.device
+    ngroups, G, _ = gm.store.shape
+    nblocks, b, _ = gm.grams.shape
+    gb = nblocks // ngroups
+    sub = gm._replace(store=gm.store[:1], means=gm.means[:G], xpx=gm.xpx[:G],
+                      grams=gm.grams[:gb], valid=gm.valid[:G])
+    priors = cs.default_priors(y, sum2pq, pi0=pi0, method=method)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    f32 = dict(dtype=torch.float32, device=dev)
+    alpha = torch.zeros(G, **f32)
+    ycorr = torch.as_tensor(y, **f32).clone()
+    vare = torch.tensor(priors["vare0"], **f32)
+    varg = torch.tensor(priors["marker_var0"], **f32)
+    if method == "BayesR":
+        delta = torch.zeros(G, dtype=torch.int32, device=dev)
+        pi_mat = torch.as_tensor(bayesr_pi0(pi0), **f32).expand(G, 4).contiguous()
+
+        def sweep():
+            gr.sweep_blocks_bayesr_grouped(sub, alpha, delta, ycorr, vare, varg,
+                                           pi_mat, gen, nreps=b, sync_every=8)
+    else:
+        beta = alpha.clone()
+        delta = torch.ones(G, dtype=torch.int32, device=dev)
+        pi = torch.full((G,), pi0, **f32)
+
+        def sweep():
+            gr.sweep_blocks_abc_grouped(sub, alpha, beta, delta, ycorr, vare,
+                                        varg, pi, gen, nreps=b, sync_every=8)
+    rounds = b // 8
+    sweep()
+    host, elapsed, behind = [], [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        sweep()
+        host.append((time.perf_counter() - t0) * 1e3 / rounds)
+        end.record()
+        torch.cuda.synchronize()
+        elapsed.append(start.elapsed_time(end) / rounds)
+        # the same with the device busy: every launch queues behind a spin
+        # of ~50 ms and none finds the stream empty
+        torch.cuda._sleep(100_000_000)
+        t0 = time.perf_counter()
+        sweep()
+        behind.append((time.perf_counter() - t0) * 1e3 / rounds)
+    torch.cuda.synchronize()
+    cs.say(f"{name}: host {np.median(host):.4f} ms a round (enqueueing one "
+           f"group's {rounds} rounds on an idle device; {repeats} sweeps: "
+           f"{', '.join(f'{h:.4f}' for h in host)}), elapsed between events "
+           f"{np.median(elapsed):.4f} ms a round; host behind a busy device "
+           f"{np.median(behind):.4f} ms a round "
+           f"({', '.join(f'{h:.4f}' for h in behind)})")
 
 
 def profile_path(name, gm, y, sum2pq):
@@ -78,8 +152,10 @@ def profile_path(name, gm, y, sum2pq):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     total = sum(device_us(e) for e in events)
+    rounds = 2 * gm.store.shape[0] * (b // 8)
     cs.say(f"{name}: profiled run_st of 2 outer iterations: wall {wall:.3f} s, "
-           f"device {total / 1e6:.3f} s, busy {total / 1e6 / wall:.4f}")
+           f"device {total / 1e6:.3f} s, busy {total / 1e6 / wall:.4f}; device "
+           f"{total / 1e3 / rounds:.4f} ms a round ({rounds} rounds)")
     for e in sorted(events, key=device_us, reverse=True)[:10]:
         cs.say(f"   {e.key[:64]:64s} {device_us(e) / 1e3:10.2f} ms "
                f"{device_us(e) / total:7.4f}  calls {e.count:7d}  "
@@ -100,6 +176,7 @@ def main():
     gm, y, _, sum2pq, _, _ = cs.full_width_problem(dev)
     for name in names:
         profile_path(name, gm, y, sum2pq)
+        host_ms_a_round(name, gm, y, sum2pq)
 
 
 if __name__ == "__main__":

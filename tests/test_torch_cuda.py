@@ -26,8 +26,10 @@ from jwas_tpu_torch.io.packed import Packed2BitStore, pack_codes
 from jwas_tpu_torch.ops import grouped as gr
 from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds,
                                              abc_inner_rounds_ref,
+                                             abc_inner_rounds_window_ref,
                                              bayesr_inner_rounds,
                                              bayesr_inner_rounds_ref,
+                                             bayesr_inner_rounds_window_ref,
                                              gram_resident)
 from jwas_tpu_torch.ops.packed_gemv import (packed_matvec, packed_matvec_ref,
                                             packed_rhs, packed_rhs_ref)
@@ -42,21 +44,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _chain_inputs(nblocks, b, nreps, seed, device):
+def _chain_inputs(nblocks, b, nreps, seed, device, regime="mixed"):
+    """regime: mixed (pi = 0.9, random effects: a third of the steps change
+    one), dense (pi clamped at 1e-10: every marker is included and every
+    step changes its effect) or sparse (pi = 0.999 from alpha = 0: almost
+    no step changes one), the three the main path runs."""
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(nblocks, b, 4 * b)).astype(np.float32)
+    x = rng.normal(size=(nblocks, b, min(4 * b, 512))).astype(np.float32)
     grams = np.einsum("kjn,krn->kjr", x, x).astype(np.float32)
-    pi = np.full((nblocks, b), 0.9, np.float32)
+    pi = np.full((nblocks, b), {"mixed": 0.9, "dense": 1e-10,
+                                "sparse": 0.999}[regime], np.float32)
     pi[-1, -3:] = 1.0
     with np.errstate(divide="ignore"):
         lpc = np.log1p(-pi + np.float32(1e-12))
     alpha = (0.1 * rng.normal(size=(nblocks, b))).astype(np.float32)
+    if regime == "sparse":
+        alpha[:] = 0.0
     inp = dict(
         grams=grams, xpx=np.einsum("kjj->kj", grams).copy(),
         var_eff=np.full((nblocks, b), 0.02, np.float32), log_pi=np.log(pi),
         log_pi_comp=lpc, alpha=alpha, beta=alpha.copy(),
-        delta=np.ones((nblocks, b), np.int32),
-        rhs=np.einsum("kjn,n->kj", x, rng.normal(size=4 * b)).astype(np.float32),
+        delta=(alpha != 0).astype(np.int32),
+        rhs=np.einsum("kjn,n->kj", x, rng.normal(size=x.shape[2])).astype(np.float32),
         us=rng.uniform(size=(nreps * b, nblocks)).astype(np.float32),
         zs=rng.normal(size=(nreps * b, nblocks)).astype(np.float32),
         inv_vare=np.asarray([1.0 / 1.3], np.float32),
@@ -66,44 +75,65 @@ def _chain_inputs(nblocks, b, nreps, seed, device):
 
 def test_inner_rounds_kernel_matches_plain(cuda):
     """b = 256 reads Gram rows from global memory (the tile exceeds shared
-    memory); b = 224 keeps the tile resident and leaves room for fewer
-    than 12 reps of draws, so the draw chunk is refilled mid-call. A
-    non-contiguous argument is refused."""
-    for b, nblocks, nreps, resident in ((8, 256, 3, True), (128, 128, 8, True),
-                                        (256, 16, 2, False), (224, 8, 12, True)):
+    memory); b = 224 and 240 keep the tile resident; b = 152 (the default
+    block size at n = 50,000) and b = 8 leave a warp's window partly empty;
+    b = 520 and 1040 give a thread 2 and 4 markers. The path's shape
+    (b = 128, 128 blocks, 8 reps) runs in its three regimes, where the plain
+    model of the kernel's window schedule must equal the step-by-step plain
+    version bit for bit. A non-contiguous argument is refused."""
+    cases = [(8, 256, 3, True, "mixed"), (128, 128, 8, True, "mixed"),
+             (128, 128, 8, True, "dense"), (128, 128, 8, True, "sparse"),
+             (256, 16, 2, False, "mixed"), (224, 8, 12, True, "mixed"),
+             (240, 4, 2, True, "dense"), (152, 16, 3, True, "mixed"),
+             (152, 16, 3, True, "sparse"), (520, 2, 1, False, "mixed"),
+             (1040, 2, 1, False, "mixed")]
+    for b, nblocks, nreps, resident, regime in cases:
         assert gram_resident(b, nreps) == resident
-        k = _chain_inputs(nblocks, b, nreps, b, cuda)
+        k = _chain_inputs(nblocks, b, nreps, b, cuda, regime)
         r = {n: t.clone() for n, t in k.items()}
+        w = {n: t.clone() for n, t in k.items()}
         before = abc_inner_rounds.launches
         abc_inner_rounds(**k, nreps=nreps)
         abc_inner_rounds_ref(**r, nreps=nreps)
         torch.cuda.synchronize()
         assert abc_inner_rounds.launches == before + 1
         same = (k["delta"] == r["delta"]).all(dim=1)
-        assert same.float().mean().item() >= 0.99, b
+        assert same.float().mean().item() >= 0.99, (b, regime)
         for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("beta", 1e-5, 1e-6),
                                  ("rhs", 1e-4, 1e-5)):
             torch.testing.assert_close(k[name][same], r[name][same], rtol=rtol,
                                        atol=atol)
         assert (k["delta"][-1, -3:] == 0).all()
+        if b == 128:
+            stats = {}
+            abc_inner_rounds_window_ref(**w, nreps=nreps, stats=stats)
+            for name in ("alpha", "beta", "delta", "rhs"):
+                assert torch.equal(w[name], r[name]), (regime, name)
+            share = stats["changes"] / (nblocks * b * nreps)
+            lo, hi = {"mixed": (0.05, 0.9), "dense": (0.99, 1.0),
+                      "sparse": (0.0, 0.02)}[regime]
+            assert lo <= share <= hi, (regime, share)
     t = _chain_inputs(4, 16, 1, 1, cuda)
     t["rhs"] = t["rhs"].t().contiguous().t()
     with pytest.raises(ValueError):
         abc_inner_rounds(**t, nreps=1)
 
 
-def _bayesr_inputs(nblocks, b, nreps, seed, device):
-    """Random Grams, a few markers in each slab class, the last 3 markers
-    padding (zero Gram rows, xpx 1, rhs 0, class priors [1, 0, 0, 0])."""
+def _bayesr_inputs(nblocks, b, nreps, seed, device, from_zero=False):
+    """Random Grams, a few markers in each slab class (none when from_zero:
+    every effect starts at 0, as a chain does), the last 3 markers padding
+    (zero Gram rows, xpx 1, rhs 0, class priors [1, 0, 0, 0])."""
     rng = np.random.default_rng(seed)
     pi = np.array([0.95, 0.03, 0.015, 0.005])
-    x = rng.normal(size=(nblocks, b, 4 * b)).astype(np.float32)
+    x = rng.normal(size=(nblocks, b, min(4 * b, 512))).astype(np.float32)
     x[-1, -3:] = 0.0
     grams = np.einsum("kjn,krn->kjr", x, x).astype(np.float32)
     xpx = np.einsum("kjj->kj", grams).copy()
     xpx[-1, -3:] = 1.0
     delta = rng.choice(4, size=(nblocks, b), p=pi).astype(np.int32)
     delta[-1, -3:] = 0
+    if from_zero:
+        delta[:] = 0
     lp = np.broadcast_to(pi, (nblocks, b, 4)).copy()
     lp[-1, -3:] = [1.0, 0.0, 0.0, 0.0]
     u = rng.uniform(np.finfo(np.float32).tiny, 1.0, size=(nreps * b, nblocks, 4))
@@ -111,7 +141,7 @@ def _bayesr_inputs(nblocks, b, nreps, seed, device):
         grams=grams, xpx=xpx, log_pi=np.log(np.clip(lp, 1e-12, 1.0)),
         alpha=np.where(delta > 0, 0.1 * rng.normal(size=(nblocks, b)), 0.0),
         delta=delta,
-        rhs=np.einsum("kjn,n->kj", x, rng.normal(size=4 * b)),
+        rhs=np.einsum("kjn,n->kj", x, rng.normal(size=x.shape[2])),
         gumbel=-np.log(-np.log(u)), zs=rng.normal(size=(nreps * b, nblocks)),
         inv_vare=np.asarray([1.0 / 1.3]), sigma_sq=np.asarray([0.01]),
     )
@@ -121,15 +151,23 @@ def _bayesr_inputs(nblocks, b, nreps, seed, device):
 
 def test_bayesr_kernel_and_path_on_card(cuda):
     """The BayesR kernel against its plain version: b = 128 keeps the Gram
-    tile resident, b = 256 reads rows from global memory, b = 224 keeps it
-    resident with room for 3 reps of draws, so 8 reps refill the chunk
-    mid-call. Then the grouped BayesR sweep on the kernels against the
-    plain versions with the same draws, and a short run_st(BayesR)."""
-    for b, nblocks, nreps, resident in ((8, 256, 3, True), (128, 128, 8, True),
-                                        (256, 16, 2, False), (224, 8, 8, True)):
+    tile resident (also from alpha = 0, the path's regime), b = 256 reads
+    rows from global memory, b = 224 and 240 keep it resident, b = 152 and
+    b = 8 leave a warp's window partly empty, b = 520 and 1040 give a
+    thread 2 and 4 markers. At the path's shape the plain model of the
+    kernel's window schedule must equal the step-by-step plain version bit
+    for bit. Then the grouped BayesR sweep on the kernels against the plain
+    versions with the same draws, and a short run_st(BayesR)."""
+    cases = [(8, 256, 3, True, False), (128, 128, 8, True, False),
+             (128, 128, 8, True, True), (256, 16, 2, False, False),
+             (224, 8, 8, True, False), (240, 4, 2, True, True),
+             (152, 16, 3, True, False), (152, 16, 3, True, True),
+             (520, 2, 1, False, True), (1040, 2, 1, False, False)]
+    for b, nblocks, nreps, resident, from_zero in cases:
         assert gram_resident(b, nreps, "BayesR") == resident
-        k = _bayesr_inputs(nblocks, b, nreps, b, cuda)
+        k = _bayesr_inputs(nblocks, b, nreps, b, cuda, from_zero)
         r = {n: t.clone() for n, t in k.items()}
+        w = {n: t.clone() for n, t in k.items()}
         before = bayesr_inner_rounds.launches
         bayesr_inner_rounds(**k, nreps=nreps)
         bayesr_inner_rounds_ref(**r, nreps=nreps)
@@ -144,6 +182,12 @@ def test_bayesr_kernel_and_path_on_card(cuda):
         assert (k["delta"][-1, -3:] == 0).all() and (k["alpha"][-1, -3:] == 0).all()
         share = (k["delta"] > 0).float().mean().item()
         assert 0.005 < share < 0.3, (b, share)
+        if b == 128:
+            stats = {}
+            bayesr_inner_rounds_window_ref(**w, nreps=nreps, stats=stats)
+            for name in ("alpha", "delta", "rhs"):
+                assert torch.equal(w[name], r[name]), (from_zero, name)
+            assert stats["evaluations"] < 0.5 * nblocks * b * nreps
     t = _bayesr_inputs(4, 16, 1, 1, cuda)
     t["gumbel"] = t["gumbel"].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from jwas_tpu.io.packed import _pack_numpy, prepare_packed_genotypes
 from jwas_tpu.ops import grouped as jgr
@@ -70,6 +71,11 @@ def test_blocks_and_setup_markers_match_jax(tmp_path):
     ref = prepare_packed_genotypes(_geno_df(n=120, p=150, seed=3), save_path=path)
     store = Packed2BitStore.load(path)
     obs = list(np.random.default_rng(2).permutation(store.obs_ids))
+    if not torch.cuda.is_available():
+        # the default device is the GPU: without one setup_markers raises
+        # and never takes the CPU silently
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            setup_markers(store, obs, fast_blocks=8)
     gm = setup_markers(store, obs, "cpu", fast_blocks=8)
     b, gb = jgr.pick_stable_blocks(len(obs), 8, store.n_markers)
     gmj = jgr.build_grouped_markers(ref, obs, b, group_blocks=gb, host=False)
