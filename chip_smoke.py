@@ -22,7 +22,17 @@ Phases, each printed as it ends:
      and Grams, with the launch count of every kernel in each path;
   4. a statistical check: a small simulation run through run_st, BayesC
      on the card and on the CPU (plain versions), BayesR on the card; EBV
-     accuracy must hold.
+     accuracy must hold. Then runMCMC on the same data through a Table:
+     its EBVs must equal run_st's on the card;
+  5. runMCMC, the user's entry point, at full width: phase 3's device store
+     (its Gram tiles freed) as a Packed2BitStore, 45,000 of its 50,000
+     individuals phenotyped in shuffled order with a 100-level herd factor
+     and an age covariate, the other 5,000 prediction candidates;
+     y = intercept + herd + age + geno, BayesC, fast_blocks = 128, three
+     outer iterations, result and sample files written to a temporary
+     folder. Set-up and chain seconds, peak memory, launches, samples, EBV
+     accuracy of candidates and training individuals, herd estimates
+     against the true herd effects.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -30,6 +40,7 @@ Imports torch and numpy and the port; never jax or jwas_tpu.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -50,6 +61,14 @@ ACC_MARGIN = 0.05     # kernel path may trail the plain path by at most this
 # settings, seeds 5, 6, 7: 0.9327, 0.9389, 0.9490; the floor is the lowest
 # minus 0.1
 ACC_FLOOR_BAYESR = 0.8327
+RTOL_RUNMCMC = 1e-5   # phase 4: runMCMC's EBVs against run_st's, same chain
+# phase 5: the posterior mean EBV (float32 sums of 2M terms a sample)
+# against X times the posterior mean effects in float64, relative to the
+# largest of them
+RTOL_DIRECT_EBV = 1e-3
+PHASE5_KEYS = ("location parameters", "residual variance", "marker effects geno",
+               "marker effects variances geno", "pi_geno", "EBV_y",
+               "genetic_variance", "heritability")
 
 REPLACES = {
     "abc_inner_rounds": "jwas_tpu/ops/pallas_sweep.py:68",
@@ -454,13 +473,13 @@ def default_priors(y, sum2pq, pi0=0.0, df=4.0, method="BayesC"):
     BayesR's marker variance is sigma^2 = genetic variance /
     (sum2pq * sum_k gamma_k pi_k) (setup.py:234-239), pi0 0 meaning the
     default class prior."""
-    from jwas_tpu_torch.engine.mcmc import bayesr_pi0
+    from jwas_tpu_torch.io.genotypes import bayesr_pi
     from jwas_tpu_torch.ops.markers import BAYESR_GAMMA
 
     var = float(np.var(y, ddof=1))
     vare0 = 0.5 * var
     if method == "BayesR":
-        pi0 = bayesr_pi0(pi0)
+        pi0 = bayesr_pi(pi0)
         denom = sum2pq * float(np.dot(BAYESR_GAMMA, pi0))
     else:
         denom = (1.0 - pi0) * sum2pq
@@ -514,7 +533,7 @@ def phase3(dev, n=50_000, p=2_097_152):
         f"{t_gram:.1f} s, {gm.grams.numel() * 4 / 1e9:.2f} GB")
     paths = {"BayesC": ("abc_inner_rounds", "packed_rhs", "packed_matvec"),
              "BayesR": ("bayesr_inner_rounds", "packed_rhs", "packed_matvec")}
-    launches = {}
+    launches = {"phase 3": {}}
     for method, kernels in paths.items():
         priors = default_priors(y, sum2pq, method=method)
         jt.reset_launches()
@@ -526,8 +545,12 @@ def phase3(dev, n=50_000, p=2_097_152):
         if missing:
             raise AssertionError(f"phase 3 {method}: kernels never launched: {missing}")
         for k in kernels:
-            launches[k] = launches.get(k, 0) + counts[k]
-    return launches
+            launches["phase 3"][k] = launches["phase 3"].get(k, 0) + counts[k]
+    # phase 5 keeps the store (used in place: no padding at b = gb = 128),
+    # not the Gram tiles
+    kept = dict(packed=gm.store.view(-1, gm.store.shape[2])[:p],
+                freqs=gm.means[:p].double().cpu().numpy() / 2.0, tbv=tbv)
+    return launches, kept
 
 
 def report_path(method, res, launches, p, n, tbv, dev):
@@ -589,11 +612,12 @@ def phase4(dev):
     codes, y, bv = stat_data()
     store = stat_store(codes)
     priors = default_priors(y, store.sum2pq)
-    acc = {}
+    acc, ebv = {}, {}
     for where in (dev, torch.device("cpu")):
         t0 = time.perf_counter()
         gm = jt.setup_markers(store, store.obs_ids, where)
         res = jt.run_st(gm, y, **priors, chain_length=1024, burnin=256, seed=5)
+        ebv[where.type] = res["ebv"]
         acc[where.type] = float(np.corrcoef(res["ebv"], bv)[0, 1])
         say(f"{where.type}: EBV accuracy {acc[where.type]:.4f}, vare "
             f"{res['vare']:.4g}, varg {res['varg']:.4g}, pi {res['pi']:.4f} "
@@ -602,6 +626,22 @@ def phase4(dev):
         raise AssertionError(
             f"phase 4: kernel-path accuracy {acc['cuda']:.4f} vs plain "
             f"{acc['cpu']:.4f} (margin {ACC_MARGIN}, floor {ACC_FLOOR})")
+
+    # the same chain through the model layer: a Table, build_model, runMCMC
+    t0 = time.perf_counter()
+    model = jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
+        store, method="BayesC", storage="2bit"))
+    out = jt.runMCMC(model, jt.Table({"ID": store.obs_ids, "y": y}),
+                     chain_length=1024, burnin=256, seed=5, output_folder="",
+                     printout_model_info=False)
+    got = np.asarray(out["EBV_y"].EBV)
+    rel = float(np.abs(got - ebv["cuda"]).max() / np.abs(ebv["cuda"]).max())
+    say(f"cuda runMCMC (Table, y = intercept + geno): EBVs against run_st's "
+        f"max relative error {rel:.3g}, bit for bit {np.array_equal(got, ebv['cuda'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if list(out["EBV_y"].ID) != store.obs_ids or not rel <= RTOL_RUNMCMC:
+        raise AssertionError(f"phase 4: runMCMC's EBVs differ from run_st's "
+                             f"(relative {rel:.3g} > {RTOL_RUNMCMC})")
 
     t0 = time.perf_counter()
     gm = jt.setup_markers(store, store.obs_ids, dev)
@@ -614,6 +654,171 @@ def phase4(dev):
     if not acc_r >= ACC_FLOOR_BAYESR:
         raise AssertionError(f"phase 4: BayesR kernel-path accuracy {acc_r:.4f} "
                              f"< floor {ACC_FLOOR_BAYESR}")
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def phase5_problem(packed, freqs, tbv, seed=5, n_train=45_000, n_herds=100):
+    """Phase 3's store as a Packed2BitStore (IDs ind1.., markers m1..,
+    means 2f, no missing codes) and a phenotype Table of n_train of its
+    individuals in shuffled order: y = TBV + herd effect + 0.5 age + noise
+    of the TBV's variance. Returns (store, table, true herd effects,
+    training IDs, candidate IDs)."""
+    from jwas_tpu_torch.io.packed import Packed2BitStore
+    from jwas_tpu_torch.io.table import Table
+
+    p, n = packed.shape[0], tbv.shape[0]
+    ids = np.array([f"ind{i + 1}" for i in range(n)], dtype=object)
+    store = Packed2BitStore(
+        obs_ids=list(ids), marker_ids=[f"m{j + 1}" for j in range(p)],
+        packed=packed, means=2.0 * freqs, allele_freq=freqs, n_obs=n,
+        n_markers=p, has_missing=False)
+    rng = np.random.default_rng(seed)
+    sd = float(np.std(tbv))
+    herd_effect = rng.normal(0.0, sd, n_herds)
+    herd = rng.integers(1, n_herds + 1, n)
+    age = np.round(rng.uniform(1.0, 5.0, n), 2)
+    y = tbv + herd_effect[herd - 1] + 0.5 * age + rng.normal(0.0, sd, n)
+    order = rng.permutation(n)
+    train, cand = order[:n_train], order[n_train:]
+    table = Table({"ID": ids[train], "y": y[train], "herd": herd[train],
+                   "age": age[train]})
+    return store, table, herd_effect, list(ids[train]), list(ids[cand])
+
+
+def run_phase5(store, table, **kw):
+    """runMCMC at full width on phase5_problem's data, with the set-up
+    (workspace; Grams on the row-permuted float32 path) and the chain
+    timed inside it. Returns (results, seconds by part, what the timed
+    parts returned: "store and Grams" the grouped store, "chain" run_chain's
+    tuple, whose last item holds the seconds of each saved sample's
+    window)."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.mcmc as em
+
+    seconds, built = {}, {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            built[name] = out
+            return out
+        return call
+
+    saved = em.prepare_workspace, em.setup_markers, em.run_chain
+    em.prepare_workspace = timed("workspace", em.prepare_workspace)
+    em.setup_markers = timed("store and Grams", em.setup_markers)
+    em.run_chain = timed("chain", em.run_chain)
+    try:
+        model = jt.build_model("y = intercept + herd + age + geno",
+                               genotypes=jt.get_genotypes(store, method="BayesC",
+                                                          storage="2bit"))
+        jt.set_covariate(model, "age")
+        t0 = time.perf_counter()
+        kw = dict(dict(fast_blocks=128, chain_length=384,
+                       output_samples_frequency=128, seed=3,
+                       printout_model_info=False), **kw)
+        out = jt.runMCMC(model, table, **kw)
+        seconds["runMCMC"] = time.perf_counter() - t0
+    finally:
+        em.prepare_workspace, em.setup_markers, em.run_chain = saved
+    return out, seconds, built
+
+
+def direct_ebv(packed, means, alpha, cols):
+    """X alpha in float64 for a few store columns of a store without missing
+    codes, decoded on the device: X_ij = code - mean_j."""
+    dev = packed.device
+    cols = torch.as_tensor(cols, device=dev)
+    shift = (2 * (cols % 4)).to(torch.uint8)
+    codes = (packed[:, cols // 4] >> shift) & 3                 # (p, k)
+    x = codes.to(torch.float64) - torch.as_tensor(means, device=dev)[:, None]
+    a = torch.as_tensor(np.asarray(alpha, dtype=np.float64), device=dev)
+    return (x * a[:, None]).sum(dim=0).cpu().numpy()
+
+
+def phase5(dev, kept, n_train=45_000):
+    import tempfile
+
+    import jwas_tpu_torch as jt
+
+    say("== phase 5: runMCMC at full width")
+    tbv = kept["tbv"]
+    store, table, herd_effect, train, cand = phase5_problem(
+        kept["packed"], kept["freqs"], tbv, n_train=n_train)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    jt.reset_launches()
+    with tempfile.TemporaryDirectory() as folder:
+        out, seconds, built = run_phase5(store, table, output_folder=folder,
+                                         device=dev)
+        gm = built.pop("store and Grams")
+        in_place = gm.store.data_ptr() == kept["packed"].data_ptr()
+        b, gb = gm.grams.shape[1], gm.grams.shape[0] // gm.store.shape[0]
+        del gm, built["workspace"]
+        windows = built.pop("chain")[-1]
+        counts = {k.__name__: k.launches for k in jt.KERNELS}
+        samples = {}
+        for name in ("residual_variance", "marker_effects_variances_geno", "pi_geno"):
+            with open(f"{folder}/MCMC_samples_{name}.txt") as f:
+                rows = [line.strip() for line in f if line.strip()]
+            samples[name] = [float(r.split(",")[0]) for r in rows
+                             if not r[0].isalpha()]
+        files = sorted(os.listdir(folder))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    say(f"store {store.n_obs} x {store.n_markers} used in place: {in_place}; "
+        f"b={b}, gb={gb}; "
+        f"{len(table)} phenotyped in shuffled order, "
+        f"{store.n_obs - len(table)} candidates")
+    say("seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + "; the chain's windows (an outer iteration and a saved sample each) "
+        + ", ".join(f"{t:.3f}" for t in windows))
+    say(f"peak device memory {peak:.2f} GB; launches {counts}; files {files}")
+    say(f"samples: {samples}")
+    missing = [k for k in PHASE5_KEYS if k not in out]
+    if missing:
+        raise AssertionError(f"phase 5: result keys missing: {missing}")
+    ebv_t = out["EBV_y"]
+    if len(ebv_t) != store.n_obs or list(ebv_t.ID) != store.obs_ids:
+        raise AssertionError(f"phase 5: EBV_y has {len(ebv_t)} rows, not {store.n_obs}")
+    ebv = dict(zip(ebv_t.ID, ebv_t.EBV))
+    truth = dict(zip(store.obs_ids, tbv))
+    acc = {who: float(np.corrcoef([ebv[s] for s in ids], [truth[s] for s in ids])[0, 1])
+           for who, ids in (("candidates", cand), ("training", train))}
+    # the route of the output IDs' EBVs: K5's pass over every store column,
+    # here against a direct decode of a few candidates' columns on the card
+    check = [store.obs_ids.index(s) for s in cand[:64]]
+    direct = direct_ebv(kept["packed"], store.means, out["marker effects geno"].Estimate,
+                        check)
+    got = np.array([ebv[store.obs_ids[c]] for c in check])
+    err = float(np.abs(got - direct).max() / np.abs(direct).max())
+    say(f"EBVs of 64 candidates against X alpha decoded directly: max relative "
+        f"error {err:.3g} (tolerance {RTOL_DIRECT_EBV})")
+    if not err <= RTOL_DIRECT_EBV:
+        raise AssertionError(f"phase 5: candidates' EBVs off by {err:.3g}")
+    loc = out["location parameters"]
+    herd = [(int(float(lv)), est) for eff, lv, est in
+            zip(loc.Effect, loc.Level, loc.Estimate) if eff == "herd"]
+    r_herd = float(np.corrcoef([herd_effect[h - 1] for h, _ in herd],
+                               [e for _, e in herd])[0, 1])
+    say(f"EBV accuracy after 3 outer iterations: candidates {acc['candidates']:.4f}, "
+        f"training {acc['training']:.4f}; herd estimates against the true herd "
+        f"effects r = {r_herd:.4f} ({len(herd)} levels)")
+    values = [np.asarray(t[c], dtype=np.float64) for k in PHASE5_KEYS
+              for t in (out[k],) for c in t.columns if t[c].dtype.kind == "f"]
+    values += [np.asarray(v) for v in samples.values()]
+    if not all(np.isfinite(v).all() for v in values) or not np.isfinite(list(acc.values())).all():
+        raise AssertionError("phase 5: non-finite results")
+    path = ("abc_inner_rounds", "packed_rhs", "packed_matvec")
+    if any(counts[k] == 0 for k in path):
+        raise AssertionError(f"phase 5: kernels never launched: {counts}")
+    if not in_place:
+        raise AssertionError("phase 5: runMCMC copied the device store")
+    return {k: counts[k] for k in path}
 
 
 def main():
@@ -638,11 +843,16 @@ def main():
                   or line.endswith(" s")))      # seconds a source
 
     recs = phase2(dev)
-    launches = phase3(dev)
+    launches, kept = phase3(dev)
     phase4(dev)
+    launches["phase 5"] = phase5(dev, kept)
 
+    # launches: phase 3's (run_st, both methods), phase 5's (runMCMC)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
-                    replaces=REPLACES[name], launches=launches[name],
+                    replaces=REPLACES[name],
+                    launches=launches["phase 3"][name]
+                    + launches["phase 5"].get(name, 0),
+                    launches_by_phase={ph: c.get(name, 0) for ph, c in launches.items()},
                     **recs[name]) for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,5 @@
-"""Single-trait BayesC and BayesR on the 2-bit packed store: Gibbs step and
-chain loop.
+"""Single-trait BayesC and BayesR on the 2-bit packed store: Gibbs step,
+chain loop, runMCMC.
 
 Counterpart of jwas_tpu/engine/mcmc.py, trimmed to the path that runMCMC
 takes for storage='2bit' genotypes on one device (:786-868):
@@ -7,29 +7,42 @@ STData (:50), make_st_step (:113-527: the location pass :180-185, the
 packed grouped BayesC branch :191-210 and BayesR branch :321-347, pi
 :438-443, the marker variance :446-451 and :469-472, its scale :476-484,
 the residual variance :509-518), make_run_window (:580-668), _init_accum
-(:671), the initial state (:1128-1224) and the single-chain loop
-(:1484-1560) as run_st.
+(:671), _build_st_data_and_state (:762-868, the state :1128-1224) and the
+single-chain loop of runMCMC (:1435-1569).
 
-run_st takes the priors that jwas_tpu's prepare_workspace computes
-(engine/setup.py:146-152) explicitly; the pandas model layer, sample files
-and result CSVs are not ported yet.
+Two entry points share the chain loop (run_chain) and the initial state:
+runMCMC(model, df, ...) takes a model from build_model and the phenotypes
+and returns the result tables, as jwas_tpu's does; run_st takes a store set
+up by setup_markers and the priors explicitly and returns numpy posterior
+means. The EBVs of the output IDs are the output IDs' rows of the X alpha
+pass over the store (K5), in place of jwas_tpu's dense (n_out, p) decode
+(:600-601).
 """
 
 from __future__ import annotations
 
 import time
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from jwas_tpu_torch.engine.output import build_results
+from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
+from jwas_tpu_torch.engine.samples_io import STSampleStream
+from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace,
+                                         prepare_workspace, reject_unported)
 from jwas_tpu_torch.engine.state import ChainState, EngineCfg
+from jwas_tpu_torch.engine.validation import validate_args
+from jwas_tpu_torch.io.genotypes import DEFAULT_BAYESR_PI, bayesr_pi  # noqa: F401
 from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
+from jwas_tpu_torch.models.model import Model, describe
 from jwas_tpu_torch.ops import markers as mk
 from jwas_tpu_torch.ops.grouped import (
     GroupedPackedMarkers,
     build_grouped_markers,
     grouped_matvec,
+    grouped_matvec_store,
     pick_stable_blocks,
     sweep_blocks_abc_grouped,
     sweep_blocks_bayesr_grouped,
@@ -45,8 +58,6 @@ from jwas_tpu_torch.ops.variance import (
 )
 
 METHODS = ("BayesC", "BayesR")
-# BayesR class prior when pi0 is 0 (jwas_tpu/io/genotypes.py:28)
-DEFAULT_BAYESR_PI = (0.95, 0.03, 0.015, 0.005)
 
 
 class STData(NamedTuple):
@@ -57,13 +68,17 @@ class STData(NamedTuple):
     y: torch.Tensor            # (n,)
     gm: GroupedPackedMarkers
     scale_r: torch.Tensor      # 0-d residual-variance prior scale
+    ebv_rows: Optional[torch.Tensor]  # (n_out,) store columns of the EBVs'
+                                      # IDs; None: the training rows
+    out_W: Optional[torch.Tensor]     # (n_out, K) prediction-equation rows,
+                                      # None when it has no terms
 
 
 class SampleOut(NamedTuple):
     vare: torch.Tensor
     varg: torch.Tensor
     pi: torch.Tensor           # BayesC 0-d P(excluded), BayesR (4,)
-    ebv: torch.Tensor          # (n,) X alpha for the training observations
+    ebv: torch.Tensor          # (n_out,) EBVs (run_st: the training rows)
     genvar: torch.Tensor
     h2: torch.Tensor
 
@@ -89,23 +104,54 @@ class Accum(NamedTuple):
     ebv_m2: torch.Tensor
 
 
+class ChainPlan(NamedTuple):
+    """Outer iterations of a chain (JWAS.jl:313, exact accounting)."""
+
+    nreps: int                 # effective sweeps an outer iteration
+    burnin_outer: int
+    thin_outer: int            # outer iterations a saved sample
+    n_saved: int
+
+
+def chain_plan(chain_length: int, burnin: int, output_samples_frequency: int,
+               nreps: int) -> ChainPlan:
+    n_outer = max(1, chain_length // nreps)
+    burnin_outer = burnin // nreps
+    osf = output_samples_frequency
+    if osf <= 0:
+        osf = max(1, chain_length // 1000)
+    thin_outer = max(1, osf // nreps)
+    return ChainPlan(nreps, burnin_outer, thin_outer,
+                     max(1, (n_outer - burnin_outer) // thin_outer))
+
+
+def resolve_device(device) -> torch.device:
+    """The chain's device: the GPU unless the caller asks for another; a
+    missing GPU raises (the CPU is never taken silently)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is false); pass "
+            "device='cpu' to run the plain versions on the CPU")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
                   fast_blocks=True) -> GroupedPackedMarkers:
     """Block sizes, row order and Gram tiles for a store, as runMCMC picks
     them for storage='2bit' (jwas_tpu/engine/mcmc.py:786-844).
 
     device: where the store and the chain live; the GPU unless the caller
-    asks for another (a missing GPU raises, the CPU is never taken
-    silently). fast_blocks: True for the default block size (from the
-    number of observations) or an int block size. The exact bf16 Gram path
-    is taken when the store has no missing codes and no row permutation is
+    asks for another (see resolve_device). A store whose packed bytes are a
+    tensor on that device is used in place when no padding is needed.
+    fast_blocks: True or False for the default block size (from the number
+    of observations) or an int block size. The exact bf16 Gram path is
+    taken when the store has no missing codes and no row permutation is
     needed.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "setup_markers: no CUDA device (torch.cuda.is_available() is "
-            "false); pass device='cpu' to run the plain versions on the CPU")
+    device = resolve_device(device)
     n = len(obs_ids)
     if fast_blocks is True or not fast_blocks:
         bs = mk.default_block_size(n)
@@ -208,6 +254,18 @@ def _pi_summary(cfg: EngineCfg, state: ChainState):
     return state.pi if cfg.method == "BayesR" else state.pi[0]
 
 
+def sample_ebv(data: STData, state: ChainState):
+    """EBVs of a sample (getEBV, output.jl:281-306): prediction-equation
+    terms plus X alpha, the latter one K5 pass over the store in store
+    order with the wanted IDs' columns selected."""
+    if data.ebv_rows is not None and data.ebv_rows.numel() == 0:
+        return torch.zeros(0, dtype=state.alpha.dtype, device=state.alpha.device)
+    xa = grouped_matvec_store(data.gm, state.alpha)
+    rows = data.gm.row_perm if data.ebv_rows is None else data.ebv_rows
+    ebv = xa[:data.gm.n_obs] if rows is None else xa[rows]
+    return ebv if data.out_W is None else data.out_W @ state.sol + ebv
+
+
 def make_run_window(cfg: EngineCfg):
     step = make_st_step(cfg)
 
@@ -215,9 +273,9 @@ def make_run_window(cfg: EngineCfg):
                    n_iters: int, accumulate: bool = True):
         for _ in range(n_iters):
             state = step(state, data)
-        # EBV of the training individuals: X alpha (getEBV, output.jl:281-306)
-        ebv = grouped_matvec(data.gm, state.alpha)
-        genvar = torch.var(ebv, unbiased=False)
+        ebv = sample_ebv(data, state)
+        genvar = (torch.var(ebv, unbiased=False) if ebv.numel() > 1
+                  else torch.zeros((), dtype=ebv.dtype, device=ebv.device))
         out = SampleOut(vare=state.vare, varg=state.varg,
                         pi=_pi_summary(cfg, state),
                         ebv=ebv, genvar=genvar,
@@ -255,11 +313,13 @@ def _init_accum(cfg: EngineCfg, data: STData, state: ChainState) -> Accum:
 
     s = z(state.vare)
     pi = z(_pi_summary(cfg, state))
+    n_out = data.y.shape[0] if data.ebv_rows is None else data.ebv_rows.shape[0]
+    ebv = torch.zeros(n_out, dtype=state.alpha.dtype, device=state.alpha.device)
     return Accum(n=0.0, sol_m=z(state.sol), sol_m2=z(state.sol),
                  alpha_m=z(state.alpha), alpha_m2=z(state.alpha),
                  delta_m=z(state.alpha), vare_m=s, vare_m2=s, varg_m=s,
                  varg_m2=s, pi_m=pi, pi_m2=pi, scale_m=s, scale_m2=s,
-                 ebv_m=z(data.y), ebv_m2=z(data.y))
+                 ebv_m=ebv, ebv_m2=ebv)
 
 
 def _reject_unsupported(**unsupported) -> None:
@@ -273,18 +333,131 @@ def _reject_unsupported(**unsupported) -> None:
             )
 
 
-def bayesr_pi0(pi0) -> np.ndarray:
-    """BayesR's (4,) class prior: the default when pi0 is 0, else pi0,
-    which must be 4 nonnegative shares summing to 1
-    (jwas_tpu/io/genotypes.py:266-273)."""
-    if np.ndim(pi0) == 0 and pi0 == 0.0:
-        return np.asarray(DEFAULT_BAYESR_PI)
-    pi = np.asarray(pi0, dtype=np.float64)
-    if pi.shape != (4,):
-        raise ValueError("BayesR Pi must be a length-4 vector")
-    if not np.isclose(pi.sum(), 1.0, atol=1e-8) or (pi < 0).any():
-        raise ValueError("BayesR Pi must be nonnegative and sum to 1")
-    return pi
+def make_cfg(gm: GroupedPackedMarkers, method: str, *, nreps, sync_every,
+             chain_length: int, df_R, df_marker, estimate_pi: bool,
+             estimate_marker_variance: bool, estimate_scale: bool,
+             estimate_residual_variance: bool) -> EngineCfg:
+    """The chain's static configuration; nreps defaults to the block size
+    and is clamped to chain_length (never more sweeps than asked for)."""
+    b = gm.grams.shape[1]
+    nreps = max(1, min(nreps if nreps is not None else b, chain_length))
+    return EngineCfg(
+        method=method, n_obs=gm.n_obs, n_markers=int(gm.valid.sum().item()),
+        estimate_pi=estimate_pi,
+        estimate_marker_variance=estimate_marker_variance,
+        estimate_scale=estimate_scale,
+        estimate_residual_variance=estimate_residual_variance,
+        nreps=nreps, sync_every=mk.resolve_sync_every(nreps, sync_every),
+        df_residual=float(df_R), df_marker=float(df_marker),
+    )
+
+
+def make_data(gm: GroupedPackedMarkers, y, W, scale_R, ebv_rows=None,
+              out_W=None) -> STData:
+    """The chain's device data; y (n,) and W (n, K; None: an intercept)
+    in observation order."""
+    dev, f32, n = gm.store.device, torch.float32, gm.n_obs
+    y = torch.as_tensor(np.asarray(y), dtype=f32).to(dev)
+    W = (torch.ones((n, 1), dtype=f32, device=dev) if W is None
+         else torch.as_tensor(np.asarray(W), dtype=f32).to(dev))
+    if tuple(y.shape) != (n,) or W.ndim != 2 or W.shape[0] != n:
+        raise ValueError(f"y must be ({n},) and W ({n}, K) for {n} genotyped "
+                         f"observations; got {tuple(y.shape)}, {tuple(W.shape)}")
+    if ebv_rows is not None:
+        ebv_rows = torch.as_tensor(np.asarray(ebv_rows), dtype=torch.int64).to(dev)
+    if out_W is not None:
+        out_W = torch.as_tensor(np.asarray(out_W), dtype=f32).to(dev)
+    return STData(W=W, WtW=W.T @ W, y=y, gm=gm, ebv_rows=ebv_rows, out_W=out_W,
+                  scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev))
+
+
+def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
+                  marker_scale0, pi0, seed: Optional[int]) -> ChainState:
+    """Effects at 0, every BayesC marker included (BayesR: all in the null
+    class), the priors' values, one generator seeded with seed (None: 0)
+    (jwas_tpu/engine/mcmc.py:1128-1224)."""
+    gm = data.gm
+    dev, f32 = gm.store.device, torch.float32
+
+    def scalar(x):
+        return torch.tensor(float(np.mean(x)), dtype=f32, device=dev)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0 if seed is None else int(seed))
+    real = gm.valid > 0
+    p_pad = gm.valid.shape[0]
+    sol = torch.zeros(data.W.shape[1], dtype=f32, device=dev)
+    alpha = torch.zeros(p_pad, dtype=f32, device=dev)
+    if cfg.method == "BayesR":
+        delta = torch.zeros(p_pad, dtype=torch.int32, device=dev)
+        pi = torch.as_tensor(bayesr_pi(pi0), dtype=f32).to(dev)
+    else:
+        delta = real.to(torch.int32)
+        pi = torch.where(real, scalar(pi0), torch.ones((), dtype=f32, device=dev))
+    return ChainState(
+        gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(), delta=delta,
+        ycorr=data.y - data.W @ sol - grouped_matvec(gm, alpha),
+        vare=scalar(vare0), varg=scalar(marker_var0), pi=pi,
+        scale_g=scalar(marker_scale0),
+    )
+
+
+SAMPLE_KEYS = ("vare", "varg", "pi", "genvar", "h2")
+
+
+def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
+    """A saved sample's values on the host, in one transfer: the tracks of
+    SAMPLE_KEYS and what the sample files need (sol, alpha, ebv)."""
+    parts = {k: getattr(out, k) for k in SAMPLE_KEYS}
+    if stream is not None and stream.enabled:
+        if stream.loc_slices:
+            parts["sol"] = state.sol
+        if stream.write_markers:
+            parts["alpha"] = state.alpha[:p]
+        if stream.ebv:
+            parts["ebv"] = out.ebv
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in parts.values()])
+    flat = flat.cpu().numpy()
+    host, i = {}, 0
+    for k, t in parts.items():
+        host[k] = flat[i:i + t.numel()].reshape(t.shape)
+        i += t.numel()
+    return host
+
+
+def run_chain(cfg: EngineCfg, data: STData, state: ChainState, plan: ChainPlan,
+              stream=None, progress=None):
+    """The single-chain loop (jwas_tpu/engine/mcmc.py:1484-1560): burn-in,
+    then n_saved windows of thin_outer outer iterations, each ending with
+    its sample read back (and written to the sample files by stream).
+    Returns (state, accum, samples, burnin_seconds, window_seconds)."""
+    run_window = make_run_window(cfg)
+    accum = _init_accum(cfg, data, state)
+    samples = {k: [] for k in SAMPLE_KEYS}
+    window_seconds = []
+    t0 = time.perf_counter()
+    if plan.burnin_outer > 0:
+        state, accum, out = run_window(state, data, accum, plan.burnin_outer,
+                                       accumulate=False)
+        out.vare.item()              # waits for the device
+    t_burnin = time.perf_counter() - t0
+    for w in range(plan.n_saved):
+        t_w = time.perf_counter()
+        state, accum, out = run_window(state, data, accum, plan.thin_outer)
+        host = _read_back(state, out, stream, cfg.n_markers)
+        window_seconds.append(time.perf_counter() - t_w)
+        for k in SAMPLE_KEYS:
+            samples[k].append(host[k])
+        if stream is not None:
+            stream.write_sample(host)
+        if progress is not None:
+            progress.update((plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps,
+                            vare=host["vare"], varg=host["varg"], pi=host["pi"])
+    return state, accum, samples, t_burnin, window_seconds
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
 
 
 def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
@@ -304,8 +477,8 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
 
     gm comes from setup_markers (or build_grouped_markers); y (n,) and the
     location design W (n, K; default: an intercept) are in observation
-    order. The priors are those of jwas_tpu's prepare_workspace. pi0 is
-    BayesC's P(excluded), or BayesR's (4,) class prior (0: the default
+    order. The priors are those of prepare_workspace. pi0 is BayesC's
+    P(excluded), or BayesR's (4,) class prior (0: the default
     DEFAULT_BAYESR_PI); for BayesR, marker_var0 is sigma^2, the variance
     of class 3. nreps (default: the block size) effective sweeps make one
     outer iteration, clamped to chain_length; sync_every defaults to
@@ -319,7 +492,7 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
     since its samples are read back). pi and pi_sd are floats for BayesC
     and (4,) arrays of class shares for BayesR, whose samples["pi"] is
     (n_saved, 4); model_frequency is each marker's posterior probability
-    of a nonzero effect.
+    of a nonzero effect; ebv covers the training observations.
     """
     _reject_unsupported(
         method=method not in METHODS, rinv=rinv is not None,
@@ -328,89 +501,25 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
         annotations=annotations is not None,
         n_genotype_categories=n_genotype_categories != 1,
     )
-    dev = gm.store.device
-    f32 = torch.float32
-    n = gm.n_obs
-    nblocks, b, _ = gm.grams.shape
-    p_pad = nblocks * b
-    p = int(gm.valid.sum().item())
-    y = torch.as_tensor(np.asarray(y), dtype=f32).to(dev)
-    W = (torch.ones((n, 1), dtype=f32, device=dev) if W is None
-         else torch.as_tensor(np.asarray(W), dtype=f32).to(dev))
-    if tuple(y.shape) != (n,) or W.ndim != 2 or W.shape[0] != n:
-        raise ValueError(f"y must be ({n},) and W ({n}, K) for {n} genotyped "
-                         f"observations; got {tuple(y.shape)}, {tuple(W.shape)}")
-    K = W.shape[1]
-
-    bayesr = method == "BayesR"
-    if bayesr:
-        pi0 = bayesr_pi0(pi0)
-    nreps = max(1, min(nreps if nreps is not None else b, chain_length))
-    cfg = EngineCfg(
-        method=method, n_obs=n, n_markers=p, estimate_pi=estimate_pi,
-        estimate_marker_variance=estimate_marker_variance,
-        estimate_scale=estimate_scale,
-        estimate_residual_variance=estimate_residual_variance,
-        nreps=nreps, sync_every=mk.resolve_sync_every(nreps, sync_every),
-        df_residual=float(df_R), df_marker=float(df_marker),
-    )
-
-    def scalar(x):
-        return torch.tensor(float(np.mean(x)), dtype=f32, device=dev)
-
-    data = STData(W=W, WtW=W.T @ W, y=y, gm=gm, scale_r=scalar(scale_R))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0 if seed is None else int(seed))
-    real = gm.valid > 0
-    sol = torch.zeros(K, dtype=f32, device=dev)
-    alpha = torch.zeros(p_pad, dtype=f32, device=dev)
-    if bayesr:
-        delta = torch.zeros(p_pad, dtype=torch.int32, device=dev)
-        pi = torch.as_tensor(pi0, dtype=f32).to(dev)
-    else:
-        delta = real.to(torch.int32)
-        pi = torch.where(real, scalar(pi0), torch.ones((), dtype=f32, device=dev))
-    state = ChainState(
-        gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(), delta=delta,
-        ycorr=y - W @ sol - grouped_matvec(gm, alpha),
-        vare=scalar(vare0), varg=scalar(marker_var0), pi=pi,
-        scale_g=scalar(marker_scale0),
-    )
-
-    n_outer = max(1, chain_length // nreps)
-    burnin_outer = burnin // nreps
-    osf = output_samples_frequency
-    if osf <= 0:
-        osf = max(1, chain_length // 1000)
-    thin_outer = max(1, osf // nreps)
-    n_saved = max(1, (n_outer - burnin_outer) // thin_outer)
-
-    run_window = make_run_window(cfg)
-    accum = _init_accum(cfg, data, state)
-    samples = {k: [] for k in ("vare", "varg", "pi", "genvar", "h2")}
-    window_seconds = []
-    t0 = time.perf_counter()
-    if burnin_outer > 0:
-        state, accum, out = run_window(state, data, accum, burnin_outer,
-                                       accumulate=False)
-        out.vare.item()              # waits for the device
-    t_burnin = time.perf_counter() - t0
-    for _ in range(n_saved):
-        t_w = time.perf_counter()
-        state, accum, out = run_window(state, data, accum, thin_outer)
-        for k in samples:
-            samples[k].append(getattr(out, k).tolist())
-        window_seconds.append(time.perf_counter() - t_w)
-
-    def host(t):
-        return t.detach().cpu().numpy()
+    data = make_data(gm, y, W, scale_R)
+    cfg = make_cfg(gm, method, nreps=nreps, sync_every=sync_every,
+                   chain_length=chain_length, df_R=df_R, df_marker=df_marker,
+                   estimate_pi=estimate_pi,
+                   estimate_marker_variance=estimate_marker_variance,
+                   estimate_scale=estimate_scale,
+                   estimate_residual_variance=estimate_residual_variance)
+    state = initial_state(cfg, data, vare0=vare0, marker_var0=marker_var0,
+                          marker_scale0=marker_scale0, pi0=pi0, seed=seed)
+    plan = chain_plan(chain_length, burnin, output_samples_frequency, cfg.nreps)
+    _, accum, samples, t_burnin, window_seconds = run_chain(cfg, data, state, plan)
 
     def mean_sd(name):
         """Posterior mean and sd, sqrt|E x^2 - (E x)^2| (output.jl)."""
-        m = host(getattr(accum, name + "_m"))
-        m2 = host(getattr(accum, name + "_m2"))
+        m = _host(getattr(accum, name + "_m"))
+        m2 = _host(getattr(accum, name + "_m2"))
         return m, np.sqrt(np.abs(m2 - m ** 2))
 
+    p = cfg.n_markers
     res = {}
     for name in ("vare", "varg", "pi", "scale"):
         m, sd = mean_sd(name)
@@ -420,9 +529,85 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
     res["alpha"], res["alpha_sd"] = alpha[:p], alpha_sd[:p]
     ebv, ebv_sd = mean_sd("ebv")
     return {
-        **res, "model_frequency": host(accum.delta_m)[:p],
+        **res, "model_frequency": _host(accum.delta_m)[:p],
         "ebv": ebv, "ebv_pev": ebv_sd ** 2,
-        "samples": {k: np.asarray(v) for k, v in samples.items()},
-        "nreps": nreps, "burnin_outer": burnin_outer, "thin_outer": thin_outer,
+        "samples": {k: np.asarray(v, dtype=np.float64) for k, v in samples.items()},
+        "nreps": cfg.nreps, "burnin_outer": plan.burnin_outer,
+        "thin_outer": plan.thin_outer,
         "burnin_seconds": t_burnin, "window_seconds": window_seconds,
     }
+
+
+def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
+    """The 2-bit grouped branch of jwas_tpu's _build_st_data_and_state
+    (:786-868, state :1128-1224): setup_markers' block choice and row order
+    of the training rows, the workspace's priors, the output IDs' store
+    columns and prediction-equation rows. Returns (cfg, data, state)."""
+    g = ws.geno
+    gm = setup_markers(g.packed_store, ws.obs_ids, device, fast_blocks=opts.fast_blocks)
+    if opts.independent_blocks:
+        sync_every = 0                   # one sync an outer iteration
+    elif opts.sync_every is not None:
+        sync_every = max(1, int(opts.sync_every))
+    else:
+        sync_every = None
+    cfg = make_cfg(gm, g.method, nreps=opts.nreps, sync_every=sync_every,
+                   chain_length=opts.chain_length, df_R=ws.df_R,
+                   df_marker=ws.df_marker, estimate_pi=bool(g.estimate_pi),
+                   estimate_marker_variance=bool(g.G.estimate_variance),
+                   estimate_scale=bool(g.G.estimate_scale),
+                   estimate_residual_variance=bool(ws.model.R.estimate_variance))
+    out_W = None
+    if ws.prediction_terms:
+        out_W = np.zeros((len(ws.output_ids), ws.W.shape[1]))
+        for name in ws.prediction_terms:
+            term = ws.model.term_dict[name]
+            out_W[:, term.start_pos:term.start_pos + term.n_levels] += ws.output_X[name]
+    data = make_data(gm, ws.y, ws.W, ws.scale_R, ebv_rows=ws.output_store_rows,
+                     out_W=out_W)
+    state = initial_state(cfg, data, vare0=ws.vare0, marker_var0=ws.marker_var0,
+                          marker_scale0=ws.marker_scale0, pi0=ws.pi0, seed=opts.seed)
+    return cfg, data, state
+
+
+def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
+    """Run MCMC for a model from build_model on phenotypes df (a Table, a
+    {name: array} mapping or a DataFrame whose first column holds the IDs):
+    the reference's runMCMC (JWAS.jl:161-511), single chain, single-trait
+    BayesC or BayesR on the 2-bit store. kwargs are MCMCOptions' fields.
+
+    device: where the chain runs, the GPU unless the caller asks for the
+    CPU (device="cpu" runs the kernels' plain versions); without a GPU the
+    default raises. Returns a dict of Tables (the keys of jwas_tpu's
+    result dict: "location parameters", "residual variance", "marker
+    effects <name>", "marker effects variances <name>", "pi_<name>",
+    "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance",
+    "heritability"), written as <key>.txt to output_folder with the
+    per-parameter MCMC sample files.
+    """
+    opts = MCMCOptions(**kwargs)
+    reject_unported(opts)
+    device = resolve_device(device)
+    validate_args(model, opts)
+    model.mcmc_info = opts
+    if opts.printout_model_info:
+        describe(model)
+    ws = prepare_workspace(model, df, opts)
+    cfg, data, state = _build_st_data_and_state(ws, opts, device)
+    plan = chain_plan(opts.chain_length, opts.burnin, opts.output_samples_frequency,
+                      cfg.nreps)
+    stream = STSampleStream(ws, cfg, opts)
+    progress = ProgressPrinter(opts.printout_frequency, opts.chain_length)
+    try:
+        with maybe_profile(opts):
+            _, accum, samples, _, _ = run_chain(cfg, data, state, plan, stream,
+                                                progress)
+    finally:
+        stream.close()
+    accum = accum._replace(**{k: _host(v) for k, v in accum._asdict().items()
+                              if torch.is_tensor(v)})
+    results = build_results(ws, cfg, accum, samples, opts)
+    if stream.enabled and stream.write_markers:
+        results["_marker_sample_file"] = stream.writer.path(
+            f"marker_effects_{ws.geno.name}_{model.lhs_vec[0]}")
+    return results

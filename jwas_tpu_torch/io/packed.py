@@ -1,22 +1,31 @@
-"""The 2-bit packed genotype store on the host: loader, packer, missing scan.
+"""The 2-bit packed genotype store: loader, writer, converter, missing scan.
 
 numpy-only counterpart of jwas_tpu/io/packed.py: the .j2b + .manifest.json
-loader (Packed2BitStore.load, :121-171, with mmap), the code -> byte packer
-(_pack_numpy, :401) and store_has_missing (jwas_tpu/ops/grouped.py:975-993).
-Stores are written by jwas_tpu's prepare_packed_genotypes.
+loader (Packed2BitStore.load, :143-171, with mmap) and writer
+(Packed2BitStore.save, :121-141), the converter prepare_packed_genotypes
+(:186-276: missing codes, means and allele frequencies, MAF filter) with
+the code -> byte packer (_pack_numpy, :401), and store_has_missing
+(jwas_tpu/ops/grouped.py:975-993). The converter reads a CSV in row chunks
+with the csv module and packs with numpy; jwas_tpu's C++ packer and its
+out-of-core low_memory mode are not ported.
 
 Layout: marker-major (p, ceil(n/4)) uint8; byte i of a marker holds the codes
 of observations 4i..4i+3, low bits first; code 3 is missing (read as the
-marker mean).
+marker mean). `packed` may also be a uint8 tensor on a device (a store
+generated there), which the grouped path then uses in place.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+
+from jwas_tpu_torch.io.table import NA_VALUES, as_table, parse_column, read_csv_rows
 
 FORMAT = "jwas_tpu-2bit-v1"
 
@@ -25,7 +34,8 @@ FORMAT = "jwas_tpu-2bit-v1"
 class Packed2BitStore:
     obs_ids: List[str]
     marker_ids: List[str]
-    packed: np.ndarray        # (p, ceil(n/4)) uint8, possibly a memmap
+    packed: object            # (p, ceil(n/4)) uint8: numpy (possibly a
+                              # memmap) or a torch tensor
     means: np.ndarray         # (p,) float64 mean over non-missing codes
     allele_freq: np.ndarray   # (p,)
     n_obs: int
@@ -34,8 +44,30 @@ class Packed2BitStore:
 
     @property
     def sum2pq(self) -> float:
-        f = self.allele_freq
+        f = np.asarray(self.allele_freq, dtype=np.float64)
         return float(np.sum(2.0 * f * (1.0 - f)))
+
+    def save(self, path: str) -> None:
+        """Write <path>.j2b and <path>.manifest.json, each under a temporary
+        name first and then renamed (jwas_tpu's format and publish order)."""
+        packed = self.packed
+        if not isinstance(packed, np.ndarray):
+            packed = packed.cpu().numpy()
+        tmp = path + ".j2b.tmp"
+        np.ascontiguousarray(packed).tofile(tmp)
+        manifest = {
+            "format": FORMAT, "n_obs": self.n_obs, "n_markers": self.n_markers,
+            "obs_ids": list(self.obs_ids), "marker_ids": list(self.marker_ids),
+            "means": np.asarray(self.means, dtype=np.float64).tolist(),
+            "allele_freq": np.asarray(self.allele_freq, dtype=np.float64).tolist(),
+        }
+        if self.has_missing is not None:
+            manifest["has_missing"] = bool(self.has_missing)
+        mtmp = path + ".manifest.json.tmp"
+        with open(mtmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, path + ".j2b")
+        os.replace(mtmp, path + ".manifest.json")
 
     @staticmethod
     def load(path: str, mmap: bool = False) -> "Packed2BitStore":
@@ -79,6 +111,100 @@ def pack_codes(codes: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out.T)
 
 
+def _genotype_chunks(file, separator: str, header: bool, chunk_rows: int):
+    """(marker_ids, iterator of (obs_ids, float32 (rows, p) chunk)) of a
+    genotype file, a table or an (n, p) array; IDs as jwas_tpu reads them
+    (_read_genotype_input: the first column, stripped; markers numbered
+    from 1 without a header or for an array)."""
+    if isinstance(file, np.ndarray):
+        n, p = file.shape
+        ids = [str(i + 1) for i in range(n)]
+        return [str(j + 1) for j in range(p)], iter(
+            [(ids, np.asarray(file, dtype=np.float32))])
+    if isinstance(file, (str, os.PathLike)):
+        rows = read_csv_rows(str(file), separator)
+        first = next(rows)
+        if header:
+            marker_ids = [str(c) for c in first[1:]]
+        else:
+            marker_ids = [str(j + 1) for j in range(len(first) - 1)]
+            rows = itertools.chain([first], rows)
+
+        def chunks():
+            buf = []
+            for r in rows:
+                buf.append(r)
+                if len(buf) == chunk_rows:
+                    yield _parse_chunk(buf)
+                    buf = []
+            if buf:
+                yield _parse_chunk(buf)
+        return marker_ids, chunks()
+    t = as_table(file)
+    cols = t.columns
+    marker_ids = ([str(c) for c in cols[1:]] if header
+                  else [str(j + 1) for j in range(len(cols) - 1)])
+    ids = [str(x).strip() for x in t[cols[0]].tolist()]
+    mat = np.stack([np.asarray(t[c], dtype=np.float32) for c in cols[1:]], axis=1)
+    return marker_ids, iter([(ids, mat)])
+
+
+def _parse_chunk(rows):
+    ids = [r[0].strip() for r in rows]
+    tok = np.array([r[1:] for r in rows], dtype=object)
+    tok[np.isin(tok, list(NA_VALUES))] = "nan"
+    return ids, tok.astype(np.float32)
+
+
+def prepare_packed_genotypes(file, *, separator: str = ",", header: bool = True,
+                             missing_value: float = 9.0, MAF: float = 0.0,
+                             save_path: Optional[str] = None,
+                             chunk_rows: int = 8192) -> Packed2BitStore:
+    """Convert genotypes (a CSV path, a table or an (n, p) array) into a
+    2-bit packed store (jwas_tpu's prepare_packed_genotypes).
+
+    Values equal to missing_value, or missing, get code 3; the rest are
+    rounded and clipped to 0..2. Means and allele frequencies are taken
+    over the non-missing values; MAF > 0 drops markers with frequency
+    outside (MAF, 1 - MAF) and fixed loci. A CSV is read chunk_rows rows at
+    a time; the codes, one byte a value, are held until the filter is
+    known. save_path writes the store with Packed2BitStore.save.
+    """
+    marker_ids, chunks = _genotype_chunks(file, separator, header, chunk_rows)
+    p = len(marker_ids)
+    mv = np.float32(missing_value)
+    obs_ids: List[str] = []
+    codes = []
+    sums = np.zeros(p, dtype=np.float64)
+    nmiss = np.zeros(p, dtype=np.int64)
+    for ids, mat in chunks:
+        obs_ids.extend(ids)
+        miss = (mat == mv) | np.isnan(mat)
+        sums += np.where(miss, 0.0, mat).sum(axis=0, dtype=np.float64)
+        nmiss += miss.sum(axis=0)
+        codes.append(np.where(miss, 3, np.clip(np.rint(mat), 0, 2)).astype(np.uint8))
+    # IDs typed as pandas types the column, then as strings
+    obs_ids = [str(x).strip() for x in parse_column(obs_ids).tolist()]
+    n = len(obs_ids)
+    means = sums / np.maximum(n - nmiss, 1)
+    freqs = means / 2.0
+    keep = np.ones(p, dtype=bool)
+    if MAF > 0:
+        keep = (freqs > MAF) & (freqs < 1 - MAF) & (freqs * (1.0 - freqs) > 0)
+    codes = np.concatenate(codes, axis=0) if codes else np.zeros((0, p), np.uint8)
+    if not keep.all():
+        codes = codes[:, keep]
+        marker_ids = [m for m, k in zip(marker_ids, keep) if k]
+    store = Packed2BitStore(
+        obs_ids=obs_ids, marker_ids=marker_ids, packed=pack_codes(codes),
+        means=means[keep], allele_freq=freqs[keep], n_obs=n,
+        n_markers=len(marker_ids), has_missing=bool(nmiss[keep].sum() > 0),
+    )
+    if save_path:
+        store.save(save_path)
+    return store
+
+
 def _missing_lut() -> np.ndarray:
     v = np.arange(256, dtype=np.uint16)
     lut = np.zeros(256, dtype=bool)
@@ -92,8 +218,15 @@ _MISS_LUT = _missing_lut()
 
 def store_has_missing(packed) -> bool:
     """Does any byte of the store hold code 3? One LUT pass in 64 MiB
-    steps, so a memmapped store is never read whole into memory."""
-    flat = np.asarray(packed).reshape(-1)
+    steps, so a memmapped store is never read whole into memory; a tensor
+    is scanned where it lives."""
     step = 1 << 26
+    if not isinstance(packed, np.ndarray):
+        import torch
+        flat = packed.reshape(-1)
+        lut = torch.from_numpy(_MISS_LUT).to(flat.device)
+        return any(bool(lut[flat[i:i + step].long()].any())
+                   for i in range(0, flat.numel(), step))
+    flat = np.asarray(packed).reshape(-1)
     return any(_MISS_LUT[flat[i:i + step]].any()
                for i in range(0, flat.size, step))

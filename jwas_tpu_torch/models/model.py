@@ -1,0 +1,229 @@
+"""Model building: R-style model equations -> the mixed-model structure.
+
+Counterpart of jwas_tpu/models/model.py: ModelTerm (:30), Model (:65),
+build_model (:97-201), set_covariate (:225), outputEBV (:351),
+outputMCMCsamples (:356), describe (:368) and getMCMCinfo (:400), for one
+equation (single-trait) with fixed factors, covariates, interactions and
+one genotype category. Genotypes are passed explicitly
+(build_model(..., genotypes=geno)). set_random and pedigrees are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import scipy.sparse as sp
+
+from jwas_tpu_torch.io.genotypes import Genotypes, VarianceSpec
+
+
+@dataclass
+class ModelTerm:
+    """One term of a model equation, e.g. "y1:A*B" (types.jl:9-47)."""
+
+    trm_str: str                    # "y1:A*B"
+    i_model: int                    # 0-based trait index
+    trait_name: str
+    factors: List[str]              # ["A", "B"] or ["intercept"]
+    random_type: str = "fixed"
+    names: List[str] = field(default_factory=list)   # level names
+    n_levels: int = 0
+    start_pos: int = 0              # column offset in the location design
+    X: Optional[sp.csc_matrix] = None
+    data: Optional[List[str]] = None   # per-observation level string
+    val: Optional[np.ndarray] = None   # per-observation value
+
+    @property
+    def n_factors(self) -> int:
+        return len(self.factors)
+
+
+@dataclass
+class Model:
+    """The model (the reference's MME struct, types.jl:264-346)."""
+
+    n_models: int
+    model_vec: List[str]
+    terms: List[ModelTerm]
+    term_dict: Dict[str, ModelTerm]
+    lhs_vec: List[str]
+    R: VarianceSpec
+    cov_vec: List[str] = field(default_factory=list)
+    ped: Optional[object] = None        # pedigrees are not ported: None
+    M: List[Genotypes] = field(default_factory=list)
+    traits_type: List[str] = field(default_factory=list)
+    output_ids: Optional[List[str]] = None
+    output_samples_terms: List[str] = field(default_factory=list)
+    mme_pos: int = 0
+    causal_structure: Optional[np.ndarray] = None
+    mcmc_info: object = None            # MCMCOptions captured by runMCMC
+
+    def term_names(self) -> List[str]:
+        """'trait:effect:level' in design order (getNames, build_MME.jl:385)."""
+        return [f"{trm.trm_str}:{name}" for trm in self.terms for name in trm.names]
+
+
+def build_model(model_equations: str, R=None, *, df: float = 4.0,
+                estimate_variance: bool = True, estimate_scale: bool = False,
+                constraint: bool = False, censored_trait: Sequence[str] = (),
+                categorical_trait: Sequence[str] = (),
+                genotypes: Union[Genotypes, Sequence[Genotypes], None] = None) -> Model:
+    """Parse a model equation into a Model (build_MME.jl:42-156).
+
+    model_equations: one equation, e.g. "y = intercept + herd + age + geno";
+    every variable is a fixed factor unless set_covariate makes it a
+    covariate, "A*B" is an interaction, and a name equal to a genotype
+    set's name fits that marker set. R: the residual variance's prior mean
+    (default: half the phenotypic variance). More than one equation, latent
+    traits or more than one genotype category are not ported.
+    """
+    if not isinstance(model_equations, str) or not model_equations.strip():
+        raise ValueError("model equations are wrong; pass e.g. 'y = intercept + age'")
+    if estimate_scale:
+        raise ValueError("estimate scale for residual variance is not supported")
+    eqs = [e.strip() for e in model_equations.replace(";", "\n").splitlines() if e.strip()]
+    if len(eqs) != 1:
+        raise NotImplementedError(
+            f"{len(eqs)} model equations: multi-trait models are not ported "
+            f"yet (ROADMAP.md Queue 1 item 9)")
+    if censored_trait or categorical_trait:
+        raise NotImplementedError(
+            "censored_trait and categorical_trait (latent traits) are not "
+            "ported yet (ROADMAP.md Queue 1 item 10)")
+    if R is not None:
+        R_arr = np.atleast_2d(np.asarray(R, dtype=np.float64))
+        if R_arr.shape != (1, 1):
+            raise ValueError("the residual covariance matrix is not 1x1")
+        if np.any(np.linalg.eigvalsh(R_arr) <= 0):
+            raise ValueError("the covariance matrix is not positive definite")
+    geno_list: List[Genotypes] = []
+    if genotypes is not None:
+        geno_list = [genotypes] if isinstance(genotypes, Genotypes) else list(genotypes)
+    if len(geno_list) > 1:
+        raise ValueError(
+            f"{len(geno_list)} genotype categories: only one is supported (a "
+            f"second would be dropped silently; ROADMAP.md known fault R2)")
+    geno_by_name = {g.name: g for g in geno_list}
+
+    lhs, rhs = (s.strip() for s in eqs[0].split("="))
+    terms: List[ModelTerm] = []
+    used_genos: List[Genotypes] = []
+    for trm_str in (s.strip() for s in rhs.split("+")):
+        base = trm_str.split("*")[-1].strip()
+        if base in geno_by_name:
+            if geno_by_name[base] not in used_genos:
+                used_genos.append(geno_by_name[base])
+            continue
+        terms.append(ModelTerm(trm_str=f"{lhs}:{trm_str}", i_model=0,
+                               trait_name=lhs,
+                               factors=[f.strip() for f in trm_str.split("*")]))
+
+    # residual prior: scale/df transform (build_MME.jl:127-134)
+    R_val = None if R is None else float(R_arr[0, 0])
+    model = Model(
+        n_models=1, model_vec=eqs, terms=terms,
+        term_dict={t.trm_str: t for t in terms}, lhs_vec=[lhs],
+        R=VarianceSpec(val=R_val, df=df,
+                       scale=None if R_val is None else R_val * (df - 2.0) / df,
+                       estimate_variance=estimate_variance,
+                       estimate_scale=estimate_scale, constraint=constraint),
+        traits_type=["continuous"],
+    )
+    model.M.extend(used_genos)
+    return model
+
+
+def set_covariate(model: Model, *cov_strs: str) -> None:
+    """Mark variables as continuous covariates (build_MME.jl:170-176)."""
+    for s in cov_strs:
+        model.cov_vec.extend(v for v in s.split() if v)
+
+
+def outputEBV(model: Model, ids: Sequence[str]) -> None:
+    """Request EBV/PEV output for specific individuals (output.jl:66-69)."""
+    model.output_ids = [str(s) for s in ids]
+
+
+def outputMCMCsamples(model: Model, *trm_strs: str) -> None:
+    """Request MCMC sample files for location-parameter terms
+    (output.jl:76-93)."""
+    for trm_str in trm_strs:
+        for m, eq in enumerate(model.model_vec):
+            parts = [s.strip() for s in eq.split("=")[1].split("+")]
+            if trm_str in parts:
+                full = f"{model.lhs_vec[m]}:{trm_str}"
+                if full not in model.output_samples_terms:
+                    model.output_samples_terms.append(full)
+
+
+def describe(model: Model) -> None:
+    """Print a model summary (the reference's `describe`, JWAS.jl:520-571)."""
+    print("A Linear Mixed Model was built using model equations:\n")
+    for eq in model.model_vec:
+        print(f"  {eq}")
+    print("\nModel Information:\n")
+    print(f"{'Term':<20}{'C/F':<12}{'F/R':<10}{'nLevels':>8}")
+    seen = set()
+    for trm in model.terms:
+        base = trm.factors[-1]
+        term = trm.trm_str.split(":", 1)[1]
+        if term in seen:
+            continue
+        seen.add(term)
+        if term == "intercept":
+            cf = "factor"
+        elif len(trm.factors) > 1:
+            cf = "interaction"
+        else:
+            cf = "covariate" if base in model.cov_vec else "factor"
+        fr = "fixed" if trm.random_type == "fixed" else "random"
+        print(f"{term:<20}{cf:<12}{fr:<10}{trm.n_levels or '?':>8}")
+    for g in model.M:
+        print(f"{g.name:<20}{'marker':<12}{'random':<10}{g.n_markers:>8}  "
+              f"method={g.method}")
+    print()
+    if model.mcmc_info is not None and getattr(
+            model.mcmc_info, "printout_model_info", True):
+        getMCMCinfo(model)
+
+
+def _fmt(x, digits: int) -> str:
+    return np.array2string(np.round(np.atleast_2d(np.asarray(x, dtype=float)), digits))
+
+
+def getMCMCinfo(model: Model) -> None:
+    """Print MCMC and hyper-parameter information (getMCMCinfo,
+    JWAS.jl:573-700)."""
+    info = model.mcmc_info
+    if info is None:
+        print("MCMC information is not available\n")
+        return
+    print("MCMC Information:\n")
+    for name in ("chain_length", "burnin", "printout_frequency",
+                 "output_samples_frequency", "missing_phenotypes",
+                 "update_priors_frequency", "seed", "double_precision",
+                 "fast_blocks", "n_chains", "single_step_analysis",
+                 "outputEBV", "output_heritability", "output_folder"):
+        print(f"{name:<30}{str(getattr(info, name, None)):>24}")
+    print(f"{'constraint on residual variance':<30}"
+          f"{str(bool(model.R.constraint)):>20}")
+    for g in model.M:
+        print(f"constraint on marker effect variance for {g.name}: "
+              f"{bool(g.G.constraint)}")
+    print("\nHyper-parameters Information:\n")
+    if model.R.val is not None:
+        print(f"{'residual variances:':<35}{_fmt(model.R.val, 3)}")
+    for g in model.M:
+        print(f"\nGenomic Information ({g.name}):\n")
+        print(f"{'method':<30}{g.method:>24}")
+        print(f"{'nMarkers':<30}{g.n_markers:>24}")
+        print(f"{'nObs':<30}{g.n_obs:>24}")
+        print(f"{'estimatePi':<30}{str(bool(g.estimate_pi)):>24}")
+        if g.genetic_variance.val is not None:
+            print(f"{'genetic variance':<30}{_fmt(g.genetic_variance.val, 4):>24}")
+        if g.G.val is not None:
+            print(f"{'marker effect variance':<30}{_fmt(g.G.val, 6):>24}")
+        print(f"{'pi':<30}{str(g.pi):>24}")

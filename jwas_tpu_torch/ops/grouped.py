@@ -104,15 +104,21 @@ def unpad(out_pad, n_obs: int, row_perm):
     return out_pad[:n_obs] if row_perm is None else out_pad[row_perm]
 
 
-def grouped_matvec(gm: GroupedPackedMarkers, v):
-    """X v over the whole store, (n_obs,) in observation order."""
+def grouped_matvec_store(gm: GroupedPackedMarkers, v):
+    """X v over the whole store, (4 * bpm,) in store column order: one
+    entry for every genotyped individual of the store, phenotyped or not."""
     ngroups, G, _ = gm.store.shape
     acc = None
     for g in range(ngroups):
         sl = slice(g * G, (g + 1) * G)
         part = packed_matvec(gm.store[g], gm.means[sl], v[sl])
         acc = part if acc is None else acc + part
-    return unpad(acc, gm.n_obs, gm.row_perm)
+    return acc
+
+
+def grouped_matvec(gm: GroupedPackedMarkers, v):
+    """X v over the whole store, (n_obs,) in observation order."""
+    return unpad(grouped_matvec_store(gm, v), gm.n_obs, gm.row_perm)
 
 
 def grouped_rhs(gm: GroupedPackedMarkers, w):

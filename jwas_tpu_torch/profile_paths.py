@@ -1,6 +1,6 @@
 """Where the time goes in the port's main paths at full width, on one GPU.
 
-    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR]
+    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC]
 
 Run it from the root of the repository: it imports chip_smoke.py.
 
@@ -30,6 +30,11 @@ b = gb = 128) and, for each named path:
 
 Paths: BayesC from pi0 = 0 (every marker moves), BayesC0999 from
 pi0 = 0.999 (most effects stay 0), BayesR from the default class prior.
+runMCMC is chip_smoke.py's phase 5 on the same store (45,000 phenotyped
+individuals in shuffled order, y = intercept + herd + age + geno, BayesC,
+fast_blocks = 128): its unprofiled set-up and chain seconds, then step 2
+for a runMCMC call of two outer iterations (its set-up included in the
+wall time; the Grams' float32 matmuls among the device rows).
 Each is a start-of-chain measurement: pi has not settled after three outer
 iterations. Imports torch, numpy, the port and chip_smoke.py; never jax.
 """
@@ -44,7 +49,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 import jwas_tpu_torch as jt
-from jwas_tpu_torch.engine.mcmc import bayesr_pi0
+from jwas_tpu_torch.io.genotypes import bayesr_pi
 from jwas_tpu_torch.ops import grouped as gr
 
 PATHS = {"BayesC": ("BayesC", 0.0), "BayesC0999": ("BayesC", 0.999),
@@ -78,7 +83,7 @@ def host_ms_a_round(name, gm, y, sum2pq, repeats=5):
     varg = torch.tensor(priors["marker_var0"], **f32)
     if method == "BayesR":
         delta = torch.zeros(G, dtype=torch.int32, device=dev)
-        pi_mat = torch.as_tensor(bayesr_pi0(pi0), **f32).expand(G, 4).contiguous()
+        pi_mat = torch.as_tensor(bayesr_pi(pi0), **f32).expand(G, 4).contiguous()
 
         def sweep():
             gr.sweep_blocks_bayesr_grouped(sub, alpha, delta, ycorr, vare, varg,
@@ -142,24 +147,51 @@ def profile_path(name, gm, y, sum2pq):
            f"{np.median(rows[:, 1]):.1f} W (max {rows[:, 1].max():.1f} W, "
            f"limit {rows[0, 2]:.0f} W)")
 
+    profiled(name, lambda: jt.run_st(gm, y, **priors, method=method,
+                                      chain_length=2 * b,
+                                      output_samples_frequency=b, seed=4),
+             2 * gm.store.shape[0] * (b // 8))
+
+
+def profiled(name, run, rounds, top=10):
+    """Step 2: run() under torch.profiler; device busy share, device time a
+    round and the `top` largest device-time rows."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        jt.run_st(gm, y, **priors, method=method, chain_length=2 * b,
-                  output_samples_frequency=b, seed=4)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     total = sum(device_us(e) for e in events)
-    rounds = 2 * gm.store.shape[0] * (b // 8)
-    cs.say(f"{name}: profiled run_st of 2 outer iterations: wall {wall:.3f} s, "
+    cs.say(f"{name}: profiled run of 2 outer iterations: wall {wall:.3f} s, "
            f"device {total / 1e6:.3f} s, busy {total / 1e6 / wall:.4f}; device "
            f"{total / 1e3 / rounds:.4f} ms a round ({rounds} rounds)")
-    for e in sorted(events, key=device_us, reverse=True)[:10]:
+    for e in sorted(events, key=device_us, reverse=True)[:top]:
         cs.say(f"   {e.key[:64]:64s} {device_us(e) / 1e3:10.2f} ms "
                f"{device_us(e) / total:7.4f}  calls {e.count:7d}  "
                f"mean {device_us(e) / e.count:8.2f} us")
+
+
+def profile_runmcmc(gm, tbv):
+    """chip_smoke.py's phase 5 on gm's store, unprofiled then profiled."""
+    p = int(gm.valid.sum().item())
+    store, table, _, _, _ = cs.phase5_problem(
+        gm.store.view(-1, gm.store.shape[2])[:p], gm.means[:p].double().cpu().numpy() / 2.0,
+        tbv)
+    out, seconds, built = cs.run_phase5(store, table, output_folder="",
+                                        device=gm.store.device)
+    cs.say("runMCMC: unprofiled seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()) + "; windows " + ", ".join(
+        f"{t:.4f}" for t in built["chain"][-1]))
+    grouped = built["store and Grams"]
+    ngroups, b = grouped.store.shape[0], grouped.grams.shape[1]
+    del built, grouped, out
+    profiled("runMCMC", lambda: cs.run_phase5(store, table, output_folder="",
+                                              device=gm.store.device,
+                                              chain_length=2 * b),
+             2 * ngroups * (b // 8), top=20)
 
 
 def main():
@@ -167,14 +199,17 @@ def main():
         raise SystemExit("profile_paths: torch.cuda.is_available() is false")
     names = (sys.argv[1] if len(sys.argv) > 1 else "BayesC,BayesR").split(",")
     for name in names:
-        if name not in PATHS:
+        if name not in PATHS and name != "runMCMC":
             raise SystemExit(f"unknown path {name!r}; choose from {sorted(PATHS)}")
     dev = torch.device("cuda", 0)
     cs.say(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    gm, y, _, sum2pq, _, _ = cs.full_width_problem(dev)
+    gm, y, tbv, sum2pq, _, _ = cs.full_width_problem(dev)
     for name in names:
+        if name == "runMCMC":
+            profile_runmcmc(gm, tbv)
+            continue
         profile_path(name, gm, y, sum2pq)
         host_ms_a_round(name, gm, y, sum2pq)
 

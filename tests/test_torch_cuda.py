@@ -344,3 +344,53 @@ def test_gemvs_and_grouped_path_on_card(cuda):
     for k in ("vare", "varg", "pi"):
         assert np.isfinite(res[k])
     assert np.isfinite(res["ebv"]).all()
+
+
+def test_runmcmc_on_card(cuda):
+    """runMCMC on the card (a Table with 50 of 400 phenotypes missing, so
+    those IDs are output only): its EBVs of the training IDs equal run_st's
+    on the card from the same workspace (one chain loop; rtol 1e-5), and
+    its EBVs are as accurate as the same run's on the CPU (another
+    generator's stream, so an independent chain: accuracy against the
+    simulated breeding values at most 0.05 lower, chip_smoke.py's
+    margin)."""
+    from jwas_tpu_torch import Table, build_model, get_genotypes, runMCMC
+    from jwas_tpu_torch.engine.setup import MCMCOptions, prepare_workspace
+
+    rng = np.random.default_rng(8)
+    n, p = 400, 1000
+    codes = rng.binomial(2, rng.uniform(0.1, 0.9, p), size=(n, p)).astype(np.uint8)
+    means = codes.mean(axis=0)
+    store = Packed2BitStore(
+        obs_ids=[f"i{k}" for k in range(n)], marker_ids=[f"m{j}" for j in range(p)],
+        packed=pack_codes(codes), means=means, allele_freq=means / 2, n_obs=n,
+        n_markers=p, has_missing=False)
+    bv = (codes - means) @ (rng.normal(size=p) * (rng.random(p) < 0.02))
+    y = bv + rng.normal(0.0, bv.std(), n)
+    y[rng.choice(n, 50, replace=False)] = np.nan
+    order = rng.permutation(n)
+    table = Table({"ID": np.array(store.obs_ids, dtype=object)[order], "y": y[order]})
+    opts = dict(chain_length=512, burnin=128, seed=3, output_folder="",
+                printout_model_info=False)
+
+    def model():
+        return build_model("y = intercept + geno",
+                           genotypes=get_genotypes(store, storage="2bit"))
+
+    before = abc_inner_rounds.launches
+    out = {d: runMCMC(model(), table, device=d, **opts) for d in ("cpu", cuda)}
+    assert abc_inner_rounds.launches > before
+    ebv = {d: np.asarray(o["EBV_y"].EBV, dtype=np.float64) for d, o in out.items()}
+    assert all(np.isfinite(e).all() and e.shape == (n,) for e in ebv.values())
+    acc = {d: np.corrcoef(e, bv)[0, 1] for d, e in ebv.items()}
+    assert acc[cuda] >= acc["cpu"] - 0.05, acc
+
+    ws = prepare_workspace(model(), table, MCMCOptions(**opts))
+    gm = setup_markers(store, ws.obs_ids, cuda)
+    res = run_st(gm, ws.y, W=ws.W, vare0=ws.vare0, scale_R=ws.scale_R,
+                 df_R=ws.df_R, marker_var0=ws.marker_var0,
+                 marker_scale0=ws.marker_scale0, df_marker=ws.df_marker,
+                 pi0=ws.pi0, chain_length=512, burnin=128, seed=3)
+    row = {s: i for i, s in enumerate(out[cuda]["EBV_y"].ID)}
+    np.testing.assert_allclose(ebv[cuda][[row[s] for s in ws.obs_ids]], res["ebv"],
+                               rtol=1e-5, atol=1e-6)

@@ -1,5 +1,6 @@
-"""The port as a package: what importing it loads, and chip_smoke.py's
-refusal to run without a GPU (it must print no result then)."""
+"""The port as a package: what importing it loads, the whole entry path
+where pandas cannot be imported, and chip_smoke.py's refusal to run without
+a GPU (it must print no result then)."""
 
 import os
 import subprocess
@@ -20,6 +21,42 @@ def test_import_leaves_out_jax_pandas_and_jwas_tpu():
                           env={**os.environ, "PYTHONPATH": REPO},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+PANDAS_FREE = """
+import os, sys
+sys.modules["pandas"] = None                  # import pandas now fails
+import numpy as np
+import jwas_tpu_torch as jt
+folder = sys.argv[1]
+rng = np.random.default_rng(0)
+n, p = 60, 40
+codes = rng.binomial(2, rng.uniform(0.2, 0.8, p), size=(n, p))
+with open(os.path.join(folder, "geno.csv"), "w") as f:
+    f.write("ID," + ",".join(f"m{j}" for j in range(p)) + "\\n")
+    for i in range(n):
+        f.write(f"a{i}," + ",".join(map(str, codes[i])) + "\\n")
+with open(os.path.join(folder, "pheno.csv"), "w") as f:
+    f.write("ID,y,herd\\n")
+    for i in range(0, n, 2):
+        f.write(f"a{i},{rng.normal():.4f},h{i % 3}\\n")
+geno = jt.get_genotypes(os.path.join(folder, "geno.csv"), storage="2bit")
+model = jt.build_model("y = intercept + herd + geno", genotypes=geno)
+out = jt.runMCMC(model, jt.read_csv(os.path.join(folder, "pheno.csv")),
+                 device="cpu", chain_length=16, fast_blocks=8, seed=1,
+                 printout_model_info=False, output_folder=os.path.join(folder, "res"))
+assert len(out["EBV_y"]) == n and np.isfinite(out["EBV_y"].EBV).all()
+assert "pandas" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
+print(sorted(os.listdir(os.path.join(folder, "res"))))
+"""
+
+
+def test_runmcmc_without_pandas(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", PANDAS_FREE, str(tmp_path)],
+                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "EBV_y.txt" in proc.stdout and "MCMC_samples_EBV_y.txt" in proc.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():
