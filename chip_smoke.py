@@ -32,13 +32,26 @@ Phases, each printed as it ends:
      outer iterations, result and sample files written to a temporary
      folder. Set-up and chain seconds, peak memory, launches, samples, EBV
      accuracy of candidates and training individuals, herd estimates
-     against the true herd effects.
+     against the true herd effects;
+  6. (a) runMCMC BayesB on phase 5's data at runMCMC's default block size
+     (b = 136, gb = 128: 121 groups, the last one short and served from a
+     zero-padded copy of its rows), three outer iterations on the same
+     device store, used in place, peak memory within store + Grams + 4 GB;
+     (b) BayesC through runMCMC on phase 3's problem at fast_blocks = 128,
+     the store resident, then streamed from a pinned host copy with no group
+     and with half of the groups on the card, each of the two twice, in the
+     order streamed, hybrid, hybrid, streamed: the chains equal bit for bit;
+     seconds per outer iteration, the copies' GB/s and, from a profiled
+     chain, the device's busy share and the share of the copies' device
+     time during which a kernel ran.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Imports torch and numpy and the port; never jax or jwas_tpu.
 """
 
+import bisect
+import contextlib
 import json
 import os
 import subprocess
@@ -133,9 +146,10 @@ K1_REGIMES = {
 }
 
 
-def k1_inputs(n, b, nblocks, nreps, seed, dev, regime="mixed"):
+def k1_inputs(n, b, nblocks, nreps, seed, dev, regime="mixed", per_marker=False):
     """Random Gram tiles of n-observation blocks and a chain state of one of
-    K1_REGIMES."""
+    K1_REGIMES; per_marker: one variance a marker (BayesB), else 0.02 for
+    every marker."""
     pi0, from_zero = K1_REGIMES[regime]
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -149,7 +163,8 @@ def k1_inputs(n, b, nblocks, nreps, seed, dev, regime="mixed"):
     pi = torch.clamp(torch.full((nblocks, b), pi0, device=dev), 1e-10, 1.0)
     return dict(
         grams=grams, xpx=xpx,
-        var_eff=torch.full((nblocks, b), 0.02, device=dev),
+        var_eff=(0.005 + 0.03 * torch.rand((nblocks, b), generator=g, device=dev)
+                 if per_marker else torch.full((nblocks, b), 0.02, device=dev)),
         log_pi=torch.log(pi), log_pi_comp=torch.log1p(-pi + 1e-12),
         alpha=alpha, beta=alpha.clone(),
         delta=(alpha != 0).to(torch.int32),
@@ -189,13 +204,13 @@ def chain_line(rec, ms, plain, stats, steps):
     return line
 
 
-def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed"):
+def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed", per_marker=False):
     from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds,
                                                  abc_inner_rounds_ref,
                                                  abc_inner_rounds_window_ref,
                                                  gram_resident)
 
-    inp = k1_inputs(n, b, nblocks, nreps, 7, dev, regime)
+    inp = k1_inputs(n, b, nblocks, nreps, 7, dev, regime, per_marker)
     fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
     a = fresh()
     abc_inner_rounds(**a, nreps=nreps)
@@ -213,7 +228,8 @@ def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed"):
         torch.testing.assert_close(x, y, rtol=rtol, atol=atol)
     if agree < DELTA_AGREE:
         raise AssertionError(f"K1 b={b}: delta agreement {agree:.5f} < {DELTA_AGREE}")
-    line = (f"K1 {regime} b={b} nblocks={nblocks} reps={nreps} "
+    line = (f"K1 {regime}{' per-marker var_eff' if per_marker else ''} b={b} "
+            f"nblocks={nblocks} reps={nreps} "
             f"gram={'resident' if gram_resident(b, nreps) else 'global'}: "
             f"delta agree {agree:.6f}, max |err| {err:.3g} "
             f"(alpha/beta rtol 1e-5 atol 1e-6, rhs rtol 1e-4 atol 1e-5)")
@@ -424,6 +440,8 @@ def phase2(dev):
     recs["abc_inner_rounds"]["regimes"] = regimes
     check_k1(512, 256, 64, 2, dev, time_it=True)   # global-memory Gram branch
     check_k1(512, 152, 128, 2, dev, time_it=False)  # a last window of 24
+    # BayesB at runMCMC's default block size (phase 6): b = 136
+    check_k1(512, 136, 128, 2, dev, time_it=False, per_marker=True)
     check_k1(256, 1040, 2, 1, dev, time_it=False)   # 4 markers a thread
     check_k3(64, 8, 256, 3, dev, time_it=False)
     recs["bayesr_inner_rounds"] = check_k3(512, 128, 128, 8, dev, time_it=True)
@@ -437,6 +455,8 @@ def phase2(dev):
     recs.update(check_gemv(50_000, 16_384, dev, missing=False, permuted=False,
                            time_it=True))
     check_gemv(50_000, 16_384, dev, missing=True, permuted=True, time_it=False)
+    # runMCMC's default block size (phase 6a): G = 136 * 128
+    check_gemv(50_000, 17_408, dev, missing=False, permuted=True, time_it=False)
     check_gemv(1_001, 4_096, dev, missing=True, permuted=True, time_it=False)
     check_gemv(4_000, 1_023, dev, missing=False, permuted=False, time_it=False)
     return recs
@@ -528,8 +548,8 @@ def phase3(dev, n=50_000, p=2_097_152):
     gm, y, tbv, sum2pq, t_store, t_gram = full_width_problem(dev, n, p)
     nblocks, b, _ = gm.grams.shape
     say(f"store: {gm.store.numel() / 1e9:.2f} GB packed on the device in {t_store:.1f} s")
-    say(f"Gram tiles (b={b}, gb={nblocks // gm.store.shape[0]}, "
-        f"{gm.store.shape[0]} groups, exact bf16): "
+    say(f"Gram tiles (b={b}, gb={nblocks // gm.ngroups}, "
+        f"{gm.ngroups} groups, exact bf16): "
         f"{t_gram:.1f} s, {gm.grams.numel() * 4 / 1e9:.2f} GB")
     paths = {"BayesC": ("abc_inner_rounds", "packed_rhs", "packed_matvec"),
              "BayesR": ("bayesr_inner_rounds", "packed_rhs", "packed_matvec")}
@@ -548,8 +568,8 @@ def phase3(dev, n=50_000, p=2_097_152):
             launches["phase 3"][k] = launches["phase 3"].get(k, 0) + counts[k]
     # phase 5 keeps the store (used in place: no padding at b = gb = 128),
     # not the Gram tiles
-    kept = dict(packed=gm.store.view(-1, gm.store.shape[2])[:p],
-                freqs=gm.means[:p].double().cpu().numpy() / 2.0, tbv=tbv)
+    kept = dict(packed=gm.store, freqs=gm.means[:p].double().cpu().numpy() / 2.0,
+                tbv=tbv, y=y)
     return launches, kept
 
 
@@ -687,13 +707,16 @@ def phase5_problem(packed, freqs, tbv, seed=5, n_train=45_000, n_herds=100):
     return store, table, herd_effect, list(ids[train]), list(ids[cand])
 
 
-def run_phase5(store, table, **kw):
-    """runMCMC at full width on phase5_problem's data, with the set-up
-    (workspace; Grams on the row-permuted float32 path) and the chain
-    timed inside it. Returns (results, seconds by part, what the timed
-    parts returned: "store and Grams" the grouped store, "chain" run_chain's
-    tuple, whose last item holds the seconds of each saved sample's
-    window)."""
+def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + geno",
+               on_markers=None, around_chain=None, **kw):
+    """runMCMC at full width on phase5_problem's data (or another table and
+    equation), with the set-up (workspace; Grams on the row-permuted
+    float32 path) and the chain timed inside it. on_markers(gm) is called
+    on the grouped store before the chain runs, which runs inside the
+    context manager around_chain when one is given. Returns (results, seconds
+    by part, what the timed parts returned: "store and Grams" the grouped
+    store, "chain" run_chain's tuple, whose last item holds the seconds of
+    each saved sample's window)."""
     import jwas_tpu_torch as jt
     import jwas_tpu_torch.engine.mcmc as em
 
@@ -701,11 +724,15 @@ def run_phase5(store, table, **kw):
 
     def timed(name, fn):
         def call(*a, **k):
+            ctx = around_chain if name == "chain" and around_chain else contextlib.nullcontext()
             t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
+            with ctx:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
             seconds[name] = time.perf_counter() - t0
             built[name] = out
+            if name == "store and Grams" and on_markers is not None:
+                on_markers(out)
             return out
         return call
 
@@ -714,10 +741,10 @@ def run_phase5(store, table, **kw):
     em.setup_markers = timed("store and Grams", em.setup_markers)
     em.run_chain = timed("chain", em.run_chain)
     try:
-        model = jt.build_model("y = intercept + herd + age + geno",
-                               genotypes=jt.get_genotypes(store, method="BayesC",
-                                                          storage="2bit"))
-        jt.set_covariate(model, "age")
+        model = jt.build_model(eq, genotypes=jt.get_genotypes(store, method=method,
+                                                              storage="2bit"))
+        if "age" in table.columns:
+            jt.set_covariate(model, "age")
         t0 = time.perf_counter()
         kw = dict(dict(fast_blocks=128, chain_length=384,
                        output_samples_frequency=128, seed=3,
@@ -758,7 +785,7 @@ def phase5(dev, kept, n_train=45_000):
                                          device=dev)
         gm = built.pop("store and Grams")
         in_place = gm.store.data_ptr() == kept["packed"].data_ptr()
-        b, gb = gm.grams.shape[1], gm.grams.shape[0] // gm.store.shape[0]
+        b, gb = gm.grams.shape[1], gm.grams.shape[0] // gm.ngroups
         del gm, built["workspace"]
         windows = built.pop("chain")[-1]
         counts = {k.__name__: k.launches for k in jt.KERNELS}
@@ -821,6 +848,282 @@ def phase5(dev, kept, n_train=45_000):
     return {k: counts[k] for k in path}
 
 
+# ---------------------------------------------------------------- phase 6
+
+PATH_ABC = ("abc_inner_rounds", "packed_rhs", "packed_matvec")
+# device memory beyond the store and the Gram tiles that phase 6(a) may use
+PHASE6_MARGIN_BYTES = 4e9
+
+
+def phase6a(dev, kept, n_train=45_000):
+    """BayesB through runMCMC at its default block size on phase 5's data:
+    b = 136, gb = 128 at 45,000 phenotyped, so the last group is short and
+    is served as G rows from a zero-padded copy of its rows; the store is
+    used in place and peak memory stays within store + Grams +
+    PHASE6_MARGIN_BYTES."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.ops.grouped import resolve_blocks
+    from jwas_tpu_torch.ops.inner_rounds import gram_resident
+
+    p = kept["packed"].shape[0]
+    b, gb = resolve_blocks(n_train, False, p, warn=False)
+    say(f"== phase 6a: runMCMC BayesB at the default block size (b={b}, gb={gb})")
+    store, table, _, _, _ = phase5_problem(kept["packed"], kept["freqs"], kept["tbv"],
+                                           n_train=n_train)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    jt.reset_launches()
+    out, seconds, built = run_phase5(store, table, method="BayesB", device=dev,
+                                     fast_blocks=False, chain_length=3 * b,
+                                     output_samples_frequency=b, output_folder="")
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    gm = built.pop("store and Grams")
+    in_place = gm.store.data_ptr() == kept["packed"].data_ptr()
+    tail = gm.fetch.tail
+    padded_tail = (tail is not None and tail.shape[0] == gm.fetch.G
+                   and not bool(tail[p - (gm.ngroups - 1) * gm.fetch.G:].any()))
+    shape = (gm.grams.shape[1], gm.grams.shape[0] // gm.ngroups, gm.ngroups,
+             gm.valid.shape[0] - p)
+    grams_bytes = gm.grams.numel() * 4
+    resident = gram_resident(b, b)
+    state, _, samples, _, windows = built.pop("chain")
+    varg_real = state.varg[:p]
+    finite = bool(torch.isfinite(varg_real).all()) and bool(torch.isfinite(state.alpha).all())
+    del gm, state, built, tail
+    peak = torch.cuda.max_memory_allocated(dev)
+    limit = kept["packed"].numel() + grams_bytes + PHASE6_MARGIN_BYTES
+    say(f"b={shape[0]}, gb={shape[1]}, {shape[2]} groups, {shape[3]} padding markers "
+        f"(the last group short, served from a zero-padded copy of G rows: "
+        f"{padded_tail}); store used in place: {in_place}; K1 Gram tile "
+        f"{'resident (K2)' if resident else 'global (K1)'}")
+    say("seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + "; the chain's windows " + ", ".join(f"{t:.3f}" for t in windows))
+    say(f"peak device memory {peak / 1e9:.2f} GB (store {kept['packed'].numel() / 1e9:.2f}"
+        f" + Grams {grams_bytes / 1e9:.2f} + {PHASE6_MARGIN_BYTES / 1e9:.0f} GB = "
+        f"{limit / 1e9:.2f} GB allowed); launches {counts}")
+    say(f"samples: vare {samples['vare']}, varg (mean over markers) {samples['varg']}, "
+        f"pi {samples['pi']}; results: marker effects variances "
+        f"{out['marker effects variances geno'].Estimate[0]:.6g}")
+    values = [np.asarray(out[k].Estimate, dtype=np.float64) for k in
+              ("residual variance", "marker effects variances geno", "pi_geno",
+               "marker effects geno")]
+    values.append(np.asarray(out["EBV_y"].EBV, dtype=np.float64))
+    if not finite or not all(np.isfinite(v).all() for v in values):
+        raise AssertionError("phase 6a: non-finite results")
+    if shape[:2] != (b, gb) or shape[3] <= 0:
+        raise AssertionError(f"phase 6a: blocks {shape}, expected b={b}, gb={gb}, padding")
+    if not in_place:
+        raise AssertionError("phase 6a: runMCMC copied the device store")
+    if not padded_tail:
+        raise AssertionError("phase 6a: the short last group is not served as G rows")
+    if not resident:
+        raise AssertionError(f"phase 6a: b={b} does not take K1's resident branch (K2)")
+    if peak > limit:
+        raise AssertionError(f"phase 6a: peak {peak / 1e9:.2f} GB > {limit / 1e9:.2f} GB")
+    if any(counts[k] == 0 for k in PATH_ABC):
+        raise AssertionError(f"phase 6a: kernels never launched: {counts}")
+    return {k: counts[k] for k in PATH_ABC}
+
+
+def host_ram_available() -> int:
+    """MemAvailable of /proc/meminfo, bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def copy_overlap(prof):
+    """From a torch.profiler trace of a streamed store: the host-to-device
+    copies' device seconds, the share of them during which a kernel ran (1:
+    every copy hidden behind kernels, 0: copies in series with them; None
+    without copies), and how many of the copies had a kernel running for at
+    least half of their time, out of how many."""
+    kern, copies = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        iv = (e.time_range.start, e.time_range.end)
+        if "memcpy htod" in name:
+            copies.append(iv)
+        elif "memcpy" not in name and "memset" not in name:
+            kern.append(iv)
+    if not copies:
+        return 0.0, None, 0, 0
+    merged = []
+    for t0, t1 in sorted(kern):
+        if merged and t0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t1)
+        else:
+            merged.append([t0, t1])
+    starts = [m[0] for m in merged]
+    total = hidden = 0.0
+    mostly = 0
+    for c0, c1 in copies:
+        h = 0.0
+        i = max(0, bisect.bisect_right(starts, c0) - 1)
+        while i < len(merged) and merged[i][0] < c1:
+            h += max(0.0, min(c1, merged[i][1]) - max(c0, merged[i][0]))
+            i += 1
+        total += c1 - c0
+        hidden += h
+        mostly += 2 * h >= c1 - c0
+    return total / 1e6, (hidden / total if total else None), mostly, len(copies)
+
+
+@contextlib.contextmanager
+def busy_shares(out):
+    """Profile the block with torch.profiler; then out holds the self
+    device time of its kernels and of its memory copies over its wall time
+    ("kernels", "copies"), the wall seconds ("wall") and the share of the
+    host-to-device copies' device time during which a kernel ran
+    ("overlap") and how many copies were at least half hidden, of how
+    many ("mostly_hidden"; see copy_overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = copy = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0) or 0)
+        if "memcpy" in e.key.lower() or "memset" in e.key.lower():
+            copy += us
+        else:
+            kern += us
+    _, overlap, mostly, ncopies = copy_overlap(prof)
+    out.update(kernels=kern / 1e6 / wall, copies=copy / 1e6 / wall, wall=wall,
+               overlap=overlap, mostly_hidden=(mostly, ncopies))
+
+
+def phase6b(dev, kept, fast_blocks=128):
+    """BayesC pi0 = 0 through runMCMC on phase 3's problem (every
+    individual phenotyped, in store order) at fast_blocks = 128: the store
+    resident on the card, then streamed from a pinned host copy with no
+    group resident and with half of them resident (the split set through
+    JWAS_HBM_BYTES), each twice, in the order streamed, hybrid, hybrid,
+    streamed. Alpha, the EBVs and the vare / varg / pi tracks must equal the
+    resident run's bit for bit. Each streamed run is then profiled for two
+    outer iterations: busy shares and the copies' overlap with kernels."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.io.packed import Packed2BitStore
+    from jwas_tpu_torch.io.table import Table
+    from jwas_tpu_torch.ops import grouped as gr
+
+    say("== phase 6b: the store streamed from pinned host memory")
+    packed = kept["packed"]
+    p, bpm = packed.shape
+    n = kept["tbv"].shape[0]
+    b, gb = gr.resolve_blocks(n, fast_blocks, p, warn=False)
+    G = b * gb
+    avail = host_ram_available()
+    p_b = p
+    if avail < 1.25 * p * bpm + 8e9:             # pinned copy, headroom
+        p_b = max(G, int((avail - 8e9) / 1.25 / bpm) // G * G)
+        say(f"host RAM available {avail / 1e9:.1f} GB cannot pin the "
+            f"{p * bpm / 1e9:.1f} GB store: P cut to {p_b} for phase 6b")
+    t0 = time.perf_counter()
+    host = gr.pinned_copy(packed[:p_b])
+    t_pin = time.perf_counter() - t0
+    freqs = kept["freqs"][:p_b]
+    ids = [f"ind{i + 1}" for i in range(n)]
+    table = Table({"ID": np.array(ids, dtype=object), "y": kept["y"]})
+
+    def store_of(x):
+        return Packed2BitStore(obs_ids=ids, marker_ids=[f"m{j + 1}" for j in range(p_b)],
+                               packed=x, means=2.0 * freqs, allele_freq=freqs,
+                               n_obs=n, n_markers=p_b, has_missing=False)
+
+    ngroups = -(-p_b // G)
+    split = {"streamed": 0, "hybrid": ngroups // 2}
+    runs = [("resident", store_of(packed[:p_b]), False, None)]
+    for i, name in enumerate(("streamed", "hybrid", "hybrid", "streamed")):
+        runs.append((name if i < 2 else f"{name} again", store_of(host), True,
+                     gr.hybrid_budget(split[name], ngroups, G, b, bpm)))
+    say(f"host copy: {host.numel() / 1e9:.2f} GB pinned in {t_pin:.1f} s; P = {p_b}, "
+        f"b={b}, gb={gb}, {ngroups} groups of {G * bpm / 1e6:.1f} MB")
+    results, launches = {}, {}
+    for name, store, offload, budget in runs:
+        fetch = {}
+
+        def on_markers(gm):
+            fetch["f"] = gm.fetch
+            gm.fetch.record = True
+
+        saved = os.environ.get("JWAS_HBM_BYTES")
+        if budget is not None:
+            os.environ["JWAS_HBM_BYTES"] = str(budget)
+        try:
+            torch.cuda.empty_cache()
+            jt.reset_launches()
+            kw = dict(method="BayesC", eq="y = intercept + geno", device=dev,
+                      fast_blocks=fast_blocks, chain_length=3 * b,
+                      output_samples_frequency=b, output_folder="",
+                      host_offload_genotypes=offload)
+            out, seconds, built = run_phase5(store, table, on_markers=on_markers, **kw)
+            counts = {k.__name__: k.launches for k in jt.KERNELS}
+            f = fetch["f"]
+            copy_s, copy_b = f.copy_seconds()
+            state, _, samples, _, windows = built["chain"]
+            results[name] = dict(alpha=state.alpha.cpu().numpy(),
+                                 ebv=np.asarray(out["EBV_y"].EBV),
+                                 **{k: np.asarray(samples[k]) for k in ("vare", "varg", "pi")})
+            del built, state, out
+            busy = {}
+            if offload:
+                _, _, prof_built = run_phase5(store, table, around_chain=busy_shares(busy),
+                                              **dict(kw, chain_length=2 * b))
+                busy["windows"] = prof_built["chain"][-1]
+                del prof_built
+        finally:
+            if saved is None:
+                os.environ.pop("JWAS_HBM_BYTES", None)
+            else:
+                os.environ["JWAS_HBM_BYTES"] = saved
+        launches[name] = {k: counts[k] for k in PATH_ABC}
+        line = (f"{name}: {f.resident} of {f.ngroups} groups on the card; seconds: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+                + "; s / outer iteration " + ", ".join(f"{t:.4f}" for t in windows))
+        if copy_b:
+            line += (f"; host-to-device copies during the chain: {copy_b / 1e9:.1f} GB in "
+                     f"{copy_s:.3f} s of copy-stream time, {copy_b / copy_s / 1e9:.1f} GB/s")
+        if busy:
+            overlap = ("none" if busy["overlap"] is None
+                       else f"{busy['overlap']:.4f}")
+            line += (f"; profiled chain of 2 outer iterations ({busy['wall']:.2f} s, "
+                     f"windows {', '.join(f'{t:.4f}' for t in busy['windows'])}): "
+                     f"kernels busy {busy['kernels']:.4f}, copies {busy['copies']:.4f} "
+                     f"of the wall time; share of the copies' device time with a "
+                     f"kernel running {overlap}, copies at least half hidden "
+                     f"{busy['mostly_hidden'][0]} of {busy['mostly_hidden'][1]}")
+        say(line)
+        say(f"  launches {counts}")
+    ref = results["resident"]
+    for name in results:
+        if name == "resident":
+            continue
+        same = {k: bool(np.array_equal(results[name][k], ref[k])) for k in ref}
+        say(f"{name} vs resident, bit for bit: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"phase 6b: the {name} chain differs from the resident "
+                                 f"one in {[k for k, v in same.items() if not v]}")
+    for name, c in launches.items():
+        if any(c[k] == 0 for k in PATH_ABC):
+            raise AssertionError(f"phase 6b {name}: kernels never launched: {c}")
+    if not all(np.isfinite(ref[k]).all() for k in ref):
+        raise AssertionError("phase 6b: non-finite results")
+    del host
+    return launches["streamed"]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -846,12 +1149,14 @@ def main():
     launches, kept = phase3(dev)
     phase4(dev)
     launches["phase 5"] = phase5(dev, kept)
+    launches["phase 6a"] = phase6a(dev, kept)
+    launches["phase 6b"] = phase6b(dev, kept)
 
-    # launches: phase 3's (run_st, both methods), phase 5's (runMCMC)
+    # launches: phase 3's (run_st, both methods), phase 5's (runMCMC),
+    # phase 6's (runMCMC BayesB; BayesC streamed with no group resident)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
-                    launches=launches["phase 3"][name]
-                    + launches["phase 5"].get(name, 0),
+                    launches=sum(c.get(name, 0) for c in launches.values()),
                     launches_by_phase={ph: c.get(name, 0) for ph, c in launches.items()},
                     **recs[name]) for name in REPLACES]
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,12 @@
 """jwas_tpu_torch: the PyTorch / CUDA port of jwas_tpu, for NVIDIA Hopper.
 
-It runs single-trait BayesC and BayesR with fast blocks over the 2-bit
-packed genotype store on the group-sequential schedule, the path jwas_tpu's
-runMCMC takes for storage='2bit' on one device. It imports torch, numpy and
-scipy only; never jax, pandas or jwas_tpu.
+It runs single-trait BayesC, BayesB and BayesR with fast blocks over the
+2-bit packed genotype store on the group-sequential schedule, the path
+jwas_tpu's runMCMC takes for storage='2bit' on one device. The store lives
+on the card, or in pinned host memory from which its groups stream to the
+card (runMCMC's host_offload_genotypes), the leading ones on the card
+where they fit. It imports torch, numpy and scipy only; never jax, pandas
+or jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
 get_genotypes(..., storage="2bit") or prepare_packed_genotypes,
@@ -13,7 +16,7 @@ Below them: Packed2BitStore.load (a stored 2-bit store),
 engine.mcmc.setup_markers (block sizes, Gram tiles, on a device) and
 engine.mcmc.run_st (the chain with explicit priors). On a CUDA device the
 sweep runs hand-written kernels (csrc/), built with nvcc on first use: the
-BayesC or BayesR inner rounds between the two packed GEMVs. On the CPU
+BayesC/B or BayesR inner rounds between the two packed GEMVs. On the CPU
 (device="cpu") it runs their plain PyTorch versions.
 """
 

@@ -4,7 +4,8 @@ For tests that make both packages compute from identical parameters: the
 grouped store and its statistics as jwas_tpu builds them (numpy-converted
 GroupedPackedMarkers fields, with j-major Gram tiles (b, b, nblocks)) become
 a GroupedPackedMarkers of this package with block-major Grams
-(nblocks, b, b), and chain-state arrays become flat tensors.
+(nblocks, b, b) over the (p_pad, bpm) store, and chain-state arrays become
+flat tensors.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jwas_tpu_torch.ops.grouped import GroupedPackedMarkers
+from jwas_tpu_torch.ops.grouped import GroupedPackedMarkers, GroupFetcher
 
 
 def from_jax_arrays(store, means, valid, xpx, grams, n_obs: int,
@@ -22,8 +23,10 @@ def from_jax_arrays(store, means, valid, xpx, grams, n_obs: int,
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.array(x), dtype=dtype).to(device)
 
+    ngroups, G, bpm = np.shape(store)
     gm = GroupedPackedMarkers(
-        store=t(store, torch.uint8),
+        fetch=GroupFetcher(t(store, torch.uint8).view(ngroups * G, bpm), G,
+                           device, ngroups),
         means=t(means),
         row_perm=None if row_perm is None else t(row_perm, torch.int64),
         xpx=t(xpx),

@@ -1,22 +1,22 @@
-"""Single-trait BayesC and BayesR on the 2-bit packed store: Gibbs step,
-chain loop, runMCMC.
+"""Single-trait BayesC, BayesB and BayesR on the 2-bit packed store: Gibbs
+step, chain loop, runMCMC.
 
 Counterpart of jwas_tpu/engine/mcmc.py, trimmed to the path that runMCMC
 takes for storage='2bit' genotypes on one device (:786-868):
 STData (:50), make_st_step (:113-527: the location pass :180-185, the
-packed grouped BayesC branch :191-210 and BayesR branch :321-347, pi
-:438-443, the marker variance :446-451 and :469-472, its scale :476-484,
-the residual variance :509-518), make_run_window (:580-668), _init_accum
-(:671), _build_st_data_and_state (:762-868, the state :1128-1224) and the
-single-chain loop of runMCMC (:1435-1569).
+packed grouped BayesC/B branch :191-210 and BayesR branch :321-347, pi
+:438-443, the marker variance :446-472, its scale :476-484, the residual
+variance :509-518), make_run_window (:580-668), _init_accum (:671),
+_apply_update_priors (:691-715), _build_st_data_and_state (:762-868, the
+state :1128-1224) and the single-chain loop of runMCMC (:1435-1569).
 
 Two entry points share the chain loop (run_chain) and the initial state:
 runMCMC(model, df, ...) takes a model from build_model and the phenotypes
 and returns the result tables, as jwas_tpu's does; run_st takes a store set
 up by setup_markers and the priors explicitly and returns numpy posterior
-means. The EBVs of the output IDs are the output IDs' rows of the X alpha
-pass over the store (K5), in place of jwas_tpu's dense (n_out, p) decode
-(:600-601).
+means. BayesB runs BayesC's sweep with one variance a marker. The EBVs of
+the output IDs are the output IDs' rows of the X alpha pass over the store
+(K5), in place of jwas_tpu's dense (n_out, p) decode (:600-601).
 """
 
 from __future__ import annotations
@@ -43,21 +43,23 @@ from jwas_tpu_torch.ops.grouped import (
     build_grouped_markers,
     grouped_matvec,
     grouped_matvec_store,
-    pick_stable_blocks,
+    plan_store,
     sweep_blocks_abc_grouped,
     sweep_blocks_bayesr_grouped,
 )
 from jwas_tpu_torch.ops.location import gibbs_pass_lambda
 from jwas_tpu_torch.ops.variance import (
+    sample_marker_variance_bayesb,
     sample_marker_variance_bayesr,
     sample_marker_variance_common,
     sample_pi_abc,
     sample_pi_bayesr,
     sample_residual_variance_st,
+    sample_scale_bayesb,
     sample_scale_st,
 )
 
-METHODS = ("BayesC", "BayesR")
+METHODS = ("BayesC", "BayesB", "BayesR")
 
 
 class STData(NamedTuple):
@@ -76,7 +78,7 @@ class STData(NamedTuple):
 
 class SampleOut(NamedTuple):
     vare: torch.Tensor
-    varg: torch.Tensor
+    varg: torch.Tensor         # BayesB: the mean over the real markers
     pi: torch.Tensor           # BayesC 0-d P(excluded), BayesR (4,)
     ebv: torch.Tensor          # (n_out,) EBVs (run_st: the training rows)
     genvar: torch.Tensor
@@ -139,27 +141,27 @@ def resolve_device(device) -> torch.device:
 
 
 def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
-                  fast_blocks=True) -> GroupedPackedMarkers:
-    """Block sizes, row order and Gram tiles for a store, as runMCMC picks
-    them for storage='2bit' (jwas_tpu/engine/mcmc.py:786-844).
+                  fast_blocks=True, host_offload=False) -> GroupedPackedMarkers:
+    """Block sizes, row order, residence and Gram tiles for a store, as
+    runMCMC picks them for storage='2bit' (jwas_tpu/engine/mcmc.py:786-844).
 
-    device: where the store and the chain live; the GPU unless the caller
-    asks for another (see resolve_device). A store whose packed bytes are a
-    tensor on that device is used in place when no padding is needed.
-    fast_blocks: True or False for the default block size (from the number
-    of observations) or an int block size. The exact bf16 Gram path is
-    taken when the store has no missing codes and no row permutation is
-    needed.
+    device: where the chain lives; the GPU unless the caller asks for
+    another (see resolve_device). A store whose packed bytes are a tensor
+    on that device is used in place. fast_blocks: True or False for the
+    default block size (from the number of observations) or an int block
+    size. host_offload: True, False or "auto" (runMCMC's
+    host_offload_genotypes): whether the store streams from pinned host
+    memory, as many of its leading groups on the device as fit
+    (ops/grouped.py::plan_device_groups; JWAS_HBM_BYTES sets the budget,
+    hybrid_budget makes one for a chosen split). A numpy or memmap
+    store that streams is copied into pinned host memory in chunks. The
+    exact bf16 Gram path is taken when the store has no missing codes and
+    no row permutation is needed.
     """
     device = resolve_device(device)
     n = len(obs_ids)
-    if fast_blocks is True or not fast_blocks:
-        bs = mk.default_block_size(n)
-    else:
-        bs = int(fast_blocks)
-    bs = max(8, ((bs + 7) // 8) * 8)
-    user_sized = fast_blocks is not True and bool(fast_blocks)
-    b, gb = pick_stable_blocks(n, bs, store.n_markers, warn=user_sized)
+    b, gb, host, _ = plan_store(n, store.packed, fast_blocks, host_offload,
+                                device, warn=True)
     index = {s: i for i, s in enumerate(store.obs_ids)}
     try:
         perm = np.asarray([index[s] for s in obs_ids], dtype=np.int64)
@@ -171,7 +173,7 @@ def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
                    else store_has_missing(store.packed))
     return build_grouped_markers(
         store.packed, store.means, n, b, gb, device, row_perm=perm,
-        has_missing=has_missing,
+        has_missing=has_missing, host=host,
     )
 
 
@@ -179,8 +181,10 @@ def make_st_step(cfg: EngineCfg):
     """One outer iteration: location pass, grouped marker sweep (nreps
     effective sweeps), pi, marker variance, its scale, residual variance.
     The marker state and ycorr of the returned state are the input's
-    tensors, updated in place."""
+    tensors, updated in place. BayesB is BayesC's sweep with one variance a
+    marker."""
     bayesr = cfg.method == "BayesR"
+    bayesb = cfg.method == "BayesB"
 
     def step(state: ChainState, data: STData) -> ChainState:
         gen, gm = state.gen, data.gm
@@ -221,6 +225,9 @@ def make_st_step(cfg: EngineCfg):
         if cfg.estimate_marker_variance and bayesr:
             varg = sample_marker_variance_bayesr(gen, alpha, delta,
                                                  cfg.df_marker, state.scale_g)
+        elif cfg.estimate_marker_variance and bayesb:
+            varg = sample_marker_variance_bayesb(gen, beta, cfg.df_marker,
+                                                 state.scale_g)
         elif cfg.estimate_marker_variance:
             nloci = torch.sum(torch.where(real, delta, torch.zeros_like(delta)))
             varg = sample_marker_variance_common(gen, alpha, nloci,
@@ -228,7 +235,10 @@ def make_st_step(cfg: EngineCfg):
 
         # 2d. prior scale of the marker-effect variance
         scale_g = state.scale_g
-        if cfg.estimate_scale:
+        if cfg.estimate_scale and bayesb:
+            scale_g = sample_scale_bayesb(gen, varg, gm.valid, cfg.n_markers,
+                                          cfg.df_marker)
+        elif cfg.estimate_scale:
             scale_g = sample_scale_st(gen, varg, cfg.df_marker)
 
         # 3. residual variance
@@ -249,9 +259,18 @@ def _welford(m, x, n):
 
 
 def _pi_summary(cfg: EngineCfg, state: ChainState):
-    """The pi a sample reports: BayesR's (4,) class prior, BayesC's common
-    P(excluded) (the first marker's)."""
+    """The pi a sample reports: BayesR's (4,) class prior, BayesC's and
+    BayesB's P(excluded) of the first marker (their common value when pi
+    is estimated)."""
     return state.pi if cfg.method == "BayesR" else state.pi[0]
+
+
+def _varg_summary(cfg: EngineCfg, data: STData, state: ChainState):
+    """The marker variance a sample reports: BayesB's mean over the real
+    markers, the common variance otherwise."""
+    if cfg.method != "BayesB":
+        return state.varg
+    return torch.sum(torch.where(data.gm.valid > 0, state.varg, 0.0)) / cfg.n_markers
 
 
 def sample_ebv(data: STData, state: ChainState):
@@ -276,7 +295,7 @@ def make_run_window(cfg: EngineCfg):
         ebv = sample_ebv(data, state)
         genvar = (torch.var(ebv, unbiased=False) if ebv.numel() > 1
                   else torch.zeros((), dtype=ebv.dtype, device=ebv.device))
-        out = SampleOut(vare=state.vare, varg=state.varg,
+        out = SampleOut(vare=state.vare, varg=_varg_summary(cfg, data, state),
                         pi=_pi_summary(cfg, state),
                         ebv=ebv, genvar=genvar,
                         h2=genvar / (genvar + state.vare))
@@ -327,7 +346,7 @@ def _reject_unsupported(**unsupported) -> None:
         if value:
             raise NotImplementedError(
                 f"{name} is not ported yet; the port runs single-trait "
-                f"BayesC and BayesR in float32 with one genotype category "
+                f"BayesC, BayesB and BayesR in float32 with one genotype category "
                 f"and no weights, random effects, latent traits or "
                 f"annotations"
             )
@@ -356,7 +375,7 @@ def make_data(gm: GroupedPackedMarkers, y, W, scale_R, ebv_rows=None,
               out_W=None) -> STData:
     """The chain's device data; y (n,) and W (n, K; None: an intercept)
     in observation order."""
-    dev, f32, n = gm.store.device, torch.float32, gm.n_obs
+    dev, f32, n = gm.device, torch.float32, gm.n_obs
     y = torch.as_tensor(np.asarray(y), dtype=f32).to(dev)
     W = (torch.ones((n, 1), dtype=f32, device=dev) if W is None
          else torch.as_tensor(np.asarray(W), dtype=f32).to(dev))
@@ -372,12 +391,17 @@ def make_data(gm: GroupedPackedMarkers, y, W, scale_R, ebv_rows=None,
 
 
 def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
-                  marker_scale0, pi0, seed: Optional[int]) -> ChainState:
-    """Effects at 0, every BayesC marker included (BayesR: all in the null
-    class), the priors' values, one generator seeded with seed (None: 0)
-    (jwas_tpu/engine/mcmc.py:1128-1224)."""
+                  marker_scale0, pi0, seed: Optional[int], sol0=None,
+                  alpha0=None) -> ChainState:
+    """The location parameters at sol0 and the real markers' effects at
+    alpha0 (each 0 when None), every BayesC/B marker included (BayesR: all
+    in the null class), the priors' values, one generator seeded with seed
+    (None: 0) (jwas_tpu/engine/mcmc.py:1128-1224). A per-marker pi0 (p,)
+    is kept, padded with 1.0; BayesB starts every real marker's variance
+    at marker_var0 and the padding's at 1.0. The starting residual is
+    y - W sol0 - X alpha0, X alpha0 one K5 pass over the store."""
     gm = data.gm
-    dev, f32 = gm.store.device, torch.float32
+    dev, f32 = gm.device, torch.float32
 
     def scalar(x):
         return torch.tensor(float(np.mean(x)), dtype=f32, device=dev)
@@ -385,20 +409,28 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
     gen = torch.Generator(device=dev)
     gen.manual_seed(0 if seed is None else int(seed))
     real = gm.valid > 0
-    p_pad = gm.valid.shape[0]
+    p_pad, p = gm.valid.shape[0], cfg.n_markers
     sol = torch.zeros(data.W.shape[1], dtype=f32, device=dev)
+    if sol0 is not None:
+        sol = torch.as_tensor(np.asarray(sol0, dtype=np.float64), dtype=f32).to(dev)
     alpha = torch.zeros(p_pad, dtype=f32, device=dev)
+    if alpha0 is not None:
+        alpha[:p] = torch.as_tensor(np.asarray(alpha0, dtype=np.float64), dtype=f32).to(dev)
     if cfg.method == "BayesR":
         delta = torch.zeros(p_pad, dtype=torch.int32, device=dev)
         pi = torch.as_tensor(bayesr_pi(pi0), dtype=f32).to(dev)
     else:
         delta = real.to(torch.int32)
-        pi = torch.where(real, scalar(pi0), torch.ones((), dtype=f32, device=dev))
+        pi_np = np.ones(p_pad)
+        pi_np[:p] = np.asarray(pi0, dtype=np.float64)
+        pi = torch.as_tensor(pi_np, dtype=f32).to(dev)
+    varg = scalar(marker_var0)
+    if cfg.method == "BayesB":
+        varg = torch.where(real, varg, torch.ones((), dtype=f32, device=dev))
     return ChainState(
         gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(), delta=delta,
         ycorr=data.y - data.W @ sol - grouped_matvec(gm, alpha),
-        vare=scalar(vare0), varg=scalar(marker_var0), pi=pi,
-        scale_g=scalar(marker_scale0),
+        vare=scalar(vare0), varg=varg, pi=pi, scale_g=scalar(marker_scale0),
     )
 
 
@@ -407,13 +439,16 @@ SAMPLE_KEYS = ("vare", "varg", "pi", "genvar", "h2")
 
 def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
     """A saved sample's values on the host, in one transfer: the tracks of
-    SAMPLE_KEYS and what the sample files need (sol, alpha, ebv)."""
+    SAMPLE_KEYS and what the sample files need (sol, alpha, BayesB's
+    per-marker variances, ebv)."""
     parts = {k: getattr(out, k) for k in SAMPLE_KEYS}
     if stream is not None and stream.enabled:
         if stream.loc_slices:
             parts["sol"] = state.sol
         if stream.write_markers:
             parts["alpha"] = state.alpha[:p]
+            if state.varg.dim():
+                parts["varg_markers"] = state.varg[:p]
         if stream.ebv:
             parts["ebv"] = out.ebv
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in parts.values()])
@@ -425,16 +460,35 @@ def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
     return host
 
 
+def apply_update_priors(cfg: EngineCfg, data: STData, state: ChainState,
+                        accum: Accum):
+    """Empirical-Bayes prior refresh from the running posterior means
+    (jwas_tpu/engine/mcmc.py:691-715, MCMC_BayesianAlphabet.jl:381-395):
+    the marker-variance scale becomes mean(varg) (df - 2) / df, except
+    BayesB's, and the residual-variance scale mean(vare) (df_R - 2) / df_R.
+    Returns (data, state)."""
+    if cfg.method != "BayesB":
+        state = state._replace(
+            scale_g=accum.varg_m * (cfg.df_marker - 2.0) / cfg.df_marker)
+    data = data._replace(
+        scale_r=accum.vare_m * (cfg.df_residual - 2.0) / cfg.df_residual)
+    return data, state
+
+
 def run_chain(cfg: EngineCfg, data: STData, state: ChainState, plan: ChainPlan,
-              stream=None, progress=None):
+              stream=None, progress=None, update_priors_frequency: int = 0):
     """The single-chain loop (jwas_tpu/engine/mcmc.py:1484-1560): burn-in,
     then n_saved windows of thin_outer outer iterations, each ending with
-    its sample read back (and written to the sample files by stream).
+    its sample read back (and written to the sample files by stream). With
+    update_priors_frequency K > 0 the priors are refreshed
+    (apply_update_priors) at the end of each window in which the sweep
+    count passes a multiple of K.
     Returns (state, accum, samples, burnin_seconds, window_seconds)."""
     run_window = make_run_window(cfg)
     accum = _init_accum(cfg, data, state)
     samples = {k: [] for k in SAMPLE_KEYS}
     window_seconds = []
+    upf, prior_epoch = int(update_priors_frequency or 0), 0
     t0 = time.perf_counter()
     if plan.burnin_outer > 0:
         state, accum, out = run_window(state, data, accum, plan.burnin_outer,
@@ -444,6 +498,10 @@ def run_chain(cfg: EngineCfg, data: STData, state: ChainState, plan: ChainPlan,
     for w in range(plan.n_saved):
         t_w = time.perf_counter()
         state, accum, out = run_window(state, data, accum, plan.thin_outer)
+        iters_done = (plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps
+        if upf > 0 and iters_done // upf > prior_epoch:
+            prior_epoch = iters_done // upf
+            data, state = apply_update_priors(cfg, data, state, accum)
         host = _read_back(state, out, stream, cfg.n_markers)
         window_seconds.append(time.perf_counter() - t_w)
         for k in SAMPLE_KEYS:
@@ -451,8 +509,8 @@ def run_chain(cfg: EngineCfg, data: STData, state: ChainState, plan: ChainPlan,
         if stream is not None:
             stream.write_sample(host)
         if progress is not None:
-            progress.update((plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps,
-                            vare=host["vare"], varg=host["varg"], pi=host["pi"])
+            progress.update(iters_done, vare=host["vare"], varg=host["varg"],
+                            pi=host["pi"])
     return state, accum, samples, t_burnin, window_seconds
 
 
@@ -472,17 +530,17 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
            method: str = "BayesC", rinv=None, dtype=torch.float32,
            random_effects=(), trait_type: str = "continuous",
            annotations=None, n_genotype_categories: int = 1) -> dict:
-    """Run one single-trait BayesC or BayesR chain on the device that
-    holds gm.
+    """Run one single-trait BayesC, BayesB or BayesR chain on the device
+    that holds gm.
 
     gm comes from setup_markers (or build_grouped_markers); y (n,) and the
     location design W (n, K; default: an intercept) are in observation
     order. The priors are those of prepare_workspace. pi0 is BayesC's
     P(excluded), or BayesR's (4,) class prior (0: the default
     DEFAULT_BAYESR_PI); for BayesR, marker_var0 is sigma^2, the variance
-    of class 3. nreps (default: the block size) effective sweeps make one
-    outer iteration, clamped to chain_length; sync_every defaults to
-    min(8, nreps).
+    of class 3, for BayesB every marker's starting variance. nreps
+    (default: the block size) effective sweeps make one outer iteration,
+    clamped to chain_length; sync_every defaults to min(8, nreps).
 
     Returns numpy posterior means (vare, varg, pi, scale, sol, alpha,
     model_frequency, ebv) with posterior standard deviations (*_sd) and
@@ -542,9 +600,22 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     """The 2-bit grouped branch of jwas_tpu's _build_st_data_and_state
     (:786-868, state :1128-1224): setup_markers' block choice and row order
     of the training rows, the workspace's priors, the output IDs' store
-    columns and prediction-equation rows. Returns (cfg, data, state)."""
+    columns and prediction-equation rows, the residence of the store
+    (host_offload_genotypes) and the starting values (starting_value: the
+    location parameters, :1131-1141; the genotypes' starting_alpha: the
+    marker effects, :1142-1145). Returns (cfg, data, state)."""
     g = ws.geno
-    gm = setup_markers(g.packed_store, ws.obs_ids, device, fast_blocks=opts.fast_blocks)
+    K = ws.W.shape[1]
+    sol0 = None
+    if opts.starting_value is not None and opts.starting_value is not False:
+        sol0 = np.asarray(opts.starting_value, dtype=np.float64).reshape(-1)
+        if len(sol0) != K:
+            raise ValueError(
+                f"length of starting values for non-marker location "
+                f"parameters is wrong (expected {K}, got {len(sol0)}); the "
+                f"order is model.term_names()")
+    gm = setup_markers(g.packed_store, ws.obs_ids, device, fast_blocks=opts.fast_blocks,
+                       host_offload=opts.host_offload_genotypes)
     if opts.independent_blocks:
         sync_every = 0                   # one sync an outer iteration
     elif opts.sync_every is not None:
@@ -566,7 +637,8 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     data = make_data(gm, ws.y, ws.W, ws.scale_R, ebv_rows=ws.output_store_rows,
                      out_W=out_W)
     state = initial_state(cfg, data, vare0=ws.vare0, marker_var0=ws.marker_var0,
-                          marker_scale0=ws.marker_scale0, pi0=ws.pi0, seed=opts.seed)
+                          marker_scale0=ws.marker_scale0, pi0=ws.pi0, seed=opts.seed,
+                          sol0=sol0, alpha0=g.starting_alpha)
     return cfg, data, state
 
 
@@ -574,7 +646,8 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     """Run MCMC for a model from build_model on phenotypes df (a Table, a
     {name: array} mapping or a DataFrame whose first column holds the IDs):
     the reference's runMCMC (JWAS.jl:161-511), single chain, single-trait
-    BayesC or BayesR on the 2-bit store. kwargs are MCMCOptions' fields.
+    BayesC, BayesB or BayesR on the 2-bit store. kwargs are MCMCOptions'
+    fields.
 
     device: where the chain runs, the GPU unless the caller asks for the
     CPU (device="cpu" runs the kernels' plain versions); without a GPU the
@@ -583,16 +656,18 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     effects <name>", "marker effects variances <name>", "pi_<name>",
     "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance",
     "heritability"), written as <key>.txt to output_folder with the
-    per-parameter MCMC sample files.
+    per-parameter MCMC sample files. Options the reference rejects raise
+    its ValueError before an option the port does not run yet raises
+    NotImplementedError.
     """
     opts = MCMCOptions(**kwargs)
+    validate_args(model, opts)
     reject_unported(opts)
     device = resolve_device(device)
-    validate_args(model, opts)
     model.mcmc_info = opts
     if opts.printout_model_info:
         describe(model)
-    ws = prepare_workspace(model, df, opts)
+    ws = prepare_workspace(model, df, opts, device=device)
     cfg, data, state = _build_st_data_and_state(ws, opts, device)
     plan = chain_plan(opts.chain_length, opts.burnin, opts.output_samples_frequency,
                       cfg.nreps)
@@ -600,8 +675,9 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     progress = ProgressPrinter(opts.printout_frequency, opts.chain_length)
     try:
         with maybe_profile(opts):
-            _, accum, samples, _, _ = run_chain(cfg, data, state, plan, stream,
-                                                progress)
+            _, accum, samples, _, _ = run_chain(
+                cfg, data, state, plan, stream, progress,
+                update_priors_frequency=opts.update_priors_frequency)
     finally:
         stream.close()
     accum = accum._replace(**{k: _host(v) for k, v in accum._asdict().items()

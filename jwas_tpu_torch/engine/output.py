@@ -1,11 +1,12 @@
 """Posterior summaries: accumulators -> result tables and their files.
 
 Counterpart of jwas_tpu/engine/output.py: check_finite_posteriors (:22-34)
-and build_results (:37-196) for the keys single-trait BayesC and BayesR on
-the 2-bit store produce: "location parameters", "residual variance",
-"marker effects <name>", "marker effects variances <name>", "pi_<name>",
-"ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance" and
-"heritability". Each is a Table with the reference's columns, written to
+and build_results (:37-196) for the keys single-trait BayesC, BayesB and
+BayesR on the 2-bit store produce: "location parameters", "residual
+variance", "marker effects <name>", "marker effects variances <name>"
+(BayesB's: the posterior mean of its variances' mean over the markers),
+"pi_<name>", "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance"
+and "heritability". Each is a Table with the reference's columns, written to
 output_folder as <key>.txt (spaces as "_") as the reference writes it.
 """
 

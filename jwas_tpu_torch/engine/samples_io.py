@@ -2,17 +2,20 @@
 
 Counterpart of jwas_tpu/engine/samples_io.py: MARKER_FILE_MAX_P and
 resolve_write_markers (:29-43), MCMCSampleWriter (:46-91) and the
-single-trait STSampleStream (:98-216) for BayesC and BayesR on the 2-bit
-store. One comma-separated file per parameter, MCMC_samples_<var>.txt
+single-trait STSampleStream (:98-216) for BayesC, BayesB and BayesR on the
+2-bit store. One comma-separated file per parameter, MCMC_samples_<var>.txt
 under the output folder (":" replaced by "."), with the reference's header
 row where it writes one and one row per saved sample:
 residual_variance, <trait>.<term> (terms requested by outputMCMCsamples),
 marker_effects_<geno>_<trait>, marker_effects_variances_<geno>,
-pi_<geno>, EBV_<trait>, genetic_variance, heritability.
+pi_<geno>, EBV_<trait>, genetic_variance, heritability. BayesB's
+marker_effects_variances_<geno> row holds every marker's variance when the
+marker effects are written, else their mean (jwas_tpu's :190-195).
 
 A sample arrives as host arrays read back in one transfer
-(engine/mcmc.py::_read_back); the stream says which of sol, alpha and the
-EBVs it needs (loc_slices, write_markers, ebv).
+(engine/mcmc.py::_read_back); the stream says which of sol, alpha (with
+BayesB's per-marker variances) and the EBVs it needs (loc_slices,
+write_markers, ebv).
 """
 
 from __future__ import annotations
@@ -114,7 +117,7 @@ class STSampleStream:
 
     def write_sample(self, host: Dict[str, np.ndarray]) -> None:
         """One saved sample: host holds vare, varg, pi, genvar, h2 and, as
-        the stream asked, sol, alpha and ebv."""
+        the stream asked, sol, alpha, varg_markers (BayesB) and ebv."""
         if not self.enabled:
             return
         w = self.writer
@@ -123,7 +126,8 @@ class STSampleStream:
             w.write(trm_str, host["sol"][start:start + nlev])
         if self.write_markers:
             w.write(f"marker_effects_{self.geno_name}_{self.trait}", host["alpha"])
-        w.write(f"marker_effects_variances_{self.geno_name}", host["varg"])
+        w.write(f"marker_effects_variances_{self.geno_name}",
+                host.get("varg_markers", host["varg"]))
         w.write(f"pi_{self.geno_name}", host["pi"])
         if self.ebv:
             w.write(f"EBV_{self.trait}", host["ebv"])

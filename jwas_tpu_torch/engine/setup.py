@@ -7,7 +7,8 @@ normalize_method (:287-297) and prepare_workspace (:348-669), on its
 single-trait, continuous, 2-bit, dense-location branch: ID reconciliation,
 default output IDs, the whole-data table with output-only rows, training
 rows, priors, the location design and the prediction equation over fixed
-terms. Everything here is numpy/scipy on the host.
+terms, and the memory guard (:616-641). Everything here is numpy/scipy on
+the host.
 
 The EBVs of the output IDs are not a dense (n_out, p) decode of the store,
 as jwas_tpu's are (setup.py:549-557): the workspace keeps the output IDs'
@@ -27,7 +28,10 @@ from jwas_tpu_torch.io.genotypes import Genotypes
 from jwas_tpu_torch.io.table import Table, append_rows, as_table, to_numeric
 from jwas_tpu_torch.models.design import build_design, stack_phenotypes
 from jwas_tpu_torch.models.model import Model
+from jwas_tpu_torch.ops.grouped import plan_store
 from jwas_tpu_torch.ops.markers import BAYESR_GAMMA
+from jwas_tpu_torch.utils.memory import (check_marker_memory_guard,
+                                         estimate_marker_memory)
 
 
 @dataclass
@@ -84,8 +88,7 @@ class MCMCOptions:
 # option -> its one accepted value; every other value is not ported yet
 _UNPORTED = {
     "n_chains": 1, "mesh": None, "checkpoint_frequency": 0, "resume": False,
-    "heterogeneous_residuals": False, "update_priors_frequency": 0,
-    "starting_value": None, "double_precision": False,
+    "heterogeneous_residuals": False, "double_precision": False,
     "single_step_analysis": False, "pedigree": None, "causal_structure": None,
     "RRM": None, "use_pallas": "auto",
 }
@@ -98,8 +101,6 @@ def reject_unported(opts: MCMCOptions) -> None:
         value = getattr(opts, name)
         same = value is default if default is None else (
             not isinstance(value, np.ndarray) and value == default)
-        if name == "starting_value" and value is False:
-            same = True              # jwas_tpu treats False as unset
         if not same:
             raise NotImplementedError(
                 f"runMCMC option {name}={value!r} is not ported yet (single "
@@ -108,10 +109,6 @@ def reject_unported(opts: MCMCOptions) -> None:
     if opts.sparse_location is True:
         raise NotImplementedError("runMCMC option sparse_location=True is not "
                                   "ported yet (ROADMAP.md Queue 1 item 11)")
-    if opts.host_offload_genotypes is True:
-        raise NotImplementedError(
-            "runMCMC option host_offload_genotypes=True is not ported yet: the "
-            "store stays in device memory (ROADMAP.md Queue 1 item 1)")
 
 
 @dataclass
@@ -191,7 +188,7 @@ def set_marker_hyperparameters(model: Model) -> None:
         _genetic2marker(g)
         gval = np.asarray(g.G.val, dtype=np.float64)
         g.G.scale = gval * (g.G.df - 1.0 - 1.0) / g.G.df
-        if g.method == "BayesC" and np.ndim(g.pi) == 0:
+        if g.method in ("BayesB", "BayesC") and np.ndim(g.pi) == 0:
             g.pi = float(g.pi)
 
 
@@ -221,11 +218,12 @@ def prediction_terms_of(model: Model, pe) -> List[str]:
     return terms
 
 
-def prepare_workspace(model: Model, df, opts: MCMCOptions) -> Workspace:
+def prepare_workspace(model: Model, df, opts: MCMCOptions,
+                      device=None) -> Workspace:
     """The set-up pipeline of runMCMC (JWAS.jl:272-459) for the ported
     slice; df is a Table, a {name: array} mapping or a DataFrame whose
-    first column holds the IDs."""
-    reject_unported(opts)
+    first column holds the IDs. device: the chain's, whose memory the
+    guard measures against (None: the JAX package's 16 GiB default)."""
     df = as_table(df)
     df = Table({c: df[c] for c in df.columns})   # the caller's table stays
     id_col = df.columns[0]
@@ -233,6 +231,7 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions) -> Workspace:
     for g in model.M:
         normalize_method(g, model)
     validate_args(model, opts)
+    reject_unported(opts)
     if not model.M:
         raise NotImplementedError("runMCMC without genotypes is not ported yet: "
                                   "pass genotypes=get_genotypes(..., storage='2bit')")
@@ -301,6 +300,19 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions) -> Workspace:
     if missing_geno:
         raise ValueError(f"individual {missing_geno[0]} has no genotypes")
     row_of = {s: i for i, s in enumerate(store.obs_ids)}
+
+    # memory guard (jwas_tpu/engine/setup.py:616-641) over the port's own
+    # device buffers, with the residence runMCMC will choose
+    dev = "cpu" if device is None else device
+    b, gb, _, resident = plan_store(len(obs_ids), store.packed, opts.fast_blocks,
+                                    opts.host_offload_genotypes, dev)
+    est = estimate_marker_memory(
+        n_obs=len(obs_ids), n_markers=store.n_markers, block_size=b,
+        group_blocks=gb, bytes_per_marker=store.packed.shape[1],
+        n_loc=W.shape[1], resident_groups=resident)
+    check_marker_memory_guard(est, policy=opts.memory_guard,
+                              ratio=opts.memory_guard_ratio,
+                              device=device)
     return Workspace(
         model=model, df=df_train, n_obs=len(obs_ids), n_traits=t, W=W, y=y,
         y_mask=y_mask, geno=g0,

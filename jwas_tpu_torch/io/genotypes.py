@@ -3,9 +3,11 @@ packed store.
 
 Counterpart of jwas_tpu/io/genotypes.py: VarianceSpec (:42), Genotypes
 (:58) and get_genotypes (:218-309) with jwas_tpu's full signature, on the
-branch it takes for storage="2bit" or a Packed2BitStore (:257-309): BayesC
-and BayesR (with BayesR's class-prior checks). The dense storages and
-BayesB are not ported yet.
+branch it takes for storage="2bit" or a Packed2BitStore (:257-309): BayesC,
+BayesB and BayesR (with BayesR's class-prior checks), and starting_value as
+the starting marker effects (:451-452). jwas_tpu drops starting_value on
+that branch (it returns before :451); the port keeps it. The dense
+storages are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ class Genotypes:
         default_factory=lambda: VarianceSpec(val=None))
     name: str = "geno"
     annotations: Optional[np.ndarray] = None    # always None on the 2-bit store
+    starting_alpha: Optional[np.ndarray] = None  # (p,) starting marker effects
 
 
 def bayesr_pi(Pi) -> np.ndarray:
@@ -87,9 +90,10 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
     unless quality_control=False). G is the genetic variance, or the
     marker-effect variance with G_is_marker_variance=True.
 
-    Ported: method "BayesC" or "BayesR". storage "f32", "f64" or "int8" and
-    method "BayesB" raise NotImplementedError; the other methods raise
-    ValueError on the 2-bit store, as jwas_tpu does.
+    Ported: method "BayesC", "BayesB" or "BayesR". storage "f32", "f64"
+    or "int8" raises NotImplementedError; the other methods raise
+    ValueError on the 2-bit store, as jwas_tpu does. starting_value: (p,)
+    starting marker effects, one a marker after QC.
     """
     if method not in _SUPPORTED_METHODS:
         raise ValueError(f"method {method!r} is not available; use one of {_SUPPORTED_METHODS}")
@@ -101,9 +105,6 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
             f"(ROADMAP.md Queue 1 item 5); use storage='2bit'")
     if method not in ("BayesC", "BayesB", "BayesR"):
         raise ValueError("storage='2bit' supports BayesC/BayesB/BayesR only")
-    if method == "BayesB":
-        raise NotImplementedError(
-            "method='BayesB' is not ported yet (ROADMAP.md Queue 1 item 7)")
     if annotations is not None:
         raise ValueError("annotations are not supported with storage='2bit'")
     if method == "BayesR":
@@ -119,6 +120,12 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
         return VarianceSpec(val=val, df=df, estimate_variance=estimate_variance,
                             estimate_scale=estimate_scale, constraint=constraint)
 
+    starting_alpha = None
+    if starting_value is not None:
+        starting_alpha = np.asarray(starting_value, dtype=np.float32).reshape(-1)
+        if starting_alpha.shape != (store.n_markers,):
+            raise ValueError(f"starting_value must hold one effect for each of "
+                             f"the {store.n_markers} markers")
     return Genotypes(
         obs_ids=list(store.obs_ids), marker_ids=list(store.marker_ids),
         n_obs=store.n_obs, n_markers=store.n_markers,
@@ -127,5 +134,5 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
         estimate_pi=estimatePi,
         G=spec(G if G_is_marker_variance else None),
         genetic_variance=spec(None if G_is_marker_variance else G),
-        name=name,
+        name=name, starting_alpha=starting_alpha,
     )

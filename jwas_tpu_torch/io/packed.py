@@ -4,10 +4,11 @@ numpy-only counterpart of jwas_tpu/io/packed.py: the .j2b + .manifest.json
 loader (Packed2BitStore.load, :143-171, with mmap) and writer
 (Packed2BitStore.save, :121-141), the converter prepare_packed_genotypes
 (:186-276: missing codes, means and allele frequencies, MAF filter) with
-the code -> byte packer (_pack_numpy, :401), and store_has_missing
+the code -> byte packer (_pack_numpy, :401), its out-of-core low_memory
+mode (_prepare_packed_low_memory, :288-398) and store_has_missing
 (jwas_tpu/ops/grouped.py:975-993). The converter reads a CSV in row chunks
-with the csv module and packs with numpy; jwas_tpu's C++ packer and its
-out-of-core low_memory mode are not ported.
+with the csv module and packs with numpy; jwas_tpu's C++ packer is not
+ported.
 
 Layout: marker-major (p, ceil(n/4)) uint8; byte i of a marker holds the codes
 of observations 4i..4i+3, low bits first; code 3 is missing (read as the
@@ -53,8 +54,12 @@ class Packed2BitStore:
         packed = self.packed
         if not isinstance(packed, np.ndarray):
             packed = packed.cpu().numpy()
-        tmp = path + ".j2b.tmp"
-        np.ascontiguousarray(packed).tofile(tmp)
+        np.ascontiguousarray(packed).tofile(path + ".j2b.tmp")
+        self._publish(path)
+
+    def _publish(self, path: str) -> None:
+        """Write the manifest under a temporary name, then rename
+        <path>.j2b.tmp and the manifest into place."""
         manifest = {
             "format": FORMAT, "n_obs": self.n_obs, "n_markers": self.n_markers,
             "obs_ids": list(self.obs_ids), "marker_ids": list(self.marker_ids),
@@ -66,7 +71,7 @@ class Packed2BitStore:
         mtmp = path + ".manifest.json.tmp"
         with open(mtmp, "w") as f:
             json.dump(manifest, f)
-        os.replace(tmp, path + ".j2b")
+        os.replace(path + ".j2b.tmp", path + ".j2b")
         os.replace(mtmp, path + ".manifest.json")
 
     @staticmethod
@@ -159,7 +164,8 @@ def _parse_chunk(rows):
 def prepare_packed_genotypes(file, *, separator: str = ",", header: bool = True,
                              missing_value: float = 9.0, MAF: float = 0.0,
                              save_path: Optional[str] = None,
-                             chunk_rows: int = 8192) -> Packed2BitStore:
+                             low_memory: bool = False, chunk_rows: int = 8192,
+                             disk_guard_ratio: float = 0.95) -> Packed2BitStore:
     """Convert genotypes (a CSV path, a table or an (n, p) array) into a
     2-bit packed store (jwas_tpu's prepare_packed_genotypes).
 
@@ -169,7 +175,19 @@ def prepare_packed_genotypes(file, *, separator: str = ",", header: bool = True,
     outside (MAF, 1 - MAF) and fixed loci. A CSV is read chunk_rows rows at
     a time; the codes, one byte a value, are held until the filter is
     known. save_path writes the store with Packed2BitStore.save.
+
+    low_memory=True is the out-of-core mode: a CSV path is read twice in
+    4-row-aligned chunks, the first pass for the statistics, the second
+    packing each chunk into its byte range of a marker-major .j2b on disk
+    at save_path (required), so no whole matrix is held. A disk guard
+    refuses a store larger than disk_guard_ratio of the free space there.
+    The returned store's packed array is a read-only memmap of that file.
     """
+    if low_memory:
+        return _prepare_packed_low_memory(
+            file, separator=separator, header=header,
+            missing_value=missing_value, MAF=MAF, save_path=save_path,
+            chunk_rows=chunk_rows, disk_guard_ratio=disk_guard_ratio)
     marker_ids, chunks = _genotype_chunks(file, separator, header, chunk_rows)
     p = len(marker_ids)
     mv = np.float32(missing_value)
@@ -202,6 +220,77 @@ def prepare_packed_genotypes(file, *, separator: str = ",", header: bool = True,
     )
     if save_path:
         store.save(save_path)
+    return store
+
+
+def _codes(mat, mv):
+    """(rows, p) values -> (rows, p) uint8 codes, 3 where missing."""
+    miss = (mat == mv) | np.isnan(mat)
+    return np.where(miss, 3, np.clip(np.rint(mat), 0, 2)).astype(np.uint8)
+
+
+def _prepare_packed_low_memory(file, *, separator, header, missing_value, MAF,
+                               save_path, chunk_rows,
+                               disk_guard_ratio) -> Packed2BitStore:
+    """Two-pass out-of-core conversion; see prepare_packed_genotypes."""
+    if not isinstance(file, str):
+        raise TypeError("low_memory=True requires a genotype file path")
+    if not save_path:
+        raise ValueError("low_memory=True requires save_path")
+    chunk_rows = max(4, (int(chunk_rows) // 4) * 4)  # 4-row-aligned chunks
+    mv = np.float32(missing_value)
+
+    # pass 1: IDs and per-marker statistics
+    marker_ids, chunks = _genotype_chunks(file, separator, header, chunk_rows)
+    p = len(marker_ids)
+    sums = np.zeros(p, dtype=np.float64)
+    nmiss = np.zeros(p, dtype=np.int64)
+    obs_ids: List[str] = []
+    for ids, mat in chunks:
+        obs_ids.extend(ids)
+        miss = (mat == mv) | np.isnan(mat)
+        sums += np.where(miss, 0.0, mat).sum(axis=0, dtype=np.float64)
+        nmiss += miss.sum(axis=0)
+    obs_ids = [str(x).strip() for x in parse_column(obs_ids).tolist()]
+    n = len(obs_ids)
+    means = sums / np.maximum(n - nmiss, 1)
+    freqs = means / 2.0
+    keep = np.ones(p, dtype=bool)
+    if MAF > 0:
+        keep = (freqs > MAF) & (freqs < 1 - MAF) & (freqs * (1.0 - freqs) > 0)
+    kept = np.flatnonzero(keep)
+    p_keep = int(kept.size)
+
+    # disk guard (streaming_genotypes.jl:167-202)
+    bpm = (n + 3) // 4
+    need = p_keep * bpm
+    st = os.statvfs(os.path.dirname(os.path.abspath(save_path)) or ".")
+    free = st.f_bavail * st.f_frsize
+    if need > disk_guard_ratio * free:
+        raise RuntimeError(
+            f"packed store needs {need/1e9:.2f} GB but only {free/1e9:.2f} GB "
+            f"free (disk_guard_ratio={disk_guard_ratio}); free space or lower MAF"
+        )
+
+    # pass 2: each 4-row-aligned chunk into its byte columns of the file
+    tmp = save_path + ".j2b.tmp"
+    mm = np.memmap(tmp, dtype=np.uint8, mode="w+", shape=(p_keep, bpm))
+    _, chunks = _genotype_chunks(file, separator, header, chunk_rows)
+    row0 = 0
+    for _, mat in chunks:
+        tile = pack_codes(_codes(mat[:, kept], mv))
+        mm[:, row0 // 4:row0 // 4 + tile.shape[1]] = tile
+        row0 += mat.shape[0]
+    mm.flush()
+    del mm
+
+    store = Packed2BitStore(
+        obs_ids=obs_ids, marker_ids=[marker_ids[int(j)] for j in kept],
+        packed=None, means=means[keep], allele_freq=freqs[keep], n_obs=n,
+        n_markers=p_keep, has_missing=bool(nmiss[keep].sum() > 0))
+    store._publish(save_path)
+    store.packed = np.memmap(save_path + ".j2b", dtype=np.uint8, mode="r",
+                             shape=(p_keep, bpm))
     return store
 
 

@@ -1,27 +1,38 @@
-"""Group-sequential fast-blocks BayesC and BayesR over a device-resident
-2-bit store.
+"""Group-sequential fast-blocks BayesC/B and BayesR over a 2-bit store held
+on the device, in pinned host memory, or split between the two.
 
 Counterpart of jwas_tpu/ops/grouped.py: GroupedPackedMarkers (:47),
-STALE_FRACTION and pick_stable_blocks (:117-162), grouped_matvec and
-grouped_rhs (:411-454), sweep_blocks_abc_grouped (:460-617),
-sweep_blocks_bayesr_grouped (:623-764), grouped_stats (:808-882) and
-build_grouped_markers (:885-969).
+STALE_FRACTION and pick_stable_blocks (:117-162), plan_device_groups
+(:165-185), grouped_matvec and grouped_rhs (:411-454),
+sweep_blocks_abc_grouped (:460-617), sweep_blocks_bayesr_grouped
+(:623-764), grouped_stats (:808-882) and build_grouped_markers (:885-969),
+with jwas_tpu/engine/mcmc.py::_resolve_host_offload (:738-759).
 
-The store lives in device memory as (ngroups, G, bpm) uint8. Groups are
-visited in order (exact across groups); within a group the b * gb markers
-of gb blocks update in parallel against a residual that is reconciled every
-sync round. Each round is one X'w GEMV (packed_rhs), one inner-rounds launch
-(abc_inner_rounds or bayesr_inner_rounds) and one Xv GEMV (packed_matvec);
-on a CUDA device all three are hand-written kernels. Host streaming of
-stores larger than device memory (the JAX package's _stage / hybridize /
-prefetch) is not ported yet.
+The store is (p, bpm) uint8, marker-major, never padded or copied whole:
+groups of G = b * gb markers are visited in order (exact across groups),
+and the last group may be short in the store. The fetcher serves it as G
+rows, its missing rows zero (the padding markers of the p_pad layout: code
+0, mean 0, so they decode to zero), so means, valid, Grams and the chain
+state stay at p_pad and the chain is the padded layout's. Within a group the b * gb markers of gb blocks update in parallel
+against a residual that is reconciled every sync round. Each round is one
+X'w GEMV (packed_rhs), one inner-rounds launch (abc_inner_rounds or
+bayesr_inner_rounds) and one Xv GEMV (packed_matvec); on a CUDA device all
+three are hand-written kernels.
+
+GroupFetcher serves each group's rows on the chain's device. Groups are
+resident (the whole store on the device, used in place), or the leading k
+of them are (hybrid) and the rest are copied from pinned host memory, one
+group ahead, into a ring of device buffers on a copy stream of their own.
+This replaces the JAX package's _stage / hybridize / _hybrid_copy /
+prefetch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import warnings
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,18 +45,235 @@ from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 # package (ops/grouped.py:101-116) for the measurements behind it.
 STALE_FRACTION = 0.4
 
+# host offload "auto": stream when the store exceeds this share of the
+# device's memory (jwas_tpu/engine/mcmc.py:738-759)
+OFFLOAD_SHARE = 0.6
+RING_DEPTH = 2            # device buffers a streamed store cycles through
+
 Draws = Callable[[int, int, int], Tuple[torch.Tensor, torch.Tensor]]
 
 # float32 tiny: the lower end of the uniforms under jax.random.gumbel
 _TINY = torch.finfo(torch.float32).tiny
 
 
-class GroupedPackedMarkers(NamedTuple):
-    """Device-resident grouped store: ngroups, G, bpm = store.shape;
-    nblocks, b, _ = grams.shape; gb = nblocks // ngroups."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    store: torch.Tensor               # (ngroups, G, bpm) uint8
-    means: torch.Tensor               # (p_pad,) float32
+
+def hbm_budget(device=None, default: int = int(16e9)) -> int:
+    """Bytes of device memory the residence decisions and the memory guard
+    plan with: the JWAS_HBM_BYTES environment variable when set, else the
+    card's total memory, else (no card) default, the JAX package's 16e9 of
+    plan_device_groups (its memory guard stands in 16 GiB)."""
+    env = os.environ.get("JWAS_HBM_BYTES")
+    if env:
+        return int(float(env))
+    device = torch.device(device) if device is not None else None
+    if device is not None and device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return int(default)
+
+
+def store_nbytes(packed) -> int:
+    """Bytes of a (p, bpm) store: a numpy array, a memmap or a tensor."""
+    if torch.is_tensor(packed):
+        return packed.numel() * packed.element_size()
+    return int(packed.nbytes)
+
+
+def resolve_host_offload(flag, packed_bytes: int, device) -> bool:
+    """Whether the store streams from host memory (runMCMC's
+    host_offload_genotypes): True, False, or "auto", which streams when the
+    store's host-side bytes exceed OFFLOAD_SHARE of the device's memory
+    (hbm_budget). Decided before anything of the store reaches the device;
+    "auto" never offloads on the CPU."""
+    if flag is True or flag is False:
+        return flag
+    if flag != "auto":
+        raise ValueError("host_offload_genotypes must be True, False or 'auto'")
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    return packed_bytes > OFFLOAD_SHARE * hbm_budget(device)
+
+
+def hybrid_budget(k: int, ngroups: int, G: int, b: int, bpm: int,
+                  cushion: int = 7 << 29) -> int:
+    """The budget (JWAS_HBM_BYTES) with which plan_store keeps exactly the
+    leading k of a streamed store's ngroups groups on the device."""
+    return ngroups * G * b * 4 + cushion + k * G * bpm
+
+
+def plan_device_groups(ngroups: int, G: int, bpm: int, grams_bytes: int,
+                       budget: Optional[int] = None,
+                       cushion: int = 7 << 29) -> int:
+    """Hybrid split: how many leading groups of a streamed store fit in the
+    device memory left beside the Gram tiles and a cushion (3.5 GB by
+    default) for the chain state, the staging ring and decode tiles.
+    budget defaults to hbm_budget() of the current CUDA device."""
+    if budget is None:
+        budget = hbm_budget(torch.device("cuda", torch.cuda.current_device())
+                            if torch.cuda.is_available() else None)
+    free = budget - int(grams_bytes) - cushion
+    per_group = G * bpm
+    if per_group <= 0 or free <= 0:
+        return 0
+    return max(0, min(ngroups, free // per_group))
+
+
+def _copy_rows(src, dst, step_bytes: int = 1 << 28) -> None:
+    """dst[:] = src in row chunks; src a numpy array (a read-only memmap is
+    read a chunk at a time) or a tensor on any device."""
+    p, bpm = dst.shape
+    step = max(1, step_bytes // max(bpm, 1))
+    for c0 in range(0, p, step):
+        part = src[c0:min(p, c0 + step)]
+        if not torch.is_tensor(part):
+            part = torch.from_numpy(np.array(part))   # memmaps are read-only
+        dst[c0:c0 + part.shape[0]].copy_(part)
+
+
+def pinned_copy(packed) -> torch.Tensor:
+    """A (p, bpm) store copied, in chunks, into pinned host memory, from
+    which a streamed store is copied to the card asynchronously."""
+    p, bpm = packed.shape
+    out = torch.empty((p, bpm), dtype=torch.uint8, pin_memory=True)
+    _copy_rows(packed, out)
+    return out
+
+
+class GroupFetcher:
+    """Serves each group of a (p, bpm) store on the chain's device as G
+    rows: rows g * G .. (g + 1) * G, the missing rows of a short last group
+    as zero rows.
+
+    The leading `resident` groups are read on the device: the store itself
+    when it lies there whole, else a zero-padded device copy of their rows.
+    The others stream: on a CUDA device the store must be in pinned host
+    memory, and a group's rows are copied into one of RING_DEPTH
+    preallocated device buffers of G rows on a dedicated stream (the rows
+    after a short last group's are zeroed there). The copy of group g + 1 is
+    enqueued before group g's work, the compute stream waits on an event
+    recorded after the copy, and the copy stream waits on an event recorded
+    after a buffer's last reader before it overwrites that buffer. On the
+    CPU the streamed groups are read from the store in place. A short last
+    group that would be read in place is served from a zero-padded copy of
+    its rows, made once.
+
+    With record set, each copy's start and end events and bytes are kept in
+    `copies` (timing only)."""
+
+    def __init__(self, store: torch.Tensor, G: int, device, resident: int):
+        self.device = torch.device(device)
+        self.store = store
+        self.G = G
+        self.p, self.bpm = store.shape
+        self.ngroups = max(1, _cdiv(self.p, G))
+        self.resident = k = max(0, min(int(resident), self.ngroups))
+        in_place = k == self.ngroups and store.device == self.device
+        if in_place:
+            self.dev = store
+        elif k > 0:
+            self.dev = torch.zeros((k * G, self.bpm), dtype=torch.uint8,
+                                   device=self.device)
+            _copy_rows(store, self.dev[:min(self.p, k * G)])
+        else:
+            self.dev = None
+        self.ring = None
+        self.record = False
+        self.copies = []
+        if k < self.ngroups and self.device.type == "cuda":
+            if store.device.type != "cpu" or not store.is_pinned():
+                raise ValueError(
+                    "a store that streams to the card must be a CPU tensor in "
+                    "pinned host memory (grouped.pinned_copy); a pageable "
+                    "source would make every copy synchronous")
+            self.ring = [torch.empty((G, self.bpm), dtype=torch.uint8,
+                                     device=self.device)
+                         for _ in range(RING_DEPTH)]
+            self.copy_stream = torch.cuda.Stream(self.device)
+            self.ready = [torch.cuda.Event() for _ in self.ring]
+            self.free = [None] * len(self.ring)
+        last = (self.ngroups - 1) * G
+        self.tail = None
+        if self.p - last < G and (in_place or (k < self.ngroups and self.ring is None)):
+            self.tail = torch.zeros((G, self.bpm), dtype=torch.uint8,
+                                    device=self.device)
+            self.tail[:self.p - last].copy_(store[last:])
+
+    def _slot(self, g: int) -> int:
+        return (g - self.resident) % len(self.ring)
+
+    def _enqueue(self, g: int) -> None:
+        """Start the copy of streamed group g into its ring buffer."""
+        if self.ring is None or not self.resident <= g < self.ngroups:
+            return
+        s = self._slot(g)
+        r0, r1 = g * self.G, min(self.p, (g + 1) * self.G)
+        cs = self.copy_stream
+        if self.free[s] is not None:
+            cs.wait_event(self.free[s])
+        with torch.cuda.stream(cs):
+            if self.record:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t0.record(cs)
+            self.ring[s][:r1 - r0].copy_(self.store[r0:r1], non_blocking=True)
+            if r1 - r0 < self.G:
+                self.ring[s][r1 - r0:].zero_()
+            self.ready[s].record(cs)
+            if self.record:
+                t1 = torch.cuda.Event(enable_timing=True)
+                t1.record(cs)
+                self.copies.append((t0, t1, (r1 - r0) * self.bpm))
+
+    def rows(self, g: int) -> torch.Tensor:
+        """Group g's G rows, ready for the current stream."""
+        r0 = g * self.G
+        if g == self.ngroups - 1 and self.tail is not None:
+            return self.tail
+        if g < self.resident:
+            return self.dev[r0:r0 + self.G]
+        if self.ring is None:
+            return self.store[r0:r0 + self.G]
+        s = self._slot(g)
+        torch.cuda.current_stream(self.device).wait_event(self.ready[s])
+        return self.ring[s]
+
+    def release(self, g: int) -> None:
+        """Group g's rows have had their last reader on the current stream."""
+        if self.ring is None or g < self.resident:
+            return
+        s = self._slot(g)
+        if self.free[s] is None:
+            self.free[s] = torch.cuda.Event()
+        self.free[s].record(torch.cuda.current_stream(self.device))
+
+    def groups(self) -> Iterator[Tuple[int, torch.Tensor]]:
+        """(g, rows) in group order. The copy of group g + 1 is enqueued
+        before group g is handed out; group g is released when the caller
+        asks for the next one."""
+        self._enqueue(0)
+        for g in range(self.ngroups):
+            rows = self.rows(g)
+            self._enqueue(g + 1)
+            yield g, rows
+            self.release(g)
+
+    def copy_seconds(self) -> Tuple[float, int]:
+        """(seconds, bytes) of the recorded copies; waits for them."""
+        if not self.copies:
+            return 0.0, 0
+        torch.cuda.synchronize(self.device)
+        ms = sum(t0.elapsed_time(t1) for t0, t1, _ in self.copies)
+        return ms / 1e3, sum(nb for _, _, nb in self.copies)
+
+
+class GroupedPackedMarkers(NamedTuple):
+    """A grouped store: fetch serves its groups; nblocks, b, _ = grams.shape;
+    gb = nblocks // fetch.ngroups; p_pad = nblocks * b."""
+
+    fetch: GroupFetcher
+    means: torch.Tensor               # (p_pad,) float32, 0 for padding
     row_perm: Optional[torch.Tensor]  # (n_obs,) int64 store column per
                                       # observation, or None (identity)
     xpx: torch.Tensor                 # (p_pad,) diag of X'X (1 for padding)
@@ -53,6 +281,19 @@ class GroupedPackedMarkers(NamedTuple):
     valid: torch.Tensor               # (p_pad,) 1 real marker, 0 padding
     n_obs: int
     has_missing: bool = True          # False: the store holds no code 3
+
+    @property
+    def store(self) -> torch.Tensor:
+        """The (p, bpm) store, wherever it lives."""
+        return self.fetch.store
+
+    @property
+    def ngroups(self) -> int:
+        return self.fetch.ngroups
+
+    @property
+    def device(self) -> torch.device:
+        return self.means.device
 
 
 def pick_stable_blocks(n_obs: int, block_size: int, p: int,
@@ -86,6 +327,42 @@ def pick_stable_blocks(n_obs: int, block_size: int, p: int,
     return out
 
 
+def resolve_blocks(n_obs: int, fast_blocks, p: int, warn: bool = True):
+    """(b, gb) as runMCMC picks them for storage='2bit'
+    (jwas_tpu/engine/mcmc.py:786-844): fast_blocks True or False for the
+    default block size from n_obs, else an int block size, rounded up to a
+    multiple of 8 and cut by pick_stable_blocks, which warns (with warn)
+    only when the caller sized the blocks."""
+    if fast_blocks is True or not fast_blocks:
+        bs = mk.default_block_size(n_obs)
+    else:
+        bs = int(fast_blocks)
+    bs = max(8, ((bs + 7) // 8) * 8)
+    user_sized = fast_blocks is not True and bool(fast_blocks)
+    return pick_stable_blocks(n_obs, bs, p, warn=warn and user_sized)
+
+
+def plan_store(n_obs: int, packed, fast_blocks, host_offload, device,
+               warn: bool = False):
+    """(b, gb, host, resident): the blocks, whether the store streams from
+    host memory (resolve_host_offload; "auto" keeps a store that already
+    lies on the card there) and how many leading groups are on the device
+    (all unless it streams, else plan_device_groups with hbm_budget)."""
+    device = torch.device(device)
+    p, bpm = packed.shape
+    b, gb = resolve_blocks(n_obs, fast_blocks, p, warn=warn)
+    on_card = torch.is_tensor(packed) and packed.device.type == "cuda"
+    host = resolve_host_offload(host_offload, 0 if on_card else store_nbytes(packed),
+                                device)
+    G = b * gb
+    ngroups = _cdiv(p, G)
+    resident = ngroups
+    if host:
+        resident = plan_device_groups(ngroups, G, bpm, ngroups * G * b * 4,
+                                      hbm_budget(device))
+    return b, gb, host, resident
+
+
 def pad_w(w, bpm: int, row_perm):
     """Observation vector -> store-ordered (4 * bpm,) GEMV source (w itself
     when it already is one: identity order and n_obs == 4 * bpm)."""
@@ -107,11 +384,11 @@ def unpad(out_pad, n_obs: int, row_perm):
 def grouped_matvec_store(gm: GroupedPackedMarkers, v):
     """X v over the whole store, (4 * bpm,) in store column order: one
     entry for every genotyped individual of the store, phenotyped or not."""
-    ngroups, G, _ = gm.store.shape
+    G = gm.fetch.G
     acc = None
-    for g in range(ngroups):
+    for g, rows in gm.fetch.groups():
         sl = slice(g * G, (g + 1) * G)
-        part = packed_matvec(gm.store[g], gm.means[sl], v[sl])
+        part = packed_matvec(rows, gm.means[sl], v[sl])
         acc = part if acc is None else acc + part
     return acc
 
@@ -123,11 +400,11 @@ def grouped_matvec(gm: GroupedPackedMarkers, v):
 
 def grouped_rhs(gm: GroupedPackedMarkers, w):
     """X' w over the whole store, (p_pad,)."""
-    ngroups, G, bpm = gm.store.shape
-    w_pad = pad_w(w, bpm, gm.row_perm)
-    return torch.cat([packed_rhs(gm.store[g], gm.means[g * G:(g + 1) * G],
-                                 w_pad, gm.has_missing)
-                      for g in range(ngroups)])
+    G = gm.fetch.G
+    w_pad = pad_w(w, gm.fetch.bpm, gm.row_perm)
+    return torch.cat([packed_rhs(rows, gm.means[g * G:(g + 1) * G], w_pad,
+                                 gm.has_missing)
+                      for g, rows in gm.fetch.groups()])
 
 
 def _walk_groups(gm: GroupedPackedMarkers, alpha_b, ycorr, nreps: int,
@@ -136,12 +413,12 @@ def _walk_groups(gm: GroupedPackedMarkers, alpha_b, ycorr, nreps: int,
     rounds within a group. A round is X'w of the group (K4), then
     inner(blk, rhs, g, r, reps), which updates alpha_b[blk] in place, then
     X times the change in alpha (K5) into ycorr, in place."""
-    ngroups, G, bpm = gm.store.shape
+    fetch = gm.fetch
+    G, bpm = fetch.G, fetch.bpm
     nblocks, b = alpha_b.shape
-    gb = nblocks // ngroups
+    gb = nblocks // fetch.ngroups
     rounds = mk.sync_rounds(nreps, mk.resolve_sync_every(nreps, sync_every))
-    for g in range(ngroups):
-        rows = gm.store[g]
+    for g, rows in fetch.groups():
         mns = gm.means[g * G:(g + 1) * G]
         blk = slice(g * gb, (g + 1) * gb)
         a_g = alpha_b[blk]
@@ -160,20 +437,26 @@ def sweep_blocks_abc_grouped(gm: GroupedPackedMarkers, alpha, beta, delta,
                              gen: Optional[torch.Generator], nreps: int = 1,
                              sync_every: Optional[int] = None,
                              draws: Optional[Draws] = None):
-    """Group-sequential fast-blocks BayesC sweep (BayesABC.jl:111-188).
+    """Group-sequential fast-blocks BayesC / BayesB sweep
+    (BayesABC.jl:111-188).
 
     alpha, beta (p_pad,) float32, delta (p_pad,) int32 and ycorr (n_obs,)
     are updated in place (the chain keeps one copy of its marker state) and
-    returned. vare and var_eff are 0-d tensors, pi (p_pad,) P(excluded).
-    Round r of group g takes its (reps * b, gb) uniform and normal panels
-    from draws(g, r, reps) when given (tests inject the JAX package's),
-    else from the chain's generator gen, in group and round order.
+    returned. vare is a 0-d tensor; var_eff the common marker variance
+    (0-d, BayesC) or one a marker ((p_pad,), BayesB); pi (p_pad,)
+    P(excluded). Round r of group g takes its (reps * b, gb) uniform and
+    normal panels from draws(g, r, reps) when given (tests inject the JAX
+    package's), else from the chain's generator gen, in group and round
+    order.
     """
     nblocks, b, _ = gm.grams.shape
-    gb = nblocks // gm.store.shape[0]
+    gb = nblocks // gm.ngroups
     p_pad = nblocks * b
     inv_vare = (1.0 / vare).reshape(1)
-    var_eff_b = var_eff.reshape(1).expand(p_pad).contiguous().view(nblocks, b)
+    if var_eff.numel() == 1:
+        var_eff_b = var_eff.reshape(1).expand(p_pad).contiguous().view(nblocks, b)
+    else:
+        var_eff_b = var_eff.contiguous().view(nblocks, b)
     pi_c = torch.clamp(pi, 1e-10, 1.0)
     log_pi = torch.log(pi_c).view(nblocks, b)
     log_pi_comp = torch.log1p(-pi_c + 1e-12).view(nblocks, b)
@@ -219,7 +502,7 @@ def sweep_blocks_bayesr_grouped(gm: GroupedPackedMarkers, alpha, delta,
     package's), else from gen, in group and round order.
     """
     nblocks, b, _ = gm.grams.shape
-    gb = nblocks // gm.store.shape[0]
+    gb = nblocks // gm.ngroups
     inv_vare = (1.0 / vare).reshape(1)
     sigma = sigma_sq.reshape(1)
     log_pi = torch.log(torch.clamp(pi_mat, 1e-12, 1.0)).view(nblocks, b, 4)
@@ -302,11 +585,12 @@ def _sub_chunk(G: int, b: int, n_obs: int, budget_bytes: int) -> int:
 _DECODE_BYTES = 1 << 30     # bound on one decoded (markers, n) f32 tile
 
 
-def grouped_stats(store, means, valid, row_perm, b: int, n_obs: int,
+def grouped_stats(fetch: GroupFetcher, means, valid, row_perm, b: int, n_obs: int,
                   exact_bf16: bool = False):
     """Gram tiles (nblocks, b, b) and xpx (p_pad,) in one pass over the
     store (GibbsMats, tools4genotypes.jl:237-275), a plain decode plus
-    batched matmuls.
+    batched matmuls, over the groups fetch serves (a streamed store's
+    copies overlap the matmuls).
 
     exact_bf16 needs unit weights, identity row order and no missing codes
     (callers check the last with store_has_missing): the integer codes go
@@ -315,15 +599,15 @@ def grouped_stats(store, means, valid, row_perm, b: int, n_obs: int,
     if exact_bf16 and row_perm is not None:
         raise ValueError("grouped_stats(exact_bf16=True) requires identity "
                          "row order (row_perm=None)")
-    ngroups, G, _ = store.shape
+    G = fetch.G
     sc = _sub_chunk(G, b, n_obs, _DECODE_BYTES)
     gram_fn = _gram_exact if exact_bf16 else _gram_f32
-    grams = torch.empty((ngroups * G // b, b, b), dtype=torch.float32,
-                        device=store.device)
-    for g in range(ngroups):
+    grams = torch.empty((fetch.ngroups * G // b, b, b), dtype=torch.float32,
+                        device=means.device)
+    for g, rows in fetch.groups():
         for c0 in range(0, G, sc):
             k0 = g * G + c0
-            codes = _decode_codes(store[g, c0:c0 + sc], n_obs, row_perm)
+            codes = _decode_codes(rows[c0:c0 + sc], n_obs, row_perm)
             grams[k0 // b:(k0 + sc) // b] = gram_fn(
                 codes, means[k0:k0 + sc], b, n_obs)
     xpx = torch.diagonal(grams, dim1=1, dim2=2).reshape(-1)
@@ -332,26 +616,51 @@ def grouped_stats(store, means, valid, row_perm, b: int, n_obs: int,
     return grams, xpx
 
 
+def _place(packed, device, host: bool) -> torch.Tensor:
+    """The (p, bpm) store as a tensor where it is to live: on the device,
+    or with host in host memory (pinned when the device is a card). A
+    tensor already there is used in place; anything else is copied once, in
+    chunks."""
+    target = torch.device("cpu") if host else device
+    if torch.is_tensor(packed):
+        if packed.dtype != torch.uint8 or packed.dim() != 2:
+            raise ValueError("the store must be a (p, bpm) uint8 tensor")
+        if host and packed.device.type != "cpu":
+            raise ValueError("host_offload needs the store in host memory; it "
+                             f"is on {packed.device}")
+        if packed.device == target and packed.is_contiguous():
+            return packed
+    if host and device.type == "cuda":
+        return pinned_copy(packed)
+    out = torch.empty(tuple(packed.shape), dtype=torch.uint8, device=target)
+    _copy_rows(packed, out)
+    return out
+
+
 def build_grouped_markers(packed, means, n_obs: int, block_size: int,
                           group_blocks: int, device, row_perm=None,
-                          has_missing: bool = True) -> GroupedPackedMarkers:
-    """Place a (p, bpm) 2-bit store on `device` in the grouped layout and
-    compute its Gram tiles.
+                          has_missing: bool = True,
+                          host: bool = False) -> GroupedPackedMarkers:
+    """A (p, bpm) 2-bit store in the grouped layout with its Gram tiles.
 
-    packed: numpy array (a memmap is copied in chunks) or a tensor (used
-    without a copy when it is already on the device and p needs no
-    padding). means: (p,) marker means. row_perm: (n_obs,) store column of
-    each observation, or None for the identity. has_missing=False promises
-    that no code is 3 (the store's flag): X'w then builds one lookup table
-    instead of two, and with the identity row order the Gram tiles take
-    the exact bf16 path.
+    packed: numpy array (a memmap is copied in chunks) or a tensor. With
+    host=False the store lives on `device`: a tensor already there is used
+    in place, never copied or padded. With host=True it stays in host
+    memory and streams (on a CUDA device it must then be a pinned CPU
+    tensor, see pinned_copy), except as many leading groups as
+    plan_device_groups fits in the device's memory (hbm_budget), which are
+    copied to the device once. means: (p,) marker means.
+    row_perm: (n_obs,) store column of each observation, or None for the
+    identity. has_missing=False promises that no code is 3 (the store's
+    flag): X'w then builds one lookup table instead of two, and with the
+    identity row order the Gram tiles take the exact bf16 path.
     """
     device = torch.device(device)
     p, bpm = packed.shape
     b, gb = block_size, group_blocks
-    align = b * gb
-    p_pad = -(-p // align) * align
-    ngroups = p_pad // align
+    G = b * gb
+    p_pad = _cdiv(p, G) * G
+    ngroups = p_pad // G
     if row_perm is None and n_obs > 4 * bpm:
         raise ValueError(f"n_obs={n_obs} exceeds the store's {4 * bpm} columns")
     if row_perm is not None:
@@ -359,27 +668,12 @@ def build_grouped_markers(packed, means, n_obs: int, block_size: int,
         if row_perm.shape != (n_obs,) or not ((0 <= row_perm) & (row_perm < 4 * bpm)).all():
             raise ValueError(f"row_perm must hold {n_obs} store columns in "
                              f"[0, {4 * bpm})")
-    in_place = torch.is_tensor(packed) and packed.device == device and p_pad == p
-    need = (0 if in_place else p_pad * bpm) + p_pad * b * 4     # + Gram tiles
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        if need > free:
-            raise NotImplementedError(
-                f"store of {need / 1e9:.1f} GB (with Gram tiles) exceeds free "
-                f"device memory ({free / 1e9:.1f} GB); host streaming is not "
-                f"ported yet"
-            )
-    if in_place:
-        flat = packed.contiguous()
-    else:
-        flat = torch.zeros((p_pad, bpm), dtype=torch.uint8, device=device)
-        step = max(1, (1 << 28) // max(bpm, 1))
-        for c0 in range(0, p, step):
-            src = packed[c0:c0 + step]
-            if not torch.is_tensor(src):
-                src = torch.from_numpy(np.array(src))   # a copy: memmaps are read-only
-            flat[c0:c0 + src.shape[0]] = src.to(device)
-    store = flat.view(ngroups, align, bpm)
+    store = _place(packed, device, host)
+    resident = ngroups
+    if host:
+        resident = plan_device_groups(ngroups, G, bpm, p_pad * b * 4,
+                                      hbm_budget(device))
+    fetch = GroupFetcher(store, G, device, resident)
     means_d = torch.zeros(p_pad, dtype=torch.float32, device=device)
     means_d[:p] = torch.as_tensor(means, dtype=torch.float32).to(device)
     valid = torch.zeros(p_pad, dtype=torch.float32, device=device)
@@ -387,8 +681,8 @@ def build_grouped_markers(packed, means, n_obs: int, block_size: int,
     perm = None
     if row_perm is not None:
         perm = torch.from_numpy(row_perm).to(device)
-    grams, xpx = grouped_stats(store, means_d, valid, perm, b, n_obs,
+    grams, xpx = grouped_stats(fetch, means_d, valid, perm, b, n_obs,
                                exact_bf16=perm is None and not has_missing)
-    return GroupedPackedMarkers(store=store, means=means_d, row_perm=perm,
+    return GroupedPackedMarkers(fetch=fetch, means=means_d, row_perm=perm,
                                 xpx=xpx, grams=grams, valid=valid,
                                 n_obs=n_obs, has_missing=has_missing)

@@ -1,10 +1,15 @@
-"""Variance-component and class-prior draws of single-trait BayesC and BayesR.
+"""Variance-component and class-prior draws of single-trait BayesC, BayesB
+and BayesR.
 
 Counterpart of jwas_tpu/ops/variance.py: sample_residual_variance_st (:28),
-sample_marker_variance_common (:41), bayesr_sigma_sufficient_statistics and
-sample_marker_variance_bayesr (:60-80), sample_pi_abc (:102),
-sample_pi_bayesr (:111) and sample_scale_st (:118). Unweighted only:
-residual weights (rinv) are not part of this port yet.
+sample_marker_variance_common (:41), sample_marker_variance_bayesb (:54),
+bayesr_sigma_sufficient_statistics and sample_marker_variance_bayesr
+(:60-80), sample_pi_abc (:102), sample_pi_bayesr (:111) and
+sample_scale_st (:118), with BayesB's scale draw
+(jwas_tpu/engine/mcmc.py:478-482). The BayesB draws also come as
+functions of their chi-square or gamma draw (bayesb_variance,
+bayesb_scale), so tests can feed both packages the same draws. Unweighted
+only: residual weights (rinv) are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from jwas_tpu_torch.ops.dists import (
+    sample_chi2,
     sample_dirichlet,
     sample_gamma,
     sample_pi_beta,
@@ -32,6 +38,35 @@ def sample_marker_variance_common(gen, alpha, n_loci, df: float, scale):
     markers."""
     return sample_scaled_inv_chi2(gen, torch.sum(alpha * alpha),
                                   n_loci.to(alpha.dtype), df, scale)
+
+
+def bayesb_variance(beta, df: float, scale, chi):
+    """BayesB's per-marker variances (beta^2 + df scale) / chi, chi (p_pad,)
+    chi-square(1 + df) draws (variance_components.jl:169-172)."""
+    return (beta * beta + df * scale) / chi
+
+
+def sample_marker_variance_bayesb(gen, beta, df: float, scale):
+    """BayesB's per-marker variances, one chi-square(1 + df) draw a marker,
+    padding included, as jwas_tpu draws them."""
+    return bayesb_variance(beta, df, scale,
+                           sample_chi2(gen, torch.full_like(beta, 1.0 + df)))
+
+
+def bayesb_scale(varg, valid, df: float, gamma):
+    """BayesB's prior scale gamma / b with b = sum over the real markers of
+    df / (2 var) + 1; gamma a Gamma(n_markers df / 2 + 1) draw
+    (jwas_tpu/engine/mcmc.py:478-482)."""
+    real = valid > 0
+    v = torch.where(real, varg, torch.ones_like(varg))
+    b = torch.sum(torch.where(real, df / (2.0 * v), torch.zeros_like(v))) + 1.0
+    return gamma / b
+
+
+def sample_scale_bayesb(gen, varg, valid, n_markers: int, df: float):
+    a = torch.full((), n_markers * df / 2.0 + 1.0, dtype=varg.dtype,
+                   device=varg.device)
+    return bayesb_scale(varg, valid, df, sample_gamma(gen, a))
 
 
 def bayesr_sigma_sufficient_statistics(alpha, delta):

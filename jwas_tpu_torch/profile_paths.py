@@ -1,6 +1,6 @@
 """Where the time goes in the port's main paths at full width, on one GPU.
 
-    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC]
+    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid]
 
 Run it from the root of the repository: it imports chip_smoke.py.
 
@@ -35,10 +35,17 @@ individuals in shuffled order, y = intercept + herd + age + geno, BayesC,
 fast_blocks = 128): its unprofiled set-up and chain seconds, then step 2
 for a runMCMC call of two outer iterations (its set-up included in the
 wall time; the Grams' float32 matmuls among the device rows).
+Streamed and Hybrid are BayesC from pi0 = 0 on a pinned host copy of the
+store streamed to the card through the ring of staging buffers, with no
+group resident and with half of the groups resident: steps 1 and 2, with
+the host-to-device copies' GB/s (copy-stream time of the chain's copies),
+the device time of the kernels and of the copies apart, and the share of
+the copies' device time during which a kernel ran (chip_smoke.copy_overlap).
 Each is a start-of-chain measurement: pi has not settled after three outer
 iterations. Imports torch, numpy, the port and chip_smoke.py; never jax.
 """
 
+import os
 import subprocess
 import sys
 import time
@@ -53,7 +60,9 @@ from jwas_tpu_torch.io.genotypes import bayesr_pi
 from jwas_tpu_torch.ops import grouped as gr
 
 PATHS = {"BayesC": ("BayesC", 0.0), "BayesC0999": ("BayesC", 0.999),
-         "BayesR": ("BayesR", 0.0)}
+         "BayesR": ("BayesR", 0.0), "Streamed": ("BayesC", 0.0),
+         "Hybrid": ("BayesC", 0.0)}
+STREAMED = {"Streamed": lambda ngroups: 0, "Hybrid": lambda ngroups: ngroups // 2}
 
 
 def device_us(e) -> float:
@@ -68,11 +77,12 @@ def host_ms_a_round(name, gm, y, sum2pq, repeats=5):
     sweep, as it does from one outer iteration to the next."""
     method, pi0 = PATHS[name]
     dev = gm.grams.device
-    ngroups, G, _ = gm.store.shape
+    G = gm.fetch.G
     nblocks, b, _ = gm.grams.shape
-    gb = nblocks // ngroups
-    sub = gm._replace(store=gm.store[:1], means=gm.means[:G], xpx=gm.xpx[:G],
-                      grams=gm.grams[:gb], valid=gm.valid[:G])
+    gb = nblocks // gm.ngroups
+    sub = gm._replace(fetch=gr.GroupFetcher(gm.store[:G], G, dev, 1),
+                      means=gm.means[:G], xpx=gm.xpx[:G], grams=gm.grams[:gb],
+                      valid=gm.valid[:G])
     priors = cs.default_priors(y, sum2pq, pi0=pi0, method=method)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -132,6 +142,7 @@ def profile_path(name, gm, y, sum2pq):
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
          "--format=csv,noheader,nounits", "-lms", "250"],
         stdout=subprocess.PIPE, text=True)
+    gm.fetch.record, gm.fetch.copies = True, []
     try:
         res = jt.run_st(gm, y, **priors, method=method, chain_length=3 * b,
                         output_samples_frequency=b, seed=3)
@@ -146,16 +157,23 @@ def profile_path(name, gm, y, sum2pq):
            f"median {np.median(rows[:, 0]):.0f} MHz, power median "
            f"{np.median(rows[:, 1]):.1f} W (max {rows[:, 1].max():.1f} W, "
            f"limit {rows[0, 2]:.0f} W)")
+    copy_s, copy_b = gm.fetch.copy_seconds()
+    gm.fetch.record = False
+    if copy_b:
+        cs.say(f"{name}: {gm.fetch.resident} of {gm.ngroups} groups on the card; "
+               f"host-to-device {copy_b / 1e9:.2f} GB in {copy_s:.4f} s of copy-stream "
+               f"time: {copy_b / copy_s / 1e9:.2f} GB/s")
 
     profiled(name, lambda: jt.run_st(gm, y, **priors, method=method,
                                       chain_length=2 * b,
                                       output_samples_frequency=b, seed=4),
-             2 * gm.store.shape[0] * (b // 8))
+             2 * gm.ngroups * (b // 8))
 
 
 def profiled(name, run, rounds, top=10):
-    """Step 2: run() under torch.profiler; device busy share, device time a
-    round and the `top` largest device-time rows."""
+    """Step 2: run() under torch.profiler; device busy share (the memory
+    copies' device time apart), device time a round and the `top` largest
+    device-time rows."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -165,9 +183,16 @@ def profiled(name, run, rounds, top=10):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     total = sum(device_us(e) for e in events)
+    copies = sum(device_us(e) for e in events if "memcpy" in e.key.lower())
     cs.say(f"{name}: profiled run of 2 outer iterations: wall {wall:.3f} s, "
-           f"device {total / 1e6:.3f} s, busy {total / 1e6 / wall:.4f}; device "
-           f"{total / 1e3 / rounds:.4f} ms a round ({rounds} rounds)")
+           f"device {total / 1e6:.3f} s, busy {total / 1e6 / wall:.4f} (copies "
+           f"{copies / 1e6:.3f} s, kernels alone busy {(total - copies) / 1e6 / wall:.4f}); "
+           f"device {total / 1e3 / rounds:.4f} ms a round ({rounds} rounds)")
+    copy_s, overlap, mostly, ncopies = cs.copy_overlap(prof)
+    if overlap is not None:
+        cs.say(f"{name}: host-to-device copies {copy_s:.3f} s of device time, "
+               f"{overlap:.4f} of it with a kernel running; {mostly} of {ncopies} "
+               f"copies at least half hidden")
     for e in sorted(events, key=device_us, reverse=True)[:top]:
         cs.say(f"   {e.key[:64]:64s} {device_us(e) / 1e3:10.2f} ms "
                f"{device_us(e) / total:7.4f}  calls {e.count:7d}  "
@@ -176,20 +201,19 @@ def profiled(name, run, rounds, top=10):
 
 def profile_runmcmc(gm, tbv):
     """chip_smoke.py's phase 5 on gm's store, unprofiled then profiled."""
-    p = int(gm.valid.sum().item())
+    p = gm.store.shape[0]
     store, table, _, _, _ = cs.phase5_problem(
-        gm.store.view(-1, gm.store.shape[2])[:p], gm.means[:p].double().cpu().numpy() / 2.0,
-        tbv)
+        gm.store, gm.means[:p].double().cpu().numpy() / 2.0, tbv)
     out, seconds, built = cs.run_phase5(store, table, output_folder="",
-                                        device=gm.store.device)
+                                        device=gm.device)
     cs.say("runMCMC: unprofiled seconds " + ", ".join(
         f"{k} {v:.3f}" for k, v in seconds.items()) + "; windows " + ", ".join(
         f"{t:.4f}" for t in built["chain"][-1]))
     grouped = built["store and Grams"]
-    ngroups, b = grouped.store.shape[0], grouped.grams.shape[1]
+    ngroups, b = grouped.ngroups, grouped.grams.shape[1]
     del built, grouped, out
     profiled("runMCMC", lambda: cs.run_phase5(store, table, output_folder="",
-                                              device=gm.store.device,
+                                              device=gm.device,
                                               chain_length=2 * b),
              2 * ngroups * (b // 8), top=20)
 
@@ -206,9 +230,24 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     gm, y, tbv, sum2pq, _, _ = cs.full_width_problem(dev)
+    host = None
     for name in names:
         if name == "runMCMC":
             profile_runmcmc(gm, tbv)
+            continue
+        if name in STREAMED:
+            if host is None:
+                host = gr.pinned_copy(gm.store)
+            b, gb = gm.grams.shape[1], gm.grams.shape[0] // gm.ngroups
+            os.environ["JWAS_HBM_BYTES"] = str(gr.hybrid_budget(
+                STREAMED[name](gm.ngroups), gm.ngroups, gm.fetch.G, b, host.shape[1]))
+            try:
+                g_s = gr.build_grouped_markers(host, gm.means[:host.shape[0]], gm.n_obs,
+                                               b, gb, dev, has_missing=False, host=True)
+            finally:
+                os.environ.pop("JWAS_HBM_BYTES")
+            profile_path(name, g_s, y, sum2pq)
+            del g_s
             continue
         profile_path(name, gm, y, sum2pq)
         host_ms_a_round(name, gm, y, sum2pq)

@@ -69,7 +69,7 @@ def problem(tmp_path_factory):
 
 def test_bayesr_chain_matches_jwas_tpu_within_mc_error(problem):
     ref, ws, gm = problem["ref"], problem["ws"], problem["gm"]
-    assert gm.row_perm is not None and (gm.grams.shape[1], gm.store.shape[0]) == (8, 7)
+    assert gm.row_perm is not None and (gm.grams.shape[1], gm.ngroups) == (8, 7)
     np.testing.assert_allclose(ws.pi0, jt.engine.mcmc.DEFAULT_BAYESR_PI)
     res = jt.run_st(gm, ws.y, **problem["priors"], method="BayesR", seed=7, **CHAIN)
     smp = res["samples"]

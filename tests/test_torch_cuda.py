@@ -294,7 +294,7 @@ def test_gemvs_and_grouped_path_on_card(cuda):
     gms = {d: gr.build_grouped_markers(store.packed, store.means, len(obs), b,
                                        gb, d, row_perm=perm)
            for d in ("cpu", cuda)}
-    assert gms["cpu"].store.shape[0] == 30
+    assert gms["cpu"].ngroups == 30
     torch.testing.assert_close(gms[cuda].grams.cpu(), gms["cpu"].grams,
                                rtol=1e-4, atol=1e-3)
     rng = np.random.default_rng(2)
@@ -394,3 +394,45 @@ def test_runmcmc_on_card(cuda):
     row = {s: i for i, s in enumerate(out[cuda]["EBV_y"].ID)}
     np.testing.assert_allclose(ebv[cuda][[row[s] for s in ws.obs_ids]], res["ebv"],
                                rtol=1e-5, atol=1e-6)
+
+
+def test_streamed_store_on_card(cuda, monkeypatch):
+    """A store in pinned host memory, streamed through the ring of staging
+    buffers with no resident group, and with half of its groups resident:
+    BayesC, BayesB and BayesR chains equal the resident chain bit for bit
+    (the same kernels read the same bytes). The copies are timed when
+    recorded. A pageable host store, or a device store, refuses to stream."""
+    store = _store(n=400, p=1000, missing=True)
+    y = np.random.default_rng(4).normal(size=400)
+    obs = list(np.random.default_rng(5).permutation(store.obs_ids))
+    res = setup_markers(store, obs, cuda, fast_blocks=8)
+    assert res.ngroups > 4 and res.store.shape[0] == 1000
+    kw = dict(vare0=0.5, scale_R=0.25, df_R=4.0, marker_var0=0.01,
+              marker_scale0=0.005, df_marker=4.0, chain_length=64, seed=2)
+    keys = ("alpha", "ebv", "vare", "varg", "pi")
+    want = {m: run_st(res, y, method=m, **kw) for m in ("BayesC", "BayesB", "BayesR")}
+    pinned = Packed2BitStore(**{**store.__dict__,
+                                "packed": gr.pinned_copy(store.packed)})
+    b, G, bpm = res.grams.shape[1], res.fetch.G, res.store.shape[1]
+    for k in (0, res.ngroups // 2):
+        monkeypatch.setenv("JWAS_HBM_BYTES",
+                           str(gr.hybrid_budget(k, res.ngroups, G, b, bpm)))
+        gm = setup_markers(pinned, obs, cuda, fast_blocks=8, host_offload=True)
+        assert gm.fetch.ring is not None and gm.fetch.resident == k
+        assert gm.store.data_ptr() == pinned.packed.data_ptr()
+        assert torch.equal(gm.grams, res.grams)
+        gm.fetch.record = True
+        for method, ref in want.items():
+            got = run_st(gm, y, method=method, **kw)
+            assert all(np.array_equal(got[key], ref[key]) for key in keys), (k, method)
+        secs, nbytes = gm.fetch.copy_seconds()
+        assert secs > 0 and nbytes > 0
+    pageable = Packed2BitStore(**{**store.__dict__,
+                                  "packed": torch.from_numpy(store.packed)})
+    monkeypatch.setenv("JWAS_HBM_BYTES", str(gr.hybrid_budget(0, res.ngroups, G, b, bpm)))
+    with pytest.raises(ValueError, match="pinned"):
+        setup_markers(pageable, obs, cuda, fast_blocks=8, host_offload=True)
+    on_card = Packed2BitStore(**{**store.__dict__,
+                                 "packed": torch.from_numpy(store.packed).to(cuda)})
+    with pytest.raises(ValueError, match="host memory"):
+        setup_markers(on_card, obs, cuda, fast_blocks=8, host_offload=True)

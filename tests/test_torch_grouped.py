@@ -47,6 +47,13 @@ def _problem(n=50, p=96, b=8, gb=4, seed=0, missing=True, permuted=True):
     return gmj, store3, means, valid, perm, n
 
 
+def _fetch(store3):
+    """A GroupFetcher over a (ngroups, G, bpm) store, every group resident."""
+    ngroups, G, bpm = store3.shape
+    return tgr.GroupFetcher(torch.from_numpy(store3.reshape(-1, bpm).copy()), G,
+                            "cpu", ngroups)
+
+
 def test_grouped_stats_and_gemvs_match_jax():
     """Gram tiles on the f32 path with and without missing codes and a row
     permutation, and on the exact bf16 path, which refuses a permutation;
@@ -55,7 +62,7 @@ def test_grouped_stats_and_gemvs_match_jax():
         gmj, store3, means, valid, perm, n = _problem(missing=missing,
                                                       permuted=permuted)
         grams, xpx = tgr.grouped_stats(
-            torch.from_numpy(store3.copy()), torch.from_numpy(means),
+            _fetch(store3), torch.from_numpy(means),
             torch.from_numpy(valid),
             None if perm is None else torch.from_numpy(perm), 8, n)
         jgrams = np.transpose(np.asarray(gmj.grams), (2, 0, 1))
@@ -66,13 +73,13 @@ def test_grouped_stats_and_gemvs_match_jax():
     jg, jx = jgr.grouped_stats(gmj.store, gmj.means, gmj.valid, None, None, 8,
                                n, exact_bf16=True)
     grams, xpx = tgr.grouped_stats(
-        torch.from_numpy(store3.copy()), torch.from_numpy(means),
+        _fetch(store3), torch.from_numpy(means),
         torch.from_numpy(valid), None, 8, n, exact_bf16=True)
     np.testing.assert_allclose(grams.numpy(), np.transpose(np.asarray(jg), (2, 0, 1)),
                                rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(xpx.numpy(), np.asarray(jx), rtol=1e-4, atol=1e-3)
     with pytest.raises(ValueError):
-        tgr.grouped_stats(torch.from_numpy(store3.copy()), torch.from_numpy(means),
+        tgr.grouped_stats(_fetch(store3), torch.from_numpy(means),
                           torch.from_numpy(valid), torch.arange(n), 8, n,
                           exact_bf16=True)
 

@@ -176,21 +176,40 @@ def test_validate_args_gives_jwas_tpu_errors(data):
 
 UNPORTED = {
     "n_chains": 2, "mesh": object(), "checkpoint_frequency": 10, "resume": True,
-    "heterogeneous_residuals": True, "update_priors_frequency": 10,
-    "starting_value": np.zeros(1), "double_precision": True,
-    "single_step_analysis": True, "pedigree": object(), "causal_structure": np.eye(1),
-    "RRM": np.ones((2, 2)), "sparse_location": True, "use_pallas": False,
-    "host_offload_genotypes": True,
+    "pedigree": object(), "sparse_location": True, "use_pallas": False,
+}
+# options jwas_tpu rejects on the 2-bit store: its ValueError comes first
+REJECTED = {
+    "double_precision": (True, "supports Float32 only"),
+    "heterogeneous_residuals": (True, "does not support heterogeneous residuals"),
+    "single_step_analysis": (True, "does not support single-step analysis"),
+    "RRM": (np.ones((2, 2)), "does not support random regression model"),
+    "causal_structure": (np.eye(1), "only allowed in multi-trait"),
 }
 
 
 def test_unported_options_raise_naming_themselves(data):
+    """Options the port does not run yet raise NotImplementedError naming
+    themselves; those jwas_tpu rejects raise its ValueError, through
+    runMCMC, in both packages."""
+    run = dict(chain_length=8, printout_model_info=False, output_folder="")
     for option, value in UNPORTED.items():
         model = jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
             jt.Packed2BitStore.load(data["store_path"])))
         with pytest.raises(NotImplementedError, match=option):
-            jt.runMCMC(model, data["table"], device="cpu", chain_length=8,
-                       printout_model_info=False, output_folder="", **{option: value})
+            jt.runMCMC(model, data["table"], device="cpu", **run, **{option: value})
+    for option, (value, message) in REJECTED.items():
+        for pkg in (jwas_tpu, jt):
+            store = (data["ref_store"] if pkg is jwas_tpu
+                     else jt.Packed2BitStore.load(data["store_path"]))
+            model = pkg.build_model("y = intercept + geno",
+                                    genotypes=pkg.get_genotypes(store, storage="2bit"))
+            kw = dict(device="cpu") if pkg is jt else {}
+            with pytest.raises(ValueError, match=message):
+                pkg.runMCMC(model, data["table"] if pkg is jt else data["df"],
+                            **kw, **run, **{option: value})
+    # jwas_tpu's runMCMC(double_precision=True) turned x64 on (fault R8)
+    jax.config.update("jax_enable_x64", False)
 
 
 def test_unported_model_features_raise(data):
@@ -203,8 +222,9 @@ def test_unported_model_features_raise(data):
     for storage in ("f32", "f64", "int8"):
         with pytest.raises(NotImplementedError, match="item 5"):
             jt.get_genotypes(data["geno"], storage=storage)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        jt.get_genotypes(store, method="BayesB")
+    assert jt.get_genotypes(store, method="BayesB").method == "BayesB"
+    with pytest.raises(ValueError, match="BayesC/BayesB/BayesR only"):
+        jt.get_genotypes(store, method="BayesA")
     with pytest.raises(ValueError, match="BayesC/BayesB/BayesR only"):
         jt.get_genotypes(store, method="RR-BLUP")
     with pytest.raises(ValueError, match="length-4"):

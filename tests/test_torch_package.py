@@ -1,6 +1,8 @@
-"""The port as a package: what importing it loads, the whole entry path
-where pandas cannot be imported, and chip_smoke.py's refusal to run without
-a GPU (it must print no result then)."""
+"""The port as a package: what importing each of its modules loads, the
+whole entry path where pandas cannot be imported (BayesC from a CSV, and
+BayesB on a store packed out of core and streamed from host memory), and
+chip_smoke.py's refusal to run without a GPU (it must print no result
+then)."""
 
 import os
 import subprocess
@@ -13,7 +15,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_out_jax_pandas_and_jwas_tpu():
-    code = ("import sys, jwas_tpu_torch, jwas_tpu_torch.engine.convert; "
+    code = ("import sys, importlib, pkgutil, jwas_tpu_torch; "
+            "mods = [m.name for m in pkgutil.walk_packages(jwas_tpu_torch.__path__, "
+            "'jwas_tpu_torch.')]; [importlib.import_module(m) for m in mods]; "
+            "assert 'jwas_tpu_torch.utils.memory' in mods, mods; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'pandas', 'jwas_tpu'}); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -46,7 +51,17 @@ out = jt.runMCMC(model, jt.read_csv(os.path.join(folder, "pheno.csv")),
                  device="cpu", chain_length=16, fast_blocks=8, seed=1,
                  printout_model_info=False, output_folder=os.path.join(folder, "res"))
 assert len(out["EBV_y"]) == n and np.isfinite(out["EBV_y"].EBV).all()
-assert "pandas" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
+store = jt.prepare_packed_genotypes(os.path.join(folder, "geno.csv"), low_memory=True,
+                                   save_path=os.path.join(folder, "geno"))
+model = jt.build_model("y = intercept + geno",
+                       genotypes=jt.get_genotypes(store, method="BayesB"))
+outb = jt.runMCMC(model, jt.read_csv(os.path.join(folder, "pheno.csv")),
+                  device="cpu", chain_length=16, fast_blocks=8, seed=1,
+                  host_offload_genotypes=True, printout_model_info=False,
+                  output_folder="")
+assert np.isfinite(outb["marker effects variances geno"].Estimate).all()
+loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
+assert not loaded & {"pandas", "jax", "jaxlib", "jwas_tpu"}, loaded
 print(sorted(os.listdir(os.path.join(folder, "res"))))
 """
 

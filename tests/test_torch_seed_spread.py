@@ -1,14 +1,18 @@
-"""Between-seed spread of BayesC posterior means, port against jwas_tpu.
+"""Between-seed spread of BayesC (or BayesB) posterior means, port against
+jwas_tpu.
 
 On tests/test_torch_slice.py's data and chain settings (n = 400, p =
 2,000, fast_blocks = 8, 2,000 sweeps, 400 burn-in), each package runs one
 chain a seed; the spread of a chain's posterior mean over the seeds is
 compared between the packages with a two-sided F-test. A port whose chains
 spread more than the reference's beyond chance would sample another
-posterior, or mix worse.
+posterior, or mix worse. With the method BayesB the data are
+tests/test_torch_bayesb.py's (p = 2,048, so the last group is short) and
+both packages run runMCMC; varg is the posterior mean of the markers'
+mean variance. The spreads of those runs calibrate that test's bounds.
 
-    python tests/test_torch_seed_spread.py run jwas_tpu 1 15 out.json
-    python tests/test_torch_seed_spread.py run port 1 15 out.json
+    python tests/test_torch_seed_spread.py run jwas_tpu 1 15 out.json [BayesB]
+    python tests/test_torch_seed_spread.py run port 1 15 out.json [BayesB]
     python tests/test_torch_seed_spread.py compare out1.json out2.json ...
 
 The test below holds the F-test itself; the chains take minutes a seed.
@@ -42,7 +46,7 @@ def test_f_test_matches_its_definition():
     assert f_test(4.0 * a, b)[1] < 1e-6
 
 
-def _problem():
+def _problem(method="BayesC"):
     import os
     os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=1")
     import jax
@@ -53,7 +57,8 @@ def _problem():
     from jwas_tpu.io.datasets import simulate_genomic_data
     import tempfile
 
-    sim = simulate_genomic_data(n=400, p=2000, n_qtl=20, h2=0.5, seed=11)
+    p = 2048 if method == "BayesB" else 2000
+    sim = simulate_genomic_data(n=400, p=p, n_qtl=20, h2=0.5, seed=11)
     path = os.path.join(tempfile.mkdtemp(), "geno")
     store = prepare_packed_genotypes(sim["genotypes"], save_path=path)
     pheno = sim["phenotypes"].sample(frac=1.0, random_state=1).reset_index(drop=True)
@@ -62,25 +67,39 @@ def _problem():
 
     def model():
         return build_model("y = intercept + geno",
-                           genotypes=get_genotypes(store, method="BayesC", name="geno"))
+                           genotypes=get_genotypes(store, method=method, name="geno"))
 
     ws = prepare_workspace(model(), pheno, MCMCOptions(**opts))
     return path, pheno, model, opts, ws
 
 
-def run(package, first, last, out):
+def _summary(res):
+    return dict(vare=float(res["residual variance"].Estimate[0]),
+                varg=float(res["marker effects variances geno"].Estimate[0]),
+                pi=float(res["pi_geno"].Estimate[0]))
+
+
+def run(package, first, last, out, method="BayesC"):
     import torch
     torch.set_num_threads(1)
-    path, pheno, model, opts, ws = _problem()
+    path, pheno, model, opts, ws = _problem(method)
     rows = []
-    if package == "jwas_tpu":
+    if method == "BayesB":
+        import jwas_tpu_torch as jt
+        from jwas_tpu import runMCMC
+        for seed in range(first, last + 1):
+            if package == "jwas_tpu":
+                res = runMCMC(model(), pheno, seed=seed, **opts)
+            else:
+                res = jt.runMCMC(jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
+                    jt.Packed2BitStore.load(path), method="BayesB", name="geno")),
+                    pheno, device="cpu", seed=seed, **opts)
+            rows.append(dict(seed=seed, **_summary(res)))
+    elif package == "jwas_tpu":
         from jwas_tpu import runMCMC
         for seed in range(first, last + 1):
             ref = runMCMC(model(), pheno, seed=seed, **opts)
-            rows.append(dict(seed=seed,
-                             vare=float(ref["residual variance"].Estimate[0]),
-                             varg=float(ref["marker effects variances geno"].Estimate[0]),
-                             pi=float(ref["pi_geno"].Estimate[0])))
+            rows.append(dict(seed=seed, **_summary(ref)))
     else:
         import jwas_tpu_torch as jt
         gm = jt.setup_markers(jt.Packed2BitStore.load(path), ws.obs_ids, "cpu",
@@ -93,7 +112,7 @@ def run(package, first, last, out):
                             burnin=400)
             rows.append(dict(seed=seed, **{k: float(res[k]) for k in KEYS}))
     with open(out, "w") as f:
-        json.dump({"package": package, "rows": rows}, f)
+        json.dump({"package": package, "method": method, "rows": rows}, f)
 
 
 def compare(files):
@@ -116,6 +135,7 @@ def compare(files):
 
 if __name__ == "__main__":
     if sys.argv[1] == "run":
-        run(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+        run(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+            *sys.argv[6:7])
     else:
         compare(sys.argv[2:])

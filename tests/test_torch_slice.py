@@ -57,7 +57,7 @@ def problem(tmp_path_factory):
 
 def test_chain_matches_jwas_tpu_within_mc_error(problem):
     ref, ws, gm = problem["ref"], problem["ws"], problem["gm"]
-    assert gm.row_perm is not None and (gm.grams.shape[1], gm.store.shape[0]) == (8, 13)
+    assert gm.row_perm is not None and (gm.grams.shape[1], gm.ngroups) == (8, 13)
     got = jt.run_st(gm, ws.y, **problem["priors"], seed=7, **CHAIN)
     want = {"vare": ref["residual variance"].Estimate[0],
             "varg": ref["marker effects variances geno"].Estimate[0],
@@ -79,7 +79,7 @@ def test_run_st_options(problem):
     option. Each draw that is switched off keeps its starting value; the
     scale draw moves the scale; nreps sets the sweeps per saved sample."""
     for option, value in (
-            ("method", "BayesB"), ("rinv", np.ones(400)), ("dtype", torch.float64),
+            ("method", "BayesA"), ("rinv", np.ones(400)), ("dtype", torch.float64),
             ("random_effects", ["ID"]), ("trait_type", "categorical"),
             ("annotations", np.ones((2000, 1))), ("n_genotype_categories", 2)):
         with pytest.raises(NotImplementedError, match=option):

@@ -79,8 +79,12 @@ def test_blocks_and_setup_markers_match_jax(tmp_path):
     gm = setup_markers(store, obs, "cpu", fast_blocks=8)
     b, gb = jgr.pick_stable_blocks(len(obs), 8, store.n_markers)
     gmj = jgr.build_grouped_markers(ref, obs, b, group_blocks=gb, host=False)
-    assert tuple(gm.store.shape) == tuple(gmj.store.shape)
-    np.testing.assert_array_equal(gm.store.numpy(), np.asarray(gmj.store))
+    # the port keeps the (p, bpm) store unpadded: jwas_tpu's padded groups
+    # hold the same rows, then zero rows up to p_pad
+    jstore = np.asarray(gmj.store).reshape(-1, gm.store.shape[1])
+    assert gm.ngroups == gmj.store.shape[0] and jstore.shape[0] == gm.valid.shape[0]
+    np.testing.assert_array_equal(gm.store.numpy(), jstore[:store.n_markers])
+    assert not jstore[store.n_markers:].any()
     np.testing.assert_array_equal(gm.row_perm.numpy(), np.asarray(gmj.row_perm))
     np.testing.assert_allclose(gm.grams.numpy(),
                                np.transpose(np.asarray(gmj.grams), (2, 0, 1)),
