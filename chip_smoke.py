@@ -14,7 +14,10 @@ Phases, each printed as it ends:
      almost none does, the default BayesR class prior from alpha = 0), with
      ns a dependent step, the share of the steps that changed an effect and
      the evaluations a window of 32 markers, and at ragged and large block
-     sizes;
+     sizes; the dense path's shapes (K1 with nblocks = 1 at b = 256 and
+     160, the exact sweep's chunks; K1 at b = 256 over 23 blocks, a dense
+     group) and the float64 builds of K1/K2 and K3 at b = 136 (resident
+     tile) and b = 256 (global), against float64 plain versions;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -43,7 +46,24 @@ Phases, each printed as it ends:
      order streamed, hybrid, hybrid, streamed: the chains equal bit for bit;
      seconds per outer iteration, the copies' GB/s and, from a profiled
      chain, the device's busy share and the share of the copies' device
-     time during which a kernel ran.
+     time during which a kernel ran;
+  7. dense genotypes at full width, N = 50,000 x P = 100,000 (the JWAS
+     calibration row of BASELINE.md): Binomial(2, f) scores generated on
+     the device as int8, phase 5's design (45,000 phenotyped in shuffled
+     order, herd, age, 5,000 candidates) with a 'weights' column
+     ~ U(0.5, 2), get_genotypes(storage="f32") writing the 20 GB
+     marker-major store on the card, then runMCMC: (a) BayesC, fast_blocks
+     = True, heterogeneous_residuals (b = 256, gb = 23: 17 groups, 544
+     rounds an outer iteration, K1's global-memory Gram branch), three
+     outer iterations; (b) BayesR on the same store (K3 at b = 256); (c) the
+     exact sweep (fast_blocks = False: 391 chunks of K1 with nblocks = 1),
+     20 sweeps; (d) the float32 store freed, a float64 store of 40 GB and
+     double_precision = True: BayesC for two outer iterations and BayesR
+     for one (the float64 builds of K1 and K3). Each run: seconds by part
+     and per window, peak memory within store + Grams + 4 GB, launches,
+     EBV accuracy of candidates and training rows, the output IDs' EBVs
+     against X alpha computed directly. Beside them the dense GEMVs of a
+     round (torch.mv over a group's 1.18 GB slab) against their byte bound.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -88,12 +108,16 @@ REPLACES = {
     "bayesr_inner_rounds": "jwas_tpu/ops/pallas_sweep.py:327",
     "packed_rhs": "jwas_tpu/ops/pallas_packed_gemv.py:55",
     "packed_matvec": "jwas_tpu/ops/pallas_packed_gemv.py:105",
+    "abc_inner_rounds_f64": "jwas_tpu/ops/pallas_sweep.py:68",
+    "bayesr_inner_rounds_f64": "jwas_tpu/ops/pallas_sweep.py:327",
 }
 SOURCES = {
     "abc_inner_rounds": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
     "bayesr_inner_rounds": "jwas_tpu_torch/csrc/bayesr_inner_rounds.cu",
     "packed_rhs": "jwas_tpu_torch/csrc/packed_gemv.cu",
     "packed_matvec": "jwas_tpu_torch/csrc/packed_gemv.cu",
+    "abc_inner_rounds_f64": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
+    "bayesr_inner_rounds_f64": "jwas_tpu_torch/csrc/bayesr_inner_rounds.cu",
 }
 
 
@@ -103,6 +127,7 @@ def say(*args):
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12             # float32 outside the tensor cores
+F64_FLOPS = 34e12             # float64 outside the tensor cores
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -127,12 +152,14 @@ def cuda_ms(fn, iters: int) -> float:
 def chain_bounds(inp, written, b, nblocks, nreps):
     """Roofline bound of one inner-rounds call (every input read once, the
     updated arrays written once; a step's rank-1 update of 2 b operations
-    and ~20 for the marker itself). The chain of nreps * b dependent steps
-    keeps a call far above it: the line prints the measured time a step."""
+    and ~20 for the marker itself, at the float32 or float64 peak). The
+    chain of nreps * b dependent steps keeps a call far above it: the line
+    prints the measured time a step."""
     nbytes = sum(t.numel() * t.element_size() for t in inp.values())
     nbytes += sum(inp[k].numel() * inp[k].element_size() for k in written)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nreps * b * nblocks * (2 * b + 20) / F32_FLOPS * 1e3
+    flops = F64_FLOPS if inp["grams"].dtype == torch.float64 else F32_FLOPS
+    t_ops = nreps * b * nblocks * (2 * b + 20) / flops * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
@@ -204,13 +231,19 @@ def chain_line(rec, ms, plain, stats, steps):
     return line
 
 
-def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed", per_marker=False):
+def as_dtype(inp, dtype):
+    """The inputs with every floating-point tensor in dtype."""
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in inp.items()}
+
+
+def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed", per_marker=False,
+             dtype=torch.float32):
     from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds,
                                                  abc_inner_rounds_ref,
                                                  abc_inner_rounds_window_ref,
                                                  gram_resident)
 
-    inp = k1_inputs(n, b, nblocks, nreps, 7, dev, regime, per_marker)
+    inp = as_dtype(k1_inputs(n, b, nblocks, nreps, 7, dev, regime, per_marker), dtype)
     fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
     a = fresh()
     abc_inner_rounds(**a, nreps=nreps)
@@ -228,9 +261,9 @@ def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed", per_marker=Fals
         torch.testing.assert_close(x, y, rtol=rtol, atol=atol)
     if agree < DELTA_AGREE:
         raise AssertionError(f"K1 b={b}: delta agreement {agree:.5f} < {DELTA_AGREE}")
-    line = (f"K1 {regime}{' per-marker var_eff' if per_marker else ''} b={b} "
-            f"nblocks={nblocks} reps={nreps} "
-            f"gram={'resident' if gram_resident(b, nreps) else 'global'}: "
+    line = (f"K1 {regime}{' per-marker var_eff' if per_marker else ''} "
+            f"{str(dtype).replace('torch.', '')} b={b} nblocks={nblocks} reps={nreps} "
+            f"gram={'resident' if gram_resident(b, nreps, dtype=dtype) else 'global'}: "
             f"delta agree {agree:.6f}, max |err| {err:.3g} "
             f"(alpha/beta rtol 1e-5 atol 1e-6, rhs rtol 1e-4 atol 1e-5)")
     rec = None
@@ -289,13 +322,13 @@ def k3_inputs(n, b, nblocks, nreps, seed, dev, from_zero=False):
     )
 
 
-def check_k3(n, b, nblocks, nreps, dev, time_it, from_zero=False):
+def check_k3(n, b, nblocks, nreps, dev, time_it, from_zero=False, dtype=torch.float32):
     from jwas_tpu_torch.ops.inner_rounds import (bayesr_inner_rounds,
                                                  bayesr_inner_rounds_ref,
                                                  bayesr_inner_rounds_window_ref,
                                                  gram_resident)
 
-    inp = k3_inputs(n, b, nblocks, nreps, 9, dev, from_zero)
+    inp = as_dtype(k3_inputs(n, b, nblocks, nreps, 9, dev, from_zero), dtype)
     fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
     a = fresh()
     bayesr_inner_rounds(**a, nreps=nreps)
@@ -317,9 +350,9 @@ def check_k3(n, b, nblocks, nreps, dev, time_it, from_zero=False):
     exact = all(torch.equal(a[k], r[k]) for k in ("alpha", "delta", "rhs"))
     shares = torch.bincount(a["delta"].view(-1).long(), minlength=4).float()
     shares = (shares / shares.sum()).tolist()
-    line = (f"K3 {'from alpha = 0 ' if from_zero else ''}b={b} nblocks={nblocks} "
-            f"reps={nreps} "
-            f"gram={'resident' if gram_resident(b, nreps, 'BayesR') else 'global'}: "
+    line = (f"K3 {'from alpha = 0 ' if from_zero else ''}"
+            f"{str(dtype).replace('torch.', '')} b={b} nblocks={nblocks} reps={nreps} "
+            f"gram={'resident' if gram_resident(b, nreps, 'BayesR', dtype) else 'global'}: "
             f"class agree {agree:.6f}, max |err| {err:.3g} (alpha rtol 1e-5 "
             f"atol 1e-6, rhs rtol 1e-4 atol 1e-5; bit for bit: {exact}); class "
             f"shares {', '.join(f'{x:.4f}' for x in shares)}")
@@ -452,6 +485,23 @@ def phase2(dev):
     check_k3(512, 256, 64, 2, dev, time_it=True)   # global-memory Gram branch
     check_k3(512, 152, 128, 2, dev, time_it=False)
     check_k3(256, 1040, 2, 1, dev, time_it=False)
+    # the dense path (phase 7): a dense group's K1 (b = 256, 23 blocks, a
+    # round of 8 reps), the exact sweep's chunks (nblocks = 1, one rep; the
+    # last one ragged), and the float64 builds against float64 plain
+    # versions at a resident (b = 136) and a global (b = 256) tile
+    f64 = torch.float64
+    recs["abc_inner_rounds"]["regimes"]["dense_group"] = check_k1(
+        512, 256, 23, 8, dev, time_it=True, regime="dense")
+    recs["abc_inner_rounds"]["regimes"]["exact_chunk"] = check_k1(
+        512, 256, 1, 1, dev, time_it=True, regime="dense")
+    check_k1(512, 160, 1, 1, dev, time_it=False)
+    recs["abc_inner_rounds_f64"] = check_k1(512, 256, 23, 8, dev, time_it=True,
+                                            dtype=f64)
+    check_k1(512, 136, 64, 2, dev, time_it=False, per_marker=True, dtype=f64)
+    check_k1(512, 256, 1, 1, dev, time_it=False, regime="dense", dtype=f64)
+    recs["bayesr_inner_rounds_f64"] = check_k3(512, 256, 23, 8, dev, time_it=True,
+                                               from_zero=True, dtype=f64)
+    check_k3(512, 136, 64, 2, dev, time_it=False, dtype=f64)
     recs.update(check_gemv(50_000, 16_384, dev, missing=False, permuted=False,
                            time_it=True))
     check_gemv(50_000, 16_384, dev, missing=True, permuted=True, time_it=False)
@@ -710,8 +760,9 @@ def phase5_problem(packed, freqs, tbv, seed=5, n_train=45_000, n_herds=100):
 def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + geno",
                on_markers=None, around_chain=None, **kw):
     """runMCMC at full width on phase5_problem's data (or another table and
-    equation), with the set-up (workspace; Grams on the row-permuted
-    float32 path) and the chain timed inside it. on_markers(gm) is called
+    equation; store a Packed2BitStore, or the Genotypes of a dense store),
+    with the set-up (workspace; Grams on the row-permuted float32 path) and
+    the chain timed inside it. on_markers(gm) is called
     on the grouped store before the chain runs, which runs inside the
     context manager around_chain when one is given. Returns (results, seconds
     by part, what the timed parts returned: "store and Grams" the grouped
@@ -736,13 +787,16 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
             return out
         return call
 
-    saved = em.prepare_workspace, em.setup_markers, em.run_chain
+    saved = (em.prepare_workspace, em.setup_markers, em.setup_dense_markers,
+             em.run_chain)
     em.prepare_workspace = timed("workspace", em.prepare_workspace)
     em.setup_markers = timed("store and Grams", em.setup_markers)
+    em.setup_dense_markers = timed("store and Grams", em.setup_dense_markers)
     em.run_chain = timed("chain", em.run_chain)
     try:
-        model = jt.build_model(eq, genotypes=jt.get_genotypes(store, method=method,
-                                                              storage="2bit"))
+        genotypes = (store if hasattr(store, "dense") else
+                     jt.get_genotypes(store, method=method, storage="2bit"))
+        model = jt.build_model(eq, genotypes=genotypes)
         if "age" in table.columns:
             jt.set_covariate(model, "age")
         t0 = time.perf_counter()
@@ -752,7 +806,8 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
         out = jt.runMCMC(model, table, **kw)
         seconds["runMCMC"] = time.perf_counter() - t0
     finally:
-        em.prepare_workspace, em.setup_markers, em.run_chain = saved
+        (em.prepare_workspace, em.setup_markers, em.setup_dense_markers,
+         em.run_chain) = saved
     return out, seconds, built
 
 
@@ -1124,6 +1179,232 @@ def phase6b(dev, kept, fast_blocks=128):
     return launches["streamed"]
 
 
+# ---------------------------------------------------------------- phase 7
+
+# device memory beyond the store and the Gram tiles that phase 7 may use
+PHASE7_MARGIN_BYTES = 4e9
+
+
+def dense_codes(n, p, seed, dev):
+    """Binomial(2, f) scores, f ~ U(0.1, 0.9), int8, generated on the
+    device marker-major; returned as the (n, p) view get_genotypes reads."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    freqs = 0.1 + 0.8 * torch.rand(p, generator=g, device=dev)
+    q0 = (1.0 - freqs) ** 2
+    q01 = q0 + 2.0 * freqs * (1.0 - freqs)
+    codes = torch.empty((p, n), dtype=torch.int8, device=dev)
+    for c0 in range(0, p, 2048):
+        c1 = min(p, c0 + 2048)
+        u = torch.rand((c1 - c0, n), generator=g, device=dev)
+        codes[c0:c1] = ((u > q0[c0:c1, None]).to(torch.int8)
+                        + (u > q01[c0:c1, None]).to(torch.int8))
+    return codes.T
+
+
+def phase7_problem(geno, seed=5, n_train=45_000, n_herds=100):
+    """Phase 5's design on a dense store's individuals: TBV = X beta with
+    0.1% QTL (torch seed 2, on the device), a herd factor, an age
+    covariate, noise of the TBV's variance over the weight, and a
+    'weights' column ~ U(0.5, 2), for n_train individuals in shuffled
+    order. Returns (table, tbv, training IDs, candidate IDs)."""
+    from jwas_tpu_torch.io.table import Table
+
+    X = geno.dense
+    p, n = X.shape
+    g = torch.Generator(device=X.device)
+    g.manual_seed(2)
+    qtl = torch.rand(p, generator=g, device=X.device) < 0.001
+    beta = (torch.randn(p, generator=g, device=X.device) * qtl).to(X.dtype)
+    tbv = torch.mv(X.T, beta).double().cpu().numpy()
+    ids = np.array(geno.obs_ids, dtype=object)
+    rng = np.random.default_rng(seed)
+    sd = float(np.std(tbv))
+    herd_effect = rng.normal(0.0, sd, n_herds)
+    herd = rng.integers(1, n_herds + 1, n)
+    age = np.round(rng.uniform(1.0, 5.0, n), 2)
+    weights = rng.uniform(0.5, 2.0, n)
+    y = (tbv + herd_effect[herd - 1] + 0.5 * age
+         + rng.normal(0.0, sd, n) / np.sqrt(weights))
+    order = rng.permutation(n)
+    train, cand = order[:n_train], order[n_train:]
+    table = Table({"ID": ids[train], "y": y[train], "herd": herd[train],
+                   "age": age[train], "weights": weights[train]})
+    return table, tbv, list(ids[train]), list(ids[cand])
+
+
+def fresh(geno, method):
+    """The Genotypes of the same dense store for another method, with
+    priors of their own (runMCMC fills them in on the object it gets)."""
+    import dataclasses
+
+    from jwas_tpu_torch.io.genotypes import VarianceSpec, bayesr_pi
+    return dataclasses.replace(
+        geno, method=method, pi=bayesr_pi(0.0) if method == "BayesR" else 0.0,
+        G=VarianceSpec(val=None), genetic_variance=VarianceSpec(val=None))
+
+
+def dense_gemv_line(X, G, dev):
+    """The dense GEMVs of a round over one group's slab (G rows of the
+    store): X_g' w and X_g v by torch.mv, each against its byte bound."""
+    rows = X[:G]
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    w = torch.randn(rows.shape[1], generator=g, device=dev, dtype=X.dtype)
+    v = torch.randn(G, generator=g, device=dev, dtype=X.dtype)
+    nbytes = rows.numel() * rows.element_size()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_rhs = cuda_ms(lambda: torch.mv(rows, w), 20)
+    ms_mv = cuda_ms(lambda: torch.mv(rows.T, v), 20)
+    say(f"dense GEMVs of a round, {str(X.dtype).replace('torch.', '')} slab of "
+        f"{G} x {rows.shape[1]} ({nbytes / 1e9:.3f} GB): X_g'w {ms_rhs:.4f} ms, "
+        f"X_g v {ms_mv:.4f} ms, bound {bound:.4f} ms each (bytes; "
+        f"{bound / ms_rhs:.1%} and {bound / ms_mv:.1%} of it reached)")
+
+
+def run_dense(label, dev, geno, table, tbv, train, cand, kernels, **kw):
+    """runMCMC on a dense store at full width (run_phase5's timing):
+    prints seconds, windows, peak memory against store + Grams +
+    PHASE7_MARGIN_BYTES, launches, EBV accuracy and the output IDs' EBVs
+    against X alpha computed directly; raises where a check fails.
+    Returns the launches of kernels (names, or name_f64 for the float64
+    builds' counts)."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.ops.inner_rounds import gram_resident
+
+    X = geno.dense
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    jt.reset_launches()
+    kw = dict(dict(method=geno.method, device=dev, output_folder="",
+                   heterogeneous_residuals=True), **kw)
+    out, seconds, built = run_phase5(geno, table, **kw)
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    counts.update({k.__name__ + "_f64": k.launches_f64 for k in jt.KERNELS
+                   if hasattr(k, "launches_f64")})
+    gm = built.pop("store and Grams")
+    in_place = gm.X.data_ptr() == X.data_ptr()
+    nblocks, b, _ = gm.grams.shape
+    shape = dict(b=b, gb=gm.G // b, groups=gm.ngroups, exact=gm.exact,
+                 dtype=str(gm.X.dtype).replace("torch.", ""),
+                 gram="resident" if gram_resident(
+                     b, b, "BayesR" if geno.method == "BayesR" else "BayesC",
+                     gm.X.dtype) else "global")
+    grams_bytes = gm.grams.numel() * gm.grams.element_size()
+    windows = built.pop("chain")[-1]
+    del gm, built
+    peak = torch.cuda.max_memory_allocated(dev)
+    store_bytes = X.numel() * X.element_size()
+    limit = store_bytes + grams_bytes + PHASE7_MARGIN_BYTES
+    say(f"{label}: {shape}; store used in place: {in_place}")
+    say("  seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + "; results " + f"{seconds['runMCMC'] - sum(v for k, v in seconds.items() if k != 'runMCMC'):.3f}"
+        + "; windows " + ", ".join(f"{t:.4f}" for t in windows))
+    say(f"  peak device memory {peak / 1e9:.2f} GB (store {store_bytes / 1e9:.2f} + Grams "
+        f"{grams_bytes / 1e9:.3f} + {PHASE7_MARGIN_BYTES / 1e9:.0f} GB = "
+        f"{limit / 1e9:.2f} GB allowed); launches {counts}")
+    ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
+    truth = dict(zip(geno.obs_ids, tbv))
+    acc = {who: float(np.corrcoef([ebv[s] for s in ids], [truth[s] for s in ids])[0, 1])
+           for who, ids in (("candidates", cand), ("training", train))}
+    col = {s: i for i, s in enumerate(geno.obs_ids)}
+    check = torch.as_tensor([col[s] for s in cand[:64]], device=dev)
+    alpha = torch.as_tensor(np.asarray(out["marker effects geno"].Estimate,
+                                       dtype=np.float64), device=dev)
+    direct = (X[:, check].double() * alpha[:, None]).sum(dim=0).cpu().numpy()
+    got = np.array([ebv[s] for s in cand[:64]])
+    err = float(np.abs(got - direct).max() / np.abs(direct).max())
+    say(f"  EBV accuracy: candidates {acc['candidates']:.4f}, training "
+        f"{acc['training']:.4f}; 64 candidates' EBVs against X alpha computed "
+        f"directly: max relative error {err:.3g} (tolerance {RTOL_DIRECT_EBV}); "
+        f"vare {out['residual variance'].Estimate[0]:.6g}, pi "
+        f"{list(np.round(np.atleast_1d(out['pi_geno'].Estimate), 6))}")
+    values = [np.asarray(out[k].Estimate, dtype=np.float64) for k in
+              ("residual variance", "marker effects variances geno", "pi_geno",
+               "marker effects geno", "location parameters")]
+    values.append(np.asarray(out["EBV_y"].EBV, dtype=np.float64))
+    if not all(np.isfinite(v).all() for v in values) or not np.isfinite(list(acc.values())).all():
+        raise AssertionError(f"{label}: non-finite results")
+    if not err <= RTOL_DIRECT_EBV:
+        raise AssertionError(f"{label}: candidates' EBVs off X alpha by {err:.3g}")
+    if not in_place:
+        raise AssertionError(f"{label}: runMCMC copied the dense store")
+    if peak > limit:
+        raise AssertionError(f"{label}: peak {peak / 1e9:.2f} GB > {limit / 1e9:.2f} GB")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    return shape, {k: counts[k] for k in kernels}
+
+
+def phase7(dev, n=50_000, p=100_000, n_train=45_000):
+    """Dense genotypes at full width; see the module's docstring."""
+    import jwas_tpu_torch as jt
+
+    say(f"== phase 7: dense genotypes at full width, N={n} x P={p}")
+    launches = {}
+    t0 = time.perf_counter()
+    codes = dense_codes(n, p, 7, dev)
+    torch.cuda.synchronize()
+    t_codes = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    geno = jt.get_genotypes(codes, method="BayesC", storage="f32", device=dev)
+    torch.cuda.synchronize()
+    t_geno = time.perf_counter() - t0
+    del codes
+    if geno.n_markers != p:
+        raise AssertionError(f"phase 7: QC kept {geno.n_markers} of {p} markers")
+    table, tbv, train, cand = phase7_problem(geno, n_train=n_train)
+    say(f"int8 scores generated in {t_codes:.2f} s; get_genotypes(storage='f32') "
+        f"wrote the {tuple(geno.dense.shape)} store ({geno.dense.numel() * 4 / 1e9:.2f} "
+        f"GB) in {t_geno:.2f} s; {len(train)} phenotyped with weights, "
+        f"{len(cand)} candidates")
+    abc, br = ("abc_inner_rounds",), ("bayesr_inner_rounds",)
+    shape, launches["phase 7a"] = run_dense(
+        "7a BayesC, fast_blocks=True, weighted", dev, geno, table, tbv, train, cand,
+        abc, fast_blocks=True, chain_length=768, output_samples_frequency=256)
+    from jwas_tpu_torch.ops.markers import dense_blocks
+    b, gb, _ = dense_blocks(n_train, True, p)      # b = 256, gb = 23 at full width
+    if (shape["b"], shape["gb"]) != (b, gb) or (b > 240 and shape["gram"] != "global"):
+        raise AssertionError(f"phase 7a: blocks {shape}, expected b={b}, gb={gb} "
+                             f"(K1's global-memory Gram branch above b = 240)")
+    dense_gemv_line(geno.dense, shape["b"] * shape["gb"], dev)
+    _, launches["phase 7b"] = run_dense(
+        "7b BayesR, fast_blocks=True, weighted", dev, fresh(geno, "BayesR"), table,
+        tbv, train, cand, br, fast_blocks=True, chain_length=768,
+        output_samples_frequency=256)
+    shape, launches["phase 7c"] = run_dense(
+        "7c BayesC, the exact sweep (fast_blocks=False), weighted", dev,
+        fresh(geno, "BayesC"), table, tbv, train, cand, abc, fast_blocks=False,
+        chain_length=20, output_samples_frequency=10)
+    if not shape["exact"]:
+        raise AssertionError("phase 7c: not the exact sweep")
+    del geno
+    torch.cuda.empty_cache()
+    codes = dense_codes(n, p, 7, dev)
+    t0 = time.perf_counter()
+    geno = jt.get_genotypes(codes, method="BayesC", storage="f64", device=dev)
+    torch.cuda.synchronize()
+    say(f"float32 store freed; get_genotypes(storage='f64') wrote the "
+        f"{geno.dense.numel() * 8 / 1e9:.2f} GB store in {time.perf_counter() - t0:.2f} s")
+    del codes
+    shape, launches["phase 7d"] = run_dense(
+        "7d BayesC, double_precision, fast_blocks=True, weighted", dev, geno, table,
+        tbv, train, cand, ("abc_inner_rounds_f64",), fast_blocks=True,
+        double_precision=True, chain_length=512, output_samples_frequency=256)
+    if shape["dtype"] != "float64":
+        raise AssertionError(f"phase 7d: the chain ran in {shape['dtype']}")
+    dense_gemv_line(geno.dense, shape["b"] * shape["gb"], dev)
+    _, launches["phase 7d BayesR"] = run_dense(
+        "7d BayesR, double_precision, fast_blocks=True, weighted", dev,
+        fresh(geno, "BayesR"), table, tbv, train, cand, ("bayesr_inner_rounds_f64",),
+        fast_blocks=True, double_precision=True, chain_length=256,
+        output_samples_frequency=256)
+    del geno
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1151,9 +1432,13 @@ def main():
     launches["phase 5"] = phase5(dev, kept)
     launches["phase 6a"] = phase6a(dev, kept)
     launches["phase 6b"] = phase6b(dev, kept)
+    del kept
+    torch.cuda.empty_cache()
+    launches.update(phase7(dev))
 
     # launches: phase 3's (run_st, both methods), phase 5's (runMCMC),
-    # phase 6's (runMCMC BayesB; BayesC streamed with no group resident)
+    # phase 6's (runMCMC BayesB; BayesC streamed with no group resident),
+    # phase 7's (runMCMC on dense stores; the float64 builds' in 7d)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=sum(c.get(name, 0) for c in launches.values()),

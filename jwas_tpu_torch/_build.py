@@ -46,14 +46,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta, delta, rhs, us,
-    # zs, inv_vare, b, nblocks, nreps, stream
+    # zs, inv_vare, b, nblocks, nreps, stream; float32 and float64 builds
     "jt_abc_inner_rounds": [_P] * 12 + [_I] * 3 + [_P],
-    # b, nreps -> 1 resident Gram tile, 0 global, <0 -cudaError
-    "jt_abc_resident": [_I, _I],
+    "jt_abc_inner_rounds_f64": [_P] * 12 + [_I] * 3 + [_P],
+    # b, nreps, itemsize -> 1 resident Gram tile, 0 global, <0 -cudaError
+    "jt_abc_resident": [_I, _I, _I],
     # grams, xpx, log_pi, alpha, delta, rhs, gumbel, zs, inv_vare, sigma_sq,
-    # b, nblocks, nreps, stream
+    # b, nblocks, nreps, stream; float32 and float64 builds
     "jt_bayesr_inner_rounds": [_P] * 10 + [_I] * 3 + [_P],
-    "jt_bayesr_resident": [_I, _I],
+    "jt_bayesr_inner_rounds_f64": [_P] * 10 + [_I] * 3 + [_P],
+    "jt_bayesr_resident": [_I, _I, _I],
     # which, io (16 floats), steps, stream: csrc/chain_probe.cu
     "jt_chain_probe": [_I, _P, _I, _P],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,

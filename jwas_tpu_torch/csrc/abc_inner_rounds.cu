@@ -31,15 +31,21 @@
 //    one shuffle from the next lane and one multiply-add.
 //
 // Rounding follows the plain PyTorch version operation by operation: the
-// __f*_rn intrinsics keep nvcc from contracting a*b+c into an FMA, so the
-// inclusion test u < prob sees the same rounding as the plain version
-// (expf and logf may still differ from the host's by an ulp).
+// __f*_rn intrinsics (__d*_rn in float64) keep nvcc from contracting
+// a*b+c into an FMA, so the inclusion test u < prob sees the same rounding
+// as the plain version (expf and logf, exp and log may still differ from
+// the host's by an ulp).
+//
+// Two builds: float32 (jt_abc_inner_rounds) and float64
+// (jt_abc_inner_rounds_f64, runMCMC's double_precision). A float64 step
+// does the same ~25 dependent operations at the card's float64 latency;
+// its Gram tile is resident up to b = 170.
 //
 // Layouts (all C-contiguous, block-major): grams (nblocks, b, b); xpx,
 // var_eff, log_pi, log_pi_comp, alpha, beta, delta (int32), rhs
 // (nblocks, b); us, zs (nreps * b, nblocks) as the JAX sweep draws them;
 // inv_vare a 1-element device array. alpha, beta, delta, rhs are updated
-// in place.
+// in place. Every floating-point array has the build's type.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,20 +54,28 @@
 
 namespace {
 
+using jt::add_rn;
+using jt::div_rn;
+using jt::exp_of;
+using jt::log_of;
+using jt::mul_rn;
+using jt::sqrt_rn;
+using jt::sub_rn;
+
 // The R markers one thread owns, in registers.
-template <int R>
+template <class T, int R>
 struct AbcMarkers {
-  float alpha[R], beta[R], xpx[R];
+  T alpha[R], beta[R], xpx[R];
   int delta[R];
-  float inv_lhs[R], c[R], sq_inv[R], sq_ve[R], lp[R], lpc[R];
-  float u[R], z[R], next_u[R], next_z[R];
-  float a_new, b_new;              // the candidate of the last eval
+  T inv_lhs[R], c[R], sq_inv[R], sq_ve[R], lp[R], lpc[R];
+  T u[R], z[R], next_u[R], next_z[R];
+  T a_new, b_new;                  // the candidate of the last eval
   int inc;
-  float kept_a, kept_b;            // shadow state of the window's marker
+  T kept_a, kept_b;                // shadow state of the window's marker
   int kept_inc;
-  float inv_vare;
-  const float* us;                 // column k of the draw panels
-  const float* zs;
+  T inv_vare;
+  const T* us;                     // column k of the draw panels
+  const T* zs;
   int b, nblocks, nreps;
 
   __device__ __forceinline__ void fetch(int rep) {
@@ -86,22 +100,20 @@ struct AbcMarkers {
   }
 
   // jwas_tpu/ops/markers.py:118 (_abc_update), constants precomputed
-  __device__ __forceinline__ float eval(int r, float rhs) {
-    const float a_old = alpha[r];
-    const float t =
-        __fmul_rn(__fadd_rn(rhs, __fmul_rn(xpx[r], a_old)), inv_vare);
-    const float g = __fmul_rn(t, inv_lhs[r]);
-    const float ld1 = __fadd_rn(
-        __fmul_rn(-0.5f, __fsub_rn(c[r], __fmul_rn(g, t))), lpc[r]);
+  __device__ __forceinline__ T eval(int r, T rhs) {
+    const T a_old = alpha[r];
+    const T t = mul_rn(add_rn(rhs, mul_rn(xpx[r], a_old)), inv_vare);
+    const T g = mul_rn(t, inv_lhs[r]);
+    const T ld1 =
+        add_rn(mul_rn(T(-0.5), sub_rn(c[r], mul_rn(g, t))), lpc[r]);
     // (__frcp_rn gives the same bits and measured 8 ns a step slower on
     // an H100)
-    const float prob =
-        __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(__fsub_rn(lp[r], ld1))));
+    const T prob = div_rn(T(1), add_rn(T(1), exp_of(sub_rn(lp[r], ld1))));
     inc = u[r] < prob;
-    const float b_in = __fadd_rn(g, __fmul_rn(z[r], sq_inv[r]));
-    a_new = inc ? b_in : 0.0f;
-    b_new = inc ? b_in : __fmul_rn(z[r], sq_ve[r]);
-    return __fsub_rn(a_old, a_new);
+    const T b_in = add_rn(g, mul_rn(z[r], sq_inv[r]));
+    a_new = inc ? b_in : T(0);
+    b_new = inc ? b_in : mul_rn(z[r], sq_ve[r]);
+    return sub_rn(a_old, a_new);
   }
 
   __device__ __forceinline__ void keep() {
@@ -110,8 +122,8 @@ struct AbcMarkers {
     kept_inc = inc;
   }
 
-  __device__ __forceinline__ float finish(int r) {
-    const float d = __fsub_rn(alpha[r], kept_a);
+  __device__ __forceinline__ T finish(int r) {
+    const T d = sub_rn(alpha[r], kept_a);
     alpha[r] = kept_a;
     beta[r] = kept_b;
     delta[r] = kept_inc;
@@ -119,21 +131,21 @@ struct AbcMarkers {
   }
 };
 
-template <int R>
+template <class T, int R>
 __global__ void __launch_bounds__(jt::kMaxThreads) abc_inner_rounds_kernel(
-    const float* __restrict__ grams, const float* __restrict__ xpx,
-    const float* __restrict__ var_eff, const float* __restrict__ log_pi,
-    const float* __restrict__ log_pi_comp, float* __restrict__ alpha,
-    float* __restrict__ beta, int32_t* __restrict__ delta,
-    float* __restrict__ rhs, const float* __restrict__ us,
-    const float* __restrict__ zs, const float* __restrict__ inv_vare_ptr,
-    int b, int nblocks, int nreps, int resident) {
+    const T* __restrict__ grams, const T* __restrict__ xpx,
+    const T* __restrict__ var_eff, const T* __restrict__ log_pi,
+    const T* __restrict__ log_pi_comp, T* __restrict__ alpha,
+    T* __restrict__ beta, int32_t* __restrict__ delta, T* __restrict__ rhs,
+    const T* __restrict__ us, const T* __restrict__ zs,
+    const T* __restrict__ inv_vare_ptr, int b, int nblocks, int nreps,
+    int resident) {
   extern __shared__ float4 smem4[];
   const int k = blockIdx.x;
   const size_t base = static_cast<size_t>(k) * b;
 
-  AbcMarkers<R> m;
-  float rhs_r[R];
+  AbcMarkers<T, R> m;
+  T rhs_r[R];
   m.inv_vare = *inv_vare_ptr;
   m.us = us + k;
   m.zs = zs + k;
@@ -144,29 +156,29 @@ __global__ void __launch_bounds__(jt::kMaxThreads) abc_inner_rounds_kernel(
   for (int r = 0; r < R; ++r) {
     const int i = r * blockDim.x + threadIdx.x;
     const bool own = i < b;
-    const float ve = own ? var_eff[base + i] : 1.0f;
-    const float x = own ? xpx[base + i] : 1.0f;
-    const float inv_ve = __fdiv_rn(1.0f, ve);
-    const float lhs = __fadd_rn(__fmul_rn(x, m.inv_vare), inv_ve);
-    const float inv_lhs = __fdiv_rn(1.0f, lhs);
-    rhs_r[r] = own ? rhs[base + i] : 0.0f;
-    m.alpha[r] = own ? alpha[base + i] : 0.0f;
-    m.beta[r] = own ? beta[base + i] : 0.0f;
+    const T ve = own ? var_eff[base + i] : T(1);
+    const T x = own ? xpx[base + i] : T(1);
+    const T inv_ve = div_rn(T(1), ve);
+    const T lhs = add_rn(mul_rn(x, m.inv_vare), inv_ve);
+    const T inv_lhs = div_rn(T(1), lhs);
+    rhs_r[r] = own ? rhs[base + i] : T(0);
+    m.alpha[r] = own ? alpha[base + i] : T(0);
+    m.beta[r] = own ? beta[base + i] : T(0);
     m.delta[r] = own ? delta[base + i] : 0;
     m.xpx[r] = x;
     m.inv_lhs[r] = inv_lhs;
-    m.c[r] = __fadd_rn(logf(lhs), logf(ve));
-    m.sq_inv[r] = __fsqrt_rn(inv_lhs);
-    m.sq_ve[r] = __fsqrt_rn(ve);
-    m.lp[r] = own ? log_pi[base + i] : 0.0f;
-    m.lpc[r] = own ? log_pi_comp[base + i] : 0.0f;
-    m.next_u[r] = 0.0f;
-    m.next_z[r] = 0.0f;
+    m.c[r] = add_rn(log_of(lhs), log_of(ve));
+    m.sq_inv[r] = sqrt_rn(inv_lhs);
+    m.sq_ve[r] = sqrt_rn(ve);
+    m.lp[r] = own ? log_pi[base + i] : T(0);
+    m.lpc[r] = own ? log_pi_comp[base + i] : T(0);
+    m.next_u[r] = T(0);
+    m.next_z[r] = T(0);
   }
   m.fetch(0);
   m.advance();
 
-  jt::run_chain<R>(m, rhs_r, grams + base * b, smem4, b, nreps, resident);
+  jt::run_chain<T, R>(m, rhs_r, grams + base * b, smem4, b, nreps, resident);
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -180,28 +192,53 @@ __global__ void __launch_bounds__(jt::kMaxThreads) abc_inner_rounds_kernel(
   }
 }
 
-template <int R>
-int launch(const jt::ChainPlan& p, const float* grams, const float* xpx,
-           const float* var_eff, const float* log_pi,
-           const float* log_pi_comp, float* alpha, float* beta,
-           int32_t* delta, float* rhs, const float* us, const float* zs,
-           const float* inv_vare, int b, int nblocks, int nreps,
+template <class T, int R>
+int launch(const jt::ChainPlan& p, const T* grams, const T* xpx,
+           const T* var_eff, const T* log_pi, const T* log_pi_comp, T* alpha,
+           T* beta, int32_t* delta, T* rhs, const T* us, const T* zs,
+           const T* inv_vare, int b, int nblocks, int nreps,
            cudaStream_t stream) {
   static bool ready[jt::kMaxDevices];
-  const int err = jt::allow_smem(abc_inner_rounds_kernel<R>, p, ready);
+  const int err = jt::allow_smem(abc_inner_rounds_kernel<T, R>, p, ready);
   if (err != 0) return err;
-  abc_inner_rounds_kernel<R><<<nblocks, p.threads, p.smem, stream>>>(
+  abc_inner_rounds_kernel<T, R><<<nblocks, p.threads, p.smem, stream>>>(
       grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta, delta, rhs, us,
       zs, inv_vare, b, nblocks, nreps, p.resident);
   return cudaGetLastError();
 }
 
+template <class T>
+int inner_rounds(const T* grams, const T* xpx, const T* var_eff,
+                 const T* log_pi, const T* log_pi_comp, T* alpha, T* beta,
+                 int32_t* delta, T* rhs, const T* us, const T* zs,
+                 const T* inv_vare, int b, int nblocks, int nreps,
+                 void* stream) {
+  if (b <= 0 || nblocks <= 0 || nreps <= 0) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(grams) % 16)
+    return cudaErrorMisalignedAddress;
+  jt::ChainPlan p;
+  const int err = jt::chain_plan<T>(b, &p);
+  if (err != 0) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define JT_ABC_LAUNCH(R)                                                     \
+  launch<T, R>(p, grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta,    \
+               delta, rhs, us, zs, inv_vare, b, nblocks, nreps, s)
+  switch (p.rows) {
+    case 1: return JT_ABC_LAUNCH(1);
+    case 2: return JT_ABC_LAUNCH(2);
+    default: return JT_ABC_LAUNCH(4);
+  }
+#undef JT_ABC_LAUNCH
+}
+
 }  // namespace
 
-extern "C" int jt_abc_resident(int b, int nreps) {
+// b, nreps, itemsize (4 or 8) -> 1 resident Gram tile, 0 global, <0 -error
+extern "C" int jt_abc_resident(int b, int nreps, int itemsize) {
   (void)nreps;                     // the draws take no shared memory
   jt::ChainPlan p;
-  const int err = jt::chain_plan(b, &p);
+  const int err = itemsize == 8 ? jt::chain_plan<double>(b, &p)
+                                : jt::chain_plan<float>(b, &p);
   return err != 0 ? -err : p.resident;
 }
 
@@ -210,20 +247,18 @@ extern "C" int jt_abc_inner_rounds(
     const float* log_pi, const float* log_pi_comp, float* alpha, float* beta,
     int32_t* delta, float* rhs, const float* us, const float* zs,
     const float* inv_vare, int b, int nblocks, int nreps, void* stream) {
-  if (b <= 0 || nblocks <= 0 || nreps <= 0) return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(grams) % 16)
-    return cudaErrorMisalignedAddress;
-  jt::ChainPlan p;
-  const int err = jt::chain_plan(b, &p);
-  if (err != 0) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define JT_ABC_LAUNCH(R)                                                     \
-  launch<R>(p, grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta, delta, \
-            rhs, us, zs, inv_vare, b, nblocks, nreps, s)
-  switch (p.rows) {
-    case 1: return JT_ABC_LAUNCH(1);
-    case 2: return JT_ABC_LAUNCH(2);
-    default: return JT_ABC_LAUNCH(4);
-  }
-#undef JT_ABC_LAUNCH
+  return inner_rounds<float>(grams, xpx, var_eff, log_pi, log_pi_comp, alpha,
+                             beta, delta, rhs, us, zs, inv_vare, b, nblocks,
+                             nreps, stream);
+}
+
+extern "C" int jt_abc_inner_rounds_f64(
+    const double* grams, const double* xpx, const double* var_eff,
+    const double* log_pi, const double* log_pi_comp, double* alpha,
+    double* beta, int32_t* delta, double* rhs, const double* us,
+    const double* zs, const double* inv_vare, int b, int nblocks, int nreps,
+    void* stream) {
+  return inner_rounds<double>(grams, xpx, var_eff, log_pi, log_pi_comp, alpha,
+                              beta, delta, rhs, us, zs, inv_vare, b, nblocks,
+                              nreps, stream);
 }

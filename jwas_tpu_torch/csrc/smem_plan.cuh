@@ -32,9 +32,14 @@
 // the result equals the one-step-one-barrier schedule bit for bit.
 //
 // Shared memory holds the two lists and the b x b Gram tile when it fits
-// (b <= 240 on the H100); otherwise a window's owner stages the window's
-// 32 x 32 diagonal block there and the list updates read Gram rows from
-// global memory/L2.
+// (b <= 240 in float32, b <= 170 in float64 on the H100); otherwise a
+// window's owner stages the window's 32 x 32 diagonal block there and the
+// list updates read Gram rows from global memory/L2.
+//
+// Everything is templated on the element type T, float or double: the
+// float64 build keeps the float32 build's schedule and its explicit
+// roundings (__dadd_rn where float uses __fadd_rn), through the overloads
+// of add_rn, sub_rn, mul_rn, div_rn and sqrt_rn below.
 
 #pragma once
 
@@ -54,10 +59,27 @@ constexpr int kFewChanges = 6;     // up to here a window's changes are
                                    // handed over one by one
 constexpr unsigned kFullWarp = 0xffffffffu;
 
+// Round-to-nearest arithmetic that nvcc may not contract into an FMA.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float exp_of(float a) { return expf(a); }
+__device__ __forceinline__ double exp_of(double a) { return exp(a); }
+__device__ __forceinline__ float log_of(float a) { return logf(a); }
+__device__ __forceinline__ double log_of(double a) { return log(a); }
+
 // Head of the dynamic shared memory: the changes of two windows, d by lane
 // and a mask of the lanes that changed.
+template <class T>
 struct ChainLists {
-  float d[2][kWindow];
+  T d[2][kWindow];
   unsigned mask[2];
   int pad[2];                      // keeps what follows 16-byte aligned
 };
@@ -71,8 +93,10 @@ struct ChainPlan {
   size_t smem;
 };
 
-// Fills *p for block size b on the current device; returns a cudaError_t
-// (cudaErrorInvalidValue for b > kMaxThreads * kMaxRows).
+// Fills *p for block size b and element type T on the current device;
+// returns a cudaError_t (cudaErrorInvalidValue for b > kMaxThreads *
+// kMaxRows).
+template <class T>
 inline int chain_plan(int b, ChainPlan* p) {
   static int optin_of[kMaxDevices];     // 0: not asked yet
   int err = cudaGetDevice(&p->dev);
@@ -93,12 +117,13 @@ inline int chain_plan(int b, ChainPlan* p) {
   while (p->rows < rows) p->rows *= 2;
   // a row's worth of padding lets a lane past the end of a last, partial
   // window read its (unused) Gram entry without a bounds test
-  const size_t tile = (static_cast<size_t>(b) * b + kWindow) * 4;
+  const size_t tile = (static_cast<size_t>(b) * b + kWindow) * sizeof(T);
   // (an odd b would leave a block's tile off the 16-byte grid of the copy)
   p->resident = b % 2 == 0 &&
-                sizeof(ChainLists) + tile <= static_cast<size_t>(optin);
-  p->smem = sizeof(ChainLists) +
-            (p->resident ? tile : static_cast<size_t>(kWindow) * kWindow * 4);
+                sizeof(ChainLists<T>) + tile <= static_cast<size_t>(optin);
+  p->smem = sizeof(ChainLists<T>) +
+            (p->resident ? tile
+                         : static_cast<size_t>(kWindow) * kWindow * sizeof(T));
   return 0;
 }
 
@@ -118,41 +143,46 @@ inline int allow_smem(Kernel kernel, const ChainPlan& p, bool* ready) {
 // the Gram row of the window's first marker: in the shared-memory tile or
 // in global memory, which the caller tells apart at compile time so that
 // the loads need no generic addressing.
-template <int R>
-__device__ __forceinline__ void hand_over(float (&rhs)[R], const float* d,
-                                          unsigned mask, const float* rows,
+template <class T, int R>
+__device__ __forceinline__ void hand_over(T (&rhs)[R], const T* d,
+                                          unsigned mask, const T* rows,
                                           int b, int nact, int r, bool owner) {
   const int tid = threadIdx.x;
-  const int T = blockDim.x;
+  const int nt = blockDim.x;
   if (__popc(mask) > kFewChanges) {
     // many changes: all loads first (they are independent), then the
-    // additions, which are a chain
+    // additions, which are a chain; in float64 half a window at a time, so
+    // that the loads fit the registers
+    constexpr int kLoads = sizeof(T) == 4 ? kWindow : kWindow / 2;
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) {
-      const int i = rr * T + tid;
+      const int i = rr * nt + tid;
       if (i < b && !(rr == r && owner)) {
-        float dq[kWindow], gq[kWindow];
 #pragma unroll
-        for (int q = 0; q < kWindow; ++q) {
-          dq[q] = d[q];
-          gq[q] = rows[min(q, nact - 1) * b + i];
+        for (int q0 = 0; q0 < kWindow; q0 += kLoads) {
+          T dq[kLoads], gq[kLoads];
+#pragma unroll
+          for (int q = 0; q < kLoads; ++q) {
+            dq[q] = d[q0 + q];
+            gq[q] = rows[min(q0 + q, nact - 1) * b + i];
+          }
+#pragma unroll
+          for (int q = 0; q < kLoads; ++q)
+            if (mask >> (q0 + q) & 1)
+              rhs[rr] = add_rn(rhs[rr], mul_rn(dq[q], gq[q]));
         }
-#pragma unroll
-        for (int q = 0; q < kWindow; ++q)
-          if (mask >> q & 1)
-            rhs[rr] = __fadd_rn(rhs[rr], __fmul_rn(dq[q], gq[q]));
       }
     }
   } else {
     while (mask) {
       const int q = __ffs(mask) - 1;
       mask &= mask - 1;
-      const float dq = d[q];
+      const T dq = d[q];
 #pragma unroll
       for (int rr = 0; rr < R; ++rr) {
-        const int i = rr * T + tid;
+        const int i = rr * nt + tid;
         if (i < b && !(rr == r && owner))
-          rhs[rr] = __fadd_rn(rhs[rr], __fmul_rn(dq, rows[q * b + i]));
+          rhs[rr] = add_rn(rhs[rr], mul_rn(dq, rows[q * b + i]));
       }
     }
   }
@@ -168,18 +198,18 @@ __device__ __forceinline__ void hand_over(float (&rhs)[R], const float* d,
 //   keep()          copy the last candidate to the shadow state
 //   finish(r)       make the shadow marker r's state; returns a_old - a_new
 // rhs[r] is the rhs of owned marker r, marker r * blockDim.x + threadIdx.x.
-template <int R, class M>
-__device__ __forceinline__ void run_chain(M& m, float (&rhs)[R],
-                                          const float* __restrict__ G,
+template <class T, int R, class M>
+__device__ __forceinline__ void run_chain(M& m, T (&rhs)[R],
+                                          const T* __restrict__ G,
                                           float4* smem4, int b, int nreps,
                                           int resident) {
-  ChainLists* ls = reinterpret_cast<ChainLists*>(smem4);
-  float* tile = reinterpret_cast<float*>(smem4) + sizeof(ChainLists) / 4;
+  ChainLists<T>* ls = reinterpret_cast<ChainLists<T>*>(smem4);
+  T* tile = reinterpret_cast<T*>(smem4 + sizeof(ChainLists<T>) / 16);
   const int tid = threadIdx.x;
-  const int T = blockDim.x;
+  const int nt = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = T >> 5;
+  const int nwarps = nt >> 5;
 
   if (resident) {
     // asynchronous 16-byte copies (the entry points refuse a tile that is
@@ -187,7 +217,8 @@ __device__ __forceinline__ void run_chain(M& m, float (&rhs)[R],
     // where a loop through registers keeps four
     const float4* G4 = reinterpret_cast<const float4*>(G);
     float4* tile4 = reinterpret_cast<float4*>(tile);
-    for (int i = tid; i < b * b / 4; i += T)
+    const int n16 = b * b * static_cast<int>(sizeof(T)) / 16;
+    for (int i = tid; i < n16; i += nt)
       __pipeline_memcpy_async(tile4 + i, G4 + i, 16);
     __pipeline_commit();
     __pipeline_wait_prior(0);
@@ -206,7 +237,7 @@ __device__ __forceinline__ void run_chain(M& m, float (&rhs)[R],
         ++seq;
         const int nact = min(kWindow, b - j0);
         if (warp == ww) {
-          const float* gw;         // G[j0 + f][j0 + lane] = gw[f * gs + lane]
+          const T* gw;             // G[j0 + f][j0 + lane] = gw[f * gs + lane]
           int gs;
           if (resident) {
             gw = tile + static_cast<size_t>(j0) * b + j0;
@@ -216,7 +247,7 @@ __device__ __forceinline__ void run_chain(M& m, float (&rhs)[R],
               tile[t * kWindow + lane] =
                   (t < nact && lane < nact)
                       ? G[static_cast<size_t>(j0 + t) * b + j0 + lane]
-                      : 0.0f;
+                      : T(0);
             __syncwarp();
             gw = tile;
             gs = kWindow;
@@ -225,8 +256,8 @@ __device__ __forceinline__ void run_chain(M& m, float (&rhs)[R],
           for (;;) {
             // The Gram entry a change at lane pos needs: its address is
             // known before the evaluation, so the load leaves the chain.
-            const float g_pos = gw[pos * gs + lane];
-            const float d = m.eval(r, rhs[r]);
+            const T g_pos = gw[pos * gs + lane];
+            const T d = m.eval(r, rhs[r]);
             // A lane the chain has not passed keeps its newest candidate;
             // the one it holds when the chain passes it is its update.
             if (lane >= pos) m.keep();
@@ -235,35 +266,35 @@ __device__ __forceinline__ void run_chain(M& m, float (&rhs)[R],
             // lane known in advance; the ballot, issued beside it, is read
             // only where it does not.
             const unsigned changing = __ballot_sync(
-                kFullWarp, lane > pos && lane < nact && d != 0.0f);
-            float df = __shfl_sync(kFullWarp, d, pos);
-            float gf = g_pos;
+                kFullWarp, lane > pos && lane < nact && d != T(0));
+            T df = __shfl_sync(kFullWarp, d, pos);
+            T gf = g_pos;
             int f = pos;
-            if (df == 0.0f) {
+            if (df == T(0)) {
               if (!changing) break;
               f = __ffs(changing) - 1;
               df = __shfl_sync(kFullWarp, d, f);
               gf = gw[f * gs + lane];
             }
-            rhs[r] = __fadd_rn(rhs[r], __fmul_rn(df, gf));
+            rhs[r] = add_rn(rhs[r], mul_rn(df, gf));
             pos = f + 1;
             if (pos >= nact) break;
           }
-          const float dm = m.finish(r);
+          const T dm = m.finish(r);
           const unsigned changed =
-              __ballot_sync(kFullWarp, lane < nact && dm != 0.0f);
+              __ballot_sync(kFullWarp, lane < nact && dm != T(0));
           ls->d[buf][lane] = dm;
           if (lane == 0) ls->mask[buf] = changed;
         }
         __syncthreads();
         const unsigned mask = ls->mask[buf];
         if (mask && resident)
-          hand_over<R>(rhs, ls->d[buf], mask, tile + j0 * b, b, nact, r,
-                       warp == ww);
+          hand_over<T, R>(rhs, ls->d[buf], mask, tile + j0 * b, b, nact, r,
+                          warp == ww);
         else if (mask)
-          hand_over<R>(rhs, ls->d[buf], mask,
-                       G + static_cast<size_t>(j0) * b, b, nact, r,
-                       warp == ww);
+          hand_over<T, R>(rhs, ls->d[buf], mask,
+                          G + static_cast<size_t>(j0) * b, b, nact, r,
+                          warp == ww);
       }
     }
     m.advance();

@@ -4,8 +4,9 @@ For tests that make both packages compute from identical parameters: the
 grouped store and its statistics as jwas_tpu builds them (numpy-converted
 GroupedPackedMarkers fields, with j-major Gram tiles (b, b, nblocks)) become
 a GroupedPackedMarkers of this package with block-major Grams
-(nblocks, b, b) over the (p_pad, bpm) store, and chain-state arrays become
-flat tensors.
+(nblocks, b, b) over the (p_pad, bpm) store; jwas_tpu's dense MarkerBlocks
+(X (n, p_pad), j-major Grams) becomes a DenseMarkers over the marker-major
+(p, n) store; chain-state arrays become flat tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jwas_tpu_torch.ops.dense import DenseMarkers
 from jwas_tpu_torch.ops.grouped import GroupedPackedMarkers, GroupFetcher
 
 
@@ -40,3 +42,27 @@ def from_jax_arrays(store, means, valid, xpx, grams, n_obs: int,
         x = np.asarray(x)
         out[name] = t(x, torch.int32 if x.dtype.kind in "iu" else torch.float32)
     return gm, out
+
+
+def from_jax_marker_blocks(X, xpx, grams, valid, group_blocks: int, *,
+                           rinv=None, device="cpu", dtype=torch.float32):
+    """jwas_tpu's MarkerBlocks fields (X (n, p_pad) over the training rows,
+    j-major grams (b, b, nblocks), xpx, valid; numpy or JAX arrays) ->
+    a DenseMarkers in dtype whose store is X's real columns marker-major,
+    (p, n), with groups of group_blocks blocks (0: one group), the
+    identity row order and the given inverse residual weights. The padding
+    markers' xpx becomes 1, as the port keeps it."""
+    def t(x):
+        return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+
+    valid_t = t(valid)
+    p = int(valid_t.sum().item())
+    X = np.asarray(X)
+    b, _, nblocks = np.shape(grams)
+    gb = int(group_blocks) or nblocks
+    xpx_t = torch.where(valid_t > 0, t(xpx), torch.ones_like(valid_t))
+    return DenseMarkers(
+        X=t(np.ascontiguousarray(X[:, :p].T)), G=b * gb, row_perm=None,
+        rinv=None if rinv is None else t(rinv), xpx=xpx_t,
+        grams=t(np.ascontiguousarray(np.transpose(np.asarray(grams), (2, 0, 1)))),
+        valid=valid_t, n_obs=X.shape[0])

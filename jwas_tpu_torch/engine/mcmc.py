@@ -1,14 +1,22 @@
-"""Single-trait BayesC, BayesB and BayesR on the 2-bit packed store: Gibbs
-step, chain loop, runMCMC.
+"""Single-trait BayesC, BayesB and BayesR on the 2-bit packed store or a
+dense store: Gibbs step, chain loop, runMCMC.
 
-Counterpart of jwas_tpu/engine/mcmc.py, trimmed to the path that runMCMC
-takes for storage='2bit' genotypes on one device (:786-868):
-STData (:50), make_st_step (:113-527: the location pass :180-185, the
-packed grouped BayesC/B branch :191-210 and BayesR branch :321-347, pi
-:438-443, the marker variance :446-472, its scale :476-484, the residual
-variance :509-518), make_run_window (:580-668), _init_accum (:671),
+Counterpart of jwas_tpu/engine/mcmc.py, trimmed to the paths that runMCMC
+takes on one device for storage='2bit' genotypes (:786-868) and for dense
+ones (:796-844): STData (:50), make_st_step (:113-527: the location pass
+with W'R^-1W and W'R^-1 ycorr :180-185, :766-768, the packed grouped
+BayesC/B branch :191-210 and BayesR branch :321-347, the dense grouped and
+exact branches :233-267, :288-299, :366-404, pi :438-443, the marker
+variance :446-472, its scale :476-484, the weighted residual variance
+:509-518), make_run_window (:580-668), _init_accum (:671),
 _apply_update_priors (:691-715), _build_st_data_and_state (:762-868, the
 state :1128-1224) and the single-chain loop of runMCMC (:1435-1569).
+
+The chain's dtype is its store's, float32 or float64
+(double_precision), chosen per call: there is no global switch (fault
+R8). A dense store runs the grouped sweeps through the same walker as the
+2-bit store, or, with fast_blocks=False, the chunked exact sweeps of
+ops/dense.py, both on the inner-rounds kernels K1/K2 and K3.
 
 Two entry points share the chain loop (run_chain) and the initial state:
 runMCMC(model, df, ...) takes a model from build_model and the phenotypes
@@ -33,16 +41,17 @@ from jwas_tpu_torch.engine.samples_io import STSampleStream
 from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace,
                                          prepare_workspace, reject_unported)
 from jwas_tpu_torch.engine.state import ChainState, EngineCfg
-from jwas_tpu_torch.engine.validation import validate_args
+from jwas_tpu_torch.engine.validation import validate_args, validate_phenotypes
 from jwas_tpu_torch.io.genotypes import DEFAULT_BAYESR_PI, bayesr_pi  # noqa: F401
 from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
 from jwas_tpu_torch.models.model import Model, describe
 from jwas_tpu_torch.ops import markers as mk
+from jwas_tpu_torch.ops.dense import (DenseMarkers, build_dense_markers,
+                                      sweep_exact_abc, sweep_exact_bayesr)
 from jwas_tpu_torch.ops.grouped import (
     GroupedPackedMarkers,
     build_grouped_markers,
     grouped_matvec,
-    grouped_matvec_store,
     plan_store,
     sweep_blocks_abc_grouped,
     sweep_blocks_bayesr_grouped,
@@ -63,17 +72,18 @@ METHODS = ("BayesC", "BayesB", "BayesR")
 
 
 class STData(NamedTuple):
-    """Static device data of a single-trait chain."""
+    """Static device data of a single-trait chain, in the chain's dtype."""
 
     W: torch.Tensor            # (n, K) location design
-    WtW: torch.Tensor          # (K, K) location LHS (no random effects)
+    WtW: torch.Tensor          # (K, K) location LHS W'R^-1W (no random effects)
     y: torch.Tensor            # (n,)
-    gm: GroupedPackedMarkers
+    gm: object                 # GroupedPackedMarkers or DenseMarkers
     scale_r: torch.Tensor      # 0-d residual-variance prior scale
     ebv_rows: Optional[torch.Tensor]  # (n_out,) store columns of the EBVs'
                                       # IDs; None: the training rows
     out_W: Optional[torch.Tensor]     # (n_out, K) prediction-equation rows,
                                       # None when it has no terms
+    rinv: Optional[torch.Tensor] = None  # (n,) inverse residual weights
 
 
 class SampleOut(NamedTuple):
@@ -140,6 +150,32 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def setup_dense_markers(X, store_ids, obs_ids, device="cuda", fast_blocks=True,
+                        rinv=None, dtype=None) -> DenseMarkers:
+    """Blocks, row order and Gram tiles of a dense (p, n_store) store of
+    the individuals store_ids, as jwas_tpu's runMCMC picks them for dense
+    genotypes (mk.dense_blocks; fast_blocks=False: the exact sweep's chunks
+    of default_block_size(n)). rinv: (n,) inverse residual weights of the
+    observations obs_ids. The store is used in place when it already lies
+    on the device in dtype (default: its own); otherwise it is copied once.
+    """
+    device = resolve_device(device)
+    X = torch.as_tensor(X)
+    dtype = X.dtype if dtype is None else dtype
+    if X.device != device or X.dtype != dtype:
+        X = X.to(device=device, dtype=dtype)
+    n = len(obs_ids)
+    b, gb, exact = mk.dense_blocks(n, fast_blocks, X.shape[0])
+    index = {s: i for i, s in enumerate(store_ids)}
+    try:
+        perm = np.asarray([index[s] for s in obs_ids], dtype=np.int64)
+    except KeyError as e:
+        raise ValueError(f"individual {e} has no genotypes") from None
+    if len(perm) <= X.shape[1] and (perm == np.arange(len(perm))).all():
+        perm = None
+    return build_dense_markers(X, n, b, gb, row_perm=perm, rinv=rinv, exact=exact)
+
+
 def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
                   fast_blocks=True, host_offload=False) -> GroupedPackedMarkers:
     """Block sizes, row order, residence and Gram tiles for a store, as
@@ -178,11 +214,11 @@ def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
 
 
 def make_st_step(cfg: EngineCfg):
-    """One outer iteration: location pass, grouped marker sweep (nreps
-    effective sweeps), pi, marker variance, its scale, residual variance.
-    The marker state and ycorr of the returned state are the input's
-    tensors, updated in place. BayesB is BayesC's sweep with one variance a
-    marker."""
+    """One outer iteration: location pass, marker sweep (nreps effective
+    sweeps of the grouped schedule, or one exact single-site sweep), pi,
+    marker variance, its scale, residual variance. The marker state and
+    ycorr of the returned state are the input's tensors, updated in place.
+    BayesB is BayesC's sweep with one variance a marker."""
     bayesr = cfg.method == "BayesR"
     bayesb = cfg.method == "BayesB"
 
@@ -191,20 +227,31 @@ def make_st_step(cfg: EngineCfg):
 
         # 1. location parameters (MCMC_BayesianAlphabet.jl:196-220)
         ycorr = state.ycorr + data.W @ state.sol
-        sol = gibbs_pass_lambda(data.WtW, state.sol, data.W.T @ ycorr,
+        w = ycorr if data.rinv is None else data.rinv * ycorr
+        sol = gibbs_pass_lambda(data.WtW, state.sol, data.W.T @ w,
                                 state.vare, gen)
         ycorr -= data.W @ sol
 
-        # 2. marker effects: group-sequential packed sweep (in place)
+        # 2. marker effects: the grouped or the exact sweep (in place)
         real = gm.valid > 0
         beta = state.beta
         if bayesr:
-            pad_row = torch.tensor([1.0, 0.0, 0.0, 0.0], device=real.device)
+            pad_row = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=state.pi.dtype,
+                                   device=real.device)
             pi_mat = torch.where(real[:, None], state.pi[None, :], pad_row)
-            alpha, delta, ycorr = sweep_blocks_bayesr_grouped(
-                gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
-                pi_mat, gen, nreps=cfg.nreps, sync_every=cfg.sync_every,
-            )
+            if cfg.exact:
+                alpha, delta, ycorr = sweep_exact_bayesr(
+                    gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
+                    pi_mat, gen)
+            else:
+                alpha, delta, ycorr = sweep_blocks_bayesr_grouped(
+                    gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
+                    pi_mat, gen, nreps=cfg.nreps, sync_every=cfg.sync_every,
+                )
+        elif cfg.exact:
+            alpha, beta, delta, ycorr = sweep_exact_abc(
+                gm, state.alpha, state.beta, state.delta, ycorr, state.vare,
+                state.varg, state.pi, gen)
         else:
             alpha, beta, delta, ycorr = sweep_blocks_abc_grouped(
                 gm, state.alpha, state.beta, state.delta, ycorr, state.vare,
@@ -245,7 +292,8 @@ def make_st_step(cfg: EngineCfg):
         vare = state.vare
         if cfg.estimate_residual_variance:
             vare = sample_residual_variance_st(gen, ycorr, cfg.n_obs,
-                                               cfg.df_residual, data.scale_r)
+                                               cfg.df_residual, data.scale_r,
+                                               invweights=data.rinv)
 
         return ChainState(gen=gen, sol=sol, alpha=alpha, beta=beta,
                           delta=delta, ycorr=ycorr, vare=vare, varg=varg,
@@ -275,11 +323,12 @@ def _varg_summary(cfg: EngineCfg, data: STData, state: ChainState):
 
 def sample_ebv(data: STData, state: ChainState):
     """EBVs of a sample (getEBV, output.jl:281-306): prediction-equation
-    terms plus X alpha, the latter one K5 pass over the store in store
-    order with the wanted IDs' columns selected."""
+    terms plus X alpha, the latter one pass over the store in store order
+    (K5 on the 2-bit store, one GEMV on a dense one) with the wanted IDs'
+    columns selected."""
     if data.ebv_rows is not None and data.ebv_rows.numel() == 0:
         return torch.zeros(0, dtype=state.alpha.dtype, device=state.alpha.device)
-    xa = grouped_matvec_store(data.gm, state.alpha)
+    xa = data.gm.matvec_store(state.alpha)
     rows = data.gm.row_perm if data.ebv_rows is None else data.ebv_rows
     ebv = xa[:data.gm.n_obs] if rows is None else xa[rows]
     return ebv if data.out_W is None else data.out_W @ state.sol + ebv
@@ -345,21 +394,25 @@ def _reject_unsupported(**unsupported) -> None:
     for name, value in unsupported.items():
         if value:
             raise NotImplementedError(
-                f"{name} is not ported yet; the port runs single-trait "
-                f"BayesC, BayesB and BayesR in float32 with one genotype category "
-                f"and no weights, random effects, latent traits or "
-                f"annotations"
+                f"{name} is not supported by run_st: it runs single-trait "
+                f"BayesC, BayesB and BayesR with one genotype category and no "
+                f"random effects, latent traits or annotations, in the "
+                f"store's dtype with the store's residual weights (a dense "
+                f"store's, ops/dense.py::build_dense_markers; the 2-bit store "
+                f"has none)"
             )
 
 
-def make_cfg(gm: GroupedPackedMarkers, method: str, *, nreps, sync_every,
-             chain_length: int, df_R, df_marker, estimate_pi: bool,
-             estimate_marker_variance: bool, estimate_scale: bool,
-             estimate_residual_variance: bool) -> EngineCfg:
+def make_cfg(gm, method: str, *, nreps, sync_every, chain_length: int, df_R,
+             df_marker, estimate_pi: bool, estimate_marker_variance: bool,
+             estimate_scale: bool, estimate_residual_variance: bool,
+             exact: bool = False) -> EngineCfg:
     """The chain's static configuration; nreps defaults to the block size
-    and is clamped to chain_length (never more sweeps than asked for)."""
+    and is clamped to chain_length (never more sweeps than asked for); the
+    exact sweep runs one sweep an outer iteration."""
     b = gm.grams.shape[1]
-    nreps = max(1, min(nreps if nreps is not None else b, chain_length))
+    nreps = 1 if exact else max(1, min(nreps if nreps is not None else b,
+                                       chain_length))
     return EngineCfg(
         method=method, n_obs=gm.n_obs, n_markers=int(gm.valid.sum().item()),
         estimate_pi=estimate_pi,
@@ -367,15 +420,15 @@ def make_cfg(gm: GroupedPackedMarkers, method: str, *, nreps, sync_every,
         estimate_scale=estimate_scale,
         estimate_residual_variance=estimate_residual_variance,
         nreps=nreps, sync_every=mk.resolve_sync_every(nreps, sync_every),
-        df_residual=float(df_R), df_marker=float(df_marker),
+        df_residual=float(df_R), df_marker=float(df_marker), exact=exact,
     )
 
 
-def make_data(gm: GroupedPackedMarkers, y, W, scale_R, ebv_rows=None,
-              out_W=None) -> STData:
-    """The chain's device data; y (n,) and W (n, K; None: an intercept)
-    in observation order."""
-    dev, f32, n = gm.device, torch.float32, gm.n_obs
+def make_data(gm, y, W, scale_R, ebv_rows=None, out_W=None) -> STData:
+    """The chain's device data in the store's dtype; y (n,) and W (n, K;
+    None: an intercept) in observation order; the residual weights are the
+    store's (gm.rinv)."""
+    dev, f32, n = gm.device, gm.xpx.dtype, gm.n_obs
     y = torch.as_tensor(np.asarray(y), dtype=f32).to(dev)
     W = (torch.ones((n, 1), dtype=f32, device=dev) if W is None
          else torch.as_tensor(np.asarray(W), dtype=f32).to(dev))
@@ -386,8 +439,11 @@ def make_data(gm: GroupedPackedMarkers, y, W, scale_R, ebv_rows=None,
         ebv_rows = torch.as_tensor(np.asarray(ebv_rows), dtype=torch.int64).to(dev)
     if out_W is not None:
         out_W = torch.as_tensor(np.asarray(out_W), dtype=f32).to(dev)
-    return STData(W=W, WtW=W.T @ W, y=y, gm=gm, ebv_rows=ebv_rows, out_W=out_W,
-                  scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev))
+    rinv = gm.rinv
+    WtW = W.T @ (W if rinv is None else rinv[:, None] * W)
+    return STData(W=W, WtW=WtW, y=y, gm=gm, ebv_rows=ebv_rows, out_W=out_W,
+                  scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev),
+                  rinv=rinv)
 
 
 def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
@@ -401,7 +457,7 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
     at marker_var0 and the padding's at 1.0. The starting residual is
     y - W sol0 - X alpha0, X alpha0 one K5 pass over the store."""
     gm = data.gm
-    dev, f32 = gm.device, torch.float32
+    dev, f32 = gm.device, gm.xpx.dtype
 
     def scalar(x):
         return torch.tensor(float(np.mean(x)), dtype=f32, device=dev)
@@ -442,6 +498,7 @@ def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
     SAMPLE_KEYS and what the sample files need (sol, alpha, BayesB's
     per-marker variances, ebv)."""
     parts = {k: getattr(out, k) for k in SAMPLE_KEYS}
+    dtype = state.alpha.dtype
     if stream is not None and stream.enabled:
         if stream.loc_slices:
             parts["sol"] = state.sol
@@ -451,7 +508,7 @@ def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
                 parts["varg_markers"] = state.varg[:p]
         if stream.ebv:
             parts["ebv"] = out.ebv
-    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in parts.values()])
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in parts.values()])
     flat = flat.cpu().numpy()
     host, i = {}, 0
     for k, t in parts.items():
@@ -518,7 +575,7 @@ def _host(t):
     return t.detach().cpu().numpy()
 
 
-def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
+def run_st(gm, y, *, vare0: float, scale_R: float,
            df_R: float, marker_var0: float, marker_scale0: float,
            df_marker: float, pi0=0.0, W=None, nreps: Optional[int] = None,
            sync_every: Optional[int] = None, chain_length: int = 100,
@@ -527,15 +584,18 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
            estimate_marker_variance: bool = True,
            estimate_scale: bool = False,
            estimate_residual_variance: bool = True,
-           method: str = "BayesC", rinv=None, dtype=torch.float32,
+           method: str = "BayesC", rinv=None, dtype=None,
            random_effects=(), trait_type: str = "continuous",
            annotations=None, n_genotype_categories: int = 1) -> dict:
     """Run one single-trait BayesC, BayesB or BayesR chain on the device
-    that holds gm.
+    that holds gm, in gm's dtype with gm's residual weights.
 
-    gm comes from setup_markers (or build_grouped_markers); y (n,) and the
-    location design W (n, K; default: an intercept) are in observation
-    order. The priors are those of prepare_workspace. pi0 is BayesC's
+    gm comes from setup_markers (or build_grouped_markers), or for a dense
+    store from setup_dense_markers (or ops/dense.py::build_dense_markers;
+    one group a block of b markers runs the exact sweep, as
+    fast_blocks=False picks it); y (n,) and the location design W (n, K;
+    default: an intercept) are in observation order. The priors are those
+    of prepare_workspace. pi0 is BayesC's
     P(excluded), or BayesR's (4,) class prior (0: the default
     DEFAULT_BAYESR_PI); for BayesR, marker_var0 is sigma^2, the variance
     of class 3, for BayesB every marker's starting variance. nreps
@@ -554,7 +614,8 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
     """
     _reject_unsupported(
         method=method not in METHODS, rinv=rinv is not None,
-        dtype=dtype != torch.float32, random_effects=len(random_effects) > 0,
+        dtype=dtype is not None and dtype != gm.xpx.dtype,
+        random_effects=len(random_effects) > 0,
         trait_type=trait_type != "continuous",
         annotations=annotations is not None,
         n_genotype_categories=n_genotype_categories != 1,
@@ -565,7 +626,8 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
                    estimate_pi=estimate_pi,
                    estimate_marker_variance=estimate_marker_variance,
                    estimate_scale=estimate_scale,
-                   estimate_residual_variance=estimate_residual_variance)
+                   estimate_residual_variance=estimate_residual_variance,
+                   exact=is_exact(gm))
     state = initial_state(cfg, data, vare0=vare0, marker_var0=marker_var0,
                           marker_scale0=marker_scale0, pi0=pi0, seed=seed)
     plan = chain_plan(chain_length, burnin, output_samples_frequency, cfg.nreps)
@@ -596,11 +658,18 @@ def run_st(gm: GroupedPackedMarkers, y, *, vare0: float, scale_R: float,
     }
 
 
+def is_exact(gm) -> bool:
+    """A dense store of the exact sweep (fast_blocks=False)."""
+    return isinstance(gm, DenseMarkers) and gm.exact
+
+
 def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
-    """The 2-bit grouped branch of jwas_tpu's _build_st_data_and_state
-    (:786-868, state :1128-1224): setup_markers' block choice and row order
-    of the training rows, the workspace's priors, the output IDs' store
-    columns and prediction-equation rows, the residence of the store
+    """The 2-bit grouped and the dense branches of jwas_tpu's
+    _build_st_data_and_state (:762-868, state :1128-1224): setup_markers'
+    or setup_dense_markers' block choice and row order of the training
+    rows, the residual weights, the chain's dtype (double_precision), the
+    workspace's priors, the output IDs' store columns and
+    prediction-equation rows, the residence of a 2-bit store
     (host_offload_genotypes) and the starting values (starting_value: the
     location parameters, :1131-1141; the genotypes' starting_alpha: the
     marker effects, :1142-1145). Returns (cfg, data, state)."""
@@ -614,8 +683,15 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                 f"length of starting values for non-marker location "
                 f"parameters is wrong (expected {K}, got {len(sol0)}); the "
                 f"order is model.term_names()")
-    gm = setup_markers(g.packed_store, ws.obs_ids, device, fast_blocks=opts.fast_blocks,
-                       host_offload=opts.host_offload_genotypes)
+    if g.dense is not None:
+        gm = setup_dense_markers(
+            g.dense, g.obs_ids, ws.obs_ids, device, fast_blocks=opts.fast_blocks,
+            rinv=ws.rinv,
+            dtype=torch.float64 if opts.double_precision else torch.float32)
+    else:
+        gm = setup_markers(g.packed_store, ws.obs_ids, device,
+                           fast_blocks=opts.fast_blocks,
+                           host_offload=opts.host_offload_genotypes)
     if opts.independent_blocks:
         sync_every = 0                   # one sync an outer iteration
     elif opts.sync_every is not None:
@@ -627,7 +703,8 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                    df_marker=ws.df_marker, estimate_pi=bool(g.estimate_pi),
                    estimate_marker_variance=bool(g.G.estimate_variance),
                    estimate_scale=bool(g.G.estimate_scale),
-                   estimate_residual_variance=bool(ws.model.R.estimate_variance))
+                   estimate_residual_variance=bool(ws.model.R.estimate_variance),
+                   exact=is_exact(gm))
     out_W = None
     if ws.prediction_terms:
         out_W = np.zeros((len(ws.output_ids), ws.W.shape[1]))
@@ -646,8 +723,9 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     """Run MCMC for a model from build_model on phenotypes df (a Table, a
     {name: array} mapping or a DataFrame whose first column holds the IDs):
     the reference's runMCMC (JWAS.jl:161-511), single chain, single-trait
-    BayesC, BayesB or BayesR on the 2-bit store. kwargs are MCMCOptions'
-    fields.
+    BayesC, BayesB or BayesR on the 2-bit store or a dense store (with
+    residual weights, heterogeneous_residuals, and float64,
+    double_precision). kwargs are MCMCOptions' fields.
 
     device: where the chain runs, the GPU unless the caller asks for the
     CPU (device="cpu" runs the kernels' plain versions); without a GPU the
@@ -662,6 +740,7 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     """
     opts = MCMCOptions(**kwargs)
     validate_args(model, opts)
+    validate_phenotypes(opts, list(df.columns) if hasattr(df, "columns") else list(df))
     reject_unported(opts)
     device = resolve_device(device)
     model.mcmc_info = opts

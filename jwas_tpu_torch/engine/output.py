@@ -2,7 +2,8 @@
 
 Counterpart of jwas_tpu/engine/output.py: check_finite_posteriors (:22-34)
 and build_results (:37-196) for the keys single-trait BayesC, BayesB and
-BayesR on the 2-bit store produce: "location parameters", "residual
+BayesR on the 2-bit or a dense store produce (the accumulators' dtype, so
+float64 where the chain ran in float64): "location parameters", "residual
 variance", "marker effects <name>", "marker effects variances <name>"
 (BayesB's: the posterior mean of its variances' mean over the markers),
 "pi_<name>", "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance"

@@ -3,7 +3,7 @@
 Counterpart of jwas_tpu/engine/samples_io.py: MARKER_FILE_MAX_P and
 resolve_write_markers (:29-43), MCMCSampleWriter (:46-91) and the
 single-trait STSampleStream (:98-216) for BayesC, BayesB and BayesR on the
-2-bit store. One comma-separated file per parameter, MCMC_samples_<var>.txt
+2-bit or a dense store. One comma-separated file per parameter, MCMC_samples_<var>.txt
 under the output folder (":" replaced by "."), with the reference's header
 row where it writes one and one row per saved sample:
 residual_variance, <trait>.<term> (terms requested by outputMCMCsamples),
@@ -12,8 +12,8 @@ pi_<geno>, EBV_<trait>, genetic_variance, heritability. BayesB's
 marker_effects_variances_<geno> row holds every marker's variance when the
 marker effects are written, else their mean (jwas_tpu's :190-195).
 
-A sample arrives as host arrays read back in one transfer
-(engine/mcmc.py::_read_back); the stream says which of sol, alpha (with
+A sample arrives as host arrays read back in one transfer, in the chain's
+dtype (engine/mcmc.py::_read_back); the stream says which of sol, alpha (with
 BayesB's per-marker variances) and the EBVs it needs (loc_slices,
 write_markers, ebv).
 """

@@ -4,16 +4,19 @@ Counterpart of jwas_tpu/engine/setup.py: MCMCOptions (:33-103, every field
 and default), Workspace (:134), _default_priors (:163-222),
 _genetic2marker (:225-262), set_marker_hyperparameters (:265-284),
 normalize_method (:287-297) and prepare_workspace (:348-669), on its
-single-trait, continuous, 2-bit, dense-location branch: ID reconciliation,
-default output IDs, the whole-data table with output-only rows, training
-rows, priors, the location design and the prediction equation over fixed
-terms, and the memory guard (:616-641). Everything here is numpy/scipy on
-the host.
+single-trait, continuous, dense-location branch for the 2-bit and the
+dense stores: ID reconciliation, default output IDs, the whole-data table
+with output-only rows, training rows, priors, the location design and the
+prediction equation over fixed terms, the residual weights rinv = 1 /
+weights (:512-516) and the memory guard (:616-641). Everything here is
+numpy/scipy on the host.
 
-The EBVs of the output IDs are not a dense (n_out, p) decode of the store,
-as jwas_tpu's are (setup.py:549-557): the workspace keeps the output IDs'
-store columns, and the chain selects them from its X alpha pass over the
-store (engine/mcmc.py).
+The EBVs of the output IDs are not a dense (n_out, p) matrix of their
+genotypes, as jwas_tpu's are (setup.py:549-567): the workspace keeps the
+output IDs' store columns, and the chain selects them from its X alpha
+pass over the store (engine/mcmc.py). Nor is the dense store copied to the
+training rows (aligned_to, :558): the chain finds them through a row
+permutation.
 """
 
 from __future__ import annotations
@@ -23,14 +26,15 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from jwas_tpu_torch.engine.validation import validate_args
+from jwas_tpu_torch.engine.validation import validate_args, validate_phenotypes
 from jwas_tpu_torch.io.genotypes import Genotypes
 from jwas_tpu_torch.io.table import Table, append_rows, as_table, to_numeric
 from jwas_tpu_torch.models.design import build_design, stack_phenotypes
 from jwas_tpu_torch.models.model import Model
 from jwas_tpu_torch.ops.grouped import plan_store
-from jwas_tpu_torch.ops.markers import BAYESR_GAMMA
+from jwas_tpu_torch.ops.markers import BAYESR_GAMMA, dense_blocks
 from jwas_tpu_torch.utils.memory import (check_marker_memory_guard,
+                                         estimate_dense_memory,
                                          estimate_marker_memory)
 
 
@@ -88,7 +92,6 @@ class MCMCOptions:
 # option -> its one accepted value; every other value is not ported yet
 _UNPORTED = {
     "n_chains": 1, "mesh": None, "checkpoint_frequency": 0, "resume": False,
-    "heterogeneous_residuals": False, "double_precision": False,
     "single_step_analysis": False, "pedigree": None, "causal_structure": None,
     "RRM": None, "use_pallas": "auto",
 }
@@ -104,8 +107,8 @@ def reject_unported(opts: MCMCOptions) -> None:
         if not same:
             raise NotImplementedError(
                 f"runMCMC option {name}={value!r} is not ported yet (single "
-                f"chain, float32, single-trait, no weights, pedigree or "
-                f"checkpoints; see ROADMAP.md Queue 1)")
+                f"chain, single-trait, no pedigree or checkpoints; see "
+                f"ROADMAP.md Queue 1)")
     if opts.sparse_location is True:
         raise NotImplementedError("runMCMC option sparse_location=True is not "
                                   "ported yet (ROADMAP.md Queue 1 item 11)")
@@ -134,6 +137,7 @@ class Workspace:
     obs_ids: List[str] = field(default_factory=list)
     output_store_rows: np.ndarray = None   # (n_out,) store column of each
                                            # output ID
+    rinv: Optional[np.ndarray] = None      # (n,) inverse residual weights
 
 
 def _default_priors(model: Model, df: Table) -> np.ndarray:
@@ -231,10 +235,11 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     for g in model.M:
         normalize_method(g, model)
     validate_args(model, opts)
+    validate_phenotypes(opts, df.columns)
     reject_unported(opts)
     if not model.M:
         raise NotImplementedError("runMCMC without genotypes is not ported yet: "
-                                  "pass genotypes=get_genotypes(..., storage='2bit')")
+                                  "pass genotypes=get_genotypes(...)")
     g0 = model.M[0]
 
     # ID reconciliation (input_data_validation.jl:198-294)
@@ -295,21 +300,35 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     for term in model.terms:
         term.X = term.X[row_sel, :]
 
-    store = g0.packed_store
+    # residual weights (jwas_tpu/engine/setup.py:512-516)
+    rinv = None
+    if opts.heterogeneous_residuals:
+        w = to_numeric(df_train["weights"], errors="raise").astype(np.float64)
+        rinv = 1.0 / w
+
     missing_geno = [s for s in obs_ids if s not in geno_ids]
     if missing_geno:
         raise ValueError(f"individual {missing_geno[0]} has no genotypes")
-    row_of = {s: i for i, s in enumerate(store.obs_ids)}
+    row_of = {s: i for i, s in enumerate(g0.obs_ids)}
 
     # memory guard (jwas_tpu/engine/setup.py:616-641) over the port's own
     # device buffers, with the residence runMCMC will choose
     dev = "cpu" if device is None else device
-    b, gb, _, resident = plan_store(len(obs_ids), store.packed, opts.fast_blocks,
-                                    opts.host_offload_genotypes, dev)
-    est = estimate_marker_memory(
-        n_obs=len(obs_ids), n_markers=store.n_markers, block_size=b,
-        group_blocks=gb, bytes_per_marker=store.packed.shape[1],
-        n_loc=W.shape[1], resident_groups=resident)
+    if g0.dense is not None:
+        b, gb, _ = dense_blocks(len(obs_ids), opts.fast_blocks, g0.n_markers)
+        est = estimate_dense_memory(
+            n_store=g0.dense.shape[1], n_obs=len(obs_ids), n_markers=g0.n_markers,
+            block_size=b, group_blocks=gb, n_loc=W.shape[1],
+            itemsize=8 if opts.double_precision else 4,
+            store_itemsize=g0.dense.element_size())
+    else:
+        store = g0.packed_store
+        b, gb, _, resident = plan_store(len(obs_ids), store.packed, opts.fast_blocks,
+                                        opts.host_offload_genotypes, dev)
+        est = estimate_marker_memory(
+            n_obs=len(obs_ids), n_markers=store.n_markers, block_size=b,
+            group_blocks=gb, bytes_per_marker=store.packed.shape[1],
+            n_loc=W.shape[1], resident_groups=resident)
     check_marker_memory_guard(est, policy=opts.memory_guard,
                               ratio=opts.memory_guard_ratio,
                               device=device)
@@ -323,4 +342,5 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         df_marker=float(g0.G.df), pi0=g0.pi, output_ids=list(output_ids),
         prediction_terms=prediction_terms, output_X=output_X, obs_ids=obs_ids,
         output_store_rows=np.array([row_of[s] for s in output_ids], dtype=np.int64),
+        rinv=rinv,
     )

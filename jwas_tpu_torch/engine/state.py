@@ -2,7 +2,7 @@
 
 Counterpart of jwas_tpu/engine/state.py (ChainState :18, EngineCfg :75),
 trimmed to the fields single-trait BayesC, BayesB and BayesR on the packed
-store read. The
+or a dense store read. The
 JAX package's threefry key becomes one torch.Generator per chain, on the
 chain's device. Marker state tensors are updated in place by the sweep.
 """
@@ -46,3 +46,6 @@ class EngineCfg:
     sync_every: int           # inner reps between exact residual syncs
     df_residual: float
     df_marker: float
+    exact: bool = False       # a dense store's exact single-site sweep
+                              # (fast_blocks=False): one sweep an outer
+                              # iteration

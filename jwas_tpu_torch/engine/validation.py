@@ -2,8 +2,10 @@
 
 A copy of jwas_tpu/engine/validation.py (the reference's `errors_args`,
 input_data_validation.jl:9-141): the same rules in the same order, with the
-same messages, evaluated before any device work. Options and methods the
-port does not run yet are refused separately, with NotImplementedError
+same messages, evaluated before any device work, and jwas_tpu's rule on the
+phenotype table (validate_phenotypes: residual weights need a 'weights'
+column). Options and methods the port does not run yet are refused
+separately, after these, with NotImplementedError
 (engine/setup.py::reject_unported).
 """
 
@@ -179,3 +181,13 @@ def validate_args(model, opts) -> None:
     for ti, tt in enumerate(model.traits_type):
         if tt == "censored" and model.lhs_vec[ti] in model.lhs_vec[:ti]:
             raise ValueError("duplicated censored trait names")
+
+
+def validate_phenotypes(opts, columns) -> None:
+    """jwas_tpu's rule on the phenotype table's columns
+    (jwas_tpu/engine/setup.py:368-372): heterogeneous_residuals reads the
+    residual weights from a 'weights' column."""
+    if opts.heterogeneous_residuals and "weights" not in columns:
+        raise ValueError(
+            "heterogeneous_residuals=True requires a 'weights' column in the "
+            "phenotype data frame")

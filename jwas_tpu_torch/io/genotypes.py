@@ -1,23 +1,34 @@
 """Genotype input: VarianceSpec, Genotypes and get_genotypes for the 2-bit
-packed store.
+packed store and the dense stores.
 
 Counterpart of jwas_tpu/io/genotypes.py: VarianceSpec (:42), Genotypes
-(:58) and get_genotypes (:218-309) with jwas_tpu's full signature, on the
-branch it takes for storage="2bit" or a Packed2BitStore (:257-309): BayesC,
-BayesB and BayesR (with BayesR's class-prior checks), and starting_value as
-the starting marker effects (:451-452). jwas_tpu drops starting_value on
-that branch (it returns before :451); the port keeps it. The dense
-storages are not ported yet.
+(:58) and get_genotypes (:218-453) with jwas_tpu's full signature, for
+BayesC, BayesB and BayesR (with BayesR's class-prior checks) and
+starting_value as the starting marker effects (:451-452; jwas_tpu drops it
+on the 2-bit branch, which returns before :451; the port keeps it).
+
+storage="2bit" or a Packed2BitStore takes the 2-bit branch (:257-309).
+storage "f32", "f64" and "int8" take the dense branch (:311-453): missing
+codes become the column mean (rounded for int8), MAF and fixed-locus QC,
+centering, allele frequencies and sum 2pq, and int8's integer check. The
+centered matrix is written marker-major, (p, n) float32 (float64 for "f64"
+or double_precision), straight into the store on the given device, a chunk
+of columns at a time, so the host never holds a float copy of the matrix
+beside the caller's. int8 keeps jwas_tpu's semantics (integer scores, their
+rounded means) but not its raw int8 copy, which nothing downstream reads.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import List, Optional, Union
 
 import numpy as np
+import torch
 
-from jwas_tpu_torch.io.packed import Packed2BitStore, prepare_packed_genotypes
+from jwas_tpu_torch.io.packed import (Packed2BitStore, _genotype_chunks,
+                                      prepare_packed_genotypes)
 
 # BayesR class prior when Pi is 0 (jwas_tpu/io/genotypes.py:28)
 DEFAULT_BAYESR_PI = (0.95, 0.03, 0.015, 0.005)
@@ -40,7 +51,8 @@ class VarianceSpec:
 
 @dataclass
 class Genotypes:
-    """One marker set on the 2-bit store (types.jl:98-165)."""
+    """One marker set on the 2-bit store or a dense store
+    (types.jl:98-165)."""
 
     obs_ids: List[str]
     marker_ids: List[str]
@@ -48,7 +60,11 @@ class Genotypes:
     n_markers: int
     allele_freq: np.ndarray
     sum2pq: float
-    packed_store: Packed2BitStore
+    packed_store: Optional[Packed2BitStore] = None   # the 2-bit store
+    dense: Optional[torch.Tensor] = None   # (p, n) centered genotypes,
+                                           # marker-major, on a device
+    col_means: Optional[np.ndarray] = None  # (p,) the dense store's means
+    storage: str = "2bit"
     method: str = "BayesC"
     pi: Union[float, np.ndarray] = 0.0
     estimate_pi: bool = True
@@ -56,7 +72,7 @@ class Genotypes:
     genetic_variance: VarianceSpec = field(
         default_factory=lambda: VarianceSpec(val=None))
     name: str = "geno"
-    annotations: Optional[np.ndarray] = None    # always None on the 2-bit store
+    annotations: Optional[np.ndarray] = None    # not ported: always None
     starting_alpha: Optional[np.ndarray] = None  # (p,) starting marker effects
 
 
@@ -83,56 +99,178 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
                   MAF: float = 0.01, missing_value: float = 9.0,
                   center: bool = True, starting_value=None, annotations=None,
                   storage: str = "f32", name: str = "geno",
-                  multi_trait_sampler: str = "I") -> Genotypes:
-    """Genotypes for a 2-bit packed store: a Packed2BitStore, or a CSV
-    path, table or (n, p) array packed with prepare_packed_genotypes
-    (storage="2bit"; QC drops markers with frequency outside (MAF, 1 - MAF)
-    unless quality_control=False). G is the genetic variance, or the
-    marker-effect variance with G_is_marker_variance=True.
+                  multi_trait_sampler: str = "I", device="cuda") -> Genotypes:
+    """Genotypes for a 2-bit packed store (storage="2bit" or a
+    Packed2BitStore: a CSV path, table or (n, p) array is packed with
+    prepare_packed_genotypes) or a dense store (storage "f32", "f64",
+    "int8": a CSV path, table, or (n, p) numpy array or tensor). QC drops
+    markers with frequency outside (MAF, 1 - MAF) and fixed loci unless
+    quality_control=False. G is the genetic variance, or the marker-effect
+    variance with G_is_marker_variance=True.
 
-    Ported: method "BayesC", "BayesB" or "BayesR". storage "f32", "f64"
-    or "int8" raises NotImplementedError; the other methods raise
-    ValueError on the 2-bit store, as jwas_tpu does. starting_value: (p,)
+    Ported: method "BayesC", "BayesB" or "BayesR"; on the 2-bit store the
+    other methods raise ValueError, as jwas_tpu does, on a dense store
+    NotImplementedError (ROADMAP.md Queue 1 item 5), as do annotations.
+    device: where a dense store is written (the GPU unless the caller asks
+    for another; "cpu" runs the plain versions). starting_value: (p,)
     starting marker effects, one a marker after QC.
     """
     if method not in _SUPPORTED_METHODS:
         raise ValueError(f"method {method!r} is not available; use one of {_SUPPORTED_METHODS}")
     if storage not in ("f32", "f64", "int8", "2bit"):
         raise ValueError("storage must be 'f32', 'f64', 'int8', or '2bit'")
-    if not isinstance(file, Packed2BitStore) and storage != "2bit":
-        raise NotImplementedError(
-            f"storage={storage!r} (dense genotypes) is not ported yet "
-            f"(ROADMAP.md Queue 1 item 5); use storage='2bit'")
-    if method not in ("BayesC", "BayesB", "BayesR"):
+    packed = isinstance(file, Packed2BitStore) or storage == "2bit"
+    if packed and method not in ("BayesC", "BayesB", "BayesR"):
         raise ValueError("storage='2bit' supports BayesC/BayesB/BayesR only")
-    if annotations is not None:
+    if packed and annotations is not None:
         raise ValueError("annotations are not supported with storage='2bit'")
+    if method not in ("BayesC", "BayesB", "BayesR"):
+        raise NotImplementedError(
+            f"method={method!r} on a dense store is not ported yet (ROADMAP.md "
+            f"Queue 1 item 5); the port runs BayesC, BayesB and BayesR")
+    if annotations is not None:
+        raise NotImplementedError("annotations are not ported yet (ROADMAP.md "
+                                  "Queue 1 item 8)")
     if method == "BayesR":
         Pi = bayesr_pi(Pi).copy()
-    if isinstance(file, Packed2BitStore):
-        store = file
-    else:
-        store = prepare_packed_genotypes(
-            file, separator=separator, header=header, missing_value=missing_value,
-            MAF=MAF if quality_control else 0.0)
 
     def spec(val):
         return VarianceSpec(val=val, df=df, estimate_variance=estimate_variance,
                             estimate_scale=estimate_scale, constraint=constraint)
 
+    if packed:
+        store = file if isinstance(file, Packed2BitStore) else prepare_packed_genotypes(
+            file, separator=separator, header=header, missing_value=missing_value,
+            MAF=MAF if quality_control else 0.0)
+        obs_ids, marker_ids = list(store.obs_ids), list(store.marker_ids)
+        freqs = np.asarray(store.allele_freq, dtype=np.float64)
+        fields = dict(packed_store=store)
+        dtype = np.float32
+    else:
+        dtype = np.float64 if (double_precision or storage == "f64") else np.float32
+        obs_ids, marker_ids, X, means, freqs = dense_store(
+            file, torch.float64 if dtype is np.float64 else torch.float32,
+            device, separator=separator, header=header,
+            quality_control=quality_control, MAF=MAF,
+            missing_value=missing_value, center=center,
+            integer=storage == "int8")
+        fields = dict(dense=X, col_means=means, storage=storage)
+
     starting_alpha = None
     if starting_value is not None:
-        starting_alpha = np.asarray(starting_value, dtype=np.float32).reshape(-1)
-        if starting_alpha.shape != (store.n_markers,):
+        starting_alpha = np.asarray(starting_value, dtype=dtype).reshape(-1)
+        if starting_alpha.shape != (len(marker_ids),):
             raise ValueError(f"starting_value must hold one effect for each of "
-                             f"the {store.n_markers} markers")
+                             f"the {len(marker_ids)} markers")
     return Genotypes(
-        obs_ids=list(store.obs_ids), marker_ids=list(store.marker_ids),
-        n_obs=store.n_obs, n_markers=store.n_markers,
-        allele_freq=np.asarray(store.allele_freq, dtype=np.float64),
-        sum2pq=store.sum2pq, packed_store=store, method=method, pi=Pi,
-        estimate_pi=estimatePi,
-        G=spec(G if G_is_marker_variance else None),
+        obs_ids=obs_ids, marker_ids=marker_ids, n_obs=len(obs_ids),
+        n_markers=len(marker_ids), allele_freq=freqs,
+        sum2pq=float(np.sum(2.0 * freqs * (1.0 - freqs))), method=method, pi=Pi,
+        estimate_pi=estimatePi, G=spec(G if G_is_marker_variance else None),
         genetic_variance=spec(None if G_is_marker_variance else G),
-        name=name, starting_alpha=starting_alpha,
+        name=name, starting_alpha=starting_alpha, **fields,
     )
+
+
+_CHUNK_BYTES = 1 << 29      # a float64 chunk of columns of the dense set-up
+
+
+def _as_matrix(file, separator, header, np_dtype):
+    """(obs_ids, marker_ids, (n, p) matrix): a tensor or numpy array kept
+    as it is, a CSV path or a table read into a numpy array of np_dtype."""
+    if torch.is_tensor(file) or isinstance(file, np.ndarray):
+        if file.ndim != 2:
+            raise ValueError("genotypes must be an (n, p) matrix")
+        n, p = file.shape
+        return [str(i + 1) for i in range(n)], [str(j + 1) for j in range(p)], file
+    marker_ids, chunks = _genotype_chunks(file, separator, header, 8192, np_dtype)
+    ids, parts = [], []
+    for i, m in chunks:
+        ids.extend(i)
+        parts.append(m)
+    mat = np.concatenate(parts) if parts else np.zeros((0, len(marker_ids)), np_dtype)
+    return ids, marker_ids, mat
+
+
+def dense_store(file, dtype, device, *, separator=",", header=True,
+                quality_control=True, MAF=0.01, missing_value=9.0, center=True,
+                integer=False):
+    """The dense branch of jwas_tpu's get_genotypes
+    (jwas_tpu/io/genotypes.py:311-453) on a device, a chunk of columns at a
+    time, in two passes: the columns' statistics, then the kept columns,
+    centered, written into the (p_kept, n) store of dtype.
+
+    With quality_control, values equal to missing_value become the mean of
+    the column's other values (rounded when integer, storage="int8") and
+    markers with frequency outside (MAF, 1 - MAF) or a constant column are
+    dropped. integer: every value must be within isclose of an integer
+    score (jwas_tpu's int8 check), and the rounded scores are the store's.
+    Returns (obs_ids, marker_ids, store, col_means (p_kept,) float64,
+    allele frequencies (p_kept,) float64)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    obs_ids, marker_ids, mat = _as_matrix(file, separator, header, np_dtype)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is false); "
+                           "pass device='cpu' to build the store on the CPU")
+    n, p = mat.shape
+    step = max(1, _CHUNK_BYTES // (8 * max(n, 1)))
+    mv = torch.tensor(float(np_dtype(missing_value)), dtype=dtype, device=device)
+
+    def columns(c0, c1):
+        """Columns c0:c1 in dtype on the device, missing values imputed."""
+        x = mat[:, c0:c1]
+        x = (x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x)))
+        x = x.to(device=device, dtype=dtype)
+        if quality_control:
+            miss = x == mv
+            if bool(miss.any()):
+                cnt = (~miss).sum(0).clamp(min=1)
+                m = torch.where(miss, 0.0, x).sum(0, dtype=torch.float64) / cnt
+                if integer:
+                    m = torch.round(m)
+                x = torch.where(miss, m.to(dtype)[None, :], x)
+        if integer:
+            raw = torch.round(x)
+            if not bool(torch.isclose(raw, x, rtol=1e-5, atol=1e-6).all()):
+                raise ValueError(
+                    "storage='int8' requires integer genotype scores "
+                    "(use storage='f32' for fractional imputed values)")
+            x = raw
+        return x
+
+    means = torch.zeros(p, dtype=torch.float64, device=device)
+    varies = torch.ones(p, dtype=torch.bool, device=device)
+    out_of_range = False
+    for c0 in range(0, p, step):
+        c1 = min(p, c0 + step)
+        x = columns(c0, c1)
+        means[c0:c1] = x.sum(0, dtype=torch.float64) / max(n, 1)
+        varies[c0:c1] = (x != x[:1]).any(0) if n else False
+        out_of_range |= quality_control and bool(((x < 0) | (x > 2)).any())
+    if out_of_range:
+        warnings.warn("genotype scores out of the range 0 to 2 are found.")
+    freqs = means / 2.0
+    keep = torch.ones(p, dtype=torch.bool, device=device)
+    if quality_control:
+        keep = (freqs > MAF) & (freqs < 1 - MAF) & varies
+        n_removed = int((~keep).sum())
+        if n_removed:
+            print(f"{n_removed} loci which are fixed or have minor allele "
+                  f"frequency < {MAF} are removed.")
+    kept = keep.cpu().numpy()
+    store = torch.empty((int(kept.sum()), n), dtype=dtype, device=device)
+    k = 0
+    for c0 in range(0, p, step):
+        c1 = min(p, c0 + step)
+        sel = keep[c0:c1]
+        if not bool(sel.any()):
+            continue
+        x = columns(c0, c1)[:, sel]
+        if center:
+            x = (x.to(torch.float64) - means[c0:c1][sel]).to(dtype)
+        store[k:k + x.shape[1]] = x.T
+        k += x.shape[1]
+    marker_ids = [m for m, kk in zip(marker_ids, kept) if kk]
+    return (obs_ids, marker_ids, store, means[keep].cpu().numpy(),
+            freqs[keep].cpu().numpy())

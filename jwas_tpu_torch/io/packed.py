@@ -116,8 +116,9 @@ def pack_codes(codes: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out.T)
 
 
-def _genotype_chunks(file, separator: str, header: bool, chunk_rows: int):
-    """(marker_ids, iterator of (obs_ids, float32 (rows, p) chunk)) of a
+def _genotype_chunks(file, separator: str, header: bool, chunk_rows: int,
+                     dtype=np.float32):
+    """(marker_ids, iterator of (obs_ids, (rows, p) chunk of dtype)) of a
     genotype file, a table or an (n, p) array; IDs as jwas_tpu reads them
     (_read_genotype_input: the first column, stripped; markers numbered
     from 1 without a header or for an array)."""
@@ -125,7 +126,7 @@ def _genotype_chunks(file, separator: str, header: bool, chunk_rows: int):
         n, p = file.shape
         ids = [str(i + 1) for i in range(n)]
         return [str(j + 1) for j in range(p)], iter(
-            [(ids, np.asarray(file, dtype=np.float32))])
+            [(ids, np.asarray(file, dtype=dtype))])
     if isinstance(file, (str, os.PathLike)):
         rows = read_csv_rows(str(file), separator)
         first = next(rows)
@@ -140,25 +141,25 @@ def _genotype_chunks(file, separator: str, header: bool, chunk_rows: int):
             for r in rows:
                 buf.append(r)
                 if len(buf) == chunk_rows:
-                    yield _parse_chunk(buf)
+                    yield _parse_chunk(buf, dtype)
                     buf = []
             if buf:
-                yield _parse_chunk(buf)
+                yield _parse_chunk(buf, dtype)
         return marker_ids, chunks()
     t = as_table(file)
     cols = t.columns
     marker_ids = ([str(c) for c in cols[1:]] if header
                   else [str(j + 1) for j in range(len(cols) - 1)])
     ids = [str(x).strip() for x in t[cols[0]].tolist()]
-    mat = np.stack([np.asarray(t[c], dtype=np.float32) for c in cols[1:]], axis=1)
+    mat = np.stack([np.asarray(t[c], dtype=dtype) for c in cols[1:]], axis=1)
     return marker_ids, iter([(ids, mat)])
 
 
-def _parse_chunk(rows):
+def _parse_chunk(rows, dtype=np.float32):
     ids = [r[0].strip() for r in rows]
     tok = np.array([r[1:] for r in rows], dtype=object)
     tok[np.isin(tok, list(NA_VALUES))] = "nan"
-    return ids, tok.astype(np.float32)
+    return ids, tok.astype(dtype)
 
 
 def prepare_packed_genotypes(file, *, separator: str = ",", header: bool = True,

@@ -47,9 +47,10 @@ def sample_dirichlet(gen: torch.Generator, conc):
     return g / g.sum()
 
 
-def sample_pi_beta(gen: torch.Generator, n_included, n_total):
-    """pi | delta ~ Beta(nTotal - nIncluded + 1, nIncluded + 1); pi is the
-    prior probability of EXCLUSION (markers/Pi.jl:7-9)."""
-    n_included = n_included.to(torch.float32)
+def sample_pi_beta(gen: torch.Generator, n_included, n_total,
+                   dtype=torch.float32):
+    """pi | delta ~ Beta(nTotal - nIncluded + 1, nIncluded + 1) in dtype;
+    pi is the prior probability of EXCLUSION (markers/Pi.jl:7-9)."""
+    n_included = n_included.to(dtype)
     return sample_beta(gen, _param(n_total, n_included) - n_included + 1.0,
                        n_included + 1.0)

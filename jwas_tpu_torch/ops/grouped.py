@@ -1,5 +1,7 @@
 """Group-sequential fast-blocks BayesC/B and BayesR over a 2-bit store held
-on the device, in pinned host memory, or split between the two.
+on the device, in pinned host memory, or split between the two, and over
+ops/dense.py's dense store, which serves the walker (_walk_groups) the
+same protocol: groups, the GEMV pair of a round, X v over the store.
 
 Counterpart of jwas_tpu/ops/grouped.py: GroupedPackedMarkers (:47),
 STALE_FRACTION and pick_stable_blocks (:117-162), plan_device_groups
@@ -41,9 +43,8 @@ from jwas_tpu_torch.ops import markers as mk
 from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds, bayesr_inner_rounds
 from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 
-# Parallel-update stability cap b * gb <= STALE_FRACTION * n: see the JAX
-# package (ops/grouped.py:101-116) for the measurements behind it.
-STALE_FRACTION = 0.4
+# Parallel-update stability cap b * gb <= STALE_FRACTION * n
+STALE_FRACTION = mk.STALE_FRACTION
 
 # host offload "auto": stream when the store exceeds this share of the
 # device's memory (jwas_tpu/engine/mcmc.py:738-759)
@@ -51,10 +52,6 @@ OFFLOAD_SHARE = 0.6
 RING_DEPTH = 2            # device buffers a streamed store cycles through
 
 Draws = Callable[[int, int, int], Tuple[torch.Tensor, torch.Tensor]]
-
-# float32 tiny: the lower end of the uniforms under jax.random.gumbel
-_TINY = torch.finfo(torch.float32).tiny
-
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -295,6 +292,47 @@ class GroupedPackedMarkers(NamedTuple):
     def device(self) -> torch.device:
         return self.means.device
 
+    # ---- the store protocol of _walk_groups (ops/dense.py has the dense
+    # store's): groups, their GEMV pair, X v over every store column
+
+    @property
+    def G(self) -> int:
+        """Markers a group."""
+        return self.fetch.G
+
+    @property
+    def n_store(self) -> int:
+        """Store columns: individuals, padded to whole bytes."""
+        return 4 * self.fetch.bpm
+
+    @property
+    def rinv(self):
+        """Residual weights: none on the 2-bit store."""
+        return None
+
+    def groups(self) -> Iterator[Tuple[int, torch.Tensor]]:
+        return self.fetch.groups()
+
+    def rhs(self, g: int, rows, w_pad):
+        """X_g' w of group g's G rows (K4); w_pad in store order."""
+        G = self.fetch.G
+        return packed_rhs(rows, self.means[g * G:(g + 1) * G], w_pad,
+                          self.has_missing)
+
+    def matvec(self, g: int, rows, v):
+        """X_g v of group g's G rows (K5), (n_store,) in store order."""
+        G = self.fetch.G
+        return packed_matvec(rows, self.means[g * G:(g + 1) * G], v)
+
+    def matvec_store(self, v):
+        """X v over the whole store, (n_store,) in store column order."""
+        G = self.fetch.G
+        acc = None
+        for g, rows in self.groups():
+            part = self.matvec(g, rows, v[g * G:(g + 1) * G])
+            acc = part if acc is None else acc + part
+        return acc
+
 
 def pick_stable_blocks(n_obs: int, block_size: int, p: int,
                        warn: bool = True):
@@ -363,12 +401,12 @@ def plan_store(n_obs: int, packed, fast_blocks, host_offload, device,
     return b, gb, host, resident
 
 
-def pad_w(w, bpm: int, row_perm):
-    """Observation vector -> store-ordered (4 * bpm,) GEMV source (w itself
-    when it already is one: identity order and n_obs == 4 * bpm)."""
-    if row_perm is None and w.shape[0] == 4 * bpm and w.is_contiguous():
+def store_order(w, ncols: int, row_perm):
+    """Observation vector -> store-ordered (ncols,) GEMV source (w itself
+    when it already is one: identity order and n_obs == ncols)."""
+    if row_perm is None and w.shape[0] == ncols and w.is_contiguous():
         return w
-    w_pad = torch.zeros(4 * bpm, dtype=w.dtype, device=w.device)
+    w_pad = torch.zeros(ncols, dtype=w.dtype, device=w.device)
     if row_perm is None:
         w_pad[: w.shape[0]] = w
     else:
@@ -376,73 +414,69 @@ def pad_w(w, bpm: int, row_perm):
     return w_pad
 
 
+def pad_w(w, bpm: int, row_perm):
+    """store_order for a 2-bit store of bpm bytes a marker (4 * bpm
+    columns)."""
+    return store_order(w, 4 * bpm, row_perm)
+
+
 def unpad(out_pad, n_obs: int, row_perm):
-    """Store-ordered (4 * bpm,) Xv result -> (n_obs,) observation order."""
+    """Store-ordered Xv result -> (n_obs,) observation order."""
     return out_pad[:n_obs] if row_perm is None else out_pad[row_perm]
 
 
-def grouped_matvec_store(gm: GroupedPackedMarkers, v):
-    """X v over the whole store, (4 * bpm,) in store column order: one
-    entry for every genotyped individual of the store, phenotyped or not."""
-    G = gm.fetch.G
-    acc = None
-    for g, rows in gm.fetch.groups():
-        sl = slice(g * G, (g + 1) * G)
-        part = packed_matvec(rows, gm.means[sl], v[sl])
-        acc = part if acc is None else acc + part
-    return acc
+def weighted(gm, ycorr):
+    """R^-1 ycorr, the GEMV source of the rhs (ycorr without weights)."""
+    return ycorr if gm.rinv is None else gm.rinv * ycorr
 
 
-def grouped_matvec(gm: GroupedPackedMarkers, v):
+def grouped_matvec(gm, v):
     """X v over the whole store, (n_obs,) in observation order."""
-    return unpad(grouped_matvec_store(gm, v), gm.n_obs, gm.row_perm)
+    return unpad(gm.matvec_store(v), gm.n_obs, gm.row_perm)
 
 
-def grouped_rhs(gm: GroupedPackedMarkers, w):
-    """X' w over the whole store, (p_pad,)."""
-    G = gm.fetch.G
-    w_pad = pad_w(w, gm.fetch.bpm, gm.row_perm)
-    return torch.cat([packed_rhs(rows, gm.means[g * G:(g + 1) * G], w_pad,
-                                 gm.has_missing)
-                      for g, rows in gm.fetch.groups()])
+def grouped_rhs(gm, w):
+    """X' R^-1 w over the whole store, (p_pad,)."""
+    w_pad = store_order(weighted(gm, w), gm.n_store, gm.row_perm)
+    return torch.cat([gm.rhs(g, rows, w_pad) for g, rows in gm.groups()])
 
 
-def _walk_groups(gm: GroupedPackedMarkers, alpha_b, ycorr, nreps: int,
-                 sync_every: Optional[int], inner) -> None:
-    """The grouped schedule shared by the sweeps: groups in order, sync
-    rounds within a group. A round is X'w of the group (K4), then
-    inner(blk, rhs, g, r, reps), which updates alpha_b[blk] in place, then
-    X times the change in alpha (K5) into ycorr, in place."""
-    fetch = gm.fetch
-    G, bpm = fetch.G, fetch.bpm
+def _walk_groups(gm, alpha_b, ycorr, nreps: int, sync_every: Optional[int],
+                 inner) -> None:
+    """The grouped schedule shared by the sweeps and by both stores (the
+    2-bit GroupedPackedMarkers, ops/dense.py's DenseMarkers): groups in
+    order, sync rounds within a group. A round is X'R^-1 ycorr of the group
+    (gm.rhs: K4, or a dense GEMV), then inner(blk, rhs, g, r, reps), which
+    updates alpha_b[blk] in place, then X times the change in alpha
+    (gm.matvec) into ycorr, in place."""
     nblocks, b = alpha_b.shape
-    gb = nblocks // fetch.ngroups
+    gb = nblocks // gm.ngroups
     rounds = mk.sync_rounds(nreps, mk.resolve_sync_every(nreps, sync_every))
-    for g, rows in fetch.groups():
-        mns = gm.means[g * G:(g + 1) * G]
-        blk = slice(g * gb, (g + 1) * gb)
-        a_g = alpha_b[blk]
-        for r, reps in enumerate(rounds):
-            rhs = packed_rhs(rows, mns, pad_w(ycorr, bpm, gm.row_perm),
-                             gm.has_missing)
-            a_start = a_g.clone()
-            inner(blk, rhs.view(gb, b), g, r, reps)
-            d_alpha = (a_start - a_g).view(-1)
-            ycorr += unpad(packed_matvec(rows, mns, d_alpha), gm.n_obs,
-                           gm.row_perm)
+    with full_precision_matmul():
+        for g, rows in gm.groups():
+            blk = slice(g * gb, (g + 1) * gb)
+            a_g = alpha_b[blk]
+            for r, reps in enumerate(rounds):
+                rhs = gm.rhs(g, rows, store_order(weighted(gm, ycorr),
+                                                  gm.n_store, gm.row_perm))
+                a_start = a_g.clone()
+                inner(blk, rhs.view(gb, b), g, r, reps)
+                d_alpha = (a_start - a_g).view(-1)
+                ycorr += unpad(gm.matvec(g, rows, d_alpha), gm.n_obs,
+                               gm.row_perm)
 
 
-def sweep_blocks_abc_grouped(gm: GroupedPackedMarkers, alpha, beta, delta,
-                             ycorr, vare, var_eff, pi,
+def sweep_blocks_abc_grouped(gm, alpha, beta, delta, ycorr, vare, var_eff, pi,
                              gen: Optional[torch.Generator], nreps: int = 1,
                              sync_every: Optional[int] = None,
                              draws: Optional[Draws] = None):
     """Group-sequential fast-blocks BayesC / BayesB sweep
-    (BayesABC.jl:111-188).
+    (BayesABC.jl:111-188) over a 2-bit GroupedPackedMarkers or a dense
+    DenseMarkers (ops/dense.py).
 
-    alpha, beta (p_pad,) float32, delta (p_pad,) int32 and ycorr (n_obs,)
-    are updated in place (the chain keeps one copy of its marker state) and
-    returned. vare is a 0-d tensor; var_eff the common marker variance
+    alpha, beta (p_pad,) float32 or float64 (the store's dtype), delta
+    (p_pad,) int32 and ycorr (n_obs,) are updated in place (the chain keeps
+    one copy of its marker state) and returned. vare is a 0-d tensor; var_eff the common marker variance
     (0-d, BayesC) or one a marker ((p_pad,), BayesB); pi (p_pad,)
     P(excluded). Round r of group g takes its (reps * b, gb) uniform and
     normal panels from draws(g, r, reps) when given (tests inject the JAX
@@ -463,9 +497,11 @@ def sweep_blocks_abc_grouped(gm: GroupedPackedMarkers, alpha, beta, delta,
     xpx_b = gm.xpx.view(nblocks, b)
     alpha_b, beta_b, delta_b = (x.view(nblocks, b) for x in (alpha, beta, delta))
     if draws is None:
+        f = dict(dtype=alpha.dtype, device=ycorr.device)
+
         def draws(g, r, reps):
-            return (torch.rand((reps * b, gb), generator=gen, device=ycorr.device),
-                    torch.randn((reps * b, gb), generator=gen, device=ycorr.device))
+            return (torch.rand((reps * b, gb), generator=gen, **f),
+                    torch.randn((reps * b, gb), generator=gen, **f))
 
     def inner(blk, rhs, g, r, reps):
         us, zs = draws(g, r, reps)
@@ -478,15 +514,16 @@ def sweep_blocks_abc_grouped(gm: GroupedPackedMarkers, alpha, beta, delta,
     return alpha, beta, delta, ycorr
 
 
-def gumbel_panel(shape, gen: Optional[torch.Generator], device):
-    """Standard Gumbel draws -log(-log(u)), u uniform on [float32 tiny, 1)
-    as jax.random.gumbel draws it: always finite."""
-    u = torch.rand(shape, generator=gen, device=device).clamp_(min=_TINY)
+def gumbel_panel(shape, gen: Optional[torch.Generator], device,
+                 dtype=torch.float32):
+    """Standard Gumbel draws -log(-log(u)), u uniform on [tiny, 1) of the
+    dtype as jax.random.gumbel draws it: always finite."""
+    u = torch.rand(shape, generator=gen, device=device, dtype=dtype)
+    u.clamp_(min=torch.finfo(dtype).tiny)
     return u.log_().neg_().log_().neg_()
 
 
-def sweep_blocks_bayesr_grouped(gm: GroupedPackedMarkers, alpha, delta,
-                                ycorr, vare, sigma_sq, pi_mat,
+def sweep_blocks_bayesr_grouped(gm, alpha, delta, ycorr, vare, sigma_sq, pi_mat,
                                 gen: Optional[torch.Generator],
                                 nreps: int = 1,
                                 sync_every: Optional[int] = None,
@@ -494,8 +531,8 @@ def sweep_blocks_bayesr_grouped(gm: GroupedPackedMarkers, alpha, delta,
     """Group-sequential fast-blocks BayesR sweep (BayesR.jl:45-97) on the
     schedule of sweep_blocks_abc_grouped.
 
-    alpha (p_pad,) float32, delta (p_pad,) int32 class labels 0..3 and
-    ycorr (n_obs,) are updated in place and returned. vare and sigma_sq are
+    alpha (p_pad,) float32 or float64, delta (p_pad,) int32 class labels
+    0..3 and ycorr (n_obs,) are updated in place and returned. vare and sigma_sq are
     0-d tensors; pi_mat (p_pad, 4) class priors, padded rows [1, 0, 0, 0].
     Round r of group g takes its (reps * b, gb, 4) Gumbel and (reps * b, gb)
     normal panels from draws(g, r, reps) when given (tests inject the JAX
@@ -510,8 +547,9 @@ def sweep_blocks_bayesr_grouped(gm: GroupedPackedMarkers, alpha, delta,
     alpha_b, delta_b = alpha.view(nblocks, b), delta.view(nblocks, b)
     if draws is None:
         def draws(g, r, reps):
-            return (gumbel_panel((reps * b, gb, 4), gen, ycorr.device),
-                    torch.randn((reps * b, gb), generator=gen, device=ycorr.device))
+            return (gumbel_panel((reps * b, gb, 4), gen, ycorr.device, alpha.dtype),
+                    torch.randn((reps * b, gb), generator=gen, device=ycorr.device,
+                                dtype=alpha.dtype))
 
     def inner(blk, rhs, g, r, reps):
         gum, zs = draws(g, r, reps)
@@ -524,10 +562,11 @@ def sweep_blocks_bayesr_grouped(gm: GroupedPackedMarkers, alpha, delta,
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
-    """Gram tiles feed the exact-conditional marker updates, so the f32
-    path must not round its inputs to TF32's 10-bit mantissa; the flag is
-    set explicitly rather than trusted to its default."""
+def full_precision_matmul():
+    """Gram tiles and the dense GEMVs feed the exact-conditional marker
+    updates, so float32 matmuls must not round their inputs to TF32's
+    10-bit mantissa; the flag is set explicitly rather than trusted to its
+    default."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -569,7 +608,7 @@ def _gram_f32(codes, mns, b: int, n_obs: int):
     m = mns[:, None]
     x = torch.where(x == 3.0, m, x) - m
     xb = x.view(scb, b, n_obs)
-    with _full_f32_matmul():
+    with full_precision_matmul():
         return torch.bmm(xb, xb.transpose(1, 2))
 
 

@@ -19,6 +19,10 @@ bayesr_inner_rounds_window_ref model that schedule in plain PyTorch; they
 equal the step-by-step plain versions bit for bit, which is what lets the
 kernels keep the sequential chain's result.
 
+Each kernel has a float32 and a float64 build (runMCMC's
+double_precision); a call takes the build of its grams' dtype, and every
+floating-point argument must have that dtype.
+
 Layouts are block-major, unlike the JAX package's j-major ones:
 grams (nblocks, b, b) with grams[k, j] = row j of block k's Gram;
 per-marker tiles (nblocks, b), a view of the flat (p_pad,) arrays (BayesR
@@ -63,15 +67,22 @@ def abc_inner_rounds_ref(grams, xpx, var_eff, log_pi, log_pi_comp, alpha,
     return alpha, beta, delta, rhs
 
 
+_BUILDS = {torch.float32: "", torch.float64: "_f64"}
+
+
 def _check_cuda_args(what, tensors, shapes):
     """Device, dtype, shape and contiguity of a kernel's arguments; shapes
-    maps each name that is not a (nblocks, b) tile to its shape."""
+    maps each name that is not a (nblocks, b) tile to its shape. Every
+    floating-point argument has the grams' dtype, float32 or float64.
+    Returns the suffix of the build's C entry point."""
     grams = tensors["grams"]
     dev = grams.device
     tile = grams.shape[:2]
+    if grams.dtype not in _BUILDS:
+        raise ValueError(f"{what}: grams must be float32 or float64, got {grams.dtype}")
     for name, t in tensors.items():
         want = shapes.get(name, tile)
-        dtype = torch.int32 if name == "delta" else torch.float32
+        dtype = torch.int32 if name == "delta" else grams.dtype
         if (t.shape != want or t.dtype is not dtype or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(
@@ -80,6 +91,7 @@ def _check_cuda_args(what, tensors, shapes):
             )
     if grams.data_ptr() % 16:
         raise ValueError(f"{what}: grams must be 16-byte aligned")
+    return _BUILDS[grams.dtype]
 
 
 def abc_inner_rounds(grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta,
@@ -100,28 +112,32 @@ def abc_inner_rounds(grams, xpx, var_eff, log_pi, log_pi_comp, alpha, beta,
     args = dict(grams=grams, xpx=xpx, var_eff=var_eff, log_pi=log_pi,
                 log_pi_comp=log_pi_comp, alpha=alpha, beta=beta, delta=delta,
                 rhs=rhs, us=us, zs=zs, inv_vare=inv_vare)
-    _check_cuda_args("abc_inner_rounds", args, {
+    build = _check_cuda_args("abc_inner_rounds", args, {
         "grams": (nblocks, b, b), "us": (nreps * b, nblocks),
         "zs": (nreps * b, nblocks), "inv_vare": (1,)})
     lib = _build.library()
-    err = lib.jt_abc_inner_rounds(
+    err = getattr(lib, "jt_abc_inner_rounds" + build)(
         *(t.data_ptr() for t in args.values()), b, nblocks, nreps,
         _build.stream_of(grams),
     )
     _build.check(err, "abc_inner_rounds")
     abc_inner_rounds.launches += 1
+    abc_inner_rounds.launches_f64 += build == "_f64"
     return alpha, beta, delta, rhs
 
 
-abc_inner_rounds.launches = 0
+abc_inner_rounds.launches = 0       # every launch
+abc_inner_rounds.launches_f64 = 0   # the float64 build's
 
 
-def gram_resident(b: int, nreps: int, method: str = "BayesC") -> bool:
-    """Whether the method's kernel keeps the b x b Gram tile in shared
-    memory on the current CUDA device (otherwise it reads row j from
+def gram_resident(b: int, nreps: int, method: str = "BayesC",
+                  dtype=torch.float32) -> bool:
+    """Whether the method's kernel keeps the b x b Gram tile of dtype in
+    shared memory on the current CUDA device (otherwise it reads row j from
     global memory/L2)."""
     fn = {"BayesC": "jt_abc_resident", "BayesR": "jt_bayesr_resident"}[method]
-    r = getattr(_build.library(), fn)(b, nreps)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    r = getattr(_build.library(), fn)(b, nreps, itemsize)
     if r < 0:
         _build.check(-r, f"{method} inner rounds shared-memory plan")
     return bool(r)
@@ -167,24 +183,27 @@ def bayesr_inner_rounds(grams, xpx, log_pi, alpha, delta, rhs, gumbel, zs,
     args = dict(grams=grams, xpx=xpx, log_pi=log_pi, alpha=alpha,
                 delta=delta, rhs=rhs, gumbel=gumbel, zs=zs,
                 inv_vare=inv_vare, sigma_sq=sigma_sq)
-    _check_cuda_args("bayesr_inner_rounds", args, {
+    build = _check_cuda_args("bayesr_inner_rounds", args, {
         "grams": (nblocks, b, b), "log_pi": (nblocks, b, 4),
         "gumbel": (nreps * b, nblocks, 4), "zs": (nreps * b, nblocks),
         "inv_vare": (1,), "sigma_sq": (1,)})
-    if gumbel.data_ptr() % 16 or log_pi.data_ptr() % 16:
-        raise ValueError("bayesr_inner_rounds: gumbel and log_pi must be "
-                         "16-byte aligned")
+    quad = 4 * grams.element_size()      # a marker's four class values
+    if gumbel.data_ptr() % quad or log_pi.data_ptr() % quad:
+        raise ValueError(f"bayesr_inner_rounds: gumbel and log_pi must be "
+                         f"{quad}-byte aligned")
     lib = _build.library()
-    err = lib.jt_bayesr_inner_rounds(
+    err = getattr(lib, "jt_bayesr_inner_rounds" + build)(
         *(t.data_ptr() for t in args.values()), b, nblocks, nreps,
         _build.stream_of(grams),
     )
     _build.check(err, "bayesr_inner_rounds")
     bayesr_inner_rounds.launches += 1
+    bayesr_inner_rounds.launches_f64 += build == "_f64"
     return alpha, delta, rhs
 
 
 bayesr_inner_rounds.launches = 0
+bayesr_inner_rounds.launches_f64 = 0
 
 
 # ------------------------------------------------ the window schedule, plain

@@ -3,7 +3,9 @@
 Counterpart of jwas_tpu/ops/markers.py: BAYESR_GAMMA (:52),
 default_block_size (:74), _abc_update (:118-137), bayesr_class_logprobs
 and _bayesr_update (:150-188), resolve_sync_every (:208, with the default
-of jwas_tpu/engine/setup.py:105-113) and _sync_rounds (:215-238).
+of jwas_tpu/engine/setup.py:105-113), _sync_rounds (:215-238) and
+stable_group_blocks (:569) with jwas_tpu/ops/grouped.py::pick_group_blocks
+(:241), and the dense store's block rule (jwas_tpu/engine/mcmc.py:802-836).
 
 Marker state stays flat (p_pad,); a block-major view x.view(nblocks, b)
 takes the place of the JAX package's _to_jmajor / _from_jmajor (:241-248).
@@ -22,6 +24,58 @@ def default_block_size(n_obs: int) -> int:
     as jwas_tpu picks it, so both packages run the same schedule."""
     b = int(math.sqrt(max(n_obs, 1)))
     return max(128, ((b + 127) // 128) * 128)
+
+
+# the stability cap b * gb <= STALE_FRACTION * n of the grouped schedule
+# (jwas_tpu/ops/grouped.py:101-116 has the measurements behind it)
+STALE_FRACTION = 0.4
+
+
+def pick_group_blocks(nblocks: int, prefer: int = 128, cap: int = 256) -> int:
+    """Blocks a group: the largest divisor of nblocks up to cap that is a
+    multiple of prefer, else the largest divisor up to cap, else nblocks
+    (jwas_tpu/ops/grouped.py:241). The preference is kept because it fixes
+    the schedule that both packages run."""
+    best = 0
+    for gb in range(min(cap, nblocks), 0, -1):
+        if nblocks % gb:
+            continue
+        if gb % prefer == 0:
+            return gb
+        if best == 0:
+            best = gb
+    return best or nblocks
+
+
+def stable_group_blocks(n_obs: int, b: int, nblocks: int) -> int:
+    """Blocks a group of the dense schedule: the largest group whose stale
+    set b * gb honours STALE_FRACTION * n_obs (pick_group_blocks), or 0
+    when all nblocks fit under the cap and one group (the flat sweep) is
+    stable (jwas_tpu/ops/markers.py:569)."""
+    cap = max(1, int(STALE_FRACTION * n_obs) // b)
+    if nblocks <= cap:
+        return 0
+    return pick_group_blocks(nblocks, prefer=128, cap=cap)
+
+
+def dense_blocks(n_obs: int, fast_blocks, p: int):
+    """(b, gb, exact) of a dense store as jwas_tpu's runMCMC picks them
+    (jwas_tpu/engine/mcmc.py:802-836): fast_blocks True gives
+    default_block_size(n_obs), an int is rounded up to a multiple of 8 (at
+    least 8), and gb = stable_group_blocks (0, one group, becomes nblocks).
+    fast_blocks False is the exact single-site sweep (exact True), which
+    the port runs in chunks of b = default_block_size(n_obs) markers, one
+    block a group."""
+    exact = fast_blocks is False or fast_blocks is None or (
+        fast_blocks is not True and not int(fast_blocks))
+    if exact or fast_blocks is True:
+        b = default_block_size(n_obs)
+    else:
+        b = max(8, ((int(fast_blocks) + 7) // 8) * 8)
+    nblocks = -(-p // b)
+    if exact:
+        return b, 1, True
+    return b, stable_group_blocks(n_obs, b, nblocks) or nblocks, False
 
 
 class ABCConstants(NamedTuple):

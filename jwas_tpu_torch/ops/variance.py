@@ -8,8 +8,9 @@ bayesr_sigma_sufficient_statistics and sample_marker_variance_bayesr
 sample_scale_st (:118), with BayesB's scale draw
 (jwas_tpu/engine/mcmc.py:478-482). The BayesB draws also come as
 functions of their chi-square or gamma draw (bayesb_variance,
-bayesb_scale), so tests can feed both packages the same draws. Unweighted
-only: residual weights (rinv) are not part of this port yet.
+bayesb_scale), so tests can feed both packages the same draws. The
+residual variance takes the residual weights (invweights, R^-1) of a
+dense store.
 """
 
 from __future__ import annotations
@@ -26,10 +27,13 @@ from jwas_tpu_torch.ops.dists import (
 from jwas_tpu_torch.ops.markers import BAYESR_GAMMA
 
 
-def sample_residual_variance_st(gen, ycorr, n_obs: int, df: float, scale):
-    """Residual variance (variance_components.jl:60-66)."""
-    return sample_scaled_inv_chi2(gen, torch.sum(ycorr * ycorr), n_obs, df,
-                                  scale)
+def sample_residual_variance_st(gen, ycorr, n_obs: int, df: float, scale,
+                                invweights=None):
+    """Residual variance (variance_components.jl:60-66): the SSE
+    ycorr' R^-1 ycorr, with invweights R^-1 (None: unit weights)."""
+    sq = ycorr * ycorr
+    sse = torch.sum(sq if invweights is None else sq * invweights)
+    return sample_scaled_inv_chi2(gen, sse, n_obs, df, scale)
 
 
 def sample_marker_variance_common(gen, alpha, n_loci, df: float, scale):
@@ -90,14 +94,14 @@ def sample_pi_abc(gen, delta, n_markers: int, valid):
     """pi for BayesC: Beta(p - k + 1, k + 1), k = included real markers
     (Pi.jl:7-9)."""
     k = torch.sum(torch.where(valid > 0, delta, torch.zeros_like(delta)))
-    return sample_pi_beta(gen, k, n_markers)
+    return sample_pi_beta(gen, k, n_markers, valid.dtype)
 
 
 def sample_pi_bayesr(gen, delta, valid):
     """(4,) class priors for BayesR: Dirichlet(class counts over the real
     markers + 1) (Pi.jl:11-17)."""
-    w = (valid > 0).to(torch.float32)
-    counts = torch.zeros(4, dtype=torch.float32, device=delta.device)
+    w = (valid > 0).to(valid.dtype)
+    counts = torch.zeros(4, dtype=valid.dtype, device=delta.device)
     counts.index_add_(0, delta.clamp(0, 3).long(), w)
     return sample_dirichlet(gen, counts + 1.0)
 

@@ -1,6 +1,6 @@
 """Where the time goes in the port's main paths at full width, on one GPU.
 
-    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid]
+    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense]
 
 Run it from the root of the repository: it imports chip_smoke.py.
 
@@ -41,7 +41,13 @@ group resident and with half of the groups resident: steps 1 and 2, with
 the host-to-device copies' GB/s (copy-stream time of the chain's copies),
 the device time of the kernels and of the copies apart, and the share of
 the copies' device time during which a kernel ran (chip_smoke.copy_overlap).
-Each is a start-of-chain measurement: pi has not settled after three outer
+Dense is chip_smoke.py's phase 7a: a dense float32 store of N = 50,000 x
+P = 100,000 written by get_genotypes on the device, 45,000 phenotyped with
+weights, runMCMC BayesC at fast_blocks = True (b = 256, gb = 23): its
+unprofiled set-up and window seconds, step 2 for a call of two outer
+iterations (the kernel K1 and the dense GEMVs, torch.mv, among the device
+rows) and step 3 on the first group (its 32 rounds). It builds no 2-bit
+store. Each is a start-of-chain measurement: pi has not settled after three outer
 iterations. Imports torch, numpy, the port and chip_smoke.py; never jax.
 """
 
@@ -56,12 +62,14 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 import jwas_tpu_torch as jt
+from jwas_tpu_torch import _build
 from jwas_tpu_torch.io.genotypes import bayesr_pi
 from jwas_tpu_torch.ops import grouped as gr
+from jwas_tpu_torch.ops.dense import DenseMarkers
 
 PATHS = {"BayesC": ("BayesC", 0.0), "BayesC0999": ("BayesC", 0.999),
          "BayesR": ("BayesR", 0.0), "Streamed": ("BayesC", 0.0),
-         "Hybrid": ("BayesC", 0.0)}
+         "Hybrid": ("BayesC", 0.0), "Dense": ("BayesC", 0.0)}
 STREAMED = {"Streamed": lambda ngroups: 0, "Hybrid": lambda ngroups: ngroups // 2}
 
 
@@ -77,12 +85,16 @@ def host_ms_a_round(name, gm, y, sum2pq, repeats=5):
     sweep, as it does from one outer iteration to the next."""
     method, pi0 = PATHS[name]
     dev = gm.grams.device
-    G = gm.fetch.G
+    G = gm.G
     nblocks, b, _ = gm.grams.shape
     gb = nblocks // gm.ngroups
-    sub = gm._replace(fetch=gr.GroupFetcher(gm.store[:G], G, dev, 1),
-                      means=gm.means[:G], xpx=gm.xpx[:G], grams=gm.grams[:gb],
-                      valid=gm.valid[:G])
+    if isinstance(gm, DenseMarkers):
+        sub = gm._replace(X=gm.X[:G], xpx=gm.xpx[:G], grams=gm.grams[:gb],
+                          valid=gm.valid[:G])
+    else:
+        sub = gm._replace(fetch=gr.GroupFetcher(gm.store[:G], G, dev, 1),
+                          means=gm.means[:G], xpx=gm.xpx[:G], grams=gm.grams[:gb],
+                          valid=gm.valid[:G])
     priors = cs.default_priors(y, sum2pq, pi0=pi0, method=method)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -218,6 +230,31 @@ def profile_runmcmc(gm, tbv):
              2 * ngroups * (b // 8), top=20)
 
 
+def profile_dense(dev):
+    """chip_smoke.py's phase 7a, unprofiled then profiled, and the host's
+    time a round on its first group."""
+    codes = cs.dense_codes(50_000, 100_000, 7, dev)
+    geno = jt.get_genotypes(codes, method="BayesC", storage="f32", device=dev)
+    del codes
+    table, _, _, _ = cs.phase7_problem(geno)
+    kw = dict(device=dev, fast_blocks=True, heterogeneous_residuals=True,
+              output_folder="")
+    out, seconds, built = cs.run_phase5(geno, table, chain_length=768,
+                                        output_samples_frequency=256, **kw)
+    cs.say("Dense: unprofiled seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()) + "; windows " + ", ".join(
+        f"{t:.4f}" for t in built["chain"][-1]))
+    gm = built["store and Grams"]
+    b = gm.grams.shape[1]
+    del built, out
+    profiled("Dense", lambda: cs.run_phase5(cs.fresh(geno, "BayesC"), table,
+                                            chain_length=2 * b,
+                                            output_samples_frequency=b, **kw),
+             2 * gm.ngroups * (b // 8), top=16)
+    y = np.asarray(table["y"], dtype=np.float64)
+    host_ms_a_round("Dense", gm, y - y.mean(), geno.sum2pq)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch.cuda.is_available() is false")
@@ -229,6 +266,14 @@ def main():
     cs.say(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
+    _build.library()                  # the nvcc build stays out of the windows
+    cs.say(f"kernels built (nvcc {_build.build_seconds:.1f} s)")
+    if "Dense" in names:
+        profile_dense(dev)
+        names = [n for n in names if n != "Dense"]
+        torch.cuda.empty_cache()
+        if not names:
+            return
     gm, y, tbv, sum2pq, _, _ = cs.full_width_problem(dev)
     host = None
     for name in names:

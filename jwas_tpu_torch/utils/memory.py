@@ -14,6 +14,12 @@ device buffers for the 2-bit grouped store:
   _DECODE_BYTES);
 - the location design, n * K float32.
 
+and, for a dense store (estimate_dense_memory; jwas_tpu's dense count,
+:62-90), the store at its itemsize (and its source when the chain's dtype
+differs from the store's, which costs one copy), the Gram tiles p_pad * b
+at the chain's itemsize, one weighted chunk of the Gram set-up
+(ops/dense.py _GRAM_BYTES) and the location design.
+
 jwas_tpu's estimate also counts a dense float32 (n_out, p) matrix of the
 output IDs' genotypes (bytes_output); the port never builds one (ROADMAP.md
 fault R7), so its bytes_output is 0. The budget is the residence plan's
@@ -27,6 +33,7 @@ import warnings
 from dataclasses import dataclass
 from typing import Optional
 
+from jwas_tpu_torch.ops.dense import _GRAM_BYTES
 from jwas_tpu_torch.ops.grouped import RING_DEPTH, _DECODE_BYTES, _sub_chunk, hbm_budget
 
 _DEFAULT_HBM_BYTES = 16 * 1024**3
@@ -80,6 +87,26 @@ def estimate_marker_memory(n_obs: int, n_markers: int, block_size: int,
         bytes_decode=_sub_chunk(G, b, n_obs, _DECODE_BYTES) * n_obs * 4,
         bytes_design=n_obs * n_traits * n_loc * itemsize,
     )
+
+
+def estimate_dense_memory(n_store: int, n_obs: int, n_markers: int,
+                          block_size: int, group_blocks: int, n_loc: int = 0,
+                          itemsize: int = 4,
+                          store_itemsize: Optional[int] = None) -> MarkerMemoryEstimate:
+    """Device bytes of a dense store's chain: the (n_markers, n_store)
+    store in the chain's itemsize, its source when that is of another
+    itemsize (store_itemsize), Gram tiles of blocks of block_size in groups
+    of group_blocks, one weighted chunk of the Gram set-up and the location
+    design."""
+    b, G = block_size, block_size * group_blocks
+    p_pad = -(-n_markers // G) * G
+    store = n_markers * n_store
+    src = store_itemsize if store_itemsize not in (None, itemsize) else 0
+    return MarkerMemoryEstimate(
+        bytes_genotypes=store * itemsize, bytes_grams=p_pad * b * itemsize,
+        bytes_staging=store * src,
+        bytes_decode=min(_GRAM_BYTES, store * itemsize),
+        bytes_design=n_obs * n_loc * itemsize)
 
 
 def check_marker_memory_guard(estimate: MarkerMemoryEstimate,

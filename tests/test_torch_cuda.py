@@ -436,3 +436,90 @@ def test_streamed_store_on_card(cuda, monkeypatch):
                                  "packed": torch.from_numpy(store.packed).to(cuda)})
     with pytest.raises(ValueError, match="host memory"):
         setup_markers(on_card, obs, cuda, fast_blocks=8, host_offload=True)
+
+
+def test_float64_kernels_and_single_block_chunks_match_plain(cuda):
+    """The float64 builds of K1/K2 (per-marker variances) and K3 at a
+    resident (b = 136) and a global (b = 256) tile, and K1 / K3 with
+    nblocks = 1 and one rep at b = 256 and a ragged b = 160 (the exact
+    sweep's chunks), in float32 and float64, against their plain versions
+    on the card; their float64 launches are counted apart."""
+    f64 = torch.float64
+    for b, nblocks, nreps, dtype in ((136, 16, 2, f64), (256, 8, 2, f64),
+                                     (256, 1, 1, torch.float32), (160, 1, 1, torch.float32),
+                                     (256, 1, 1, f64), (160, 1, 1, f64)):
+        k = {n: t.to(dtype) if t.is_floating_point() else t
+             for n, t in _chain_inputs(nblocks, b, nreps, b + 1, cuda).items()}
+        k["var_eff"] = 0.01 + 0.04 * torch.rand_like(k["var_eff"])
+        r = {n: t.clone() for n, t in k.items()}
+        before = abc_inner_rounds.launches_f64
+        abc_inner_rounds(**k, nreps=nreps)
+        abc_inner_rounds_ref(**r, nreps=nreps)
+        torch.cuda.synchronize()
+        assert abc_inner_rounds.launches_f64 == before + (dtype == f64)
+        assert gram_resident(b, nreps, dtype=dtype) == (b <= (170 if dtype == f64 else 240))
+        same = (k["delta"] == r["delta"]).all(dim=1)
+        assert same.float().mean().item() >= 0.99, (b, dtype)
+        for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("beta", 1e-5, 1e-6),
+                                 ("rhs", 1e-4, 1e-5)):
+            torch.testing.assert_close(k[name][same], r[name][same], rtol=rtol, atol=atol)
+        q = {n: t.to(dtype) if t.is_floating_point() else t
+             for n, t in _bayesr_inputs(nblocks, b, nreps, b + 2, cuda).items()}
+        s = {n: t.clone() for n, t in q.items()}
+        bayesr_inner_rounds(**q, nreps=nreps)
+        bayesr_inner_rounds_ref(**s, nreps=nreps)
+        torch.cuda.synchronize()
+        same = (q["delta"] == s["delta"]).all(dim=1)
+        assert same.float().mean().item() >= 0.99, (b, dtype)
+        for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("rhs", 1e-4, 1e-5)):
+            torch.testing.assert_close(q[name][same], s[name][same], rtol=rtol, atol=atol)
+    bad = _chain_inputs(2, 16, 1, 1, cuda)
+    bad["rhs"] = bad["rhs"].to(f64)
+    with pytest.raises(ValueError):
+        abc_inner_rounds(**bad, nreps=1)
+
+
+def test_dense_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
+    """A weighted dense store on the card (n = 300 of 360 genotyped
+    individuals phenotyped, p = 900): run_st's grouped (b = 8) and exact
+    (b = 128 chunks) BayesC chains and a grouped BayesR chain, in float32
+    and float64, through the kernels and again through their plain
+    versions on the same card with the same draws: the effects agree to
+    rtol 1e-4 (the kernels follow the plain versions' rounding; expf / exp
+    may differ by an ulp) and the kernels were launched."""
+    import jwas_tpu_torch.ops.dense as td
+    import jwas_tpu_torch.ops.grouped as tg
+    from jwas_tpu_torch import setup_dense_markers
+
+    rng = np.random.default_rng(12)
+    n_store, n, p = 360, 300, 900
+    X = rng.binomial(2, rng.uniform(0.1, 0.9, p), size=(n_store, p)).astype(np.float64)
+    X -= X.mean(axis=0)
+    ids = [f"i{k}" for k in range(n_store)]
+    rows = rng.permutation(n_store)[:n]
+    y = X[rows] @ (rng.normal(size=p) * (rng.random(p) < 0.02)) + rng.normal(size=n)
+    rinv = rng.uniform(0.5, 2.0, n)
+    priors = dict(vare0=0.5, scale_R=0.25, df_R=4.0, marker_var0=0.01,
+                  marker_scale0=0.005, df_marker=4.0)
+    for dtype in (torch.float32, torch.float64):
+        store = torch.as_tensor(np.ascontiguousarray(X.T), dtype=dtype, device=cuda)
+        for fb, method in ((8, "BayesC"), (False, "BayesC"), (8, "BayesR")):
+            gm = setup_dense_markers(store, ids, [ids[k] for k in rows], cuda,
+                                     fast_blocks=fb, rinv=torch.as_tensor(rinv))
+            runs = {}
+            for plain in (False, True):
+                if plain:
+                    monkeypatch.setattr(tg, "abc_inner_rounds", abc_inner_rounds_ref)
+                    monkeypatch.setattr(tg, "bayesr_inner_rounds", bayesr_inner_rounds_ref)
+                    monkeypatch.setattr(td, "abc_inner_rounds", abc_inner_rounds_ref)
+                    monkeypatch.setattr(td, "bayesr_inner_rounds", bayesr_inner_rounds_ref)
+                launches = abc_inner_rounds.launches + bayesr_inner_rounds.launches
+                runs[plain] = run_st(gm, y, **priors, method=method, chain_length=16,
+                                     seed=5, pi0=0.0)
+                launched = abc_inner_rounds.launches + bayesr_inner_rounds.launches > launches
+                assert launched != plain, (fb, method, plain)
+                monkeypatch.undo()
+            a, b_ = runs[False]["alpha"], runs[True]["alpha"]
+            assert a.dtype == b_.dtype == (np.float64 if dtype == torch.float64 else np.float32)
+            assert np.isfinite(a).all()
+            np.testing.assert_allclose(a, b_, rtol=1e-4, atol=1e-5, err_msg=f"{fb} {method}")

@@ -220,8 +220,13 @@ def test_unported_model_features_raise(data):
         with pytest.raises(NotImplementedError, match="item 10"):
             jt.build_model("y = intercept", **kw)
     for storage in ("f32", "f64", "int8"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            jt.get_genotypes(data["geno"], storage=storage)
+        for method in ("RR-BLUP", "BayesA", "BayesL", "GBLUP"):
+            with pytest.raises(NotImplementedError, match=method):
+                jt.get_genotypes(data["geno"], storage=storage, method=method,
+                                 device="cpu")
+        with pytest.raises(NotImplementedError, match="item 8"):
+            jt.get_genotypes(data["geno"], storage=storage, device="cpu",
+                             annotations=np.ones((200, 1)))
     assert jt.get_genotypes(store, method="BayesB").method == "BayesB"
     with pytest.raises(ValueError, match="BayesC/BayesB/BayesR only"):
         jt.get_genotypes(store, method="BayesA")

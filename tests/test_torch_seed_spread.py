@@ -10,9 +10,13 @@ posterior, or mix worse. With the method BayesB the data are
 tests/test_torch_bayesb.py's (p = 2,048, so the last group is short) and
 both packages run runMCMC; varg is the posterior mean of the markers'
 mean variance. The spreads of those runs calibrate that test's bounds.
+With the method exact both packages run BayesC through runMCMC on the same
+data as a dense float32 store with fast_blocks=False: the exact
+single-site sweep, which has no blocked schedule (the port: chunks of b
+markers through K1's plain version).
 
-    python tests/test_torch_seed_spread.py run jwas_tpu 1 15 out.json [BayesB]
-    python tests/test_torch_seed_spread.py run port 1 15 out.json [BayesB]
+    python tests/test_torch_seed_spread.py run jwas_tpu 1 15 out.json [BayesB|exact]
+    python tests/test_torch_seed_spread.py run port 1 15 out.json [BayesB|exact]
     python tests/test_torch_seed_spread.py compare out1.json out2.json ...
 
 The test below holds the F-test itself; the chains take minutes a seed.
@@ -66,11 +70,11 @@ def _problem(method="BayesC"):
                 chain_length=2000, burnin=400)
 
     def model():
-        return build_model("y = intercept + geno",
-                           genotypes=get_genotypes(store, method=method, name="geno"))
+        return build_model("y = intercept + geno", genotypes=get_genotypes(
+            store, method="BayesB" if method == "BayesB" else "BayesC", name="geno"))
 
     ws = prepare_workspace(model(), pheno, MCMCOptions(**opts))
-    return path, pheno, model, opts, ws
+    return path, pheno, model, opts, ws, sim["genotypes"]
 
 
 def _summary(res):
@@ -82,9 +86,23 @@ def _summary(res):
 def run(package, first, last, out, method="BayesC"):
     import torch
     torch.set_num_threads(1)
-    path, pheno, model, opts, ws = _problem(method)
+    path, pheno, model, opts, ws, geno = _problem(method)
     rows = []
-    if method == "BayesB":
+    if method == "exact":
+        import jwas_tpu
+        import jwas_tpu_torch as jt
+        opts = dict(opts, fast_blocks=False)
+        for seed in range(first, last + 1):
+            if package == "jwas_tpu":
+                res = jwas_tpu.runMCMC(jwas_tpu.build_model(
+                    "y = intercept + geno", genotypes=jwas_tpu.get_genotypes(
+                        geno, method="BayesC", name="geno")), pheno, seed=seed, **opts)
+            else:
+                res = jt.runMCMC(jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
+                    geno, method="BayesC", name="geno", device="cpu")),
+                    pheno, device="cpu", seed=seed, **opts)
+            rows.append(dict(seed=seed, **_summary(res)))
+    elif method == "BayesB":
         import jwas_tpu_torch as jt
         from jwas_tpu import runMCMC
         for seed in range(first, last + 1):
