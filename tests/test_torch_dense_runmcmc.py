@@ -101,35 +101,46 @@ def assert_within_mc_error(problem, config, seed=7):
 
 def test_dense_runmcmc_equals_run_st(problem):
     """runMCMC on a dense store equals run_st fed the same workspace's
-    priors, W and row order on setup_dense_markers' store, bit for bit:
-    blocked (fast_blocks = 8) and exact (fast_blocks = False)."""
+    priors, W and row order on setup_dense_markers' store, bit for bit, for
+    BayesC, BayesB and BayesR, blocked (fast_blocks = 8 or True) and exact
+    (fast_blocks = False), from f32, int8 and f64 storage (the last with
+    double_precision)."""
+    import torch
+
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.engine.mcmc import setup_dense_markers
     from jwas_tpu_torch.engine.setup import MCMCOptions, prepare_workspace
 
     sim, _, table = problem
-    for fb in (8, False):
-        opts = dict(fast_blocks=fb, chain_length=48, burnin=16, seed=3,
-                    output_folder="", printout_model_info=False)
+    cases = (("BayesC", 8, "f32"), ("BayesC", False, "f32"), ("BayesB", True, "int8"),
+             ("BayesB", False, "f32"), ("BayesR", 8, "f32"), ("BayesR", False, "f64"))
+    for method, fb, storage in cases:
+        dp = storage == "f64"
+        opts = dict(fast_blocks=fb, chain_length=48, burnin=16, seed=3, output_folder="",
+                    printout_model_info=False, double_precision=dp)
 
         def model():
             return jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
-                sim["genotypes"], method="BayesC", device="cpu"))
+                sim["genotypes"], method=method, storage=storage, device="cpu"))
 
         out = jt.runMCMC(model(), table, device="cpu", **opts)
         ws = prepare_workspace(model(), table, MCMCOptions(**opts))
         gm = setup_dense_markers(ws.geno.dense, ws.geno.obs_ids, ws.obs_ids, "cpu",
                                  fast_blocks=fb)
         assert gm.row_perm is not None and gm.exact == (fb is False)
+        assert gm.X.dtype == (torch.float64 if dp else torch.float32)
         res = jt.run_st(gm, ws.y, W=ws.W, vare0=ws.vare0, scale_R=ws.scale_R,
                         df_R=ws.df_R, marker_var0=ws.marker_var0,
                         marker_scale0=ws.marker_scale0, df_marker=ws.df_marker,
-                        pi0=ws.pi0, chain_length=48, burnin=16, seed=3)
-        assert res["nreps"] == (1 if fb is False else 8)
-        assert np.array_equal(out["marker effects geno"].Estimate, res["alpha"])
-        assert np.float32(out["residual variance"].Estimate[0]) == res["vare"]
+                        pi0=ws.pi0, method=method, chain_length=48, burnin=16, seed=3)
+        case = (method, fb, storage)
+        assert res["nreps"] == (1 if fb is False else min(gm.grams.shape[1], 48)), case
+        assert np.array_equal(out["marker effects geno"].Estimate, res["alpha"]), case
+        dtype = res["alpha"].dtype.type
+        assert dtype(out["residual variance"].Estimate[0]) == res["vare"], case
         ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
-        assert np.array_equal(np.array([ebv[s] for s in ws.obs_ids]), res["ebv"])
+        assert np.array_equal(np.array([ebv[s] for s in ws.obs_ids]), res["ebv"]), case
+        assert np.isfinite(res["alpha"]).all() and np.isfinite(res["vare"]), case
 
 
 def test_blocked_matches_jwas_tpu_within_mc_error(problem):
