@@ -14,10 +14,11 @@ Phases, each printed as it ends:
      almost none does, the default BayesR class prior from alpha = 0), with
      ns a dependent step, the share of the steps that changed an effect and
      the evaluations a window of 32 markers, and at ragged and large block
-     sizes; the dense path's shapes (K1 with nblocks = 1 at b = 256 and
-     160, the exact sweep's chunks; K1 at b = 256 over 23 blocks, a dense
-     group) and the float64 builds of K1/K2 and K3 at b = 136 (resident
-     tile) and b = 256 (global), against float64 plain versions;
+     sizes; the dense path's shapes (K1 with nblocks = 1 at b = 256, the
+     exact sweep's chunks, and at a ragged b = 160; K1 and K3 at b = 256
+     over 23 blocks with 8 reps, a dense group's round) and the float64
+     builds of K1/K2 and K3 at b = 136 (resident tile) and b = 256
+     (global), against float64 plain versions;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -56,7 +57,8 @@ Phases, each printed as it ends:
      = True, heterogeneous_residuals (b = 256, gb = 23: 17 groups, 544
      rounds an outer iteration, K1's global-memory Gram branch), three
      outer iterations; (b) BayesR on the same store (K3 at b = 256); (c) the
-     exact sweep (fast_blocks = False: 391 chunks of K1 with nblocks = 1),
+     exact sweep (fast_blocks = False: 391 single-block groups of K1 with
+     nblocks = 1 and one rep, the last one zero-padded),
      20 sweeps; (d) the float32 store freed, a float64 store of 40 GB and
      double_precision = True: BayesC for two outer iterations and BayesR
      for one (the float64 builds of K1 and K3). Each run: seconds by part
@@ -381,7 +383,7 @@ def check_gemv(n, G, dev, missing, permuted, time_it):
     whenever ceil(n / 4) is no multiple of 128 (or 64), as at every shape
     here."""
     from jwas_tpu_torch.ops import packed_gemv as pg
-    from jwas_tpu_torch.ops.grouped import _decode_codes, pad_w, unpad
+    from jwas_tpu_torch.ops.grouped import _decode_codes, store_order, unpad
 
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -397,7 +399,7 @@ def check_gemv(n, G, dev, missing, permuted, time_it):
     w = torch.randn(n, generator=g, device=dev)
     v_full = torch.randn(G, generator=g, device=dev)
     keep = torch.rand(G, generator=g, device=dev)
-    w_pad = pad_w(w, bpm, perm)
+    w_pad = store_order(w, 4 * bpm, perm)
     atol = ATOL_GEMV * n ** 0.5
 
     def err_of(got, want):
@@ -485,16 +487,19 @@ def phase2(dev):
     check_k3(512, 256, 64, 2, dev, time_it=True)   # global-memory Gram branch
     check_k3(512, 152, 128, 2, dev, time_it=False)
     check_k3(256, 1040, 2, 1, dev, time_it=False)
-    # the dense path (phase 7): a dense group's K1 (b = 256, 23 blocks, a
-    # round of 8 reps), the exact sweep's chunks (nblocks = 1, one rep; the
-    # last one ragged), and the float64 builds against float64 plain
-    # versions at a resident (b = 136) and a global (b = 256) tile
+    # the dense path (phase 7): a dense group's K1 and K3 (b = 256, 23
+    # blocks, a round of 8 reps), the exact sweep's chunks (nblocks = 1, one
+    # rep; and a ragged single block), and the float64 builds against
+    # float64 plain versions at a resident (b = 136) and a global (b = 256)
+    # tile
     f64 = torch.float64
     recs["abc_inner_rounds"]["regimes"]["dense_group"] = check_k1(
         512, 256, 23, 8, dev, time_it=True, regime="dense")
     recs["abc_inner_rounds"]["regimes"]["exact_chunk"] = check_k1(
         512, 256, 1, 1, dev, time_it=True, regime="dense")
     check_k1(512, 160, 1, 1, dev, time_it=False)
+    recs["bayesr_inner_rounds"]["regimes"]["dense_group"] = check_k3(
+        512, 256, 23, 8, dev, time_it=True, from_zero=True)
     recs["abc_inner_rounds_f64"] = check_k1(512, 256, 23, 8, dev, time_it=True,
                                             dtype=f64)
     check_k1(512, 136, 64, 2, dev, time_it=False, per_marker=True, dtype=f64)

@@ -15,8 +15,9 @@ state :1128-1224) and the single-chain loop of runMCMC (:1435-1569).
 The chain's dtype is its store's, float32 or float64
 (double_precision), chosen per call: there is no global switch (fault
 R8). A dense store runs the grouped sweeps through the same walker as the
-2-bit store, or, with fast_blocks=False, the chunked exact sweeps of
-ops/dense.py, both on the inner-rounds kernels K1/K2 and K3.
+2-bit store, on the inner-rounds kernels K1/K2 and K3; with
+fast_blocks=False its groups are single blocks walked once an outer
+iteration, the exact single-site sweep (ops/dense.py).
 
 Two entry points share the chain loop (run_chain) and the initial state:
 runMCMC(model, df, ...) takes a model from build_model and the phenotypes
@@ -39,15 +40,13 @@ from jwas_tpu_torch.engine.output import build_results
 from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
 from jwas_tpu_torch.engine.samples_io import STSampleStream
 from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace,
-                                         prepare_workspace, reject_unported)
+                                         prepare_workspace, resolve_device)
 from jwas_tpu_torch.engine.state import ChainState, EngineCfg
-from jwas_tpu_torch.engine.validation import validate_args, validate_phenotypes
 from jwas_tpu_torch.io.genotypes import DEFAULT_BAYESR_PI, bayesr_pi  # noqa: F401
 from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
 from jwas_tpu_torch.models.model import Model, describe
 from jwas_tpu_torch.ops import markers as mk
-from jwas_tpu_torch.ops.dense import (DenseMarkers, build_dense_markers,
-                                      sweep_exact_abc, sweep_exact_bayesr)
+from jwas_tpu_torch.ops.dense import DenseMarkers, build_dense_markers
 from jwas_tpu_torch.ops.grouped import (
     GroupedPackedMarkers,
     build_grouped_markers,
@@ -83,7 +82,6 @@ class STData(NamedTuple):
                                       # IDs; None: the training rows
     out_W: Optional[torch.Tensor]     # (n_out, K) prediction-equation rows,
                                       # None when it has no terms
-    rinv: Optional[torch.Tensor] = None  # (n,) inverse residual weights
 
 
 class SampleOut(NamedTuple):
@@ -135,19 +133,6 @@ def chain_plan(chain_length: int, burnin: int, output_samples_frequency: int,
     thin_outer = max(1, osf // nreps)
     return ChainPlan(nreps, burnin_outer, thin_outer,
                      max(1, (n_outer - burnin_outer) // thin_outer))
-
-
-def resolve_device(device) -> torch.device:
-    """The chain's device: the GPU unless the caller asks for another; a
-    missing GPU raises (the CPU is never taken silently)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device (torch.cuda.is_available() is false); pass "
-            "device='cpu' to run the plain versions on the CPU")
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def setup_dense_markers(X, store_ids, obs_ids, device="cuda", fast_blocks=True,
@@ -215,7 +200,7 @@ def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
 
 def make_st_step(cfg: EngineCfg):
     """One outer iteration: location pass, marker sweep (nreps effective
-    sweeps of the grouped schedule, or one exact single-site sweep), pi,
+    sweeps of the grouped schedule; one for the exact sweep's store), pi,
     marker variance, its scale, residual variance. The marker state and
     ycorr of the returned state are the input's tensors, updated in place.
     BayesB is BayesC's sweep with one variance a marker."""
@@ -227,31 +212,22 @@ def make_st_step(cfg: EngineCfg):
 
         # 1. location parameters (MCMC_BayesianAlphabet.jl:196-220)
         ycorr = state.ycorr + data.W @ state.sol
-        w = ycorr if data.rinv is None else data.rinv * ycorr
+        w = ycorr if gm.rinv is None else gm.rinv * ycorr
         sol = gibbs_pass_lambda(data.WtW, state.sol, data.W.T @ w,
                                 state.vare, gen)
         ycorr -= data.W @ sol
 
-        # 2. marker effects: the grouped or the exact sweep (in place)
+        # 2. marker effects (in place)
         real = gm.valid > 0
         beta = state.beta
         if bayesr:
             pad_row = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=state.pi.dtype,
                                    device=real.device)
             pi_mat = torch.where(real[:, None], state.pi[None, :], pad_row)
-            if cfg.exact:
-                alpha, delta, ycorr = sweep_exact_bayesr(
-                    gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
-                    pi_mat, gen)
-            else:
-                alpha, delta, ycorr = sweep_blocks_bayesr_grouped(
-                    gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
-                    pi_mat, gen, nreps=cfg.nreps, sync_every=cfg.sync_every,
-                )
-        elif cfg.exact:
-            alpha, beta, delta, ycorr = sweep_exact_abc(
-                gm, state.alpha, state.beta, state.delta, ycorr, state.vare,
-                state.varg, state.pi, gen)
+            alpha, delta, ycorr = sweep_blocks_bayesr_grouped(
+                gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
+                pi_mat, gen, nreps=cfg.nreps, sync_every=cfg.sync_every,
+            )
         else:
             alpha, beta, delta, ycorr = sweep_blocks_abc_grouped(
                 gm, state.alpha, state.beta, state.delta, ycorr, state.vare,
@@ -293,7 +269,7 @@ def make_st_step(cfg: EngineCfg):
         if cfg.estimate_residual_variance:
             vare = sample_residual_variance_st(gen, ycorr, cfg.n_obs,
                                                cfg.df_residual, data.scale_r,
-                                               invweights=data.rinv)
+                                               invweights=gm.rinv)
 
         return ChainState(gen=gen, sol=sol, alpha=alpha, beta=beta,
                           delta=delta, ycorr=ycorr, vare=vare, varg=varg,
@@ -405,12 +381,13 @@ def _reject_unsupported(**unsupported) -> None:
 
 def make_cfg(gm, method: str, *, nreps, sync_every, chain_length: int, df_R,
              df_marker, estimate_pi: bool, estimate_marker_variance: bool,
-             estimate_scale: bool, estimate_residual_variance: bool,
-             exact: bool = False) -> EngineCfg:
+             estimate_scale: bool, estimate_residual_variance: bool) -> EngineCfg:
     """The chain's static configuration; nreps defaults to the block size
     and is clamped to chain_length (never more sweeps than asked for); the
-    exact sweep runs one sweep an outer iteration."""
+    exact sweep's store (a dense store built with exact=True) runs one
+    sweep an outer iteration."""
     b = gm.grams.shape[1]
+    exact = isinstance(gm, DenseMarkers) and gm.exact
     nreps = 1 if exact else max(1, min(nreps if nreps is not None else b,
                                        chain_length))
     return EngineCfg(
@@ -420,7 +397,7 @@ def make_cfg(gm, method: str, *, nreps, sync_every, chain_length: int, df_R,
         estimate_scale=estimate_scale,
         estimate_residual_variance=estimate_residual_variance,
         nreps=nreps, sync_every=mk.resolve_sync_every(nreps, sync_every),
-        df_residual=float(df_R), df_marker=float(df_marker), exact=exact,
+        df_residual=float(df_R), df_marker=float(df_marker),
     )
 
 
@@ -439,11 +416,9 @@ def make_data(gm, y, W, scale_R, ebv_rows=None, out_W=None) -> STData:
         ebv_rows = torch.as_tensor(np.asarray(ebv_rows), dtype=torch.int64).to(dev)
     if out_W is not None:
         out_W = torch.as_tensor(np.asarray(out_W), dtype=f32).to(dev)
-    rinv = gm.rinv
-    WtW = W.T @ (W if rinv is None else rinv[:, None] * W)
+    WtW = W.T @ (W if gm.rinv is None else gm.rinv[:, None] * W)
     return STData(W=W, WtW=WtW, y=y, gm=gm, ebv_rows=ebv_rows, out_W=out_W,
-                  scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev),
-                  rinv=rinv)
+                  scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev))
 
 
 def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
@@ -592,8 +567,8 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
 
     gm comes from setup_markers (or build_grouped_markers), or for a dense
     store from setup_dense_markers (or ops/dense.py::build_dense_markers;
-    one group a block of b markers runs the exact sweep, as
-    fast_blocks=False picks it); y (n,) and the location design W (n, K;
+    a store built with exact=True, as fast_blocks=False builds it, runs
+    the exact sweep); y (n,) and the location design W (n, K;
     default: an intercept) are in observation order. The priors are those
     of prepare_workspace. pi0 is BayesC's
     P(excluded), or BayesR's (4,) class prior (0: the default
@@ -626,8 +601,7 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
                    estimate_pi=estimate_pi,
                    estimate_marker_variance=estimate_marker_variance,
                    estimate_scale=estimate_scale,
-                   estimate_residual_variance=estimate_residual_variance,
-                   exact=is_exact(gm))
+                   estimate_residual_variance=estimate_residual_variance)
     state = initial_state(cfg, data, vare0=vare0, marker_var0=marker_var0,
                           marker_scale0=marker_scale0, pi0=pi0, seed=seed)
     plan = chain_plan(chain_length, burnin, output_samples_frequency, cfg.nreps)
@@ -656,11 +630,6 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
         "thin_outer": plan.thin_outer,
         "burnin_seconds": t_burnin, "window_seconds": window_seconds,
     }
-
-
-def is_exact(gm) -> bool:
-    """A dense store of the exact sweep (fast_blocks=False)."""
-    return isinstance(gm, DenseMarkers) and gm.exact
 
 
 def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
@@ -703,8 +672,7 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                    df_marker=ws.df_marker, estimate_pi=bool(g.estimate_pi),
                    estimate_marker_variance=bool(g.G.estimate_variance),
                    estimate_scale=bool(g.G.estimate_scale),
-                   estimate_residual_variance=bool(ws.model.R.estimate_variance),
-                   exact=is_exact(gm))
+                   estimate_residual_variance=bool(ws.model.R.estimate_variance))
     out_W = None
     if ws.prediction_terms:
         out_W = np.zeros((len(ws.output_ids), ws.W.shape[1]))
@@ -736,17 +704,14 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     "heritability"), written as <key>.txt to output_folder with the
     per-parameter MCMC sample files. Options the reference rejects raise
     its ValueError before an option the port does not run yet raises
-    NotImplementedError.
+    NotImplementedError (prepare_workspace checks both, then the device).
     """
     opts = MCMCOptions(**kwargs)
-    validate_args(model, opts)
-    validate_phenotypes(opts, list(df.columns) if hasattr(df, "columns") else list(df))
-    reject_unported(opts)
+    ws = prepare_workspace(model, df, opts, device=device)
     device = resolve_device(device)
     model.mcmc_info = opts
     if opts.printout_model_info:
         describe(model)
-    ws = prepare_workspace(model, df, opts, device=device)
     cfg, data, state = _build_st_data_and_state(ws, opts, device)
     plan = chain_plan(opts.chain_length, opts.burnin, opts.output_samples_frequency,
                       cfg.nreps)

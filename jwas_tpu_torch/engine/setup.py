@@ -25,6 +25,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from jwas_tpu_torch.engine.validation import validate_args, validate_phenotypes
 from jwas_tpu_torch.io.genotypes import Genotypes
@@ -95,6 +96,19 @@ _UNPORTED = {
     "single_step_analysis": False, "pedigree": None, "causal_structure": None,
     "RRM": None, "use_pallas": "auto",
 }
+
+
+def resolve_device(device) -> torch.device:
+    """The chain's device: the GPU unless the caller asks for another; a
+    missing GPU raises (the CPU is never taken silently)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is false); pass "
+            "device='cpu' to run the plain versions on the CPU")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def reject_unported(opts: MCMCOptions) -> None:
@@ -226,8 +240,11 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
                       device=None) -> Workspace:
     """The set-up pipeline of runMCMC (JWAS.jl:272-459) for the ported
     slice; df is a Table, a {name: array} mapping or a DataFrame whose
-    first column holds the IDs. device: the chain's, whose memory the
-    guard measures against (None: the JAX package's 16 GiB default)."""
+    first column holds the IDs. The options are checked first: the JAX
+    package's ValueErrors (validate_args, validate_phenotypes), then
+    NotImplementedError for what the port does not run (reject_unported).
+    device: the chain's (resolve_device, after those checks), whose memory
+    the guard measures against (None: the JAX package's 16 GiB default)."""
     df = as_table(df)
     df = Table({c: df[c] for c in df.columns})   # the caller's table stays
     id_col = df.columns[0]
@@ -240,6 +257,8 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     if not model.M:
         raise NotImplementedError("runMCMC without genotypes is not ported yet: "
                                   "pass genotypes=get_genotypes(...)")
+    if device is not None:
+        device = resolve_device(device)
     g0 = model.M[0]
 
     # ID reconciliation (input_data_validation.jl:198-294)

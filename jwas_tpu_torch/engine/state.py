@@ -46,6 +46,3 @@ class EngineCfg:
     sync_every: int           # inner reps between exact residual syncs
     df_residual: float
     df_marker: float
-    exact: bool = False       # a dense store's exact single-site sweep
-                              # (fast_blocks=False): one sweep an outer
-                              # iteration

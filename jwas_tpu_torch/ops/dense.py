@@ -26,27 +26,28 @@ JAX package leaves them to XLA outside any Pallas kernel), and the Gram
 tiles X_k' R^-1 X_k are one torch.bmm a chunk of blocks, never in TF32 or
 bf16.
 
-The exact sweep (runMCMC's fast_blocks=False) walks the markers in chunks
-of b in marker order: rhs = X_c' R^-1 ycorr, then one K1 (or K3) launch on
-the chunk's Gram tile with nreps = 1, which updates the chunk's markers one
-after the other with the rhs kept current through the Gram rows, then
-ycorr -= X_c d_alpha. That is the sequential single-site sampler in exact
-algebra: within a chunk the Gram updates give each marker the rhs the
-per-marker dot product would, up to rounding. sweep_exact_abc_ref and
-sweep_exact_bayesr_ref are the step-by-step plain versions (one dot product
-a marker) the tests hold the chunked sweeps against.
+The exact sweep (runMCMC's fast_blocks=False) is the same grouped sweeps
+with nreps = 1 over a store of one block a group (exact=True): a round is
+rhs = X_c' R^-1 ycorr of a chunk of b markers, one K1 (or K3) launch on
+the chunk's Gram tile, which updates its markers one after the other with
+the rhs kept current through the Gram rows, then ycorr -= X_c d_alpha.
+That is the sequential single-site sampler in exact algebra: within a
+chunk the Gram updates give each marker the rhs the per-marker dot product
+would, up to rounding. The ragged last chunk is the short group's
+zero-padded rhs and Gram rows. sweep_draws serves the grouped sweeps a
+whole sweep's panels; sweep_exact_abc_ref and sweep_exact_bayesr_ref are
+the step-by-step plain versions (one dot product a marker) the tests hold
+the exact sweep against.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
 from jwas_tpu_torch.ops import markers as mk
-from jwas_tpu_torch.ops.grouped import (full_precision_matmul, gumbel_panel,
-                                        store_order, unpad, weighted)
-from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds, bayesr_inner_rounds
+from jwas_tpu_torch.ops.grouped import full_precision_matmul, store_order, unpad, weighted
 
 _GRAM_BYTES = 1 << 30     # bound on one weighted chunk of the Gram set-up
 
@@ -66,7 +67,8 @@ class DenseMarkers(NamedTuple):
     grams: torch.Tensor               # (nblocks, b, b) block-major X'R^-1X tiles
     valid: torch.Tensor               # (p_pad,) 1 real marker, 0 padding
     n_obs: int
-    exact: bool = False               # the exact sweep's chunks (gb = 1)
+    exact: bool = False               # the exact sweep's store (gb = 1,
+                                      # one sweep a round)
 
     @property
     def n_store(self) -> int:
@@ -177,92 +179,23 @@ def build_dense_markers(X, n_obs: int, block_size: int, group_blocks: int,
 
 # ---------------------------------------------------------------- exact sweeps
 
-Draws = Callable[[], Tuple[torch.Tensor, torch.Tensor]]
 
+def sweep_draws(b: int, *panels):
+    """draws(g, r, reps) of the grouped sweeps run as the exact sweep (a
+    store of one block of b markers a group, nreps = 1) from panels drawn
+    for a whole sweep in marker order, as the JAX package's sweep_exact_*
+    draw them: (p,) uniforms and normals, or (p, 4) Gumbels and (p,)
+    normals. Group g reads rows g*b to (g+1)*b as the (b, 1[, 4]) panels a
+    round takes; the ragged last group's padding rows read 1, which keeps a
+    padding marker out (pi 1, or class prior [1, 0, 0, 0])."""
+    p = panels[0].shape[0]
+    extra = -(-p // b) * b - p
+    padded = [torch.cat([x, x.new_ones((extra,) + tuple(x.shape[1:]))]) for x in panels]
 
-def _chunks(dm: DenseMarkers):
-    """(c0, rows, gram tile) of the exact sweep's chunks in marker order:
-    b markers each, the last one ragged with the leading square of its
-    tile (a contiguous copy, made once a sweep)."""
-    b = dm.grams.shape[1]
-    p = dm.X.shape[0]
-    for c, c0 in enumerate(range(0, p, b)):
-        rows = dm.X[c0:min(p, c0 + b)]
-        m = rows.shape[0]
-        tile = dm.grams[c:c + 1] if m == b else dm.grams[c:c + 1, :m, :m].contiguous()
-        yield c0, rows, tile
+    def draws(g, r, reps):
+        return tuple(x[g * b:(g + 1) * b].unsqueeze(1) for x in padded)
 
-
-def _chunk_rhs(dm: DenseMarkers, rows, ycorr):
-    w_pad = store_order(weighted(dm, ycorr), dm.n_store, dm.row_perm)
-    return torch.mv(rows, w_pad).view(1, -1)
-
-
-def sweep_exact_abc(dm: DenseMarkers, alpha, beta, delta, ycorr, vare,
-                    var_eff, pi, gen: Optional[torch.Generator],
-                    draws: Optional[Draws] = None):
-    """Sequential single-site BayesC / BayesB sweep (BayesABC.jl:60-80) in
-    chunks of b markers, one K1 launch a chunk (nblocks = 1, nreps = 1).
-
-    State as sweep_blocks_abc_grouped's, updated in place and returned: the
-    real markers' entries change, padding's do not. draws() gives the
-    sweep's (p,) uniform and normal panels (tests inject the JAX
-    package's), else they come from gen."""
-    b = dm.grams.shape[1]
-    p, p_pad = dm.X.shape[0], dm.valid.shape[0]
-    inv_vare = (1.0 / vare).reshape(1)
-    var_eff = var_eff.reshape(-1).expand(p_pad).contiguous()
-    pi_c = torch.clamp(pi, 1e-10, 1.0)
-    log_pi, log_pi_comp = torch.log(pi_c), torch.log1p(-pi_c + 1e-12)
-    if draws is None:
-        f = dict(dtype=alpha.dtype, device=alpha.device)
-        us, zs = (torch.rand(p, generator=gen, **f), torch.randn(p, generator=gen, **f))
-    else:
-        us, zs = draws()
-    with full_precision_matmul():
-        for c0, rows, tile in _chunks(dm):
-            m = rows.shape[0]
-            sl = slice(c0, c0 + m)
-            a_c = alpha[sl].view(1, m)
-            a_start = a_c.clone()
-            abc_inner_rounds(tile, dm.xpx[sl].view(1, m), var_eff[sl].view(1, m),
-                             log_pi[sl].view(1, m), log_pi_comp[sl].view(1, m),
-                             a_c, beta[sl].view(1, m), delta[sl].view(1, m),
-                             _chunk_rhs(dm, rows, ycorr), us[sl].view(m, 1),
-                             zs[sl].view(m, 1), inv_vare, 1)
-            ycorr += unpad(torch.mv(rows.T, (a_start - a_c).view(-1)), dm.n_obs,
-                           dm.row_perm)
-    return alpha, beta, delta, ycorr
-
-
-def sweep_exact_bayesr(dm: DenseMarkers, alpha, delta, ycorr, vare, sigma_sq,
-                       pi_mat, gen: Optional[torch.Generator],
-                       draws: Optional[Draws] = None):
-    """Sequential single-site BayesR sweep (BayesR.jl:45-97) in chunks of b
-    markers, one K3 launch a chunk. pi_mat (p_pad, 4) class priors;
-    draws() gives the sweep's (p, 4) Gumbel and (p,) normal panels."""
-    p = dm.X.shape[0]
-    inv_vare = (1.0 / vare).reshape(1)
-    sigma = sigma_sq.reshape(1)
-    log_pi = torch.log(torch.clamp(pi_mat, 1e-12, 1.0))
-    if draws is None:
-        gum = gumbel_panel((p, 4), gen, alpha.device, alpha.dtype)
-        zs = torch.randn(p, generator=gen, dtype=alpha.dtype, device=alpha.device)
-    else:
-        gum, zs = draws()
-    with full_precision_matmul():
-        for c0, rows, tile in _chunks(dm):
-            m = rows.shape[0]
-            sl = slice(c0, c0 + m)
-            a_c = alpha[sl].view(1, m)
-            a_start = a_c.clone()
-            bayesr_inner_rounds(tile, dm.xpx[sl].view(1, m), log_pi[sl].view(1, m, 4),
-                                a_c, delta[sl].view(1, m), _chunk_rhs(dm, rows, ycorr),
-                                gum[sl].view(m, 1, 4), zs[sl].view(m, 1), inv_vare,
-                                sigma, 1)
-            ycorr += unpad(torch.mv(rows.T, (a_start - a_c).view(-1)), dm.n_obs,
-                           dm.row_perm)
-    return alpha, delta, ycorr
+    return draws
 
 
 def _obs_row(dm: DenseMarkers, j: int):
@@ -273,10 +206,10 @@ def _obs_row(dm: DenseMarkers, j: int):
 
 def sweep_exact_abc_ref(dm: DenseMarkers, alpha, beta, delta, ycorr, vare,
                         var_eff, pi, us, zs):
-    """Plain version of sweep_exact_abc, step by step as the JAX package's
+    """The exact BayesC / BayesB sweep step by step, as the JAX package's
     sweep_exact_abc: one dot product x_j' R^-1 ycorr a marker, then ycorr
-    += (a_old - a_new) x_j. Same arguments (the drawn panels given), same
-    in-place contract."""
+    += (a_old - a_new) x_j. State and in-place contract as
+    sweep_blocks_abc_grouped's; us, zs the sweep's (p,) panels."""
     p, p_pad = dm.X.shape[0], dm.valid.shape[0]
     inv_vare = (1.0 / vare).reshape(())
     var_eff = var_eff.reshape(-1).expand(p_pad)
@@ -297,8 +230,8 @@ def sweep_exact_abc_ref(dm: DenseMarkers, alpha, beta, delta, ycorr, vare,
 
 def sweep_exact_bayesr_ref(dm: DenseMarkers, alpha, delta, ycorr, vare,
                            sigma_sq, pi_mat, gumbel, zs):
-    """Plain version of sweep_exact_bayesr, one dot product a marker as
-    the JAX package's sweep_exact_bayesr."""
+    """The exact BayesR sweep, one dot product a marker as the JAX
+    package's sweep_exact_bayesr; gumbel (p, 4), zs (p,)."""
     p = dm.X.shape[0]
     inv_vare = (1.0 / vare).reshape(())
     log_pi = torch.log(torch.clamp(pi_mat, 1e-12, 1.0))

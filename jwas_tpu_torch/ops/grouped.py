@@ -414,12 +414,6 @@ def store_order(w, ncols: int, row_perm):
     return w_pad
 
 
-def pad_w(w, bpm: int, row_perm):
-    """store_order for a 2-bit store of bpm bytes a marker (4 * bpm
-    columns)."""
-    return store_order(w, 4 * bpm, row_perm)
-
-
 def unpad(out_pad, n_obs: int, row_perm):
     """Store-ordered Xv result -> (n_obs,) observation order."""
     return out_pad[:n_obs] if row_perm is None else out_pad[row_perm]

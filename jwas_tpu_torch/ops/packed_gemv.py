@@ -11,7 +11,7 @@ up tables in shared memory instead of decoding code by code.
 Both work in store order: rows (G, bpm) uint8, a byte holding observations
 4i..4i+3 (low bits first); w_pad / the Xv result are (4 * bpm,) float32. The
 observation permutation (row_perm) is applied by the caller
-(ops/grouped.py: pad_w / unpad).
+(ops/grouped.py: store_order / unpad).
 
 packed_rhs_ref / packed_matvec_ref are the plain versions (bit planes and
 matrix products). packed_rhs_tables_ref / packed_matvec_tables_ref repeat

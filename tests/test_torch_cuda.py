@@ -266,7 +266,7 @@ def test_gemvs_and_grouped_path_on_card(cuda):
         packed = torch.from_numpy(pack_codes(codes)).to(cuda)
         means = torch.rand(p, device=cuda) * 2
         perm = torch.from_numpy(rng.permutation(n)).to(cuda)
-        w = gr.pad_w(torch.randn(n, device=cuda), packed.shape[1], perm)
+        w = gr.store_order(torch.randn(n, device=cuda), 4 * packed.shape[1], perm)
         atol = 1e-4 * n ** 0.5
         before = (packed_rhs.launches, packed_matvec.launches)
         want = packed_rhs_ref(packed, means, w)
@@ -487,7 +487,6 @@ def test_dense_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
     versions on the same card with the same draws: the effects agree to
     rtol 1e-4 (the kernels follow the plain versions' rounding; expf / exp
     may differ by an ulp) and the kernels were launched."""
-    import jwas_tpu_torch.ops.dense as td
     import jwas_tpu_torch.ops.grouped as tg
     from jwas_tpu_torch import setup_dense_markers
 
@@ -511,8 +510,6 @@ def test_dense_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
                 if plain:
                     monkeypatch.setattr(tg, "abc_inner_rounds", abc_inner_rounds_ref)
                     monkeypatch.setattr(tg, "bayesr_inner_rounds", bayesr_inner_rounds_ref)
-                    monkeypatch.setattr(td, "abc_inner_rounds", abc_inner_rounds_ref)
-                    monkeypatch.setattr(td, "bayesr_inner_rounds", bayesr_inner_rounds_ref)
                 launches = abc_inner_rounds.launches + bayesr_inner_rounds.launches
                 runs[plain] = run_st(gm, y, **priors, method=method, chain_length=16,
                                      seed=5, pi0=0.0)

@@ -7,11 +7,12 @@ without residual weights: JAX's draws come in through the `draws` hook as
 fold_in(fold_in(key, g), r) -> split -> uniform / normal (Gumbel / normal
 for BayesR) (jwas_tpu/ops/markers.py:215-238, :524-566), and the chains
 must agree to the tolerances of tests/test_pallas_sweep.py:42-45 (delta
-exactly equal). The chunked exact sweeps (sweep_exact_abc /
-sweep_exact_bayesr: one K1 / K3 launch a chunk of b markers) against
-jwas_tpu's sweep_exact_abc / sweep_exact_bayesr, the draws rebuilt from
-the key as jwas_tpu/ops/markers.py:413-415 (and :470-472) draw them, to
-rtol 1e-5 / atol 1e-6 on alpha and equal delta, and against the port's
+exactly equal). The exact sweep (the same grouped sweeps with nreps = 1
+over a store of one block a group: one K1 / K3 launch a chunk of b
+markers) against jwas_tpu's sweep_exact_abc / sweep_exact_bayesr, the
+draws rebuilt from the key as jwas_tpu/ops/markers.py:413-415 (and
+:470-472) draw them and served chunk by chunk by ops/dense.py::sweep_draws,
+to rtol 1e-5 / atol 1e-6 on alpha and equal delta, and against the port's
 step-by-step plain versions (one dot product a marker).
 """
 
@@ -192,13 +193,14 @@ def test_exact_sweeps_match_jax_and_the_step_by_step_plain_versions():
         ku, kz = jax.random.split(key)
         us, zs = _t(jax.random.uniform(ku, (p,))), _t(jax.random.normal(kz, (p,)))
         runs = {}
-        for name, sweep in (("chunked", td.sweep_exact_abc), ("plain", td.sweep_exact_abc_ref)):
+        for name in ("chunked", "plain"):
             st = [pad(alpha, 0), pad(alpha, 0), pad(delta, 0), _t(y)]
             args = (torch.tensor(vare), torch.tensor(0.05), pad(pi, 1.0))
             if name == "chunked":
-                sweep(dm, *st, *args, None, draws=lambda: (us, zs))
+                tgr.sweep_blocks_abc_grouped(dm, *st, *args, None, nreps=1,
+                                             draws=td.sweep_draws(128, us, zs))
             else:
-                sweep(dm, *st, *args, us, zs)
+                td.sweep_exact_abc_ref(dm, *st, *args, us, zs)
             runs[name] = st
             np.testing.assert_array_equal(st[2].numpy()[:p], np.asarray(rd))
             np.testing.assert_allclose(st[0].numpy()[:p], np.asarray(ra), rtol=1e-5, atol=1e-6)
@@ -223,7 +225,8 @@ def test_exact_sweeps_match_jax_and_the_step_by_step_plain_versions():
             st = [pad(alpha, 0), pad(delta, 0), _t(y)]
             args = (torch.tensor(vare), torch.tensor(0.05), _t(pim))
             if name == "chunked":
-                td.sweep_exact_bayesr(dm, *st, *args, None, draws=lambda: (gum, zs))
+                tgr.sweep_blocks_bayesr_grouped(dm, *st, *args, None, nreps=1,
+                                                draws=td.sweep_draws(128, gum, zs))
             else:
                 td.sweep_exact_bayesr_ref(dm, *st, *args, gum, zs)
             np.testing.assert_array_equal(st[1].numpy()[:p], np.asarray(rd))

@@ -169,8 +169,9 @@ def test_float64_dense_sweeps_match_jax_x64():
         return torch.from_numpy(out)
 
     st = [pad(a0, 0.0), pad(a0, 0.0), pad(delta[:p], 0), torch.from_numpy(y.copy())]
-    td.sweep_exact_abc(dme, *st, torch.tensor(1.1, dtype=F64), torch.tensor(0.05, dtype=F64),
-                       pad(pi[:p], 1.0), None, draws=lambda: (us, zs))
+    tgr.sweep_blocks_abc_grouped(dme, *st, torch.tensor(1.1, dtype=F64),
+                                 torch.tensor(0.05, dtype=F64), pad(pi[:p], 1.0), None,
+                                 nreps=1, draws=td.sweep_draws(128, us, zs))
     np.testing.assert_array_equal(st[2].numpy()[:p], np.asarray(rd))
     np.testing.assert_allclose(st[0].numpy()[:p], np.asarray(ra), rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(st[3].numpy(), np.asarray(ryc), rtol=1e-10, atol=1e-12)

@@ -22,7 +22,7 @@ import torch
 from jwas_tpu.ops.pallas_packed_gemv import packed_matvec_fused, packed_rhs_fused
 from jwas_tpu_torch.io.packed import pack_codes
 from jwas_tpu_torch.ops import packed_gemv as pg
-from jwas_tpu_torch.ops.grouped import pad_w, unpad
+from jwas_tpu_torch.ops.grouped import store_order, unpad
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,7 +79,7 @@ def test_byte_tables_bank_layout_and_rhs():
     for n, p, missing in ((53, 512, True), (1001, 96, True), (1001, 96, False)):
         packed, means, x, rng = _store(n, p, n + missing, missing)
         w = rng.normal(size=n).astype(np.float32)
-        w_pad = pad_w(_t(w), packed.shape[1], None)
+        w_pad = store_order(_t(w), 4 * packed.shape[1], None)
         ref = pg.packed_rhs_ref(_t(packed), _t(means), w_pad).numpy()
         pallas = np.asarray(packed_rhs_fused(jnp.asarray(packed), jnp.asarray(means),
                                              jnp.asarray(w), interpret=True))

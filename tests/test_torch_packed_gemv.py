@@ -19,7 +19,7 @@ import torch
 from jwas_tpu.ops.grouped import _pad_w, _plane_matvec, _plane_rhs
 from jwas_tpu.ops.pallas_packed_gemv import packed_matvec_fused, packed_rhs_fused
 from jwas_tpu_torch.io.packed import pack_codes
-from jwas_tpu_torch.ops.grouped import pad_w, unpad
+from jwas_tpu_torch.ops.grouped import store_order, unpad
 from jwas_tpu_torch.ops.packed_gemv import (packed_matvec, packed_matvec_ref,
                                             packed_rhs, packed_rhs_ref)
 
@@ -51,7 +51,7 @@ def test_gemvs_match_pallas_and_dense(store):
     packed, means, x, n, p = store
     rng = np.random.default_rng(1)
     w = rng.normal(size=n).astype(np.float32)
-    got = packed_rhs_ref(_t(packed), _t(means), pad_w(_t(w), packed.shape[1], None))
+    got = packed_rhs_ref(_t(packed), _t(means), store_order(_t(w), 4 * packed.shape[1], None))
     pallas = np.asarray(packed_rhs_fused(jnp.asarray(packed), jnp.asarray(means),
                                          jnp.asarray(w), interpret=True))
     np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-4, atol=1e-4)
@@ -83,7 +83,7 @@ def test_row_perm_padding_and_cpu_dispatch(store):
     ref_mv = np.asarray(_plane_matvec(jnp.asarray(packed), jnp.asarray(means),
                                       jnp.asarray(v), n, jp, True))
     tp = torch.from_numpy(perm)
-    got_rhs = packed_rhs(_t(packed), _t(means), pad_w(_t(w), bpm, tp))
+    got_rhs = packed_rhs(_t(packed), _t(means), store_order(_t(w), 4 * bpm, tp))
     got_mv = unpad(packed_matvec(_t(packed), _t(means), _t(v)), n, tp)
     np.testing.assert_allclose(got_rhs.numpy(), ref_rhs, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got_mv.numpy(), ref_mv, rtol=1e-4, atol=1e-4)
@@ -98,7 +98,7 @@ def test_row_perm_padding_and_cpu_dispatch(store):
     w = rng.normal(size=n).astype(np.float32)
     before = (packed_rhs.launches, packed_matvec.launches)
     r = packed_rhs(_t(packed_pad), _t(means_pad),
-                   pad_w(_t(w), packed.shape[1], None)).numpy()
+                   store_order(_t(w), 4 * packed.shape[1], None)).numpy()
     np.testing.assert_allclose(r[p:], 0.0, atol=1e-4)
     v = np.zeros(p + pad, np.float32)
     v[:p] = rng.normal(size=p)

@@ -61,7 +61,7 @@ def test_weighted_location_pass_and_residual_variance():
                                   jnp.asarray(W.T @ (rinv * ycorr)), jnp.asarray(vare), key)
     zs = torch.from_numpy(np.array(jax.random.normal(key, (K,))))
     got = gibbs_pass_lambda(data.WtW, torch.from_numpy(x),
-                            data.W.T @ (data.rinv * data.y), torch.tensor(vare), None,
+                            data.W.T @ (data.gm.rinv * data.y), torch.tensor(vare), None,
                             zs=zs)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
