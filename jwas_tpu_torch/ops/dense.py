@@ -68,7 +68,7 @@ class DenseMarkers(NamedTuple):
     valid: torch.Tensor               # (p_pad,) 1 real marker, 0 padding
     n_obs: int
     exact: bool = False               # the exact sweep's store (gb = 1,
-                                      # one sweep a round)
+                                      # one sweep an outer iteration)
 
     @property
     def n_store(self) -> int:
