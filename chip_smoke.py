@@ -18,7 +18,10 @@ Phases, each printed as it ends:
      exact sweep's chunks, and at a ragged b = 160; K1 and K3 at b = 256
      over 23 blocks with 8 reps, a dense group's round) and the float64
      builds of K1/K2 and K3 at b = 136 (resident tile) and b = 256
-     (global), against float64 plain versions;
+     (global), against float64 plain versions; K1 in RR-BLUP's and
+     BayesL's regime (every marker in the slab: zero uniforms, pi 1e-10,
+     per-marker variances, padding held at 0 by log(1 - pi) = -inf) at
+     phase 8a's round, a resident tile, a single block and in float64;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -65,7 +68,20 @@ Phases, each printed as it ends:
      and per window, peak memory within store + Grams + 4 GB, launches,
      EBV accuracy of candidates and training rows, the output IDs' EBVs
      against X alpha computed directly. Beside them the dense GEMVs of a
-     round (torch.mv over a group's 1.18 GB slab) against their byte bound.
+     round (torch.mv over a group's 1.18 GB slab) against their byte bound;
+  8. the other single-trait methods on dense genotypes: (a) phase 7's
+     20 GB float32 store and design without the weights, runMCMC RR-BLUP,
+     BayesL and BayesA at fast_blocks = True (b = 256, gb = 23: K1 with
+     every marker in the slab for the first two, BayesB's sweep with pi 0
+     for BayesA), three outer iterations each, then RR-BLUP's exact sweep
+     for 10 sweeps, each with run_dense's checks; (b) GBLUP on the first
+     20,000 individuals: get_genotypes(method="GBLUP") builds the
+     relationship matrix from their 100,000 markers on the card and frees
+     the store, runMCMC with 18,000 of them phenotyped (float64 eigh of
+     their block in the workspace) for 200 iterations: seconds of the
+     matrix, the eigh, L and the output map, a window and an iteration,
+     peak memory, EBV accuracy, and the EBVs against the output map times
+     alpha.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -172,17 +188,24 @@ K1_REGIMES = {
     "mixed": (0.9, False),     # random effects, a third of the steps change one
     "dense": (0.0, False),     # every marker is included: every step changes
     "sparse": (0.999, True),   # from alpha = 0: almost no step changes
+    "c0l": (0.0, False),       # RR-BLUP / BayesL (ops/grouped.py::
+                               # sweep_blocks_c0l_grouped): all-zero uniforms,
+                               # the last 3 markers padding (pi 1, log(1 - pi)
+                               # = -inf, zero Gram rows, xpx 1), kept at 0
 }
 
 
 def k1_inputs(n, b, nblocks, nreps, seed, dev, regime="mixed", per_marker=False):
     """Random Gram tiles of n-observation blocks and a chain state of one of
-    K1_REGIMES; per_marker: one variance a marker (BayesB), else 0.02 for
-    every marker."""
+    K1_REGIMES; per_marker: one variance a marker (BayesB, or BayesL's
+    var_g gamma_j), else 0.02 for every marker."""
     pi0, from_zero = K1_REGIMES[regime]
+    c0l = regime == "c0l"
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     x = torch.randn((nblocks, b, n), generator=g, device=dev)
+    if c0l:
+        x[-1, -3:] = 0.0
     grams = torch.bmm(x, x.transpose(1, 2))
     xpx = torch.diagonal(grams, dim1=1, dim2=2).contiguous()
     rhs = torch.bmm(x, torch.randn((nblocks, n, 1), generator=g, device=dev))[..., 0]
@@ -190,15 +213,21 @@ def k1_inputs(n, b, nblocks, nreps, seed, dev, regime="mixed", per_marker=False)
     if from_zero:
         alpha.zero_()
     pi = torch.clamp(torch.full((nblocks, b), pi0, device=dev), 1e-10, 1.0)
+    log_pi, log_pi_comp = torch.log(pi), torch.log1p(-pi + 1e-12)
+    us = torch.rand((nreps * b, nblocks), generator=g, device=dev)
+    if c0l:
+        xpx[-1, -3:], alpha[-1, -3:], log_pi[-1, -3:] = 1.0, 0.0, 0.0
+        log_pi_comp[-1, -3:] = -float("inf")
+        us.zero_()
     return dict(
         grams=grams, xpx=xpx,
         var_eff=(0.005 + 0.03 * torch.rand((nblocks, b), generator=g, device=dev)
                  if per_marker else torch.full((nblocks, b), 0.02, device=dev)),
-        log_pi=torch.log(pi), log_pi_comp=torch.log1p(-pi + 1e-12),
+        log_pi=log_pi, log_pi_comp=log_pi_comp,
         alpha=alpha, beta=alpha.clone(),
         delta=(alpha != 0).to(torch.int32),
         rhs=rhs.contiguous(),
-        us=torch.rand((nreps * b, nblocks), generator=g, device=dev),
+        us=us,
         zs=torch.randn((nreps * b, nblocks), generator=g, device=dev),
         inv_vare=torch.tensor([1.0 / 1.3], device=dev),
     )
@@ -263,6 +292,10 @@ def check_k1(n, b, nblocks, nreps, dev, time_it, regime="mixed", per_marker=Fals
         torch.testing.assert_close(x, y, rtol=rtol, atol=atol)
     if agree < DELTA_AGREE:
         raise AssertionError(f"K1 b={b}: delta agreement {agree:.5f} < {DELTA_AGREE}")
+    if regime == "c0l" and not (bool((a["alpha"][-1, -3:] == 0).all())
+                                and int(a["delta"].sum()) == nblocks * b - 3):
+        raise AssertionError(f"K1 c0l b={b}: a padding marker moved or a real one "
+                             f"left the slab")
     line = (f"K1 {regime}{' per-marker var_eff' if per_marker else ''} "
             f"{str(dtype).replace('torch.', '')} b={b} nblocks={nblocks} reps={nreps} "
             f"gram={'resident' if gram_resident(b, nreps, dtype=dtype) else 'global'}: "
@@ -507,6 +540,16 @@ def phase2(dev):
     recs["bayesr_inner_rounds_f64"] = check_k3(512, 256, 23, 8, dev, time_it=True,
                                                from_zero=True, dtype=f64)
     check_k3(512, 136, 64, 2, dev, time_it=False, dtype=f64)
+    # RR-BLUP / BayesL (phase 8a): K1 with every marker in the slab, zero
+    # uniforms and BayesL's per-marker variances, at 8a's group round
+    # (global tile), a resident tile, the exact sweep's single block and
+    # the float64 build
+    recs["abc_inner_rounds"]["regimes"]["c0l_group"] = check_k1(
+        512, 256, 23, 8, dev, time_it=True, regime="c0l", per_marker=True)
+    check_k1(512, 128, 64, 2, dev, time_it=False, regime="c0l", per_marker=True)
+    check_k1(512, 256, 1, 1, dev, time_it=False, regime="c0l")
+    check_k1(512, 136, 64, 2, dev, time_it=False, regime="c0l", per_marker=True,
+             dtype=f64)
     recs.update(check_gemv(50_000, 16_384, dev, missing=False, permuted=False,
                            time_it=True))
     check_gemv(50_000, 16_384, dev, missing=True, permuted=True, time_it=False)
@@ -1209,12 +1252,8 @@ def dense_codes(n, p, seed, dev):
 
 def phase7_problem(geno, seed=5, n_train=45_000, n_herds=100):
     """Phase 5's design on a dense store's individuals: TBV = X beta with
-    0.1% QTL (torch seed 2, on the device), a herd factor, an age
-    covariate, noise of the TBV's variance over the weight, and a
-    'weights' column ~ U(0.5, 2), for n_train individuals in shuffled
-    order. Returns (table, tbv, training IDs, candidate IDs)."""
-    from jwas_tpu_torch.io.table import Table
-
+    0.1% QTL (torch seed 2, on the device), then design_table. Returns
+    (table, tbv, training IDs, candidate IDs)."""
     X = geno.dense
     p, n = X.shape
     g = torch.Generator(device=X.device)
@@ -1222,7 +1261,19 @@ def phase7_problem(geno, seed=5, n_train=45_000, n_herds=100):
     qtl = torch.rand(p, generator=g, device=X.device) < 0.001
     beta = (torch.randn(p, generator=g, device=X.device) * qtl).to(X.dtype)
     tbv = torch.mv(X.T, beta).double().cpu().numpy()
-    ids = np.array(geno.obs_ids, dtype=object)
+    return design_table(geno.obs_ids, tbv, seed, n_train, n_herds)
+
+
+def design_table(obs_ids, tbv, seed, n_train, n_herds=100):
+    """Phase 5's design on individuals obs_ids with true breeding values
+    tbv: a herd factor, an age covariate, noise of the TBV's variance over
+    the weight, and a 'weights' column ~ U(0.5, 2), for n_train
+    individuals in shuffled order. Returns (table, tbv, training IDs,
+    candidate IDs)."""
+    from jwas_tpu_torch.io.table import Table
+
+    n = len(obs_ids)
+    ids = np.array(obs_ids, dtype=object)
     rng = np.random.default_rng(seed)
     sd = float(np.std(tbv))
     herd_effect = rng.normal(0.0, sd, n_herds)
@@ -1272,8 +1323,8 @@ def run_dense(label, dev, geno, table, tbv, train, cand, kernels, **kw):
     prints seconds, windows, peak memory against store + Grams +
     PHASE7_MARGIN_BYTES, launches, EBV accuracy and the output IDs' EBVs
     against X alpha computed directly; raises where a check fails.
-    Returns the launches of kernels (names, or name_f64 for the float64
-    builds' counts)."""
+    Returns (the store's shape and schedule, the launches of kernels
+    (names, or name_f64 for the float64 builds' counts))."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.ops.inner_rounds import gram_resident
 
@@ -1319,14 +1370,16 @@ def run_dense(label, dev, geno, table, tbv, train, cand, kernels, **kw):
     direct = (X[:, check].double() * alpha[:, None]).sum(dim=0).cpu().numpy()
     got = np.array([ebv[s] for s in cand[:64]])
     err = float(np.abs(got - direct).max() / np.abs(direct).max())
+    pi = (f", pi {list(np.round(np.atleast_1d(out['pi_geno'].Estimate), 6))}"
+          if "pi_geno" in out else "")
     say(f"  EBV accuracy: candidates {acc['candidates']:.4f}, training "
         f"{acc['training']:.4f}; 64 candidates' EBVs against X alpha computed "
         f"directly: max relative error {err:.3g} (tolerance {RTOL_DIRECT_EBV}); "
-        f"vare {out['residual variance'].Estimate[0]:.6g}, pi "
-        f"{list(np.round(np.atleast_1d(out['pi_geno'].Estimate), 6))}")
+        f"vare {out['residual variance'].Estimate[0]:.6g}, var_g "
+        f"{out['marker effects variances geno'].Estimate[0]:.6g}{pi}")
     values = [np.asarray(out[k].Estimate, dtype=np.float64) for k in
               ("residual variance", "marker effects variances geno", "pi_geno",
-               "marker effects geno", "location parameters")]
+               "marker effects geno", "location parameters") if k in out]
     values.append(np.asarray(out["EBV_y"].EBV, dtype=np.float64))
     if not all(np.isfinite(v).all() for v in values) or not np.isfinite(list(acc.values())).all():
         raise AssertionError(f"{label}: non-finite results")
@@ -1410,6 +1463,133 @@ def phase7(dev, n=50_000, p=100_000, n_train=45_000):
     return launches
 
 
+PHASE8_METHODS = ("RR-BLUP", "BayesL", "BayesA")
+
+
+@contextlib.contextmanager
+def timed_calls(seconds, name, owner, attr):
+    """owner.attr timed into seconds[name] (the device synchronised on both
+    sides) while the context is open."""
+    fn = getattr(owner, attr)
+
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(owner, attr, call)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, fn)
+
+
+def phase8(dev, n=50_000, p=100_000, n_train=45_000, n_gblup=20_000,
+           n_train_gblup=18_000):
+    """RR-BLUP, BayesL, BayesA and GBLUP at full width; see the module's
+    docstring."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.setup as es
+    from jwas_tpu_torch.ops.markers import dense_blocks
+
+    say(f"== phase 8: RR-BLUP, BayesL and BayesA at N={n} x P={p}; GBLUP at "
+        f"N={n_gblup} x P={p}")
+    launches = {}
+    codes = dense_codes(n, p, 7, dev)
+    t0 = time.perf_counter()
+    geno = jt.get_genotypes(codes, method="RR-BLUP", storage="f32", device=dev)
+    torch.cuda.synchronize()
+    del codes
+    say(f"get_genotypes(method='RR-BLUP', storage='f32') wrote the "
+        f"{tuple(geno.dense.shape)} store ({geno.dense.numel() * 4 / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    table, tbv, train, cand = phase7_problem(geno, n_train=n_train)
+    table = type(table)({c: table[c] for c in table.columns if c != "weights"})
+    b, gb, _ = dense_blocks(n_train, True, p)      # b = 256, gb = 23 at full width
+    abc = ("abc_inner_rounds",)
+    for method in PHASE8_METHODS:
+        shape, launches[f"phase 8a {method}"] = run_dense(
+            f"8a {method}, fast_blocks=True", dev, fresh(geno, method), table, tbv,
+            train, cand, abc, fast_blocks=True, chain_length=768,
+            output_samples_frequency=256, heterogeneous_residuals=False)
+        if (shape["b"], shape["gb"], shape["gram"]) != (b, gb, "global"):
+            raise AssertionError(f"phase 8a {method}: blocks {shape}, expected b={b}, "
+                                 f"gb={gb} on K1's global-memory Gram branch")
+    shape, launches["phase 8a RR-BLUP exact"] = run_dense(
+        "8a RR-BLUP, the exact sweep (fast_blocks=False)", dev, fresh(geno, "RR-BLUP"),
+        table, tbv, train, cand, abc, fast_blocks=False, chain_length=10,
+        output_samples_frequency=5, heterogeneous_residuals=False)
+    if not shape["exact"]:
+        raise AssertionError("phase 8a: not the exact sweep")
+    del geno
+    torch.cuda.empty_cache()
+
+    # (b) GBLUP on the first n_gblup individuals (the same scores, made
+    # again): the relationship matrix on the card, then runMCMC (the
+    # eigenbasis in its workspace)
+    codes = dense_codes(n, p, 7, dev)[:n_gblup]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g = jt.get_genotypes(codes, method="GBLUP", storage="f32", device=dev)
+    torch.cuda.synchronize()
+    t_grm, peak_grm = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+    del codes
+    torch.cuda.empty_cache()
+    say(f"8b GBLUP: get_genotypes(method='GBLUP') built the {tuple(g.grm.shape)} "
+        f"relationship matrix from {g.n_markers} markers in {t_grm:.2f} s (peak "
+        f"{peak_grm / 1e9:.2f} GB); the store freed: {g.dense is None}")
+    table_g, tbv_g, train_g, cand_g = design_table(g.obs_ids, tbv[:n_gblup], 6,
+                                                   n_train_gblup)
+    table_g = type(table_g)({c: table_g[c] for c in table_g.columns if c != "weights"})
+    torch.cuda.reset_peak_memory_stats(dev)
+    jt.reset_launches()
+    parts = {}
+    with timed_calls(parts, "eigh", torch.linalg, "eigh"), \
+            timed_calls(parts, "eigenbasis", es, "gblup_eigen"):
+        out, seconds, built = run_phase5(g, table_g, device=dev, chain_length=200,
+                                         output_samples_frequency=50, output_folder="")
+    peak = torch.cuda.max_memory_allocated(dev)
+    ws, windows = built["workspace"], built["chain"][-1]
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    say(f"  seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; of the workspace: eigh {parts['eigh']:.3f}, L and the output map "
+        f"{parts['eigenbasis'] - parts['eigh']:.3f}; windows of 50 iterations "
+        + ", ".join(f"{t:.4f}" for t in windows)
+        + f" ({np.mean(windows[1:]) / 50 * 1e3:.3f} ms an iteration after the first)")
+    say(f"  L {tuple(ws.gblup_L.shape)}, output map {tuple(ws.gblup_out.shape)}; "
+        f"peak device memory {peak / 1e9:.2f} GB; launches {counts}")
+    ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
+    truth = dict(zip(g.obs_ids, tbv_g))
+    acc = {who: float(np.corrcoef([ebv[s] for s in ids], [truth[s] for s in ids])[0, 1])
+           for who, ids in (("candidates", cand_g), ("training", train_g))}
+    alpha = torch.as_tensor(np.asarray(out["marker effects geno"].Estimate,
+                                       dtype=np.float64), device=dev)
+    direct = (ws.gblup_out.double() @ alpha).cpu().numpy()
+    got = np.array([ebv[s] for s in ws.output_ids])
+    err = float(np.abs(got - direct).max() / np.abs(direct).max())
+    say(f"  EBV accuracy: candidates {acc['candidates']:.4f}, training "
+        f"{acc['training']:.4f}; the {len(got)} output IDs' EBVs against the output "
+        f"map times alpha: max relative error {err:.3g} (tolerance {RTOL_DIRECT_EBV}); "
+        f"vare {out['residual variance'].Estimate[0]:.6g}, var_g "
+        f"{out['marker effects variances geno'].Estimate[0]:.6g}")
+    values = [np.asarray(out[k].Estimate, dtype=np.float64) for k in
+              ("residual variance", "marker effects variances geno",
+               "marker effects geno", "location parameters")] + [got]
+    if not all(np.isfinite(v).all() for v in values) or not np.isfinite(list(acc.values())).all():
+        raise AssertionError("phase 8b: non-finite results")
+    if not err <= RTOL_DIRECT_EBV:
+        raise AssertionError(f"phase 8b: EBVs off the output map times alpha by {err:.3g}")
+    if ws.gblup_L.shape != (n_train_gblup, n_train_gblup) or len(got) != n_gblup:
+        raise AssertionError(f"phase 8b: L {tuple(ws.gblup_L.shape)}, {len(got)} EBVs")
+    launches["phase 8b GBLUP"] = counts
+    del g, ws, built, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1440,10 +1620,12 @@ def main():
     del kept
     torch.cuda.empty_cache()
     launches.update(phase7(dev))
+    launches.update(phase8(dev))
 
     # launches: phase 3's (run_st, both methods), phase 5's (runMCMC),
     # phase 6's (runMCMC BayesB; BayesC streamed with no group resident),
-    # phase 7's (runMCMC on dense stores; the float64 builds' in 7d)
+    # phase 7's (runMCMC on dense stores; the float64 builds' in 7d),
+    # phase 8's (runMCMC RR-BLUP, BayesL, BayesA through K1; GBLUP none)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=sum(c.get(name, 0) for c in launches.values()),

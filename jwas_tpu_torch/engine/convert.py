@@ -6,7 +6,10 @@ GroupedPackedMarkers fields, with j-major Gram tiles (b, b, nblocks)) become
 a GroupedPackedMarkers of this package with block-major Grams
 (nblocks, b, b) over the (p_pad, bpm) store; jwas_tpu's dense MarkerBlocks
 (X (n, p_pad), j-major Grams) becomes a DenseMarkers over the marker-major
-(p, n) store; chain-state arrays become flat tensors.
+(p, n) store; GBLUP's L, D and output map (STData.X, .xpx, .out_geno)
+become a GBLUPMarkers (eigenvectors have arbitrary signs, so a test gives
+both packages the same ones); chain-state arrays (BayesL's gamma_l among
+them) become flat tensors.
 """
 
 from __future__ import annotations
@@ -15,13 +18,14 @@ import numpy as np
 import torch
 
 from jwas_tpu_torch.ops.dense import DenseMarkers
+from jwas_tpu_torch.ops.gblup import GBLUPMarkers, build_gblup_markers
 from jwas_tpu_torch.ops.grouped import GroupedPackedMarkers, GroupFetcher
 
 
 def from_jax_arrays(store, means, valid, xpx, grams, n_obs: int,
                     row_perm=None, *, device="cpu", **state):
     """Returns (gm, state): state maps each keyword to a tensor on device
-    (int arrays keep int32, the rest become float32)."""
+    (from_jax_state, in float32)."""
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.array(x), dtype=dtype).to(device)
 
@@ -37,11 +41,30 @@ def from_jax_arrays(store, means, valid, xpx, grams, n_obs: int,
         valid=t(valid),
         n_obs=int(n_obs),
     )
+    return gm, from_jax_state(device=device, **state)
+
+
+def from_jax_state(*, device="cpu", dtype=torch.float32, **arrays):
+    """Chain-state arrays (alpha, delta, gamma_l, ...) -> tensors on device:
+    int arrays become int32, the rest dtype."""
     out = {}
-    for name, x in state.items():
-        x = np.asarray(x)
-        out[name] = t(x, torch.int32 if x.dtype.kind in "iu" else torch.float32)
-    return gm, out
+    for name, x in arrays.items():
+        x = np.array(x)
+        out[name] = torch.as_tensor(
+            x, dtype=torch.int32 if x.dtype.kind in "iu" else dtype).to(device)
+    return out
+
+
+def from_jax_gblup(L, D, out_geno=None, *, rinv=None, device="cpu",
+                   dtype=torch.float32) -> GBLUPMarkers:
+    """jwas_tpu's GBLUP chain data (L = Z_t V (n, n), D, the output map
+    (Z_o G V) / D or None for the training rows' L) -> a GBLUPMarkers in
+    dtype with the given inverse residual weights."""
+    def t(x):
+        return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+
+    return build_gblup_markers(t(L), t(D), None if out_geno is None else t(out_geno),
+                               rinv=None if rinv is None else t(rinv))
 
 
 def from_jax_marker_blocks(X, xpx, grams, valid, group_blocks: int, *,

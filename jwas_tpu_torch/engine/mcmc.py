@@ -1,14 +1,15 @@
-"""Single-trait BayesC, BayesB and BayesR on the 2-bit packed store or a
-dense store: Gibbs step, chain loop, runMCMC.
+"""The single-trait methods on the 2-bit packed store, a dense store or
+GBLUP's eigenbasis: Gibbs step, chain loop, runMCMC.
 
 Counterpart of jwas_tpu/engine/mcmc.py, trimmed to the paths that runMCMC
-takes on one device for storage='2bit' genotypes (:786-868) and for dense
-ones (:796-844): STData (:50), make_st_step (:113-527: the location pass
-with W'R^-1W and W'R^-1 ycorr :180-185, :766-768, the packed grouped
-BayesC/B branch :191-210 and BayesR branch :321-347, the dense grouped and
-exact branches :233-267, :288-299, :366-404, pi :438-443, the marker
-variance :446-472, its scale :476-484, the weighted residual variance
-:509-518), make_run_window (:580-668), _init_accum (:671),
+takes on one device for storage='2bit' genotypes (:786-868), for dense
+ones (:796-844) and for GBLUP (:778-786): STData (:50), make_st_step
+(:113-527: the location pass with W'R^-1W and W'R^-1 ycorr :180-185,
+:766-768, the packed grouped BayesC/B branch :191-210 and BayesR branch
+:321-347, the dense grouped and exact branches :233-267, :288-320,
+:366-404, GBLUP :414-417, pi :438-443, the marker variance and BayesL's
+local shrinkage :446-472, its scale :476-484, the weighted residual
+variance :509-518), make_run_window (:580-668), _init_accum (:671),
 _apply_update_priors (:691-715), _build_st_data_and_state (:762-868, the
 state :1128-1224) and the single-chain loop of runMCMC (:1435-1569).
 
@@ -17,7 +18,11 @@ The chain's dtype is its store's, float32 or float64
 R8). A dense store runs the grouped sweeps through the same walker as the
 2-bit store, on the inner-rounds kernels K1/K2 and K3; with
 fast_blocks=False its groups are single blocks walked once an outer
-iteration, the exact single-site sweep (ops/dense.py).
+iteration, the exact single-site sweep (ops/dense.py). RR-BLUP and BayesL
+run K1 with every marker in the slab (ops/grouped.py::
+sweep_blocks_c0l_grouped); BayesA is BayesB with pi 0 (engine/setup.py::
+normalize_method); GBLUP draws every pseudo-marker at once between two
+GEMVs with L (ops/gblup.py), fast_blocks ignored.
 
 Two entry points share the chain loop (run_chain) and the initial state:
 runMCMC(model, df, ...) takes a model from build_model and the phenotypes
@@ -25,7 +30,8 @@ and returns the result tables, as jwas_tpu's does; run_st takes a store set
 up by setup_markers and the priors explicitly and returns numpy posterior
 means. BayesB runs BayesC's sweep with one variance a marker. The EBVs of
 the output IDs are the output IDs' rows of the X alpha pass over the store
-(K5), in place of jwas_tpu's dense (n_out, p) decode (:600-601).
+(K5), in place of jwas_tpu's dense (n_out, p) decode (:600-601); GBLUP's
+are its output map times alpha, as jwas_tpu's.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
 from jwas_tpu_torch.models.model import Model, describe
 from jwas_tpu_torch.ops import markers as mk
 from jwas_tpu_torch.ops.dense import DenseMarkers, build_dense_markers
+from jwas_tpu_torch.ops.dists import sample_gamma_like
+from jwas_tpu_torch.ops.gblup import GBLUPMarkers, build_gblup_markers, sweep_gblup
 from jwas_tpu_torch.ops.grouped import (
     GroupedPackedMarkers,
     build_grouped_markers,
@@ -54,9 +62,11 @@ from jwas_tpu_torch.ops.grouped import (
     plan_store,
     sweep_blocks_abc_grouped,
     sweep_blocks_bayesr_grouped,
+    sweep_blocks_c0l_grouped,
 )
 from jwas_tpu_torch.ops.location import gibbs_pass_lambda
 from jwas_tpu_torch.ops.variance import (
+    sample_bayesl_gamma,
     sample_marker_variance_bayesb,
     sample_marker_variance_bayesr,
     sample_marker_variance_common,
@@ -67,7 +77,9 @@ from jwas_tpu_torch.ops.variance import (
     sample_scale_st,
 )
 
-METHODS = ("BayesC", "BayesB", "BayesR")
+# the chain's methods; BayesA runs as BayesB (engine/setup.py::normalize_method)
+METHODS = ("BayesC", "BayesB", "BayesR", "RR-BLUP", "BayesL", "GBLUP")
+PI_METHODS = ("BayesC", "BayesB", "BayesR")    # those with a pi to estimate
 
 
 class STData(NamedTuple):
@@ -76,7 +88,8 @@ class STData(NamedTuple):
     W: torch.Tensor            # (n, K) location design
     WtW: torch.Tensor          # (K, K) location LHS W'R^-1W (no random effects)
     y: torch.Tensor            # (n,)
-    gm: object                 # GroupedPackedMarkers or DenseMarkers
+    gm: object                 # GroupedPackedMarkers, DenseMarkers or
+                               # GBLUPMarkers
     scale_r: torch.Tensor      # 0-d residual-variance prior scale
     ebv_rows: Optional[torch.Tensor]  # (n_out,) store columns of the EBVs'
                                       # IDs; None: the training rows
@@ -87,7 +100,8 @@ class STData(NamedTuple):
 class SampleOut(NamedTuple):
     vare: torch.Tensor
     varg: torch.Tensor         # BayesB: the mean over the real markers
-    pi: torch.Tensor           # BayesC 0-d P(excluded), BayesR (4,)
+    pi: torch.Tensor           # BayesC 0-d P(excluded), BayesR (4,),
+                               # RR-BLUP / BayesL / GBLUP (0,)
     ebv: torch.Tensor          # (n_out,) EBVs (run_st: the training rows)
     genvar: torch.Tensor
     h2: torch.Tensor
@@ -200,12 +214,14 @@ def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
 
 def make_st_step(cfg: EngineCfg):
     """One outer iteration: location pass, marker sweep (nreps effective
-    sweeps of the grouped schedule; one for the exact sweep's store), pi,
-    marker variance, its scale, residual variance. The marker state and
-    ycorr of the returned state are the input's tensors, updated in place.
-    BayesB is BayesC's sweep with one variance a marker."""
-    bayesr = cfg.method == "BayesR"
-    bayesb = cfg.method == "BayesB"
+    sweeps of the grouped schedule; one for the exact sweep's store and
+    GBLUP), pi, marker variance (then BayesL's local shrinkage), its
+    scale, residual variance. The marker state and ycorr of the returned
+    state are the input's tensors, updated in place. BayesB is BayesC's
+    sweep with one variance a marker."""
+    method = cfg.method
+    bayesr, bayesb = method == "BayesR", method == "BayesB"
+    bayesl, gblup = method == "BayesL", method == "GBLUP"
 
     def step(state: ChainState, data: STData) -> ChainState:
         gen, gm = state.gen, data.gm
@@ -220,6 +236,7 @@ def make_st_step(cfg: EngineCfg):
         # 2. marker effects (in place)
         real = gm.valid > 0
         beta = state.beta
+        delta = state.delta
         if bayesr:
             pad_row = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=state.pi.dtype,
                                    device=real.device)
@@ -227,6 +244,15 @@ def make_st_step(cfg: EngineCfg):
             alpha, delta, ycorr = sweep_blocks_bayesr_grouped(
                 gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
                 pi_mat, gen, nreps=cfg.nreps, sync_every=cfg.sync_every,
+            )
+        elif gblup:
+            alpha, ycorr = sweep_gblup(gm, state.alpha, ycorr, state.vare,
+                                       state.varg, gen)
+        elif method in ("RR-BLUP", "BayesL"):
+            alpha, ycorr = sweep_blocks_c0l_grouped(
+                gm, state.alpha, ycorr, state.vare, state.varg,
+                state.gamma_l if bayesl else None, gen, nreps=cfg.nreps,
+                sync_every=cfg.sync_every,
             )
         else:
             alpha, beta, delta, ycorr = sweep_blocks_abc_grouped(
@@ -243,18 +269,26 @@ def make_st_step(cfg: EngineCfg):
             pi_s = sample_pi_abc(gen, delta, cfg.n_markers, gm.valid)
             pi = torch.where(real, pi_s, torch.ones_like(pi))
 
-        # 2c. marker-effect variance (variance_components.jl:151-189)
-        varg = state.varg
+        # 2c. marker-effect variance (variance_components.jl:151-189), then
+        # BayesL's local shrinkage (:191-218)
+        varg, gamma_l = state.varg, state.gamma_l
         if cfg.estimate_marker_variance and bayesr:
             varg = sample_marker_variance_bayesr(gen, alpha, delta,
                                                  cfg.df_marker, state.scale_g)
         elif cfg.estimate_marker_variance and bayesb:
             varg = sample_marker_variance_bayesb(gen, beta, cfg.df_marker,
                                                  state.scale_g)
-        elif cfg.estimate_marker_variance:
+        elif cfg.estimate_marker_variance and method == "BayesC":
             nloci = torch.sum(torch.where(real, delta, torch.zeros_like(delta)))
             varg = sample_marker_variance_common(gen, alpha, nloci,
                                                  cfg.df_marker, state.scale_g)
+        elif cfg.estimate_marker_variance:
+            weights = 1.0 / gamma_l if bayesl else 1.0 / gm.D if gblup else None
+            varg = sample_marker_variance_common(gen, alpha, cfg.n_markers,
+                                                 cfg.df_marker, state.scale_g,
+                                                 invweights=weights)
+            if bayesl:
+                gamma_l = sample_bayesl_gamma(gen, gamma_l, alpha, varg, gm.valid)
 
         # 2d. prior scale of the marker-effect variance
         scale_g = state.scale_g
@@ -273,7 +307,7 @@ def make_st_step(cfg: EngineCfg):
 
         return ChainState(gen=gen, sol=sol, alpha=alpha, beta=beta,
                           delta=delta, ycorr=ycorr, vare=vare, varg=varg,
-                          pi=pi, scale_g=scale_g)
+                          pi=pi, scale_g=scale_g, gamma_l=gamma_l)
 
     return step
 
@@ -285,8 +319,11 @@ def _welford(m, x, n):
 def _pi_summary(cfg: EngineCfg, state: ChainState):
     """The pi a sample reports: BayesR's (4,) class prior, BayesC's and
     BayesB's P(excluded) of the first marker (their common value when pi
-    is estimated)."""
-    return state.pi if cfg.method == "BayesR" else state.pi[0]
+    is estimated), none (0,) for the methods without a pi, whose sample
+    file rows jwas_tpu writes empty."""
+    if cfg.method in ("BayesC", "BayesB"):
+        return state.pi[0]
+    return state.pi
 
 
 def _varg_summary(cfg: EngineCfg, data: STData, state: ChainState):
@@ -371,7 +408,8 @@ def _reject_unsupported(**unsupported) -> None:
         if value:
             raise NotImplementedError(
                 f"{name} is not supported by run_st: it runs single-trait "
-                f"BayesC, BayesB and BayesR with one genotype category and no "
+                f"{', '.join(METHODS)} (BayesA is BayesB with pi0 0 and "
+                f"estimate_pi False) with one genotype category and no "
                 f"random effects, latent traits or annotations, in the "
                 f"store's dtype with the store's residual weights (a dense "
                 f"store's, ops/dense.py::build_dense_markers; the 2-bit store "
@@ -379,20 +417,33 @@ def _reject_unsupported(**unsupported) -> None:
             )
 
 
+def _check_store(gm, method: str) -> None:
+    """GBLUP runs on its eigenbasis and nothing else does; the 2-bit store
+    runs BayesC, BayesB and BayesR only, as in jwas_tpu."""
+    if (method == "GBLUP") != isinstance(gm, GBLUPMarkers):
+        raise ValueError("GBLUP runs on a GBLUPMarkers (ops/gblup.py) and the "
+                         "other methods on a marker store")
+    if isinstance(gm, GroupedPackedMarkers) and method not in PI_METHODS:
+        raise ValueError("storage='2bit' supports BayesC/BayesB/BayesR only")
+
+
 def make_cfg(gm, method: str, *, nreps, sync_every, chain_length: int, df_R,
              df_marker, estimate_pi: bool, estimate_marker_variance: bool,
              estimate_scale: bool, estimate_residual_variance: bool) -> EngineCfg:
     """The chain's static configuration; nreps defaults to the block size
     and is clamped to chain_length (never more sweeps than asked for); the
-    exact sweep's store (a dense store built with exact=True) runs one
-    sweep an outer iteration."""
-    b = gm.grams.shape[1]
-    exact = isinstance(gm, DenseMarkers) and gm.exact
-    nreps = 1 if exact else max(1, min(nreps if nreps is not None else b,
-                                       chain_length))
+    exact sweep's store (a dense store built with exact=True) and GBLUP run
+    one sweep an outer iteration. Only BayesC, BayesB and BayesR estimate
+    pi (RR-BLUP, BayesL and GBLUP have none, normalize_method)."""
+    _check_store(gm, method)
+    if isinstance(gm, GBLUPMarkers) or (isinstance(gm, DenseMarkers) and gm.exact):
+        nreps = 1
+    else:
+        nreps = max(1, min(nreps if nreps is not None else gm.grams.shape[1],
+                           chain_length))
     return EngineCfg(
         method=method, n_obs=gm.n_obs, n_markers=int(gm.valid.sum().item()),
-        estimate_pi=estimate_pi,
+        estimate_pi=estimate_pi and method in PI_METHODS,
         estimate_marker_variance=estimate_marker_variance,
         estimate_scale=estimate_scale,
         estimate_residual_variance=estimate_residual_variance,
@@ -425,13 +476,17 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
                   marker_scale0, pi0, seed: Optional[int], sol0=None,
                   alpha0=None) -> ChainState:
     """The location parameters at sol0 and the real markers' effects at
-    alpha0 (each 0 when None), every BayesC/B marker included (BayesR: all
-    in the null class), the priors' values, one generator seeded with seed
-    (None: 0) (jwas_tpu/engine/mcmc.py:1128-1224). A per-marker pi0 (p,)
-    is kept, padded with 1.0; BayesB starts every real marker's variance
-    at marker_var0 and the padding's at 1.0. The starting residual is
-    y - W sol0 - X alpha0, X alpha0 one K5 pass over the store."""
-    gm = data.gm
+    alpha0 (each 0 when None; GBLUP ignores alpha0, as jwas_tpu does),
+    every BayesC/B marker included (BayesR: all in the null class), the
+    priors' values, one generator seeded with seed (None: 0)
+    (jwas_tpu/engine/mcmc.py:1128-1224). A per-marker pi0 (p,) is kept,
+    padded with 1.0; BayesB starts every real marker's variance at
+    marker_var0 and the padding's at 1.0. BayesL draws its local shrinkage
+    first, Gamma(1) * 8 a real marker (1 for padding), and starts from
+    marker_var0 / 8 and marker_scale0 / 8 (:1151-1157). The starting
+    residual is y - W sol0 - X alpha0, X alpha0 one K5 pass over the store
+    (GBLUP: L alpha0)."""
+    gm, method = data.gm, cfg.method
     dev, f32 = gm.device, gm.xpx.dtype
 
     def scalar(x):
@@ -441,27 +496,36 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
     gen.manual_seed(0 if seed is None else int(seed))
     real = gm.valid > 0
     p_pad, p = gm.valid.shape[0], cfg.n_markers
+    one = torch.ones((), dtype=f32, device=dev)
+    gamma_l = torch.ones(p_pad, dtype=f32, device=dev)
+    varg, scale_g = scalar(marker_var0), scalar(marker_scale0)
+    if method == "BayesL":
+        gamma_l = torch.where(real, sample_gamma_like(gen, 1.0, gamma_l) * 8.0, one)
+        varg = scalar(float(np.mean(marker_var0)) / 8.0)
+        scale_g = scalar(float(np.mean(marker_scale0)) / 8.0)
     sol = torch.zeros(data.W.shape[1], dtype=f32, device=dev)
     if sol0 is not None:
         sol = torch.as_tensor(np.asarray(sol0, dtype=np.float64), dtype=f32).to(dev)
     alpha = torch.zeros(p_pad, dtype=f32, device=dev)
-    if alpha0 is not None:
+    if alpha0 is not None and method != "GBLUP":
         alpha[:p] = torch.as_tensor(np.asarray(alpha0, dtype=np.float64), dtype=f32).to(dev)
-    if cfg.method == "BayesR":
+    if method == "BayesR":
         delta = torch.zeros(p_pad, dtype=torch.int32, device=dev)
         pi = torch.as_tensor(bayesr_pi(pi0), dtype=f32).to(dev)
     else:
         delta = real.to(torch.int32)
+        pi = torch.zeros(0, dtype=f32, device=dev)
+    if method in ("BayesC", "BayesB"):
         pi_np = np.ones(p_pad)
         pi_np[:p] = np.asarray(pi0, dtype=np.float64)
         pi = torch.as_tensor(pi_np, dtype=f32).to(dev)
-    varg = scalar(marker_var0)
-    if cfg.method == "BayesB":
-        varg = torch.where(real, varg, torch.ones((), dtype=f32, device=dev))
+    if method == "BayesB":
+        varg = torch.where(real, varg, one)
+    xa = torch.mv(gm.L, alpha) if method == "GBLUP" else grouped_matvec(gm, alpha)
     return ChainState(
         gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(), delta=delta,
-        ycorr=data.y - data.W @ sol - grouped_matvec(gm, alpha),
-        vare=scalar(vare0), varg=varg, pi=pi, scale_g=scalar(marker_scale0),
+        ycorr=data.y - data.W @ sol - xa, vare=scalar(vare0), varg=varg,
+        pi=pi, scale_g=scale_g, gamma_l=gamma_l,
     )
 
 
@@ -562,18 +626,20 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
            method: str = "BayesC", rinv=None, dtype=None,
            random_effects=(), trait_type: str = "continuous",
            annotations=None, n_genotype_categories: int = 1) -> dict:
-    """Run one single-trait BayesC, BayesB or BayesR chain on the device
+    """Run one single-trait chain of a method of METHODS on the device
     that holds gm, in gm's dtype with gm's residual weights.
 
-    gm comes from setup_markers (or build_grouped_markers), or for a dense
-    store from setup_dense_markers (or ops/dense.py::build_dense_markers;
-    a store built with exact=True, as fast_blocks=False builds it, runs
-    the exact sweep); y (n,) and the location design W (n, K;
-    default: an intercept) are in observation order. The priors are those
-    of prepare_workspace. pi0 is BayesC's
+    gm comes from setup_markers (or build_grouped_markers; BayesC, BayesB
+    and BayesR only), or for a dense store from setup_dense_markers (or
+    ops/dense.py::build_dense_markers; a store built with exact=True, as
+    fast_blocks=False builds it, runs the exact sweep), or for GBLUP from
+    ops/gblup.py::build_gblup_markers; y (n,) and the location design W
+    (n, K; default: an intercept) are in observation order. The priors are
+    those of prepare_workspace. pi0 is BayesC's
     P(excluded), or BayesR's (4,) class prior (0: the default
     DEFAULT_BAYESR_PI); for BayesR, marker_var0 is sigma^2, the variance
-    of class 3, for BayesB every marker's starting variance. nreps
+    of class 3, for BayesB every marker's starting variance; BayesA is
+    BayesB with pi0 0 and estimate_pi False. nreps
     (default: the block size) effective sweeps make one outer iteration,
     clamped to chain_length; sync_every defaults to min(8, nreps).
 
@@ -584,8 +650,9 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
     thin_outer outer iterations each; each ends with the device finished,
     since its samples are read back). pi and pi_sd are floats for BayesC
     and (4,) arrays of class shares for BayesR, whose samples["pi"] is
-    (n_saved, 4); model_frequency is each marker's posterior probability
-    of a nonzero effect; ebv covers the training observations.
+    (n_saved, 4), and empty for the methods without a pi; model_frequency
+    is each marker's posterior probability of a nonzero effect; ebv covers
+    the training observations.
     """
     _reject_unsupported(
         method=method not in METHODS, rinv=rinv is not None,
@@ -633,11 +700,11 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
 
 
 def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
-    """The 2-bit grouped and the dense branches of jwas_tpu's
+    """The 2-bit grouped, the dense and the GBLUP branches of jwas_tpu's
     _build_st_data_and_state (:762-868, state :1128-1224): setup_markers'
     or setup_dense_markers' block choice and row order of the training
-    rows, the residual weights, the chain's dtype (double_precision), the
-    workspace's priors, the output IDs' store columns and
+    rows (GBLUP: the workspace's eigenbasis), the residual weights, the
+    chain's dtype (double_precision), the workspace's priors, the output IDs' store columns and
     prediction-equation rows, the residence of a 2-bit store
     (host_offload_genotypes) and the starting values (starting_value: the
     location parameters, :1131-1141; the genotypes' starting_alpha: the
@@ -652,7 +719,9 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                 f"length of starting values for non-marker location "
                 f"parameters is wrong (expected {K}, got {len(sol0)}); the "
                 f"order is model.term_names()")
-    if g.dense is not None:
+    if g.method == "GBLUP":
+        gm = build_gblup_markers(ws.gblup_L, ws.gblup_D, ws.gblup_out, rinv=ws.rinv)
+    elif g.dense is not None:
         gm = setup_dense_markers(
             g.dense, g.obs_ids, ws.obs_ids, device, fast_blocks=opts.fast_blocks,
             rinv=ws.rinv,
@@ -691,8 +760,9 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     """Run MCMC for a model from build_model on phenotypes df (a Table, a
     {name: array} mapping or a DataFrame whose first column holds the IDs):
     the reference's runMCMC (JWAS.jl:161-511), single chain, single-trait
-    BayesC, BayesB or BayesR on the 2-bit store or a dense store (with
-    residual weights, heterogeneous_residuals, and float64,
+    BayesC, BayesB or BayesR on the 2-bit store or a dense store, and
+    RR-BLUP, BayesA, BayesL or GBLUP on a dense store or a relationship
+    matrix (with residual weights, heterogeneous_residuals, and float64,
     double_precision). kwargs are MCMCOptions' fields.
 
     device: where the chain runs, the GPU unless the caller asks for the

@@ -1,13 +1,14 @@
 """Posterior summaries: accumulators -> result tables and their files.
 
 Counterpart of jwas_tpu/engine/output.py: check_finite_posteriors (:22-34)
-and build_results (:37-196) for the keys single-trait BayesC, BayesB and
-BayesR on the 2-bit or a dense store produce (the accumulators' dtype, so
-float64 where the chain ran in float64): "location parameters", "residual
-variance", "marker effects <name>", "marker effects variances <name>"
-(BayesB's: the posterior mean of its variances' mean over the markers),
-"pi_<name>", "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance"
-and "heritability". Each is a Table with the reference's columns, written to
+and build_results (:37-196) for the keys the single-trait methods
+produce (the accumulators' dtype, so float64 where the chain ran in
+float64): "location parameters", "residual variance", "marker effects
+<name>" (GBLUP's pseudo-markers numbered "1".."n", :71), "marker effects
+variances <name>" (BayesB's: the posterior mean of its variances' mean
+over the markers), "pi_<name>" (where pi is estimated: BayesC, BayesB,
+BayesR), "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance" and
+"heritability". Each is a Table with the reference's columns, written to
 output_folder as <key>.txt (spaces as "_") as the reference writes it.
 """
 
@@ -42,6 +43,12 @@ def _one(label, m, m2, name="Covariance") -> Table:
                   "SD": [float(_sd(m, m2))]})
 
 
+def result_marker_ids(g, p: int):
+    """The marker IDs of the result tables and sample files: GBLUP's
+    pseudo-markers are numbered from 1 (jwas_tpu/engine/output.py:71)."""
+    return [str(i + 1) for i in range(p)] if g.method == "GBLUP" else list(g.marker_ids)
+
+
 def build_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
     """The result tables of a chain from its host-side accumulators (numpy
     fields of engine.mcmc.Accum) and saved sample tracks."""
@@ -62,7 +69,7 @@ def build_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
 
     g, p = ws.geno, cfg.n_markers
     results[f"marker effects {g.name}"] = Table({
-        "Trait": np.full(p, trait, dtype=object), "Marker_ID": list(g.marker_ids),
+        "Trait": np.full(p, trait, dtype=object), "Marker_ID": result_marker_ids(g, p),
         "Estimate": accum.alpha_m[:p], "SD": _sd(accum.alpha_m, accum.alpha_m2)[:p],
         "Model_Frequency": accum.delta_m[:p]})
     results[f"marker effects variances {g.name}"] = _one(trait, accum.varg_m,

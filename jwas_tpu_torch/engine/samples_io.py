@@ -2,9 +2,11 @@
 
 Counterpart of jwas_tpu/engine/samples_io.py: MARKER_FILE_MAX_P and
 resolve_write_markers (:29-43), MCMCSampleWriter (:46-91) and the
-single-trait STSampleStream (:98-216) for BayesC, BayesB and BayesR on the
-2-bit or a dense store. One comma-separated file per parameter, MCMC_samples_<var>.txt
-under the output folder (":" replaced by "."), with the reference's header
+single-trait STSampleStream (:98-216) for the single-trait methods on the
+2-bit or a dense store or GBLUP's eigenbasis (its pseudo-markers numbered
+"1".."n", :141; the pi row empty for the methods without a pi). One
+comma-separated file per parameter, MCMC_samples_<var>.txt under the
+output folder (":" replaced by "."), with the reference's header
 row where it writes one and one row per saved sample:
 residual_variance, <trait>.<term> (terms requested by outputMCMCsamples),
 marker_effects_<geno>_<trait>, marker_effects_variances_<geno>,
@@ -24,6 +26,8 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from jwas_tpu_torch.engine.output import result_marker_ids
 
 # marker-effect sample files grow as p * n_saved; above this marker count the
 # file is skipped unless the user explicitly asks (output_marker_samples=True)
@@ -102,7 +106,8 @@ class STSampleStream:
         self.write_markers = resolve_write_markers(cfg.n_markers,
                                                    opts.output_marker_samples)
         if self.write_markers:
-            w.register(f"marker_effects_{g.name}_{trait}", g.marker_ids)
+            w.register(f"marker_effects_{g.name}_{trait}",
+                       result_marker_ids(g, cfg.n_markers))
         w.register(f"marker_effects_variances_{g.name}")
         w.register(f"pi_{g.name}")
         self.ebv = bool(opts.outputEBV) and bool(ws.output_ids)

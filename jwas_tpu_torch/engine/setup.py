@@ -5,11 +5,13 @@ and default), Workspace (:134), _default_priors (:163-222),
 _genetic2marker (:225-262), set_marker_hyperparameters (:265-284),
 normalize_method (:287-297) and prepare_workspace (:348-669), on its
 single-trait, continuous, dense-location branch for the 2-bit and the
-dense stores: ID reconciliation, default output IDs, the whole-data table
-with output-only rows, training rows, priors, the location design and the
-prediction equation over fixed terms, the residual weights rinv = 1 /
-weights (:512-516) and the memory guard (:616-641). Everything here is
-numpy/scipy on the host.
+dense stores and GBLUP's relationship matrix: ID reconciliation, default
+output IDs, the whole-data table with output-only rows, training rows,
+priors, the location design and the prediction equation over fixed terms,
+the residual weights rinv = 1 / weights (:512-516), GBLUP's
+eigendecomposition (:521-535; in float64 by torch.linalg.eigh on the
+chain's device, ops/gblup.py::gblup_eigen) and the memory guard
+(:616-641). Everything else here is numpy/scipy on the host.
 
 The EBVs of the output IDs are not a dense (n_out, p) matrix of their
 genotypes, as jwas_tpu's are (setup.py:549-567): the workspace keeps the
@@ -32,10 +34,12 @@ from jwas_tpu_torch.io.genotypes import Genotypes
 from jwas_tpu_torch.io.table import Table, append_rows, as_table, to_numeric
 from jwas_tpu_torch.models.design import build_design, stack_phenotypes
 from jwas_tpu_torch.models.model import Model
+from jwas_tpu_torch.ops.gblup import gblup_eigen
 from jwas_tpu_torch.ops.grouped import plan_store
 from jwas_tpu_torch.ops.markers import BAYESR_GAMMA, dense_blocks
 from jwas_tpu_torch.utils.memory import (check_marker_memory_guard,
                                          estimate_dense_memory,
+                                         estimate_gblup_memory,
                                          estimate_marker_memory)
 
 
@@ -150,8 +154,13 @@ class Workspace:
     output_X: Dict[str, np.ndarray]     # term -> dense (n_out, n_levels)
     obs_ids: List[str] = field(default_factory=list)
     output_store_rows: np.ndarray = None   # (n_out,) store column of each
-                                           # output ID
+                                           # output ID (GBLUP: the output
+                                           # map's row)
     rinv: Optional[np.ndarray] = None      # (n,) inverse residual weights
+    gblup_L: Optional[torch.Tensor] = None    # GBLUP (ops/gblup.py): (n, n)
+    gblup_D: Optional[torch.Tensor] = None    # eigenvectors over the training
+    gblup_out: Optional[torch.Tensor] = None  # rows, |eigenvalues|, (n_out, n)
+                                              # output map, in the chain's dtype
 
 
 def _default_priors(model: Model, df: Table) -> np.ndarray:
@@ -180,10 +189,13 @@ def _default_priors(model: Model, df: Table) -> np.ndarray:
 
 def _genetic2marker(g: Genotypes) -> None:
     """The marker-effect variance from the genetic variance, single-trait
-    (tools4genotypes.jl:426-478)."""
+    (tools4genotypes.jl:426-478); GBLUP's is the genetic variance."""
     if g.G.val is not None:
         return
     gv = np.asarray(g.genetic_variance.val, dtype=np.float64)
+    if g.method == "GBLUP":
+        g.G.val = gv
+        return
     if g.method == "BayesR":
         pi = np.asarray(g.pi, dtype=np.float64)
         denom = g.sum2pq * float(np.sum(np.asarray(BAYESR_GAMMA) * pi))
@@ -211,8 +223,16 @@ def set_marker_hyperparameters(model: Model) -> None:
 
 
 def normalize_method(g: Genotypes, model: Model) -> None:
-    """Method shims of errors_args (input_data_validation.jl:20-44); the
-    ported methods need none but BayesR's single-trait check."""
+    """Method shims of errors_args (input_data_validation.jl:20-44): RR-BLUP,
+    BayesL and GBLUP have pi 0 and estimate none; BayesA is BayesB with pi
+    0, not estimated; BayesR is single-trait."""
+    if g.method in ("RR-BLUP", "BayesL", "GBLUP", "BayesA"):
+        g.estimate_pi = False
+        if g.method != "BayesA":
+            g.pi = 0.0
+    if g.method == "BayesA":
+        g.method = "BayesB"
+        g.pi = 0.0
     if g.method == "BayesR" and model.n_models != 1:
         raise ValueError("BayesR supports single-trait analysis only")
 
@@ -333,13 +353,18 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     # memory guard (jwas_tpu/engine/setup.py:616-641) over the port's own
     # device buffers, with the residence runMCMC will choose
     dev = "cpu" if device is None else device
-    if g0.dense is not None:
+    itemsize = 8 if opts.double_precision else 4
+    if g0.grm is not None:
+        est = estimate_gblup_memory(
+            n_geno=g0.grm.shape[0], n_obs=len(obs_ids), n_out=len(output_ids),
+            n_loc=W.shape[1], itemsize=itemsize, grm_itemsize=g0.grm.element_size())
+    elif g0.dense is not None:
         b, gb, _ = dense_blocks(len(obs_ids), opts.fast_blocks, g0.n_markers)
         est = estimate_dense_memory(
             n_store=g0.dense.shape[1], n_obs=len(obs_ids), n_markers=g0.n_markers,
             block_size=b, group_blocks=gb, n_loc=W.shape[1],
-            itemsize=8 if opts.double_precision else 4,
-            store_itemsize=g0.dense.element_size())
+            itemsize=itemsize, store_itemsize=g0.dense.element_size(),
+            method=g0.method)
     else:
         store = g0.packed_store
         b, gb, _, resident = plan_store(len(obs_ids), store.packed, opts.fast_blocks,
@@ -351,6 +376,17 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     check_marker_memory_guard(est, policy=opts.memory_guard,
                               ratio=opts.memory_guard_ratio,
                               device=device)
+    gblup = {}
+    output_store_rows = np.array([row_of[s] for s in output_ids], dtype=np.int64)
+    if g0.grm is not None:
+        # the eigenbasis of the training rows' block of G; the EBVs are the
+        # output map's rows, in output order
+        L, D, out = gblup_eigen(
+            g0.grm if device is None else g0.grm.to(device),
+            [row_of[s] for s in obs_ids], output_store_rows,
+            torch.float64 if opts.double_precision else torch.float32)
+        gblup = dict(gblup_L=L, gblup_D=D, gblup_out=out)
+        output_store_rows = np.arange(len(output_ids), dtype=np.int64)
     return Workspace(
         model=model, df=df_train, n_obs=len(obs_ids), n_traits=t, W=W, y=y,
         y_mask=y_mask, geno=g0,
@@ -360,6 +396,5 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         marker_scale0=np.asarray(g0.G.scale, dtype=np.float64),
         df_marker=float(g0.G.df), pi0=g0.pi, output_ids=list(output_ids),
         prediction_terms=prediction_terms, output_X=output_X, obs_ids=obs_ids,
-        output_store_rows=np.array([row_of[s] for s in output_ids], dtype=np.int64),
-        rinv=rinv,
+        output_store_rows=output_store_rows, rinv=rinv, **gblup,
     )

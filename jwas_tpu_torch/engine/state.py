@@ -1,8 +1,8 @@
 """Chain state and static configuration of the single-trait engine.
 
 Counterpart of jwas_tpu/engine/state.py (ChainState :18, EngineCfg :75),
-trimmed to the fields single-trait BayesC, BayesB and BayesR on the packed
-or a dense store read. The
+trimmed to the fields the single-trait methods read on the packed or a
+dense store, or GBLUP's eigenbasis. The
 JAX package's threefry key becomes one torch.Generator per chain, on the
 chain's device. Marker state tensors are updated in place by the sweep.
 """
@@ -10,7 +10,7 @@ chain's device. Marker state tensors are updated in place by the sweep.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -18,7 +18,8 @@ import torch
 class ChainState(NamedTuple):
     gen: torch.Generator      # the chain's only source of randomness
     sol: torch.Tensor         # (K,) location parameters
-    alpha: torch.Tensor       # (p_pad,) marker effects
+    alpha: torch.Tensor       # (p_pad,) marker effects (GBLUP: (n,)
+                              # pseudo-effects on the eigenbasis)
     beta: torch.Tensor        # (p_pad,) underlying effects (BayesC/B's
                               # spike-slab; unused by BayesR)
     delta: torch.Tensor       # (p_pad,) int32: BayesC/B inclusion indicators,
@@ -29,13 +30,17 @@ class ChainState(NamedTuple):
                               # sigma^2, class k has variance gamma_k sigma^2;
                               # BayesB: (p_pad,), one a marker)
     pi: torch.Tensor          # BayesC/B (p_pad,) P(excluded), 1 for padding;
-                              # BayesR (4,) class prior
+                              # BayesR (4,) class prior; RR-BLUP, BayesL,
+                              # GBLUP (0,)
     scale_g: torch.Tensor     # 0-d prior scale of varg
+    gamma_l: Optional[torch.Tensor] = None  # (p_pad,) BayesL's local
+                              # shrinkage, 1 for padding (ones otherwise)
 
 
 @dataclass(frozen=True)
 class EngineCfg:
-    method: str               # "BayesC", "BayesB" or "BayesR"
+    method: str               # "BayesC", "BayesB" (BayesA), "BayesR",
+                              # "RR-BLUP", "BayesL" or "GBLUP"
     n_obs: int                # observations (residual-variance df)
     n_markers: int            # real markers, before padding
     estimate_pi: bool

@@ -1,21 +1,31 @@
 """Genotype input: VarianceSpec, Genotypes and get_genotypes for the 2-bit
-packed store and the dense stores.
+packed store, the dense stores and GBLUP's relationship matrix.
 
 Counterpart of jwas_tpu/io/genotypes.py: VarianceSpec (:42), Genotypes
 (:58) and get_genotypes (:218-453) with jwas_tpu's full signature, for
-BayesC, BayesB and BayesR (with BayesR's class-prior checks) and
-starting_value as the starting marker effects (:451-452; jwas_tpu drops it
-on the 2-bit branch, which returns before :451; the port keeps it).
+every single-trait method (BayesC, BayesB, BayesR with its class-prior
+checks, RR-BLUP, BayesA, BayesL and GBLUP) and starting_value as the
+starting marker effects (:451-452; jwas_tpu drops it on the 2-bit
+branch, which returns before :451; the port keeps it).
 
-storage="2bit" or a Packed2BitStore takes the 2-bit branch (:257-309).
-storage "f32", "f64" and "int8" take the dense branch (:311-453): missing
-codes become the column mean (rounded for int8), MAF and fixed-locus QC,
-centering, allele frequencies and sum 2pq, and int8's integer check. The
-centered matrix is written marker-major, (p, n) float32 (float64 for "f64"
-or double_precision), straight into the store on the given device, a chunk
+storage="2bit" or a Packed2BitStore takes the 2-bit branch (:257-309),
+which runs BayesC, BayesB and BayesR only. storage "f32", "f64" and
+"int8" take the dense branch (:311-453): missing codes become the column
+mean (rounded for int8), MAF and fixed-locus QC, centering, allele
+frequencies and sum 2pq, and int8's integer check. The centered matrix is
+written marker-major, (p, n) float32 (float64 for "f64" or
+double_precision), straight into the store on the given device, a chunk
 of columns at a time, so the host never holds a float copy of the matrix
-beside the caller's. int8 keeps jwas_tpu's semantics (integer scores, their
-rounded means) but not its raw int8 copy, which nothing downstream reads.
+beside the caller's. int8 keeps jwas_tpu's semantics (integer scores,
+their rounded means) but not its raw int8 copy, which nothing downstream
+reads.
+
+GBLUP (:327-334, :392-410) keeps no store: a symmetric n x n input is the
+relationship matrix itself (no centering, no QC); genotypes become
+G = (Z Z' + 1e-5 I) / p, Z the centered scores over sqrt(2pq), built on
+the device from the marker-major store a chunk of markers at a time, its
+diagonal raised by 1e-5 until a float64 Cholesky succeeds; the store is
+freed once G exists.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 
 from jwas_tpu_torch.io.packed import (Packed2BitStore, _genotype_chunks,
                                       prepare_packed_genotypes)
+from jwas_tpu_torch.ops.grouped import full_precision_matmul
 
 # BayesR class prior when Pi is 0 (jwas_tpu/io/genotypes.py:28)
 DEFAULT_BAYESR_PI = (0.95, 0.03, 0.015, 0.005)
@@ -63,6 +74,8 @@ class Genotypes:
     packed_store: Optional[Packed2BitStore] = None   # the 2-bit store
     dense: Optional[torch.Tensor] = None   # (p, n) centered genotypes,
                                            # marker-major, on a device
+    grm: Optional[torch.Tensor] = None     # GBLUP: (n, n) relationship
+                                           # matrix on a device
     col_means: Optional[np.ndarray] = None  # (p,) the dense store's means
     storage: str = "2bit"
     method: str = "BayesC"
@@ -108,12 +121,15 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
     quality_control=False. G is the genetic variance, or the marker-effect
     variance with G_is_marker_variance=True.
 
-    Ported: method "BayesC", "BayesB" or "BayesR"; on the 2-bit store the
-    other methods raise ValueError, as jwas_tpu does, on a dense store
-    NotImplementedError (ROADMAP.md Queue 1 item 5), as do annotations.
-    device: where a dense store is written (the GPU unless the caller asks
-    for another; "cpu" runs the plain versions). starting_value: (p,)
-    starting marker effects, one a marker after QC.
+    method: every single-trait method on a dense store; on the 2-bit
+    store only "BayesC", "BayesB" and "BayesR", the others raising
+    ValueError as jwas_tpu does. Annotations raise NotImplementedError
+    (ROADMAP.md Queue 1 item 8). GBLUP keeps the relationship matrix (grm)
+    of the input, or of its genotypes, in place of a store; G must then be
+    the genetic variance. device: where a dense store or the relationship
+    matrix is written (the GPU unless the caller asks for another; "cpu"
+    runs the plain versions). starting_value: (p,) starting marker
+    effects, one a marker after QC (GBLUP ignores them, as jwas_tpu does).
     """
     if method not in _SUPPORTED_METHODS:
         raise ValueError(f"method {method!r} is not available; use one of {_SUPPORTED_METHODS}")
@@ -124,10 +140,6 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
         raise ValueError("storage='2bit' supports BayesC/BayesB/BayesR only")
     if packed and annotations is not None:
         raise ValueError("annotations are not supported with storage='2bit'")
-    if method not in ("BayesC", "BayesB", "BayesR"):
-        raise NotImplementedError(
-            f"method={method!r} on a dense store is not ported yet (ROADMAP.md "
-            f"Queue 1 item 5); the port runs BayesC, BayesB and BayesR")
     if annotations is not None:
         raise NotImplementedError("annotations are not ported yet (ROADMAP.md "
                                   "Queue 1 item 8)")
@@ -146,6 +158,17 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
         freqs = np.asarray(store.allele_freq, dtype=np.float64)
         fields = dict(packed_store=store)
         dtype = np.float32
+    elif method == "GBLUP":
+        if G_is_marker_variance:
+            raise ValueError("GBLUP requires the genetic variance, not a marker variance")
+        dtype = np.float64 if (double_precision or storage == "f64") else np.float32
+        obs_ids, marker_ids, grm, freqs = relationship_matrix(
+            file, torch.float64 if dtype is np.float64 else torch.float32,
+            device, separator=separator, header=header,
+            quality_control=quality_control, MAF=MAF,
+            missing_value=missing_value, center=center,
+            round_missing=storage == "int8")
+        fields = dict(grm=grm, storage=storage)
     else:
         dtype = np.float64 if (double_precision or storage == "f64") else np.float32
         obs_ids, marker_ids, X, means, freqs = dense_store(
@@ -192,6 +215,14 @@ def _as_matrix(file, separator, header, np_dtype):
     return ids, marker_ids, mat
 
 
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is false); "
+                           "pass device='cpu' to build the store on the CPU")
+    return device
+
+
 def dense_store(file, dtype, device, *, separator=",", header=True,
                 quality_control=True, MAF=0.01, missing_value=9.0, center=True,
                 integer=False):
@@ -209,10 +240,19 @@ def dense_store(file, dtype, device, *, separator=",", header=True,
     allele frequencies (p_kept,) float64)."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     obs_ids, marker_ids, mat = _as_matrix(file, separator, header, np_dtype)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device (torch.cuda.is_available() is false); "
-                           "pass device='cpu' to build the store on the CPU")
+    return (obs_ids,) + _store_of(mat, marker_ids, dtype, _device(device),
+                                  quality_control=quality_control, MAF=MAF,
+                                  missing_value=missing_value, center=center,
+                                  integer=integer, round_missing=integer)
+
+
+def _store_of(mat, marker_ids, dtype, device, *, quality_control, MAF,
+              missing_value, center, integer, round_missing):
+    """dense_store's two passes over an (n, p) matrix; round_missing: the
+    imputed means are rounded (storage="int8", also without integer's
+    check, as jwas_tpu's GBLUP branch does). Returns (marker_ids, store,
+    col_means, allele frequencies) of the kept markers."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     n, p = mat.shape
     step = max(1, _CHUNK_BYTES // (8 * max(n, 1)))
     mv = torch.tensor(float(np_dtype(missing_value)), dtype=dtype, device=device)
@@ -227,7 +267,7 @@ def dense_store(file, dtype, device, *, separator=",", header=True,
             if bool(miss.any()):
                 cnt = (~miss).sum(0).clamp(min=1)
                 m = torch.where(miss, 0.0, x).sum(0, dtype=torch.float64) / cnt
-                if integer:
+                if round_missing:
                     m = torch.round(m)
                 x = torch.where(miss, m.to(dtype)[None, :], x)
         if integer:
@@ -272,5 +312,55 @@ def dense_store(file, dtype, device, *, separator=",", header=True,
         store[k:k + x.shape[1]] = x.T
         k += x.shape[1]
     marker_ids = [m for m, kk in zip(marker_ids, kept) if kk]
-    return (obs_ids, marker_ids, store, means[keep].cpu().numpy(),
+    return (marker_ids, store, means[keep].cpu().numpy(),
             freqs[keep].cpu().numpy())
+
+
+GRM_RIDGE = 1e-5            # jwas_tpu's diagonal term and its retry step
+GRM_TRIES = 10
+
+
+def relationship_matrix(file, dtype, device, *, separator=",", header=True,
+                        quality_control=True, MAF=0.01, missing_value=9.0,
+                        center=True, round_missing=False):
+    """GBLUP's branch of jwas_tpu's get_genotypes
+    (jwas_tpu/io/genotypes.py:327-334, :392-410) on a device: an n x n
+    input that is symmetric within numpy's allclose (rtol 1e-5, atol 1e-6)
+    is the relationship matrix as given (no centering, no QC); otherwise
+    the genotypes go through dense_store's QC and centering, and
+    G = (Z Z' + 1e-5 I) / p with Z = X / sqrt(2pq) is summed a chunk of
+    markers at a time from the marker-major store, which is then freed.
+    While a float64 Cholesky of G fails, 1e-5 is added to its diagonal,
+    at most GRM_TRIES times. Returns (obs_ids, marker_ids, G (n, n) of
+    dtype on the device, allele frequencies (p,) float64: of the kept
+    markers, or G's column means / 2 for a given matrix)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    device = _device(device)
+    obs_ids, marker_ids, mat = _as_matrix(file, separator, header, np_dtype)
+    n, p = mat.shape
+    if n == p:
+        G = torch.as_tensor(mat).to(device=device, dtype=dtype)
+        if torch.allclose(G, G.T, rtol=1e-5, atol=1e-6):
+            freqs = G.sum(0, dtype=torch.float64) / max(n, 1) / 2.0
+            return obs_ids, marker_ids, G, freqs.cpu().numpy()
+        del G
+    marker_ids, X, _, freqs = _store_of(
+        mat, marker_ids, dtype, device, quality_control=quality_control,
+        MAF=MAF, missing_value=missing_value, center=center, integer=False,
+        round_missing=round_missing)
+    p = X.shape[0]
+    denom = torch.as_tensor(np.sqrt(2.0 * freqs * (1.0 - freqs))).to(device=device, dtype=dtype)
+    G = torch.zeros((n, n), dtype=dtype, device=device)
+    step = max(1, _CHUNK_BYTES // (X.element_size() * max(n, 1)))
+    with full_precision_matmul():
+        for c0 in range(0, p, step):
+            z = X[c0:c0 + step] / denom[c0:c0 + step, None]
+            G.addmm_(z.T, z)
+    del X
+    eye = torch.eye(n, dtype=dtype, device=device) * GRM_RIDGE
+    G = (G + eye) / p
+    for tries in range(GRM_TRIES + 1):
+        if int(torch.linalg.cholesky_ex(G.double()).info) == 0:
+            return obs_ids, marker_ids, G, freqs
+        G += eye
+    raise ValueError("could not make the relationship matrix positive definite")

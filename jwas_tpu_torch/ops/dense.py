@@ -3,8 +3,9 @@ their Gram tiles, and the exact single-site sweeps.
 
 Counterpart of jwas_tpu/ops/markers.py: MarkerBlocks and
 build_marker_blocks (:55-115), the dense group-sequential schedule of
-grouped_dense_sweep (:524-566, with jwas_tpu/engine/mcmc.py:233-267 and
-:366-392) and sweep_exact_abc / sweep_exact_bayesr (:404-493).
+grouped_dense_sweep (:524-566, with jwas_tpu/engine/mcmc.py:233-320 and
+:366-392) and sweep_exact_abc / sweep_exact_c0l / sweep_exact_bayesr
+(:404-493).
 
 The store is the centered matrix of every genotyped individual held
 marker-major, (p, n_store) float32 or float64, as io/genotypes.py writes it:
@@ -19,8 +20,9 @@ tiles and every rhs.
 
 DenseMarkers serves ops/grouped.py::_walk_groups the same protocol as the
 2-bit GroupedPackedMarkers (groups, rhs, matvec, matvec_store), so
-sweep_blocks_abc_grouped and sweep_blocks_bayesr_grouped run it unchanged
-through the inner-rounds kernels K1/K2 and K3. Its two GEMVs a round,
+sweep_blocks_abc_grouped, sweep_blocks_c0l_grouped (RR-BLUP, BayesL) and
+sweep_blocks_bayesr_grouped run it unchanged through the inner-rounds
+kernels K1/K2 and K3. Its two GEMVs a round,
 X_g' R^-1 ycorr and X_g d_alpha, are full-precision torch.mv calls (the
 JAX package leaves them to XLA outside any Pallas kernel), and the Gram
 tiles X_k' R^-1 X_k are one torch.bmm a chunk of blocks, never in TF32 or
@@ -35,9 +37,9 @@ That is the sequential single-site sampler in exact algebra: within a
 chunk the Gram updates give each marker the rhs the per-marker dot product
 would, up to rounding. The ragged last chunk is the short group's
 zero-padded rhs and Gram rows. sweep_draws serves the grouped sweeps a
-whole sweep's panels; sweep_exact_abc_ref and sweep_exact_bayesr_ref are
-the step-by-step plain versions (one dot product a marker) the tests hold
-the exact sweep against.
+whole sweep's panels; sweep_exact_abc_ref, sweep_exact_c0l_ref and
+sweep_exact_bayesr_ref are the step-by-step plain versions (one dot
+product a marker) the tests hold the exact sweep against.
 """
 
 from __future__ import annotations
@@ -226,6 +228,26 @@ def sweep_exact_abc_ref(dm: DenseMarkers, alpha, beta, delta, ycorr, vare,
         alpha[sl], beta[sl], delta[sl] = a_new, b_new, inc.to(delta.dtype)
         ycorr += (a_old - a_new) * x
     return alpha, beta, delta, ycorr
+
+
+def sweep_exact_c0l_ref(dm: DenseMarkers, alpha, ycorr, vare, varg, gamma, zs):
+    """The exact RR-BLUP / BayesL sweep step by step, as the JAX package's
+    sweep_exact_c0l with its _c0l_update: lambda = (vare / varg) / gamma,
+    mean = (x_j' R^-1 ycorr + xpx a_old) / (xpx + lambda), a_new = mean +
+    z sqrt(vare / (xpx + lambda)), then ycorr += (a_old - a_new) x_j.
+    gamma (p_pad,) or None (RR-BLUP); zs the sweep's (p,) normals."""
+    p = dm.X.shape[0]
+    lam = vare / varg
+    lam = lam.expand(dm.valid.shape) if gamma is None else lam / gamma
+    for j in range(p):
+        x, xw = _obs_row(dm, j)
+        a_old = alpha[j].clone()
+        rhs = xw @ ycorr + dm.xpx[j] * a_old
+        inv_lhs = 1.0 / (dm.xpx[j] + lam[j])
+        a_new = inv_lhs * rhs + zs[j] * torch.sqrt(inv_lhs * vare)
+        alpha[j] = a_new
+        ycorr += (a_old - a_new) * x
+    return alpha, ycorr
 
 
 def sweep_exact_bayesr_ref(dm: DenseMarkers, alpha, delta, ycorr, vare,

@@ -2,10 +2,10 @@
 
 Counterpart of jwas_tpu/ops/dists.py:21-124 (sample_chi2,
 sample_scaled_inv_chi2, sample_beta, sample_pi_beta) and of
-jax.random.dirichlet. Every draw takes the chain's torch.Generator and
-returns a tensor on its device, so a chain step never waits for the host.
-The reference's parameterisations are those of variance_components.jl and
-markers/Pi.jl.
+jax.random.dirichlet and jax.random.gamma over an array of shapes. Every
+draw takes the chain's torch.Generator and returns a tensor on its device,
+so a chain step never waits for the host. The reference's
+parameterisations are those of variance_components.jl and markers/Pi.jl.
 """
 
 from __future__ import annotations
@@ -20,6 +20,12 @@ def _param(x, like: torch.Tensor) -> torch.Tensor:
 def sample_gamma(gen: torch.Generator, shape) -> torch.Tensor:
     """Gamma(shape, scale=1); shape is a tensor."""
     return torch._standard_gamma(shape, generator=gen)
+
+
+def sample_gamma_like(gen: torch.Generator, shape: float, like: torch.Tensor):
+    """Gamma(shape, scale=1) draws, one for each element of like, in its
+    dtype on its device (BayesL's Gamma(0.5) candidates)."""
+    return sample_gamma(gen, torch.full_like(like, shape))
 
 
 def sample_chi2(gen: torch.Generator, df) -> torch.Tensor:

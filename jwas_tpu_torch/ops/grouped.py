@@ -1,14 +1,17 @@
-"""Group-sequential fast-blocks BayesC/B and BayesR over a 2-bit store held
-on the device, in pinned host memory, or split between the two, and over
-ops/dense.py's dense store, which serves the walker (_walk_groups) the
-same protocol: groups, the GEMV pair of a round, X v over the store.
+"""Group-sequential fast-blocks BayesC/B, RR-BLUP/BayesL and BayesR over a
+2-bit store held on the device, in pinned host memory, or split between
+the two, and over ops/dense.py's dense store, which serves the walker
+(_walk_groups) the same protocol: groups, the GEMV pair of a round, X v
+over the store.
 
 Counterpart of jwas_tpu/ops/grouped.py: GroupedPackedMarkers (:47),
 STALE_FRACTION and pick_stable_blocks (:117-162), plan_device_groups
 (:165-185), grouped_matvec and grouped_rhs (:411-454),
 sweep_blocks_abc_grouped (:460-617), sweep_blocks_bayesr_grouped
-(:623-764), grouped_stats (:808-882) and build_grouped_markers (:885-969),
-with jwas_tpu/engine/mcmc.py::_resolve_host_offload (:738-759).
+(:623-764; RR-BLUP and BayesL run the dense form of jwas_tpu/ops/
+markers.py::sweep_blocks_c0l, :312, through K1), grouped_stats
+(:808-882) and build_grouped_markers (:885-969), with
+jwas_tpu/engine/mcmc.py::_resolve_host_offload (:738-759).
 
 The store is (p, bpm) uint8, marker-major, never padded or copied whole:
 groups of G = b * gb markers are visited in order (exact across groups),
@@ -506,6 +509,63 @@ def sweep_blocks_abc_grouped(gm, alpha, beta, delta, ycorr, vare, var_eff, pi,
 
     _walk_groups(gm, alpha_b, ycorr, nreps, sync_every, inner)
     return alpha, beta, delta, ycorr
+
+
+# pi of a real marker in the RR-BLUP / BayesL sweep: jwas_tpu clamps a pi
+# of 0 to this before its log (BayesA, jwas_tpu/ops/markers.py:411)
+C0L_PI = 1e-10
+
+
+def sweep_blocks_c0l_grouped(gm, alpha, ycorr, vare, varg, gamma,
+                             gen: Optional[torch.Generator], nreps: int = 1,
+                             sync_every: Optional[int] = None,
+                             draws: Optional[Callable] = None):
+    """Group-sequential fast-blocks RR-BLUP / BayesL sweep (BayesC0L.jl:
+    25-47; jwas_tpu's sweep_blocks_c0l under grouped_dense_sweep) on the
+    schedule of sweep_blocks_abc_grouped, through the same inner-rounds
+    kernel K1/K2: every real marker is in the slab (pi = C0L_PI, an
+    all-zero uniform panel) with var_eff = varg * gamma, and the slab draw
+    g + z sqrt(1 / lhs), lhs = xpx / vare + 1 / var_eff, is _c0l_update's
+    mean + z sqrt(vare / (xpx + vare / var_eff)) in exact algebra. A
+    padding marker is kept at 0 by pi = 1 with log(1 - pi) = -inf.
+
+    alpha (p_pad,) and ycorr (n_obs,) are updated in place and returned;
+    vare and varg are 0-d tensors, gamma (p_pad,) BayesL's local
+    shrinkage (None: RR-BLUP, every gamma 1). Round r of group g takes its
+    (reps * b, gb) normal panel zs from draws(g, r, reps) -> (zs,) when
+    given (tests inject the JAX package's; ops/dense.py::sweep_draws serves
+    the exact sweep's), else from gen, in group and round order.
+    """
+    nblocks, b, _ = gm.grams.shape
+    gb = nblocks // gm.ngroups
+    f = dict(dtype=alpha.dtype, device=alpha.device)
+    real = gm.valid.view(nblocks, b) > 0
+    inv_vare = (1.0 / vare).reshape(1)
+    var_eff = varg.reshape(1) if gamma is None else varg * gamma
+    var_eff_b = var_eff.expand(nblocks * b).contiguous().view(nblocks, b)
+    log_pi = torch.where(real, torch.log(torch.tensor(C0L_PI, **f)),
+                         torch.zeros((), **f))
+    log_pi_comp = torch.where(real, torch.log1p(torch.tensor(-C0L_PI + 1e-12, **f)),
+                              torch.tensor(-float("inf"), **f))
+    xpx_b = gm.xpx.view(nblocks, b)
+    alpha_b = alpha.view(nblocks, b)
+    # K1's slab-draw and indicator outputs, which this sweep does not keep
+    beta_b = torch.zeros((nblocks, b), **f)
+    delta_b = torch.zeros((nblocks, b), dtype=torch.int32, device=alpha.device)
+    us = torch.zeros((nreps * b, gb), **f)
+    if draws is None:
+        def draws(g, r, reps):
+            return (torch.randn((reps * b, gb), generator=gen, **f),)
+
+    def inner(blk, rhs, g, r, reps):
+        (zs,) = draws(g, r, reps)
+        abc_inner_rounds(gm.grams[blk], xpx_b[blk], var_eff_b[blk],
+                         log_pi[blk], log_pi_comp[blk], alpha_b[blk],
+                         beta_b[blk], delta_b[blk], rhs, us[:reps * b], zs,
+                         inv_vare, reps)
+
+    _walk_groups(gm, alpha_b, ycorr, nreps, sync_every, inner)
+    return alpha, ycorr
 
 
 def gumbel_panel(shape, gen: Optional[torch.Generator], device,

@@ -1,16 +1,16 @@
-"""Variance-component and class-prior draws of single-trait BayesC, BayesB
-and BayesR.
+"""Variance-component and class-prior draws of the single-trait methods.
 
 Counterpart of jwas_tpu/ops/variance.py: sample_residual_variance_st (:28),
-sample_marker_variance_common (:41), sample_marker_variance_bayesb (:54),
+sample_marker_variance_common (:41, with the invweights of BayesL and
+GBLUP), sample_marker_variance_bayesb (:54),
 bayesr_sigma_sufficient_statistics and sample_marker_variance_bayesr
-(:60-80), sample_pi_abc (:102), sample_pi_bayesr (:111) and
-sample_scale_st (:118), with BayesB's scale draw
-(jwas_tpu/engine/mcmc.py:478-482). The BayesB draws also come as
-functions of their chi-square or gamma draw (bayesb_variance,
-bayesb_scale), so tests can feed both packages the same draws. The
-residual variance takes the residual weights (invweights, R^-1) of a
-dense store.
+(:60-80), sample_bayesl_gamma (:83), sample_pi_abc (:102),
+sample_pi_bayesr (:111) and sample_scale_st (:118), with BayesB's scale
+draw (jwas_tpu/engine/mcmc.py:478-482). The BayesB and BayesL draws also
+come as functions of their chi-square, gamma and uniform draws
+(bayesb_variance, bayesb_scale, bayesl_gamma), so tests can feed both
+packages the same draws. The residual variance takes the residual weights
+(invweights, R^-1) of a dense store.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from jwas_tpu_torch.ops.dists import (
     sample_chi2,
     sample_dirichlet,
     sample_gamma,
+    sample_gamma_like,
     sample_pi_beta,
     sample_scaled_inv_chi2,
 )
@@ -36,12 +37,19 @@ def sample_residual_variance_st(gen, ycorr, n_obs: int, df: float, scale,
     return sample_scaled_inv_chi2(gen, sse, n_obs, df, scale)
 
 
-def sample_marker_variance_common(gen, alpha, n_loci, df: float, scale):
-    """BayesC common marker-effect variance with n_loci = sum(delta)
-    (variance_components.jl:159-163); alpha holds zeros for excluded
-    markers."""
-    return sample_scaled_inv_chi2(gen, torch.sum(alpha * alpha),
-                                  n_loci.to(alpha.dtype), df, scale)
+def sample_marker_variance_common(gen, alpha, n_loci, df: float, scale,
+                                  invweights=None, chi=None):
+    """The common marker-effect variance (variance_components.jl:159-163):
+    BayesC's with n_loci = sum(delta) (alpha holds zeros for excluded
+    markers), RR-BLUP's with n_loci = p, BayesL's and GBLUP's with the
+    SSE weighted by invweights (1 / gamma, 1 / D). chi: the chi-square
+    (n_loci + df) draw (tests feed the JAX package's), else drawn from
+    gen."""
+    sq = alpha * alpha
+    sse = torch.sum(sq if invweights is None else sq * invweights)
+    if chi is None:
+        return sample_scaled_inv_chi2(gen, sse, n_loci, df, scale)
+    return (sse + df * scale) / chi
 
 
 def bayesb_variance(beta, df: float, scale, chi):
@@ -88,6 +96,29 @@ def sample_marker_variance_bayesr(gen, alpha, delta, df: float, scale):
     """BayesR shared sigma^2 (variance_components.jl:68-79, :166-168)."""
     ssq, nnz = bayesr_sigma_sufficient_statistics(alpha, delta)
     return sample_scaled_inv_chi2(gen, ssq, nnz.to(alpha.dtype), df, scale)
+
+
+def bayesl_gamma(gamma, alpha, var_eff, valid, g_half, u):
+    """BayesL's local shrinkage after one Metropolis-Hastings step
+    (variance_components.jl:191-218): candidate 1 / (4 g_half), g_half
+    Gamma(0.5) draws, accepted where u < exp(Q / 4 (2 / gamma -
+    candidate)), Q = alpha^2 / var_eff, as 2 / candidate; padding kept
+    at 1."""
+    q = alpha * alpha / var_eff
+    candidate = 1.0 / (g_half * 4.0)
+    accept = torch.exp(q / 4.0 * (2.0 / gamma - candidate))
+    new = torch.where(u < accept, 2.0 / candidate, gamma)
+    return torch.where(valid > 0, new, torch.ones_like(new))
+
+
+def sample_bayesl_gamma(gen, gamma, alpha, var_eff, valid):
+    """bayesl_gamma with its Gamma(0.5) candidates, then its uniforms,
+    drawn from gen, one of each a marker, padding included, as jwas_tpu
+    draws them."""
+    g_half = sample_gamma_like(gen, 0.5, gamma)
+    u = torch.rand(gamma.shape, generator=gen, dtype=gamma.dtype,
+                   device=gamma.device)
+    return bayesl_gamma(gamma, alpha, var_eff, valid, g_half, u)
 
 
 def sample_pi_abc(gen, delta, n_markers: int, valid):

@@ -1,6 +1,6 @@
 """Where the time goes in the port's main paths at full width, on one GPU.
 
-    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense]
+    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense,Methods,GBLUP]
 
 Run it from the root of the repository: it imports chip_smoke.py.
 
@@ -46,8 +46,16 @@ P = 100,000 written by get_genotypes on the device, 45,000 phenotyped with
 weights, runMCMC BayesC at fast_blocks = True (b = 256, gb = 23): its
 unprofiled set-up and window seconds, step 2 for a call of two outer
 iterations (the kernel K1 and the dense GEMVs, torch.mv, among the device
-rows) and step 3 on the first group (its 32 rounds). It builds no 2-bit
-store. Each is a start-of-chain measurement: pi has not settled after three outer
+rows) and step 3 on the first group (its 32 rounds). Methods is
+chip_smoke.py's phase 8a on the same dense store without weights: runMCMC
+RR-BLUP and BayesL at fast_blocks = True (K1 with every marker in the
+slab), each unprofiled, then step 2 and step 3 as for Dense. GBLUP is
+chip_smoke.py's phase 8b (the first 20,000 individuals' relationship
+matrix, 18,000 phenotyped; their breeding values here a numpy draw, as
+only the times are read): runMCMC's unprofiled set-up and windows, then
+step 2 for run_st's chain alone, 100 iterations on the workspace's
+eigenbasis, whose device time a round is a time an iteration. None of the
+three builds a 2-bit store. Each is a start-of-chain measurement: pi has not settled after three outer
 iterations. Imports torch, numpy, the port and chip_smoke.py; never jax.
 """
 
@@ -69,7 +77,9 @@ from jwas_tpu_torch.ops.dense import DenseMarkers
 
 PATHS = {"BayesC": ("BayesC", 0.0), "BayesC0999": ("BayesC", 0.999),
          "BayesR": ("BayesR", 0.0), "Streamed": ("BayesC", 0.0),
-         "Hybrid": ("BayesC", 0.0), "Dense": ("BayesC", 0.0)}
+         "Hybrid": ("BayesC", 0.0), "Dense": ("BayesC", 0.0),
+         "Methods": ("RR-BLUP", 0.0), "GBLUP": ("GBLUP", 0.0)}
+DENSE_METHODS = ("RR-BLUP", "BayesL")
 STREAMED = {"Streamed": lambda ngroups: 0, "Hybrid": lambda ngroups: ngroups // 2}
 
 
@@ -78,12 +88,13 @@ def device_us(e) -> float:
             or getattr(e, "self_cuda_time_total", 0) or 0)
 
 
-def host_ms_a_round(name, gm, y, sum2pq, repeats=5):
+def host_ms_a_round(name, gm, y, sum2pq, repeats=5, method=None):
     """Host and elapsed milliseconds a round of the first group's sweep
     (nreps = b, sync every 8: the path's schedule), medians of `repeats`
     sweeps after a warm-up one. The chain state carries on from sweep to
-    sweep, as it does from one outer iteration to the next."""
-    method, pi0 = PATHS[name]
+    sweep, as it does from one outer iteration to the next. method: the
+    path's own (PATHS) unless given."""
+    method, pi0 = (method, 0.0) if method else PATHS[name]
     dev = gm.grams.device
     G = gm.G
     nblocks, b, _ = gm.grams.shape
@@ -110,6 +121,15 @@ def host_ms_a_round(name, gm, y, sum2pq, repeats=5):
         def sweep():
             gr.sweep_blocks_bayesr_grouped(sub, alpha, delta, ycorr, vare, varg,
                                            pi_mat, gen, nreps=b, sync_every=8)
+    elif method in DENSE_METHODS:
+        gamma = None
+        if method == "BayesL":
+            gamma = 8.0 * torch.empty(G, **f32).exponential_(generator=gen)
+            varg = varg / 8.0
+
+        def sweep():
+            gr.sweep_blocks_c0l_grouped(sub, alpha, ycorr, vare, varg, gamma, gen,
+                                        nreps=b, sync_every=8)
     else:
         beta = alpha.clone()
         delta = torch.ones(G, dtype=torch.int32, device=dev)
@@ -196,7 +216,7 @@ def profiled(name, run, rounds, top=10):
               if e.device_type == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     total = sum(device_us(e) for e in events)
     copies = sum(device_us(e) for e in events if "memcpy" in e.key.lower())
-    cs.say(f"{name}: profiled run of 2 outer iterations: wall {wall:.3f} s, "
+    cs.say(f"{name}: profiled run: wall {wall:.3f} s, "
            f"device {total / 1e6:.3f} s, busy {total / 1e6 / wall:.4f} (copies "
            f"{copies / 1e6:.3f} s, kernels alone busy {(total - copies) / 1e6 / wall:.4f}); "
            f"device {total / 1e3 / rounds:.4f} ms a round ({rounds} rounds)")
@@ -230,29 +250,63 @@ def profile_runmcmc(gm, tbv):
              2 * ngroups * (b // 8), top=20)
 
 
-def profile_dense(dev):
-    """chip_smoke.py's phase 7a, unprofiled then profiled, and the host's
+def profile_dense(dev, methods=("BayesC",)):
+    """chip_smoke.py's phase 7a (BayesC with weights) or phase 8a (methods
+    of DENSE_METHODS, no weights), unprofiled then profiled, and the host's
     time a round on its first group."""
     codes = cs.dense_codes(50_000, 100_000, 7, dev)
     geno = jt.get_genotypes(codes, method="BayesC", storage="f32", device=dev)
     del codes
     table, _, _, _ = cs.phase7_problem(geno)
-    kw = dict(device=dev, fast_blocks=True, heterogeneous_residuals=True,
-              output_folder="")
-    out, seconds, built = cs.run_phase5(geno, table, chain_length=768,
-                                        output_samples_frequency=256, **kw)
-    cs.say("Dense: unprofiled seconds " + ", ".join(
-        f"{k} {v:.3f}" for k, v in seconds.items()) + "; windows " + ", ".join(
-        f"{t:.4f}" for t in built["chain"][-1]))
-    gm = built["store and Grams"]
-    b = gm.grams.shape[1]
+    kw = dict(device=dev, fast_blocks=True, output_folder="",
+              heterogeneous_residuals=methods == ("BayesC",))
+    for method in methods:
+        name = "Dense" if method == "BayesC" else method
+        out, seconds, built = cs.run_phase5(cs.fresh(geno, method), table,
+                                            chain_length=768,
+                                            output_samples_frequency=256, **kw)
+        cs.say(f"{name}: unprofiled seconds " + ", ".join(
+            f"{k} {v:.3f}" for k, v in seconds.items()) + "; windows " + ", ".join(
+            f"{t:.4f}" for t in built["chain"][-1]))
+        gm = built["store and Grams"]
+        b = gm.grams.shape[1]
+        del built, out
+        profiled(name, lambda: cs.run_phase5(cs.fresh(geno, method), table,
+                                             chain_length=2 * b,
+                                             output_samples_frequency=b, **kw),
+                 2 * gm.ngroups * (b // 8), top=16)
+        y = np.asarray(table["y"], dtype=np.float64)
+        host_ms_a_round(name, gm, y - y.mean(), geno.sum2pq, method=method)
+        del gm
+        torch.cuda.empty_cache()
+
+
+def profile_gblup(dev, n=20_000, n_train=18_000):
+    """chip_smoke.py's phase 8b, unprofiled, then its chain alone
+    profiled."""
+    from jwas_tpu_torch.ops.gblup import build_gblup_markers
+
+    codes = cs.dense_codes(50_000, 100_000, 7, dev)[:n]
+    g = jt.get_genotypes(codes, method="GBLUP", storage="f32", device=dev)
+    del codes
+    tbv = np.random.default_rng(2).normal(size=n)
+    table, _, _, _ = cs.design_table(g.obs_ids, tbv, 6, n_train)
+    table = type(table)({c: table[c] for c in table.columns if c != "weights"})
+    out, seconds, built = cs.run_phase5(g, table, device=dev, chain_length=200,
+                                        output_samples_frequency=50, output_folder="")
+    cs.say("GBLUP: unprofiled seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in seconds.items()) + "; windows of 50 iterations "
+        + ", ".join(f"{t:.4f}" for t in built["chain"][-1]))
+    ws = built["workspace"]
+    gm = build_gblup_markers(ws.gblup_L, ws.gblup_D, ws.gblup_out)
     del built, out
-    profiled("Dense", lambda: cs.run_phase5(cs.fresh(geno, "BayesC"), table,
-                                            chain_length=2 * b,
-                                            output_samples_frequency=b, **kw),
-             2 * gm.ngroups * (b // 8), top=16)
-    y = np.asarray(table["y"], dtype=np.float64)
-    host_ms_a_round("Dense", gm, y - y.mean(), geno.sum2pq)
+    priors = dict(vare0=ws.vare0, scale_R=ws.scale_R, df_R=ws.df_R,
+                  marker_var0=ws.marker_var0, marker_scale0=ws.marker_scale0,
+                  df_marker=ws.df_marker)
+    profiled("GBLUP", lambda: jt.run_st(gm, ws.y, W=ws.W, **priors, method="GBLUP",
+                                        chain_length=100, output_samples_frequency=50,
+                                        seed=4),
+             100, top=16)
 
 
 def main():
@@ -268,12 +322,16 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip())
     _build.library()                  # the nvcc build stays out of the windows
     cs.say(f"kernels built (nvcc {_build.build_seconds:.1f} s)")
-    if "Dense" in names:
-        profile_dense(dev)
-        names = [n for n in names if n != "Dense"]
-        torch.cuda.empty_cache()
-        if not names:
-            return
+    for name, methods in (("Dense", ("BayesC",)), ("Methods", DENSE_METHODS)):
+        if name in names:
+            profile_dense(dev, methods)
+            names = [n for n in names if n != name]
+            torch.cuda.empty_cache()
+    if "GBLUP" in names:
+        profile_gblup(dev)
+        names = [n for n in names if n != "GBLUP"]
+    if not names:
+        return
     gm, y, tbv, sum2pq, _, _ = cs.full_width_problem(dev)
     host = None
     for name in names:

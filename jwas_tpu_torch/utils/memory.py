@@ -20,6 +20,11 @@ differs from the store's, which costs one copy), the Gram tiles p_pad * b
 at the chain's itemsize, one weighted chunk of the Gram set-up
 (ops/dense.py _GRAM_BYTES) and the location design.
 
+and for GBLUP (estimate_gblup_memory) the relationship matrix G at its
+itemsize, the float64 block of the training rows, its eigenvectors and
+the eigensolver's workspace (about 2 n^2 doubles), the float64 product of
+the output map, and L and the output map in the chain's dtype.
+
 jwas_tpu's estimate also counts a dense float32 (n_out, p) matrix of the
 output IDs' genotypes (bytes_output); the port never builds one (ROADMAP.md
 fault R7), so its bytes_output is 0. The budget is the residence plan's
@@ -58,11 +63,13 @@ class MarkerMemoryEstimate:
     bytes_decode: int         # one decoded tile of the Gram set-up
     bytes_design: int
     bytes_output: int = 0     # none: the output IDs' EBVs come from K5 (R7)
+    bytes_state: int = 0      # marker state beyond the common (BayesL's gamma)
 
     @property
     def bytes_total(self) -> int:
         return (self.bytes_genotypes + self.bytes_grams + self.bytes_staging
-                + self.bytes_decode + self.bytes_design + self.bytes_output)
+                + self.bytes_decode + self.bytes_design + self.bytes_output
+                + self.bytes_state)
 
 
 def estimate_marker_memory(n_obs: int, n_markers: int, block_size: int,
@@ -92,12 +99,13 @@ def estimate_marker_memory(n_obs: int, n_markers: int, block_size: int,
 def estimate_dense_memory(n_store: int, n_obs: int, n_markers: int,
                           block_size: int, group_blocks: int, n_loc: int = 0,
                           itemsize: int = 4,
-                          store_itemsize: Optional[int] = None) -> MarkerMemoryEstimate:
+                          store_itemsize: Optional[int] = None,
+                          method: str = "BayesC") -> MarkerMemoryEstimate:
     """Device bytes of a dense store's chain: the (n_markers, n_store)
     store in the chain's itemsize, its source when that is of another
     itemsize (store_itemsize), Gram tiles of blocks of block_size in groups
-    of group_blocks, one weighted chunk of the Gram set-up and the location
-    design."""
+    of group_blocks, one weighted chunk of the Gram set-up, the location
+    design and BayesL's local shrinkage, one value a marker."""
     b, G = block_size, block_size * group_blocks
     p_pad = -(-n_markers // G) * G
     store = n_markers * n_store
@@ -106,7 +114,26 @@ def estimate_dense_memory(n_store: int, n_obs: int, n_markers: int,
         bytes_genotypes=store * itemsize, bytes_grams=p_pad * b * itemsize,
         bytes_staging=store * src,
         bytes_decode=min(_GRAM_BYTES, store * itemsize),
-        bytes_design=n_obs * n_loc * itemsize)
+        bytes_design=n_obs * n_loc * itemsize,
+        bytes_state=p_pad * itemsize if method == "BayesL" else 0)
+
+
+def estimate_gblup_memory(n_geno: int, n_obs: int, n_out: int, n_loc: int = 0,
+                          itemsize: int = 4,
+                          grm_itemsize: int = 4) -> MarkerMemoryEstimate:
+    """Device bytes of GBLUP's set-up and chain (ops/gblup.py::gblup_eigen):
+    G (n_geno^2 at grm_itemsize); the float64 block G_tt of the n_obs
+    training rows, its eigenvectors and the eigensolver's workspace
+    (4 n_obs^2 doubles); the float64 output map (n_out x n_obs); L and the
+    output map at the chain's itemsize; the location design."""
+    block = n_obs * n_obs
+    return MarkerMemoryEstimate(
+        bytes_genotypes=n_geno * n_geno * grm_itemsize,
+        bytes_grams=0,
+        bytes_staging=4 * block * 8,
+        bytes_decode=n_out * n_obs * 8,
+        bytes_design=n_obs * n_loc * itemsize,
+        bytes_output=(block + n_out * n_obs) * itemsize)
 
 
 def check_marker_memory_guard(estimate: MarkerMemoryEstimate,

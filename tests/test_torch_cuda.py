@@ -520,3 +520,66 @@ def test_dense_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
             assert a.dtype == b_.dtype == (np.float64 if dtype == torch.float64 else np.float32)
             assert np.isfinite(a).all()
             np.testing.assert_allclose(a, b_, rtol=1e-4, atol=1e-5, err_msg=f"{fb} {method}")
+
+
+def test_c0l_regime_kernels_and_exact_step_order_on_card(cuda):
+    """K1/K2 in RR-BLUP's and BayesL's regime (ops/grouped.py::
+    sweep_blocks_c0l_grouped: every real marker in the slab, pi 1e-10, zero
+    uniforms, per-marker variances; the last 3 markers padding, held at 0
+    by log(1 - pi) = -inf) at a global (b = 256) and a resident (b = 136)
+    tile, in float32 and float64, against their plain versions; then the
+    exact RR-BLUP and BayesL sweeps on a dense store on the card (K1 with
+    nblocks = 1 a chunk of b = 128) against the step-by-step
+    sweep_exact_c0l_ref on the same card and draws: alpha rtol 1e-4."""
+    from jwas_tpu_torch.ops import dense as td
+
+    for b, nblocks, nreps, dtype in ((256, 23, 2, torch.float32), (136, 16, 2, torch.float32),
+                                     (256, 8, 2, torch.float64), (136, 16, 2, torch.float64)):
+        k = {n: t.to(dtype) if t.is_floating_point() else t
+             for n, t in _chain_inputs(nblocks, b, nreps, b + 3, cuda, "dense").items()}
+        k["var_eff"] = 0.01 + 0.04 * torch.rand_like(k["var_eff"])
+        k["us"].zero_()
+        k["alpha"][-1, -3:] = 0.0
+        r = {n: t.clone() for n, t in k.items()}
+        before = abc_inner_rounds.launches
+        abc_inner_rounds(**k, nreps=nreps)
+        abc_inner_rounds_ref(**r, nreps=nreps)
+        torch.cuda.synchronize()
+        assert abc_inner_rounds.launches == before + 1
+        assert int(k["delta"].sum()) == nblocks * b - 3, (b, dtype)
+        assert bool((k["alpha"][-1, -3:] == 0).all()), (b, dtype)
+        torch.testing.assert_close(k["delta"], r["delta"])
+        for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("rhs", 1e-4, 1e-5)):
+            torch.testing.assert_close(k[name], r[name], rtol=rtol, atol=atol)
+
+    rng = np.random.default_rng(14)
+    n, p = 150, 300
+    X = rng.binomial(2, rng.uniform(0.1, 0.9, p), size=(n, p)).astype(np.float32)
+    X -= X.mean(axis=0)
+    dm = td.build_dense_markers(torch.from_numpy(np.ascontiguousarray(X.T)).to(cuda),
+                                n, 128, 1, exact=True)
+    pp = dm.valid.shape[0]
+    y = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda)
+    zs = torch.as_tensor(rng.normal(size=p), dtype=torch.float32, device=cuda)
+    vare, varg = (torch.tensor(v, device=cuda) for v in (1.1, 0.05))
+    for bayesl in (False, True):
+        gamma = None
+        if bayesl:
+            gamma = torch.ones(pp, device=cuda)
+            gamma[:p] = torch.as_tensor(8.0 * rng.gamma(1.0, size=p), dtype=torch.float32)
+        runs = []
+        for kernel in (True, False):
+            alpha, ycorr = torch.zeros(pp, device=cuda), y.clone()
+            before = abc_inner_rounds.launches
+            if kernel:
+                gr.sweep_blocks_c0l_grouped(dm, alpha, ycorr, vare, varg, gamma, None,
+                                            nreps=1, draws=td.sweep_draws(128, zs))
+                assert abc_inner_rounds.launches == before + dm.ngroups
+            else:
+                td.sweep_exact_c0l_ref(dm, alpha, ycorr, vare, varg, gamma, zs)
+            runs.append((alpha, ycorr))
+        torch.cuda.synchronize()
+        (a, yc), (ra, ryc) = runs
+        assert bool((a[p:] == 0).all())
+        torch.testing.assert_close(a, ra, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(yc, ryc, rtol=1e-4, atol=1e-4)

@@ -47,9 +47,11 @@ def test_get_genotypes_matches_jwas_tpu(tmp_path):
     """f32, f64 and int8, with and without double_precision, QC on and off,
     center off: the centered matrix (the port's is marker-major), its
     dtype, allele frequencies, sum 2pq and the kept markers; a table and a
-    CSV give the IDs jwas_tpu reads; int8 refuses fractional scores; the
-    methods not ported on a dense store raise NotImplementedError naming
-    themselves."""
+    CSV give the IDs jwas_tpu reads; int8 refuses fractional scores;
+    RR-BLUP, BayesA, BayesL and GBLUP return jwas_tpu's Genotypes (method,
+    pi, estimatePi; the store, or GBLUP's relationship matrix) and
+    normalize_method turns them into jwas_tpu's (BayesA: BayesB with pi
+    0, not estimated)."""
     X = _genotypes()
     cases = [dict(storage=s, double_precision=dp) for s in ("f32", "f64", "int8")
              for dp in (False, True)]
@@ -86,9 +88,20 @@ def test_get_genotypes_matches_jwas_tpu(tmp_path):
     for pkg, kw in ((jwas_tpu, {}), (jt, dict(device="cpu"))):
         with pytest.raises(ValueError, match="requires integer genotype scores"):
             pkg.get_genotypes(frac, storage="int8", **kw)
+    from jwas_tpu.engine.setup import normalize_method as ref_normalize
+    from jwas_tpu_torch.engine.setup import normalize_method
     for method in ("RR-BLUP", "BayesA", "BayesL", "GBLUP"):
-        with pytest.raises(NotImplementedError, match=method):
-            jt.get_genotypes(X, method=method, device="cpu")
+        ref = jwas_tpu.get_genotypes(X, method=method)
+        ours = jt.get_genotypes(X, method=method, device="cpu")
+        assert (ours.method, ours.pi, ours.estimate_pi) == (ref.method, ref.pi,
+                                                            ref.estimate_pi)
+        assert (ours.grm is None, ours.dense is None) == (
+            (False, True) if method == "GBLUP" else (True, False))
+        ref_normalize(ref, jwas_tpu.build_model("y = intercept"))
+        normalize_method(ours, jt.build_model("y = intercept"))
+        assert (ours.method, ours.pi, ours.estimate_pi) == (ref.method, ref.pi,
+                                                            ref.estimate_pi)
+        assert ours.method == ("BayesB" if method == "BayesA" else method)
     starting = np.arange(ours.n_markers, dtype=np.float64)
     g = jt.get_genotypes(str(path), starting_value=starting, storage="f64", device="cpu")
     assert g.starting_alpha.dtype == np.float64

@@ -219,19 +219,24 @@ def test_unported_model_features_raise(data):
     for kw in (dict(censored_trait=["y"]), dict(categorical_trait=["y"])):
         with pytest.raises(NotImplementedError, match="item 10"):
             jt.build_model("y = intercept", **kw)
+    from jwas_tpu_torch.engine.setup import normalize_method
     for storage in ("f32", "f64", "int8"):
         for method in ("RR-BLUP", "BayesA", "BayesL", "GBLUP"):
-            with pytest.raises(NotImplementedError, match=method):
-                jt.get_genotypes(data["geno"], storage=storage, method=method,
-                                 device="cpu")
+            ref = jwas_tpu.get_genotypes(data["geno"], storage=storage, method=method)
+            ours = jt.get_genotypes(data["geno"], storage=storage, method=method,
+                                    device="cpu")
+            assert isinstance(ours, jt.io.genotypes.Genotypes)
+            assert (ours.method, ours.n_markers) == (ref.method, ref.n_markers)
+            normalize_method(ours, jt.build_model("y = intercept"))
+            assert (ours.method, ours.pi, ours.estimate_pi) == (
+                "BayesB" if method == "BayesA" else method, 0.0, False)
         with pytest.raises(NotImplementedError, match="item 8"):
             jt.get_genotypes(data["geno"], storage=storage, device="cpu",
                              annotations=np.ones((200, 1)))
     assert jt.get_genotypes(store, method="BayesB").method == "BayesB"
-    with pytest.raises(ValueError, match="BayesC/BayesB/BayesR only"):
-        jt.get_genotypes(store, method="BayesA")
-    with pytest.raises(ValueError, match="BayesC/BayesB/BayesR only"):
-        jt.get_genotypes(store, method="RR-BLUP")
+    for method in ("BayesA", "RR-BLUP", "BayesL", "GBLUP"):
+        with pytest.raises(ValueError, match="BayesC/BayesB/BayesR only"):
+            jt.get_genotypes(store, method=method)
     with pytest.raises(ValueError, match="length-4"):
         jt.get_genotypes(store, method="BayesR", Pi=[0.5, 0.5])
     g2 = jt.get_genotypes(store, name="g2")
