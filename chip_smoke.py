@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printed as it ends:
-  1. the card (nvidia-smi name and power limit) and the nvcc build of the
-     kernels under jwas_tpu_torch/csrc/;
+  1. the card (nvidia-smi name and power limit), the nvcc build of the
+     kernels under jwas_tpu_torch/csrc/ and the g++ build of its host C++
+     (csrc/pedigree.cpp, checked on a small pedigree);
   2. each kernel against its plain PyTorch version on identical inputs on
      the card, with the tolerance stated, both times and the kernel's bound
      (the larger of its bytes over 3.35 TB/s and its operations over
@@ -22,6 +23,11 @@ Phases, each printed as it ends:
      BayesL's regime (every marker in the slab: zero uniforms, pi 1e-10,
      per-marker variances, padding held at 0 by log(1 - pi) = -inf) at
      phase 8a's round, a resident tile, a single block and in float64;
+     K6, the location parameters' Gibbs pass, at phase 9a's LHS (K =
+     19,902: W'W of its design plus the A^-1 blocks of its pedigree with a
+     2 x 2 G and the herds' identity blocks) and phase 5's (K = 102), in
+     float32 and float64, with ns a dependent step, and at a random
+     K = 2,000;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -81,7 +87,27 @@ Phases, each printed as it ends:
      their block in the workspace) for 200 iterations: seconds of the
      matrix, the eigh, L and the output map, a window and an iteration,
      peak memory, EBV accuracy, and the EBVs against the output map times
-     alpha.
+     alpha;
+  9. random effects and the pedigree: (a) the animal model beside the
+     markers, y = intercept + age + herd + ID + dam + geno with the herd
+     i.i.d. and "ID dam" on a pedigree of 9,900 (900 founders, 6
+     generations of 1,500, drawn as jwas_tpu's _drop_pedigree draws them),
+     genotypes of the last five generations (7,500) gene-dropped on the
+     card at P = 2,097,152 and packed into the 2-bit store (3.9 GB), 6,500
+     phenotyped and 1,000 candidates of the last generation, K = 19,902;
+     runMCMC BayesC at its default block size for three outer iterations,
+     result files written: get_pedigree, A^-1, workspace, store and Grams,
+     chain seconds, K6's ms a pass and share, launches, peak memory, EBV
+     accuracy; the EBVs equal out_W sol + X alpha, every covariance sample
+     finite and positive definite; (b) pedigree BLUP without genotypes,
+     y = intercept + age + herd + ID on a pedigree of 19,800, 16,000
+     phenotyped, u ~ N(0, A) by the Mendelian recursion, K = 19,902, 100
+     iterations profiled: ms an iteration, busy and K6's shares, accuracy;
+     (c) a statistical check: a pedigree of 1,000, 600 genotyped at
+     p = 2,000, "ID dam" and an i.i.d. herd, BayesC from pi = 0.99, 2,000
+     sweeps at fast_blocks = 8 on the card and on the CPU: the card's EBV accuracy within 0.05 of the
+     CPU's, the 2 x 2 covariances' posterior means side by side. Every path
+     above launches K6 for its location pass.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -121,6 +147,7 @@ PHASE5_KEYS = ("location parameters", "residual variance", "marker effects geno"
                "marker effects variances geno", "pi_geno", "EBV_y",
                "genetic_variance", "heritability")
 
+K6 = "gibbs_pass_lambda"     # the location pass: every path launches it
 REPLACES = {
     "abc_inner_rounds": "jwas_tpu/ops/pallas_sweep.py:68",
     "bayesr_inner_rounds": "jwas_tpu/ops/pallas_sweep.py:327",
@@ -128,6 +155,9 @@ REPLACES = {
     "packed_matvec": "jwas_tpu/ops/pallas_packed_gemv.py:105",
     "abc_inner_rounds_f64": "jwas_tpu/ops/pallas_sweep.py:68",
     "bayesr_inner_rounds_f64": "jwas_tpu/ops/pallas_sweep.py:327",
+    # not a Pallas kernel: the lax.scan of gibbs_pass_lambda (:18-37)
+    "gibbs_pass_lambda": "jwas_tpu/ops/location.py:18",
+    "gibbs_pass_lambda_f64": "jwas_tpu/ops/location.py:18",
 }
 SOURCES = {
     "abc_inner_rounds": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
@@ -136,6 +166,8 @@ SOURCES = {
     "packed_matvec": "jwas_tpu_torch/csrc/packed_gemv.cu",
     "abc_inner_rounds_f64": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
     "bayesr_inner_rounds_f64": "jwas_tpu_torch/csrc/bayesr_inner_rounds.cu",
+    "gibbs_pass_lambda": "jwas_tpu_torch/csrc/gibbs_pass.cu",
+    "gibbs_pass_lambda_f64": "jwas_tpu_torch/csrc/gibbs_pass.cu",
 }
 
 
@@ -498,6 +530,144 @@ def check_gemv(n, G, dev, missing, permuted, time_it):
     return out
 
 
+# K6 against its plain version: the dot product of a row with x sums K
+# terms in another order than the plain version's torch.dot, and the
+# difference passes through K dependent steps of a Gauss-Seidel pass, a
+# contraction on the positive definite LHS; max |err| is held to this
+# tolerance times max |x| of the plain result (float32: K^(1/2) ulp of a
+# dot product is ~1e-5 relative at K = 2e4, the pass keeps it there)
+K6_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def check_k6(label, A, x, b, zs, vare, time_it):
+    """K6 (ops/location.py::gibbs_pass_lambda) against its plain version on
+    the card, with the same draws zs; with time_it, its time (5 passes),
+    the plain version's (one pass) and its bound: the LHS's bytes read
+    once (and x, b, zs), or K (2K + 10) operations at the type's peak."""
+    from jwas_tpu_torch.ops.location import gibbs_pass_lambda, gibbs_pass_lambda_ref
+
+    K, dtype = x.shape[0], A.dtype
+    if not torch.equal(A, A.T):
+        raise AssertionError(f"K6 {label}: the LHS is not exactly symmetric")
+    got = gibbs_pass_lambda(A, x, b, vare, None, zs=zs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = gibbs_pass_lambda_ref(A, x, b, vare, zs)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = K6_RTOL[dtype] * scale
+    name = str(dtype).replace("torch.", "")
+    line = (f"K6 {label} {name} K={K}: max |err| {err:.3g} (tolerance {tol:.3g}: "
+            f"rtol {K6_RTOL[dtype]} x max |x| {scale:.3g})")
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(line)
+    rec = None
+    if time_it:
+        ms = cuda_ms(lambda: gibbs_pass_lambda(A, x, b, vare, None, zs=zs), 5)
+        t_bytes = (A.numel() + 4 * K) * A.element_size() / HBM_BYTES_PER_S * 1e3
+        t_ops = K * (2 * K + 10) / (F64_FLOPS if dtype == torch.float64
+                                    else F32_FLOPS) * 1e3
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=None, step_ns=ms * 1e6 / K, K=K)
+        line += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.1f} ns a dependent step), "
+                 f"plain {plain:.1f} ms, bound {rec['bound_ms']:.4f} ms "
+                 f"({rec['bound_by']}; {rec['bound_ms'] / ms:.2%} of it reached)")
+    say(line)
+    return rec
+
+
+def k6_vectors(A, seed):
+    """x, b, zs and vare for a pass over A: x ~ N(0, 1/2), b = A x_true
+    with x_true ~ N(0, 1), standard normal draws, vare 1."""
+    g = torch.Generator(device=A.device)
+    g.manual_seed(seed)
+    K = A.shape[0]
+
+    def normal():
+        return torch.randn(K, generator=g, device=A.device, dtype=torch.float64).to(A.dtype)
+
+    x, x_true, zs = 0.5 ** 0.5 * normal(), normal(), normal()
+    return x, A @ x_true, zs, torch.ones((), dtype=A.dtype, device=A.device)
+
+
+def phase5_lhs(dev, dtype, n=45_000, n_herds=100, seed=5):
+    """The location LHS of phase 5's design (intercept, 100 herds, age over
+    45,000 records): W'W, K = 102, exactly symmetric."""
+    from jwas_tpu_torch.ops.location import symmetric_upper
+
+    rng = np.random.default_rng(seed)
+    W = np.zeros((n, n_herds + 2))
+    W[:, 0] = 1.0
+    W[np.arange(n), 1 + rng.integers(0, n_herds, n)] = 1.0
+    W[:, -1] = np.round(rng.uniform(1.0, 5.0, n), 2)
+    W = torch.as_tensor(W, dtype=dtype, device=dev)
+    return symmetric_upper(W.T @ W)
+
+
+def phase9a_lhs(dev, dtype, **design):
+    """The location LHS of phase 9a's model (intercept, age, 100 i.i.d.
+    herds, ID and dam over the 9,900-animal pedigree with a 2 x 2 G, K =
+    19,902) at its priors, without the markers: runMCMC's workspace and
+    ops/location.py::assemble_lhs_lambda, in dtype on the card."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.engine import mcmc as em
+    from jwas_tpu_torch.engine.setup import MCMCOptions
+    from jwas_tpu_torch.ops.location import assemble_lhs_lambda
+
+    ped_cols, rec = phase9a_design(**design)
+    ped = jt.get_pedigree(ped_cols)
+    table = rec["table"]
+    table["y"] = np.random.default_rng(3).normal(size=len(table))
+    model = jt.build_model("y = intercept + age + herd + ID + dam")
+    jt.set_covariate(model, "age")
+    jt.set_random(model, "herd", 0.1)
+    jt.set_random(model, "ID dam", ped, PHASE9A_G)
+    opts = MCMCOptions(printout_model_info=False, output_folder="",
+                       double_precision=dtype == torch.float64)
+    ws = em.prepare_workspace(model, table, opts, device=dev)
+    cfg, data, state = em._build_st_data_and_state(ws, opts, dev)
+    return assemble_lhs_lambda(cfg.re_groups, data.WtW, data.Vinv, state.vc, state.vare)
+
+
+def phase2_k6(dev, **design):
+    """K6 at the location LHS of phase 9a (K = 19,902, float32 and
+    float64) and of phase 5 (K = 102), then at a ragged K = 2,000.
+    design: phase9a_design's sizes (a rehearsal's)."""
+    recs = {}
+    A64 = phase9a_lhs(dev, torch.float64, **design)
+    for dtype, name in ((torch.float32, K6), (torch.float64, K6 + "_f64")):
+        A = A64.to(dtype)
+        recs[name] = check_k6("9a's LHS", A, *k6_vectors(A, 11), time_it=True)
+        del A
+    del A64
+    for dtype, name in ((torch.float32, K6), (torch.float64, K6 + "_f64")):
+        A = phase5_lhs(dev, dtype)
+        recs[name]["at_K102"] = check_k6("phase 5's LHS", A, *k6_vectors(A, 12), time_it=True)
+    A = random_spd_lhs(dev)
+    for dtype in (torch.float32, torch.float64):
+        check_k6("a random SPD LHS", A.to(dtype), *k6_vectors(A.to(dtype), 13),
+                 time_it=False)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def random_spd_lhs(dev, K=2_000, seed=14):
+    """A positive definite, exactly symmetric K x K LHS: W'W of a random
+    incidence design with four ones a row, plus a diagonal."""
+    from jwas_tpu_torch.ops.location import symmetric_upper
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    W = torch.zeros((2 * K, K), dtype=torch.float64, device=dev)
+    W.scatter_(1, torch.randint(0, K, (2 * K, 4), generator=g, device=dev), 1.0)
+    D = torch.rand(K, generator=g, device=dev, dtype=torch.float64)
+    return symmetric_upper(W.T @ W + torch.diag(0.5 + D))
+
+
 def phase2(dev):
     say("== phase 2: kernels against their plain versions on the card")
     check_k1(64, 8, 256, 3, dev, time_it=False)    # tests/test_pallas_sweep.py:21
@@ -557,6 +727,7 @@ def phase2(dev):
     check_gemv(50_000, 17_408, dev, missing=False, permuted=True, time_it=False)
     check_gemv(1_001, 4_096, dev, missing=True, permuted=True, time_it=False)
     check_gemv(4_000, 1_023, dev, missing=False, permuted=False, time_it=False)
+    recs.update(phase2_k6(dev))
     return recs
 
 
@@ -649,8 +820,8 @@ def phase3(dev, n=50_000, p=2_097_152):
     say(f"Gram tiles (b={b}, gb={nblocks // gm.ngroups}, "
         f"{gm.ngroups} groups, exact bf16): "
         f"{t_gram:.1f} s, {gm.grams.numel() * 4 / 1e9:.2f} GB")
-    paths = {"BayesC": ("abc_inner_rounds", "packed_rhs", "packed_matvec"),
-             "BayesR": ("bayesr_inner_rounds", "packed_rhs", "packed_matvec")}
+    paths = {"BayesC": ("abc_inner_rounds", "packed_rhs", "packed_matvec", K6),
+             "BayesR": ("bayesr_inner_rounds", "packed_rhs", "packed_matvec", K6)}
     launches = {"phase 3": {}}
     for method, kernels in paths.items():
         priors = default_priors(y, sum2pq, method=method)
@@ -727,6 +898,7 @@ def phase4(dev):
     import jwas_tpu_torch as jt
 
     say("== phase 4: statistical check, kernel path vs plain path")
+    jt.reset_launches()
     codes, y, bv = stat_data()
     store = stat_store(codes)
     priors = default_priors(y, store.sum2pq)
@@ -772,6 +944,10 @@ def phase4(dev):
     if not acc_r >= ACC_FLOOR_BAYESR:
         raise AssertionError(f"phase 4: BayesR kernel-path accuracy {acc_r:.4f} "
                              f"< floor {ACC_FLOOR_BAYESR}")
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    if counts[K6] == 0:
+        raise AssertionError(f"phase 4: the card's chains never launched K6: {counts}")
+    return {K6: counts[K6]}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -806,11 +982,12 @@ def phase5_problem(packed, freqs, tbv, seed=5, n_train=45_000, n_herds=100):
 
 
 def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + geno",
-               on_markers=None, around_chain=None, **kw):
+               on_markers=None, around_chain=None, on_model=None, **kw):
     """runMCMC at full width on phase5_problem's data (or another table and
-    equation; store a Packed2BitStore, or the Genotypes of a dense store),
-    with the set-up (workspace; Grams on the row-permuted float32 path) and
-    the chain timed inside it. on_markers(gm) is called
+    equation; store a Packed2BitStore, the Genotypes of a dense store or
+    None, no genotypes), with the set-up (workspace; Grams on the
+    row-permuted float32 path) and the chain timed inside it. on_model(model)
+    is called on the built model (set_random), on_markers(gm)
     on the grouped store before the chain runs, which runs inside the
     context manager around_chain when one is given. Returns (results, seconds
     by part, what the timed parts returned: "store and Grams" the grouped
@@ -842,11 +1019,13 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
     em.setup_dense_markers = timed("store and Grams", em.setup_dense_markers)
     em.run_chain = timed("chain", em.run_chain)
     try:
-        genotypes = (store if hasattr(store, "dense") else
+        genotypes = (store if store is None or hasattr(store, "dense") else
                      jt.get_genotypes(store, method=method, storage="2bit"))
         model = jt.build_model(eq, genotypes=genotypes)
         if "age" in table.columns:
             jt.set_covariate(model, "age")
+        if on_model is not None:
+            on_model(model)
         t0 = time.perf_counter()
         kw = dict(dict(fast_blocks=128, chain_length=384,
                        output_samples_frequency=128, seed=3,
@@ -943,7 +1122,7 @@ def phase5(dev, kept, n_train=45_000):
     values += [np.asarray(v) for v in samples.values()]
     if not all(np.isfinite(v).all() for v in values) or not np.isfinite(list(acc.values())).all():
         raise AssertionError("phase 5: non-finite results")
-    path = ("abc_inner_rounds", "packed_rhs", "packed_matvec")
+    path = ("abc_inner_rounds", "packed_rhs", "packed_matvec", K6)
     if any(counts[k] == 0 for k in path):
         raise AssertionError(f"phase 5: kernels never launched: {counts}")
     if not in_place:
@@ -953,7 +1132,7 @@ def phase5(dev, kept, n_train=45_000):
 
 # ---------------------------------------------------------------- phase 6
 
-PATH_ABC = ("abc_inner_rounds", "packed_rhs", "packed_matvec")
+PATH_ABC = ("abc_inner_rounds", "packed_rhs", "packed_matvec", K6)
 # device memory beyond the store and the Gram tiles that phase 6(a) may use
 PHASE6_MARGIN_BYTES = 4e9
 
@@ -1080,7 +1259,8 @@ def copy_overlap(prof):
 def busy_shares(out):
     """Profile the block with torch.profiler; then out holds the self
     device time of its kernels and of its memory copies over its wall time
-    ("kernels", "copies"), the wall seconds ("wall") and the share of the
+    ("kernels", "copies"), each kernel's device seconds by name
+    ("by_kernel"), the wall seconds ("wall") and the share of the
     host-to-device copies' device time during which a kernel ran
     ("overlap") and how many copies were at least half hidden, of how
     many ("mostly_hidden"; see copy_overlap)."""
@@ -1093,6 +1273,7 @@ def busy_shares(out):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = copy = 0.0
+    by_kernel = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1102,9 +1283,10 @@ def busy_shares(out):
             copy += us
         else:
             kern += us
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
     _, overlap, mostly, ncopies = copy_overlap(prof)
     out.update(kernels=kern / 1e6 / wall, copies=copy / 1e6 / wall, wall=wall,
-               overlap=overlap, mostly_hidden=(mostly, ncopies))
+               overlap=overlap, mostly_hidden=(mostly, ncopies), by_kernel=by_kernel)
 
 
 def phase6b(dev, kept, fast_blocks=128):
@@ -1417,7 +1599,7 @@ def phase7(dev, n=50_000, p=100_000, n_train=45_000):
         f"wrote the {tuple(geno.dense.shape)} store ({geno.dense.numel() * 4 / 1e9:.2f} "
         f"GB) in {t_geno:.2f} s; {len(train)} phenotyped with weights, "
         f"{len(cand)} candidates")
-    abc, br = ("abc_inner_rounds",), ("bayesr_inner_rounds",)
+    abc, br = ("abc_inner_rounds", K6), ("bayesr_inner_rounds", K6)
     shape, launches["phase 7a"] = run_dense(
         "7a BayesC, fast_blocks=True, weighted", dev, geno, table, tbv, train, cand,
         abc, fast_blocks=True, chain_length=768, output_samples_frequency=256)
@@ -1448,14 +1630,15 @@ def phase7(dev, n=50_000, p=100_000, n_train=45_000):
     del codes
     shape, launches["phase 7d"] = run_dense(
         "7d BayesC, double_precision, fast_blocks=True, weighted", dev, geno, table,
-        tbv, train, cand, ("abc_inner_rounds_f64",), fast_blocks=True,
+        tbv, train, cand, ("abc_inner_rounds_f64", K6 + "_f64"), fast_blocks=True,
         double_precision=True, chain_length=512, output_samples_frequency=256)
     if shape["dtype"] != "float64":
         raise AssertionError(f"phase 7d: the chain ran in {shape['dtype']}")
     dense_gemv_line(geno.dense, shape["b"] * shape["gb"], dev)
     _, launches["phase 7d BayesR"] = run_dense(
         "7d BayesR, double_precision, fast_blocks=True, weighted", dev,
-        fresh(geno, "BayesR"), table, tbv, train, cand, ("bayesr_inner_rounds_f64",),
+        fresh(geno, "BayesR"), table, tbv, train, cand,
+        ("bayesr_inner_rounds_f64", K6 + "_f64"),
         fast_blocks=True, double_precision=True, chain_length=256,
         output_samples_frequency=256)
     del geno
@@ -1509,7 +1692,7 @@ def phase8(dev, n=50_000, p=100_000, n_train=45_000, n_gblup=20_000,
     table, tbv, train, cand = phase7_problem(geno, n_train=n_train)
     table = type(table)({c: table[c] for c in table.columns if c != "weights"})
     b, gb, _ = dense_blocks(n_train, True, p)      # b = 256, gb = 23 at full width
-    abc = ("abc_inner_rounds",)
+    abc = ("abc_inner_rounds", K6)
     for method in PHASE8_METHODS:
         shape, launches[f"phase 8a {method}"] = run_dense(
             f"8a {method}, fast_blocks=True", dev, fresh(geno, method), table, tbv,
@@ -1584,16 +1767,402 @@ def phase8(dev, n=50_000, p=100_000, n_train=45_000, n_gblup=20_000,
         raise AssertionError(f"phase 8b: EBVs off the output map times alpha by {err:.3g}")
     if ws.gblup_L.shape != (n_train_gblup, n_train_gblup) or len(got) != n_gblup:
         raise AssertionError(f"phase 8b: L {tuple(ws.gblup_L.shape)}, {len(got)} EBVs")
+    if counts[K6] == 0:
+        raise AssertionError(f"phase 8b: the location pass never launched K6: {counts}")
     launches["phase 8b GBLUP"] = counts
     del g, ws, built, out
     torch.cuda.empty_cache()
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+# phase 9a's model: G of the ID and dam terms (per level; the truth's
+# polygenic share is carried by the markers, the dam's by its maternal
+# effect of variance 0.1) and of the herd; the genomic values are scaled to
+# variance 1 and the residual has variance 1
+PHASE9A_G = [[0.5, 0.0], [0.0, 0.1]]
+PHASE9A_EQ = "y = intercept + age + herd + ID + dam + geno"
+# phase 9c: the card's EBV accuracy within this of the CPU chain's
+ACC_MARGIN_9C = 0.05
+
+
+def phase9_pedigree(n_founders, gen_sizes, seed):
+    """A random multi-generation pedigree drawn as jwas_tpu/io/datasets.py::
+    _drop_pedigree draws it (the males the first half of the previous
+    generation, the females the second, each parent drawn uniformly among
+    them), numpy only. Returns (ids "a1".., sire and dam indices, -1 for
+    a founder's, the first row of each generation and the end)."""
+    rng = np.random.default_rng(seed)
+    n = n_founders + sum(gen_sizes)
+    sire = np.full(n, -1, dtype=np.int64)
+    dam = np.full(n, -1, dtype=np.int64)
+    starts, prev, row = [0, n_founders], np.arange(n_founders), n_founders
+    for size in gen_sizes:
+        half = len(prev) // 2
+        sire[row:row + size] = prev[:half][rng.integers(0, half, size)]
+        dam[row:row + size] = prev[half:][rng.integers(0, len(prev) - half, size)]
+        prev, row = np.arange(row, row + size), row + size
+        starts.append(row)
+    ids = np.array([f"a{i + 1}" for i in range(n)], dtype=object)
+    return ids, sire, dam, starts
+
+
+def pedigree_table(ids, sire, dam):
+    """The pedigree as get_pedigree reads it: ID, Sire, Dam, "0" unknown."""
+    from jwas_tpu_torch.io.table import Table
+
+    def parent(idx):
+        return np.array([ids[i] if i >= 0 else "0" for i in idx], dtype=object)
+
+    return Table({"ID": ids, "Sire": parent(sire), "Dam": parent(dam)})
+
+
+def phase9a_design(seed=90, n_founders=900, gen_size=1_500, n_cand=1_000):
+    """Phase 9a's pedigree (900 founders and 6 generations of 1,500) and
+    records: the last five generations (7,500) genotyped, 1,000 of the
+    last generation candidates, the other 6,500 phenotyped, each with a
+    herd of 100, an age and its dam. Returns (the pedigree Table, a dict
+    with the records' Table (no y yet), the pedigree's indices, the first
+    genotyped row, the phenotyped and candidate rows, herds and ages)."""
+    from jwas_tpu_torch.io.table import Table
+
+    ids, sire, dam, starts = phase9_pedigree(n_founders, (gen_size,) * 6, seed)
+    rng = np.random.default_rng(seed + 1)
+    n, keep_from = len(ids), starts[2]
+    cand = np.sort(rng.choice(np.arange(starts[-2], n), n_cand, replace=False))
+    pheno = rng.permutation(np.setdiff1d(np.arange(keep_from, n), cand))
+    herd = rng.integers(1, 101, n)
+    age = np.round(rng.uniform(1.0, 5.0, n), 2)
+    table = Table({"ID": ids[pheno],
+                   "herd": np.array([f"h{h}" for h in herd[pheno]], dtype=object),
+                   "age": age[pheno], "dam": ids[dam[pheno]]})
+    return pedigree_table(ids, sire, dam), dict(
+        table=table, ids=ids, sire=sire, dam=dam, starts=starts,
+        keep_from=keep_from, pheno=pheno, cand=cand, herd=herd, age=age)
+
+
+def gene_drop_store(sire, dam, starts, keep_from, p, dev, seed, chunk=65_536,
+                    qtl_share=0.001):
+    """Genotypes gene-dropped through a pedigree on the card, a chunk of
+    markers at a time: founders Binomial(2, f), f ~ U(0.1, 0.9), every
+    offspring one allele of each parent (Bernoulli(code / 2), unlinked
+    loci). The animals from keep_from on are packed 2 bits a code,
+    marker-major (a Packed2BitStore's bytes). Returns (packed, their
+    marker means (float64, host), their genomic values (X - means) beta
+    over qtl_share of the markers, beta ~ N(0, 1), host float64)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    n_all, n = len(sire), len(sire) - keep_from
+    bpm = (n + 3) // 4
+    s_t = torch.as_tensor(sire, device=dev)
+    d_t = torch.as_tensor(dam, device=dev)
+    packed = torch.empty((p, bpm), dtype=torch.uint8, device=dev)
+    means = torch.empty(p, dtype=torch.float64, device=dev)
+    tbv = torch.zeros(n, dtype=torch.float64, device=dev)
+    for c0 in range(0, p, chunk):
+        c = min(chunk, p - c0)
+        f = 0.1 + 0.8 * torch.rand(c, generator=g, device=dev)
+        X = torch.empty((n_all, c), dtype=torch.int8, device=dev)
+        nf = starts[1]
+        X[:nf] = ((torch.rand((nf, c), generator=g, device=dev) < f).to(torch.int8)
+                  + (torch.rand((nf, c), generator=g, device=dev) < f).to(torch.int8))
+        for r0, r1 in zip(starts[1:-1], starts[2:]):
+            a_s, a_d = ((2.0 * torch.rand((r1 - r0, c), generator=g, device=dev)
+                         < X[parent[r0:r1]]).to(torch.int8) for parent in (s_t, d_t))
+            X[r0:r1] = a_s + a_d
+        kept = X[keep_from:]
+        m = kept.double().mean(dim=0)
+        means[c0:c0 + c] = m
+        beta = (torch.randn(c, generator=g, device=dev, dtype=torch.float64)
+                * (torch.rand(c, generator=g, device=dev) < qtl_share))
+        tbv += (kept.double() - m) @ beta
+        codes = torch.zeros((c, 4 * bpm), dtype=torch.uint8, device=dev)
+        codes[:, :n] = kept.T.to(torch.uint8)
+        q = codes.view(c, bpm, 4)
+        packed[c0:c0 + c] = q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
+        del X, kept, codes, q
+    return packed, means.cpu().numpy(), tbv.cpu().numpy()
+
+
+def vc_sample_rows(folder, var):
+    """The rows of a covariance sample file (header skipped) as arrays."""
+    with open(os.path.join(folder, f"MCMC_samples_{var.replace(':', '.')}.txt")) as f:
+        rows = [line.strip() for line in f if line.strip()]
+    return [np.array([float(x) for x in r.split(",")]) for r in rows[1:]]
+
+
+def phase9a(dev, p=2_097_152, **design):
+    """Phase 9a; see the module's docstring. design: phase9a_design's
+    sizes (a rehearsal's)."""
+    import tempfile
+
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.engine import mcmc as em
+    from jwas_tpu_torch.io.packed import Packed2BitStore
+    from jwas_tpu_torch.ops.grouped import resolve_blocks
+
+    say(f"== phase 9a: the animal model beside the markers, P={p}")
+    ped_cols, rec = phase9a_design(**design)
+    t0 = time.perf_counter()
+    ped = jt.get_pedigree(ped_cols)
+    t_ped = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ped.a_inverse()
+    t_ainv = time.perf_counter() - t0
+    ids, keep_from, pheno, cand = rec["ids"], rec["keep_from"], rec["pheno"], rec["cand"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    packed, means, gv = gene_drop_store(rec["sire"], rec["dam"], rec["starts"],
+                                        keep_from, p, dev, seed=92)
+    torch.cuda.synchronize()
+    t_drop = time.perf_counter() - t0
+    n = len(ids) - keep_from
+    store = Packed2BitStore(
+        obs_ids=list(ids[keep_from:]), marker_ids=[f"m{j + 1}" for j in range(p)],
+        packed=packed, means=means, allele_freq=means / 2.0, n_obs=n, n_markers=p,
+        has_missing=False)
+    say(f"pedigree of {len(ids)} ({ped.n} coded, max F {ped.inbreeding.max():.4f}): "
+        f"get_pedigree {t_ped:.2f} s (inbreeding included), A^-1 {t_ainv:.2f} s; "
+        f"{n} x {p} genotypes gene-dropped and packed on the card in {t_drop:.1f} s "
+        f"({packed.numel() / 1e9:.2f} GB)")
+    # the truth: genomic values of variance 1, a maternal effect of the dam
+    # and a herd effect of variance 0.1 each, age, a residual of variance 1
+    rng = np.random.default_rng(93)
+    tbv = np.zeros(len(ids))
+    tbv[keep_from:] = (gv - gv.mean()) / gv.std()
+    maternal = rng.normal(0.0, 0.1 ** 0.5, len(ids))
+    herd_eff = rng.normal(0.0, 0.1 ** 0.5, 101)
+    y = (tbv + maternal[np.maximum(rec["dam"], 0)] + herd_eff[rec["herd"]]
+         + 0.5 * rec["age"] + rng.normal(0.0, 1.0, len(ids)))
+    table = rec["table"]
+    table["y"] = y[pheno]
+    b, _ = resolve_blocks(len(pheno), False, p, warn=False)
+    seconds_model = {}
+
+    def on_model(model):
+        t0 = time.perf_counter()
+        jt.set_random(model, "herd", 0.1)
+        jt.set_random(model, "ID dam", ped, PHASE9A_G)
+        seconds_model["set_random"] = time.perf_counter() - t0
+
+    k6 = {}
+    jt.reset_launches()
+    with tempfile.TemporaryDirectory() as folder:
+        with timed_calls(k6, "K6", em, "gibbs_pass_lambda"):
+            out, seconds, built = run_phase5(
+                store, table, eq=PHASE9A_EQ, on_model=on_model, device=dev,
+                fast_blocks=False, chain_length=3 * b, output_samples_frequency=b,
+                output_folder=folder)
+        counts = {k.__name__: k.launches for k in jt.KERNELS}
+        vc_id = vc_sample_rows(folder, "y:ID_y:dam_variances")
+        vc_herd = vc_sample_rows(folder, "y:herd_variances")
+        files = sorted(os.listdir(folder))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ws, windows = built["workspace"], built["chain"][-1]
+    gm = built["store and Grams"]
+    K = ws.W.shape[1]
+    say(f"K = {K} location levels; b={gm.grams.shape[1]}, "
+        f"gb={gm.grams.shape[0] // gm.ngroups}, {gm.ngroups} groups; "
+        f"{len(pheno)} phenotyped, {len(cand)} candidates")
+    say("seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                {**seconds_model, **seconds}.items())
+        + "; windows (an outer iteration of " + str(b) + " sweeps each) "
+        + ", ".join(f"{t:.3f}" for t in windows))
+    say(f"K6: {counts[K6]} passes, {k6['K6'] / counts[K6] * 1e3:.2f} ms a pass, "
+        f"{k6['K6'] / sum(windows):.2%} of the windows; peak device memory "
+        f"{peak / 1e9:.2f} GB; launches {counts}; files {files}")
+    del gm, built
+    # the output IDs' EBVs: the pedigree terms' out_W sol plus X alpha
+    sol = np.asarray(out["location parameters"].Estimate, dtype=np.float64)
+    out_sol = np.zeros(len(ws.output_ids))
+    for name in ws.prediction_terms:
+        term = ws.model.term_dict[name]
+        out_sol += ws.output_X[name] @ sol[term.start_pos:term.start_pos + term.n_levels]
+    row = {s: i for i, s in enumerate(ws.output_ids)}
+    ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
+    check = [ids[i] for i in cand[:64]]
+    direct = direct_ebv(packed, means, out["marker effects geno"].Estimate,
+                        [row[s] for s in check]) + out_sol[[row[s] for s in check]]
+    got = np.array([ebv[s] for s in check])
+    err = float(np.abs(got - direct).max() / np.abs(direct).max())
+    acc = float(np.corrcoef([ebv[ids[i]] for i in cand], tbv[cand])[0, 1])
+    G = out["polygenic effects covariance matrix"].Estimate
+    say(f"EBVs of 64 candidates against out_W sol + X alpha: max relative error "
+        f"{err:.3g} (tolerance {RTOL_DIRECT_EBV}); EBV accuracy of the "
+        f"candidates after 3 outer iterations {acc:.4f}; prediction terms "
+        f"{ws.prediction_terms}; G(ID, dam) {np.round(G, 4).tolist()}, herd "
+        f"{out['random effect variances y:herd'].Estimate[0]:.4g}, vare "
+        f"{out['residual variance'].Estimate[0]:.4g}")
+    pd_ok = all(np.isfinite(v).all() and np.linalg.eigvalsh(v.reshape(2, 2)).min() > 0
+                for v in vc_id) and all(np.isfinite(v).all() and v[0] > 0 for v in vc_herd)
+    if not (pd_ok and len(vc_id) == 3 and len(vc_herd) == 3):
+        raise AssertionError(f"phase 9a: covariance samples {vc_id}, {vc_herd}")
+    if not err <= RTOL_DIRECT_EBV or not np.isfinite(acc):
+        raise AssertionError(f"phase 9a: EBVs off out_W sol + X alpha by {err:.3g}")
+    K_want = 2 + len(set(table["herd"].tolist())) + 2 * len(ids)
+    if K != K_want:
+        raise AssertionError(f"phase 9a: K = {K}, not {K_want}")
+    path = ("abc_inner_rounds", "packed_rhs", "packed_matvec", K6)
+    if any(counts[k] == 0 for k in path):
+        raise AssertionError(f"phase 9a: kernels never launched: {counts}")
+    del packed, store, ws
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in path}
+
+
+def phase9b(dev, n_iter=100, n_founders=1_800, gen_size=3_000, n_pheno=16_000):
+    """Phase 9b; see the module's docstring."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.io.table import Table
+
+    ids, sire, dam, starts = phase9_pedigree(n_founders, (gen_size,) * 6, seed=95)
+    say(f"== phase 9b: pedigree BLUP without genotypes at K = {len(ids) + 102}")
+    t0 = time.perf_counter()
+    ped = jt.get_pedigree(pedigree_table(ids, sire, dam))
+    t_ped = time.perf_counter() - t0
+    # u ~ N(0, A) by the recursion: founders N(0, 1), then the parents'
+    # mean plus Mendelian sampling of variance 1/2 - (F_s + F_d) / 4
+    F = ped.inbreeding[[ped.id_index[s] for s in ids]]
+    rng = np.random.default_rng(96)
+    u = rng.normal(0.0, 1.0, len(ids))
+    for r0, r1 in zip(starts[1:-1], starts[2:]):
+        s, d = sire[r0:r1], dam[r0:r1]
+        u[r0:r1] = (0.5 * (u[s] + u[d])
+                    + np.sqrt(0.5 - 0.25 * (F[s] + F[d])) * u[r0:r1])
+    pheno = rng.choice(np.arange(starts[1], len(ids)), n_pheno, replace=False)
+    herd = rng.integers(1, 101, len(ids))
+    age = np.round(rng.uniform(1.0, 5.0, len(ids)), 2)
+    y = u + rng.normal(0.0, 1.0, 101)[herd] + 0.5 * age + rng.normal(0.0, 1.0, len(ids))
+    table = Table({"ID": ids[pheno], "y": y[pheno], "herd": herd[pheno],
+                   "age": age[pheno]})
+
+    def on_model(model):
+        jt.set_random(model, "ID", ped, 1.0)
+
+    busy = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    jt.reset_launches()
+    out, seconds, built = run_phase5(
+        None, table, eq="y = intercept + age + herd + ID", on_model=on_model,
+        around_chain=busy_shares(busy), device=dev, chain_length=n_iter,
+        output_samples_frequency=10, output_folder="")
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    ws, windows = built["workspace"], built["chain"][-1]
+    K = ws.W.shape[1]
+    k6_s = sum(v for k, v in busy["by_kernel"].items() if "gibbs_pass" in k)
+    ms_iter = float(np.mean(windows[1:])) / 10 * 1e3
+    ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
+    unphen = np.setdiff1d(np.arange(len(ids)), pheno)
+    acc = {who: float(np.corrcoef([ebv[ids[i]] for i in rows], u[rows])[0, 1])
+           for who, rows in (("all", np.arange(len(ids))), ("unphenotyped", unphen))}
+    say(f"K = {K}; {len(pheno)} phenotyped of {len(ids)}; get_pedigree {t_ped:.2f} s; "
+        "seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + "; windows of 10 iterations " + ", ".join(f"{t:.4f}" for t in windows))
+    say(f"{ms_iter:.2f} ms an iteration after the first window (profiled); busy "
+        f"{busy['kernels']:.2%} of the chain's {busy['wall']:.2f} s, K6 "
+        f"{k6_s / busy['wall']:.2%} ({k6_s / max(counts[K6], 1) * 1e3:.2f} ms a pass); "
+        f"peak device memory {peak / 1e9:.2f} GB; launches {counts}")
+    say(f"EBV accuracy against u: all {acc['all']:.4f}, unphenotyped "
+        f"{acc['unphenotyped']:.4f}; sigma^2_u "
+        f"{out['polygenic effects covariance matrix'].Estimate[0]:.4g}, vare "
+        f"{out['residual variance'].Estimate[0]:.4g} (truth 1, 1)")
+    values = [np.asarray(out[k].Estimate, dtype=np.float64) for k in
+              ("residual variance", "polygenic effects covariance matrix",
+               "location parameters")] + [np.asarray(out["EBV_y"].EBV, dtype=np.float64),
+                                          np.array(list(acc.values()))]
+    if not all(np.isfinite(v).all() for v in values):
+        raise AssertionError("phase 9b: non-finite results")
+    if K != len(ids) + 102 or counts[K6] != n_iter or len(ebv) != len(ids):
+        raise AssertionError(f"phase 9b: K = {K}, {counts[K6]} K6 launches, "
+                             f"{len(ebv)} EBVs")
+    del built, ws
+    torch.cuda.empty_cache()
+    return {K6: counts[K6]}
+
+
+def phase9c(dev, p=2_000, n_iter=2_000):
+    """Phase 9c; see the module's docstring."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.io.table import Table
+
+    say("== phase 9c: statistical check of a pedigree-plus-genotype model")
+    ids, sire, dam, starts = phase9_pedigree(100, (150,) * 6, seed=97)
+    rng = np.random.default_rng(98)
+    freqs = rng.uniform(0.1, 0.9, p)
+    X = np.zeros((len(ids), p), dtype=np.int64)
+    X[:starts[1]] = rng.binomial(2, freqs, (starts[1], p))
+    for r0, r1 in zip(starts[1:-1], starts[2:]):
+        X[r0:r1] = (rng.binomial(1, X[sire[r0:r1]] / 2.0)
+                    + rng.binomial(1, X[dam[r0:r1]] / 2.0))
+    keep_from = starts[3]                       # the last four generations: 600
+    beta = np.zeros(p)
+    qtl = rng.choice(p, 20, replace=False)
+    beta[qtl] = rng.normal(size=20)
+    Xk = X[keep_from:].astype(np.float64)
+    gv = (Xk - Xk.mean(axis=0)) @ beta
+    tbv = (gv - gv.mean()) / gv.std()
+    cand = np.sort(rng.choice(np.arange(starts[-2], len(ids)), 100, replace=False))
+    pheno = rng.permutation(np.setdiff1d(np.arange(keep_from, len(ids)), cand))
+    herd = rng.integers(1, 21, len(ids))
+    maternal = rng.normal(0.0, 0.1 ** 0.5, len(ids))
+    y = np.zeros(len(ids))
+    y[keep_from:] = tbv
+    y += (maternal[np.maximum(dam, 0)] + rng.normal(0.0, 0.1 ** 0.5, 21)[herd]
+          + rng.normal(0.0, 1.0, len(ids)))
+    geno = Table({"ID": ids[keep_from:], **{f"m{j + 1}": X[keep_from:, j] for j in range(p)}})
+    table = Table({"ID": ids[pheno], "y": y[pheno], "herd": herd[pheno],
+                   "dam": ids[dam[pheno]]})
+    ped = jt.get_pedigree(pedigree_table(ids, sire, dam))
+    res = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        jt.reset_launches()
+        # pi starts at 0.99: from 0 (every marker in) the blocked chain
+        # at p = 2,000 over 500 records diverges after some hundred sweeps
+        # on this data, with or without the random effects (the CPU's plain
+        # versions as well)
+        model = jt.build_model("y = intercept + herd + ID + dam + geno",
+                               genotypes=jt.get_genotypes(geno, method="BayesC",
+                                                          Pi=0.99, storage="2bit"))
+        jt.set_random(model, "herd", 0.1)
+        jt.set_random(model, "ID dam", ped, PHASE9A_G)
+        t0 = time.perf_counter()
+        out = jt.runMCMC(model, table, device=where, chain_length=n_iter, burnin=400,
+                         fast_blocks=8, seed=5, output_folder="",
+                         printout_model_info=False)
+        ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
+        res[label] = dict(
+            seconds=time.perf_counter() - t0,
+            acc=float(np.corrcoef([ebv[s] for s in ids[keep_from:]], tbv)[0, 1]),
+            acc_cand=float(np.corrcoef([ebv[ids[i]] for i in cand],
+                                       tbv[cand - keep_from])[0, 1]),
+            G=np.round(out["polygenic effects covariance matrix"].Estimate, 4).tolist(),
+            herd=float(out["random effect variances y:herd"].Estimate[0]),
+            vare=float(out["residual variance"].Estimate[0]),
+            launches={k.__name__: k.launches for k in jt.KERNELS})
+    for where, r in res.items():
+        say(f"{where}: EBV accuracy of the {len(ids) - keep_from} genotyped "
+            f"{r['acc']:.4f} (candidates {r['acc_cand']:.4f}); posterior means "
+            f"G(ID, dam) {r['G']}, herd {r['herd']:.4g}, vare {r['vare']:.4g} "
+            f"({r['seconds']:.1f} s); launches {r['launches']}")
+    card, cpu = res["card"], res["cpu"]
+    if not (np.isfinite([card["acc"], cpu["acc"]]).all()
+            and card["acc"] >= cpu["acc"] - ACC_MARGIN_9C):
+        raise AssertionError(f"phase 9c: card accuracy {card['acc']:.4f} vs CPU "
+                             f"{cpu['acc']:.4f} (margin {ACC_MARGIN_9C})")
+    path = ("abc_inner_rounds", "packed_rhs", "packed_matvec", K6)
+    if any(card["launches"][k] == 0 for k in path):
+        raise AssertionError(f"phase 9c: kernels never launched: {card['launches']}")
+    return {k: card["launches"][k] for k in path}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from jwas_tpu_torch import _build
+    from jwas_tpu_torch.io.pedigree import _inbreeding_meuwissen_luo
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -1607,13 +2176,19 @@ def main():
     _build.library()
     say(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s)")
+    t0 = time.perf_counter()
+    _build.host_library()
+    F = _inbreeding_meuwissen_luo(np.array([-1, -1, 0, 0, 2]), np.array([-1, -1, 1, 1, 3]))
+    if not np.allclose(F, [0.0, 0.0, 0.0, 0.0, 0.25]):
+        raise AssertionError(f"csrc/pedigree.cpp: inbreeding {F}")
+    say(f"csrc/pedigree.cpp built with g++ and checked in {time.perf_counter() - t0:.1f} s")
     say("\n".join(line for line in _build.build_log.splitlines()
                   if "registers" in line or "spill" in line
                   or line.endswith(" s")))      # seconds a source
 
     recs = phase2(dev)
     launches, kept = phase3(dev)
-    phase4(dev)
+    launches["phase 4"] = phase4(dev)
     launches["phase 5"] = phase5(dev, kept)
     launches["phase 6a"] = phase6a(dev, kept)
     launches["phase 6b"] = phase6b(dev, kept)
@@ -1621,11 +2196,17 @@ def main():
     torch.cuda.empty_cache()
     launches.update(phase7(dev))
     launches.update(phase8(dev))
+    launches["phase 9a"] = phase9a(dev)
+    launches["phase 9b"] = phase9b(dev)
+    launches["phase 9c"] = phase9c(dev)
 
-    # launches: phase 3's (run_st, both methods), phase 5's (runMCMC),
-    # phase 6's (runMCMC BayesB; BayesC streamed with no group resident),
-    # phase 7's (runMCMC on dense stores; the float64 builds' in 7d),
-    # phase 8's (runMCMC RR-BLUP, BayesL, BayesA through K1; GBLUP none)
+    # launches: phase 3's (run_st, both methods), phase 4's (K6 of the
+    # card's chains), phase 5's (runMCMC), phase 6's (runMCMC BayesB;
+    # BayesC streamed with no group resident), phase 7's (runMCMC on dense
+    # stores; the float64 builds' in 7d), phase 8's (runMCMC RR-BLUP,
+    # BayesL, BayesA through K1; GBLUP K6 only), phase 9's (the animal
+    # model beside the markers, pedigree BLUP, the card's chain of 9c);
+    # K6 in every one
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=sum(c.get(name, 0) for c in launches.values()),

@@ -8,35 +8,42 @@ exact single-site sweep with fast_blocks=False), with residual weights
 (heterogeneous_residuals) and in float64 (double_precision) on a dense
 store. The 2-bit store lives on the card, or in pinned host memory from
 which its groups stream to the card (runMCMC's host_offload_genotypes),
-the leading ones on the card where they fit. It imports torch, numpy and
+the leading ones on the card where they fit. Random effects (set_random:
+i.i.d., pedigree and user-given Vinv groups) run beside the genotypes or
+without them (the pedigree-BLUP animal model). It imports torch, numpy and
 scipy only; never jax, pandas or jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
-get_genotypes (storage "2bit", or a dense one written to a device) or
-prepare_packed_genotypes, build_model, set_covariate, outputEBV, describe
-and runMCMC(model, df), which returns the result tables and writes the
-result and sample files. Below them: Packed2BitStore.load (a stored 2-bit
+get_pedigree and get_info, get_genotypes (storage "2bit", or a dense one
+written to a device) or prepare_packed_genotypes, build_model,
+set_covariate, set_random, outputEBV, describe and runMCMC(model, df),
+which returns the result tables and writes the result and sample files. Below them: Packed2BitStore.load (a stored 2-bit
 store), engine.mcmc.setup_markers and setup_dense_markers (block sizes,
 row order, Gram tiles, on a device) and engine.mcmc.run_st (the chain with
-explicit priors). On a CUDA device the sweep runs hand-written kernels
+explicit priors). On a CUDA device the chain runs hand-written kernels
 (csrc/), built with nvcc on first use: the BayesC/B or BayesR inner rounds
 (float32 and float64 builds) between two GEMVs, the packed ones on the
-2-bit store. On the CPU (device="cpu") it runs their plain PyTorch
-versions.
+2-bit store, and the location parameters' Gibbs pass (K6). On the CPU
+(device="cpu") it runs their plain PyTorch versions. The pedigree's
+inbreeding is host C++ (csrc/pedigree.cpp), built with g++ on first use.
 """
 
 from jwas_tpu_torch.engine.mcmc import runMCMC, run_st, setup_dense_markers, setup_markers
 from jwas_tpu_torch.io.genotypes import get_genotypes
 from jwas_tpu_torch.io.packed import Packed2BitStore, pack_codes, prepare_packed_genotypes
+from jwas_tpu_torch.io.pedigree import Pedigree, get_info, get_pedigree
 from jwas_tpu_torch.io.table import Table, read_csv
-from jwas_tpu_torch.models.model import build_model, describe, outputEBV, set_covariate
+from jwas_tpu_torch.models.model import (build_model, describe, outputEBV, set_covariate,
+                                         set_random)
 from jwas_tpu_torch.ops.grouped import build_grouped_markers, pick_stable_blocks
 from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds, bayesr_inner_rounds
+from jwas_tpu_torch.ops.location import gibbs_pass_lambda
 from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 
 # the kernel wrappers, each counting its own launches (the inner rounds
 # also their float64 build's, launches_f64)
-KERNELS = (abc_inner_rounds, bayesr_inner_rounds, packed_rhs, packed_matvec)
+KERNELS = (abc_inner_rounds, bayesr_inner_rounds, packed_rhs, packed_matvec,
+           gibbs_pass_lambda)
 
 
 def reset_launches() -> None:
@@ -47,10 +54,11 @@ def reset_launches() -> None:
 
 
 __all__ = [
-    "KERNELS", "Packed2BitStore", "Table", "abc_inner_rounds",
+    "KERNELS", "Packed2BitStore", "Pedigree", "Table", "abc_inner_rounds",
     "bayesr_inner_rounds", "build_grouped_markers", "build_model", "describe",
-    "get_genotypes", "outputEBV", "pack_codes", "packed_matvec", "packed_rhs",
+    "get_genotypes", "get_info", "get_pedigree", "gibbs_pass_lambda",
+    "outputEBV", "pack_codes", "packed_matvec", "packed_rhs",
     "pick_stable_blocks", "prepare_packed_genotypes", "read_csv",
-    "reset_launches", "runMCMC", "run_st", "set_covariate",
+    "reset_launches", "runMCMC", "run_st", "set_covariate", "set_random",
     "setup_dense_markers", "setup_markers",
 ]

@@ -58,6 +58,11 @@ _SIGNATURES = {
     "jt_bayesr_resident": [_I, _I, _I],
     # which, io (16 floats), steps, stream: csrc/chain_probe.cu
     "jt_chain_probe": [_I, _P, _I, _P],
+    # A, x_in, b, zs, vare, x_out, K, stream: csrc/gibbs_pass.cu (K6);
+    # float32 and float64 builds, and the largest K they take
+    "jt_gibbs_pass": [_P] * 6 + [_I, _P],
+    "jt_gibbs_pass_f64": [_P] * 6 + [_I, _P],
+    "jt_gibbs_pass_max_k": [],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
     # rows_per_cta, stream
     "jt_packed_rhs": [_P] * 5 + [_I] * 5 + [_P],
@@ -138,6 +143,53 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
+        return lib
+
+
+_host_lib: Optional[ctypes.CDLL] = None
+# g++ flags of the host library; OpenMP first, the sequential build where
+# the compiler has no OpenMP (the same results, one thread)
+_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+_CXX_OPENMP = (["-fopenmp"], [])
+
+
+def host_library() -> ctypes.CDLL:
+    """csrc/pedigree.cpp (host C++, Meuwissen-Luo inbreeding), built with
+    g++ on first use into _build/ under a name that carries a hash of the
+    source and the flags, and loaded with ctypes. Raises if g++ fails."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    with _lock:
+        if _host_lib is not None:
+            return _host_lib
+        src = _CSRC / "pedigree.cpp"
+        h = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
+        h.update(src.read_bytes())
+        path = _BUILD / f"libjwas_tpu_torch_host-{h.hexdigest()[:16]}.so"
+        if not path.exists():
+            _BUILD.mkdir(parents=True, exist_ok=True)
+            cxx = shutil.which("g++") or shutil.which("c++")
+            if cxx is None:
+                raise RuntimeError("g++ not found: csrc/pedigree.cpp cannot be built")
+            tmp = _BUILD / f"{path.stem}.{os.getpid()}.tmp"
+            logs = []
+            for extra in _CXX_OPENMP:
+                cmd = [cxx, *_CXX_FLAGS, *extra, str(src), "-o", str(tmp)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode == 0:
+                    os.replace(tmp, path)
+                    break
+                logs.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            else:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError("g++ failed to build csrc/pedigree.cpp:\n"
+                                   + "\n".join(logs))
+        lib = ctypes.CDLL(str(path))
+        i64 = ctypes.c_int64
+        lib.jt_inbreeding_ml.argtypes = [_P, _P, i64, ctypes.c_double, _P]
+        lib.jt_inbreeding_ml.restype = None
+        _host_lib = lib
         return lib
 
 

@@ -9,7 +9,8 @@ a GroupedPackedMarkers of this package with block-major Grams
 (p, n) store; GBLUP's L, D and output map (STData.X, .xpx, .out_geno)
 become a GBLUPMarkers (eigenvectors have arbitrary signs, so a test gives
 both packages the same ones); chain-state arrays (BayesL's gamma_l among
-them) become flat tensors.
+them) become flat tensors; the random-effect state (the groups' configs,
+W'R^-1W, each group's dense Vinv and covariance) becomes the port's.
 """
 
 from __future__ import annotations
@@ -17,9 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jwas_tpu_torch.engine.state import REGroupCfg
 from jwas_tpu_torch.ops.dense import DenseMarkers
 from jwas_tpu_torch.ops.gblup import GBLUPMarkers, build_gblup_markers
 from jwas_tpu_torch.ops.grouped import GroupedPackedMarkers, GroupFetcher
+from jwas_tpu_torch.ops.location import symmetric_upper
 
 
 def from_jax_arrays(store, means, valid, xpx, grams, n_obs: int,
@@ -89,3 +92,23 @@ def from_jax_marker_blocks(X, xpx, grams, valid, group_blocks: int, *,
         rinv=None if rinv is None else t(rinv), xpx=xpx_t,
         grams=t(np.ascontiguousarray(np.transpose(np.asarray(grams), (2, 0, 1)))),
         valid=valid_t, n_obs=X.shape[0])
+
+
+def from_jax_random_effects(re_groups, WtRinvW, Vinv, vc, *, device="cpu",
+                            dtype=torch.float32):
+    """jwas_tpu's random-effect state (its EngineCfg.re_groups, STData's
+    WtRinvW and Vinv, ChainState's vc; numpy or JAX arrays) -> the port's
+    (REGroupCfg tuple, W'R^-1W, Vinv tuple, vc tuple) in dtype on device.
+    W'R^-1W and each Vinv are made exactly symmetric (symmetric_upper), as
+    engine/mcmc.py::make_data makes them; an identity group's (0, 0) Vinv
+    becomes None. estimate_variance is True: jwas_tpu's step draws every
+    group (fault R10)."""
+    def t(x):
+        return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+
+    cfg = tuple(REGroupCfg(starts=tuple(g.starts), n_levels=g.n_levels, df=g.df,
+                           has_vinv=g.has_vinv, random_type=g.random_type,
+                           estimate_variance=True) for g in re_groups)
+    Vt = tuple(symmetric_upper(t(v)) if g.has_vinv else None
+               for g, v in zip(re_groups, Vinv))
+    return cfg, symmetric_upper(t(WtRinvW)), Vt, tuple(t(v) for v in vc)

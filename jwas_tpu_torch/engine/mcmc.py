@@ -1,17 +1,27 @@
-"""The single-trait methods on the 2-bit packed store, a dense store or
-GBLUP's eigenbasis: Gibbs step, chain loop, runMCMC.
+"""The single-trait methods on the 2-bit packed store, a dense store,
+GBLUP's eigenbasis or no genotypes, with random effects: Gibbs step, chain
+loop, runMCMC.
 
 Counterpart of jwas_tpu/engine/mcmc.py, trimmed to the paths that runMCMC
 takes on one device for storage='2bit' genotypes (:786-868), for dense
-ones (:796-844) and for GBLUP (:778-786): STData (:50), make_st_step
-(:113-527: the location pass with W'R^-1W and W'R^-1 ycorr :180-185,
+ones (:796-844), for GBLUP (:778-786) and without genotypes (method
+"none", :771-772, :904-910): STData (:50), make_st_step
+(:113-527: the location pass over the LHS W'R^-1W plus the random
+effects' blocks and W'R^-1 ycorr :86-106, :180-185,
 :766-768, the packed grouped BayesC/B branch :191-210 and BayesR branch
 :321-347, the dense grouped and exact branches :233-267, :288-320,
 :366-404, GBLUP :414-417, pi :438-443, the marker variance and BayesL's
-local shrinkage :446-472, its scale :476-484, the weighted residual
-variance :509-518), make_run_window (:580-668), _init_accum (:671),
-_apply_update_priors (:691-715), _build_st_data_and_state (:762-868, the
+local shrinkage :446-472, its scale :476-484, the random-effect
+covariances :486-507, the weighted residual variance :509-518),
+make_run_window (:580-668), _init_accum (:671), _apply_update_priors
+(:691-715), _build_st_data_and_state (:762-868, the groups :916-944, the
 state :1128-1224) and the single-chain loop of runMCMC (:1435-1569).
+
+The location pass is one launch of K6 on the card (ops/location.py), on
+every path; with random effects the LHS is assembled from the group
+covariances and the residual variance each outer iteration. A group set
+with estimate_variance=False keeps its G: jwas_tpu draws it all the same
+(fault R10, ROADMAP.md).
 
 The chain's dtype is its store's, float32 or float64
 (double_precision), chosen per call: there is no global switch (fault
@@ -47,7 +57,7 @@ from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
 from jwas_tpu_torch.engine.samples_io import STSampleStream
 from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace,
                                          prepare_workspace, resolve_device)
-from jwas_tpu_torch.engine.state import ChainState, EngineCfg
+from jwas_tpu_torch.engine.state import ChainState, EngineCfg, REGroupCfg
 from jwas_tpu_torch.io.genotypes import DEFAULT_BAYESR_PI, bayesr_pi  # noqa: F401
 from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
 from jwas_tpu_torch.models.model import Model, describe
@@ -64,7 +74,8 @@ from jwas_tpu_torch.ops.grouped import (
     sweep_blocks_bayesr_grouped,
     sweep_blocks_c0l_grouped,
 )
-from jwas_tpu_torch.ops.location import gibbs_pass_lambda
+from jwas_tpu_torch.ops.location import (assemble_lhs_lambda, gibbs_pass_lambda,
+                                         symmetric_upper)
 from jwas_tpu_torch.ops.variance import (
     sample_bayesl_gamma,
     sample_marker_variance_bayesb,
@@ -72,6 +83,7 @@ from jwas_tpu_torch.ops.variance import (
     sample_marker_variance_common,
     sample_pi_abc,
     sample_pi_bayesr,
+    sample_random_effect_vc,
     sample_residual_variance_st,
     sample_scale_bayesb,
     sample_scale_st,
@@ -82,19 +94,38 @@ METHODS = ("BayesC", "BayesB", "BayesR", "RR-BLUP", "BayesL", "GBLUP")
 PI_METHODS = ("BayesC", "BayesB", "BayesR")    # those with a pi to estimate
 
 
+class NoMarkers(NamedTuple):
+    """The marker side of a model without genotypes (method "none"): no
+    markers; the chain's dtype, device and residual weights."""
+
+    xpx: torch.Tensor          # (0,) in the chain's dtype on its device
+    valid: torch.Tensor        # (0,)
+    rinv: Optional[torch.Tensor]
+    n_obs: int
+
+    @property
+    def device(self):
+        return self.xpx.device
+
+
 class STData(NamedTuple):
     """Static device data of a single-trait chain, in the chain's dtype."""
 
     W: torch.Tensor            # (n, K) location design
-    WtW: torch.Tensor          # (K, K) location LHS W'R^-1W (no random effects)
+    WtW: torch.Tensor          # (K, K) W'R^-1W, exactly symmetric
+                               # (ops/location.py::symmetric_upper)
     y: torch.Tensor            # (n,)
-    gm: object                 # GroupedPackedMarkers, DenseMarkers or
-                               # GBLUPMarkers
+    gm: object                 # GroupedPackedMarkers, DenseMarkers,
+                               # GBLUPMarkers or NoMarkers
     scale_r: torch.Tensor      # 0-d residual-variance prior scale
     ebv_rows: Optional[torch.Tensor]  # (n_out,) store columns of the EBVs'
                                       # IDs; None: the training rows
     out_W: Optional[torch.Tensor]     # (n_out, K) prediction-equation rows,
-                                      # None when it has no terms
+                                      # None when it has no terms (never
+                                      # None without markers)
+    Vinv: tuple = ()           # a random-effect group's (q, q) Vinv,
+                               # exactly symmetric; None for "I"
+    vc_scale: tuple = ()       # a group's (k, k) prior scale
 
 
 class SampleOut(NamedTuple):
@@ -126,6 +157,8 @@ class Accum(NamedTuple):
     scale_m2: torch.Tensor
     ebv_m: torch.Tensor
     ebv_m2: torch.Tensor
+    vc_m: tuple = ()           # a (k, k) mean a random-effect group
+    vc_m2: tuple = ()
 
 
 class ChainPlan(NamedTuple):
@@ -213,25 +246,19 @@ def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
 
 
 def make_st_step(cfg: EngineCfg):
-    """One outer iteration: location pass, marker sweep (nreps effective
-    sweeps of the grouped schedule; one for the exact sweep's store and
-    GBLUP), pi, marker variance (then BayesL's local shrinkage), its
-    scale, residual variance. The marker state and ycorr of the returned
-    state are the input's tensors, updated in place. BayesB is BayesC's
-    sweep with one variance a marker."""
+    """One outer iteration: location pass (over W'R^-1W plus the random
+    effects' blocks), marker sweep (nreps effective sweeps of the grouped
+    schedule; one for the exact sweep's store and GBLUP; none without
+    markers), pi, marker variance (then BayesL's local shrinkage), its
+    scale, the random-effect covariances, the residual variance. The marker
+    state of the returned state is the input's tensors, updated in place.
+    BayesB is BayesC's sweep with one variance a marker."""
     method = cfg.method
     bayesr, bayesb = method == "BayesR", method == "BayesB"
     bayesl, gblup = method == "BayesL", method == "GBLUP"
 
-    def step(state: ChainState, data: STData) -> ChainState:
-        gen, gm = state.gen, data.gm
-
-        # 1. location parameters (MCMC_BayesianAlphabet.jl:196-220)
-        ycorr = state.ycorr + data.W @ state.sol
-        w = ycorr if gm.rinv is None else gm.rinv * ycorr
-        sol = gibbs_pass_lambda(data.WtW, state.sol, data.W.T @ w,
-                                state.vare, gen)
-        ycorr -= data.W @ sol
+    def markers(state: ChainState, data: STData) -> ChainState:
+        gen, gm, ycorr = state.gen, data.gm, state.ycorr
 
         # 2. marker effects (in place)
         real = gm.valid > 0
@@ -297,17 +324,42 @@ def make_st_step(cfg: EngineCfg):
                                           cfg.df_marker)
         elif cfg.estimate_scale:
             scale_g = sample_scale_st(gen, varg, cfg.df_marker)
+        return state._replace(alpha=alpha, beta=beta, delta=delta, ycorr=ycorr,
+                              varg=varg, pi=pi, scale_g=scale_g, gamma_l=gamma_l)
 
-        # 3. residual variance
+    def step(state: ChainState, data: STData) -> ChainState:
+        gen, gm = state.gen, data.gm
+
+        # 1. location parameters (MCMC_BayesianAlphabet.jl:196-220), K6
+        lhs = (assemble_lhs_lambda(cfg.re_groups, data.WtW, data.Vinv, state.vc,
+                                   state.vare) if cfg.re_groups else data.WtW)
+        ycorr = state.ycorr + data.W @ state.sol
+        w = ycorr if gm.rinv is None else gm.rinv * ycorr
+        sol = gibbs_pass_lambda(lhs, state.sol, data.W.T @ w, state.vare, gen)
+        ycorr -= data.W @ sol
+        state = state._replace(sol=sol, ycorr=ycorr)
+
+        # 2. markers, pi, their variance and its scale
+        if method != "none":
+            state = markers(state, data)
+
+        # 3.1 random-effect covariances (sampleVCs, variance_components.jl:
+        # 115-147); a group with estimate_variance=False keeps its G (R10)
+        vc = list(state.vc)
+        for g, grp in enumerate(cfg.re_groups):
+            if grp.estimate_variance:
+                q = grp.n_levels
+                sols = torch.stack([sol[s:s + q] for s in grp.starts])
+                vc[g] = sample_random_effect_vc(gen, sols, data.Vinv[g], grp.df,
+                                                data.vc_scale[g])
+
+        # 3.2 residual variance
         vare = state.vare
         if cfg.estimate_residual_variance:
-            vare = sample_residual_variance_st(gen, ycorr, cfg.n_obs,
+            vare = sample_residual_variance_st(gen, state.ycorr, cfg.n_obs,
                                                cfg.df_residual, data.scale_r,
                                                invweights=gm.rinv)
-
-        return ChainState(gen=gen, sol=sol, alpha=alpha, beta=beta,
-                          delta=delta, ycorr=ycorr, vare=vare, varg=varg,
-                          pi=pi, scale_g=scale_g, gamma_l=gamma_l)
+        return state._replace(vare=vare, vc=tuple(vc))
 
     return step
 
@@ -338,7 +390,10 @@ def sample_ebv(data: STData, state: ChainState):
     """EBVs of a sample (getEBV, output.jl:281-306): prediction-equation
     terms plus X alpha, the latter one pass over the store in store order
     (K5 on the 2-bit store, one GEMV on a dense one) with the wanted IDs'
-    columns selected."""
+    columns selected; without markers the prediction-equation terms
+    alone."""
+    if isinstance(data.gm, NoMarkers):
+        return data.out_W @ state.sol
     if data.ebv_rows is not None and data.ebv_rows.numel() == 0:
         return torch.zeros(0, dtype=state.alpha.dtype, device=state.alpha.device)
     xa = data.gm.matvec_store(state.alpha)
@@ -382,6 +437,8 @@ def make_run_window(cfg: EngineCfg):
                 scale_m2=_welford(accum.scale_m2, state.scale_g ** 2, n),
                 ebv_m=_welford(accum.ebv_m, ebv, n),
                 ebv_m2=_welford(accum.ebv_m2, ebv ** 2, n),
+                vc_m=tuple(_welford(m, v, n) for m, v in zip(accum.vc_m, state.vc)),
+                vc_m2=tuple(_welford(m, v ** 2, n) for m, v in zip(accum.vc_m2, state.vc)),
             )
         return state, accum, out
 
@@ -394,13 +451,17 @@ def _init_accum(cfg: EngineCfg, data: STData, state: ChainState) -> Accum:
 
     s = z(state.vare)
     pi = z(_pi_summary(cfg, state))
-    n_out = data.y.shape[0] if data.ebv_rows is None else data.ebv_rows.shape[0]
+    if isinstance(data.gm, NoMarkers):
+        n_out = data.out_W.shape[0]
+    else:
+        n_out = data.y.shape[0] if data.ebv_rows is None else data.ebv_rows.shape[0]
     ebv = torch.zeros(n_out, dtype=state.alpha.dtype, device=state.alpha.device)
+    vc = tuple(z(v) for v in state.vc)
     return Accum(n=0.0, sol_m=z(state.sol), sol_m2=z(state.sol),
                  alpha_m=z(state.alpha), alpha_m2=z(state.alpha),
                  delta_m=z(state.alpha), vare_m=s, vare_m2=s, varg_m=s,
                  varg_m2=s, pi_m=pi, pi_m2=pi, scale_m=s, scale_m2=s,
-                 ebv_m=ebv, ebv_m2=ebv)
+                 ebv_m=ebv, ebv_m2=ebv, vc_m=vc, vc_m2=vc)
 
 
 def _reject_unsupported(**unsupported) -> None:
@@ -418,8 +479,12 @@ def _reject_unsupported(**unsupported) -> None:
 
 
 def _check_store(gm, method: str) -> None:
-    """GBLUP runs on its eigenbasis and nothing else does; the 2-bit store
-    runs BayesC, BayesB and BayesR only, as in jwas_tpu."""
+    """GBLUP runs on its eigenbasis and nothing else does, method "none"
+    on no markers; the 2-bit store runs BayesC, BayesB and BayesR only,
+    as in jwas_tpu."""
+    if (method == "none") != isinstance(gm, NoMarkers):
+        raise ValueError('method "none" runs on NoMarkers and the other methods '
+                         'on markers')
     if (method == "GBLUP") != isinstance(gm, GBLUPMarkers):
         raise ValueError("GBLUP runs on a GBLUPMarkers (ops/gblup.py) and the "
                          "other methods on a marker store")
@@ -429,14 +494,17 @@ def _check_store(gm, method: str) -> None:
 
 def make_cfg(gm, method: str, *, nreps, sync_every, chain_length: int, df_R,
              df_marker, estimate_pi: bool, estimate_marker_variance: bool,
-             estimate_scale: bool, estimate_residual_variance: bool) -> EngineCfg:
+             estimate_scale: bool, estimate_residual_variance: bool,
+             re_groups=()) -> EngineCfg:
     """The chain's static configuration; nreps defaults to the block size
     and is clamped to chain_length (never more sweeps than asked for); the
-    exact sweep's store (a dense store built with exact=True) and GBLUP run
-    one sweep an outer iteration. Only BayesC, BayesB and BayesR estimate
-    pi (RR-BLUP, BayesL and GBLUP have none, normalize_method)."""
+    exact sweep's store (a dense store built with exact=True), GBLUP and
+    a model without markers run one sweep an outer iteration. Only BayesC,
+    BayesB and BayesR estimate pi (RR-BLUP, BayesL and GBLUP have none,
+    normalize_method). re_groups: a REGroupCfg a random-effect group."""
     _check_store(gm, method)
-    if isinstance(gm, GBLUPMarkers) or (isinstance(gm, DenseMarkers) and gm.exact):
+    if isinstance(gm, (GBLUPMarkers, NoMarkers)) or (
+            isinstance(gm, DenseMarkers) and gm.exact):
         nreps = 1
     else:
         nreps = max(1, min(nreps if nreps is not None else gm.grams.shape[1],
@@ -449,13 +517,18 @@ def make_cfg(gm, method: str, *, nreps, sync_every, chain_length: int, df_R,
         estimate_residual_variance=estimate_residual_variance,
         nreps=nreps, sync_every=mk.resolve_sync_every(nreps, sync_every),
         df_residual=float(df_R), df_marker=float(df_marker),
+        re_groups=tuple(re_groups),
     )
 
 
-def make_data(gm, y, W, scale_R, ebv_rows=None, out_W=None) -> STData:
+def make_data(gm, y, W, scale_R, ebv_rows=None, out_W=None, Vinv=(),
+              vc_scale=()) -> STData:
     """The chain's device data in the store's dtype; y (n,) and W (n, K;
     None: an intercept) in observation order; the residual weights are the
-    store's (gm.rinv)."""
+    store's (gm.rinv). Vinv, vc_scale: a random-effect group's dense (q, q)
+    structure (None: the identity) and (k, k) prior scale. W'R^-1W and
+    each Vinv are made exactly symmetric (symmetric_upper), so that the
+    location pass may read rows for columns."""
     dev, f32, n = gm.device, gm.xpx.dtype, gm.n_obs
     y = torch.as_tensor(np.asarray(y), dtype=f32).to(dev)
     W = (torch.ones((n, 1), dtype=f32, device=dev) if W is None
@@ -467,14 +540,20 @@ def make_data(gm, y, W, scale_R, ebv_rows=None, out_W=None) -> STData:
         ebv_rows = torch.as_tensor(np.asarray(ebv_rows), dtype=torch.int64).to(dev)
     if out_W is not None:
         out_W = torch.as_tensor(np.asarray(out_W), dtype=f32).to(dev)
-    WtW = W.T @ (W if gm.rinv is None else gm.rinv[:, None] * W)
+    WtW = symmetric_upper(W.T @ (W if gm.rinv is None else gm.rinv[:, None] * W))
+
+    def on_dev(x):
+        return None if x is None else torch.as_tensor(np.asarray(x), dtype=f32).to(dev)
+
     return STData(W=W, WtW=WtW, y=y, gm=gm, ebv_rows=ebv_rows, out_W=out_W,
-                  scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev))
+                  scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev),
+                  Vinv=tuple(None if v is None else symmetric_upper(on_dev(v)) for v in Vinv),
+                  vc_scale=tuple(on_dev(v) for v in vc_scale))
 
 
 def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
                   marker_scale0, pi0, seed: Optional[int], sol0=None,
-                  alpha0=None) -> ChainState:
+                  alpha0=None, vc0=()) -> ChainState:
     """The location parameters at sol0 and the real markers' effects at
     alpha0 (each 0 when None; GBLUP ignores alpha0, as jwas_tpu does),
     every BayesC/B marker included (BayesR: all in the null class), the
@@ -485,7 +564,8 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
     first, Gamma(1) * 8 a real marker (1 for padding), and starts from
     marker_var0 / 8 and marker_scale0 / 8 (:1151-1157). The starting
     residual is y - W sol0 - X alpha0, X alpha0 one K5 pass over the store
-    (GBLUP: L alpha0)."""
+    (GBLUP: L alpha0; none without markers). vc0: a (k, k) starting
+    covariance a random-effect group (:944)."""
     gm, method = data.gm, cfg.method
     dev, f32 = gm.device, gm.xpx.dtype
 
@@ -521,11 +601,17 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
         pi = torch.as_tensor(pi_np, dtype=f32).to(dev)
     if method == "BayesB":
         varg = torch.where(real, varg, one)
-    xa = torch.mv(gm.L, alpha) if method == "GBLUP" else grouped_matvec(gm, alpha)
+    ycorr = data.y - data.W @ sol
+    if method == "GBLUP":
+        ycorr -= torch.mv(gm.L, alpha)
+    elif method != "none":
+        ycorr -= grouped_matvec(gm, alpha)
+    vc = tuple(torch.as_tensor(np.atleast_2d(np.asarray(v, dtype=np.float64)),
+                               dtype=f32).to(dev) for v in vc0)
     return ChainState(
         gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(), delta=delta,
-        ycorr=data.y - data.W @ sol - xa, vare=scalar(vare0), varg=varg,
-        pi=pi, scale_g=scale_g, gamma_l=gamma_l,
+        ycorr=ycorr, vare=scalar(vare0), varg=varg,
+        pi=pi, scale_g=scale_g, gamma_l=gamma_l, vc=vc,
     )
 
 
@@ -535,7 +621,7 @@ SAMPLE_KEYS = ("vare", "varg", "pi", "genvar", "h2")
 def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
     """A saved sample's values on the host, in one transfer: the tracks of
     SAMPLE_KEYS and what the sample files need (sol, alpha, BayesB's
-    per-marker variances, ebv)."""
+    per-marker variances, ebv, the random-effect covariances vc<g>)."""
     parts = {k: getattr(out, k) for k in SAMPLE_KEYS}
     dtype = state.alpha.dtype
     if stream is not None and stream.enabled:
@@ -547,6 +633,8 @@ def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
                 parts["varg_markers"] = state.varg[:p]
         if stream.ebv:
             parts["ebv"] = out.ebv
+        if stream.re_vars:
+            parts.update((f"vc{g}", v) for g, v in enumerate(state.vc))
     flat = torch.cat([t.reshape(-1).to(dtype) for t in parts.values()])
     flat = flat.cpu().numpy()
     host, i = {}, 0
@@ -561,12 +649,17 @@ def apply_update_priors(cfg: EngineCfg, data: STData, state: ChainState,
     """Empirical-Bayes prior refresh from the running posterior means
     (jwas_tpu/engine/mcmc.py:691-715, MCMC_BayesianAlphabet.jl:381-395):
     the marker-variance scale becomes mean(varg) (df - 2) / df, except
-    BayesB's, and the residual-variance scale mean(vare) (df_R - 2) / df_R.
-    Returns (data, state)."""
-    if cfg.method != "BayesB":
+    BayesB's (and none without markers), a pedigree group's scale mean(G)
+    (df - k - 1), and the residual-variance scale mean(vare) (df_R - 2) /
+    df_R. Returns (data, state)."""
+    if cfg.method not in ("BayesB", "none"):
         state = state._replace(
             scale_g=accum.varg_m * (cfg.df_marker - 2.0) / cfg.df_marker)
+    vc_scale = tuple(
+        accum.vc_m[g] * (grp.df - len(grp.starts) - 1.0) if grp.random_type == "A"
+        else data.vc_scale[g] for g, grp in enumerate(cfg.re_groups))
     data = data._replace(
+        vc_scale=vc_scale,
         scale_r=accum.vare_m * (cfg.df_residual - 2.0) / cfg.df_residual)
     return data, state
 
@@ -700,17 +793,20 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
 
 
 def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
-    """The 2-bit grouped, the dense and the GBLUP branches of jwas_tpu's
-    _build_st_data_and_state (:762-868, state :1128-1224): setup_markers'
-    or setup_dense_markers' block choice and row order of the training
-    rows (GBLUP: the workspace's eigenbasis), the residual weights, the
-    chain's dtype (double_precision), the workspace's priors, the output IDs' store columns and
-    prediction-equation rows, the residence of a 2-bit store
+    """The 2-bit grouped, the dense, the GBLUP and the no-marker branches
+    of jwas_tpu's _build_st_data_and_state (:762-868, the random-effect
+    groups :916-944, state :1128-1224): setup_markers' or
+    setup_dense_markers' block choice and row order of the training rows
+    (GBLUP: the workspace's eigenbasis), the residual weights, the chain's
+    dtype (double_precision), the workspace's priors, the output IDs'
+    store columns and prediction-equation rows, the groups' Vinv, scales
+    and starting covariances, the residence of a 2-bit store
     (host_offload_genotypes) and the starting values (starting_value: the
     location parameters, :1131-1141; the genotypes' starting_alpha: the
     marker effects, :1142-1145). Returns (cfg, data, state)."""
     g = ws.geno
     K = ws.W.shape[1]
+    dtype = torch.float64 if opts.double_precision else torch.float32
     sol0 = None
     if opts.starting_value is not None and opts.starting_value is not False:
         sol0 = np.asarray(opts.starting_value, dtype=np.float64).reshape(-1)
@@ -719,13 +815,17 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                 f"length of starting values for non-marker location "
                 f"parameters is wrong (expected {K}, got {len(sol0)}); the "
                 f"order is model.term_names()")
-    if g.method == "GBLUP":
+    if g is None:
+        empty = torch.zeros(0, dtype=dtype, device=device)
+        gm = NoMarkers(xpx=empty, valid=empty, n_obs=ws.n_obs,
+                       rinv=None if ws.rinv is None else torch.as_tensor(
+                           ws.rinv, dtype=dtype).to(device))
+    elif g.method == "GBLUP":
         gm = build_gblup_markers(ws.gblup_L, ws.gblup_D, ws.gblup_out, rinv=ws.rinv)
     elif g.dense is not None:
         gm = setup_dense_markers(
             g.dense, g.obs_ids, ws.obs_ids, device, fast_blocks=opts.fast_blocks,
-            rinv=ws.rinv,
-            dtype=torch.float64 if opts.double_precision else torch.float32)
+            rinv=ws.rinv, dtype=dtype)
     else:
         gm = setup_markers(g.packed_store, ws.obs_ids, device,
                            fast_blocks=opts.fast_blocks,
@@ -736,23 +836,32 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         sync_every = max(1, int(opts.sync_every))
     else:
         sync_every = None
-    cfg = make_cfg(gm, g.method, nreps=opts.nreps, sync_every=sync_every,
-                   chain_length=opts.chain_length, df_R=ws.df_R,
-                   df_marker=ws.df_marker, estimate_pi=bool(g.estimate_pi),
-                   estimate_marker_variance=bool(g.G.estimate_variance),
-                   estimate_scale=bool(g.G.estimate_scale),
-                   estimate_residual_variance=bool(ws.model.R.estimate_variance))
+    re_groups = [REGroupCfg(starts=grp.starts, n_levels=grp.n_levels, df=grp.df,
+                            has_vinv=grp.Vinv is not None,
+                            random_type=grp.random_type,
+                            estimate_variance=grp.estimate_variance)
+                 for grp in ws.re_groups]
+    cfg = make_cfg(gm, "none" if g is None else g.method, nreps=opts.nreps,
+                   sync_every=sync_every, chain_length=opts.chain_length,
+                   df_R=ws.df_R, df_marker=ws.df_marker,
+                   estimate_pi=g is not None and bool(g.estimate_pi),
+                   estimate_marker_variance=g is not None and bool(g.G.estimate_variance),
+                   estimate_scale=g is not None and bool(g.G.estimate_scale),
+                   estimate_residual_variance=bool(ws.model.R.estimate_variance),
+                   re_groups=re_groups)
     out_W = None
-    if ws.prediction_terms:
+    if ws.prediction_terms or g is None:
         out_W = np.zeros((len(ws.output_ids), ws.W.shape[1]))
         for name in ws.prediction_terms:
             term = ws.model.term_dict[name]
             out_W[:, term.start_pos:term.start_pos + term.n_levels] += ws.output_X[name]
     data = make_data(gm, ws.y, ws.W, ws.scale_R, ebv_rows=ws.output_store_rows,
-                     out_W=out_W)
+                     out_W=out_W, Vinv=[grp.Vinv for grp in ws.re_groups],
+                     vc_scale=[grp.scale for grp in ws.re_groups])
     state = initial_state(cfg, data, vare0=ws.vare0, marker_var0=ws.marker_var0,
                           marker_scale0=ws.marker_scale0, pi0=ws.pi0, seed=opts.seed,
-                          sol0=sol0, alpha0=g.starting_alpha)
+                          sol0=sol0, alpha0=None if g is None else g.starting_alpha,
+                          vc0=[grp.G0 for grp in ws.re_groups])
     return cfg, data, state
 
 
@@ -763,14 +872,17 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     BayesC, BayesB or BayesR on the 2-bit store or a dense store, and
     RR-BLUP, BayesA, BayesL or GBLUP on a dense store or a relationship
     matrix (with residual weights, heterogeneous_residuals, and float64,
-    double_precision). kwargs are MCMCOptions' fields.
+    double_precision), or no genotypes; with the random effects of
+    set_random (i.i.d., pedigree and Vinv groups; the pedigree also as
+    the option pedigree=). kwargs are MCMCOptions' fields.
 
     device: where the chain runs, the GPU unless the caller asks for the
     CPU (device="cpu" runs the kernels' plain versions); without a GPU the
     default raises. Returns a dict of Tables (the keys of jwas_tpu's
     result dict: "location parameters", "residual variance", "marker
     effects <name>", "marker effects variances <name>", "pi_<name>",
-    "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance",
+    "ScaleEffectVar<name>", "polygenic effects covariance matrix", "random
+    effect variances <term>", "EBV_<trait>", "genetic_variance",
     "heritability"), written as <key>.txt to output_folder with the
     per-parameter MCMC sample files. Options the reference rejects raise
     its ValueError before an option the port does not run yet raises
@@ -794,10 +906,11 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
                 update_priors_frequency=opts.update_priors_frequency)
     finally:
         stream.close()
-    accum = accum._replace(**{k: _host(v) for k, v in accum._asdict().items()
-                              if torch.is_tensor(v)})
+    accum = accum._replace(**{k: _host(v) if torch.is_tensor(v) else
+                              tuple(_host(t) for t in v)
+                              for k, v in accum._asdict().items() if k != "n"})
     results = build_results(ws, cfg, accum, samples, opts)
-    if stream.enabled and stream.write_markers:
+    if stream.enabled and stream.write_markers and ws.geno is not None:
         results["_marker_sample_file"] = stream.writer.path(
             f"marker_effects_{ws.geno.name}_{model.lhs_vec[0]}")
     return results

@@ -7,8 +7,10 @@ float64): "location parameters", "residual variance", "marker effects
 <name>" (GBLUP's pseudo-markers numbered "1".."n", :71), "marker effects
 variances <name>" (BayesB's: the posterior mean of its variances' mean
 over the markers), "pi_<name>" (where pi is estimated: BayesC, BayesB,
-BayesR), "ScaleEffectVar<name>", "EBV_<trait>", "genetic_variance" and
-"heritability". Each is a Table with the reference's columns, written to
+BayesR), "ScaleEffectVar<name>" (the marker tables only with genotypes),
+"polygenic effects covariance matrix" (a pedigree group) and "random
+effect variances <term>" (another group; :151-166), "EBV_<trait>",
+"genetic_variance" and "heritability". Each is a Table with the reference's columns, written to
 output_folder as <key>.txt (spaces as "_") as the reference writes it.
 """
 
@@ -68,20 +70,32 @@ def build_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
                                         accum.vare_m2)
 
     g, p = ws.geno, cfg.n_markers
-    results[f"marker effects {g.name}"] = Table({
-        "Trait": np.full(p, trait, dtype=object), "Marker_ID": result_marker_ids(g, p),
-        "Estimate": accum.alpha_m[:p], "SD": _sd(accum.alpha_m, accum.alpha_m2)[:p],
-        "Model_Frequency": accum.delta_m[:p]})
-    results[f"marker effects variances {g.name}"] = _one(trait, accum.varg_m,
-                                                         accum.varg_m2)
+    if g is not None:
+        results[f"marker effects {g.name}"] = Table({
+            "Trait": np.full(p, trait, dtype=object),
+            "Marker_ID": result_marker_ids(g, p), "Estimate": accum.alpha_m[:p],
+            "SD": _sd(accum.alpha_m, accum.alpha_m2)[:p],
+            "Model_Frequency": accum.delta_m[:p]})
+        results[f"marker effects variances {g.name}"] = _one(trait, accum.varg_m,
+                                                             accum.varg_m2)
     if cfg.estimate_pi and g.method == "BayesR":
         results[f"pi_{g.name}"] = Table({
             "pi": [f"class{i}" for i in range(4)], "Estimate": accum.pi_m,
             "SD": _sd(accum.pi_m, accum.pi_m2)})
     elif cfg.estimate_pi:
         results[f"pi_{g.name}"] = _one("pi", accum.pi_m, accum.pi_m2, name="pi")
-    if cfg.estimate_scale:
+    if cfg.estimate_scale and g is not None:
         results[f"ScaleEffectVar{g.name}"] = _one(trait, accum.scale_m, accum.scale_m2)
+
+    # random-effect covariances (jwas_tpu/engine/output.py:151-166)
+    for grp, m, m2 in zip(ws.re_groups, accum.vc_m, accum.vc_m2):
+        labels = [f"{a}_{b}" for a in grp.term_array for b in grp.term_array]
+        table = Table({"Covariance": labels,
+                       "Estimate": np.asarray(m, dtype=np.float64).reshape(-1),
+                       "SD": np.asarray(_sd(m, m2), dtype=np.float64).reshape(-1)})
+        key = ("polygenic effects covariance matrix" if grp.random_type == "A"
+               else f"random effect variances {grp.term_array[0]}")
+        results[key] = table
 
     if ws.output_ids and (opts.outputEBV or opts.output_heritability):
         ebv = np.asarray(accum.ebv_m)

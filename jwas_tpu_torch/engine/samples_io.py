@@ -4,20 +4,22 @@ Counterpart of jwas_tpu/engine/samples_io.py: MARKER_FILE_MAX_P and
 resolve_write_markers (:29-43), MCMCSampleWriter (:46-91) and the
 single-trait STSampleStream (:98-216) for the single-trait methods on the
 2-bit or a dense store or GBLUP's eigenbasis (its pseudo-markers numbered
-"1".."n", :141; the pi row empty for the methods without a pi). One
-comma-separated file per parameter, MCMC_samples_<var>.txt under the
-output folder (":" replaced by "."), with the reference's header
+"1".."n", :141; the pi row empty for the methods without a pi), or without
+genotypes. One comma-separated file per parameter, MCMC_samples_<var>.txt
+under the output folder (":" replaced by "."), with the reference's header
 row where it writes one and one row per saved sample:
 residual_variance, <trait>.<term> (terms requested by outputMCMCsamples),
-marker_effects_<geno>_<trait>, marker_effects_variances_<geno>,
-pi_<geno>, EBV_<trait>, genetic_variance, heritability. BayesB's
+<term>_<term>..._variances (a random-effect group's covariance, :123-131),
+polygenic_effects_variance (the pedigree groups', :174-180), and with
+genotypes marker_effects_<geno>_<trait>, marker_effects_variances_<geno>
+and pi_<geno>; EBV_<trait>, genetic_variance, heritability. BayesB's
 marker_effects_variances_<geno> row holds every marker's variance when the
 marker effects are written, else their mean (jwas_tpu's :190-195).
 
 A sample arrives as host arrays read back in one transfer, in the chain's
 dtype (engine/mcmc.py::_read_back); the stream says which of sol, alpha (with
-BayesB's per-marker variances) and the EBVs it needs (loc_slices,
-write_markers, ebv).
+BayesB's per-marker variances), the EBVs and the group covariances (vc<g>)
+it needs (loc_slices, write_markers, ebv, re_vars).
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ class STSampleStream:
         self.loc_slices = []
         self.write_markers = False
         self.ebv = False
+        self.re_vars = []
         if not self.enabled:
             return
         self.heritability = bool(opts.output_heritability)
@@ -102,38 +105,55 @@ class STSampleStream:
                 continue
             w.register(trm_str, [f"{trm_str}:{s}" for s in trm.names])
             self.loc_slices.append((trm_str, trm.start_pos, trm.n_levels))
+        for grp in ws.re_groups:
+            var = "_".join(grp.term_array) + "_variances"
+            w.register(var, _trait_pair_header(grp.term_array))
+            self.re_vars.append(var)
+        self.ped_groups = [g for g, grp in enumerate(ws.re_groups)
+                           if grp.random_type == "A"]
+        if self.ped_groups:
+            w.register("polygenic_effects_variance", _trait_pair_header(
+                [t for g in self.ped_groups for t in ws.re_groups[g].term_array]))
         g = ws.geno
-        self.write_markers = resolve_write_markers(cfg.n_markers,
-                                                   opts.output_marker_samples)
-        if self.write_markers:
-            w.register(f"marker_effects_{g.name}_{trait}",
-                       result_marker_ids(g, cfg.n_markers))
-        w.register(f"marker_effects_variances_{g.name}")
-        w.register(f"pi_{g.name}")
+        self.geno_name = None if g is None else g.name
+        if g is not None:
+            self.write_markers = resolve_write_markers(cfg.n_markers,
+                                                       opts.output_marker_samples)
+            if self.write_markers:
+                w.register(f"marker_effects_{g.name}_{trait}",
+                           result_marker_ids(g, cfg.n_markers))
+            w.register(f"marker_effects_variances_{g.name}")
+            w.register(f"pi_{g.name}")
         self.ebv = bool(opts.outputEBV) and bool(ws.output_ids)
         if self.ebv:
             w.register(f"EBV_{trait}", list(ws.output_ids))
             if opts.output_heritability:
                 w.register("genetic_variance", _trait_pair_header([trait]))
                 w.register("heritability", [trait])
-        self.geno_name = g.name
         self.trait = trait
         self.writer = w
 
     def write_sample(self, host: Dict[str, np.ndarray]) -> None:
         """One saved sample: host holds vare, varg, pi, genvar, h2 and, as
-        the stream asked, sol, alpha, varg_markers (BayesB) and ebv."""
+        the stream asked, sol, alpha, varg_markers (BayesB), ebv and the
+        group covariances vc<g>."""
         if not self.enabled:
             return
         w = self.writer
         w.write("residual_variance", host["vare"])
         for trm_str, start, nlev in self.loc_slices:
             w.write(trm_str, host["sol"][start:start + nlev])
-        if self.write_markers:
-            w.write(f"marker_effects_{self.geno_name}_{self.trait}", host["alpha"])
-        w.write(f"marker_effects_variances_{self.geno_name}",
-                host.get("varg_markers", host["varg"]))
-        w.write(f"pi_{self.geno_name}", host["pi"])
+        for g, var in enumerate(self.re_vars):
+            w.write(var, host[f"vc{g}"])
+        if self.ped_groups:
+            w.write("polygenic_effects_variance",
+                    np.concatenate([host[f"vc{g}"].reshape(-1) for g in self.ped_groups]))
+        if self.geno_name is not None:
+            if self.write_markers:
+                w.write(f"marker_effects_{self.geno_name}_{self.trait}", host["alpha"])
+            w.write(f"marker_effects_variances_{self.geno_name}",
+                    host.get("varg_markers", host["varg"]))
+            w.write(f"pi_{self.geno_name}", host["pi"])
         if self.ebv:
             w.write(f"EBV_{self.trait}", host["ebv"])
             if self.heritability:

@@ -1,17 +1,21 @@
 """Host-side assembly: (model, phenotypes, options) -> workspace.
 
 Counterpart of jwas_tpu/engine/setup.py: MCMCOptions (:33-103, every field
-and default), Workspace (:134), _default_priors (:163-222),
-_genetic2marker (:225-262), set_marker_hyperparameters (:265-284),
-normalize_method (:287-297) and prepare_workspace (:348-669), on its
-single-trait, continuous, dense-location branch for the 2-bit and the
-dense stores and GBLUP's relationship matrix: ID reconciliation, default
-output IDs, the whole-data table with output-only rows, training rows,
-priors, the location design and the prediction equation over fixed terms,
-the residual weights rinv = 1 / weights (:512-516), GBLUP's
-eigendecomposition (:521-535; in float64 by torch.linalg.eigh on the
-chain's device, ops/gblup.py::gblup_eigen) and the memory guard
-(:616-641). Everything else here is numpy/scipy on the host.
+and default), REGroupData (:119), Workspace (:134), _default_priors
+(:163-222), _genetic2marker (:225-262), set_marker_hyperparameters
+(:265-284), normalize_method (:287-297) and prepare_workspace (:348-669),
+on its single-trait, continuous, dense-location branch for the 2-bit and
+the dense stores, GBLUP's relationship matrix and models without
+genotypes, with random-effect groups: ID reconciliation (phenotyped
+individuals without genotypes, or not in the pedigree, are removed),
+default output IDs (the genotyped individuals, else the pedigree's), the
+whole-data table with output-only rows, training rows, priors, the
+location design and the prediction equation (by default the pedigree's
+terms), the random-effect groups with dense Vinv (:569-600), the residual
+weights rinv = 1 / weights (:512-516), GBLUP's eigendecomposition
+(:521-535; in float64 by torch.linalg.eigh on the chain's device,
+ops/gblup.py::gblup_eigen) and the memory guard (:616-641). Everything
+else here is numpy/scipy on the host.
 
 The EBVs of the output IDs are not a dense (n_out, p) matrix of their
 genotypes, as jwas_tpu's are (setup.py:549-567): the workspace keeps the
@@ -24,7 +28,7 @@ permutation.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,7 +101,7 @@ class MCMCOptions:
 # option -> its one accepted value; every other value is not ported yet
 _UNPORTED = {
     "n_chains": 1, "mesh": None, "checkpoint_frequency": 0, "resume": False,
-    "single_step_analysis": False, "pedigree": None, "causal_structure": None,
+    "single_step_analysis": False, "causal_structure": None,
     "RRM": None, "use_pallas": "auto",
 }
 
@@ -125,11 +129,26 @@ def reject_unported(opts: MCMCOptions) -> None:
         if not same:
             raise NotImplementedError(
                 f"runMCMC option {name}={value!r} is not ported yet (single "
-                f"chain, single-trait, no pedigree or checkpoints; see "
+                f"chain, single-trait, no single-step or checkpoints; see "
                 f"ROADMAP.md Queue 1)")
     if opts.sparse_location is True:
         raise NotImplementedError("runMCMC option sparse_location=True is not "
                                   "ported yet (ROADMAP.md Queue 1 item 11)")
+
+
+@dataclass
+class REGroupData:
+    """A random-effect group as the chain sees it."""
+
+    starts: Tuple[int, ...]             # first location column of each term
+    n_levels: int                       # q, shared by the terms
+    Vinv: Optional[np.ndarray]          # dense (q, q); None: the identity
+    G0: np.ndarray                      # (k, k) starting covariance
+    df: float
+    scale: np.ndarray                   # (k, k) prior scale
+    term_array: List[str]
+    random_type: str                    # "A" | "V" | "I"
+    estimate_variance: bool = True
 
 
 @dataclass
@@ -141,7 +160,7 @@ class Workspace:
     W: np.ndarray                       # (n, K) dense location design
     y: np.ndarray                       # (n,)
     y_mask: np.ndarray                  # (n,) False where missing
-    geno: Genotypes
+    geno: Optional[Genotypes]           # None: no genotypes (method "none")
     vare0: np.ndarray
     scale_R: np.ndarray
     df_R: float
@@ -155,7 +174,9 @@ class Workspace:
     obs_ids: List[str] = field(default_factory=list)
     output_store_rows: np.ndarray = None   # (n_out,) store column of each
                                            # output ID (GBLUP: the output
-                                           # map's row)
+                                           # map's row; None without
+                                           # genotypes)
+    re_groups: List[REGroupData] = field(default_factory=list)
     rinv: Optional[np.ndarray] = None      # (n,) inverse residual weights
     gblup_L: Optional[torch.Tensor] = None    # GBLUP (ops/gblup.py): (n, n)
     gblup_D: Optional[torch.Tensor] = None    # eigenvectors over the training
@@ -166,8 +187,10 @@ class Workspace:
 def _default_priors(model: Model, df: Table) -> np.ndarray:
     """Phenotypic variance split with h^2 = 0.5
     (set_default_priors_for_variance_components,
-    input_data_validation.jl:296-373); fills in missing priors on the model
-    in place and returns the genetic variance matrix."""
+    input_data_validation.jl:296-373): the genetic half over the marker
+    sets and pedigree groups, the other half over the residual and the
+    other random-effect groups. Fills in missing priors on the model in
+    place and returns the genetic variance matrix."""
     t = model.n_models
     myvar = np.zeros(t)
     for i, lhs in enumerate(model.lhs_vec):
@@ -176,14 +199,24 @@ def _default_priors(model: Model, df: Table) -> np.ndarray:
         myvar[i] = np.var(col, ddof=1) if len(col) > 1 else 1.0
     phenovar = np.diag(myvar)
     h2 = 0.5
-    varg = phenovar * h2 / max(len(model.M), 1)
-    vare = phenovar * h2
+    genetic_count = len(model.M) + sum(re.random_type == "A" for re in model.random_effects)
+    nongenetic_count = 1 + sum(re.random_type != "A" for re in model.random_effects)
+    varg = phenovar * h2 / max(genetic_count, 1)
+    vare = phenovar * h2 / nongenetic_count
     for g in model.M:
         if g.G.val is None and g.genetic_variance.val is None:
             g.genetic_variance.val = varg[0, 0]
     if model.R.val is None:
         model.R.val = float(vare[0, 0])
         model.R.scale = model.R.val * (model.R.df - 2.0) / model.R.df
+    for re in model.random_effects:
+        if re.G.val is None:
+            k = len(re.term_array)
+            base = varg if re.random_type == "A" else vare
+            traits = [model.lhs_vec.index(term.split(":")[0]) for term in re.term_array]
+            G = np.diag([base[i, i] for i in traits])
+            re.G.val = G
+            re.G.scale = G * (re.G.df - k - 1.0)
     return varg
 
 
@@ -239,11 +272,11 @@ def normalize_method(g: Genotypes, model: Model) -> None:
 
 def prediction_terms_of(model: Model, pe) -> List[str]:
     """The terms of a prediction equation, e.g. "herd" or "y:herd"
-    (prediction_setup, output.jl:29-59); none (False) by default: the EBVs
-    are then the genotypes' part alone."""
+    (prediction_setup, output.jl:29-59); by default (False) the pedigree's
+    terms (model.ped_term_vec), which the EBVs add to the genotypes' part."""
     terms: List[str] = []
     if not pe:
-        return terms
+        return list(model.ped_term_vec)
     for tok in str(pe).split("+"):
         tok = tok.strip()
         if not tok:
@@ -269,31 +302,46 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     df = Table({c: df[c] for c in df.columns})   # the caller's table stays
     id_col = df.columns[0]
     df[id_col] = np.array([str(x).strip() for x in df[id_col].tolist()], dtype=object)
+    if opts.pedigree is not None and model.ped is None:
+        model.ped = opts.pedigree
     for g in model.M:
         normalize_method(g, model)
     validate_args(model, opts)
     validate_phenotypes(opts, df.columns)
     reject_unported(opts)
-    if not model.M:
-        raise NotImplementedError("runMCMC without genotypes is not ported yet: "
-                                  "pass genotypes=get_genotypes(...)")
     if device is not None:
         device = resolve_device(device)
-    g0 = model.M[0]
+    g0 = model.M[0] if model.M else None
 
     # ID reconciliation (input_data_validation.jl:198-294)
-    geno_ids = set(g0.obs_ids)
-    keep = np.array([s in geno_ids for s in df[id_col].tolist()], dtype=bool)
-    if not keep.all():
-        print(f"{int((~keep).sum())} phenotyped individuals are not genotyped; removed.")
-        df = df[keep]
+    geno_ids = set(g0.obs_ids) if g0 is not None else None
+    if g0 is not None:
+        keep = np.array([s in geno_ids for s in df[id_col].tolist()], dtype=bool)
+        if not keep.all():
+            print(f"{int((~keep).sum())} phenotyped individuals are not genotyped; removed.")
+            df = df[keep]
+    if model.ped is not None:
+        keep = np.array([s in model.ped.id_index for s in df[id_col].tolist()], dtype=bool)
+        if not keep.all():
+            print(f"{int((~keep).sum())} phenotyped individuals are not in the pedigree; "
+                  f"removed.")
+            df = df[keep]
 
     # default output IDs (check_outputID, input_data_validation.jl:143-196)
     if opts.outputEBV or opts.output_heritability:
         output_ids = model.output_ids
-        if output_ids is None:
+        if output_ids is None and g0 is not None:
             output_ids = list(g0.obs_ids)
-        output_ids = [s for s in output_ids if s in geno_ids]
+        elif output_ids is None and model.ped is not None:
+            output_ids = list(model.ped.ids)
+        elif output_ids is None and opts.prediction_equation:
+            output_ids = list(dict.fromkeys(str(x) for x in df[id_col].tolist()))
+        elif output_ids is None:
+            output_ids = []
+        if g0 is not None:
+            output_ids = [s for s in output_ids if s in geno_ids]
+        elif model.ped is not None:
+            output_ids = [s for s in output_ids if s in model.ped.id_index]
     else:
         output_ids = []
 
@@ -345,6 +393,31 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         w = to_numeric(df_train["weights"], errors="raise").astype(np.float64)
         rinv = 1.0 / w
 
+    # random-effect groups (jwas_tpu/engine/setup.py:569-600), Vinv dense
+    re_groups = []
+    for re in model.random_effects:
+        terms = [model.term_dict[s] for s in re.term_array]
+        q = terms[0].n_levels
+        if any(trm.n_levels != q for trm in terms):
+            raise ValueError("terms in one random-effect group must share levels")
+        re_groups.append(REGroupData(
+            starts=tuple(trm.start_pos for trm in terms), n_levels=q,
+            Vinv=None if re.Vinv is None else np.asarray(re.Vinv.todense()),
+            G0=np.asarray(re.G.val, dtype=np.float64), df=float(re.G.df),
+            scale=np.asarray(re.G.scale, dtype=np.float64),
+            term_array=list(re.term_array), random_type=re.random_type,
+            estimate_variance=bool(re.G.estimate_variance)))
+
+    common = dict(
+        model=model, df=df_train, n_obs=len(obs_ids), n_traits=t, W=W, y=y,
+        y_mask=y_mask, geno=g0, vare0=np.asarray(float(model.R.val)),
+        scale_R=np.asarray(float(model.R.scale)), df_R=float(model.R.df),
+        output_ids=list(output_ids), prediction_terms=prediction_terms,
+        output_X=output_X, obs_ids=obs_ids, rinv=rinv, re_groups=re_groups)
+    if g0 is None:
+        return Workspace(marker_var0=np.asarray(0.0), marker_scale0=np.asarray(0.0),
+                         df_marker=4.0, pi0=None, **common)
+
     missing_geno = [s for s in obs_ids if s not in geno_ids]
     if missing_geno:
         raise ValueError(f"individual {missing_geno[0]} has no genotypes")
@@ -388,13 +461,8 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         gblup = dict(gblup_L=L, gblup_D=D, gblup_out=out)
         output_store_rows = np.arange(len(output_ids), dtype=np.int64)
     return Workspace(
-        model=model, df=df_train, n_obs=len(obs_ids), n_traits=t, W=W, y=y,
-        y_mask=y_mask, geno=g0,
-        vare0=np.asarray(float(model.R.val)),
-        scale_R=np.asarray(float(model.R.scale)), df_R=float(model.R.df),
         marker_var0=np.asarray(g0.G.val, dtype=np.float64),
         marker_scale0=np.asarray(g0.G.scale, dtype=np.float64),
-        df_marker=float(g0.G.df), pi0=g0.pi, output_ids=list(output_ids),
-        prediction_terms=prediction_terms, output_X=output_X, obs_ids=obs_ids,
-        output_store_rows=output_store_rows, rinv=rinv, **gblup,
+        df_marker=float(g0.G.df), pi0=g0.pi,
+        output_store_rows=output_store_rows, **common, **gblup,
     )

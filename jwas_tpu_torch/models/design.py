@@ -1,12 +1,14 @@
 """Design matrices of the model terms, on the host with scipy.sparse.
 
 Counterpart of jwas_tpu/models/design.py: get_term_data (:37-62),
-build_term_X (:65-118, fixed terms), build_design (:121-135),
-stack_phenotypes (:138-151) and incidence_for_ids (:154-163), reading a
-Table. Every variable is a categorical fixed factor unless set_covariate
-made it a covariate; an interaction "A*B" multiplies covariate values and
-joins factor levels; a missing level gives an all-zero row; levels are
-numbered in order of first appearance.
+build_term_X (:65-118), build_design (:121-135), stack_phenotypes
+(:138-151) and incidence_for_ids (:154-163), reading a Table. Every
+variable is a categorical fixed factor unless set_covariate made it a
+covariate; an interaction "A*B" multiplies covariate values and joins
+factor levels; a missing level gives an all-zero row. Fixed and i.i.d.
+("I") terms number their levels in order of first appearance; a pedigree
+("A") or Vinv ("V") term has the structure's levels in its order
+(term.names, set by set_random), matched by any factor of an interaction.
 """
 
 from __future__ import annotations
@@ -51,18 +53,39 @@ def get_term_data(term: ModelTerm, df: Table, model: Model) -> None:
     term.val = vals
 
 
+def _structured_levels(term: ModelTerm, data: List[str]) -> List[str]:
+    """Each observation's level of a pedigree or Vinv term: the first
+    factor of its level string that is one of term.names."""
+    known = set(term.names)
+    resolved = []
+    for s in data:
+        hit = MISSING if s == MISSING else next(
+            (f for f in s.split(" * ") if f in known), None)
+        if hit is None:
+            raise ValueError(
+                f"level {s!r} of {term.trm_str} not found in the random-effect levels")
+        resolved.append(hit)
+    return resolved
+
+
 def build_term_X(term: ModelTerm, model: Model, start_pos: int) -> None:
-    """term.X over the stacked rows (build_MME.jl:229-290), fixed terms."""
+    """term.X over the stacked rows (build_MME.jl:229-290)."""
     n_obs = len(term.data)
     rows = term.i_model * n_obs + np.arange(n_obs)
     vals = np.array(term.val, dtype=np.float64, copy=True)
     # any interaction containing a missing level is fully missing
     data = [MISSING if MISSING in s.split(" * ") else s for s in term.data]
-    level_of: dict = {}
-    for s in data:
-        if s != MISSING and s not in level_of:
-            level_of[s] = len(level_of)
-    term.names = list(level_of)
+    if term.random_type in ("fixed", "I"):
+        level_of: dict = {}
+        for s in data:
+            if s != MISSING and s not in level_of:
+                level_of[s] = len(level_of)
+        term.names = list(level_of)
+    elif term.random_type in ("V", "A"):
+        level_of = {name: i for i, name in enumerate(term.names)}
+        data = _structured_levels(term, data)
+    else:
+        raise ValueError(f"unexpected random_type {term.random_type!r}")
     term.n_levels = len(term.names)
     cols = np.zeros(n_obs, dtype=np.int64)
     for i, s in enumerate(data):

@@ -1,12 +1,12 @@
 """Model building: R-style model equations -> the mixed-model structure.
 
-Counterpart of jwas_tpu/models/model.py: ModelTerm (:30), Model (:65),
-build_model (:97-201), set_covariate (:225), outputEBV (:351),
-outputMCMCsamples (:356), describe (:368) and getMCMCinfo (:400), for one
-equation (single-trait) with fixed factors, covariates, interactions and
-one genotype category. Genotypes are passed explicitly
-(build_model(..., genotypes=geno)). set_random and pedigrees are not
-ported yet.
+Counterpart of jwas_tpu/models/model.py: ModelTerm (:30), RandomEffect
+(:52), Model (:65), build_model (:97-201), set_covariate (:225),
+set_random (:231-348), outputEBV (:351), outputMCMCsamples (:356),
+describe (:368) and getMCMCinfo (:400), for one equation (single-trait)
+with fixed factors, covariates, interactions, random effects (i.i.d.,
+pedigree and user-given Vinv groups) and at most one genotype category.
+Genotypes are passed explicitly (build_model(..., genotypes=geno)).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from jwas_tpu_torch.io.genotypes import Genotypes, VarianceSpec
+from jwas_tpu_torch.io.pedigree import Pedigree
 
 
 @dataclass
@@ -28,8 +29,9 @@ class ModelTerm:
     i_model: int                    # 0-based trait index
     trait_name: str
     factors: List[str]              # ["A", "B"] or ["intercept"]
-    random_type: str = "fixed"
-    names: List[str] = field(default_factory=list)   # level names
+    random_type: str = "fixed"      # fixed | I | V | A
+    names: List[str] = field(default_factory=list)   # level names (a "V"
+                                    # or "A" term: Vinv's or the pedigree's)
     n_levels: int = 0
     start_pos: int = 0              # column offset in the location design
     X: Optional[sp.csc_matrix] = None
@@ -39,6 +41,18 @@ class ModelTerm:
     @property
     def n_factors(self) -> int:
         return len(self.factors)
+
+
+@dataclass
+class RandomEffect:
+    """A random-effect group (types.jl:86-96): its terms share the levels
+    and have the (k, k) covariance G per level."""
+
+    term_array: List[str]           # ["y:ID", "y:dam"]
+    G: VarianceSpec
+    Vinv: Optional[sp.spmatrix]     # None: the identity ("I")
+    names: List[str]                # level names, Vinv's row order
+    random_type: str                # "A" | "V" | "I"
 
 
 @dataclass
@@ -52,7 +66,9 @@ class Model:
     lhs_vec: List[str]
     R: VarianceSpec
     cov_vec: List[str] = field(default_factory=list)
-    ped: Optional[object] = None        # pedigrees are not ported: None
+    random_effects: List[RandomEffect] = field(default_factory=list)
+    ped: Optional[Pedigree] = None
+    ped_term_vec: List[str] = field(default_factory=list)
     M: List[Genotypes] = field(default_factory=list)
     traits_type: List[str] = field(default_factory=list)
     output_ids: Optional[List[str]] = None
@@ -140,6 +156,81 @@ def set_covariate(model: Model, *cov_strs: str) -> None:
     """Mark variables as continuous covariates (build_MME.jl:170-176)."""
     for s in cov_strs:
         model.cov_vec.extend(v for v in s.split() if v)
+
+
+def set_random(model: Model, random_str: str, arg=None, G=None, *, Vinv=None,
+               names: Sequence[str] = (), df: float = 4.0,
+               estimate_variance: bool = True, estimate_scale: bool = False,
+               constraint: bool = False) -> None:
+    """Declare a random-effect group (random_effects.jl:40-54, :93-191):
+    set_random(model, "ID dam", ped, G) (pedigree, "A"; A^-1 from ped),
+    set_random(model, "litter", G) (i.i.d., "I") or
+    set_random(model, "x", G, Vinv=Vi, names=[...]) (user-given Vinv,
+    "V"). G: the (k, k) covariance of the group's k terms (None: the
+    default of runMCMC); its prior has df + k degrees of freedom and scale
+    G (df + k - k - 1)."""
+    ped = None
+    if isinstance(arg, Pedigree):
+        ped = arg
+    elif G is None:
+        G = arg
+    elif arg is not None:
+        raise TypeError("second positional argument must be a Pedigree or the variance G")
+    if constraint:
+        raise ValueError("constraint for variance of random term is not supported")
+    if estimate_scale:
+        raise ValueError("estimate scale for variance of random term is not supported")
+    if ped is not None:
+        if model.ped is not None:
+            raise ValueError("pedigree information can only be set once")
+        model.ped = ped
+    G_arr = None
+    if G is not None:
+        G_arr = np.atleast_2d(np.asarray(G, dtype=np.float64))
+        if np.any(np.linalg.eigvalsh(G_arr) <= 0):
+            raise ValueError("the covariance matrix is not positive definite")
+
+    term_array: List[str] = []
+    for trm in random_str.split():
+        found = False
+        for m, eq in enumerate(model.model_vec):
+            parts = [s.strip() for s in eq.split("=")[1].split("+")]
+            if trm in parts:
+                term_array.append(f"{model.lhs_vec[m]}:{trm}")
+                found = True
+        if not found:
+            raise ValueError(f"{trm} is not found in model equations")
+    k = len(term_array)
+    model_terms = [model.term_dict[t] for t in term_array if t in model.term_dict]
+
+    if ped is not None:
+        random_type, level_names = "A", list(ped.ids)
+        Vinv_mat = ped.a_inverse()
+        model.ped_term_vec = list(term_array)
+    elif Vinv is not None:
+        if len(names) == 0:
+            raise ValueError("names must be provided together with Vinv")
+        level_names = [str(s) for s in names]
+        Vinv_mat = sp.csc_matrix(Vinv)
+        if Vinv_mat.shape[0] != len(level_names) or len(set(level_names)) != len(level_names):
+            raise ValueError("wrong size or duplicated values in Vinv and names")
+        random_type = "V"
+    else:
+        random_type, level_names, Vinv_mat = "I", [], None
+    for t in model_terms:
+        t.random_type = random_type
+        if random_type != "I":
+            t.names = list(level_names)
+    df_final = df + k
+    scale = None if G_arr is None else G_arr * (df_final - k - 1.0)
+    if G_arr is not None and k != G_arr.shape[0]:
+        raise ValueError(f"dimensions must match: G should be {k}x{k}")
+    model.random_effects.append(RandomEffect(
+        term_array=list(term_array),
+        G=VarianceSpec(val=G_arr, df=df_final, scale=scale,
+                       estimate_variance=estimate_variance,
+                       estimate_scale=estimate_scale, constraint=constraint),
+        Vinv=Vinv_mat, names=level_names, random_type=random_type))
 
 
 def outputEBV(model: Model, ids: Sequence[str]) -> None:

@@ -1,7 +1,8 @@
 """Conjugate draws used by the single-trait Gibbs sampler.
 
 Counterpart of jwas_tpu/ops/dists.py:21-124 (sample_chi2,
-sample_scaled_inv_chi2, sample_beta, sample_pi_beta) and of
+sample_scaled_inv_chi2, _standard_wishart_chol, sample_wishart,
+sample_inv_wishart, sample_beta, sample_pi_beta) and of
 jax.random.dirichlet and jax.random.gamma over an array of shapes. Every
 draw takes the chain's torch.Generator and returns a tensor on its device,
 so a chain step never waits for the host. The reference's
@@ -37,6 +38,39 @@ def sample_scaled_inv_chi2(gen: torch.Generator, sse, n, df, scale):
     """(sse + df * scale) / chi^2(n + df): the conditional posterior of a
     scalar variance (variance_components.jl:60-66)."""
     return (sse + df * scale) / sample_chi2(gen, _param(n, sse) + df)
+
+
+def standard_wishart_chol(gen: torch.Generator, df, dim: int, like: torch.Tensor):
+    """Lower-triangular Bartlett factor A of a Wishart(df, I) draw: sqrt of
+    chi^2(df - i) on the diagonal (i = 0..dim-1), N(0, 1) below it, so
+    that A A' ~ Wishart(df, I); in like's dtype on its device."""
+    dfs = df - torch.arange(dim, dtype=like.dtype, device=like.device)
+    diag = torch.sqrt(sample_chi2(gen, dfs))
+    normals = torch.randn((dim, dim), generator=gen, dtype=like.dtype,
+                          device=like.device)
+    return torch.tril(normals, diagonal=-1) + torch.diag(diag)
+
+
+def sample_wishart(gen: torch.Generator, df, scale, bartlett=None):
+    """W ~ Wishart(df, scale) as (L A)(L A)' with L the Cholesky factor of
+    scale and A the Bartlett factor (bartlett: injected, e.g. the JAX
+    package's; else drawn from gen). No host sync."""
+    L = torch.linalg.cholesky_ex(scale)[0]
+    A = (standard_wishart_chol(gen, df, scale.shape[0], scale)
+         if bartlett is None else bartlett)
+    LA = L @ A
+    return LA @ LA.T
+
+
+def sample_inv_wishart(gen: torch.Generator, df, scale, bartlett=None):
+    """X ~ InverseWishart(df, scale) as inv(W), W ~ Wishart(df, inv(scale))
+    (Distributions.jl's parameterisation, variance_components.jl:101);
+    both inverses by a solve, symmetrised."""
+    eye = torch.eye(scale.shape[0], dtype=scale.dtype, device=scale.device)
+    scale_inv = torch.linalg.solve_ex(scale, eye)[0]
+    W = sample_wishart(gen, df, 0.5 * (scale_inv + scale_inv.T), bartlett)
+    X = torch.linalg.solve_ex(W, eye)[0]
+    return 0.5 * (X + X.T)
 
 
 def sample_beta(gen: torch.Generator, a, b):

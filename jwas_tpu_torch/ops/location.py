@@ -1,33 +1,115 @@
-"""Single-site Gibbs pass over the location-parameter MME.
+"""The location parameters' LHS and their single-site Gibbs pass (K6).
 
-Counterpart of jwas_tpu/ops/location.py:19-38 (gibbs_pass_lambda). K is the
-number of location parameters (intercept and fixed effects: 1 to ~100 on
-the ported paths), so a Python loop over K costs a few small launches per
-parameter.
+Counterpart of jwas_tpu/engine/mcmc.py:86-106 (assemble_lhs_lambda) and
+jwas_tpu/ops/location.py:18-37 (gibbs_pass_lambda, a lax.scan over the K
+location parameters). On a CUDA tensor the pass is one launch of the
+hand-written kernel csrc/gibbs_pass.cu (K6: one thread block, x in shared
+memory, one block reduction a parameter; float32 and float64 builds, K up
+to 20,480); on a CPU tensor it is the plain version, a loop over the
+parameters. The K standard normals are drawn by the wrapper from the
+chain's generator, so both versions see the same draws.
+
+The LHS is kept exactly symmetric (W'R^-1W with its upper triangle copied
+down, each Vinv likewise, G^-1 symmetrised), so row i, which the kernel
+reads with unit stride, equals the column A[:, i] that the JAX package and
+the plain version read, bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from jwas_tpu_torch import _build
+
+_BUILDS = {torch.float32: "jt_gibbs_pass", torch.float64: "jt_gibbs_pass_f64"}
+
+
+def symmetric_upper(M: torch.Tensor) -> torch.Tensor:
+    """M with its strict lower triangle replaced by the transpose of its
+    strict upper one: exactly symmetric, whatever order of summation made
+    M."""
+    return torch.triu(M) + torch.triu(M, 1).T
+
+
+def assemble_lhs_lambda(re_groups, WtW, Vinv, vc, vare):
+    """LHS = W'R^-1W + for each group and each pair (i, j) of its terms
+    G^-1[i, j] vare Vinv (or G^-1[i, j] vare I, an i.i.d. group) added to
+    the (q, q) block at the terms' starts (addVinv, random_effects.jl:
+    218-238). WtW and every Vinv are exactly symmetric (symmetric_upper),
+    and G^-1 is symmetrised, so the LHS is. vc: a (k, k) covariance a
+    group; vare: a 0-d tensor. Returns a new tensor; no host sync."""
+    LHS = WtW.clone()
+    for g, grp in enumerate(re_groups):
+        Gi = torch.linalg.inv_ex(vc[g])[0]
+        lam = 0.5 * (Gi + Gi.T) * vare
+        q = grp.n_levels
+        for i, si in enumerate(grp.starts):
+            for j, sj in enumerate(grp.starts):
+                block = LHS[si:si + q, sj:sj + q]
+                if grp.has_vinv:
+                    block.add_(Vinv[g] * lam[i, j])
+                else:
+                    block.diagonal().add_(lam[i, j])
+    return LHS
+
+
+def gibbs_pass_lambda_ref(A, x, b, vare, zs):
+    """Plain version of K6: one pass of
+    x_i ~ N((b_i - A[:, i]'x) / A_ii + x_i, vare / A_ii) in order, skipping
+    zero diagonals (solver.jl:143-151), with the K standard normals zs.
+    1 / A_ii and zs_i sqrt(vare / A_ii) are elementwise and computed for
+    every row first; the loop does the dependent part, on views made once
+    (the loop is bound by the cost of an operation). Returns a new x."""
+    diag = torch.diagonal(A)
+    safe = diag != 0.0
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    inv_lhs = torch.where(safe, one / torch.where(safe, diag, one), 0.0 * one)
+    noise = zs * torch.sqrt(inv_lhs * vare)
+    x = x.clone()
+    x_i, cols = x.unbind(), A.unbind(1)
+    inv_i, b_i, noise_i = inv_lhs.unbind(), b.unbind(), noise.unbind()
+    for i in torch.nonzero(safe).flatten().tolist():
+        x_i[i].copy_(inv_i[i] * (b_i[i] - torch.dot(cols[i], x)) + x_i[i] + noise_i[i])
+    return x
+
 
 def gibbs_pass_lambda(A, x, b, vare, gen: torch.Generator, zs=None):
-    """One pass of x_i ~ N((b_i - A[:, i]'x) / A_ii + x_i, vare / A_ii),
-    skipping zero diagonals (solver.jl:143-151). With residual weights A is
-    W'R^-1W and b W'R^-1 ycorr. zs: the pass's K standard normal draws
-    (tests inject the JAX package's), else drawn from gen. Returns a new
-    x."""
+    """One Gibbs pass over the location parameters (see
+    gibbs_pass_lambda_ref). With residual weights A is W'R^-1W (plus the
+    random effects' blocks) and b W'R^-1 ycorr. zs: the pass's K standard
+    normals (tests inject the JAX package's), else drawn from gen. CUDA
+    tensors launch K6 (and raise if it cannot run); CPU tensors take the
+    plain version. Returns a new x."""
     K = x.shape[0]
     if zs is None:
         zs = torch.randn(K, generator=gen, dtype=x.dtype, device=x.device)
-    x = x.clone()
-    one = torch.ones((), dtype=x.dtype, device=x.device)
-    for i in range(K):
-        a_col = A[:, i]
-        diag = a_col[i]
-        safe = diag != 0.0
-        inv_lhs = torch.where(safe, one / torch.where(safe, diag, one), 0.0 * one)
-        mu = inv_lhs * (b[i] - a_col @ x) + x[i]
-        xi = mu + zs[i] * torch.sqrt(inv_lhs * vare)
-        x[i] = torch.where(safe, xi, x[i])
-    return x
+    if A.device.type == "cpu":
+        return gibbs_pass_lambda_ref(A, x, b, vare, zs)
+    if A.device.type != "cuda":
+        raise ValueError(f"gibbs_pass_lambda: unsupported device {A.device}")
+    vare = vare.reshape(1)
+    if A.dtype not in _BUILDS:
+        raise ValueError(f"gibbs_pass_lambda: A must be float32 or float64, got {A.dtype}")
+    for name, t, shape in (("A", A, (K, K)), ("x", x, (K,)), ("b", b, (K,)),
+                           ("zs", zs, (K,)), ("vare", vare, (1,))):
+        if (tuple(t.shape) != shape or t.dtype is not A.dtype
+                or t.device != A.device or not t.is_contiguous()):
+            raise ValueError(
+                f"gibbs_pass_lambda: {name} must be a contiguous {A.dtype} "
+                f"{shape} on {A.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = _build.library()
+    if not 0 < K <= lib.jt_gibbs_pass_max_k():
+        raise ValueError(f"gibbs_pass_lambda: K = {K} location parameters; the "
+                         f"kernel takes 1 to {lib.jt_gibbs_pass_max_k()}")
+    out = torch.empty_like(x)
+    err = getattr(lib, _BUILDS[A.dtype])(
+        A.data_ptr(), x.data_ptr(), b.data_ptr(), zs.data_ptr(), vare.data_ptr(),
+        out.data_ptr(), K, _build.stream_of(A))
+    _build.check(err, "gibbs_pass_lambda")
+    gibbs_pass_lambda.launches += 1
+    gibbs_pass_lambda.launches_f64 += A.dtype == torch.float64
+    return out
+
+
+gibbs_pass_lambda.launches = 0       # every launch
+gibbs_pass_lambda.launches_f64 = 0   # the float64 build's

@@ -5,7 +5,9 @@ sample_marker_variance_common (:41, with the invweights of BayesL and
 GBLUP), sample_marker_variance_bayesb (:54),
 bayesr_sigma_sufficient_statistics and sample_marker_variance_bayesr
 (:60-80), sample_bayesl_gamma (:83), sample_pi_abc (:102),
-sample_pi_bayesr (:111) and sample_scale_st (:118), with BayesB's scale
+sample_pi_bayesr (:111), sample_scale_st (:118) and
+sample_random_effect_vc (:130, in the step's form of
+jwas_tpu/engine/mcmc.py:486-507), with BayesB's scale
 draw (jwas_tpu/engine/mcmc.py:478-482). The BayesB and BayesL draws also
 come as functions of their chi-square, gamma and uniform draws
 (bayesb_variance, bayesb_scale, bayesl_gamma), so tests can feed both
@@ -22,6 +24,7 @@ from jwas_tpu_torch.ops.dists import (
     sample_dirichlet,
     sample_gamma,
     sample_gamma_like,
+    sample_inv_wishart,
     sample_pi_beta,
     sample_scaled_inv_chi2,
 )
@@ -146,3 +149,16 @@ def sample_scale_st(gen, var_eff, df: float):
                    device=v.device)
     b = torch.sum(df / (2.0 * v)) + 1.0
     return sample_gamma(gen, a) / b
+
+
+def sample_random_effect_vc(gen, sols, Vinv, df: float, scale, bartlett=None):
+    """The (k, k) covariance of a random-effect group (sampleVCs,
+    variance_components.jl:115-147): sols (k, q) holds its k terms'
+    effects, Vinv (q, q) its structure (None: the identity, an i.i.d.
+    group); S = sols Vinv sols', symmetrised, and the draw is
+    InverseWishart(df + q, scale + S). bartlett: injected Bartlett factor
+    (tests)."""
+    q = sols.shape[1]
+    S = sols @ sols.T if Vinv is None else sols @ (Vinv @ sols.T)
+    S = 0.5 * (S + S.T)
+    return sample_inv_wishart(gen, df + q, scale + S, bartlett)

@@ -583,3 +583,107 @@ def test_c0l_regime_kernels_and_exact_step_order_on_card(cuda):
         assert bool((a[p:] == 0).all())
         torch.testing.assert_close(a, ra, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(yc, ryc, rtol=1e-4, atol=1e-4)
+
+
+def _spd_lhs(K, seed, device, zero_row=None):
+    """An exactly symmetric, diagonally dominant K x K LHS (float64) with
+    3K random couplings; zero_row: a level with no records (its row,
+    column and diagonal zero, which the pass skips)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    A = torch.zeros((K, K), dtype=torch.float64, device=device)
+    i = torch.randint(0, K, (3 * K,), generator=g, device=device)
+    j = torch.randint(0, K, (3 * K,), generator=g, device=device)
+    A[i, j] = -torch.rand(3 * K, generator=g, device=device, dtype=torch.float64)
+    A = torch.triu(A, 1)
+    A = A + A.T
+    A += torch.diag(A.abs().sum(dim=1) + 0.5)
+    if zero_row is not None:
+        A[zero_row, :] = 0.0
+        A[:, zero_row] = 0.0
+    return A
+
+
+@pytest.mark.parametrize("K", [102, 2_000, 19_902])
+def test_gibbs_pass_kernel_matches_plain(cuda, K):
+    """K6 (csrc/gibbs_pass.cu) against its plain version at K = 102, 2,000
+    (with a zero-diagonal row, left as it was) and 19,902, in float32 and
+    float64, with the same draws, one launch a call counted. The products
+    are summed in another order and pass through K dependent steps of a
+    contraction: max |err| within 1e-5 (float32) and 1e-12 (float64) of
+    max |x|."""
+    from jwas_tpu_torch.ops.location import gibbs_pass_lambda, gibbs_pass_lambda_ref
+
+    A64 = _spd_lhs(K, K, cuda, zero_row=7 if K == 2_000 else None)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    x64 = torch.randn(K, generator=g, device=cuda, dtype=torch.float64)
+    b64 = A64 @ torch.randn(K, generator=g, device=cuda, dtype=torch.float64)
+    z64 = torch.randn(K, generator=g, device=cuda, dtype=torch.float64)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        A, x, b, zs = (t.to(dtype) for t in (A64, x64, b64, z64))
+        vare = torch.tensor(1.3, dtype=dtype, device=cuda)
+        n0, f0 = gibbs_pass_lambda.launches, gibbs_pass_lambda.launches_f64
+        got = gibbs_pass_lambda(A, x, b, vare, None, zs=zs)
+        torch.cuda.synchronize()
+        assert gibbs_pass_lambda.launches == n0 + 1
+        assert gibbs_pass_lambda.launches_f64 == f0 + (dtype == torch.float64)
+        want = gibbs_pass_lambda_ref(A, x, b, vare, zs)
+        err = (got - want).abs().max().item()
+        assert err <= rtol * want.abs().max().item(), (K, dtype, err)
+        if K == 2_000:
+            assert got[7] == x[7]
+        # the draws come from the chain's generator when none are given
+        g1, g2 = (torch.Generator(device=cuda) for _ in range(2))
+        g1.manual_seed(3)
+        g2.manual_seed(3)
+        a = gibbs_pass_lambda(A, x, b, vare, g1)
+        z = torch.randn(K, generator=g2, dtype=dtype, device=cuda)
+        assert torch.equal(a, gibbs_pass_lambda(A, x, b, vare, None, zs=z))
+
+
+def test_pedigree_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
+    """y = intercept + herd + ID + dam without genotypes (the herd i.i.d.,
+    "ID dam" on a 220-animal pedigree with a 2 x 2 G) through runMCMC on
+    the card, then with the location pass through K6's plain version on
+    the same card and the same draws: the EBVs and the covariances'
+    posterior means agree to rtol 1e-3 (the pass sums in another order;
+    every draw has the same shape parameters, so the chains part only by
+    rounding) and K6 was launched once an iteration."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.mcmc as em
+    from jwas_tpu_torch.ops.location import gibbs_pass_lambda, gibbs_pass_lambda_ref
+
+    rng = np.random.default_rng(4)
+    ids = [f"a{i}" for i in range(220)]
+    sire = ["0"] * 40 + [ids[rng.integers(0, 20) + 60 * (k // 60)] for k in range(180)]
+    dam = ["0"] * 40 + [ids[rng.integers(20, 40) + 60 * (k // 60)] for k in range(180)]
+    ped = jt.get_pedigree(jt.Table({"ID": ids, "S": sire, "D": dam}))
+    pheno = jt.Table({"ID": ids[40:], "y": rng.normal(size=180),
+                      "herd": [f"h{h}" for h in rng.integers(0, 6, 180)],
+                      "dam": dam[40:]})
+
+    def run():
+        model = jt.build_model("y = intercept + herd + ID + dam")
+        jt.set_random(model, "herd", 0.2)
+        jt.set_random(model, "ID dam", ped, [[0.5, 0.1], [0.1, 0.3]])
+        return jt.runMCMC(model, pheno, device=cuda, chain_length=30, seed=5,
+                          output_folder="", printout_model_info=False)
+
+    n0 = gibbs_pass_lambda.launches
+    kernel = run()
+    assert gibbs_pass_lambda.launches == n0 + 30
+
+    def plain(A, x, b, vare, gen, zs=None):
+        zs = torch.randn(x.shape[0], generator=gen, dtype=x.dtype, device=x.device)
+        return gibbs_pass_lambda_ref(A, x, b, vare, zs)
+
+    monkeypatch.setattr(em, "gibbs_pass_lambda", plain)
+    reference = run()
+    assert gibbs_pass_lambda.launches == n0 + 30
+    for key, col in (("EBV_y", "EBV"), ("polygenic effects covariance matrix", "Estimate"),
+                     ("random effect variances y:herd", "Estimate"),
+                     ("residual variance", "Estimate")):
+        got, want = np.asarray(kernel[key][col]), np.asarray(reference[key][col])
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4, err_msg=key)

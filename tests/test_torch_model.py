@@ -176,7 +176,7 @@ def test_validate_args_gives_jwas_tpu_errors(data):
 
 UNPORTED = {
     "n_chains": 2, "mesh": object(), "checkpoint_frequency": 10, "resume": True,
-    "pedigree": object(), "sparse_location": True, "use_pallas": False,
+    "sparse_location": True, "use_pallas": False,
 }
 # options jwas_tpu rejects on the 2-bit store: its ValueError comes first
 REJECTED = {

@@ -19,6 +19,7 @@ def test_import_leaves_out_jax_pandas_and_jwas_tpu():
             "mods = [m.name for m in pkgutil.walk_packages(jwas_tpu_torch.__path__, "
             "'jwas_tpu_torch.')]; [importlib.import_module(m) for m in mods]; "
             "assert 'jwas_tpu_torch.utils.memory' in mods, mods; "
+            "assert 'jwas_tpu_torch.io.pedigree' in mods, mods; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'pandas', 'jwas_tpu'}); print(bad); "
             "sys.exit(1 if bad else 0)")
