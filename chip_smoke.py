@@ -25,9 +25,14 @@ Phases, each printed as it ends:
      phase 8a's round, a resident tile, a single block and in float64;
      K6, the location parameters' Gibbs pass, at phase 9a's LHS (K =
      19,902: W'W of its design plus the A^-1 blocks of its pedigree with a
-     2 x 2 G and the herds' identity blocks) and phase 5's (K = 102), in
-     float32 and float64, with ns a dependent step, and at a random
-     K = 2,000;
+     2 x 2 G and the herds' identity blocks), phase 5's (K = 102) and a
+     random K = 2,000, in float32 and float64, with its launch shape (S, P),
+     ns a dependent step and, beside it, the library yardstick: the pass as
+     one lower-triangular solve (torch.linalg.solve_triangular plus its
+     torch.mv), held against the plain version too; then at the ragged
+     edges of its slices (K = 1, 33, S - 1, S + 1, 20,480, zero diagonals
+     at a slice's first and last rows); every K6 check launches twice and
+     demands the same x bit for bit;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -541,15 +546,21 @@ K6_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 def check_k6(label, A, x, b, zs, vare, time_it):
     """K6 (ops/location.py::gibbs_pass_lambda) against its plain version on
-    the card, with the same draws zs; with time_it, its time (5 passes),
-    the plain version's (one pass) and its bound: the LHS's bytes read
-    once (and x, b, zs), or K (2K + 10) operations at the type's peak."""
+    the card, with the same draws zs, and a second launch on the same
+    inputs equal bit for bit; the launch shape (S, P). With time_it, its
+    time (5 passes), the plain version's (one pass), its bound (the LHS's
+    bytes read once, and x, b, zs; or K (2K + 10) operations at the type's
+    peak) and the library yardstick's time (k6_triangular: torch.mv, the
+    right-hand side and torch.linalg.solve_triangular, the triangles built
+    outside the timed window), held against the plain version too."""
     from jwas_tpu_torch.ops.location import gibbs_pass_lambda, gibbs_pass_lambda_ref
 
     K, dtype = x.shape[0], A.dtype
     if not torch.equal(A, A.T):
         raise AssertionError(f"K6 {label}: the LHS is not exactly symmetric")
     got = gibbs_pass_lambda(A, x, b, vare, None, zs=zs)
+    grid = gibbs_pass_lambda.last_grid
+    again = gibbs_pass_lambda(A, x, b, vare, None, zs=zs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = gibbs_pass_lambda_ref(A, x, b, vare, zs)
@@ -559,25 +570,59 @@ def check_k6(label, A, x, b, zs, vare, time_it):
     scale = want.abs().max().item()
     tol = K6_RTOL[dtype] * scale
     name = str(dtype).replace("torch.", "")
-    line = (f"K6 {label} {name} K={K}: max |err| {err:.3g} (tolerance {tol:.3g}: "
-            f"rtol {K6_RTOL[dtype]} x max |x| {scale:.3g})")
-    if not (err <= tol and bool(torch.isfinite(got).all())):
+    line = (f"K6 {label} {name} K={K} (S, P) = {grid}: max |err| {err:.3g} (tolerance "
+            f"{tol:.3g}: rtol {K6_RTOL[dtype]} x max |x| {scale:.3g}); a second launch "
+            f"{'equal' if torch.equal(got, again) else 'DIFFERENT'} bit for bit")
+    if not (err <= tol and bool(torch.isfinite(got).all()) and torch.equal(got, again)
+            and grid[1] == -(-K // grid[0])):
         raise AssertionError(line)
     rec = None
     if time_it:
         ms = cuda_ms(lambda: gibbs_pass_lambda(A, x, b, vare, None, zs=zs), 5)
+        solve = k6_triangular(A, x, b, vare, zs)
+        lib_err = (solve() - want).abs().max().item()
+        if not lib_err <= tol:
+            raise AssertionError(f"K6 {label}: the triangular solve's max |err| {lib_err:.3g}")
+        lib_ms = cuda_ms(solve, 5)
+        del solve
         t_bytes = (A.numel() + 4 * K) * A.element_size() / HBM_BYTES_PER_S * 1e3
         t_ops = K * (2 * K + 10) / (F64_FLOPS if dtype == torch.float64
                                     else F32_FLOPS) * 1e3
         rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=None, step_ns=ms * 1e6 / K, K=K)
+                   library_ms=lib_ms, library_max_abs_err=lib_err,
+                   step_ns=ms * 1e6 / K, K=K, grid=list(grid))
         line += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.1f} ns a dependent step), "
+                 f"library (solve_triangular + mv) {lib_ms:.4f} ms (max |err| {lib_err:.3g}), "
                  f"plain {plain:.1f} ms, bound {rec['bound_ms']:.4f} ms "
                  f"({rec['bound_by']}; {rec['bound_ms'] / ms:.2%} of it reached)")
     say(line)
     return rec
+
+
+def k6_triangular(A, x, b, vare, zs):
+    """The pass as one lower-triangular solve, K6's library yardstick (the
+    port never calls it): (D + L) x_new = b - U x + sqrt(vare diag A) o zs,
+    D, L and U A's diagonal and strict lower and upper triangles; a row with
+    a zero diagonal becomes an identity row with right-hand side x_i. The
+    triangles, the noise and that right-hand side are built here, outside
+    any timing; the returned function does the rest: one torch.mv, the
+    right-hand side and torch.linalg.solve_triangular."""
+    diag = torch.diagonal(A)
+    zero = diag == 0
+    DL, U = torch.tril(A), torch.triu(A, 1)
+    DL[zero] = 0.0
+    DL.diagonal()[zero] = 1.0
+    U[zero] = 0.0
+    noise = torch.where(zero, 0.0, torch.sqrt(vare * diag) * zs)
+    b0 = torch.where(zero, x, b)
+
+    def solve():
+        rhs = b0 - torch.mv(U, x) + noise
+        return torch.linalg.solve_triangular(DL, rhs[:, None], upper=False)[:, 0]
+
+    return solve
 
 
 def k6_vectors(A, seed):
@@ -635,8 +680,12 @@ def phase9a_lhs(dev, dtype, **design):
 
 def phase2_k6(dev, **design):
     """K6 at the location LHS of phase 9a (K = 19,902, float32 and
-    float64) and of phase 5 (K = 102), then at a ragged K = 2,000.
-    design: phase9a_design's sizes (a rehearsal's)."""
+    float64) and of phase 5 (K = 102), then at a random K = 2,000 and at
+    the ragged edges of its slices (K = 1, 33, S - 1, S + 1 and the
+    largest, 20,480, with zero diagonals at a slice's first and last
+    rows). design: phase9a_design's sizes (a rehearsal's)."""
+    from jwas_tpu_torch import _build
+
     recs = {}
     A64 = phase9a_lhs(dev, torch.float64, **design)
     for dtype, name in ((torch.float32, K6), (torch.float64, K6 + "_f64")):
@@ -648,9 +697,20 @@ def phase2_k6(dev, **design):
         A = phase5_lhs(dev, dtype)
         recs[name]["at_K102"] = check_k6("phase 5's LHS", A, *k6_vectors(A, 12), time_it=True)
     A = random_spd_lhs(dev)
-    for dtype in (torch.float32, torch.float64):
-        check_k6("a random SPD LHS", A.to(dtype), *k6_vectors(A.to(dtype), 13),
-                 time_it=False)
+    for dtype, name in ((torch.float32, K6), (torch.float64, K6 + "_f64")):
+        recs[name]["at_K2000"] = check_k6("a random SPD LHS", A.to(dtype),
+                                          *k6_vectors(A.to(dtype), 13), time_it=True)
+    S, K_max = _build.library().jt_gibbs_pass_slice(), _build.library().jt_gibbs_pass_max_k()
+    ragged = {1: (), 33: (0, 32), S - 1: (0, S - 2), S + 1: (S - 1, S),
+              K_max: (S, 2 * S - 1, K_max - 1)}      # K: zero rows
+    for K, rows in ragged.items():
+        A = random_spd_lhs(dev, K=K, seed=K)
+        for r in rows:
+            A[r, :] = 0.0
+            A[:, r] = 0.0
+        for dtype in (torch.float32, torch.float64):
+            check_k6("a ragged K", A.to(dtype), *k6_vectors(A.to(dtype), 15), time_it=False)
+    del A
     torch.cuda.empty_cache()
     return recs
 
@@ -1260,7 +1320,8 @@ def busy_shares(out):
     """Profile the block with torch.profiler; then out holds the self
     device time of its kernels and of its memory copies over its wall time
     ("kernels", "copies"), each kernel's device seconds by name
-    ("by_kernel"), the wall seconds ("wall") and the share of the
+    ("by_kernel"), each copy's and memset's ("by_copy"), the wall
+    seconds ("wall") and the share of the
     host-to-device copies' device time during which a kernel ran
     ("overlap") and how many copies were at least half hidden, of how
     many ("mostly_hidden"; see copy_overlap)."""
@@ -1273,7 +1334,7 @@ def busy_shares(out):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = copy = 0.0
-    by_kernel = {}
+    by_kernel, by_copy = {}, {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1281,12 +1342,14 @@ def busy_shares(out):
               or getattr(e, "self_cuda_time_total", 0) or 0)
         if "memcpy" in e.key.lower() or "memset" in e.key.lower():
             copy += us
+            by_copy[e.key] = by_copy.get(e.key, 0.0) + us / 1e6
         else:
             kern += us
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e6
     _, overlap, mostly, ncopies = copy_overlap(prof)
     out.update(kernels=kern / 1e6 / wall, copies=copy / 1e6 / wall, wall=wall,
-               overlap=overlap, mostly_hidden=(mostly, ncopies), by_kernel=by_kernel)
+               overlap=overlap, mostly_hidden=(mostly, ncopies), by_kernel=by_kernel,
+               by_copy=by_copy)
 
 
 def phase6b(dev, kept, fast_blocks=128):
@@ -2052,7 +2115,7 @@ def phase9b(dev, n_iter=100, n_founders=1_800, gen_size=3_000, n_pheno=16_000):
     counts = {k.__name__: k.launches for k in jt.KERNELS}
     ws, windows = built["workspace"], built["chain"][-1]
     K = ws.W.shape[1]
-    k6_s = sum(v for k, v in busy["by_kernel"].items() if "gibbs_pass" in k)
+    k6_s = sum(v for k, v in busy["by_kernel"].items() if "gibbs" in k)
     ms_iter = float(np.mean(windows[1:])) / 10 * 1e3
     ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
     unphen = np.setdiff1d(np.arange(len(ids)), pheno)
@@ -2065,6 +2128,11 @@ def phase9b(dev, n_iter=100, n_founders=1_800, gen_size=3_000, n_pheno=16_000):
         f"{busy['kernels']:.2%} of the chain's {busy['wall']:.2f} s, K6 "
         f"{k6_s / busy['wall']:.2%} ({k6_s / max(counts[K6], 1) * 1e3:.2f} ms a pass); "
         f"peak device memory {peak / 1e9:.2f} GB; launches {counts}")
+    say("device ms an iteration by part: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in iteration_parts(busy, n_iter).items()))
+    top = sorted(busy["by_kernel"].items(), key=lambda kv: -kv[1])[:8]
+    say("largest kernels, ms an iteration: " + "; ".join(
+        f"{kernel_label(k)} {v / n_iter * 1e3:.3f}" for k, v in top))
     say(f"EBV accuracy against u: all {acc['all']:.4f}, unphenotyped "
         f"{acc['unphenotyped']:.4f}; sigma^2_u "
         f"{out['polygenic effects covariance matrix'].Estimate[0]:.4g}, vare "
@@ -2081,6 +2149,39 @@ def phase9b(dev, n_iter=100, n_founders=1_800, gen_size=3_000, n_pheno=16_000):
     del built, ws
     torch.cuda.empty_cache()
     return {K6: counts[K6]}
+
+
+def kernel_label(name):
+    """A profiler kernel name cut to its function and, for PyTorch's
+    elementwise and reduction kernels, the functors that say what they
+    compute."""
+    import re
+
+    head = re.sub(r"^(void |std::enable_if<.*?>::type )", "",
+                  name.replace("(anonymous namespace)::", "")).split("(")[0].split("<")[0]
+    functors = sorted(set(re.findall(r"(\w+Functor\w*|\w+_kernel_cuda\w*)", name)))
+    return head + (f" [{', '.join(functors)}]" if functors else "")
+
+
+def iteration_parts(busy, n_iter):
+    """A profiled chain's device milliseconds an iteration by part, from
+    busy_shares' kernel and copy names: K6; the LHS assembly's copy of W'W
+    (device-to-device copies) and other copies and memsets; matrix-vector
+    and matrix products (cuBLAS gemv / gemm, the products with W);
+    elementwise and reduction kernels (the Vinv adds among them); the
+    rest."""
+    parts = dict.fromkeys(("K6", "copies DtoD", "other copies", "gemv/gemm",
+                           "elementwise", "reductions", "other kernels"), 0.0)
+    for k, sec in busy["by_kernel"].items():
+        name = k.lower()
+        part = ("K6" if "gibbs" in name else
+                "gemv/gemm" if "gemv" in name or "gemm" in name or "xmma" in name else
+                "elementwise" if "elementwise" in name else
+                "reductions" if "reduce" in name else "other kernels")
+        parts[part] += sec
+    for k, sec in busy["by_copy"].items():
+        parts["copies DtoD" if "dtod" in k.lower() else "other copies"] += sec
+    return {k: v / n_iter * 1e3 for k, v in parts.items()}
 
 
 def phase9c(dev, p=2_000, n_iter=2_000):

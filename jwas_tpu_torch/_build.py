@@ -58,11 +58,13 @@ _SIGNATURES = {
     "jt_bayesr_resident": [_I, _I, _I],
     # which, io (16 floats), steps, stream: csrc/chain_probe.cu
     "jt_chain_probe": [_I, _P, _I, _P],
-    # A, x_in, b, zs, vare, x_out, K, stream: csrc/gibbs_pass.cu (K6);
-    # float32 and float64 builds, and the largest K they take
-    "jt_gibbs_pass": [_P] * 6 + [_I, _P],
-    "jt_gibbs_pass_f64": [_P] * 6 + [_I, _P],
+    # A, x_in, b, zs, vare, x_out, partial, flags, K, stream:
+    # csrc/gibbs_pass.cu (K6); float32 and float64 builds, the largest K
+    # they take and the slice S of a block (P = ceil(K / S) blocks)
+    "jt_gibbs_pass": [_P] * 8 + [_I, _P],
+    "jt_gibbs_pass_f64": [_P] * 8 + [_I, _P],
     "jt_gibbs_pass_max_k": [],
+    "jt_gibbs_pass_slice": [],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
     # rows_per_cta, stream
     "jt_packed_rhs": [_P] * 5 + [_I] * 5 + [_P],

@@ -3,11 +3,13 @@
 Counterpart of jwas_tpu/engine/mcmc.py:86-106 (assemble_lhs_lambda) and
 jwas_tpu/ops/location.py:18-37 (gibbs_pass_lambda, a lax.scan over the K
 location parameters). On a CUDA tensor the pass is one launch of the
-hand-written kernel csrc/gibbs_pass.cu (K6: one thread block, x in shared
-memory, one block reduction a parameter; float32 and float64 builds, K up
-to 20,480); on a CPU tensor it is the plain version, a loop over the
-parameters. The K standard normals are drawn by the wrapper from the
-chain's generator, so both versions see the same draws.
+hand-written kernel csrc/gibbs_pass.cu (K6: a wavefront over the SMs, one
+block a slice of S = 160 parameters, the slices' products handed on
+through a scratch buffer; float32 and float64 builds, K up to 20,480); on
+a CPU tensor it is the plain version, a loop over the parameters. The K
+standard normals are drawn by the wrapper from the chain's generator, so
+both versions see the same draws. gibbs_pass_lambda_sliced_ref is the
+plain version in the kernel's order of work, for the tests.
 
 The LHS is kept exactly symmetric (W'R^-1W with its upper triangle copied
 down, each Vinv likewise, G^-1 symmetrised), so row i, which the kernel
@@ -73,13 +75,44 @@ def gibbs_pass_lambda_ref(A, x, b, vare, zs):
     return x
 
 
+def gibbs_pass_lambda_sliced_ref(A, x, b, vare, zs, S: int):
+    """The plain pass in K6's order of work: slices of S rows in order;
+    for slice p, the sum of each row with x is its diagonal block's upper
+    triangle times the old x_p, plus the later slices' products with their
+    old x and the earlier slices' with their new x; then the forward
+    substitution inside the slice, each new x_i added into the later rows'
+    sums. The same function as gibbs_pass_lambda_ref; only the order of
+    the sums differs. Returns a new x."""
+    diag = torch.diagonal(A)
+    safe = diag != 0.0
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    inv_lhs = torch.where(safe, one / torch.where(safe, diag, one), 0.0 * one)
+    noise = zs * torch.sqrt(inv_lhs * vare)
+    K = x.shape[0]
+    new = x.clone()
+    for r0 in range(0, K, S):
+        r1 = min(r0 + S, K)
+        blk = A[r0:r1, r0:r1]
+        c = (torch.triu(blk) @ x[r0:r1] + A[r0:r1, r1:] @ x[r1:]
+             + A[r0:r1, :r0] @ new[:r0])
+        for i in range(r1 - r0):
+            if safe[r0 + i]:
+                new[r0 + i] = (inv_lhs[r0 + i] * (b[r0 + i] - c[i]) + x[r0 + i]
+                               + noise[r0 + i])
+            c[i + 1:] += blk[i + 1:, i] * new[r0 + i]
+    return new
+
+
 def gibbs_pass_lambda(A, x, b, vare, gen: torch.Generator, zs=None):
     """One Gibbs pass over the location parameters (see
     gibbs_pass_lambda_ref). With residual weights A is W'R^-1W (plus the
     random effects' blocks) and b W'R^-1 ycorr. zs: the pass's K standard
     normals (tests inject the JAX package's), else drawn from gen. CUDA
-    tensors launch K6 (and raise if it cannot run); CPU tensors take the
-    plain version. Returns a new x."""
+    tensors launch K6 (and raise if it cannot run) with its scratch, a
+    (P, K) buffer of the slices' products and P * P zeroed flags, P =
+    ceil(K / S) blocks; the launch shape (S, P) is kept in
+    gibbs_pass_lambda.last_grid. CPU tensors take the plain version.
+    Returns a new x."""
     K = x.shape[0]
     if zs is None:
         zs = torch.randn(K, generator=gen, dtype=x.dtype, device=x.device)
@@ -101,11 +134,16 @@ def gibbs_pass_lambda(A, x, b, vare, gen: torch.Generator, zs=None):
     if not 0 < K <= lib.jt_gibbs_pass_max_k():
         raise ValueError(f"gibbs_pass_lambda: K = {K} location parameters; the "
                          f"kernel takes 1 to {lib.jt_gibbs_pass_max_k()}")
+    S = lib.jt_gibbs_pass_slice()
+    P = -(-K // S)
     out = torch.empty_like(x)
+    partial = torch.empty((P, K), dtype=A.dtype, device=A.device)
+    flags = torch.zeros(P * P, dtype=torch.int32, device=A.device)
     err = getattr(lib, _BUILDS[A.dtype])(
         A.data_ptr(), x.data_ptr(), b.data_ptr(), zs.data_ptr(), vare.data_ptr(),
-        out.data_ptr(), K, _build.stream_of(A))
+        out.data_ptr(), partial.data_ptr(), flags.data_ptr(), K, _build.stream_of(A))
     _build.check(err, "gibbs_pass_lambda")
+    gibbs_pass_lambda.last_grid = (S, P)
     gibbs_pass_lambda.launches += 1
     gibbs_pass_lambda.launches_f64 += A.dtype == torch.float64
     return out
@@ -113,3 +151,4 @@ def gibbs_pass_lambda(A, x, b, vare, gen: torch.Generator, zs=None):
 
 gibbs_pass_lambda.launches = 0       # every launch
 gibbs_pass_lambda.launches_f64 = 0   # the float64 build's
+gibbs_pass_lambda.last_grid = None   # (S, P) of the last launch

@@ -585,10 +585,10 @@ def test_c0l_regime_kernels_and_exact_step_order_on_card(cuda):
         torch.testing.assert_close(yc, ryc, rtol=1e-4, atol=1e-4)
 
 
-def _spd_lhs(K, seed, device, zero_row=None):
+def _spd_lhs(K, seed, device, zero_rows=()):
     """An exactly symmetric, diagonally dominant K x K LHS (float64) with
-    3K random couplings; zero_row: a level with no records (its row,
-    column and diagonal zero, which the pass skips)."""
+    3K random couplings; zero_rows: levels with no records (their rows,
+    columns and diagonals zero, which the pass skips)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     A = torch.zeros((K, K), dtype=torch.float64, device=device)
@@ -598,23 +598,32 @@ def _spd_lhs(K, seed, device, zero_row=None):
     A = torch.triu(A, 1)
     A = A + A.T
     A += torch.diag(A.abs().sum(dim=1) + 0.5)
-    if zero_row is not None:
-        A[zero_row, :] = 0.0
-        A[:, zero_row] = 0.0
+    for r in zero_rows:
+        A[r, :] = 0.0
+        A[:, r] = 0.0
     return A
 
 
-@pytest.mark.parametrize("K", [102, 2_000, 19_902])
+# K: phase 5's and GBLUP's 102, a random 2,000, phase 9a's 19,902, and the
+# ragged edges of K6's slices of S = 160 (one level, 33, S - 1, S + 1, the
+# largest K); zero diagonals at a slice's first and last rows
+K6_CASES = {1: (), 33: (0, 32), 102: (), 159: (0, 158), 161: (159, 160), 2_000: (7, 160, 319),
+            19_902: (), 20_480: (19_840, 20_479)}
+
+
+@pytest.mark.parametrize("K", list(K6_CASES))
 def test_gibbs_pass_kernel_matches_plain(cuda, K):
-    """K6 (csrc/gibbs_pass.cu) against its plain version at K = 102, 2,000
-    (with a zero-diagonal row, left as it was) and 19,902, in float32 and
-    float64, with the same draws, one launch a call counted. The products
-    are summed in another order and pass through K dependent steps of a
-    contraction: max |err| within 1e-5 (float32) and 1e-12 (float64) of
-    max |x|."""
+    """K6 (csrc/gibbs_pass.cu) against its plain version at K = 1 to
+    20,480, zero-diagonal rows left as they were, in float32 and float64,
+    with the same draws, one launch a call counted, a second launch on the
+    same inputs equal bit for bit, and P = ceil(K / 160) blocks (more
+    than one at K = 19,902). The products are summed in another order and
+    pass through K dependent steps of a contraction: max |err| within 1e-5
+    (float32) and 1e-12 (float64) of max |x|."""
     from jwas_tpu_torch.ops.location import gibbs_pass_lambda, gibbs_pass_lambda_ref
 
-    A64 = _spd_lhs(K, K, cuda, zero_row=7 if K == 2_000 else None)
+    zero_rows = K6_CASES[K]
+    A64 = _spd_lhs(K, K, cuda, zero_rows=zero_rows)
     g = torch.Generator(device=cuda)
     g.manual_seed(1)
     x64 = torch.randn(K, generator=g, device=cuda, dtype=torch.float64)
@@ -628,11 +637,15 @@ def test_gibbs_pass_kernel_matches_plain(cuda, K):
         torch.cuda.synchronize()
         assert gibbs_pass_lambda.launches == n0 + 1
         assert gibbs_pass_lambda.launches_f64 == f0 + (dtype == torch.float64)
+        S, P = gibbs_pass_lambda.last_grid
+        assert P == -(-K // S) and (K < 19_902 or P > 1)
         want = gibbs_pass_lambda_ref(A, x, b, vare, zs)
         err = (got - want).abs().max().item()
         assert err <= rtol * want.abs().max().item(), (K, dtype, err)
-        if K == 2_000:
-            assert got[7] == x[7]
+        for r in zero_rows:
+            assert got[r] == x[r]
+        for _ in range(3):
+            assert torch.equal(gibbs_pass_lambda(A, x, b, vare, None, zs=zs), got)
         # the draws come from the chain's generator when none are given
         g1, g2 = (torch.Generator(device=cuda) for _ in range(2))
         g1.manual_seed(3)
