@@ -32,7 +32,13 @@ Phases, each printed as it ends:
      torch.mv), held against the plain version too; then at the ragged
      edges of its slices (K = 1, 33, S - 1, S + 1, 20,480, zero diagonals
      at a slice's first and last rows); every K6 check launches twice and
-     demands the same x bit for bit;
+     demands the same x bit for bit; K7 and K8, the multi-trait samplers
+     I and II, at phase 10a's round (t = 3, b = 256 over 23 blocks, 8
+     reps) in float32 and float64, timed, and at t = 2 (one block) and
+     t = 4, a per-locus Ginv, a ragged b and a short last group's
+     padding: delta equal, the rest within the tolerances of
+     tests/test_pallas_sweep.py:42-45 (in fact bit for bit), a second
+     launch bit for bit;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -109,10 +115,29 @@ Phases, each printed as it ends:
      phenotyped, u ~ N(0, A) by the Mendelian recursion, K = 19,902, 100
      iterations profiled: ms an iteration, busy and K6's shares, accuracy;
      (c) a statistical check: a pedigree of 1,000, 600 genotyped at
-     p = 2,000, "ID dam" and an i.i.d. herd, BayesC from pi = 0.99, 2,000
-     sweeps at fast_blocks = 8 on the card and on the CPU: the card's EBV accuracy within 0.05 of the
+     p = 2,000, "ID dam" and an i.i.d. herd, BayesC from pi = 0.99, 1,000
+     sweeps (2,000 until phase 10 came: the depth cut keeps the script's
+     time) at fast_blocks = 8 on the card and on the CPU: the card's EBV
+     accuracy within 0.05 of the
      CPU's, the 2 x 2 covariances' posterior means side by side. Every path
-     above launches K6 for its location pass.
+     above launches K6 for its location pass;
+ 10. multi-trait: phase 7's 20 GB float32 store made again with 3 traits
+     (h2 0.5, 0.4, 0.3, genetic correlation 0.5, residual 0.2, 10% of
+     each trait missing: 7 missing patterns), 45,000 phenotyped, 5,000
+     candidates, y1..y3 = intercept + herd + age + geno (K = 306), three
+     outer iterations of runMCMC at fast_blocks = True (b = 256, gb = 23)
+     each: (a) BayesC, sampler I (K7), with the result files, and the
+     location LHS assembly's device ms from the pieces and from W; (b)
+     sampler II (K8); (c) BayesB (one 3 x 3 covariance a locus) and the
+     mega-trait BayesC (K1 a trait); each: seconds by part and a window,
+     peak memory within store + Grams + 4 GB, launches, the candidates'
+     EBV accuracy a trait. (d) A 3-trait animal model yt = intercept +
+     herd + ID on a pedigree of 6,000 with a 3 x 3 G, K = 18,303, 20
+     iterations: ms an iteration by part (LHS assembly, K6, the rest),
+     the LHS both ways, accuracy. (e) 3 traits at n = 2,000 x p = 2,000,
+     1,000 sweeps at fast_blocks = 8 on the card and on the CPU: the
+     card's accuracy within 0.05 of the CPU's on each trait; then the
+     float64 builds of K7 and K8 for 64 sweeps each.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -163,6 +188,12 @@ REPLACES = {
     # not a Pallas kernel: the lax.scan of gibbs_pass_lambda (:18-37)
     "gibbs_pass_lambda": "jwas_tpu/ops/location.py:18",
     "gibbs_pass_lambda_f64": "jwas_tpu/ops/location.py:18",
+    # not Pallas kernels: the lax.scan chains of the multi-trait samplers
+    # (mt_abc_blocks_I :162, its scan :214; mt_abc_blocks_II :308, :354)
+    "mt_abc_inner_rounds_I": "jwas_tpu/ops/multitrait.py:214",
+    "mt_abc_inner_rounds_I_f64": "jwas_tpu/ops/multitrait.py:214",
+    "mt_abc_inner_rounds_II": "jwas_tpu/ops/multitrait.py:354",
+    "mt_abc_inner_rounds_II_f64": "jwas_tpu/ops/multitrait.py:354",
 }
 SOURCES = {
     "abc_inner_rounds": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
@@ -173,6 +204,10 @@ SOURCES = {
     "bayesr_inner_rounds_f64": "jwas_tpu_torch/csrc/bayesr_inner_rounds.cu",
     "gibbs_pass_lambda": "jwas_tpu_torch/csrc/gibbs_pass.cu",
     "gibbs_pass_lambda_f64": "jwas_tpu_torch/csrc/gibbs_pass.cu",
+    "mt_abc_inner_rounds_I": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
+    "mt_abc_inner_rounds_I_f64": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
+    "mt_abc_inner_rounds_II": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
+    "mt_abc_inner_rounds_II_f64": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
 }
 
 
@@ -728,6 +763,146 @@ def random_spd_lhs(dev, K=2_000, seed=14):
     return symmetric_upper(W.T @ W + torch.diag(0.5 + D))
 
 
+def mt_inputs(t, b, nblocks, nreps, sampler, per_locus, seed, dev,
+              dtype=torch.float32, n_padding=3):
+    """K7 / K8 inputs: Gram tiles of 4b-observation blocks, a state of t
+    traits (a third of the indicators on), the last n_padding markers of
+    the last block padding (valid 0, zero Gram rows, xpx 1; a short last
+    group's), random covariances (Ginv shared or one a locus) and pattern
+    priors, and the draws of nreps rounds: uniforms for sampler I, Gumbels
+    for II."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f = dict(generator=g, device=dev, dtype=torch.float64)
+    x = torch.randn((nblocks, b, 4 * b), **f)
+    if n_padding:
+        x[-1, -n_padding:] = 0.0
+    grams = x @ x.transpose(1, 2)
+    xpx = torch.diagonal(grams, dim1=1, dim2=2).clone()
+    valid = torch.ones((nblocks, b), device=dev, dtype=torch.float64)
+    if n_padding:
+        xpx[-1, -n_padding:], valid[-1, -n_padding:] = 1.0, 0.0
+    rhs = x @ torch.randn((nblocks, 4 * b, t), **f)
+    beta = 0.05 * torch.randn((nblocks, t, b), **f)
+    delta = (torch.rand((nblocks, t, b), **f) < 0.3).double() * valid[:, None]
+    A = torch.randn((t, t), **f)
+    B = torch.randn((t, t), **f)
+    eye = torch.eye(t, device=dev, dtype=torch.float64)
+    Ginv = torch.linalg.inv(0.002 * (B @ B.T / t + eye))
+    if per_locus:
+        Ginv = Ginv * (0.5 + 1.5 * torch.rand((nblocks, b, 1, 1), **f))
+    pi = torch.rand(2 ** t, **f) + 0.2
+    u = torch.rand((nreps * b, t if sampler == "I" else 2 ** t, nblocks), **f)
+    inp = dict(grams=grams, xpx=xpx, valid=valid, alpha=beta * delta, beta=beta,
+               delta=delta, rhs=rhs.transpose(1, 2), Rinv=torch.linalg.inv(A @ A.T / t + eye),
+               Ginv=Ginv, log_pi=torch.log(pi / pi.sum()),
+               draw_a=u if sampler == "I" else -torch.log(-torch.log(u)),
+               zs=torch.randn((nreps * b, t, nblocks), **f))
+    return {k: v.to(dtype).contiguous() for k, v in inp.items()}
+
+
+def mt_bounds(inp, nreps):
+    """Roofline bound of one K7 / K8 call: every input read once, the state
+    and rhs written once; operations: a step's rank-t rhs update (2 t b) and
+    the marker update (sampler I ~30 t, sampler II ~2^t (t^3 + 10 t^2)),
+    at the float32 or float64 peak. The chain of nreps b dependent steps
+    keeps a call far above it."""
+    nblocks, t, b = inp["alpha"].shape
+    nbytes = sum(v.numel() * v.element_size() for v in inp.values())
+    nbytes += sum(inp[k].numel() * inp[k].element_size()
+                  for k in ("alpha", "beta", "delta", "rhs"))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    marker = 30 * t if inp["draw_a"].shape[1] == t else 2 ** t * (t ** 3 + 10 * t * t)
+    flops = F64_FLOPS if inp["grams"].dtype == torch.float64 else F32_FLOPS
+    t_ops = nreps * b * nblocks * (2 * t * b + marker) / flops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
+             dtype=torch.float32, n_padding=3):
+    """K7 (sampler "I") or K8 ("II") against its plain version on the card:
+    delta equal, alpha / beta within rtol 1e-5 / atol 1e-6 and rhs within
+    1e-4 / 1e-5 (tests/test_pallas_sweep.py:42-45); a second launch equal
+    bit for bit. time_it: the kernel's device ms (CUDA events), the plain
+    version's ms (host clock around the synchronised call that the check
+    compares with), ns a dependent step and the bound."""
+    from jwas_tpu_torch.ops import inner_rounds as ir
+    from jwas_tpu_torch.ops.multitrait import mt_abc_inner_rounds_ref
+
+    kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
+    inp = mt_inputs(t, b, nblocks, nreps, sampler, per_locus, 11 + t, dev, dtype,
+                    n_padding)
+    fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
+
+    def run(a):
+        return kernel(*(a[k] for k in ("grams", "xpx", "valid", "alpha", "beta",
+                                       "delta", "rhs", "Rinv", "Ginv", "log_pi",
+                                       "draw_a", "zs")), nreps)
+
+    outs = []
+    for _ in range(2):
+        a = fresh()
+        run(a)
+        outs.append(a)
+    r = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mt_abc_inner_rounds_ref(sampler, **r, nreps=nreps)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3   # a host-bound loop of launches
+    for k in ("alpha", "beta", "delta", "rhs"):
+        if not torch.equal(outs[0][k], outs[1][k]):
+            raise AssertionError(f"K{7 if sampler == 'I' else 8}: a second launch "
+                                 f"gave another {k}")
+    a = outs[0]
+    if not torch.equal(a["delta"], r["delta"]):
+        raise AssertionError(f"K{7 if sampler == 'I' else 8} t={t} b={b}: delta differs "
+                             f"on {int((a['delta'] != r['delta']).sum())} markers")
+    err = 0.0
+    for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("beta", 1e-5, 1e-6),
+                             ("rhs", 1e-4, 1e-5)):
+        err = max(err, (a[name] - r[name]).abs().max().item())
+        torch.testing.assert_close(a[name], r[name], rtol=rtol, atol=atol)
+    if n_padding and a["alpha"][-1, :, -n_padding:].any():
+        raise AssertionError("K7/K8: a padding marker moved")
+    label = (f"K{7 if sampler == 'I' else 8} sampler {sampler} "
+             f"{str(dtype).replace('torch.', '')} t={t} b={b} nblocks={nblocks} "
+             f"reps={nreps}{' per-locus Ginv' if per_locus else ''}: delta equal "
+             f"({float(a['delta'].mean()):.3f} of the indicators on), max |err| "
+             f"{err:.3g}, bit for bit {torch.equal(a['alpha'], r['alpha'])}")
+    rec = None
+    if time_it:
+        k_in = fresh()
+        ms = cuda_ms(lambda: run(k_in), 5)
+        rec = dict(max_abs_err=err, **mt_bounds(inp, nreps))
+        rec.update(ms=ms, plain_ms=plain, step_ns=ms * 1e6 / (nreps * b))
+        label += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.1f} ns a dependent step), "
+                  f"plain {plain:.2f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']})")
+    say(label)
+    return rec
+
+
+def phase2_mt(dev):
+    """K7 and K8 at phase 10a's shape (t = 3, b = 256 over 23 blocks, a
+    round of 8 reps) in float32 and float64, timed; then at t = 2 and 4,
+    a single block, a per-locus Ginv, a ragged b, both builds."""
+    recs = {}
+    for sampler in ("I", "II"):
+        name = f"mt_abc_inner_rounds_{sampler}"
+        recs[name] = check_mt(sampler, 3, 256, 23, 8, dev, time_it=True)
+        recs[name + "_f64"] = check_mt(sampler, 3, 256, 23, 8, dev, time_it=True,
+                                       dtype=torch.float64)
+        for dtype in (torch.float32, torch.float64):
+            check_mt(sampler, 2, 256, 1, 1, dev, dtype=dtype)       # an exact chunk
+            check_mt(sampler, 4, 40, 6, 2, dev, per_locus=True, dtype=dtype)
+            check_mt(sampler, 3, 136, 8, 3, dev, per_locus=True, dtype=dtype,
+                     n_padding=17)
+    return recs
+
+
 def phase2(dev):
     say("== phase 2: kernels against their plain versions on the card")
     check_k1(64, 8, 256, 3, dev, time_it=False)    # tests/test_pallas_sweep.py:21
@@ -788,6 +963,7 @@ def phase2(dev):
     check_gemv(1_001, 4_096, dev, missing=True, permuted=True, time_it=False)
     check_gemv(4_000, 1_023, dev, missing=False, permuted=False, time_it=False)
     recs.update(phase2_k6(dev))
+    recs.update(phase2_mt(dev))
     return recs
 
 
@@ -2184,7 +2360,7 @@ def iteration_parts(busy, n_iter):
     return {k: v / n_iter * 1e3 for k, v in parts.items()}
 
 
-def phase9c(dev, p=2_000, n_iter=2_000):
+def phase9c(dev, p=2_000, n_iter=1_000):
     """Phase 9c; see the module's docstring."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.io.table import Table
@@ -2230,7 +2406,8 @@ def phase9c(dev, p=2_000, n_iter=2_000):
         jt.set_random(model, "herd", 0.1)
         jt.set_random(model, "ID dam", ped, PHASE9A_G)
         t0 = time.perf_counter()
-        out = jt.runMCMC(model, table, device=where, chain_length=n_iter, burnin=400,
+        out = jt.runMCMC(model, table, device=where, chain_length=n_iter,
+                         burnin=n_iter // 5,
                          fast_blocks=8, seed=5, output_folder="",
                          printout_model_info=False)
         ebv = dict(zip(out["EBV_y"].ID, out["EBV_y"].EBV))
@@ -2257,6 +2434,340 @@ def phase9c(dev, p=2_000, n_iter=2_000):
     if any(card["launches"][k] == 0 for k in path):
         raise AssertionError(f"phase 9c: kernels never launched: {card['launches']}")
     return {k: card["launches"][k] for k in path}
+
+
+# ---------------------------------------------------------------- phase 10
+
+MT_H2 = (0.5, 0.4, 0.3)       # phase 10's traits: heritabilities,
+MT_RG, MT_RE = 0.5, 0.2       # genetic and residual correlations,
+MT_MISSING = 0.1              # share of each trait's records missing
+ACC_MARGIN_10E = 0.05         # card accuracy may trail the CPU's by this
+
+
+def mt_truth(X, seed, t=3, qtl_share=0.001):
+    """(n, t) true breeding values X' B of a dense store X (p, n): QTL on
+    qtl_share of the markers with effects of correlation MT_RG (torch, on
+    the store's device)."""
+    p = X.shape[0]
+    g = torch.Generator(device=X.device)
+    g.manual_seed(seed)
+    qtl = torch.rand(p, generator=g, device=X.device) < qtl_share
+    C = torch.full((t, t), MT_RG, dtype=torch.float64) + (1 - MT_RG) * torch.eye(t, dtype=torch.float64)
+    eff = torch.randn((p, t), generator=g, device=X.device, dtype=torch.float64)
+    eff = (eff @ torch.linalg.cholesky(C).to(X.device).T) * qtl[:, None]
+    return (X.T @ eff.to(X.dtype)).double().cpu().numpy()
+
+
+def mt_table(obs_ids, tbv, seed, n_train, n_herds=100, missing=MT_MISSING,
+             covariate=True):
+    """Phenotypes of t traits on individuals obs_ids with true breeding
+    values tbv (n, t): heritabilities MT_H2, residual correlation MT_RE, a
+    herd factor and an age covariate (covariate), each trait's records
+    missing with probability `missing` independently (a row keeps at least
+    one), n_train individuals in shuffled order. Returns (table, training
+    IDs, candidate IDs)."""
+    from jwas_tpu_torch.io.table import Table
+
+    n, t = tbv.shape
+    rng = np.random.default_rng(seed)
+    var_g = tbv.var(axis=0)
+    h2 = np.resize(np.asarray(MT_H2), t)
+    sd_e = np.sqrt(var_g * (1 - h2) / h2)
+    Re = MT_RE * np.outer(sd_e, sd_e)
+    np.fill_diagonal(Re, sd_e ** 2)
+    herd = rng.integers(1, n_herds + 1, n)
+    herd_effect = rng.normal(0.0, 1.0, (n_herds, t)) * np.sqrt(var_g)
+    age = np.round(rng.uniform(1.0, 5.0, n), 2)
+    y = tbv + herd_effect[herd - 1] + rng.multivariate_normal(np.zeros(t), Re, n)
+    if covariate:
+        y += 0.5 * age[:, None]
+    miss = rng.uniform(size=(n, t)) < missing
+    miss[miss.all(axis=1), 0] = False
+    y[miss] = np.nan
+    ids = np.array(obs_ids, dtype=object)
+    order = rng.permutation(n)
+    train, cand = order[:n_train], order[n_train:]
+    cols = {"ID": ids[train], **{f"y{k + 1}": y[train, k] for k in range(t)},
+            "herd": herd[train]}
+    if covariate:
+        cols["age"] = age[train]
+    return Table(cols), list(ids[train]), list(ids[cand])
+
+
+def run_mt(label, dev, geno, table, eq, kernels, on_model=None, lhs_times=False, **kw):
+    """runMCMC's multi-trait branch on phase 10's data, its set-up and chain
+    timed inside it (the workspace, the store's blocks and Grams, the chain
+    data, the chain; the results the rest). Prints seconds by part and a
+    window, peak memory against store + Grams + PHASE7_MARGIN_BYTES (with a
+    store), launches and, with lhs_times, the LHS assembly's device ms both
+    ways. Raises where a check fails. Returns (results, launches of
+    kernels, the chain's cfg and data, windows)."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.mcmc_mt as em
+
+    seconds, built = {}, {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            built[name] = out
+            return out
+        return call
+
+    names = ("prepare_workspace", "setup_dense_markers", "build_mt_data_and_state",
+             "run_mt_chain")
+    saved = {k: getattr(em, k) for k in names}
+    for k, part in zip(names, ("workspace", "store and Grams",
+                               "chain data (store and Grams included)", "chain")):
+        setattr(em, k, timed(part, saved[k]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    jt.reset_launches()
+    try:
+        model = jt.build_model(eq, genotypes=geno)
+        if "age" in table.columns:
+            jt.set_covariate(model, "age")
+        if on_model is not None:
+            on_model(model)
+        t0 = time.perf_counter()
+        out = jt.runMCMC(model, table, device=dev, printout_model_info=False,
+                         **dict(dict(seed=3), **kw))
+        seconds["runMCMC"] = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(em, k, fn)
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    counts.update({k.__name__ + "_f64": k.launches_f64 for k in jt.KERNELS
+                   if hasattr(k, "launches_f64")})
+    cfg, data, _ = built["chain data (store and Grams included)"]
+    windows = built["chain"][-1]
+    # the chain data's set-up holds the store's blocks and Grams
+    rest = seconds["runMCMC"] - sum(v for k, v in seconds.items()
+                                    if k not in ("runMCMC", "store and Grams"))
+    say(f"{label}: K = {data.W.shape[1]}, {cfg.n_obs} records, "
+        f"{len(cfg.pattern_masks)} missing patterns, nreps {cfg.nreps}, sampler "
+        f"{cfg.mt_sampler}{', mega-trait' if cfg.constraint else ''}")
+    say("  seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; results {rest:.3f}; windows " + ", ".join(f"{t:.4f}" for t in windows))
+    line = f"  peak device memory {peak / 1e9:.2f} GB"
+    if geno is not None:
+        gm = data.gm
+        store = gm.X.numel() * gm.X.element_size()
+        grams = gm.grams.numel() * gm.grams.element_size()
+        limit = store + grams + PHASE7_MARGIN_BYTES
+        line += (f" (store {store / 1e9:.2f} + Grams {grams / 1e9:.3f} + "
+                 f"{PHASE7_MARGIN_BYTES / 1e9:.0f} GB = {limit / 1e9:.2f} GB allowed)")
+        if peak > limit:
+            raise AssertionError(f"{label}: peak {peak / 1e9:.2f} GB > {limit / 1e9:.2f} GB")
+        if gm.X.data_ptr() != geno.dense.data_ptr():
+            raise AssertionError(f"{label}: runMCMC copied the dense store")
+    say(line + f"; launches {counts}")
+    if lhs_times:
+        Ri = em.pattern_Ri(data.patterns, out_R(out, cfg.n_traits, dev, data.W.dtype))
+        vc = tuple(torch.eye(len(g.starts), device=dev, dtype=data.W.dtype)
+                   for g in cfg.re_groups)
+        ms = {route: cuda_ms(lambda: (data.lhs.assemble if route == "pieces" else
+                                      data.lhs.assemble_from_W)(Ri, cfg.re_groups,
+                                                                data.Vinv, vc), 5)
+              for route in (("pieces", "from W") if data.lhs.use_pieces else ("from W",))}
+        say(f"  LHS assembly, device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+            + f" (pieces {data.lhs.piece_bytes / 1e9:.3f} GB"
+            + f"{'' if data.lhs.use_pieces else ', over the budget: not kept'})")
+    values = [np.asarray(v.Estimate, dtype=np.float64) for k, v in out.items()
+              if not k.startswith("_") and "Estimate" in v.columns]
+    if not all(np.isfinite(v).all() for v in values):
+        raise AssertionError(f"{label}: non-finite results")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    return out, {k: counts[k] for k in kernels}, cfg, data, windows
+
+
+def out_R(out, t, dev, dtype):
+    """The posterior mean residual covariance of a result dict, (t, t)."""
+    return torch.as_tensor(np.asarray(out["residual variance"].Estimate,
+                                      dtype=np.float64).reshape(t, t),
+                           dtype=dtype, device=dev)
+
+
+def mt_accuracy(out, truth, ids, t=3):
+    """EBV accuracy a trait of the individuals ids, truth {ID: (t,)}."""
+    acc = []
+    for k in range(t):
+        ebv = dict(zip(out[f"EBV_y{k + 1}"].ID, out[f"EBV_y{k + 1}"].EBV))
+        acc.append(float(np.corrcoef([ebv[s] for s in ids],
+                                     [truth[s][k] for s in ids])[0, 1]))
+    return acc
+
+
+def phase10(dev, n=50_000, p=100_000, n_train=45_000, chain_length=768, every=256):
+    """Multi-trait: (a) BayesC sampler I, (b) sampler II, (c) BayesB and the
+    mega-trait BayesC on phase 7's store with 3 traits; see the module's
+    docstring."""
+    import tempfile
+
+    import jwas_tpu_torch as jt
+
+    say(f"== phase 10: multi-trait, 3 traits at N={n} x P={p}")
+    launches = {}
+    codes = dense_codes(n, p, 7, dev)
+    t0 = time.perf_counter()
+    geno = jt.get_genotypes(codes, method="BayesC", storage="f32", device=dev)
+    torch.cuda.synchronize()
+    del codes
+    tbv = mt_truth(geno.dense, seed=10)
+    table, train, cand = mt_table(geno.obs_ids, tbv, 10, n_train)
+    truth = dict(zip(geno.obs_ids, tbv))
+    say(f"phase 7's store again ({geno.dense.numel() * 4 / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s; {len(train)} phenotyped, "
+        f"{len(cand)} candidates, {MT_MISSING:.0%} of each trait missing")
+    eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
+    runs = (("10a BayesC, sampler I", "BayesC", "I", False,
+             ("mt_abc_inner_rounds_I", K6)),
+            ("10b BayesC, sampler II", "BayesC", "II", False,
+             ("mt_abc_inner_rounds_II", K6)),
+            ("10c BayesB, sampler I", "BayesB", "I", False,
+             ("mt_abc_inner_rounds_I", K6)),
+            ("10c BayesC, mega-trait", "BayesC", "I", True, ("abc_inner_rounds", K6)))
+    for label, method, sampler, constraint, kernels in runs:
+        g = fresh(geno, method)
+        g.multi_trait_sampler = sampler
+        g.G.constraint = g.genetic_variance.constraint = constraint
+        key = f"phase {label.split(' ')[0]}{' ' + method if label.startswith('10c') else ''}"
+        key += " mega-trait" if constraint else ""
+        with tempfile.TemporaryDirectory() as folder:
+            out, launches[key], _, data, _ = run_mt(
+                label, dev, g, table, eq, kernels, lhs_times=label.startswith("10a"),
+                fast_blocks=True, chain_length=chain_length, output_samples_frequency=every,
+                output_folder=folder if label.startswith("10a") else "")
+            files = len(os.listdir(folder))
+        acc = mt_accuracy(out, truth, cand)
+        say(f"  candidates' EBV accuracy a trait {np.round(acc, 4).tolist()}; "
+            f"R {np.round(np.asarray(out['residual variance'].Estimate), 4).tolist()}"
+            + (f"; {files} result and sample files" if label.startswith("10a") else ""))
+        if not np.isfinite(acc).all():
+            raise AssertionError(f"{label}: non-finite accuracy")
+        del data, g
+    del geno
+    torch.cuda.empty_cache()
+    launches["phase 10d"] = phase10d(dev)
+    launches["phase 10e"] = phase10e(dev)
+    return launches
+
+
+def phase10d(dev, n_iter=20, n_founders=1_000, gen_size=1_000, n_gen=5, n_herds=100):
+    """A 3-trait animal model yt = intercept + herd + ID with a pedigree and
+    a 3 x 3 G at K = 3 (1 + herds + animals) ~ 18,300 (reduced in depth
+    only: the pedigree's size, to K6's limit): n_iter iterations; ms an
+    iteration by part (LHS assembly, K6, the rest), the LHS assembly both
+    ways."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.mcmc_mt as em
+    from jwas_tpu_torch.ops.location import MTLocationPieces
+
+    ids, sire, dam, starts = phase9_pedigree(n_founders, (gen_size,) * n_gen, seed=100)
+    ped = jt.get_pedigree(pedigree_table(ids, sire, dam))
+    rng = np.random.default_rng(101)
+    t = 3
+    G = np.array([[1.0, 0.5, 0.3], [0.5, 1.0, 0.4], [0.3, 0.4, 1.0]])
+    L = np.linalg.cholesky(G)
+    u = rng.normal(size=(len(ids), t)) @ L.T
+    for r0, r1 in zip(starts[1:-1], starts[2:]):
+        u[r0:r1] = (0.5 * (u[sire[r0:r1]] + u[dam[r0:r1]])
+                    + np.sqrt(0.5) * (rng.normal(size=(r1 - r0, t)) @ L.T))
+    table, _, _ = mt_table(ids[n_founders:], u[n_founders:], 102, len(ids) - n_founders,
+                           n_herds=n_herds, covariate=False)
+    K = t * (1 + n_herds + len(ids))
+    say(f"== phase 10d: 3-trait animal model, K = {K} ({len(ids)} animals, "
+        f"{len(ids) - n_founders} phenotyped)")
+    parts = {}
+    with timed_calls(parts, "LHS assembly", MTLocationPieces, "assemble"), \
+            timed_calls(parts, "K6", em, "gibbs_pass_general"):
+        out, counts, cfg, data, windows = run_mt(
+            "10d pedigree", dev, None, table,
+            "\n".join(f"y{k} = intercept + herd + ID" for k in (1, 2, 3)), (K6,),
+            on_model=lambda m: jt.set_random(m, "ID", ped, G),
+            chain_length=n_iter, output_samples_frequency=n_iter // 2, output_folder="")
+    if data.W.shape[1] != K or counts[K6] != n_iter:
+        raise AssertionError(f"phase 10d: K = {data.W.shape[1]}, {counts[K6]} passes")
+    total = sum(windows) / n_iter * 1e3
+    per = {k: v / n_iter * 1e3 for k, v in parts.items()}
+    per["rest"] = total - sum(per.values())
+    say("  ms an iteration by part (host clock, synchronised): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per.items()) + f"; total {total:.3f}")
+    Ri = em.pattern_Ri(data.patterns, out_R(out, t, dev, data.W.dtype))
+    vc = (torch.as_tensor(G, dtype=data.W.dtype, device=dev),)
+    ms = {route: cuda_ms(lambda: (data.lhs.assemble if route == "pieces" else
+                                  data.lhs.assemble_from_W)(Ri, cfg.re_groups, data.Vinv,
+                                                            vc), 3)
+          for route in (("pieces", "from W") if data.lhs.use_pieces else ("from W",))}
+    say("  LHS assembly, device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f" (pieces {data.lhs.piece_bytes / 1e9:.3f} GB)")
+    truth = dict(zip(ids, u))
+    acc = mt_accuracy(out, truth, list(ids))
+    say(f"  EBV accuracy against u a trait {np.round(acc, 4).tolist()}; G "
+        f"{np.round(np.asarray(out['polygenic effects covariance matrix'].Estimate), 3).tolist()}")
+    del data
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase10e(dev, n=2_000, p=2_000, n_iter=1_000):
+    """A statistical check: 3 traits at n x p, n_iter sweeps at fast_blocks
+    = 8 on the card and on the CPU (plain versions), the card's EBV
+    accuracy within ACC_MARGIN_10E of the CPU's on each trait; then the
+    float64 builds of K7 and K8 (double_precision), 64 sweeps each."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.io.table import Table
+
+    say(f"== phase 10e: statistical check, 3 traits at n={n} x p={p}")
+    rng = np.random.default_rng(103)
+    X = rng.binomial(2, rng.uniform(0.1, 0.9, p), (n, p)).astype(np.float32)
+    tbv = mt_truth(torch.as_tensor(X.T - X.mean(axis=0)[:, None]), seed=104, qtl_share=0.02)
+    ids = np.array([f"i{k}" for k in range(n)], dtype=object)
+    table, train, cand = mt_table(ids, tbv, 105, int(0.9 * n), n_herds=10)
+    truth = dict(zip(ids, tbv))
+    genotypes = Table({"ID": ids, **{f"m{j}": X[:, j] for j in range(p)}})
+    eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
+    res, launches = {}, {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        geno = jt.get_genotypes(genotypes, method="BayesC", storage="f32", device=d)
+        t0 = time.perf_counter()
+        jt.reset_launches()
+        model = jt.build_model(eq, genotypes=geno)
+        jt.set_covariate(model, "age")
+        out = jt.runMCMC(model, table, device=d, chain_length=n_iter, burnin=n_iter // 5,
+                         output_samples_frequency=8, fast_blocks=8, seed=5,
+                         output_folder="", printout_model_info=False)
+        launches[where] = {k.__name__: k.launches for k in jt.KERNELS}
+        res[where] = (mt_accuracy(out, truth, list(ids)), time.perf_counter() - t0,
+                      np.round(np.asarray(out["residual variance"].Estimate), 3).tolist())
+    for where, (acc, sec, R) in res.items():
+        say(f"{where}: EBV accuracy a trait {np.round(acc, 4).tolist()} ({sec:.1f} s); "
+            f"R {R}")
+    card, cpu = np.array(res["card"][0]), np.array(res["cpu"][0])
+    if not (np.isfinite(card).all() and np.isfinite(cpu).all()
+            and (card >= cpu - ACC_MARGIN_10E).all()):
+        raise AssertionError(f"phase 10e: card accuracy {card} vs CPU {cpu} "
+                             f"(margin {ACC_MARGIN_10E})")
+    counts = {k: launches["card"][k] for k in ("mt_abc_inner_rounds_I", K6)}
+    for sampler in ("I", "II"):
+        geno = jt.get_genotypes(genotypes, method="BayesC", storage="f64", device=dev,
+                                multi_trait_sampler=sampler)
+        name = f"mt_abc_inner_rounds_{sampler}_f64"
+        out, c, _, _, _ = run_mt(f"10e float64, sampler {sampler}", dev, geno, table, eq,
+                              (name, K6 + "_f64"), chain_length=64,
+                              output_samples_frequency=8, fast_blocks=8,
+                              double_precision=True, output_folder="")
+        counts.update(c)
+    if any(v == 0 for v in counts.values()):
+        raise AssertionError(f"phase 10e: kernels never launched: {counts}")
+    return counts
 
 
 def main():
@@ -2300,14 +2811,16 @@ def main():
     launches["phase 9a"] = phase9a(dev)
     launches["phase 9b"] = phase9b(dev)
     launches["phase 9c"] = phase9c(dev)
+    launches.update(phase10(dev))
 
     # launches: phase 3's (run_st, both methods), phase 4's (K6 of the
     # card's chains), phase 5's (runMCMC), phase 6's (runMCMC BayesB;
     # BayesC streamed with no group resident), phase 7's (runMCMC on dense
     # stores; the float64 builds' in 7d), phase 8's (runMCMC RR-BLUP,
     # BayesL, BayesA through K1; GBLUP K6 only), phase 9's (the animal
-    # model beside the markers, pedigree BLUP, the card's chain of 9c);
-    # K6 in every one
+    # model beside the markers, pedigree BLUP, the card's chain of 9c),
+    # phase 10's (K7 in 10a and 10c, K8 in 10b, K1 in the mega-trait run,
+    # the float64 builds of K7 and K8 in 10e); K6 in every one
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=sum(c.get(name, 0) for c in launches.values()),

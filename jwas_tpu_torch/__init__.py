@@ -10,8 +10,11 @@ store. The 2-bit store lives on the card, or in pinned host memory from
 which its groups stream to the card (runMCMC's host_offload_genotypes),
 the leading ones on the card where they fit. Random effects (set_random:
 i.i.d., pedigree and user-given Vinv groups) run beside the genotypes or
-without them (the pedigree-BLUP animal model). It imports torch, numpy and
-scipy only; never jax, pandas or jwas_tpu.
+without them (the pedigree-BLUP animal model). Multi-trait models (several
+equations) run BayesC and BayesB on a dense store with samplers I and II
+(hand-written kernels K7 and K8), the mega-trait constraint, missing
+phenotypes and t x t covariances, or no genotypes. It imports torch, numpy
+and scipy only; never jax, pandas or jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
 get_pedigree and get_info, get_genotypes (storage "2bit", or a dense one
@@ -29,21 +32,27 @@ inbreeding is host C++ (csrc/pedigree.cpp), built with g++ on first use.
 """
 
 from jwas_tpu_torch.engine.mcmc import runMCMC, run_st, setup_dense_markers, setup_markers
-from jwas_tpu_torch.io.genotypes import get_genotypes
+from jwas_tpu_torch.io.genotypes import Genotypes, get_genotypes
 from jwas_tpu_torch.io.packed import Packed2BitStore, pack_codes, prepare_packed_genotypes
 from jwas_tpu_torch.io.pedigree import Pedigree, get_info, get_pedigree
 from jwas_tpu_torch.io.table import Table, read_csv
-from jwas_tpu_torch.models.model import (build_model, describe, outputEBV, set_covariate,
-                                         set_random)
+from jwas_tpu_torch.models.model import (Model, add_genotypes, build_model, describe,
+                                         getMCMCinfo, outputEBV, outputMCMCsamples,
+                                         set_covariate, set_random)
 from jwas_tpu_torch.ops.grouped import build_grouped_markers, pick_stable_blocks
-from jwas_tpu_torch.ops.inner_rounds import abc_inner_rounds, bayesr_inner_rounds
+from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds, bayesr_inner_rounds,
+                                             mt_abc_inner_rounds_I,
+                                             mt_abc_inner_rounds_II)
 from jwas_tpu_torch.ops.location import gibbs_pass_lambda
 from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 
+# jwas_tpu's name for the packed store's preparation (jwas_tpu/__init__.py:44)
+prepare_streaming_genotypes = prepare_packed_genotypes
+
 # the kernel wrappers, each counting its own launches (the inner rounds
-# also their float64 build's, launches_f64)
+# and K6 also their float64 build's, launches_f64)
 KERNELS = (abc_inner_rounds, bayesr_inner_rounds, packed_rhs, packed_matvec,
-           gibbs_pass_lambda)
+           gibbs_pass_lambda, mt_abc_inner_rounds_I, mt_abc_inner_rounds_II)
 
 
 def reset_launches() -> None:
@@ -54,11 +63,14 @@ def reset_launches() -> None:
 
 
 __all__ = [
-    "KERNELS", "Packed2BitStore", "Pedigree", "Table", "abc_inner_rounds",
-    "bayesr_inner_rounds", "build_grouped_markers", "build_model", "describe",
+    "Genotypes", "KERNELS", "Model", "Packed2BitStore", "Pedigree", "Table",
+    "abc_inner_rounds", "add_genotypes", "bayesr_inner_rounds",
+    "build_grouped_markers", "build_model", "describe", "getMCMCinfo",
     "get_genotypes", "get_info", "get_pedigree", "gibbs_pass_lambda",
-    "outputEBV", "pack_codes", "packed_matvec", "packed_rhs",
-    "pick_stable_blocks", "prepare_packed_genotypes", "read_csv",
-    "reset_launches", "runMCMC", "run_st", "set_covariate", "set_random",
-    "setup_dense_markers", "setup_markers",
+    "mt_abc_inner_rounds_I", "mt_abc_inner_rounds_II", "outputEBV",
+    "outputMCMCsamples", "pack_codes", "packed_matvec", "packed_rhs",
+    "pick_stable_blocks", "prepare_packed_genotypes",
+    "prepare_streaming_genotypes", "read_csv", "reset_launches", "runMCMC",
+    "run_st", "set_covariate", "set_random", "setup_dense_markers",
+    "setup_markers",
 ]

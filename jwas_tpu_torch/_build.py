@@ -64,6 +64,14 @@ _SIGNATURES = {
     "jt_gibbs_pass": [_P] * 8 + [_I, _P],
     "jt_gibbs_pass_f64": [_P] * 8 + [_I, _P],
     "jt_gibbs_pass_max_k": [],
+    "jt_gibbs_pass_device_max_k": [_I],
+    # grams, xpx, valid, alpha, beta, delta, rhs, Rinv, Ginv, log_pi,
+    # us (I) or gum (II), zs, t, b, nblocks, nreps, per_locus, stream:
+    # csrc/mt_inner_rounds.cu (K7, K8); float32 and float64 builds
+    "jt_mt_inner_rounds_I": [_P] * 12 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_I_f64": [_P] * 12 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_II": [_P] * 12 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_II_f64": [_P] * 12 + [_I] * 5 + [_P],
     "jt_gibbs_pass_slice": [],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
     # rows_per_cta, stream

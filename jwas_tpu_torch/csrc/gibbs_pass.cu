@@ -365,6 +365,32 @@ int launch(const T* A, const T* x_in, const T* b, const T* zs, const T* vare, T*
 }  // namespace
 
 extern "C" int jt_gibbs_pass_max_k() { return kMaxK; }
+
+namespace {
+template <typename T>
+int device_max_k() {
+  auto kernel = gibbs_wavefront_kernel<T, kSlice, 2>;
+  size_t smem = smem_bytes<kSlice, 2>(sizeof(T));
+  if (smem < kMinSmem) smem = kMinSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 2 * kSlice, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const long long k = static_cast<long long>(kSlice) * sms * per_sm;
+  return k < kMaxK ? static_cast<int>(k) : kMaxK;
+}
+}  // namespace
+
+// The largest K a cooperative launch takes on the current device: kMaxK,
+// or fewer when fewer than ceil(kMaxK / S) blocks can be resident at once;
+// itemsize 4 or 8 (the build); < 0: -cudaError.
+extern "C" int jt_gibbs_pass_device_max_k(int itemsize) {
+  return itemsize == 8 ? device_max_k<double>() : device_max_k<float>();
+}
 extern "C" int jt_gibbs_pass_slice() { return kSlice; }
 
 // partial: (P, K) of the element type, flags: P * P zeroed unsigned ints,

@@ -10,7 +10,9 @@ a GroupedPackedMarkers of this package with block-major Grams
 become a GBLUPMarkers (eigenvectors have arbitrary signs, so a test gives
 both packages the same ones); chain-state arrays (BayesL's gamma_l among
 them) become flat tensors; the random-effect state (the groups' configs,
-W'R^-1W, each group's dense Vinv and covariance) becomes the port's.
+W'R^-1W, each group's dense Vinv and covariance) becomes the port's; the
+multi-trait chain's state and data (mt_state_from_jax, mt_data_from_jax)
+become the port's MTChainState and MTData.
 """
 
 from __future__ import annotations
@@ -112,3 +114,64 @@ def from_jax_random_effects(re_groups, WtRinvW, Vinv, vc, *, device="cpu",
     Vt = tuple(symmetric_upper(t(v)) if g.has_vinv else None
                for g, v in zip(re_groups, Vinv))
     return cfg, symmetric_upper(t(WtRinvW)), Vt, tuple(t(v) for v in vc)
+
+
+def mt_state_from_jax(state, *, seed: int = 0, device="cpu", dtype=torch.float32):
+    """jwas_tpu's MTChainState (numpy or JAX arrays) -> the port's
+    MTChainState in dtype on device, with a generator seeded with seed
+    (the key is JAX's own)."""
+    from jwas_tpu_torch.engine.state import MTChainState
+
+    def t(x):
+        return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return MTChainState(gen=gen, sol=t(state.sol), alpha=t(state.alpha),
+                        beta=t(state.beta), delta=t(state.delta), ycorr=t(state.ycorr),
+                        R=t(state.R), varg=t(state.varg), pi=t(state.pi),
+                        vc=tuple(t(v) for v in state.vc))
+
+
+def mt_data_from_jax(data, re_groups, trait_cols, *, group_blocks: int = 0,
+                     ebv_rows=None, device="cpu", dtype=torch.float32,
+                     budget: int = 1 << 30):
+    """jwas_tpu's MTData (W3 (t, n, K), rinv, y, the dense MarkerBlocks
+    fields X, xpx, grams, valid, Vinv, vc_scale, patterns, pattern_idx,
+    scale_R, marker_scale; numpy or JAX arrays) and its cfg.re_groups ->
+    the port's MTData in dtype on device. trait_cols: each trait's
+    (first, end) location column (engine/mcmc_mt.py::trait_columns of the
+    model); group_blocks: blocks a group of the dense store (0: one group;
+    an X of no columns: no markers); ebv_rows: the output IDs' columns of
+    the store (None: no EBVs from the markers); budget: bytes of the LHS
+    pieces (0: the route from W)."""
+    from jwas_tpu_torch.engine.mcmc import NoMarkers
+    from jwas_tpu_torch.engine.mcmc_mt import MTData
+    from jwas_tpu_torch.ops.location import MTLocationPieces
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.array(x), dtype=dt).to(device)
+
+    W3 = np.asarray(data.W3)
+    nt, n, K = W3.shape
+    rinv = t(data.rinv)
+    if np.shape(data.X)[1] and np.shape(data.grams)[0]:
+        gm = from_jax_marker_blocks(data.X, data.xpx, data.grams, data.valid,
+                                    group_blocks, rinv=np.asarray(data.rinv),
+                                    device=device, dtype=dtype)
+    else:
+        empty = torch.zeros(0, dtype=dtype, device=device)
+        gm = NoMarkers(xpx=empty, valid=empty, rinv=rinv, n_obs=n)
+    W = t(W3.reshape(nt * n, K))
+    patterns = t(data.patterns)
+    idx = t(data.pattern_idx, torch.int64)
+    return MTData(
+        W=W, lhs=MTLocationPieces(W, nt, trait_cols, patterns, idx, rinv, budget),
+        y=t(data.y), gm=gm, rinv=rinv, patterns=patterns, pattern_idx=idx,
+        pattern_rows=tuple(torch.nonzero(idx == k).flatten()
+                           for k in range(patterns.shape[0])),
+        scale_R=t(data.scale_R), marker_scale=t(data.marker_scale),
+        ebv_rows=None if ebv_rows is None else t(ebv_rows, torch.int64), out_W=None,
+        Vinv=tuple(symmetric_upper(t(v)) if g.has_vinv else None
+                   for g, v in zip(re_groups, data.Vinv)),
+        vc_scale=tuple(t(v) for v in data.vc_scale))

@@ -874,7 +874,10 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     matrix (with residual weights, heterogeneous_residuals, and float64,
     double_precision), or no genotypes; with the random effects of
     set_random (i.i.d., pedigree and Vinv groups; the pedigree also as
-    the option pedigree=). kwargs are MCMCOptions' fields.
+    the option pedigree=). A model of several equations runs the
+    multi-trait chain (engine/mcmc_mt.py: BayesC and BayesB on a dense
+    store, samplers I and II, the mega-trait constraint, or no genotypes).
+    kwargs are MCMCOptions' fields.
 
     device: where the chain runs, the GPU unless the caller asks for the
     CPU (device="cpu" runs the kernels' plain versions); without a GPU the
@@ -889,6 +892,9 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     NotImplementedError (prepare_workspace checks both, then the device).
     """
     opts = MCMCOptions(**kwargs)
+    if model.n_models != 1:
+        from jwas_tpu_torch.engine.mcmc_mt import run_mcmc_mt
+        return run_mcmc_mt(model, df, opts, device)
     ws = prepare_workspace(model, df, opts, device=device)
     device = resolve_device(device)
     model.mcmc_info = opts

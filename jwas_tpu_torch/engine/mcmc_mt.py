@@ -1,0 +1,584 @@
+"""The multi-trait engine: BayesC and BayesB on a dense store, or no
+genotypes, with random effects: Gibbs step, chain loop, runMCMC's
+multi-trait branch.
+
+Counterpart of jwas_tpu/engine/mcmc_mt.py: _pattern_Ri (:83), make_mt_step
+(:97-525: the imputation of missing residuals :156-175, the location pass
+:177-199, the markers of BayesC and BayesB :206-309, pi :378-399, the
+marker-effect covariance :401-443, the random-effect covariances :456-464,
+the residual covariance :466-487), make_mt_run_window (:567-629),
+pi_dict_to_vector (:632), build_mt_data_and_state (:645-991, the parts of
+continuous traits without SEM or annotations) and run_mcmc_mt (:1232),
+single chain.
+
+- The residual precision of an observation is Ri_p rinv_i, Ri_p (t, t)
+  of its missing pattern p (the static set of observed-trait masks); the
+  missing residuals are imputed each iteration from the observed ones
+  (the best linear predictor plus its conditional noise).
+- The location LHS W'R^-1W is assembled each iteration from pieces fixed
+  at set-up (ops/location.py::MTLocationPieces, one product a trait
+  pair, where jwas_tpu takes one einsum over every record), plus the
+  random-effect blocks G^-1[i, j] Vinv; the pass is K6 with vare 1
+  (gibbs_pass_general).
+- The markers: samplers I (K7) or II (K8) over the dense store's groups
+  (ops/multitrait.py), blocked (fast_blocks) or exact (one block a group,
+  one sweep an outer iteration); with G.constraint (mega-trait) the
+  single-trait sweep of each trait in turn through K1, against its own
+  residual. BayesB has one (t, t) covariance a locus, drawn as one
+  batched inverse-Wishart.
+- The EBVs of the output IDs are their rows of X alpha' over the store,
+  one (n_store, p) x (p, t) product (never a dense (n_out, p) decode,
+  reference fault R7).
+
+A random-effect group set with estimate_variance=False keeps its G (the
+reference draws it all the same, fault R10). Options of slice 7b (MT
+RR-BLUP, BayesL, GBLUP, SEM, the MT prior update) are refused in
+engine/setup.py.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from jwas_tpu_torch.engine.mcmc import (NoMarkers, chain_plan, setup_dense_markers,
+                                        _welford)
+from jwas_tpu_torch.engine.output_mt import build_mt_results
+from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
+from jwas_tpu_torch.engine.samples_io import MTSampleStream
+from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace, prepare_workspace,
+                                         resolve_device)
+from jwas_tpu_torch.engine.state import MTChainState, MTEngineCfg, REGroupCfg
+from jwas_tpu_torch.models.model import describe
+from jwas_tpu_torch.ops import markers as mk
+from jwas_tpu_torch.ops import multitrait as mt
+from jwas_tpu_torch.ops.grouped import hbm_budget, sweep_blocks_abc_grouped
+from jwas_tpu_torch.ops.location import (MTLocationPieces, gibbs_pass_general,
+                                         symmetric_upper)
+from jwas_tpu_torch.ops.variance import (sample_marker_covariance,
+                                         sample_marker_covariance_bayesb,
+                                         sample_pattern_pi, sample_pi_abc,
+                                         sample_random_effect_vc,
+                                         sample_residual_covariance)
+
+# the share of the device's memory the location LHS pieces may take
+# (above it each iteration computes the LHS blocks from W)
+PIECES_SHARE = 0.1
+
+
+class MTData(NamedTuple):
+    """Static device data of a multi-trait chain, in the chain's dtype."""
+
+    W: torch.Tensor            # (t n, K) stacked location design
+    lhs: MTLocationPieces      # W'R^-1W a pattern and trait pair
+    y: torch.Tensor            # (t, n)
+    gm: object                 # DenseMarkers or NoMarkers
+    rinv: Optional[torch.Tensor]      # (n,) inverse residual weights
+    patterns: torch.Tensor     # (P, t) observed-trait masks, 0/1
+    pattern_idx: torch.Tensor  # (n,) int64 pattern of each observation
+    pattern_rows: Tuple[torch.Tensor, ...]  # each pattern's rows, int64
+    scale_R: torch.Tensor      # (t, t) residual prior scale
+    marker_scale: torch.Tensor  # (t, t) marker-effect prior scale
+    ebv_rows: Optional[torch.Tensor]   # (n_out,) store columns of the EBVs' IDs
+    out_W: Optional[torch.Tensor]      # (t, n_out, K) prediction-equation rows
+    Vinv: tuple = ()           # a group's (q, q) Vinv, exactly symmetric;
+                               # None for "I"
+    vc_scale: tuple = ()       # a group's (k, k) prior scale
+
+
+class MTSampleOut(NamedTuple):
+    R: torch.Tensor
+    varg: torch.Tensor         # BayesB: the mean over the real loci
+    pi: torch.Tensor
+    ebv: torch.Tensor          # (t, n_out)
+    genvar: torch.Tensor       # (t, t)
+    h2: torch.Tensor           # (t,)
+
+
+class MTAccum(NamedTuple):
+    """Running posterior means (Welford)."""
+
+    n: float
+    sol_m: torch.Tensor
+    sol_m2: torch.Tensor
+    alpha_m: torch.Tensor
+    alpha_m2: torch.Tensor
+    delta_m: torch.Tensor
+    R_m: torch.Tensor
+    R_m2: torch.Tensor
+    varg_m: torch.Tensor
+    varg_m2: torch.Tensor
+    pi_m: torch.Tensor
+    pi_m2: torch.Tensor
+    ebv_m: torch.Tensor
+    ebv_m2: torch.Tensor
+    vc_m: tuple = ()
+    vc_m2: tuple = ()
+
+
+def pattern_Ri(patterns, R):
+    """Each missing pattern's residual precision (getRi, residual.jl:2-11):
+    Ri_p = M_p inv(M_p R M_p + (I - M_p)) M_p, zero rows and columns for
+    the missing traits; (P, t, t)."""
+    t = R.shape[0]
+    M = patterns[:, :, None] * patterns[:, None, :]
+    eye = torch.eye(t, dtype=R.dtype, device=R.device)
+    A = M * R + (eye - patterns[:, :, None] * eye)
+    return torch.linalg.inv(A) * M
+
+
+def impute_missing(ycorr, R, pattern_rows, pattern_masks, gen, zs=None):
+    """sampleMissingResiduals (residual.jl:51-73): for each pattern with
+    missing traits m and observed traits o, the missing residuals of its
+    rows become R_mo R_oo^-1 e_o + chol(R_mm - R_mo R_oo^-1 R_om) z, in
+    place. zs: a pattern's (|m|, rows) normals (tests inject jwas_tpu's),
+    else drawn from gen."""
+    for p, (rows, mask) in enumerate(zip(pattern_rows, pattern_masks)):
+        obs = [i for i, m in enumerate(mask) if m]
+        mis = [i for i, m in enumerate(mask) if not m]
+        if not mis or rows.numel() == 0:
+            continue
+        o = torch.tensor(obs, device=R.device)
+        m = torch.tensor(mis, device=R.device)
+        Roo, Rmo, Rmm = R[o][:, o], R[m][:, o], R[m][:, m]
+        Ri_oo = torch.linalg.inv(Roo)
+        C = Rmm - Rmo @ Ri_oo @ Rmo.T
+        Lc = torch.linalg.cholesky(0.5 * (C + C.T))
+        z = (torch.randn((len(mis), rows.numel()), generator=gen, dtype=R.dtype,
+                         device=R.device) if zs is None else zs[p])
+        imput = (Rmo @ Ri_oo) @ ycorr[o][:, rows] + Lc @ z
+        ycorr[m[:, None], rows[None, :]] = imput
+    return ycorr
+
+
+def location_rhs(data: MTData, Ri_pat, ycorr_plus):
+    """W' R^-1 (ycorr + W sol): each observation's (t,) residual times its
+    pattern's precision (and weight), then one product with the stacked
+    design."""
+    Ri_n = Ri_pat[data.pattern_idx]
+    if data.rinv is not None:
+        Ri_n = Ri_n * data.rinv[:, None, None]
+    v = torch.einsum("nab,bn->an", Ri_n, ycorr_plus)
+    return data.W.T @ v.reshape(-1)
+
+
+def sample_markers(cfg: MTEngineCfg, state: MTChainState, data: MTData) -> MTChainState:
+    """The marker effects (K7 / K8, or K1 a trait under the constraint),
+    pi and the marker-effect covariance of one outer iteration
+    (mcmc_mt.py:201-443); the marker tensors are updated in place."""
+    t, bayesb = cfg.n_traits, cfg.method == "BayesB"
+    gen, gm, ycorr = state.gen, data.gm, state.ycorr
+    alpha, beta, delta, pi, varg = (state.alpha, state.beta, state.delta,
+                                    state.pi, state.varg)
+    if cfg.constraint:
+        # mega-trait: the single-trait sweep of each trait in turn, on
+        # its own residual row (mcmc_mt.py:206-255)
+        for k in range(t):
+            var_eff = varg[:, k, k] if bayesb else varg[k, k]
+            pi_k = torch.where(gm.valid > 0, torch.clamp(pi[k], 1e-10, 1.0), 1.0)
+            d_k = delta[k].to(torch.int32)
+            sweep_blocks_abc_grouped(gm, alpha[k], beta[k], d_k, ycorr[k], state.R[k, k],
+                                     var_eff, pi_k, gen, nreps=cfg.nreps,
+                                     sync_every=cfg.sync_every)
+            delta[k] = d_k.to(delta.dtype)
+    else:
+        ginv = torch.linalg.inv(varg)
+        mt.sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, state.R,
+                                       ginv, pi, gen, sampler=cfg.mt_sampler,
+                                       nreps=cfg.nreps, sync_every=cfg.sync_every)
+
+    # pi (mcmc_mt.py:378-399)
+    if cfg.estimate_pi and cfg.constraint:
+        pi = torch.stack([sample_pi_abc(gen, delta[k], cfg.n_markers, gm.valid)
+                          for k in range(t)]).to(pi.dtype)
+    elif cfg.estimate_pi:
+        pi = sample_pattern_pi(gen, delta, gm.valid)
+
+    # the marker-effect covariance (mcmc_mt.py:401-443)
+    if cfg.estimate_marker_variance and bayesb:
+        varg = sample_marker_covariance_bayesb(gen, beta, cfg.df_marker,
+                                               data.marker_scale, cfg.constraint)
+    elif cfg.estimate_marker_variance:
+        varg = sample_marker_covariance(gen, beta, gm.valid, cfg.n_markers,
+                                        cfg.df_marker, data.marker_scale,
+                                        cfg.constraint)
+    return state._replace(alpha=alpha, beta=beta, delta=delta, ycorr=ycorr,
+                          pi=pi, varg=varg)
+
+
+def make_mt_step(cfg: MTEngineCfg):
+    """One outer iteration: imputation of the missing residuals, location
+    pass (K6), markers (K7 / K8, or K1 a trait under the constraint), pi,
+    the marker-effect covariance, the random-effect covariances, the
+    residual covariance. The marker state of the returned state is the
+    input's tensors, updated in place."""
+    t = cfg.n_traits
+
+    def step(state: MTChainState, data: MTData) -> MTChainState:
+        gen, n = state.gen, data.y.shape[1]
+        ycorr = state.ycorr
+        if cfg.missing_phenotypes:
+            ycorr = impute_missing(ycorr, state.R, data.pattern_rows,
+                                   cfg.pattern_masks, gen)
+
+        # 1. location parameters (mcmc_mt.py:177-199), K6 with vare 1
+        Ri_pat = pattern_Ri(data.patterns, state.R)
+        ycorr_plus = ycorr + (data.W @ state.sol).view(t, n)
+        lhs = data.lhs.assemble(Ri_pat, cfg.re_groups, data.Vinv, state.vc)
+        sol = gibbs_pass_general(lhs, state.sol,
+                                 location_rhs(data, Ri_pat, ycorr_plus), gen)
+        ycorr = ycorr_plus - (data.W @ sol).view(t, n)
+        state = state._replace(sol=sol, ycorr=ycorr)
+
+        # 2. markers, pi and their covariance
+        if cfg.method != "none":
+            state = sample_markers(cfg, state, data)
+
+        # 3.1 random-effect covariances; a group with estimate_variance=False
+        # keeps its G (R10)
+        vc = list(state.vc)
+        for g, grp in enumerate(cfg.re_groups):
+            if grp.estimate_variance:
+                q = grp.n_levels
+                sols = torch.stack([sol[s:s + q] for s in grp.starts])
+                vc[g] = sample_random_effect_vc(gen, sols, data.Vinv[g], grp.df,
+                                                data.vc_scale[g])
+
+        # 3.2 residual covariance (mcmc_mt.py:466-487)
+        R = state.R
+        if cfg.estimate_residual_variance:
+            R = sample_residual_covariance(gen, state.ycorr, data.rinv, cfg.n_obs,
+                                           cfg.df_residual, data.scale_R,
+                                           cfg.r_constraint)
+        return state._replace(R=R, vc=tuple(vc))
+
+    return step
+
+
+def sample_ebv(cfg: MTEngineCfg, data: MTData, state: MTChainState):
+    """(t, n_out) EBVs of a sample: the prediction-equation terms plus the
+    output IDs' rows of X alpha' over the store (one product for the t
+    traits); without markers the prediction-equation terms alone."""
+    ebv = None if data.out_W is None else torch.einsum("tok,k->to", data.out_W, state.sol)
+    if cfg.method != "none" and data.ebv_rows is not None and data.ebv_rows.numel():
+        xa = data.gm.matvec_store(state.alpha.T)[data.ebv_rows].T
+        ebv = xa if ebv is None else ebv + xa
+    if ebv is None:
+        ebv = torch.zeros((cfg.n_traits, 0), dtype=state.R.dtype, device=state.R.device)
+    return ebv
+
+
+def make_mt_run_window(cfg: MTEngineCfg):
+    step = make_mt_step(cfg)
+
+    def run_window(state: MTChainState, data: MTData, accum: MTAccum,
+                   n_iters: int, accumulate: bool = True):
+        for _ in range(n_iters):
+            state = step(state, data)
+        ebv = sample_ebv(cfg, data, state)
+        t, n_out = ebv.shape
+        if n_out > 1:
+            ebvc = ebv - ebv.mean(dim=1, keepdim=True)
+            genvar = (ebvc @ ebvc.T) / (n_out - 1)
+        else:
+            genvar = torch.zeros((t, t), dtype=ebv.dtype, device=ebv.device)
+        h2 = torch.diagonal(genvar) / (torch.diagonal(genvar) + torch.diagonal(state.R))
+        varg_out = (state.varg[:cfg.n_markers].mean(dim=0) if state.varg.dim() == 3
+                    else state.varg)
+        out = MTSampleOut(R=state.R, varg=varg_out, pi=state.pi, ebv=ebv,
+                          genvar=genvar, h2=h2)
+        if accumulate:
+            n = accum.n + 1.0
+            pairs = dict(sol=state.sol, alpha=state.alpha, R=state.R, varg=state.varg,
+                         pi=state.pi, ebv=ebv)
+            upd = {}
+            for k, x in pairs.items():
+                upd[k + "_m"] = _welford(getattr(accum, k + "_m"), x, n)
+                upd[k + "_m2"] = _welford(getattr(accum, k + "_m2"), x ** 2, n)
+            accum = MTAccum(
+                n=n, delta_m=_welford(accum.delta_m, state.delta, n),
+                vc_m=tuple(_welford(m, v, n) for m, v in zip(accum.vc_m, state.vc)),
+                vc_m2=tuple(_welford(m, v ** 2, n) for m, v in zip(accum.vc_m2, state.vc)),
+                **upd)
+        return state, accum, out
+
+    return run_window
+
+
+def init_mt_accum(data: MTData, state: MTChainState) -> MTAccum:
+    def z(x):
+        return torch.zeros_like(x)
+
+    n_out = 0 if data.ebv_rows is None else data.ebv_rows.numel()
+    if data.out_W is not None:
+        n_out = data.out_W.shape[1]
+    ebv = torch.zeros((state.R.shape[0], n_out), dtype=state.R.dtype,
+                      device=state.R.device)
+    vc = tuple(z(v) for v in state.vc)
+    return MTAccum(n=0.0, sol_m=z(state.sol), sol_m2=z(state.sol),
+                   alpha_m=z(state.alpha), alpha_m2=z(state.alpha),
+                   delta_m=z(state.alpha), R_m=z(state.R), R_m2=z(state.R),
+                   varg_m=z(state.varg), varg_m2=z(state.varg), pi_m=z(state.pi),
+                   pi_m2=z(state.pi), ebv_m=ebv, ebv_m2=ebv, vc_m=vc, vc_m2=vc)
+
+
+SAMPLE_KEYS = ("R", "varg", "pi", "genvar", "h2")
+
+
+def _read_back(state: MTChainState, out: MTSampleOut, stream, p: int) -> Dict:
+    """A saved sample's values on the host, in one transfer: the tracks of
+    SAMPLE_KEYS and what the sample files need (sol, alpha, BayesB's
+    per-locus covariances, ebv, the random-effect covariances vc<g>)."""
+    parts = {k: getattr(out, k) for k in SAMPLE_KEYS}
+    if stream is not None and stream.enabled:
+        if stream.loc_slices:
+            parts["sol"] = state.sol
+        if stream.write_markers:
+            parts["alpha"] = state.alpha[:, :p]
+            if state.varg.dim() == 3:
+                parts["varg_loci"] = state.varg[:p]
+        if stream.ebv:
+            parts["ebv"] = out.ebv
+        parts.update((f"vc{g}", v) for g, v in enumerate(state.vc))
+    dtype = state.R.dtype
+    flat = torch.cat([x.reshape(-1).to(dtype) for x in parts.values()]).cpu().numpy()
+    host, i = {}, 0
+    for k, x in parts.items():
+        host[k] = flat[i:i + x.numel()].reshape(x.shape)
+        i += x.numel()
+    return host
+
+
+def run_mt_chain(cfg: MTEngineCfg, data: MTData, state: MTChainState, plan,
+                 stream=None, progress=None):
+    """The single-chain loop (mcmc_mt.py:1270-1300): burn-in, then n_saved
+    windows of thin_outer outer iterations, each ending with its sample read
+    back (and written by stream). Returns (state, accum, samples,
+    burnin_seconds, window_seconds)."""
+    run_window = make_mt_run_window(cfg)
+    accum = init_mt_accum(data, state)
+    samples = {k: [] for k in SAMPLE_KEYS}
+    window_seconds = []
+    t0 = time.perf_counter()
+    if plan.burnin_outer > 0:
+        state, accum, out = run_window(state, data, accum, plan.burnin_outer,
+                                       accumulate=False)
+        out.R.cpu()                  # waits for the device
+    t_burnin = time.perf_counter() - t0
+    for w in range(plan.n_saved):
+        t_w = time.perf_counter()
+        state, accum, out = run_window(state, data, accum, plan.thin_outer)
+        host = _read_back(state, out, stream, cfg.n_markers)
+        window_seconds.append(time.perf_counter() - t_w)
+        for k in SAMPLE_KEYS:
+            samples[k].append(host[k])
+        if stream is not None:
+            stream.write_sample(host)
+        if progress is not None:
+            iters = (plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps
+            progress.update(iters, vare=host["R"], varg=host["varg"], pi=host["pi"])
+    return state, accum, samples, t_burnin, window_seconds
+
+
+def pi_dict_to_vector(pi, t: int) -> np.ndarray:
+    """A joint-pattern Pi dict -> the canonical (2^t,) vector (bit k =
+    trait k); anything else: every marker in every trait."""
+    vec = np.zeros(2 ** t)
+    if isinstance(pi, dict):
+        for pat, prob in pi.items():
+            idx = sum(int(float(pat[k])) << k for k in range(t))
+            vec[idx] = float(prob)
+    else:
+        vec[-1] = 1.0
+    return vec
+
+
+def _sync_every(opts: MCMCOptions) -> Optional[int]:
+    if opts.independent_blocks:
+        return 0                        # one sync an outer iteration
+    if opts.sync_every is not None:
+        return max(1, int(opts.sync_every))
+    return None
+
+
+def trait_columns(model, t: int):
+    """Each trait's (first, end) location column: its terms are contiguous,
+    in equation order (models/design.py::build_design)."""
+    cols = []
+    for k in range(t):
+        starts = [(trm.start_pos, trm.start_pos + trm.n_levels)
+                  for trm in model.terms if trm.i_model == k]
+        lo, hi = (min(a for a, _ in starts), max(b for _, b in starts)) if starts else (0, 0)
+        if sum(b - a for a, b in starts) != hi - lo:
+            raise ValueError(f"trait {k}'s location columns are not contiguous")
+        cols.append((lo, hi))
+    return cols
+
+
+def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
+    """The dense and no-marker parts of jwas_tpu's build_mt_data_and_state
+    (mcmc_mt.py:645-991): the static missing patterns, the store's blocks
+    (setup_dense_markers' choice) and the chain's dtype, the t x t priors
+    (R.constraint and G.constraint transform theirs, :730-749), the
+    sampler ("auto" is sampler I), the random-effect groups, the output
+    IDs' store columns and prediction-equation rows, the starting values
+    and the state: every marker included, the pattern priors from the Pi
+    dict, BayesB's covariances one a locus. Returns (cfg, data, state)."""
+    model, g = ws.model, ws.geno
+    t, n, K = ws.n_traits, ws.n_obs, ws.W.shape[1]
+    dtype = torch.float64 if opts.double_precision else torch.float32
+    method = "none" if g is None else g.method
+    constraint = g is not None and bool(g.G.constraint)
+    if method != "none" and not constraint:
+        mt.check_traits(t)
+
+    def dev(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dt).to(device)
+
+    y_mask = ws.y_mask.reshape(t, n)
+    uniq, pat_idx = np.unique(y_mask.T, axis=0, return_inverse=True)
+    pat_idx = pat_idx.reshape(-1)
+    pattern_masks = tuple(tuple(bool(v) for v in row) for row in uniq)
+    rinv = None if ws.rinv is None else dev(ws.rinv)
+
+    if g is None:
+        empty = torch.zeros(0, dtype=dtype, device=device)
+        gm = NoMarkers(xpx=empty, valid=empty, rinv=rinv, n_obs=n)
+        nreps = 1
+    else:
+        gm = setup_dense_markers(g.dense, g.obs_ids, ws.obs_ids, device,
+                                 fast_blocks=opts.fast_blocks, rinv=ws.rinv,
+                                 dtype=dtype)
+        rinv = gm.rinv
+        nreps = 1 if gm.exact else max(1, min(
+            opts.nreps if opts.nreps is not None else gm.grams.shape[1],
+            opts.chain_length))
+    p, p_pad = (0, 0) if g is None else (g.n_markers, gm.valid.shape[0])
+
+    re_cfgs = tuple(REGroupCfg(starts=grp.starts, n_levels=grp.n_levels, df=grp.df,
+                               has_vinv=grp.Vinv is not None,
+                               random_type=grp.random_type,
+                               estimate_variance=grp.estimate_variance)
+                    for grp in ws.re_groups)
+
+    df_marker = float(ws.df_marker)
+    marker_var0 = np.atleast_2d(np.asarray(ws.marker_var0, dtype=np.float64))
+    marker_scale0 = np.atleast_2d(np.asarray(ws.marker_scale0, dtype=np.float64))
+    if marker_var0.shape != (t, t):
+        marker_var0 = np.eye(t) * float(marker_var0.reshape(-1)[0])
+        marker_scale0 = np.eye(t) * float(marker_scale0.reshape(-1)[0])
+    if constraint:
+        # G_constraint!: df -= t, scale = Diag(scale / (df - 1)) (df - 2) / df
+        df_marker -= t
+        marker_scale0 = (np.diag(np.diag(marker_scale0 / (df_marker - 1.0)))
+                         * (df_marker - 2.0) / df_marker)
+    df_R = float(ws.df_R)
+    scale_R0 = np.atleast_2d(np.asarray(ws.scale_R, dtype=np.float64))
+    r_constraint = bool(model.R.constraint)
+    if r_constraint:
+        df_R -= t
+        scale_R0 = np.diag(np.diag(scale_R0 / (df_R - 1.0))) * (df_R - 2.0) / df_R
+    sampler = getattr(g, "multi_trait_sampler", "I") if g is not None else "I"
+    cfg = MTEngineCfg(
+        method=method, n_obs=n, n_markers=p, n_traits=t,
+        estimate_pi=g is not None and bool(g.estimate_pi),
+        estimate_marker_variance=g is not None and bool(g.G.estimate_variance),
+        estimate_scale=False,
+        estimate_residual_variance=bool(model.R.estimate_variance),
+        nreps=nreps, sync_every=mk.resolve_sync_every(nreps, _sync_every(opts)),
+        df_residual=df_R, df_marker=df_marker, re_groups=re_cfgs,
+        pattern_masks=pattern_masks,
+        missing_phenotypes=bool(opts.missing_phenotypes) and len(pattern_masks) > 1,
+        constraint=constraint, r_constraint=r_constraint,
+        mt_sampler="II" if sampler == "II" else "I")
+
+    W = dev(ws.W)
+    patterns = dev(uniq.astype(np.float64))
+    pattern_idx = torch.as_tensor(pat_idx, dtype=torch.int64).to(device)
+    pieces = MTLocationPieces(W, t, trait_columns(model, t), patterns, pattern_idx,
+                              rinv, int(PIECES_SHARE * hbm_budget(device)))
+    out_W = None
+    if ws.prediction_terms or g is None:
+        out_np = np.zeros((t, len(ws.output_ids), K))
+        for name in ws.prediction_terms:
+            term = model.term_dict[name]
+            out_np[term.i_model, :, term.start_pos:term.start_pos + term.n_levels] += (
+                ws.output_X[name])
+        out_W = dev(out_np)
+    data = MTData(
+        W=W, lhs=pieces, y=dev(ws.y.reshape(t, n)), gm=gm, rinv=rinv,
+        patterns=patterns, pattern_idx=pattern_idx,
+        pattern_rows=tuple(torch.nonzero(pattern_idx == k).flatten()
+                           for k in range(len(uniq))),
+        scale_R=dev(scale_R0), marker_scale=dev(marker_scale0),
+        ebv_rows=None if ws.output_store_rows is None else dev(ws.output_store_rows,
+                                                               torch.int64),
+        out_W=out_W,
+        Vinv=tuple(None if grp.Vinv is None else symmetric_upper(dev(grp.Vinv))
+                   for grp in ws.re_groups),
+        vc_scale=tuple(dev(grp.scale) for grp in ws.re_groups))
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0 if opts.seed is None else int(opts.seed))
+    sol = torch.zeros(K, dtype=dtype, device=device)
+    if opts.starting_value is not None and opts.starting_value is not False:
+        sv = np.asarray(opts.starting_value, dtype=np.float64).reshape(-1)
+        if len(sv) != K:
+            raise ValueError(
+                f"length of starting values for non-marker location parameters "
+                f"is wrong (expected {K}, got {len(sv)}); the order is "
+                f"model.term_names()")
+        sol = dev(sv)
+    alpha = torch.zeros((t, p_pad), dtype=dtype, device=device)
+    delta = (gm.valid[None, :] > 0).expand(t, p_pad).to(dtype).clone()
+    ycorr = data.y - (W @ sol).view(t, n)
+    ycorr = torch.where(dev(y_mask, torch.bool), ycorr, 0.0)
+    if constraint:
+        pi = torch.zeros(t, dtype=dtype, device=device)
+    else:
+        pi = dev(pi_dict_to_vector(None if g is None else g.pi, t))
+    varg = dev(marker_var0)
+    if method == "BayesB":
+        varg = varg.expand(p_pad, t, t).clone()
+    state = MTChainState(gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(),
+                         delta=delta, ycorr=ycorr, R=dev(np.atleast_2d(ws.vare0)),
+                         varg=varg, pi=pi,
+                         vc=tuple(dev(np.atleast_2d(grp.G0)) for grp in ws.re_groups))
+    return cfg, data, state
+
+
+def _host(x):
+    return x.detach().cpu().numpy()
+
+
+def run_mcmc_mt(model, df, opts: MCMCOptions, device) -> Dict:
+    """runMCMC's multi-trait branch (jwas_tpu/engine/mcmc.py:1474-1476 ->
+    mcmc_mt.py:1232), single chain, on device (resolve_device's rule)."""
+    ws = prepare_workspace(model, df, opts, device=device)
+    device = resolve_device(device)
+    model.mcmc_info = opts
+    if opts.printout_model_info:
+        describe(model)
+    cfg, data, state = build_mt_data_and_state(ws, opts, device)
+    plan = chain_plan(opts.chain_length, opts.burnin, opts.output_samples_frequency,
+                      cfg.nreps)
+    stream = MTSampleStream(ws, cfg, opts)
+    progress = ProgressPrinter(opts.printout_frequency, opts.chain_length)
+    try:
+        with maybe_profile(opts):
+            _, accum, samples, _, _ = run_mt_chain(cfg, data, state, plan, stream,
+                                                   progress)
+    finally:
+        stream.close()
+    accum = accum._replace(**{k: _host(v) if torch.is_tensor(v) else
+                              tuple(_host(x) for x in v)
+                              for k, v in accum._asdict().items() if k != "n"})
+    results = build_mt_results(ws, cfg, accum, samples, opts)
+    if stream.enabled and stream.write_markers and ws.geno is not None:
+        results["_marker_sample_files"] = {
+            trait: stream.writer.path(f"marker_effects_{ws.geno.name}_{trait}")
+            for trait in model.lhs_vec}
+    return results

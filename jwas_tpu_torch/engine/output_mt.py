@@ -1,0 +1,91 @@
+"""Multi-trait posterior summaries: accumulators -> result tables and their
+files.
+
+Counterpart of jwas_tpu/engine/output_mt.py (build_mt_results, output.jl:
+108-212) for continuous traits without SEM or annotations: "location
+parameters", "residual variance" (trait pairs), "marker effects <name>"
+(a row a trait and marker, with Model_Frequency), "marker effects
+variances <name>" (BayesB: the mean over the loci of the per-locus
+posterior means and SDs), "pi_<name>" (the patterns "[1.0, 0.0]"..., or
+one a trait under the constraint), "polygenic effects covariance matrix"
+and "random effect variances <term>", "EBV_<trait>" a trait,
+"genetic_variance" and "heritability". Each is a Table with the
+reference's columns, written to output_folder as <key>.txt.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+
+from jwas_tpu_torch.engine.output import _sd, check_finite_posteriors, result_marker_ids
+from jwas_tpu_torch.io.table import Table
+
+
+def _cov_table(names, m, sd) -> Table:
+    return Table({"Covariance": [f"{a}_{b}" for a in names for b in names],
+                  "Estimate": np.asarray(m, dtype=np.float64).reshape(-1),
+                  "SD": np.asarray(sd, dtype=np.float64).reshape(-1)})
+
+
+def build_mt_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
+    """The result tables of a multi-trait chain from its host-side
+    accumulators (numpy fields of engine.mcmc_mt.MTAccum) and saved sample
+    tracks."""
+    check_finite_posteriors(accum.R_m, "the multi-trait chain")
+    model = ws.model
+    traits = list(model.lhs_vec)
+    t = cfg.n_traits
+    results: Dict[str, Table] = {}
+    rows = [name.split(":", 2) for name in model.term_names()]
+    results["location parameters"] = Table({
+        "Trait": [r[0] for r in rows], "Effect": [r[1] for r in rows],
+        "Level": [r[2] for r in rows],
+        "Estimate": [float(x) for x in accum.sol_m],
+        "SD": [float(x) for x in _sd(accum.sol_m, accum.sol_m2)]})
+    results["residual variance"] = _cov_table(traits, accum.R_m,
+                                              _sd(accum.R_m, accum.R_m2))
+    g, p = ws.geno, cfg.n_markers
+    if g is not None:
+        results[f"marker effects {g.name}"] = Table({
+            "Trait": np.repeat(np.asarray(traits, dtype=object), p),
+            "Marker_ID": list(result_marker_ids(g, p)) * t,
+            "Estimate": accum.alpha_m[:, :p].reshape(-1),
+            "SD": _sd(accum.alpha_m, accum.alpha_m2)[:, :p].reshape(-1),
+            "Model_Frequency": accum.delta_m[:, :p].reshape(-1)})
+        vm, vsd = accum.varg_m, _sd(accum.varg_m, accum.varg_m2)
+        if vm.ndim == 3:
+            vm, vsd = vm[:p].mean(axis=0), vsd[:p].mean(axis=0)
+        results[f"marker effects variances {g.name}"] = _cov_table(traits, vm, vsd)
+        if cfg.estimate_pi:
+            labels = (traits if cfg.constraint else
+                      ["[" + ", ".join(str(float((s >> k) & 1)) for k in range(t)) + "]"
+                       for s in range(2 ** t)])
+            results[f"pi_{g.name}"] = Table({"pi": labels, "Estimate": accum.pi_m,
+                                             "SD": _sd(accum.pi_m, accum.pi_m2)})
+    for grp, m, m2 in zip(ws.re_groups, accum.vc_m, accum.vc_m2):
+        key = ("polygenic effects covariance matrix" if grp.random_type == "A"
+               else f"random effect variances {grp.term_array[0]}")
+        results[key] = _cov_table(grp.term_array, m, _sd(m, m2))
+    if ws.output_ids and (opts.outputEBV or opts.output_heritability):
+        ebv = np.asarray(accum.ebv_m)
+        pev = np.abs(np.asarray(accum.ebv_m2) - ebv ** 2)
+        for k, trait in enumerate(traits):
+            results[f"EBV_{trait}"] = Table({"ID": list(ws.output_ids), "EBV": ebv[k],
+                                             "PEV": pev[k]})
+        if opts.output_heritability:
+            gv = np.asarray(samples["genvar"], dtype=np.float64)
+            h2 = np.asarray(samples["h2"], dtype=np.float64)
+            results["genetic_variance"] = _cov_table(traits, gv.mean(axis=0),
+                                                     gv.std(axis=0))
+            results["heritability"] = Table({"Covariance": traits,
+                                             "Estimate": h2.mean(axis=0),
+                                             "SD": h2.std(axis=0)})
+    if opts.output_folder:
+        os.makedirs(opts.output_folder, exist_ok=True)
+        for key, table in results.items():
+            safe = key.replace(" ", "_").replace("*", ".")
+            table.to_csv(os.path.join(opts.output_folder, safe + ".txt"))
+    return results

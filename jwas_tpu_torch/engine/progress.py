@@ -38,15 +38,21 @@ class ProgressPrinter:
         window_s = now - self.t_last
         self.t_last = now
         parts = [f"iteration {iters_done}/{self.chain_length}",
-                 f"residual variance: {float(np.asarray(vare)):.6g}"]
+                 f"residual variance: {_fmt(vare)}"]
         if varg is not None:
-            parts.append(f"marker variance: {float(np.asarray(varg)):.6g}")
+            parts.append(f"marker variance: {_fmt(varg)}")
         if pi is not None:
             p = np.asarray(pi)
             parts.append("pi: " + (np.array2string(p, precision=3) if p.ndim
                                    else f"{float(p):.3g}"))
         parts.append(f"[{window_s:.2f}s window, {now - self.t_start:.1f}s total]")
         print("  ".join(parts), flush=True)
+
+
+def _fmt(x) -> str:
+    """A scalar as %.6g, a (t, t) covariance of several traits as rows."""
+    x = np.asarray(x)
+    return np.array2string(x, precision=4) if x.ndim else f"{float(x):.6g}"
 
 
 @contextlib.contextmanager

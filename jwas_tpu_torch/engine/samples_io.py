@@ -2,7 +2,8 @@
 
 Counterpart of jwas_tpu/engine/samples_io.py: MARKER_FILE_MAX_P and
 resolve_write_markers (:29-43), MCMCSampleWriter (:46-91) and the
-single-trait STSampleStream (:98-216) for the single-trait methods on the
+single-trait STSampleStream (:98-216) and the multi-trait MTSampleStream
+(:322-437, its files a trait where the single-trait stream has one) for the single-trait methods on the
 2-bit or a dense store or GBLUP's eigenbasis (its pseudo-markers numbered
 "1".."n", :141; the pi row empty for the methods without a pi), or without
 genotypes. One comma-separated file per parameter, MCMC_samples_<var>.txt
@@ -71,6 +72,14 @@ class MCMCSampleWriter:
         arr = np.asarray(values).reshape(-1)
         self._files[var].write(",".join(repr(float(v)) for v in arr) + "\n")
 
+    def write_rows(self, var: str, matrix):
+        """A 2-D array as one text row per matrix row, as the reference
+        writes a matrix (output.jl:471-475): the multi-trait marker
+        covariance is t rows a sample."""
+        f = self._files[var]
+        for row in np.atleast_2d(np.asarray(matrix)):
+            f.write(",".join(repr(float(v)) for v in row) + "\n")
+
     def close(self):
         for f in self._files.values():
             f.close()
@@ -83,7 +92,9 @@ def _trait_pair_header(traits: List[str]) -> List[str]:
 
 class STSampleStream:
     """Single-trait sample files: set up from the workspace, one row per
-    file a saved sample. Disabled when output_folder is empty."""
+    file a saved sample. Disabled when output_folder is empty. The set-up
+    registers the files of every trait of the model (MTSampleStream writes
+    them for several)."""
 
     def __init__(self, ws, cfg, opts):
         model = ws.model
@@ -96,9 +107,9 @@ class STSampleStream:
         if not self.enabled:
             return
         self.heritability = bool(opts.output_heritability)
-        trait = model.lhs_vec[0]
+        self.traits = list(model.lhs_vec)
         w = MCMCSampleWriter(opts.output_folder)
-        w.register("residual_variance", _trait_pair_header([trait]))
+        w.register("residual_variance", _trait_pair_header(self.traits))
         for trm_str in model.output_samples_terms:
             trm = model.term_dict.get(trm_str)
             if trm is None:
@@ -120,17 +131,19 @@ class STSampleStream:
             self.write_markers = resolve_write_markers(cfg.n_markers,
                                                        opts.output_marker_samples)
             if self.write_markers:
-                w.register(f"marker_effects_{g.name}_{trait}",
-                           result_marker_ids(g, cfg.n_markers))
+                for trait in self.traits:
+                    w.register(f"marker_effects_{g.name}_{trait}",
+                               result_marker_ids(g, cfg.n_markers))
             w.register(f"marker_effects_variances_{g.name}")
             w.register(f"pi_{g.name}")
         self.ebv = bool(opts.outputEBV) and bool(ws.output_ids)
         if self.ebv:
-            w.register(f"EBV_{trait}", list(ws.output_ids))
+            for trait in self.traits:
+                w.register(f"EBV_{trait}", list(ws.output_ids))
             if opts.output_heritability:
-                w.register("genetic_variance", _trait_pair_header([trait]))
-                w.register("heritability", [trait])
-        self.trait = trait
+                w.register("genetic_variance", _trait_pair_header(self.traits))
+                w.register("heritability", self.traits)
+        self.trait = self.traits[0]
         self.writer = w
 
     def write_sample(self, host: Dict[str, np.ndarray]) -> None:
@@ -163,3 +176,46 @@ class STSampleStream:
     def close(self):
         if self.writer is not None:
             self.writer.close()
+
+
+class MTSampleStream(STSampleStream):
+    """Multi-trait sample files (jwas_tpu's MTSampleStream): the
+    single-trait files with a (t, t) residual covariance and genetic
+    variance, a marker-effect and an EBV file a trait, the marker
+    covariance as t rows a sample (BayesB: the p per-locus (t, t) blocks
+    side by side, t rows of p t values, when the marker effects are
+    written, else their mean block) and the pattern priors (or a trait's
+    pi under the constraint)."""
+
+    def write_sample(self, host: Dict[str, np.ndarray]) -> None:
+        """One saved sample: host holds R, varg, pi, genvar, h2, the group
+        covariances vc<g> and, as the stream asked, sol, alpha (t, p),
+        varg_loci (BayesB's (p, t, t)) and ebv (t, n_out)."""
+        if not self.enabled:
+            return
+        w = self.writer
+        w.write("residual_variance", host["R"])
+        for trm_str, start, nlev in self.loc_slices:
+            w.write(trm_str, host["sol"][start:start + nlev])
+        for g, var in enumerate(self.re_vars):
+            w.write(var, host[f"vc{g}"])
+        if self.ped_groups:
+            w.write("polygenic_effects_variance",
+                    np.concatenate([host[f"vc{g}"].reshape(-1) for g in self.ped_groups]))
+        if self.geno_name is not None:
+            name = self.geno_name
+            if self.write_markers:
+                for k, trait in enumerate(self.traits):
+                    w.write(f"marker_effects_{name}_{trait}", host["alpha"][k])
+            varg = host["varg"]
+            if "varg_loci" in host:
+                v = host["varg_loci"]
+                varg = v.transpose(1, 0, 2).reshape(v.shape[1], -1)
+            w.write_rows(f"marker_effects_variances_{name}", varg)
+            w.write(f"pi_{name}", host["pi"])
+        if self.ebv:
+            for k, trait in enumerate(self.traits):
+                w.write(f"EBV_{trait}", host["ebv"][k])
+            if self.heritability:
+                w.write("genetic_variance", host["genvar"])
+                w.write("heritability", host["h2"])

@@ -4,9 +4,11 @@ Counterpart of jwas_tpu/engine/setup.py: MCMCOptions (:33-103, every field
 and default), REGroupData (:119), Workspace (:134), _default_priors
 (:163-222), _genetic2marker (:225-262), set_marker_hyperparameters
 (:265-284), normalize_method (:287-297) and prepare_workspace (:348-669),
-on its single-trait, continuous, dense-location branch for the 2-bit and
-the dense stores, GBLUP's relationship matrix and models without
-genotypes, with random-effect groups: ID reconciliation (phenotyped
+on its continuous, dense-location branch for the 2-bit and the dense
+stores, GBLUP's relationship matrix and models without genotypes, with
+random-effect groups, single-trait and multi-trait (t x t residual and
+marker-effect priors, the joint pattern Pi; BayesC, BayesB and models
+without genotypes, on dense stores): ID reconciliation (phenotyped
 individuals without genotypes, or not in the pedigree, are removed),
 default output IDs (the genotyped individuals, else the pedigree's), the
 whole-data table with output-only rows, training rows, priors, the
@@ -38,6 +40,7 @@ from jwas_tpu_torch.io.genotypes import Genotypes
 from jwas_tpu_torch.io.table import Table, append_rows, as_table, to_numeric
 from jwas_tpu_torch.models.design import build_design, stack_phenotypes
 from jwas_tpu_torch.models.model import Model
+from jwas_tpu_torch.ops import location
 from jwas_tpu_torch.ops.gblup import gblup_eigen
 from jwas_tpu_torch.ops.grouped import plan_store
 from jwas_tpu_torch.ops.markers import BAYESR_GAMMA, dense_blocks
@@ -98,12 +101,21 @@ class MCMCOptions:
     cg_maxiter: int = 200
 
 
-# option -> its one accepted value; every other value is not ported yet
+# option -> (its one accepted value, the part of ROADMAP.md that brings
+# the others)
 _UNPORTED = {
-    "n_chains": 1, "mesh": None, "checkpoint_frequency": 0, "resume": False,
-    "single_step_analysis": False, "causal_structure": None,
-    "RRM": None, "use_pallas": "auto",
+    "n_chains": (1, "ops layer"), "mesh": (None, "multi-GPU"),
+    "checkpoint_frequency": (0, "ops layer"), "resume": (False, "ops layer"),
+    "single_step_analysis": (False, "sparse location MME, solve and single-step"),
+    "causal_structure": (None, "multi-trait, slice 7b"),
+    "RRM": (None, "RRM"), "use_pallas": ("auto", "ground rules for the port"),
 }
+
+
+def not_ported(what: str, label: str) -> NotImplementedError:
+    """The refusal of what the port does not run yet, naming the part of
+    ROADMAP.md (a heading or an item's title) that brings it."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {label})")
 
 
 def resolve_device(device) -> torch.device:
@@ -119,21 +131,21 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def reject_unported(opts: MCMCOptions) -> None:
+def reject_unported(opts: MCMCOptions, n_traits: int = 1) -> None:
     """NotImplementedError naming the first option that is set to what the
     port does not run yet."""
-    for name, default in _UNPORTED.items():
+    for name, (default, label) in _UNPORTED.items():
         value = getattr(opts, name)
         same = value is default if default is None else (
             not isinstance(value, np.ndarray) and value == default)
         if not same:
-            raise NotImplementedError(
-                f"runMCMC option {name}={value!r} is not ported yet (single "
-                f"chain, single-trait, no single-step or checkpoints; see "
-                f"ROADMAP.md Queue 1)")
+            raise not_ported(f"runMCMC option {name}={value!r}", label)
     if opts.sparse_location is True:
-        raise NotImplementedError("runMCMC option sparse_location=True is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 11)")
+        raise not_ported("runMCMC option sparse_location=True",
+                         "sparse location MME, solve and single-step")
+    if n_traits > 1 and int(opts.update_priors_frequency or 0) > 0:
+        raise not_ported("update_priors_frequency > 0 with several traits",
+                         "multi-trait, slice 7b")
 
 
 @dataclass
@@ -205,10 +217,13 @@ def _default_priors(model: Model, df: Table) -> np.ndarray:
     vare = phenovar * h2 / nongenetic_count
     for g in model.M:
         if g.G.val is None and g.genetic_variance.val is None:
-            g.genetic_variance.val = varg[0, 0]
-    if model.R.val is None:
+            g.genetic_variance.val = varg[0, 0] if t == 1 else varg
+    if model.R.val is None and t == 1:
         model.R.val = float(vare[0, 0])
         model.R.scale = model.R.val * (model.R.df - 2.0) / model.R.df
+    elif model.R.val is None:
+        model.R.val = vare.copy()
+        model.R.scale = vare * (model.R.df - t - 1.0)
     for re in model.random_effects:
         if re.G.val is None:
             k = len(re.term_array)
@@ -220,14 +235,26 @@ def _default_priors(model: Model, df: Table) -> np.ndarray:
     return varg
 
 
-def _genetic2marker(g: Genotypes) -> None:
-    """The marker-effect variance from the genetic variance, single-trait
-    (tools4genotypes.jl:426-478); GBLUP's is the genetic variance."""
+def _genetic2marker(g: Genotypes, t: int = 1) -> None:
+    """The marker-effect variance from the genetic variance
+    (tools4genotypes.jl:426-478); GBLUP's is the genetic variance.
+    Multi-trait: G_ij / (sum2pq times the prior mass of the patterns that
+    include traits i and j)."""
     if g.G.val is not None:
         return
     gv = np.asarray(g.genetic_variance.val, dtype=np.float64)
     if g.method == "GBLUP":
         g.G.val = gv
+        return
+    if t > 1:
+        denom = np.full((t, t), g.sum2pq)
+        if isinstance(g.pi, dict):
+            for i in range(t):
+                for j in range(i, t):
+                    tot = sum(v for pat, v in g.pi.items()
+                              if pat[i] == 1.0 and pat[j] == 1.0)
+                    denom[i, j] = denom[j, i] = g.sum2pq * tot
+        g.G.val = gv / denom
         return
     if g.method == "BayesR":
         pi = np.asarray(g.pi, dtype=np.float64)
@@ -245,13 +272,24 @@ def _genetic2marker(g: Genotypes) -> None:
 
 
 def set_marker_hyperparameters(model: Model) -> None:
-    """set_marker_hyperparameters_variances_and_pi, single-trait
-    (tools4genotypes.jl:353-424)."""
+    """set_marker_hyperparameters_variances_and_pi
+    (tools4genotypes.jl:353-424). Multi-trait: a Pi of 0 becomes the
+    pattern dict in which every marker affects every trait, and the scale
+    is G (df - t - 1)."""
+    t = model.n_models
     for g in model.M:
-        _genetic2marker(g)
+        if (t > 1 and not isinstance(g.pi, dict) and np.ndim(g.pi) == 0
+                and g.pi == 0.0 and g.method not in ("RR-BLUP", "BayesL")):
+            g.pi = {tuple(float(c) for c in np.binary_repr(s, t)): 0.0
+                    for s in range(2 ** t)}
+            g.pi[(1.0,) * t] = 1.0
+        _genetic2marker(g, t)
         gval = np.asarray(g.G.val, dtype=np.float64)
-        g.G.scale = gval * (g.G.df - 1.0 - 1.0) / g.G.df
-        if g.method in ("BayesB", "BayesC") and np.ndim(g.pi) == 0:
+        if t == 1:
+            g.G.scale = gval * (g.G.df - 1.0 - 1.0) / g.G.df
+        else:
+            g.G.scale = gval * (g.G.df - t - 1.0)
+        if t == 1 and g.method in ("BayesB", "BayesC") and np.ndim(g.pi) == 0:
             g.pi = float(g.pi)
 
 
@@ -308,7 +346,14 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         normalize_method(g, model)
     validate_args(model, opts)
     validate_phenotypes(opts, df.columns)
-    reject_unported(opts)
+    t = model.n_models
+    if opts.sparse_location is True and t != 1:
+        raise ValueError(
+            "sparse_location=True supports single-trait (non-RRM, non-SEM) "
+            "models only; multi-trait/RRM/SEM MMEs use the dense location path")
+    reject_unported(opts, t)
+    if t > 1 and model.M and model.M[0].method not in ("BayesC", "BayesB"):
+        raise not_ported(f"multi-trait {model.M[0].method}", "multi-trait, slice 7b")
     if device is not None:
         device = resolve_device(device)
     g0 = model.M[0] if model.M else None
@@ -350,8 +395,7 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     extra = [s for s in output_ids if s not in df_ids]
     df_whole = append_rows(df, id_col, extra) if extra else df
 
-    # training rows: a non-missing phenotype
-    t = model.n_models
+    # training rows: at least one non-missing phenotype
     miss = np.ones((len(df_whole), t), dtype=bool)
     for i, lhs in enumerate(model.lhs_vec):
         miss[:, i] = ~np.isfinite(to_numeric(df_whole[lhs], errors="coerce"))
@@ -364,11 +408,19 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     X_whole = build_design(model, df_whole)
     n_whole = len(df_whole)
     row_sel = np.concatenate([m * n_whole + train_rows for m in range(t)])
-    if opts.sparse_location is None and X_whole.shape[1] > 20_000:
-        raise NotImplementedError(
-            f"{X_whole.shape[1]} location levels: jwas_tpu would take its sparse "
-            f"location path (sparse_location=None, K > 20,000), which is not "
-            f"ported yet (ROADMAP.md Queue 1 item 11)")
+    K = X_whole.shape[1]
+    if opts.sparse_location is None and t == 1 and K > 20_000:
+        raise not_ported(
+            f"{K} location levels: jwas_tpu's sparse location path "
+            f"(sparse_location=None, K > 20,000)",
+            "sparse location MME, solve and single-step")
+    limit = 0 if device is None else location.pass_limit(
+        device, torch.float64 if opts.double_precision else torch.float32)
+    if limit and K > limit:
+        raise not_ported(
+            f"{K} location parameters on the dense location path: the location "
+            f"pass (K6) takes at most {limit} on {device}, and a dense model above "
+            f"that", "a location pass above K6's limit")
     W = np.asarray(X_whole[row_sel, :].todense())
     df_train = df_whole[train_rows]
     obs_ids = [str(x) for x in df_train[id_col].tolist()]
@@ -408,10 +460,12 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
             term_array=list(re.term_array), random_type=re.random_type,
             estimate_variance=bool(re.G.estimate_variance)))
 
+    as_prior = (lambda v: np.asarray(float(np.asarray(v).reshape(-1)[0]))) if t == 1 else (
+        lambda v: np.asarray(v, dtype=np.float64))
     common = dict(
         model=model, df=df_train, n_obs=len(obs_ids), n_traits=t, W=W, y=y,
-        y_mask=y_mask, geno=g0, vare0=np.asarray(float(model.R.val)),
-        scale_R=np.asarray(float(model.R.scale)), df_R=float(model.R.df),
+        y_mask=y_mask, geno=g0, vare0=as_prior(model.R.val),
+        scale_R=as_prior(model.R.scale), df_R=float(model.R.df),
         output_ids=list(output_ids), prediction_terms=prediction_terms,
         output_X=output_X, obs_ids=obs_ids, rinv=rinv, re_groups=re_groups)
     if g0 is None:

@@ -69,3 +69,39 @@ class EngineCfg:
     df_residual: float
     df_marker: float
     re_groups: Tuple[REGroupCfg, ...] = ()
+
+
+class MTChainState(NamedTuple):
+    """State of a multi-trait chain (jwas_tpu/engine/state.py MTChainState,
+    the fields of continuous traits without SEM or annotations)."""
+
+    gen: torch.Generator      # the chain's only source of randomness
+    sol: torch.Tensor         # (K,) location parameters
+    alpha: torch.Tensor       # (t, p_pad) marker effects
+    beta: torch.Tensor        # (t, p_pad) underlying effects
+    delta: torch.Tensor       # (t, p_pad) inclusion indicators, 0/1 in the
+                              # chain's dtype
+    ycorr: torch.Tensor       # (t, n) residuals, the missing ones imputed
+    R: torch.Tensor           # (t, t) residual covariance
+    varg: torch.Tensor        # (t, t) marker-effect covariance; BayesB
+                              # (p_pad, t, t), one a locus
+    pi: torch.Tensor          # (2^t,) pattern priors (bit k = trait k);
+                              # mega-trait (t,) P(excluded) a trait
+    vc: Tuple[torch.Tensor, ...] = ()  # a (k, k) covariance a random-effect
+                              # group
+
+
+@dataclass(frozen=True)
+class MTEngineCfg(EngineCfg):
+    """A multi-trait chain's static configuration (jwas_tpu's MTEngineCfg).
+    The rows of each missing pattern are tensors of the chain's data
+    (engine/mcmc_mt.py::MTData.pattern_rows)."""
+
+    n_traits: int = 2
+    pattern_masks: Tuple[Tuple[bool, ...], ...] = ()   # observed traits a
+                                                       # pattern
+    missing_phenotypes: bool = False   # impute the missing residuals
+    constraint: bool = False           # mega-trait (G.constraint): one
+                                       # single-trait sweep a trait
+    r_constraint: bool = False         # diagonal residual covariance
+    mt_sampler: str = "I"              # "I" | "II"

@@ -87,6 +87,8 @@ class Genotypes:
     name: str = "geno"
     annotations: Optional[np.ndarray] = None    # not ported: always None
     starting_alpha: Optional[np.ndarray] = None  # (p,) starting marker effects
+    multi_trait_sampler: str = "I"   # "auto" | "I" | "II" (MTBayesABC.jl:20-25;
+                                     # "auto" runs sampler I, as jwas_tpu does)
 
 
 def bayesr_pi(Pi) -> np.ndarray:
@@ -124,12 +126,19 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
     method: every single-trait method on a dense store; on the 2-bit
     store only "BayesC", "BayesB" and "BayesR", the others raising
     ValueError as jwas_tpu does. Annotations raise NotImplementedError
-    (ROADMAP.md Queue 1 item 8). GBLUP keeps the relationship matrix (grm)
+    (ROADMAP.md: latent traits and annotations). GBLUP keeps the relationship matrix (grm)
     of the input, or of its genotypes, in place of a store; G must then be
     the genetic variance. device: where a dense store or the relationship
     matrix is written (the GPU unless the caller asks for another; "cpu"
     runs the plain versions). starting_value: (p,) starting marker
     effects, one a marker after QC (GBLUP ignores them, as jwas_tpu does).
+    Multi-trait (a model of several equations): G is the t x t genetic
+    covariance (or marker-effect covariance), Pi a dict of the prior
+    probabilities of the inclusion patterns, e.g. {(1.0, 1.0): 0.6,
+    (1.0, 0.0): 0.2, (0.0, 1.0): 0.1, (0.0, 0.0): 0.1} (default: every
+    marker affects every trait), multi_trait_sampler "I", "II" or "auto"
+    (sampler I), and constraint=True the mega-trait model (one
+    single-trait sweep a trait, a diagonal covariance).
     """
     if method not in _SUPPORTED_METHODS:
         raise ValueError(f"method {method!r} is not available; use one of {_SUPPORTED_METHODS}")
@@ -141,8 +150,8 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
     if packed and annotations is not None:
         raise ValueError("annotations are not supported with storage='2bit'")
     if annotations is not None:
-        raise NotImplementedError("annotations are not ported yet (ROADMAP.md "
-                                  "Queue 1 item 8)")
+        raise NotImplementedError("annotations are not ported yet (ROADMAP.md: "
+                                  "latent traits and annotations)")
     if method == "BayesR":
         Pi = bayesr_pi(Pi).copy()
 
@@ -191,7 +200,8 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
         sum2pq=float(np.sum(2.0 * freqs * (1.0 - freqs))), method=method, pi=Pi,
         estimate_pi=estimatePi, G=spec(G if G_is_marker_variance else None),
         genetic_variance=spec(None if G_is_marker_variance else G),
-        name=name, starting_alpha=starting_alpha, **fields,
+        name=name, starting_alpha=starting_alpha,
+        multi_trait_sampler=multi_trait_sampler, **fields,
     )
 
 

@@ -3,9 +3,11 @@
 Counterpart of jwas_tpu/models/model.py: ModelTerm (:30), RandomEffect
 (:52), Model (:65), build_model (:97-201), set_covariate (:225),
 set_random (:231-348), outputEBV (:351), outputMCMCsamples (:356),
-describe (:368) and getMCMCinfo (:400), for one equation (single-trait)
-with fixed factors, covariates, interactions, random effects (i.i.d.,
-pedigree and user-given Vinv groups) and at most one genotype category.
+describe (:368), getMCMCinfo (:400) and the deprecated add_genotypes
+(:203), for one equation (single-trait) or several (multi-trait, one a
+trait, with a t x t residual covariance) with fixed factors, covariates,
+interactions, random effects (i.i.d., pedigree and user-given Vinv groups,
+a k x k covariance over their k terms) and at most one genotype category.
 Genotypes are passed explicitly (build_model(..., genotypes=geno)).
 """
 
@@ -89,30 +91,30 @@ def build_model(model_equations: str, R=None, *, df: float = 4.0,
                 genotypes: Union[Genotypes, Sequence[Genotypes], None] = None) -> Model:
     """Parse a model equation into a Model (build_MME.jl:42-156).
 
-    model_equations: one equation, e.g. "y = intercept + herd + age + geno";
-    every variable is a fixed factor unless set_covariate makes it a
-    covariate, "A*B" is an interaction, and a name equal to a genotype
-    set's name fits that marker set. R: the residual variance's prior mean
-    (default: half the phenotypic variance). More than one equation, latent
-    traits or more than one genotype category are not ported.
+    model_equations: one equation, e.g. "y = intercept + herd + age + geno",
+    or one a line (or ";") for several traits, e.g.
+    "y1 = intercept + geno\ny2 = intercept + geno"; every variable is a
+    fixed factor unless set_covariate makes it a covariate, "A*B" is an
+    interaction, and a name equal to a genotype set's name fits that
+    marker set. R: the residual variance's prior mean, a scalar or a t x t
+    covariance (default: half the phenotypic variance). Latent traits and
+    more than one genotype category are not ported.
     """
     if not isinstance(model_equations, str) or not model_equations.strip():
         raise ValueError("model equations are wrong; pass e.g. 'y = intercept + age'")
     if estimate_scale:
         raise ValueError("estimate scale for residual variance is not supported")
     eqs = [e.strip() for e in model_equations.replace(";", "\n").splitlines() if e.strip()]
-    if len(eqs) != 1:
-        raise NotImplementedError(
-            f"{len(eqs)} model equations: multi-trait models are not ported "
-            f"yet (ROADMAP.md Queue 1 item 9)")
+    t = len(eqs)
     if censored_trait or categorical_trait:
         raise NotImplementedError(
             "censored_trait and categorical_trait (latent traits) are not "
-            "ported yet (ROADMAP.md Queue 1 item 10)")
+            "ported yet (ROADMAP.md: latent traits and annotations)")
+    R_arr = None
     if R is not None:
         R_arr = np.atleast_2d(np.asarray(R, dtype=np.float64))
-        if R_arr.shape != (1, 1):
-            raise ValueError("the residual covariance matrix is not 1x1")
+        if R_arr.shape != (t, t):
+            raise ValueError(f"the residual covariance matrix is not {t}x{t}")
         if np.any(np.linalg.eigvalsh(R_arr) <= 0):
             raise ValueError("the covariance matrix is not positive definite")
     geno_list: List[Genotypes] = []
@@ -124,32 +126,63 @@ def build_model(model_equations: str, R=None, *, df: float = 4.0,
             f"second would be dropped silently; ROADMAP.md known fault R2)")
     geno_by_name = {g.name: g for g in geno_list}
 
-    lhs, rhs = (s.strip() for s in eqs[0].split("="))
+    lhs_vec: List[str] = []
     terms: List[ModelTerm] = []
     used_genos: List[Genotypes] = []
-    for trm_str in (s.strip() for s in rhs.split("+")):
-        base = trm_str.split("*")[-1].strip()
-        if base in geno_by_name:
-            if geno_by_name[base] not in used_genos:
-                used_genos.append(geno_by_name[base])
-            continue
-        terms.append(ModelTerm(trm_str=f"{lhs}:{trm_str}", i_model=0,
-                               trait_name=lhs,
-                               factors=[f.strip() for f in trm_str.split("*")]))
+    for m, eq in enumerate(eqs):
+        lhs, rhs = (s.strip() for s in eq.split("="))
+        lhs_vec.append(lhs)
+        for trm_str in (s.strip() for s in rhs.split("+")):
+            base = trm_str.split("*")[-1].strip()
+            if base in geno_by_name:
+                if geno_by_name[base] not in used_genos:
+                    used_genos.append(geno_by_name[base])
+                continue
+            terms.append(ModelTerm(trm_str=f"{lhs}:{trm_str}", i_model=m,
+                                   trait_name=lhs,
+                                   factors=[f.strip() for f in trm_str.split("*")]))
 
     # residual prior: scale/df transform (build_MME.jl:127-134)
-    R_val = None if R is None else float(R_arr[0, 0])
+    if t == 1:
+        R_val = None if R_arr is None else float(R_arr[0, 0])
+        df_R, scale_R = df, None if R_val is None else R_val * (df - 2.0) / df
+    else:
+        R_val, df_R = R_arr, df + t
+        scale_R = None if R_arr is None else R_arr * (df - 1.0)
     model = Model(
-        n_models=1, model_vec=eqs, terms=terms,
-        term_dict={t.trm_str: t for t in terms}, lhs_vec=[lhs],
-        R=VarianceSpec(val=R_val, df=df,
-                       scale=None if R_val is None else R_val * (df - 2.0) / df,
+        n_models=t, model_vec=eqs, terms=terms,
+        term_dict={trm.trm_str: trm for trm in terms}, lhs_vec=lhs_vec,
+        R=VarianceSpec(val=R_val, df=df_R, scale=scale_R,
                        estimate_variance=estimate_variance,
                        estimate_scale=estimate_scale, constraint=constraint),
-        traits_type=["continuous"],
+        traits_type=["continuous"] * t,
     )
-    model.M.extend(used_genos)
+    for g in used_genos:
+        _attach(model, g)
     return model
+
+
+def _attach(model: Model, g: Genotypes) -> None:
+    """Fit the marker set g in the model; with t traits its prior gains t
+    degrees of freedom (build_MME.jl:148-152)."""
+    if model.n_models != 1:
+        g.G.df = g.G.df + model.n_models
+    model.M.append(g)
+
+
+def add_genotypes(model: Model, file, G=None, **kwargs) -> Genotypes:
+    """Deprecated shim (readgenotypes.jl:24-47): attach genotypes to an
+    existing model. Prefer build_model(..., genotypes=get_genotypes(...))."""
+    import warnings
+
+    warnings.warn(
+        "add_genotypes is deprecated; pass genotypes=get_genotypes(...) to "
+        "build_model instead", DeprecationWarning, stacklevel=2)
+    from jwas_tpu_torch.io.genotypes import get_genotypes
+
+    g = file if isinstance(file, Genotypes) else get_genotypes(file, G, **kwargs)
+    _attach(model, g)
+    return g
 
 
 def set_covariate(model: Model, *cov_strs: str) -> None:

@@ -18,13 +18,15 @@ row_perm, as on the 2-bit store (ops/grouped.py: store_order, unpad), and
 the residual weights R^-1 (rinv, one an observation) enter xpx, the Gram
 tiles and every rhs.
 
-DenseMarkers serves ops/grouped.py::_walk_groups the same protocol as the
+DenseMarkers serves ops/grouped.py::walk_groups the same protocol as the
 2-bit GroupedPackedMarkers (groups, rhs, matvec, matvec_store), so
 sweep_blocks_abc_grouped, sweep_blocks_c0l_grouped (RR-BLUP, BayesL) and
 sweep_blocks_bayesr_grouped run it unchanged through the inner-rounds
 kernels K1/K2 and K3. Its two GEMVs a round,
 X_g' R^-1 ycorr and X_g d_alpha, are full-precision torch.mv calls (the
-JAX package leaves them to XLA outside any Pallas kernel), and the Gram
+JAX package leaves them to XLA outside any Pallas kernel; a multi-trait
+round's are one torch.mm each over the t traits, jwas_tpu/ops/
+multitrait.py:208, :218), and the Gram
 tiles X_k' R^-1 X_k are one torch.bmm a chunk of blocks, never in TF32 or
 bf16.
 
@@ -91,22 +93,27 @@ class DenseMarkers(NamedTuple):
             yield g, self.X[g * self.G:min(p, (g + 1) * self.G)]
 
     def rhs(self, g: int, rows, w_pad):
-        """X_g' w of group g, (G,): zero for its padding markers."""
-        out = torch.mv(rows, w_pad)
+        """X_g' w of group g, (G,) for w_pad (n_store,), (G, t) for
+        (n_store, t) (one product for all the traits): zero for its padding
+        markers."""
+        out = rows @ w_pad
         if rows.shape[0] == self.G:
             return out
-        full = torch.zeros(self.G, dtype=out.dtype, device=out.device)
+        full = torch.zeros((self.G,) + tuple(out.shape[1:]), dtype=out.dtype,
+                           device=out.device)
         full[:rows.shape[0]] = out
         return full
 
     def matvec(self, g: int, rows, v):
-        """X_g v of group g, (n_store,) in store order; v is (G,)."""
-        return torch.mv(rows.T, v[:rows.shape[0]])
+        """X_g v of group g in store order: (n_store,) for v (G,),
+        (n_store, t) for (G, t)."""
+        return rows.T @ v[:rows.shape[0]]
 
     def matvec_store(self, v):
-        """X v over the whole store, (n_store,): one GEMV."""
+        """X v over the whole store: (n_store,) for v (p_pad,), (n_store, t)
+        for (p_pad, t) (the multi-trait EBVs, X alpha' as one product)."""
         with full_precision_matmul():
-            return torch.mv(self.X.T, v[:self.X.shape[0]])
+            return self.X.T @ v[:self.X.shape[0]]
 
 
 def dense_stats(X, b: int, nblocks: int, w_store=None):

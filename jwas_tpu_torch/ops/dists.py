@@ -40,37 +40,44 @@ def sample_scaled_inv_chi2(gen: torch.Generator, sse, n, df, scale):
     return (sse + df * scale) / sample_chi2(gen, _param(n, sse) + df)
 
 
-def standard_wishart_chol(gen: torch.Generator, df, dim: int, like: torch.Tensor):
+def standard_wishart_chol(gen: torch.Generator, df, dim: int, like: torch.Tensor,
+                          batch=()):
     """Lower-triangular Bartlett factor A of a Wishart(df, I) draw: sqrt of
     chi^2(df - i) on the diagonal (i = 0..dim-1), N(0, 1) below it, so
-    that A A' ~ Wishart(df, I); in like's dtype on its device."""
+    that A A' ~ Wishart(df, I); in like's dtype on its device. batch: the
+    leading shape of a batch of independent factors (one call, no loop)."""
+    batch = tuple(batch)
     dfs = df - torch.arange(dim, dtype=like.dtype, device=like.device)
-    diag = torch.sqrt(sample_chi2(gen, dfs))
-    normals = torch.randn((dim, dim), generator=gen, dtype=like.dtype,
+    diag = torch.sqrt(sample_chi2(gen, dfs.expand(batch + (dim,)).contiguous()))
+    normals = torch.randn(batch + (dim, dim), generator=gen, dtype=like.dtype,
                           device=like.device)
-    return torch.tril(normals, diagonal=-1) + torch.diag(diag)
+    return torch.tril(normals, diagonal=-1) + torch.diag_embed(diag)
 
 
 def sample_wishart(gen: torch.Generator, df, scale, bartlett=None):
     """W ~ Wishart(df, scale) as (L A)(L A)' with L the Cholesky factor of
     scale and A the Bartlett factor (bartlett: injected, e.g. the JAX
-    package's; else drawn from gen). No host sync."""
+    package's; else drawn from gen); scale (dim, dim) or a batch (..., dim,
+    dim) of independent draws. No host sync."""
     L = torch.linalg.cholesky_ex(scale)[0]
-    A = (standard_wishart_chol(gen, df, scale.shape[0], scale)
+    A = (standard_wishart_chol(gen, df, scale.shape[-1], scale, scale.shape[:-2])
          if bartlett is None else bartlett)
     LA = L @ A
-    return LA @ LA.T
+    return LA @ LA.mT
 
 
 def sample_inv_wishart(gen: torch.Generator, df, scale, bartlett=None):
     """X ~ InverseWishart(df, scale) as inv(W), W ~ Wishart(df, inv(scale))
     (Distributions.jl's parameterisation, variance_components.jl:101);
-    both inverses by a solve, symmetrised."""
-    eye = torch.eye(scale.shape[0], dtype=scale.dtype, device=scale.device)
-    scale_inv = torch.linalg.solve_ex(scale, eye)[0]
-    W = sample_wishart(gen, df, 0.5 * (scale_inv + scale_inv.T), bartlett)
-    X = torch.linalg.solve_ex(W, eye)[0]
-    return 0.5 * (X + X.T)
+    both inverses by a solve, symmetrised. scale (dim, dim), or (..., dim,
+    dim) for a batch of independent draws (multi-trait BayesB's one a
+    locus, jwas_tpu/engine/mcmc_mt.py:420-426, as one draw of a
+    (..., dim, dim) Bartlett factor)."""
+    eye = torch.eye(scale.shape[-1], dtype=scale.dtype, device=scale.device)
+    scale_inv = torch.linalg.solve_ex(scale, eye.expand(scale.shape))[0]
+    W = sample_wishart(gen, df, 0.5 * (scale_inv + scale_inv.mT), bartlett)
+    X = torch.linalg.solve_ex(W, eye.expand(W.shape))[0]
+    return 0.5 * (X + X.mT)
 
 
 def sample_beta(gen: torch.Generator, a, b):

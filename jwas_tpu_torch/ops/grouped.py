@@ -1,7 +1,7 @@
 """Group-sequential fast-blocks BayesC/B, RR-BLUP/BayesL and BayesR over a
 2-bit store held on the device, in pinned host memory, or split between
 the two, and over ops/dense.py's dense store, which serves the walker
-(_walk_groups) the same protocol: groups, the GEMV pair of a round, X v
+(walk_groups) the same protocol: groups, the GEMV pair of a round, X v
 over the store.
 
 Counterpart of jwas_tpu/ops/grouped.py: GroupedPackedMarkers (:47),
@@ -295,7 +295,7 @@ class GroupedPackedMarkers(NamedTuple):
     def device(self) -> torch.device:
         return self.means.device
 
-    # ---- the store protocol of _walk_groups (ops/dense.py has the dense
+    # ---- the store protocol of walk_groups (ops/dense.py has the dense
     # store's): groups, their GEMV pair, X v over every store column
 
     @property
@@ -405,11 +405,12 @@ def plan_store(n_obs: int, packed, fast_blocks, host_offload, device,
 
 
 def store_order(w, ncols: int, row_perm):
-    """Observation vector -> store-ordered (ncols,) GEMV source (w itself
-    when it already is one: identity order and n_obs == ncols)."""
-    if row_perm is None and w.shape[0] == ncols and w.is_contiguous():
+    """Observation vector (n_obs,) or matrix (n_obs, t) -> store-ordered
+    (ncols,) or (ncols, t) GEMV source (w itself when it already is one:
+    identity order and n_obs == ncols)."""
+    if row_perm is None and w.shape[0] == ncols and (w.dim() == 2 or w.is_contiguous()):
         return w
-    w_pad = torch.zeros(ncols, dtype=w.dtype, device=w.device)
+    w_pad = torch.zeros((ncols,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
     if row_perm is None:
         w_pad[: w.shape[0]] = w
     else:
@@ -418,12 +419,14 @@ def store_order(w, ncols: int, row_perm):
 
 
 def unpad(out_pad, n_obs: int, row_perm):
-    """Store-ordered Xv result -> (n_obs,) observation order."""
+    """Store-ordered Xv result -> observation order, (n_obs,) or
+    (n_obs, t)."""
     return out_pad[:n_obs] if row_perm is None else out_pad[row_perm]
 
 
 def weighted(gm, ycorr):
-    """R^-1 ycorr, the GEMV source of the rhs (ycorr without weights)."""
+    """R^-1 ycorr, the GEMV source of the rhs (ycorr without weights);
+    ycorr (n_obs,) or (t, n_obs)."""
     return ycorr if gm.rinv is None else gm.rinv * ycorr
 
 
@@ -438,29 +441,42 @@ def grouped_rhs(gm, w):
     return torch.cat([gm.rhs(g, rows, w_pad) for g, rows in gm.groups()])
 
 
-def _walk_groups(gm, alpha_b, ycorr, nreps: int, sync_every: Optional[int],
-                 inner) -> None:
+def walk_groups(gm, ycorr, nreps: int, sync_every: Optional[int],
+                round_fn) -> None:
     """The grouped schedule shared by the sweeps and by both stores (the
     2-bit GroupedPackedMarkers, ops/dense.py's DenseMarkers): groups in
     order, sync rounds within a group. A round is X'R^-1 ycorr of the group
-    (gm.rhs: K4, or a dense GEMV), then inner(blk, rhs, g, r, reps), which
-    updates alpha_b[blk] in place, then X times the change in alpha
-    (gm.matvec) into ycorr, in place."""
-    nblocks, b = alpha_b.shape
-    gb = nblocks // gm.ngroups
+    (gm.rhs: K4, or a dense product), then round_fn(g, r, reps, rhs), which
+    runs the group's inner chain and returns the change a_start - a_end of
+    its effects, then X times that change (gm.matvec) into ycorr, in place.
+    Single-trait: ycorr (n_obs,), rhs and the change (G,); multi-trait:
+    ycorr (t, n_obs), rhs and the change (G, t), so a round reads the
+    group's rows once for all the traits."""
     rounds = mk.sync_rounds(nreps, mk.resolve_sync_every(nreps, sync_every))
+    multi = ycorr.dim() == 2
     with full_precision_matmul():
         for g, rows in gm.groups():
-            blk = slice(g * gb, (g + 1) * gb)
-            a_g = alpha_b[blk]
             for r, reps in enumerate(rounds):
-                rhs = gm.rhs(g, rows, store_order(weighted(gm, ycorr),
+                w = weighted(gm, ycorr)
+                rhs = gm.rhs(g, rows, store_order(w.T if multi else w,
                                                   gm.n_store, gm.row_perm))
-                a_start = a_g.clone()
-                inner(blk, rhs.view(gb, b), g, r, reps)
-                d_alpha = (a_start - a_g).view(-1)
-                ycorr += unpad(gm.matvec(g, rows, d_alpha), gm.n_obs,
-                               gm.row_perm)
+                d_alpha = round_fn(g, r, reps, rhs)
+                xd = unpad(gm.matvec(g, rows, d_alpha), gm.n_obs, gm.row_perm)
+                ycorr += xd.T if multi else xd
+
+
+def _st_round(alpha_b, gb: int, inner):
+    """walk_groups' round function of a single-trait sweep: inner(blk, rhs,
+    g, r, reps) updates alpha_b[blk] in place."""
+    b = alpha_b.shape[1]
+
+    def round_fn(g, r, reps, rhs):
+        blk = slice(g * gb, (g + 1) * gb)
+        a_start = alpha_b[blk].clone()
+        inner(blk, rhs.view(gb, b), g, r, reps)
+        return (a_start - alpha_b[blk]).view(-1)
+
+    return round_fn
 
 
 def sweep_blocks_abc_grouped(gm, alpha, beta, delta, ycorr, vare, var_eff, pi,
@@ -507,7 +523,7 @@ def sweep_blocks_abc_grouped(gm, alpha, beta, delta, ycorr, vare, var_eff, pi,
                          beta_b[blk], delta_b[blk], rhs, us, zs, inv_vare,
                          reps)
 
-    _walk_groups(gm, alpha_b, ycorr, nreps, sync_every, inner)
+    walk_groups(gm, ycorr, nreps, sync_every, _st_round(alpha_b, gb, inner))
     return alpha, beta, delta, ycorr
 
 
@@ -564,7 +580,7 @@ def sweep_blocks_c0l_grouped(gm, alpha, ycorr, vare, varg, gamma,
                          beta_b[blk], delta_b[blk], rhs, us[:reps * b], zs,
                          inv_vare, reps)
 
-    _walk_groups(gm, alpha_b, ycorr, nreps, sync_every, inner)
+    walk_groups(gm, ycorr, nreps, sync_every, _st_round(alpha_b, gb, inner))
     return alpha, ycorr
 
 
@@ -611,7 +627,7 @@ def sweep_blocks_bayesr_grouped(gm, alpha, delta, ycorr, vare, sigma_sq, pi_mat,
                             alpha_b[blk], delta_b[blk], rhs, gum, zs,
                             inv_vare, sigma, reps)
 
-    _walk_groups(gm, alpha_b, ycorr, nreps, sync_every, inner)
+    walk_groups(gm, ycorr, nreps, sync_every, _st_round(alpha_b, gb, inner))
     return alpha, delta, ycorr
 
 

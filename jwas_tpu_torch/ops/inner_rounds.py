@@ -23,6 +23,12 @@ Each kernel has a float32 and a float64 build (runMCMC's
 double_precision); a call takes the build of its grams' dtype, and every
 floating-point argument must have that dtype.
 
+The multi-trait chains (samplers I and II, K7 and K8 of
+csrc/mt_inner_rounds.cu, counterparts of the lax.scan chains of
+jwas_tpu/ops/multitrait.py:214 and :354) have their plain versions in
+ops/multitrait.py; their layouts are (gb, t, b) for the state and rhs and
+(nreps * b, t or 2^t, gb) for the draws.
+
 Layouts are block-major, unlike the JAX package's j-major ones:
 grams (nblocks, b, b) with grams[k, j] = row j of block k's Gram;
 per-marker tiles (nblocks, b), a view of the flat (p_pad,) arrays (BayesR
@@ -36,6 +42,7 @@ import torch
 
 from jwas_tpu_torch import _build
 from jwas_tpu_torch.ops import markers as mk
+from jwas_tpu_torch.ops import multitrait as mt
 
 
 def abc_inner_rounds_ref(grams, xpx, var_eff, log_pi, log_pi_comp, alpha,
@@ -70,7 +77,7 @@ def abc_inner_rounds_ref(grams, xpx, var_eff, log_pi, log_pi_comp, alpha,
 _BUILDS = {torch.float32: "", torch.float64: "_f64"}
 
 
-def _check_cuda_args(what, tensors, shapes):
+def _check_cuda_args(what, tensors, shapes, int_names=("delta",)):
     """Device, dtype, shape and contiguity of a kernel's arguments; shapes
     maps each name that is not a (nblocks, b) tile to its shape. Every
     floating-point argument has the grams' dtype, float32 or float64.
@@ -82,7 +89,7 @@ def _check_cuda_args(what, tensors, shapes):
         raise ValueError(f"{what}: grams must be float32 or float64, got {grams.dtype}")
     for name, t in tensors.items():
         want = shapes.get(name, tile)
-        dtype = torch.int32 if name == "delta" else grams.dtype
+        dtype = torch.int32 if name in int_names else grams.dtype
         if (t.shape != want or t.dtype is not dtype or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(
@@ -204,6 +211,68 @@ def bayesr_inner_rounds(grams, xpx, log_pi, alpha, delta, rhs, gumbel, zs,
 
 bayesr_inner_rounds.launches = 0
 bayesr_inner_rounds.launches_f64 = 0
+
+
+def _mt_inner_rounds(sampler, grams, xpx, valid, alpha, beta, delta, rhs,
+                     Rinv, Ginv, log_pi, draw_a, zs, nreps: int, wrapper):
+    if grams.device.type == "cpu":
+        return mt.mt_abc_inner_rounds_ref(sampler, grams, xpx, valid, alpha,
+                                          beta, delta, rhs, Rinv, Ginv, log_pi,
+                                          draw_a, zs, nreps)
+    what = f"mt_abc_inner_rounds_{sampler}"
+    if grams.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {grams.device}")
+    nblocks, b, _ = grams.shape
+    t = alpha.shape[1]
+    mt.check_traits(t)
+    per_locus = Ginv.dim() == 4
+    state = (nblocks, t, b)
+    args = dict(grams=grams, xpx=xpx, valid=valid, alpha=alpha, beta=beta,
+                delta=delta, rhs=rhs, Rinv=Rinv, Ginv=Ginv, log_pi=log_pi,
+                draw_a=draw_a, zs=zs)
+    build = _check_cuda_args(what, args, {
+        "grams": (nblocks, b, b), "alpha": state, "beta": state, "delta": state,
+        "rhs": state, "Rinv": (t, t),
+        "Ginv": (nblocks, b, t, t) if per_locus else (t, t),
+        "log_pi": (1 << t,),
+        "draw_a": (nreps * b, t if sampler == "I" else 1 << t, nblocks),
+        "zs": (nreps * b, t, nblocks)}, int_names=())
+    lib = _build.library()
+    err = getattr(lib, f"jt_mt_inner_rounds_{sampler}{build}")(
+        *(x.data_ptr() for x in args.values()), t, b, nblocks, nreps,
+        int(per_locus), _build.stream_of(grams))
+    _build.check(err, what)
+    wrapper.launches += 1
+    wrapper.launches_f64 += build == "_f64"
+    return alpha, beta, delta, rhs
+
+
+def mt_abc_inner_rounds_I(grams, xpx, valid, alpha, beta, delta, rhs, Rinv,
+                          Ginv, log_pi, us, zs, nreps: int):
+    """Run nreps rounds of multi-trait sampler I's chain (K7) on every
+    block: grams (gb, b, b); xpx, valid (gb, b); alpha, beta, delta, rhs
+    (gb, t, b), updated in place and returned; Rinv (t, t); Ginv (t, t) or
+    (gb, b, t, t); log_pi (2^t,); us, zs (nreps b, t, gb). CUDA tensors
+    launch the kernel (and raise if it cannot run: 2 <= t <= 8, the
+    block's (t, b) rhs in shared memory); CPU tensors take the plain
+    version (ops/multitrait.py::mt_abc_inner_rounds_ref)."""
+    return _mt_inner_rounds("I", grams, xpx, valid, alpha, beta, delta, rhs,
+                            Rinv, Ginv, log_pi, us, zs, nreps,
+                            mt_abc_inner_rounds_I)
+
+
+def mt_abc_inner_rounds_II(grams, xpx, valid, alpha, beta, delta, rhs, Rinv,
+                           Ginv, log_pi, gum, zs, nreps: int):
+    """Sampler II's chain (K8), as mt_abc_inner_rounds_I with the Gumbel
+    panel gum (nreps b, 2^t, gb) in place of the uniforms."""
+    return _mt_inner_rounds("II", grams, xpx, valid, alpha, beta, delta, rhs,
+                            Rinv, Ginv, log_pi, gum, zs, nreps,
+                            mt_abc_inner_rounds_II)
+
+
+for _k in (mt_abc_inner_rounds_I, mt_abc_inner_rounds_II):
+    _k.launches = 0          # every launch
+    _k.launches_f64 = 0      # the float64 build's
 
 
 # ------------------------------------------------ the window schedule, plain

@@ -1,8 +1,10 @@
 """The location parameters' LHS and their single-site Gibbs pass (K6).
 
-Counterpart of jwas_tpu/engine/mcmc.py:86-106 (assemble_lhs_lambda) and
+Counterpart of jwas_tpu/engine/mcmc.py:86-106 (assemble_lhs_lambda),
 jwas_tpu/ops/location.py:18-37 (gibbs_pass_lambda, a lax.scan over the K
-location parameters). On a CUDA tensor the pass is one launch of the
+location parameters) and :42-60 (gibbs_pass_general, the multi-trait pass:
+K6 with vare 1), and of the multi-trait LHS of jwas_tpu/engine/mcmc_mt.py:
+177-199 (MTLocationPieces, assemble_lhs_mt). On a CUDA tensor the pass is one launch of the
 hand-written kernel csrc/gibbs_pass.cu (K6: a wavefront over the SMs, one
 block a slice of S = 160 parameters, the slices' products handed on
 through a scratch buffer; float32 and float64 builds, K up to 20,480); on
@@ -152,3 +154,123 @@ def gibbs_pass_lambda(A, x, b, vare, gen: torch.Generator, zs=None):
 gibbs_pass_lambda.launches = 0       # every launch
 gibbs_pass_lambda.launches_f64 = 0   # the float64 build's
 gibbs_pass_lambda.last_grid = None   # (S, P) of the last launch
+
+
+def gibbs_pass_general(A, x, b, gen: torch.Generator, zs=None):
+    """One single-site Gibbs pass over the general (multi-trait) mixed
+    model equations, x_i ~ N((b_i - A[:, i]'x) / A_ii + x_i, 1 / A_ii)
+    (solver.jl:154-162): gibbs_pass_lambda with vare 1, so K6 on the card.
+    A is exactly symmetric (assemble_lhs_mt). Returns a new x."""
+    one = torch.ones(1, dtype=x.dtype, device=x.device)
+    return gibbs_pass_lambda(A, x, b, one, gen, zs)
+
+
+def pass_limit(device, dtype=torch.float32) -> int:
+    """The largest K the location pass takes on device: on a CUDA device
+    K6's limit, read from the kernel library for the device (its 20,480,
+    or fewer where the card cannot hold the cooperative launch's blocks at
+    once); none (0) on the CPU, whose plain version takes any K."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    with torch.cuda.device(device):
+        k = _build.library().jt_gibbs_pass_device_max_k(
+            torch.empty((), dtype=dtype).element_size())
+    if k < 0:
+        _build.check(-k, "gibbs_pass_lambda: the device's limit")
+    return int(k)
+
+
+class MTLocationPieces:
+    """The multi-trait location LHS W'R^-1W from pieces fixed at set-up.
+
+    W is the stacked (t n, K) design: trait a's rows (a n .. a n + n - 1)
+    have entries only in its own columns cols[a], a contiguous range. An
+    observation's residual precision is Ri_p rinv_i, with Ri_p (t, t) of
+    its missing pattern p. So for each pattern p and trait pair a <= c the
+    piece C_pac = W_a[rows_p, cols_a]' diag(rinv) W_c[rows_p, cols_c] is
+    fixed, and LHS[cols_a, cols_c] = sum_p Ri_p[a, c] C_pac: one product a
+    trait pair an iteration, in place of jwas_tpu's einsum over every
+    record (mcmc_mt.py:181). Only the pairs a pattern observes are kept.
+    When the pieces would take more than budget bytes (use_pieces False),
+    assemble computes each block from W directly:
+    (W_a[:, cols_a] * (Ri[pattern_idx, a, c] rinv))' W_c[:, cols_c]."""
+
+    def __init__(self, W, t: int, cols, patterns, pattern_idx, rinv,
+                 budget: int):
+        n = W.shape[0] // t
+        self.t, self.n, self.K = t, n, W.shape[1]
+        self.cols = [slice(int(a), int(c)) for a, c in cols]
+        self.W = W
+        self.pattern_idx = pattern_idx
+        self.rinv = rinv
+        obs = patterns > 0                                      # (P, t)
+        self.pairs = [(a, c) for a in range(t) for c in range(a, t)]
+        widths = [sl.stop - sl.start for sl in self.cols]
+        need = sum(int((obs[:, a] & obs[:, c]).sum()) * widths[a] * widths[c]
+                   for a, c in self.pairs) * W.element_size()
+        self.use_pieces = need <= budget
+        self.piece_bytes = need
+        self.pieces = {}
+        if not self.use_pieces:
+            return
+        for a, c in self.pairs:
+            ps = torch.nonzero(obs[:, a] & obs[:, c]).flatten()
+            if ps.numel() == 0:
+                continue
+            Ca = []
+            for p in ps.tolist():
+                rows = torch.nonzero(pattern_idx == p).flatten()
+                Wa = W[a * n + rows, self.cols[a]]
+                Wc = W[c * n + rows, self.cols[c]]
+                if rinv is not None:
+                    Wa = Wa * rinv[rows, None]
+                Ca.append((Wa.T @ Wc).reshape(-1))
+            self.pieces[(a, c)] = (ps, torch.stack(Ca, 1))      # (Ka Kc, P_ac)
+
+    def assemble(self, Ri_pat, re_groups=(), Vinv=(), vc=()):
+        """LHS (K, K) for the (P, t, t) pattern precisions Ri_pat, plus each
+        random-effect group's G^-1[i, j] Vinv (or G^-1[i, j] I) at its terms'
+        starts (no residual-variance factor, mcmc_mt.py:183-197); exactly
+        symmetric (symmetric_upper), as K6 reads rows. From the pieces when
+        they are kept, else from W (assemble_from_W)."""
+        if not self.use_pieces:
+            return self.assemble_from_W(Ri_pat, re_groups, Vinv, vc)
+        LHS = torch.zeros((self.K, self.K), dtype=self.W.dtype, device=self.W.device)
+        for a, c in self.pairs:
+            if (a, c) not in self.pieces:
+                continue
+            ca, cc = self.cols[a], self.cols[c]
+            ps, C = self.pieces[(a, c)]
+            LHS[ca, cc] = torch.mv(C, Ri_pat[ps, a, c]).view(ca.stop - ca.start,
+                                                             cc.stop - cc.start)
+        return self._finish(LHS, re_groups, Vinv, vc)
+
+    def assemble_from_W(self, Ri_pat, re_groups=(), Vinv=(), vc=()):
+        """assemble's LHS with each block computed from W:
+        (W_a[:, cols_a] * (Ri[pattern_idx, a, c] rinv))' W_c[:, cols_c]."""
+        W, n = self.W, self.n
+        LHS = torch.zeros((self.K, self.K), dtype=W.dtype, device=W.device)
+        Ri_n = Ri_pat[self.pattern_idx]                           # (n, t, t)
+        for a, c in self.pairs:
+            ca, cc = self.cols[a], self.cols[c]
+            r = Ri_n[:, a, c] if self.rinv is None else Ri_n[:, a, c] * self.rinv
+            LHS[ca, cc] = (W[a * n:(a + 1) * n, ca] * r[:, None]).T @ W[c * n:(c + 1) * n, cc]
+        return self._finish(LHS, re_groups, Vinv, vc)
+
+    @staticmethod
+    def _finish(LHS, re_groups, Vinv, vc):
+        """The upper blocks mirrored, and the random effects' G^-1 blocks."""
+        LHS = symmetric_upper(LHS)
+        for g, grp in enumerate(re_groups):
+            Gi = torch.linalg.inv_ex(vc[g])[0]
+            Gi = 0.5 * (Gi + Gi.T)
+            q = grp.n_levels
+            for i, si in enumerate(grp.starts):
+                for j, sj in enumerate(grp.starts):
+                    block = LHS[si:si + q, sj:sj + q]
+                    if grp.has_vinv:
+                        block.add_(Vinv[g] * Gi[i, j])
+                    else:
+                        block.diagonal().add_(Gi[i, j])
+        return LHS

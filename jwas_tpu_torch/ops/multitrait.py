@@ -1,0 +1,323 @@
+"""Multi-trait BayesC / BayesB marker samplers: the marker updates of
+samplers I and II, their plain inner chains, and the group-sequential sweep
+over a dense store.
+
+Counterpart of jwas_tpu/ops/multitrait.py: _take_logpi (:38, a global
+log pi only), pattern_index and all_patterns (:46-56), the marker updates
+_mt_abc_marker_update_I (:64) and _mt_abc_marker_update_II (:274), and
+the blocked sweeps mt_abc_blocks_I (:162) / mt_abc_blocks_II (:308) walked
+over groups as jwas_tpu/engine/mcmc_mt.py:263-299 walks them through
+grouped_dense_sweep. The exact forms mt_abc_exact_I / _II (:230, :370) are
+the same grouped sweep over a store of one block a group with nreps = 1
+(ops/dense.py), their panels served in marker order by
+ops/dense.py::sweep_draws.
+
+A joint inclusion pattern s = sum_k delta_k 2^k (bit k = trait k) indexes
+log_pi, (2^t,). Marker state is (t, p_pad) as in the JAX package; a group
+round gathers it into the kernels' block-major layout (gb, t, b).
+
+The plain versions do their arithmetic one operation at a time, in the
+order of the CUDA kernels K7 and K8 (csrc/mt_inner_rounds.cu), which round
+every product and sum on its own (no fused multiply-add): on the card the
+kernel and its plain version give the same bits. Sampler II's (t, t)
+algebra is a Cholesky factorisation of each pattern's LHS (its inverse and
+log-determinant), where the JAX package takes LU; the draw uses the
+Cholesky factor of the inverse, as the reference does (:299), so the same
+normals give the same effects.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+
+from jwas_tpu_torch.ops import inner_rounds as ir
+from jwas_tpu_torch.ops import grouped as gr
+
+MAX_TRAITS = 8          # K7 and K8 are instantiated for t = 2..8
+
+
+def pattern_index(delta):
+    """(t, ...) 0/1 indicators -> integer pattern index, bit k = trait k."""
+    t = delta.shape[0]
+    w = (2 ** torch.arange(t, device=delta.device)).reshape((t,) + (1,) * (delta.dim() - 1))
+    return (w * delta.to(torch.int64)).sum(0)
+
+
+def all_patterns(t: int, dtype=torch.float32, device=None):
+    """(2^t, t) matrix of the patterns in canonical order."""
+    s = torch.arange(2 ** t, device=device)
+    return ((s[:, None] >> torch.arange(t, device=device)[None, :]) & 1).to(dtype)
+
+
+def log_pattern_prior(pi, dtype):
+    """log of the (2^t,) pattern priors, clipped to [1e-12, 1] first."""
+    return torch.log(torch.clamp(pi.to(dtype), 1e-12, 1.0))
+
+
+def _ginv_entry(Ginv, a: int, c: int):
+    """Ginv[a, c]: a 0-d tensor of a shared (t, t) Ginv, a (B,) one of a
+    per-locus (B, t, t)."""
+    return Ginv[a, c] if Ginv.dim() == 2 else Ginv[:, a, c]
+
+
+def mt_marker_update_I_ref(w, beta, delta, alpha, xpx, Rinv, Ginv, log_pi, u, z):
+    """Sampler I's trait loop for one marker of each of B blocks
+    (_mt_abc_marker_update_I, MTBayesABC.jl:85-120).
+
+    w, beta, delta, alpha, u, z: (B, t); xpx: (B,); Rinv (t, t); Ginv
+    (t, t) or per-locus (B, t, t); log_pi (2^t,). Trait k, in order: its
+    inclusion from the two-state log-odds with the pattern prior at the
+    other traits' current indicators, then its effect from the included or
+    excluded conditional, given the other traits' current effects.
+    Returns new (beta, delta, alpha), (B, t)."""
+    t = w.shape[1]
+    beta = list(beta.unbind(1))
+    delta = list(delta.unbind(1))
+    alpha = list(alpha.unbind(1))
+    w = w.unbind(1)
+    one = torch.ones((), dtype=xpx.dtype, device=xpx.device)
+    for k in range(t):
+        nok = [m for m in range(t) if m != k]
+        g_kk = _ginv_entry(Ginv, k, k)
+        acc0 = c12 = None
+        for m in nok:
+            g_km = _ginv_entry(Ginv, k, m)
+            gb = g_km * beta[m]
+            term = (g_km + xpx * delta[m] * Rinv[k, m]) * beta[m]
+            acc0 = gb if acc0 is None else acc0 + gb
+            c12 = term if c12 is None else c12 + term
+        rhs0 = -acc0
+        c11 = g_kk + Rinv[k, k] * xpx
+        inv_lhs0 = one / g_kk
+        g_hat0 = rhs0 * inv_lhs0
+        inv_lhs1 = one / c11
+        rw = w[0] * Rinv[0, k]
+        for m in range(1, t):
+            rw = rw + w[m] * Rinv[m, k]
+        g_hat1 = (rw - c12) * inv_lhs1
+        idx0 = sum(delta[m].to(torch.int64) * (1 << m) for m in nok)
+        lp0, lp1 = log_pi[idx0], log_pi[idx0 + (1 << k)]
+        log_d0 = -0.5 * (torch.log(g_kk) - g_hat0 * g_hat0 * g_kk) + lp0
+        log_d1 = -0.5 * (torch.log(c11) - g_hat1 * g_hat1 * c11) + lp1
+        prob1 = one / (one + torch.exp(log_d0 - log_d1))
+        inc = u[:, k] < prob1
+        beta[k] = torch.where(inc, g_hat1 + z[:, k] * torch.sqrt(inv_lhs1),
+                              g_hat0 + z[:, k] * torch.sqrt(inv_lhs0))
+        delta[k] = inc.to(xpx.dtype)
+        alpha[k] = torch.where(inc, beta[k], 0.0 * one)
+    return torch.stack(beta, 1), torch.stack(delta, 1), torch.stack(alpha, 1)
+
+
+def _cholesky(A: List[List[torch.Tensor]]):
+    """Lower Cholesky factor of a symmetric positive definite (t, t) matrix
+    held as nested lists of equally shaped tensors, one operation at a
+    time in K8's order."""
+    t = len(A)
+    L = [[None] * t for _ in range(t)]
+    for j in range(t):
+        s = A[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(s)
+        for i in range(j + 1, t):
+            s = A[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s / L[j][j]
+    return L
+
+
+def _spd_inverse(L):
+    """(inverse, log-determinant) of L L' from its Cholesky factor L: the
+    inverse as Linv' Linv, exactly symmetric, the log-determinant as
+    2 sum log L_ii."""
+    t = len(L)
+    Li = [[None] * t for _ in range(t)]
+    for c in range(t):
+        Li[c][c] = 1.0 / L[c][c]
+        for i in range(c + 1, t):
+            s = L[i][c] * Li[c][c]
+            for k in range(c + 1, i):
+                s = s + L[i][k] * Li[k][c]
+            Li[i][c] = -s / L[i][i]
+    inv = [[None] * t for _ in range(t)]
+    for a in range(t):
+        for c in range(t):
+            k0 = max(a, c)
+            s = Li[k0][a] * Li[k0][c]
+            for k in range(k0 + 1, t):
+                s = s + Li[k][a] * Li[k][c]
+            inv[a][c] = s
+    ld = torch.log(L[0][0])
+    for i in range(1, t):
+        ld = ld + torch.log(L[i][i])
+    return inv, 2.0 * ld
+
+
+def mt_marker_update_II_ref(w, xpx, Rinv, Ginv, log_pi, gum, z):
+    """Sampler II's joint update over the 2^t patterns for one marker of
+    each of B blocks (_mt_abc_marker_update_II, MTBayesABC.jl:165-209).
+
+    w, z: (B, t); xpx (B,); Rinv (t, t); Ginv (t, t) or per-locus
+    (B, t, t); log_pi (2^t,); gum (B, 2^t) Gumbel noise. Pattern s has
+    LHS D_s Rinv D_s xpx + Ginv and rhs D_s Rinv w; its log weight is
+    -(logdet - rhs' g_hat) / 2 + log pi_s, g_hat = LHS^-1 rhs. The pattern
+    is the first argmax of log weight + Gumbel, and beta = g_hat +
+    chol(LHS^-1) z. Returns new (beta, delta, alpha), (B, t)."""
+    B, t = w.shape
+    S = 1 << t
+    dev = w.device
+    pat = all_patterns(t, torch.bool, dev)                   # (S, t)
+    wl = w.unbind(1)
+    rw = []
+    for i in range(t):
+        acc = wl[0] * Rinv[0, i]
+        for j in range(1, t):
+            acc = acc + wl[j] * Rinv[j, i]
+        rw.append(acc)
+    zero = torch.zeros((), dtype=w.dtype, device=dev)
+    both = [[(pat[:, a] & pat[:, c])[:, None] for c in range(t)] for a in range(t)]
+    lhs = [[torch.where(both[a][c], Rinv[a, c] * xpx + _ginv_entry(Ginv, a, c),
+                        _ginv_entry(Ginv, a, c).expand(B)).expand(S, B)
+            for c in range(t)] for a in range(t)]                  # (S, B) each
+    rhs = [torch.where(pat[:, i, None], rw[i], zero) for i in range(t)]
+    inv, logdet = _spd_inverse(_cholesky(lhs))
+    g = []
+    for a in range(t):
+        acc = inv[a][0] * rhs[0]
+        for c in range(1, t):
+            acc = acc + inv[a][c] * rhs[c]
+        g.append(acc)
+    quad = rhs[0] * g[0]
+    for a in range(1, t):
+        quad = quad + rhs[a] * g[a]
+    score = -0.5 * (logdet - quad) + log_pi[:, None] + gum.T       # (S, B)
+    which = torch.argmax(score, dim=0)                            # (B,)
+    cols = torch.arange(B, device=dev)
+    C = _cholesky([[inv[a][c][which, cols] for c in range(t)] for a in range(t)])
+    zl = z.unbind(1)
+    beta = []
+    for a in range(t):
+        acc = C[a][0] * zl[0]
+        for c in range(1, a + 1):
+            acc = acc + C[a][c] * zl[c]
+        beta.append(g[a][which, cols] + acc)
+    beta = torch.stack(beta, 1)
+    delta = pat[which].to(w.dtype)
+    return beta, delta, beta * delta
+
+
+def mt_abc_inner_rounds_ref(sampler: str, grams, xpx, valid, alpha, beta,
+                            delta, rhs, Rinv, Ginv, log_pi, draw_a, zs,
+                            nreps: int):
+    """Plain version of K7 (sampler "I": draw_a the uniforms us) and K8
+    ("II": draw_a the Gumbel panel gum): nreps rounds of each block's chain
+    of b dependent marker steps, all gb blocks at once.
+
+    grams (gb, b, b); xpx, valid (gb, b); alpha, beta, delta, rhs
+    (gb, t, b), updated in place and returned; Rinv (t, t); Ginv (t, t) or
+    (gb, b, t, t); log_pi (2^t,); us, zs (nreps b, t, gb); gum
+    (nreps b, 2^t, gb). Step j: w = rhs_j + xpx_j a_old, the marker update,
+    alpha and delta masked by valid (beta is not), then rhs += (a_old -
+    a_new) times Gram row j."""
+    b = grams.shape[1]
+    per_locus = Ginv.dim() == 4
+    for s in range(nreps * b):
+        j = s % b
+        a_old = alpha[:, :, j].clone()
+        x_j = xpx[:, j]
+        w = rhs[:, :, j] + x_j[:, None] * a_old
+        g_j = Ginv[:, j] if per_locus else Ginv
+        if sampler == "I":
+            b_new, d_new, a_new = mt_marker_update_I_ref(
+                w, beta[:, :, j], delta[:, :, j], a_old, x_j, Rinv, g_j,
+                log_pi, draw_a[s].T, zs[s].T)
+        else:
+            b_new, d_new, a_new = mt_marker_update_II_ref(
+                w, x_j, Rinv, g_j, log_pi, draw_a[s].T, zs[s].T)
+        v = valid[:, j, None]
+        a_new = a_new * v
+        beta[:, :, j] = b_new
+        delta[:, :, j] = d_new * v
+        alpha[:, :, j] = a_new
+        rhs.add_((a_old - a_new)[:, :, None] * grams[:, j, None, :])
+    return alpha, beta, delta, rhs
+
+
+def _blocked(x, t: int, gb: int, b: int):
+    """(t, G) group slice -> (gb, t, b) contiguous."""
+    return x.reshape(t, gb, b).transpose(0, 1).contiguous()
+
+
+def sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, R, ginv, pi,
+                                gen: Optional[torch.Generator],
+                                sampler: str = "I", nreps: int = 1,
+                                sync_every: Optional[int] = None,
+                                draws: Optional[Callable] = None):
+    """Group-sequential multi-trait BayesC / BayesB sweep over a dense
+    store (mt_abc_blocks_I / _II under grouped_dense_sweep).
+
+    alpha, beta, delta (t, p_pad) and ycorr (t, n_obs) in the store's
+    dtype are updated in place and returned. R (t, t) residual covariance;
+    ginv (t, t) inverse marker-effect covariance (BayesC) or (p_pad, t, t)
+    one a locus (BayesB); pi (2^t,) pattern priors. Round r of group g takes
+    its panels from draws(g, r, reps) when given (tests inject the JAX
+    package's): for sampler "I" (us, zs), for "II" (gum, zs), each
+    (reps b, t or 2^t, gb); else from gen, in group and round order. A
+    round gathers the group's state into (gb, t, b), runs K7 or K8 on its
+    (gb, t, b) rhs, and scatters it back."""
+    if sampler not in ("I", "II"):
+        raise ValueError(f"sampler must be 'I' or 'II', got {sampler!r}")
+    t = alpha.shape[0]
+    nblocks, b, _ = gm.grams.shape
+    gb = nblocks // gm.ngroups
+    G = gb * b
+    dtype = alpha.dtype
+    # the kernels read row-major (t, t) matrices: torch.linalg.inv returns
+    # column-major ones on a CUDA device
+    Rinv = torch.linalg.inv(R).contiguous()
+    ginv = ginv.contiguous()
+    log_pi = log_pattern_prior(pi, dtype)
+    per_locus = ginv.dim() == 3
+    xpx_b, valid_b = gm.xpx.view(nblocks, b), gm.valid.view(nblocks, b)
+    kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
+    if draws is None:
+        f = dict(dtype=dtype, device=ycorr.device)
+
+        def draws(g, r, reps):
+            if sampler == "I":
+                a = torch.rand((reps * b, t, gb), generator=gen, **f)
+            else:
+                a = gr.gumbel_panel((reps * b, 1 << t, gb), gen, ycorr.device, dtype)
+            return a, torch.randn((reps * b, t, gb), generator=gen, **f)
+
+    def round_fn(g, r, reps, rhs):
+        cols = slice(g * G, (g + 1) * G)
+        blk = slice(g * gb, (g + 1) * gb)
+        a_g = _blocked(alpha[:, cols], t, gb, b)
+        a_start = a_g.clone()
+        b_g = _blocked(beta[:, cols], t, gb, b)
+        d_g = _blocked(delta[:, cols], t, gb, b)
+        g_g = ginv[cols].view(gb, b, t, t) if per_locus else ginv
+        rhs_g = rhs.view(gb, b, t).transpose(1, 2).contiguous()
+        draw_a, zs = draws(g, r, reps)
+        kernel(gm.grams[blk], xpx_b[blk], valid_b[blk], a_g, b_g, d_g, rhs_g,
+               Rinv, g_g, log_pi, draw_a, zs, reps)
+        for state, new in ((alpha, a_g), (beta, b_g), (delta, d_g)):
+            state[:, cols] = new.transpose(0, 1).reshape(t, G)
+        return (a_start - a_g).transpose(1, 2).reshape(G, t)
+
+    gr.walk_groups(gm, ycorr, nreps, sync_every, round_fn)
+    return alpha, beta, delta, ycorr
+
+
+def check_traits(t: int) -> None:
+    """K7 and K8 are instantiated for 2 to MAX_TRAITS traits."""
+    if not 2 <= t <= MAX_TRAITS:
+        raise NotImplementedError(
+            f"{t} traits: the multi-trait samplers I and II (K7, K8) run 2 to "
+            f"{MAX_TRAITS} traits ({1 << MAX_TRAITS} inclusion patterns); more is "
+            f"not ported (ROADMAP.md: samplers I and II above 8 traits)")
+

@@ -13,6 +13,13 @@ come as functions of their chi-square, gamma and uniform draws
 (bayesb_variance, bayesb_scale, bayesl_gamma), so tests can feed both
 packages the same draws. The residual variance takes the residual weights
 (invweights, R^-1) of a dense store.
+
+The multi-trait draws of jwas_tpu/engine/mcmc_mt.py: the residual
+covariance (:466-487, inverse-Wishart, or with R.constraint one
+chi-square a trait on the diagonal), the marker-effect covariance of
+BayesC (:428-443) and BayesB's one a locus (:401-427, one batched
+inverse-Wishart draw over the loci), and the Dirichlet over the 2^t
+pattern counts (:395-399).
 """
 
 from __future__ import annotations
@@ -162,3 +169,63 @@ def sample_random_effect_vc(gen, sols, Vinv, df: float, scale, bartlett=None):
     S = sols @ sols.T if Vinv is None else sols @ (Vinv @ sols.T)
     S = 0.5 * (S + S.T)
     return sample_inv_wishart(gen, df + q, scale + S, bartlett)
+
+
+def _diag_chi2(gen, sse_diag, n, df: float, scale_diag):
+    """(sse + df scale) / chi^2(n + df), one a trait (a constraint's
+    diagonal covariance, mcmc_mt.py:407-418, :436-439, :470-473)."""
+    chi = sample_chi2(gen, torch.full_like(sse_diag, float(n) + df))
+    return (sse_diag + df * scale_diag) / chi
+
+
+def sample_residual_covariance(gen, ycorr, rinv, n_obs: int, df: float, scale,
+                               constraint: bool = False, bartlett=None):
+    """R | ycorr ~ InverseWishart(df + n, scale + Y' R^-1 Y) over the (t, n)
+    residuals (the missing ones imputed); constraint: diagonal, one scaled
+    inverse chi-square a trait."""
+    yw = ycorr if rinv is None else ycorr * rinv
+    SSE = yw @ ycorr.T
+    if constraint:
+        return torch.diag(_diag_chi2(gen, torch.diagonal(SSE), n_obs, df,
+                                     torch.diagonal(scale)))
+    return sample_inv_wishart(gen, df + n_obs, scale + SSE, bartlett)
+
+
+def sample_marker_covariance(gen, beta, valid, n_markers: int, df: float, scale,
+                             constraint: bool = False, bartlett=None):
+    """Multi-trait BayesC's (t, t) marker-effect covariance from the real
+    markers' beta (t, p_pad): InverseWishart(df + p, scale + B B');
+    constraint: diagonal, one scaled inverse chi-square a trait. Padding
+    markers are left out (jwas_tpu's blocked path counts their beta,
+    which the prior alone draws)."""
+    b = beta * valid
+    SSE = b @ b.T
+    if constraint:
+        return torch.diag(_diag_chi2(gen, torch.diagonal(SSE), n_markers, df,
+                                     torch.diagonal(scale)))
+    return sample_inv_wishart(gen, df + n_markers, scale + SSE, bartlett)
+
+
+def sample_marker_covariance_bayesb(gen, beta, df: float, scale,
+                                    constraint: bool = False, bartlett=None):
+    """Multi-trait BayesB's (p_pad, t, t) covariances, one a locus:
+    InverseWishart(df + 1, scale + beta_j beta_j') as one batched draw;
+    constraint: diagonal, (beta_kj^2 + df scale_kk) / chi^2(1 + df)."""
+    t = beta.shape[0]
+    if constraint:
+        d = _diag_chi2(gen, beta ** 2, 1, df, torch.diagonal(scale)[:, None])
+        return torch.diag_embed(d.T)
+    SSE = beta.T[:, :, None] * beta.T[:, None, :]
+    return sample_inv_wishart(gen, df + 1.0, scale.expand(beta.shape[1], t, t) + SSE,
+                              bartlett)
+
+
+def sample_pattern_pi(gen, delta, valid):
+    """(2^t,) pattern priors: Dirichlet(counts of the real markers' patterns
+    + 1), pattern s = sum_k delta_k 2^k."""
+    t = delta.shape[0]
+    w = 2 ** torch.arange(t, device=delta.device)
+    idx = (w[:, None] * (delta > 0).to(torch.int64)).sum(0)
+    counts = torch.zeros(1 << t, dtype=valid.dtype, device=valid.device)
+    counts.index_add_(0, idx, (valid > 0).to(valid.dtype))
+    return sample_dirichlet(gen, counts + 1.0)

@@ -1,6 +1,6 @@
 """Where the time goes in the port's main paths at full width, on one GPU.
 
-    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense,Methods,GBLUP]
+    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense,Methods,GBLUP,MT,MTPedigree]
 
 Run it from the root of the repository: it imports chip_smoke.py.
 
@@ -55,7 +55,14 @@ matrix, 18,000 phenotyped; their breeding values here a numpy draw, as
 only the times are read): runMCMC's unprofiled set-up and windows, then
 step 2 for run_st's chain alone, 100 iterations on the workspace's
 eigenbasis, whose device time a round is a time an iteration. None of the
-three builds a 2-bit store. Each is a start-of-chain measurement: pi has not settled after three outer
+three builds a 2-bit store. MT is chip_smoke.py's phase 10a (3 traits on
+phase 7's store, runMCMC BayesC sampler I at fast_blocks = True: K7 and the
+two products of a round, torch.mm over the group's rows with the t
+columns): step 2 for a call of two outer iterations after an unprofiled
+one of three. MTPedigree is phase 10d (the 3-trait animal model, K =
+18,303, 20 iterations; the pedigree, workspace and LHS pieces' set-up
+included in the profiled call): step 2, the LHS assembly's kernels,
+K6 and the GEMVs with W among the device rows. Each is a start-of-chain measurement: pi has not settled after three outer
 iterations. Imports torch, numpy, the port and chip_smoke.py; never jax.
 """
 
@@ -309,12 +316,31 @@ def profile_gblup(dev, n=20_000, n_train=18_000):
              100, top=16)
 
 
+def profile_mt(dev, pedigree=False):
+    """chip_smoke.py's phase 10a (pedigree: 10d) under torch.profiler."""
+    if pedigree:
+        profiled("MTPedigree", lambda: cs.phase10d(dev), 20, top=20)
+        return
+    codes = cs.dense_codes(50_000, 100_000, 7, dev)
+    geno = jt.get_genotypes(codes, method="BayesC", storage="f32", device=dev)
+    del codes
+    table, _, _ = cs.mt_table(geno.obs_ids, cs.mt_truth(geno.dense, seed=10), 10, 45_000)
+    eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
+    kw = dict(fast_blocks=True, output_samples_frequency=256, output_folder="")
+    cs.run_mt("MT, unprofiled", dev, cs.fresh(geno, "BayesC"), table, eq,
+              ("mt_abc_inner_rounds_I",), chain_length=768, **kw)
+    profiled("MT", lambda: cs.run_mt("MT, profiled", dev, cs.fresh(geno, "BayesC"),
+                                     table, eq, ("mt_abc_inner_rounds_I",),
+                                     chain_length=512, **kw),
+             2 * 17 * 32, top=16)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch.cuda.is_available() is false")
     names = (sys.argv[1] if len(sys.argv) > 1 else "BayesC,BayesR").split(",")
     for name in names:
-        if name not in PATHS and name != "runMCMC":
+        if name not in PATHS and name not in ("runMCMC", "MT", "MTPedigree"):
             raise SystemExit(f"unknown path {name!r}; choose from {sorted(PATHS)}")
     dev = torch.device("cuda", 0)
     cs.say(subprocess.run(
@@ -330,6 +356,11 @@ def main():
     if "GBLUP" in names:
         profile_gblup(dev)
         names = [n for n in names if n != "GBLUP"]
+    for name in ("MT", "MTPedigree"):
+        if name in names:
+            profile_mt(dev, pedigree=name == "MTPedigree")
+            names = [n for n in names if n != name]
+            torch.cuda.empty_cache()
     if not names:
         return
     gm, y, tbv, sum2pq, _, _ = cs.full_width_problem(dev)

@@ -17,6 +17,9 @@ host's. The GEMVs sum n float32 terms in another order:
 rtol 1e-4, atol 1e-4 * sqrt(n).
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -700,3 +703,73 @@ def test_pedigree_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
         got, want = np.asarray(kernel[key][col]), np.asarray(reference[key][col])
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("sampler", ["I", "II"])
+def test_mt_inner_rounds_kernels_match_plain(cuda, sampler):
+    """K7 (sampler I) and K8 (sampler II) against their plain versions on the
+    card, float32 and float64: t = 2, 3, 4, a shared and a per-locus Ginv, a
+    ragged b = 37 and nblocks = 1, b = 256 over 23 blocks; the kernels
+    round as the plain versions do, so the chains agree to the last bit
+    (the check holds them to delta equal and the tolerances of
+    tests/test_pallas_sweep.py:42-45); a second launch gives the same bits."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import mt_inputs
+    from jwas_tpu_torch.ops import inner_rounds as ir
+    from jwas_tpu_torch.ops.multitrait import mt_abc_inner_rounds_ref
+
+    kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
+    for dtype in (torch.float32, torch.float64):
+        for t, b, nblocks, nreps, per_locus in ((2, 37, 5, 2, False), (3, 37, 5, 2, True),
+                                                (4, 16, 1, 3, False), (3, 256, 23, 1, False)):
+            inp = mt_inputs(t, b, nblocks, nreps, sampler, per_locus, 7 + t, cuda, dtype)
+            outs = []
+            for _ in range(2):
+                a = {k: v.clone() for k, v in inp.items()}
+                n0 = kernel.launches
+                kernel(**{("us" if sampler == "I" else "gum") if k == "draw_a" else k: v
+                          for k, v in a.items()}, nreps=nreps)
+                assert kernel.launches == n0 + 1
+                outs.append(a)
+            r = {k: v.clone() for k, v in inp.items()}
+            mt_abc_inner_rounds_ref(sampler, **r, nreps=nreps)
+            torch.cuda.synchronize()
+            for k in ("alpha", "beta", "delta", "rhs"):
+                assert torch.equal(outs[0][k], outs[1][k]), (sampler, dtype, t, k)
+            torch.testing.assert_close(outs[0]["delta"], r["delta"], rtol=0, atol=0)
+            torch.testing.assert_close(outs[0]["alpha"], r["alpha"], rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(outs[0]["beta"], r["beta"], rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(outs[0]["rhs"], r["rhs"], rtol=1e-4, atol=1e-5)
+            assert not outs[0]["alpha"][-1, :, -3:].any()
+
+
+def test_location_pass_limit_is_refused_on_the_card(cuda):
+    """A model whose K is just above K6's limit on this card (read from the
+    library for the device) is refused by prepare_workspace with a
+    NotImplementedError naming K6, single-trait with sparse_location=False
+    and multi-trait, before the design is made dense; at the limit's K the
+    single-trait model passes the check."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.engine.setup import MCMCOptions, prepare_workspace
+    from jwas_tpu_torch.ops.location import pass_limit
+
+    limit = pass_limit(cuda)
+    assert 0 < limit <= 20_480
+    rng = np.random.default_rng(3)
+    for eq, levels, K in (("y1 = intercept + x", limit, limit + 1),
+                          ("y1 = intercept + x\ny2 = intercept + x", limit // 2,
+                           2 * (1 + limit // 2))):
+        assert K > limit
+        table = jt.Table({"ID": np.array([f"a{i}" for i in range(levels)], dtype=object),
+                          "y1": rng.normal(size=levels), "y2": rng.normal(size=levels),
+                          "x": np.arange(levels)})
+        with pytest.raises(NotImplementedError, match="K6"):
+            jt.runMCMC(jt.build_model(eq), table, device=cuda, chain_length=2,
+                       output_folder="", printout_model_info=False,
+                       sparse_location=False)
+    table = jt.Table({"ID": np.array([f"a{i}" for i in range(limit - 1)], dtype=object),
+                      "y1": rng.normal(size=limit - 1), "x": np.arange(limit - 1)})
+    ws = prepare_workspace(jt.build_model("y1 = intercept + x"), table,
+                           MCMCOptions(sparse_location=False, output_folder=""),
+                           device=cuda)
+    assert ws.W.shape[1] == limit

@@ -8,6 +8,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -82,3 +83,117 @@ def test_chip_smoke_refuses_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# jwas_tpu's public names that ROADMAP.md Queue 1 items 9-11 bring
+NOT_YET = {"solve", "GWAS", "dataset", "generate_full_phi", "PSRF",
+           "PSRF_per_parameter", "traceplot", "LOOCV", "lsmeans", "getEBV"}
+
+
+def test_public_names_match_jwas_tpu():
+    """Every name of jwas_tpu.__all__ is an attribute of the port, but for
+    the ten that ROADMAP.md Queue 1 items 9-11 bring; add_genotypes warns
+    that it is deprecated."""
+    import warnings
+
+    import jwas_tpu
+    import jwas_tpu_torch as jt
+
+    missing = sorted(n for n in jwas_tpu.__all__ if not hasattr(jt, n))
+    assert missing == sorted(NOT_YET), missing
+    assert jt.prepare_streaming_genotypes is jt.prepare_packed_genotypes
+    model = jt.build_model("y1 = intercept\ny2 = intercept")
+    rng = np.random.default_rng(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        g = jt.add_genotypes(model, rng.integers(0, 3, (20, 8)).astype(float),
+                             device="cpu")
+    assert any(issubclass(w.category, DeprecationWarning) for w in caught)
+    assert model.M == [g] and g.G.df == 6.0
+
+
+def _refusals(monkeypatch):
+    """The text of each NotImplementedError the port raises for what it does
+    not run yet."""
+    import re
+
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.setup as es
+    from jwas_tpu_torch.ops import location
+    from jwas_tpu_torch.ops.multitrait import check_traits
+
+    rng = np.random.default_rng(1)
+    X = rng.integers(0, 3, (30, 10)).astype(float)
+    table = jt.Table({"ID": np.array([f"a{i}" for i in range(30)], dtype=object),
+                      "y1": rng.normal(size=30), "y2": rng.normal(size=30),
+                      "x": np.arange(30)})
+    texts = []
+
+    def expect(fn):
+        with pytest.raises(NotImplementedError) as e:
+            fn()
+        texts.append(str(e.value))
+
+    def run(eq, method="BayesC", **kw):
+        geno = jt.get_genotypes(X, method=method, device="cpu") if "geno" in eq else None
+        model = jt.build_model(eq, genotypes=geno)
+        return jt.runMCMC(model, table, device="cpu", chain_length=4, output_folder="",
+                          printout_model_info=False, **kw)
+
+    expect(lambda: jt.build_model("y = intercept", categorical_trait=["y"]))
+    expect(lambda: jt.get_genotypes(X, annotations=np.ones((10, 1)), device="cpu"))
+    expect(lambda: check_traits(9))
+    for name, (default, _) in es._UNPORTED.items():
+        value = {"n_chains": 2, "mesh": object(), "checkpoint_frequency": 5,
+                 "resume": True, "single_step_analysis": True,
+                 "causal_structure": np.zeros((2, 2)), "RRM": object(),
+                 "use_pallas": True}[name]
+        eq = "y1 = intercept + geno" + ("\ny2 = intercept + geno" if name in (
+            "causal_structure",) else "")
+        extra = {"pedigree": object()} if name == "single_step_analysis" else {}
+        expect(lambda: run(eq, **{name: value}, **extra))
+    expect(lambda: run("y1 = intercept + geno", sparse_location=True))
+    expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", method="RR-BLUP"))
+    expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno",
+                       update_priors_frequency=2))
+    monkeypatch.setattr(location, "pass_limit", lambda device, dtype=None: 40)
+    expect(lambda: run("y1 = intercept + x\ny2 = intercept + x"))
+    return [re.search(r"ROADMAP\.md: ([^)]+)\)", t) for t in texts], texts
+
+
+def test_refusals_name_their_part_of_the_roadmap(monkeypatch):
+    """Each refusal names the part of ROADMAP.md that brings what it refuses
+    (a heading or an item's title, not an item number), and that text is in
+    ROADMAP.md (in any case, its code spans' backticks left out)."""
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        roadmap = " ".join(f.read().replace("`", "").split()).lower()
+    found, texts = _refusals(monkeypatch)
+    for m, text in zip(found, texts):
+        assert m is not None, text
+        assert m.group(1).lower() in roadmap, text
+
+
+def test_location_limit_is_refused_before_the_design_is_densified(monkeypatch):
+    """K above K6's limit (injected here: 40) is refused by prepare_workspace
+    for every sparse_location and every number of traits, before the
+    location design is made dense."""
+    import scipy.sparse as sp
+
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.ops import location
+
+    def boom(self, *a, **k):
+        raise AssertionError("the design was densified")
+
+    monkeypatch.setattr(location, "pass_limit", lambda device, dtype=None: 40)
+    monkeypatch.setattr(sp.csc_matrix, "todense", boom)
+    rng = np.random.default_rng(2)
+    table = jt.Table({"ID": np.array([f"a{i}" for i in range(60)], dtype=object),
+                      "y1": rng.normal(size=60), "y2": rng.normal(size=60),
+                      "x": np.arange(60)})
+    for eq in ("y1 = intercept + x", "y1 = intercept + x\ny2 = intercept + x"):
+        for sparse in (None, False):
+            model = jt.build_model(eq)
+            with pytest.raises(NotImplementedError, match="K6"):
+                jt.runMCMC(model, table, device="cpu", chain_length=4, output_folder="",
+                           printout_model_info=False, sparse_location=sparse)
