@@ -34,11 +34,15 @@ Phases, each printed as it ends:
      at a slice's first and last rows); every K6 check launches twice and
      demands the same x bit for bit; K7 and K8, the multi-trait samplers
      I and II, at phase 10a's round (t = 3, b = 256 over 23 blocks, 8
-     reps) in float32 and float64, timed, and at t = 2 (one block) and
-     t = 4, a per-locus Ginv, a ragged b and a short last group's
-     padding: delta equal, the rest within the tolerances of
-     tests/test_pallas_sweep.py:42-45 (in fact bit for bit), a second
-     launch bit for bit;
+     reps) in float32 and float64, dense (a third of the indicators on)
+     and sparse (the all-out pattern at prior 0.99), timed, with ns a
+     dependent step, the window model's counts and the step floor at
+     t = 3; then at t = 2 (one block), 4, 5 and 8, a per-locus Ginv, a
+     ragged b with a short last group's padding, b = 300 and 1,040 (two
+     and eight markers a thread): alpha, beta, delta and rhs bit for bit
+     the sequential plain version, a second launch bit for bit, padding
+     at 0; the registers and spills of every K7 / K8 instantiation
+     (phase 1);
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -764,13 +768,15 @@ def random_spd_lhs(dev, K=2_000, seed=14):
 
 
 def mt_inputs(t, b, nblocks, nreps, sampler, per_locus, seed, dev,
-              dtype=torch.float32, n_padding=3):
-    """K7 / K8 inputs: Gram tiles of 4b-observation blocks, a state of t
-    traits (a third of the indicators on), the last n_padding markers of
-    the last block padding (valid 0, zero Gram rows, xpx 1; a short last
-    group's), random covariances (Ginv shared or one a locus) and pattern
-    priors, and the draws of nreps rounds: uniforms for sampler I, Gumbels
-    for II."""
+              dtype=torch.float32, n_padding=3, regime="dense"):
+    """K7 / K8 inputs: Gram tiles of 4b-observation blocks, the last
+    n_padding markers of the last block padding (valid 0, zero Gram rows,
+    xpx 1; a short last group's), random covariances (Ginv shared or one a
+    locus) and the draws of nreps rounds: uniforms for sampler I, Gumbels
+    for II. regime "dense": random pattern priors, a third of the
+    indicators on (most steps change an effect); "sparse": the all-out
+    pattern at prior 0.99 from alpha = 0, 4% of the markers with an effect
+    of sd 0.5 in the data (few steps change one)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     f = dict(generator=g, device=dev, dtype=torch.float64)
@@ -792,6 +798,12 @@ def mt_inputs(t, b, nblocks, nreps, sampler, per_locus, seed, dev,
     if per_locus:
         Ginv = Ginv * (0.5 + 1.5 * torch.rand((nblocks, b, 1, 1), **f))
     pi = torch.rand(2 ** t, **f) + 0.2
+    if regime == "sparse":
+        qtl = torch.rand((nblocks, b, 1), **f) < 0.04
+        rhs += grams @ (qtl * 0.5 * torch.randn((nblocks, b, t), **f))
+        delta.zero_()
+        pi = torch.full((2 ** t,), 0.01 / (2 ** t - 1), device=dev, dtype=torch.float64)
+        pi[0] = 0.99
     u = torch.rand((nreps * b, t if sampler == "I" else 2 ** t, nblocks), **f)
     inp = dict(grams=grams, xpx=xpx, valid=valid, alpha=beta * delta, beta=beta,
                delta=delta, rhs=rhs.transpose(1, 2), Rinv=torch.linalg.inv(A @ A.T / t + eye),
@@ -820,21 +832,66 @@ def mt_bounds(inp, nreps):
                 library_ms=None)
 
 
+# The dependent operations of one step in which an effect changes, at t = 3,
+# counted from csrc/mt_inner_rounds.cu. K7 (MtMarkers::eval_I): a trait's
+# chain from the previous trait's beta and delta: the product and sum of
+# c12, rw - c12, two products to g_hat1^2 c11, the log-density's sub,
+# product and add, log_d0 - log_d1, its scaling by log2(e), the fused
+# u (1 + e) and its two compares, the select (14 adds, products, compares
+# or selects) and one ex2 (the inclusion test of included(), whose exact
+# expf and division run only near the threshold); three traits, then w and
+# rw (5), a_new, d and its test (3), the axpy (2): 52 of them, 3 ex2, a
+# ballot and a shuffle. K8 (eval_II): w and rw (5), a pattern's g (3), its
+# quadratic form (3) and score (4), the argmax tree's 3 compare-and-selects
+# (6), the chosen factor's load from shared memory, C z (3), g + C z, the
+# pattern mask, valid, d and its test (5), the axpy (2): 36, one load, a
+# ballot and a shuffle. Hopper's latencies in cycles, float32 / float64: an
+# add, product, compare or select 4 / 8; ex2 (MUFU, float32 in both) 20; a
+# shared-memory load 30; a shuffle or ballot 30.
+MT_STEP_OPS = {"I": dict(arith=52, mufu=3, lds=0, warp=2),
+               "II": dict(arith=36, mufu=0, lds=1, warp=2)}
+MT_LATENCY = {torch.float32: dict(arith=4, mufu=20, lds=30, warp=30),
+              torch.float64: dict(arith=8, mufu=20, lds=30, warp=30)}
+
+
+def sm_clock_mhz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
+
+
+def mt_step_floor_ns(sampler, dtype, clock_mhz):
+    """The latency of one changing step's dependent operations at t = 3
+    (MT_STEP_OPS x MT_LATENCY) at the SM clock, in ns."""
+    lat = MT_LATENCY[dtype]
+    cycles = sum(n * lat[op] for op, n in MT_STEP_OPS[sampler].items())
+    return cycles / clock_mhz * 1e3
+
+
 def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
-             dtype=torch.float32, n_padding=3):
-    """K7 (sampler "I") or K8 ("II") against its plain version on the card:
-    delta equal, alpha / beta within rtol 1e-5 / atol 1e-6 and rhs within
-    1e-4 / 1e-5 (tests/test_pallas_sweep.py:42-45); a second launch equal
-    bit for bit. time_it: the kernel's device ms (CUDA events), the plain
-    version's ms (host clock around the synchronised call that the check
-    compares with), ns a dependent step and the bound."""
+             dtype=torch.float32, n_padding=3, regime="dense"):
+    """K7 (sampler "I") or K8 ("II") against its sequential plain version
+    (ops/multitrait.py::mt_abc_inner_rounds_ref) on the card: alpha, beta,
+    delta and rhs equal bit for bit, a second launch equal bit for bit,
+    padding markers at 0. time_it: the kernel's device ms (CUDA events), the
+    plain version's ms (host clock around the synchronised call that the
+    check compares with), ns a dependent step, the byte bound, the step
+    floor at t = 3 (mt_step_floor_ns) and the window model's counts
+    (ops/inner_rounds.py::mt_abc_inner_rounds_window_ref, which must equal
+    the plain version bit for bit too)."""
+    import functools
+
     from jwas_tpu_torch.ops import inner_rounds as ir
     from jwas_tpu_torch.ops.multitrait import mt_abc_inner_rounds_ref
 
     kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
+    what = f"K{7 if sampler == 'I' else 8}"
     inp = mt_inputs(t, b, nblocks, nreps, sampler, per_locus, 11 + t, dev, dtype,
-                    n_padding)
+                    n_padding, regime)
     fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
+    state = ("alpha", "beta", "delta", "rhs")
 
     def run(a):
         return kernel(*(a[k] for k in ("grams", "xpx", "valid", "alpha", "beta",
@@ -852,54 +909,91 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
     mt_abc_inner_rounds_ref(sampler, **r, nreps=nreps)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3   # a host-bound loop of launches
-    for k in ("alpha", "beta", "delta", "rhs"):
-        if not torch.equal(outs[0][k], outs[1][k]):
-            raise AssertionError(f"K{7 if sampler == 'I' else 8}: a second launch "
-                                 f"gave another {k}")
     a = outs[0]
-    if not torch.equal(a["delta"], r["delta"]):
-        raise AssertionError(f"K{7 if sampler == 'I' else 8} t={t} b={b}: delta differs "
-                             f"on {int((a['delta'] != r['delta']).sum())} markers")
-    err = 0.0
-    for name, rtol, atol in (("alpha", 1e-5, 1e-6), ("beta", 1e-5, 1e-6),
-                             ("rhs", 1e-4, 1e-5)):
-        err = max(err, (a[name] - r[name]).abs().max().item())
-        torch.testing.assert_close(a[name], r[name], rtol=rtol, atol=atol)
-    if n_padding and a["alpha"][-1, :, -n_padding:].any():
-        raise AssertionError("K7/K8: a padding marker moved")
-    label = (f"K{7 if sampler == 'I' else 8} sampler {sampler} "
-             f"{str(dtype).replace('torch.', '')} t={t} b={b} nblocks={nblocks} "
-             f"reps={nreps}{' per-locus Ginv' if per_locus else ''}: delta equal "
-             f"({float(a['delta'].mean()):.3f} of the indicators on), max |err| "
-             f"{err:.3g}, bit for bit {torch.equal(a['alpha'], r['alpha'])}")
+    err = max((a[k] - r[k]).abs().max().item() for k in state)
+    label = (f"{what} sampler {sampler} {str(dtype).replace('torch.', '')} t={t} b={b} "
+             f"nblocks={nblocks} reps={nreps}{' per-locus Ginv' if per_locus else ''}"
+             f"{' padding ' + str(n_padding) if n_padding else ''} {regime}")
+    for k in state:
+        if not torch.equal(outs[0][k], outs[1][k]):
+            raise AssertionError(f"{label}: a second launch gave another {k}")
+        if not torch.equal(a[k], r[k]):
+            raise AssertionError(f"{label}: {k} differs from the plain version's "
+                                 f"(max |err| {(a[k] - r[k]).abs().max().item():.3g}, "
+                                 f"{int((a[k] != r[k]).sum())} values)")
+    if n_padding and (a["alpha"][-1, :, -n_padding:].any()
+                      or a["delta"][-1, :, -n_padding:].any()):
+        raise AssertionError(f"{label}: a padding marker moved")
+    label += (f": bit for bit the plain version ({float(a['delta'].mean()):.3f} of the "
+              f"indicators on)")
     rec = None
     if time_it:
         k_in = fresh()
         ms = cuda_ms(lambda: run(k_in), 5)
+        window = functools.partial(ir.mt_abc_inner_rounds_window_ref, sampler)
+        stats = window_stats(window, inp, state, r, nreps)
         rec = dict(max_abs_err=err, **mt_bounds(inp, nreps))
-        rec.update(ms=ms, plain_ms=plain, step_ns=ms * 1e6 / (nreps * b))
-        label += (f"; kernel {ms:.4f} ms ({rec['step_ns']:.1f} ns a dependent step), "
-                  f"plain {plain:.2f} ms, bound {rec['bound_ms']:.4f} ms "
-                  f"({rec['bound_by']})")
+        label += chain_line(rec, ms, plain, stats, nreps * b)
+        # modelled, not measured: on this line only, not in the kernels line
+        label += (f"; step floor at t = 3 "
+                  f"{mt_step_floor_ns(sampler, dtype, sm_clock_mhz()):.1f} ns")
     say(label)
     return rec
 
 
+def mt_registers(log):
+    """K7 / K8 instantiations in nvcc's -Xptxas -v output (_build.build_log):
+    [(kernel, dtype, t, rows a thread or None for the pre-pass, registers,
+    spill store bytes, spill load bytes)]."""
+    import re
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = int(m.group(1)), int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"(mt_chain|consts_II|consts_I)I([fd])Li(\d)E(?:Lb([01])ELi(\d+)E)?",
+                          name)
+            if k:
+                kernel = ("K8" if k.group(4) == "1" or k.group(1) == "consts_II" else "K7")
+                rows.append((kernel, {"f": "float32", "d": "float64"}[k.group(2)],
+                             int(k.group(3)), int(k.group(5)) if k.group(5) else None,
+                             int(m.group(1))) + spills)
+            name = None
+    return sorted(rows, key=lambda r: (r[0], r[1], r[2], r[3] or 0))
+
+
 def phase2_mt(dev):
     """K7 and K8 at phase 10a's shape (t = 3, b = 256 over 23 blocks, a
-    round of 8 reps) in float32 and float64, timed; then at t = 2 and 4,
-    a single block, a per-locus Ginv, a ragged b, both builds."""
+    round of 8 reps) in float32 and float64, dense and sparse, timed; then
+    in both builds at t = 2 (a single block, the exact form's chunk), 4 and 5
+    (per-locus Ginv), 8, a ragged b = 136 with a short last group's padding,
+    b = 300 (two markers a thread), b = 700 (four) and b = 1,040 (eight),
+    each bit for bit."""
     recs = {}
     for sampler in ("I", "II"):
         name = f"mt_abc_inner_rounds_{sampler}"
-        recs[name] = check_mt(sampler, 3, 256, 23, 8, dev, time_it=True)
-        recs[name + "_f64"] = check_mt(sampler, 3, 256, 23, 8, dev, time_it=True,
-                                       dtype=torch.float64)
+        for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+            rec = check_mt(sampler, 3, 256, 23, 8, dev, time_it=True, dtype=dtype)
+            rec["regimes"] = {"sparse": check_mt(sampler, 3, 256, 23, 8, dev, time_it=True,
+                                                 dtype=dtype, regime="sparse")}
+            recs[name + suffix] = rec
         for dtype in (torch.float32, torch.float64):
-            check_mt(sampler, 2, 256, 1, 1, dev, dtype=dtype)       # an exact chunk
+            check_mt(sampler, 2, 256, 1, 1, dev, dtype=dtype, n_padding=0)
             check_mt(sampler, 4, 40, 6, 2, dev, per_locus=True, dtype=dtype)
+            check_mt(sampler, 5, 72, 3, 2, dev, per_locus=True, dtype=dtype)
+            check_mt(sampler, 8, 40, 2, 1, dev, dtype=dtype)
             check_mt(sampler, 3, 136, 8, 3, dev, per_locus=True, dtype=dtype,
                      n_padding=17)
+            check_mt(sampler, 2, 300, 2, 2, dev, dtype=dtype, n_padding=5, regime="sparse")
+            check_mt(sampler, 3, 700, 1, 1, dev, per_locus=True, dtype=dtype, n_padding=9)
+            check_mt(sampler, 3, 1040, 1, 1, dev, per_locus=True, dtype=dtype)
     return recs
 
 
@@ -2797,6 +2891,9 @@ def main():
     say("\n".join(line for line in _build.build_log.splitlines()
                   if "registers" in line or "spill" in line
                   or line.endswith(" s")))      # seconds a source
+    for kernel, dtype, t, rows, regs, stores, loads in mt_registers(_build.build_log):
+        say(f"{kernel} {dtype} t={t} " + (f"R={rows}" if rows else "constants") +
+            f": {regs} registers, {stores} / {loads} bytes spill stores / loads")
 
     recs = phase2(dev)
     launches, kept = phase3(dev)

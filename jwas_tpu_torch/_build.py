@@ -7,9 +7,10 @@ at once, and linked into one shared library under
 ``ctypes``. The library's file name carries a hash of the sources and the
 flags, so an edited source is never served by a stale build.
 
-Each C entry point launches on the stream it is given, allocates nothing and
-returns ``cudaGetLastError()``; ``check`` raises when that is not 0. There is
-no fallback: a failed build or launch raises.
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` raises when that is not 0. There is no
+fallback: a failed build or launch raises. They allocate nothing: a
+kernel's scratch is a tensor its wrapper passes in.
 
 No ``--use_fast_math``: the inclusion test ``u < p`` of the spike-slab
 update and the class argmax of BayesR have to see the same ``expf``,
@@ -36,6 +37,12 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# Sources whose kernels nvcc optimises in parallel, on every core: K7 /
+# K8's 140 instantiations build in about 2 minutes so, and in more than 15
+# on one thread. Not the others: it changes their code (K4 spills with it
+# and takes twice the time).
+_SPLIT = {"mt_inner_rounds": ["-split-compile=0"]}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -66,12 +73,12 @@ _SIGNATURES = {
     "jt_gibbs_pass_max_k": [],
     "jt_gibbs_pass_device_max_k": [_I],
     # grams, xpx, valid, alpha, beta, delta, rhs, Rinv, Ginv, log_pi,
-    # us (I) or gum (II), zs, t, b, nblocks, nreps, per_locus, stream:
-    # csrc/mt_inner_rounds.cu (K7, K8); float32 and float64 builds
-    "jt_mt_inner_rounds_I": [_P] * 12 + [_I] * 5 + [_P],
-    "jt_mt_inner_rounds_I_f64": [_P] * 12 + [_I] * 5 + [_P],
-    "jt_mt_inner_rounds_II": [_P] * 12 + [_I] * 5 + [_P],
-    "jt_mt_inner_rounds_II_f64": [_P] * 12 + [_I] * 5 + [_P],
+    # us (I) or gum (II), zs, scratch, t, b, nblocks, nreps, per_locus,
+    # stream: csrc/mt_inner_rounds.cu (K7, K8); float32 and float64 builds
+    "jt_mt_inner_rounds_I": [_P] * 13 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_I_f64": [_P] * 13 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_II": [_P] * 13 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_II_f64": [_P] * 13 + [_I] * 5 + [_P],
     "jt_gibbs_pass_slice": [],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
     # rows_per_cta, stream
@@ -95,7 +102,7 @@ def _sources():
 
 
 def _lib_path() -> Path:
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS + sorted(map(str, _SPLIT.items()))).encode())
     for src in sorted(_CSRC.glob("*.cu*")):       # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -122,8 +129,8 @@ def _compile_and_link(path: Path) -> str:
     try:
         with ThreadPoolExecutor(len(srcs)) as pool:
             logs = list(pool.map(
-                lambda so: _run([nvcc, *_NVCC_FLAGS, "-c", "-o", str(so[1]),
-                                 str(so[0])]), zip(srcs, objs)))
+                lambda so: _run([nvcc, *_NVCC_FLAGS, *_SPLIT.get(so[0].stem, []), "-c",
+                                 "-o", str(so[1]), str(so[0])]), zip(srcs, objs)))
         logs.append(_run([nvcc, *_NVCC_FLAGS, "-shared", *map(str, objs),
                           "-o", str(tmp)]))
         os.replace(tmp, path)

@@ -432,8 +432,13 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     dtype = torch.float64 if opts.double_precision else torch.float32
     method = "none" if g is None else g.method
     constraint = g is not None and bool(g.G.constraint)
+    sampler = getattr(g, "multi_trait_sampler", "I") if g is not None else "I"
     if method != "none" and not constraint:
         mt.check_traits(t)
+        b, gb, _ = mk.dense_blocks(len(ws.obs_ids), opts.fast_blocks, g.n_markers)
+        mt.check_block_size(b)
+        mt.check_scratch("II" if sampler == "II" else "I", t, b, gb,
+                         torch.finfo(dtype).bits // 8, hbm_budget(device))
 
     def dev(x, dt=dtype):
         return torch.as_tensor(np.asarray(x), dtype=dt).to(device)
@@ -481,7 +486,6 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     if r_constraint:
         df_R -= t
         scale_R0 = np.diag(np.diag(scale_R0 / (df_R - 1.0))) * (df_R - 2.0) / df_R
-    sampler = getattr(g, "multi_trait_sampler", "I") if g is not None else "I"
     cfg = MTEngineCfg(
         method=method, n_obs=n, n_markers=p, n_traits=t,
         estimate_pi=g is not None and bool(g.estimate_pi),

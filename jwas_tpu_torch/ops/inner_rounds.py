@@ -27,7 +27,9 @@ The multi-trait chains (samplers I and II, K7 and K8 of
 csrc/mt_inner_rounds.cu, counterparts of the lax.scan chains of
 jwas_tpu/ops/multitrait.py:214 and :354) have their plain versions in
 ops/multitrait.py; their layouts are (gb, t, b) for the state and rhs and
-(nreps * b, t or 2^t, gb) for the draws.
+(nreps * b, t or 2^t, gb) for the draws. They run the same window schedule
+with d a vector of t values a marker; mt_abc_inner_rounds_window_ref
+models it.
 
 Layouts are block-major, unlike the JAX package's j-major ones:
 grams (nblocks, b, b) with grams[k, j] = row j of block k's Gram;
@@ -225,6 +227,7 @@ def _mt_inner_rounds(sampler, grams, xpx, valid, alpha, beta, delta, rhs,
     nblocks, b, _ = grams.shape
     t = alpha.shape[1]
     mt.check_traits(t)
+    mt.check_block_size(b)
     per_locus = Ginv.dim() == 4
     state = (nblocks, t, b)
     args = dict(grams=grams, xpx=xpx, valid=valid, alpha=alpha, beta=beta,
@@ -237,10 +240,12 @@ def _mt_inner_rounds(sampler, grams, xpx, valid, alpha, beta, delta, rhs,
         "log_pi": (1 << t,),
         "draw_a": (nreps * b, t if sampler == "I" else 1 << t, nblocks),
         "zs": (nreps * b, t, nblocks)}, int_names=())
+    scratch = torch.empty(mt.scratch_values(sampler, t, b, nblocks),
+                          dtype=grams.dtype, device=grams.device)
     lib = _build.library()
     err = getattr(lib, f"jt_mt_inner_rounds_{sampler}{build}")(
-        *(x.data_ptr() for x in args.values()), t, b, nblocks, nreps,
-        int(per_locus), _build.stream_of(grams))
+        *(x.data_ptr() for x in args.values()), scratch.data_ptr(), t, b, nblocks,
+        nreps, int(per_locus), _build.stream_of(grams))
     _build.check(err, what)
     wrapper.launches += 1
     wrapper.launches_f64 += build == "_f64"
@@ -252,10 +257,11 @@ def mt_abc_inner_rounds_I(grams, xpx, valid, alpha, beta, delta, rhs, Rinv,
     """Run nreps rounds of multi-trait sampler I's chain (K7) on every
     block: grams (gb, b, b); xpx, valid (gb, b); alpha, beta, delta, rhs
     (gb, t, b), updated in place and returned; Rinv (t, t); Ginv (t, t) or
-    (gb, b, t, t); log_pi (2^t,); us, zs (nreps b, t, gb). CUDA tensors
-    launch the kernel (and raise if it cannot run: 2 <= t <= 8, the
-    block's (t, b) rhs in shared memory); CPU tensors take the plain
-    version (ops/multitrait.py::mt_abc_inner_rounds_ref)."""
+    (gb, b, t, t); log_pi (2^t,); us, zs (nreps b, t, gb); delta and valid
+    hold 0 or 1. CUDA tensors launch the kernel on a scratch tensor of its
+    constants (ops/multitrait.py::scratch_values) and raise if it cannot
+    run (2 <= t <= 8, b <= 2048); CPU tensors take the plain version
+    (ops/multitrait.py::mt_abc_inner_rounds_ref)."""
     return _mt_inner_rounds("I", grams, xpx, valid, alpha, beta, delta, rhs,
                             Rinv, Ginv, log_pi, us, zs, nreps,
                             mt_abc_inner_rounds_I)
@@ -280,19 +286,23 @@ for _k in (mt_abc_inner_rounds_I, mt_abc_inner_rounds_II):
 
 def _window_schedule(grams, rhs, nreps: int, window: int, evaluate, commit,
                      stats=None):
-    """The schedule of csrc/smem_plan.cuh::run_chain on all blocks at once.
+    """The schedule of csrc/smem_plan.cuh::run_chain on all blocks at once
+    (and of the multi-trait chain of csrc/mt_inner_rounds.cu, where d is a
+    vector of t values a marker).
 
     evaluate(rep, sl) -> (d, candidate): the candidate update of the
     markers in slice sl from the current state, d = a_old - a_new of shape
-    (nblocks, len(sl)); commit(sl, mask, candidate) makes it the state
-    where mask is set. Within a window each block commits the markers up
-    to its first changing one, adds d * Gram row to the window's rhs and
-    evaluates the rest again; at the window's end the changes reach the
-    other rows, in order. rhs is updated in place. stats, when given,
-    receives the counts of windows, evaluations and changes, summed over
-    the blocks.
+    (nblocks, len(sl)), or (nblocks, len(sl), t) with rhs (nblocks, t, b);
+    commit(sl, mask, candidate) makes it the state where mask is set. A
+    marker changes where d (any of its t values) is not 0. Within a window
+    each block commits the markers up to its first changing one, adds
+    d * Gram row to the window's rhs and evaluates the rest again; at the
+    window's end the changes reach the other rows, in order. rhs is updated
+    in place. stats, when given, receives the counts of windows,
+    evaluations and changes, summed over the blocks.
     """
     nblocks, b, _ = grams.shape
+    rhs3 = rhs if rhs.dim() == 3 else rhs[:, None, :]     # a view: writes reach rhs
     blocks = torch.arange(nblocks, device=grams.device)
     count = dict(windows=0, evaluations=0, changes=0)
     for rep in range(nreps):
@@ -307,18 +317,19 @@ def _window_schedule(grams, rhs, nreps: int, window: int, evaluate, commit,
             while bool(live.any()):
                 count["evaluations"] += int(live.sum())
                 d, cand = evaluate(rep, sl)
+                d = d if d.dim() == 3 else d[..., None]
                 todo = live[:, None] & (lanes >= pos[:, None])
-                changing = todo & (d != 0)
+                changing = todo & (d != 0).any(dim=2)
                 moved = changing.any(dim=1)
                 first = torch.where(moved, changing.to(torch.int8).argmax(dim=1),
                                     nact)
                 commit(sl, todo & (lanes <= first[:, None]), cand)
                 j = j0 + first.clamp(max=nact - 1)
-                d_f = d[blocks, j - j0]
-                row = grams[blocks, j]
-                rhs[:, sl] = torch.where(moved[:, None],
-                                         rhs[:, sl] + d_f[:, None] * row[:, sl],
-                                         rhs[:, sl])
+                d_f = d[blocks, j - j0][:, :, None]
+                row = grams[blocks, j][:, None, :]
+                rhs3[:, :, sl] = torch.where(moved[:, None, None],
+                                             rhs3[:, :, sl] + d_f * row[:, :, sl],
+                                             rhs3[:, :, sl])
                 handed.append((moved, d_f, row))
                 count["changes"] += int(moved.sum())
                 pos = first + 1
@@ -326,10 +337,10 @@ def _window_schedule(grams, rhs, nreps: int, window: int, evaluate, commit,
             other = torch.ones(b, dtype=torch.bool, device=grams.device)
             other[sl] = False
             for moved, d_f, row in handed:
-                rhs[:, other] = torch.where(
-                    moved[:, None],
-                    rhs[:, other] + d_f[:, None] * row[:, other],
-                    rhs[:, other])
+                rhs3[:, :, other] = torch.where(
+                    moved[:, None, None],
+                    rhs3[:, :, other] + d_f * row[:, :, other],
+                    rhs3[:, :, other])
     if stats is not None:
         stats.update(count)
 
@@ -385,3 +396,45 @@ def bayesr_inner_rounds_window_ref(grams, xpx, log_pi, alpha, delta, rhs,
 
     _window_schedule(grams, rhs, nreps, window, evaluate, commit, stats)
     return alpha, delta, rhs
+
+
+def mt_abc_inner_rounds_window_ref(sampler: str, grams, xpx, valid, alpha, beta,
+                                   delta, rhs, Rinv, Ginv, log_pi, draw_a, zs,
+                                   nreps: int, window: int = 32, stats=None):
+    """ops/multitrait.py::mt_abc_inner_rounds_ref on the window schedule of
+    K7 and K8 (csrc/mt_inner_rounds.cu): same arguments, same in-place
+    contract, the same result bit for bit. A window's markers of every
+    block evaluate together, their t values of d = a_old - a_new each."""
+    nblocks, t, b = alpha.shape
+    per_locus = Ginv.dim() == 4
+
+    def evaluate(rep, sl):
+        n = sl.stop - sl.start
+        steps = slice(rep * b + sl.start, rep * b + sl.stop)
+
+        def flat(x):                     # (nblocks, t, n) -> (nblocks n, t)
+            return x.transpose(1, 2).reshape(nblocks * n, -1)
+
+        a_old = alpha[:, :, sl]
+        x = xpx[:, sl].reshape(-1)
+        w = flat(rhs[:, :, sl]) + x[:, None] * flat(a_old)
+        g = Ginv[:, sl].reshape(-1, t, t) if per_locus else Ginv
+        draws = draw_a[steps].permute(2, 0, 1).reshape(nblocks * n, -1)
+        z = zs[steps].permute(2, 0, 1).reshape(nblocks * n, t)
+        if sampler == "I":
+            cand = mt.mt_marker_update_I_ref(w, flat(beta[:, :, sl]),
+                                             flat(delta[:, :, sl]), flat(a_old), x,
+                                             Rinv, g, log_pi, draws, z)
+        else:
+            cand = mt.mt_marker_update_II_ref(w, x, Rinv, g, log_pi, draws, z)
+        b_new, d_new, a_new = (c.reshape(nblocks, n, t).transpose(1, 2) for c in cand)
+        v = valid[:, None, sl]
+        a_new = a_new * v
+        return (a_old - a_new).transpose(1, 2), (a_new, b_new, d_new * v)
+
+    def commit(sl, mask, cand):
+        for state, new in zip((alpha, beta, delta), cand):
+            state[:, :, sl] = torch.where(mask[:, None, :], new, state[:, :, sl])
+
+    _window_schedule(grams, rhs, nreps, window, evaluate, commit, stats)
+    return alpha, beta, delta, rhs

@@ -12,6 +12,10 @@ the same grouped sweep over a store of one block a group with nreps = 1
 (ops/dense.py), their panels served in marker order by
 ops/dense.py::sweep_draws.
 
+The kernels run the chain on a window schedule (32 markers of a block
+evaluated together); ops/inner_rounds.py::mt_abc_inner_rounds_window_ref
+models it and equals mt_abc_inner_rounds_ref bit for bit.
+
 A joint inclusion pattern s = sum_k delta_k 2^k (bit k = trait k) indexes
 log_pi, (2^t,). Marker state is (t, p_pad) as in the JAX package; a group
 round gathers it into the kernels' block-major layout (gb, t, b).
@@ -36,6 +40,8 @@ from jwas_tpu_torch.ops import inner_rounds as ir
 from jwas_tpu_torch.ops import grouped as gr
 
 MAX_TRAITS = 8          # K7 and K8 are instantiated for t = 2..8
+MAX_BLOCK = 2048        # and take b <= 256 threads x 8 markers a thread
+SCRATCH_SHARE = 0.25    # their constants' scratch: at most this of the card
 
 
 def pattern_index(delta):
@@ -321,3 +327,38 @@ def check_traits(t: int) -> None:
             f"{MAX_TRAITS} traits ({1 << MAX_TRAITS} inclusion patterns); more is "
             f"not ported (ROADMAP.md: samplers I and II above 8 traits)")
 
+
+def check_block_size(b: int) -> None:
+    """K7 and K8 take blocks of up to MAX_BLOCK markers
+    (csrc/mt_inner_rounds.cu: kThreads x kMaxRows)."""
+    if b > MAX_BLOCK:
+        raise NotImplementedError(
+            f"blocks of {b} markers: the multi-trait samplers I and II (K7, K8) take "
+            f"up to {MAX_BLOCK} (an int fast_blocks up to {MAX_BLOCK}; the default "
+            f"block size passes it above ~4.2 million records); more is not ported "
+            f"(ROADMAP.md: samplers I and II above 2,048 markers a block)")
+
+
+def scratch_values(sampler: str, t: int, b: int, nblocks: int) -> int:
+    """Values of the constants' scratch of a K7 / K8 call on nblocks blocks
+    of b markers (csrc/mt_inner_rounds.cu: nblocks x ceil(b / 32) windows
+    of 32 markers, E values a marker: t (8 + 3 (t - 1)) for sampler I,
+    2^t (t (t + 1) + 1) for sampler II)."""
+    e = t * (8 + 3 * (t - 1)) if sampler == "I" else (1 << t) * (t * (t + 1) + 1)
+    return nblocks * -(-b // 32) * 32 * e
+
+
+def check_scratch(sampler: str, t: int, b: int, gb: int, itemsize: int,
+                  budget: int) -> None:
+    """A group round's K7 / K8 call on gb blocks allocates its constants'
+    scratch (scratch_values); it may take SCRATCH_SHARE of the card's
+    memory (budget bytes, grouped.hbm_budget)."""
+    nbytes = scratch_values(sampler, t, b, gb) * itemsize
+    if nbytes > SCRATCH_SHARE * budget:
+        raise NotImplementedError(
+            f"sampler {sampler} at {t} traits, blocks of {b} markers and {gb} blocks a "
+            f"group: K{7 if sampler == 'I' else 8}'s constants' scratch would take "
+            f"{nbytes / 1e9:.3g} GB, above {SCRATCH_SHARE:g} of the card's "
+            f"{budget / 1e9:.3g} GB; a smaller fast_blocks or fewer traits fit; more "
+            f"is not ported (ROADMAP.md: samplers I and II with a scratch above a "
+            f"quarter of the card)")

@@ -58,8 +58,9 @@ eigenbasis, whose device time a round is a time an iteration. None of the
 three builds a 2-bit store. MT is chip_smoke.py's phase 10a (3 traits on
 phase 7's store, runMCMC BayesC sampler I at fast_blocks = True: K7 and the
 two products of a round, torch.mm over the group's rows with the t
-columns): step 2 for a call of two outer iterations after an unprofiled
-one of three. MTPedigree is phase 10d (the 3-trait animal model, K =
+columns), then 10b (sampler II, K8) and 10c's BayesB (K7, a covariance a
+locus): step 2 for a call of two outer iterations after an unprofiled one
+of three, each. MTPedigree is phase 10d (the 3-trait animal model, K =
 18,303, 20 iterations; the pedigree, workspace and LHS pieces' set-up
 included in the profiled call): step 2, the LHS assembly's kernels,
 K6 and the GEMVs with W among the device rows. Each is a start-of-chain measurement: pi has not settled after three outer
@@ -327,12 +328,20 @@ def profile_mt(dev, pedigree=False):
     table, _, _ = cs.mt_table(geno.obs_ids, cs.mt_truth(geno.dense, seed=10), 10, 45_000)
     eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
     kw = dict(fast_blocks=True, output_samples_frequency=256, output_folder="")
-    cs.run_mt("MT, unprofiled", dev, cs.fresh(geno, "BayesC"), table, eq,
-              ("mt_abc_inner_rounds_I",), chain_length=768, **kw)
-    profiled("MT", lambda: cs.run_mt("MT, profiled", dev, cs.fresh(geno, "BayesC"),
-                                     table, eq, ("mt_abc_inner_rounds_I",),
-                                     chain_length=512, **kw),
-             2 * 17 * 32, top=16)
+
+    def genotypes(method, sampler):
+        g = cs.fresh(geno, method)
+        g.multi_trait_sampler = sampler
+        return g
+
+    for name, method, sampler in (("MT", "BayesC", "I"), ("MT sampler II", "BayesC", "II"),
+                                  ("MT BayesB", "BayesB", "I")):
+        kernels = (f"mt_abc_inner_rounds_{sampler}",)
+        cs.run_mt(f"{name}, unprofiled", dev, genotypes(method, sampler), table, eq,
+                  kernels, chain_length=768, **kw)
+        profiled(name, lambda: cs.run_mt(f"{name}, profiled", dev, genotypes(method, sampler),
+                                         table, eq, kernels, chain_length=512, **kw),
+                 2 * 17 * 32, top=16)
 
 
 def main():

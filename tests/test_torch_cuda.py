@@ -707,12 +707,14 @@ def test_pedigree_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
 
 @pytest.mark.parametrize("sampler", ["I", "II"])
 def test_mt_inner_rounds_kernels_match_plain(cuda, sampler):
-    """K7 (sampler I) and K8 (sampler II) against their plain versions on the
-    card, float32 and float64: t = 2, 3, 4, a shared and a per-locus Ginv, a
-    ragged b = 37 and nblocks = 1, b = 256 over 23 blocks; the kernels
-    round as the plain versions do, so the chains agree to the last bit
-    (the check holds them to delta equal and the tolerances of
-    tests/test_pallas_sweep.py:42-45); a second launch gives the same bits."""
+    """K7 (sampler I) and K8 (sampler II) against their sequential plain
+    versions on the card, float32 and float64: alpha, beta, delta and rhs
+    equal bit for bit (the kernels round as the plain versions do and keep
+    the sequential chain's order of the rhs additions) at t = 2, 3, 4, 5
+    and 8, a shared and a per-locus Ginv, padding, a ragged b = 37, a
+    single block with one rep (the exact form), b = 300 (two markers a
+    thread), b = 700 (four), b = 256 over 23 blocks, dense and sparse; a
+    second launch gives the same bits and padding markers stay at 0."""
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from chip_smoke import mt_inputs
     from jwas_tpu_torch.ops import inner_rounds as ir
@@ -720,9 +722,15 @@ def test_mt_inner_rounds_kernels_match_plain(cuda, sampler):
 
     kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
     for dtype in (torch.float32, torch.float64):
-        for t, b, nblocks, nreps, per_locus in ((2, 37, 5, 2, False), (3, 37, 5, 2, True),
-                                                (4, 16, 1, 3, False), (3, 256, 23, 1, False)):
-            inp = mt_inputs(t, b, nblocks, nreps, sampler, per_locus, 7 + t, cuda, dtype)
+        for t, b, nblocks, nreps, per_locus, regime in (
+                (2, 37, 5, 2, False, "dense"), (3, 37, 5, 2, True, "dense"),
+                (4, 16, 1, 3, False, "dense"), (5, 40, 3, 1, True, "dense"),
+                (8, 24, 2, 1, False, "dense"), (2, 256, 1, 1, False, "dense"),
+                (3, 300, 2, 1, True, "sparse"), (3, 700, 1, 1, True, "dense"),
+                (3, 256, 23, 1, False, "dense"),
+                (3, 256, 23, 1, False, "sparse")):
+            inp = mt_inputs(t, b, nblocks, nreps, sampler, per_locus, 7 + t, cuda, dtype,
+                            regime=regime)
             outs = []
             for _ in range(2):
                 a = {k: v.clone() for k, v in inp.items()}
@@ -734,13 +742,41 @@ def test_mt_inner_rounds_kernels_match_plain(cuda, sampler):
             r = {k: v.clone() for k, v in inp.items()}
             mt_abc_inner_rounds_ref(sampler, **r, nreps=nreps)
             torch.cuda.synchronize()
+            case = (sampler, dtype, t, b, nblocks, regime)
             for k in ("alpha", "beta", "delta", "rhs"):
-                assert torch.equal(outs[0][k], outs[1][k]), (sampler, dtype, t, k)
-            torch.testing.assert_close(outs[0]["delta"], r["delta"], rtol=0, atol=0)
-            torch.testing.assert_close(outs[0]["alpha"], r["alpha"], rtol=1e-5, atol=1e-6)
-            torch.testing.assert_close(outs[0]["beta"], r["beta"], rtol=1e-5, atol=1e-6)
-            torch.testing.assert_close(outs[0]["rhs"], r["rhs"], rtol=1e-4, atol=1e-5)
+                assert torch.equal(outs[0][k], outs[1][k]), (case, k)
+                assert torch.equal(outs[0][k], r[k]), (case, k)
             assert not outs[0]["alpha"][-1, :, -3:].any()
+            assert not outs[0]["delta"][-1, :, -3:].any()
+
+
+def test_mt_inner_rounds_block_limit(cuda):
+    """At the largest block, b = MAX_BLOCK (eight markers a thread), K7 and
+    K8 equal their plain versions bit for bit in float32 and float64; a
+    block above it is refused with NotImplementedError before a launch."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import mt_inputs
+    from jwas_tpu_torch.ops import inner_rounds as ir
+    from jwas_tpu_torch.ops.multitrait import MAX_BLOCK, mt_abc_inner_rounds_ref
+
+    for sampler in ("I", "II"):
+        kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
+        for dtype in (torch.float32, torch.float64):
+            inp = mt_inputs(2, MAX_BLOCK, 1, 1, sampler, True, 3, cuda, dtype)
+            a = {k: v.clone() for k, v in inp.items()}
+            kernel(*a.values(), 1)
+            r = {k: v.clone() for k, v in inp.items()}
+            mt_abc_inner_rounds_ref(sampler, **r, nreps=1)
+            for k in ("alpha", "beta", "delta", "rhs"):
+                assert torch.equal(a[k], r[k]), (sampler, dtype, k)
+    t, b = 2, MAX_BLOCK + 8
+    z = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    n0 = ir.mt_abc_inner_rounds_I.launches
+    with pytest.raises(NotImplementedError, match="2,048 markers a block"):
+        ir.mt_abc_inner_rounds_I(z(1, b, b), z(1, b), z(1, b), z(1, t, b), z(1, t, b),
+                                 z(1, t, b), z(1, t, b), z(t, t), z(t, t), z(4),
+                                 z(b, t, 1), z(b, t, 1), 1)
+    assert ir.mt_abc_inner_rounds_I.launches == n0
 
 
 def test_location_pass_limit_is_refused_on_the_card(cuda):

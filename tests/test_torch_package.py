@@ -156,6 +156,7 @@ def _refusals(monkeypatch):
     expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", method="RR-BLUP"))
     expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno",
                        update_priors_frequency=2))
+    expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", fast_blocks=4096))
     monkeypatch.setattr(location, "pass_limit", lambda device, dtype=None: 40)
     expect(lambda: run("y1 = intercept + x\ny2 = intercept + x"))
     return [re.search(r"ROADMAP\.md: ([^)]+)\)", t) for t in texts], texts
