@@ -41,16 +41,24 @@ Phases, each printed as it ends:
      ragged b with a short last group's padding, b = 300 and 1,040 (two
      and eight markers a thread): alpha, beta, delta and rhs bit for bit
      the sequential plain version, a second launch bit for bit, padding
-     at 0; the registers and spills of every K7 / K8 instantiation
-     (phase 1);
+     at 0; the registers and spills of every K7 / K8 / K9 instantiation
+     (phase 1); K9, the multi-trait RR-BLUP / BayesL chain, at phase 11a's
+     round (t = 3, b = 256 over 23 blocks, 8 reps) for RR-BLUP and BayesL
+     in float32 and float64, timed, with ns a dependent step, its byte
+     bound and its library yardstick (the Gibbs pass as a batched
+     torch.linalg.solve_triangular on D + L of each block's (b t, b t)
+     matrix plus a torch.bmm, 8 passes), held against the plain version
+     too; then at t = 2 (one block), 4, 5 and 8, a ragged b = 136 with a
+     short last group's padding, b = 300, 700 and 2,048: alpha and rhs bit
+     for bit the plain version, a second launch bit for bit, padding at 0;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
      three outer iterations of BayesC and then of BayesR on the same store
      and Grams, with the launch count of every kernel in each path;
   4. a statistical check: a small simulation run through run_st, BayesC
-     on the card and on the CPU (plain versions), BayesR on the card; EBV
-     accuracy must hold. Then runMCMC on the same data through a Table:
+     on the card and on the CPU (plain versions; 512 sweeps, 1,024 until
+     phase 11 came), BayesR on the card (1,024); EBV accuracy must hold. Then runMCMC on the same data through a Table:
      its EBVs must equal run_st's on the card;
   5. runMCMC, the user's entry point, at full width: phase 3's device store
      (its Gram tiles freed) as a Packed2BitStore, 45,000 of its 50,000
@@ -139,9 +147,27 @@ Phases, each printed as it ends:
      herd + ID on a pedigree of 6,000 with a 3 x 3 G, K = 18,303, 20
      iterations: ms an iteration by part (LHS assembly, K6, the rest),
      the LHS both ways, accuracy. (e) 3 traits at n = 2,000 x p = 2,000,
-     1,000 sweeps at fast_blocks = 8 on the card and on the CPU: the
+     500 sweeps (1,000 until phase 11 came) at fast_blocks = 8 on the
+     card and on the CPU: the
      card's accuracy within 0.05 of the CPU's on each trait; then the
-     float64 builds of K7 and K8 for 64 sweeps each.
+     float64 builds of K7 and K8 for 64 sweeps each;
+ 11. multi-trait RR-BLUP, BayesL, SEM and GBLUP: on phase 10's store and
+     design (before it is freed), three windows of 256 sweeps each at
+     fast_blocks = True: (a) RR-BLUP (K9) with update_priors_frequency =
+     256, result files written; (b) BayesL (K9, a gamma a marker); (c) SEM:
+     BayesC sampler I (K7) with y1 -> y2, y1 -> y3, y2 -> y3 on the same
+     genetic values with no missing record and independent residuals
+     (the lambda draw reads R's diagonal), the phenotypes made recursive
+     with lambda = (0.5, 0.3, -0.2): lambda beside the truth, overall =
+     direct + indirect in its tables and their seconds at P = 100,000;
+     each: seconds by part and a window, peak memory within store + Grams +
+     4 GB, launches (K9's equal to K7's in 10a), the candidates' accuracy a
+     trait. (d) Multi-trait GBLUP on the first 20,000 individuals (18,000
+     phenotyped; reduced from N as phase 8b is), 200 iterations: the
+     relationship matrix, the eigh and ms an iteration. (e) Multi-trait
+     BayesL at n = 2,000 x p = 2,000, 500 sweeps at fast_blocks = 8 on the
+     card and on the CPU, the card's accuracy within 0.05 of the CPU's on
+     each trait; then 64 sweeps of K9's float64 build.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -163,9 +189,12 @@ ATOL_GEMV = 1e-4      # x sqrt(n): an f32 sum of n terms of size ~1
 RTOL_GEMV = 1e-4
 DELTA_AGREE = 0.999   # K1: inclusion indicators equal on >= 99.9% of markers
 # EBV accuracy of jwas_tpu.runMCMC on the phase-4 data, measured on the CPU
-# with the same chain settings and seed 5, was 0.7043 (seeds 6, 7: 0.6982,
-# 0.7119); the floor is that minus 0.1
+# with seed 5 at 1,024 sweeps (burn-in 256), was 0.7043 (seeds 6, 7: 0.6982,
+# 0.7119); the floor is that minus 0.1. Phase 4's BayesC chains run
+# PHASE4_SWEEPS (burn-in a quarter) to keep the script's time; both paths
+# print their accuracy beside the floor
 ACC_FLOOR = 0.6043
+PHASE4_SWEEPS = 512
 ACC_MARGIN = 0.05     # kernel path may trail the plain path by at most this
 # EBV accuracy of jwas_tpu.runMCMC BayesR (storage='2bit', default class
 # prior) on the phase-4 data, measured on the CPU with the same chain
@@ -198,6 +227,10 @@ REPLACES = {
     "mt_abc_inner_rounds_I_f64": "jwas_tpu/ops/multitrait.py:214",
     "mt_abc_inner_rounds_II": "jwas_tpu/ops/multitrait.py:354",
     "mt_abc_inner_rounds_II_f64": "jwas_tpu/ops/multitrait.py:354",
+    # not a Pallas kernel: the lax.scan of mt_c0l_blocks (:436, its scan
+    # :467; the exact form's :498)
+    "mt_c0l_inner_rounds": "jwas_tpu/ops/multitrait.py:467",
+    "mt_c0l_inner_rounds_f64": "jwas_tpu/ops/multitrait.py:467",
 }
 SOURCES = {
     "abc_inner_rounds": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
@@ -212,6 +245,8 @@ SOURCES = {
     "mt_abc_inner_rounds_I_f64": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
     "mt_abc_inner_rounds_II": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
     "mt_abc_inner_rounds_II_f64": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
+    "mt_c0l_inner_rounds": "jwas_tpu_torch/csrc/mt_c0l_rounds.cu",
+    "mt_c0l_inner_rounds_f64": "jwas_tpu_torch/csrc/mt_c0l_rounds.cu",
 }
 
 
@@ -942,7 +977,7 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
 
 
 def mt_registers(log):
-    """K7 / K8 instantiations in nvcc's -Xptxas -v output (_build.build_log):
+    """K7 / K8 / K9 instantiations in nvcc's -Xptxas -v output (_build.build_log):
     [(kernel, dtype, t, rows a thread or None for the pre-pass, registers,
     spill store bytes, spill load bytes)]."""
     import re
@@ -960,7 +995,11 @@ def mt_registers(log):
         if m and name:
             k = re.search(r"(mt_chain|consts_II|consts_I)I([fd])Li(\d)E(?:Lb([01])ELi(\d+)E)?",
                           name)
-            if k:
+            c = re.search(r"c0l_chainI([fd])Li(\d)ELi(\d+)E", name)
+            if c:
+                rows.append(("K9", {"f": "float32", "d": "float64"}[c.group(1)],
+                             int(c.group(2)), int(c.group(3)), int(m.group(1))) + spills)
+            elif k:
                 kernel = ("K8" if k.group(4) == "1" or k.group(1) == "consts_II" else "K7")
                 rows.append((kernel, {"f": "float32", "d": "float64"}[k.group(2)],
                              int(k.group(3)), int(k.group(5)) if k.group(5) else None,
@@ -994,6 +1033,165 @@ def phase2_mt(dev):
             check_mt(sampler, 2, 300, 2, 2, dev, dtype=dtype, n_padding=5, regime="sparse")
             check_mt(sampler, 3, 700, 1, 1, dev, per_locus=True, dtype=dtype, n_padding=9)
             check_mt(sampler, 3, 1040, 1, 1, dev, per_locus=True, dtype=dtype)
+    return recs
+
+
+def k9_inputs(t, b, nblocks, nreps, bayesl, seed, dev, dtype=torch.float32, n_padding=3):
+    """K9 inputs: mt_inputs' Gram tiles, rhs, covariances and normals
+    (padding markers included), every real marker's effect random (RR-BLUP
+    and BayesL have no indicators) and gamma ones (RR-BLUP) or U(0.2, 3)
+    a real marker, 1 for padding (BayesL)."""
+    inp = mt_inputs(t, b, nblocks, nreps, "I", False, seed, dev, torch.float64,
+                    n_padding)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    valid = inp["valid"]
+    gamma = torch.ones_like(valid)
+    if bayesl:
+        gamma = torch.where(valid > 0, 0.2 + 2.8 * torch.rand(
+            valid.shape, generator=g, device=dev, dtype=torch.float64), 1.0)
+    out = dict(grams=inp["grams"], xpx=inp["xpx"], valid=valid,
+               alpha=inp["beta"] * valid[:, None, :], rhs=inp["rhs"], Rinv=inp["Rinv"],
+               Ginv=inp["Ginv"], gamma=gamma, zs=inp["zs"])
+    return {k: v.to(dtype).contiguous() for k, v in out.items()}
+
+
+def k9_bounds(inp, nreps):
+    """Roofline bound of one K9 call: the Gram tile, the state, xpx,
+    valid, gamma and the draws read once, alpha and rhs written once;
+    operations: a step's rank-t rhs update (2 t b) and its marker update
+    (2 t^2 for Rinv w, 2 t^2 for the trait loop's sums, ~6 t more), at the
+    float32 or float64 peak."""
+    nblocks, t, b = inp["alpha"].shape
+    nbytes = sum(v.numel() * v.element_size() for v in inp.values())
+    nbytes += sum(inp[k].numel() * inp[k].element_size() for k in ("alpha", "rhs"))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    flops = F64_FLOPS if inp["grams"].dtype == torch.float64 else F32_FLOPS
+    t_ops = nreps * b * nblocks * (2 * t * b + 4 * t * t + 6 * t) / flops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def k9_triangular(inp, nreps):
+    """K9's library yardstick (the port never calls it): one Gibbs pass
+    over a block in marker-then-trait order is a lower-triangular solve on
+    D + L of the block's (b t, b t) matrix M = G (x) Rinv + blockdiag(Ginv /
+    gamma_j), right-hand side (I (x) Rinv) (rhs + G alpha) - U alpha_old +
+    sqrt(diag M) o z. M's triangles, that fixed part and the noise are built
+    here, outside any timing; the returned function runs nreps times one
+    batched torch.bmm (U alpha) and one batched
+    torch.linalg.solve_triangular over the blocks, and returns alpha
+    (gb, t, b). Holds only without padding (valid all 1)."""
+    grams, Rinv, Ginv = inp["grams"], inp["Rinv"], inp["Ginv"]
+    nblocks, t, b = inp["alpha"].shape
+    eye = torch.eye(b, dtype=grams.dtype, device=grams.device)
+    M = torch.einsum("kij,pq->kipjq", grams, Rinv).reshape(nblocks, b * t, b * t)
+    M += torch.einsum("ij,kj,pq->kipjq", eye, 1.0 / inp["gamma"], Ginv).reshape(
+        nblocks, b * t, b * t)
+    DL, U = torch.tril(M), torch.triu(M, 1)
+    a0 = inp["alpha"].transpose(1, 2).reshape(nblocks, b * t, 1)
+    r = inp["rhs"].transpose(1, 2) + torch.bmm(grams, inp["alpha"].transpose(1, 2))
+    fixed = (r @ Rinv.T).reshape(nblocks, b * t, 1)
+    sd = torch.sqrt(torch.diagonal(M, dim1=1, dim2=2))[..., None]
+    zs = inp["zs"].view(nreps, b, t, nblocks).permute(0, 3, 1, 2).reshape(
+        nreps, nblocks, b * t, 1)
+    noise = [fixed + sd * z for z in zs]
+
+    def solve():
+        a = a0
+        for rep in range(nreps):
+            a = torch.linalg.solve_triangular(DL, noise[rep] - torch.bmm(U, a), upper=False)
+        return a.view(nblocks, b, t).transpose(1, 2)
+
+    return solve
+
+
+def check_k9(t, b, nblocks, nreps, dev, bayesl=False, time_it=False,
+             dtype=torch.float32, n_padding=3):
+    """K9 (ops/inner_rounds.py::mt_c0l_inner_rounds) against its plain
+    version (ops/multitrait.py::mt_c0l_inner_rounds_ref) on the card:
+    alpha and rhs equal bit for bit, a second launch equal bit for bit,
+    padding markers at 0. time_it: the kernel's device ms (CUDA events),
+    the plain version's ms (host clock around the synchronised call), ns a
+    dependent step, the byte bound and the library yardstick's ms
+    (k9_triangular, held against the plain version to K6_RTOL of the
+    largest effect)."""
+    from jwas_tpu_torch.ops.inner_rounds import mt_c0l_inner_rounds
+    from jwas_tpu_torch.ops.multitrait import mt_c0l_inner_rounds_ref
+
+    inp = k9_inputs(t, b, nblocks, nreps, bayesl, 31 + t, dev, dtype, n_padding)
+    fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
+    order = ("grams", "xpx", "valid", "alpha", "rhs", "Rinv", "Ginv", "gamma", "zs")
+    outs = []
+    for _ in range(2):
+        a = fresh()
+        mt_c0l_inner_rounds(*(a[k] for k in order), nreps)
+        outs.append(a)
+    r = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mt_c0l_inner_rounds_ref(*(r[k] for k in order), nreps)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    a = outs[0]
+    label = (f"K9 {'BayesL' if bayesl else 'RR-BLUP'} {str(dtype).replace('torch.', '')} "
+             f"t={t} b={b} nblocks={nblocks} reps={nreps}"
+             f"{' padding ' + str(n_padding) if n_padding else ''}")
+    for k in ("alpha", "rhs"):
+        if not torch.equal(outs[0][k], outs[1][k]):
+            raise AssertionError(f"{label}: a second launch gave another {k}")
+        if not torch.equal(a[k], r[k]):
+            raise AssertionError(f"{label}: {k} differs from the plain version's "
+                                 f"(max |err| {(a[k] - r[k]).abs().max().item():.3g}, "
+                                 f"{int((a[k] != r[k]).sum())} values)")
+    if n_padding and a["alpha"][-1, :, -n_padding:].any():
+        raise AssertionError(f"{label}: a padding marker moved")
+    label += ": bit for bit the plain version"
+    rec = None
+    if time_it:
+        k_in = fresh()
+        ms = cuda_ms(lambda: mt_c0l_inner_rounds(*(k_in[k] for k in order), nreps), 5)
+        rec = dict(max_abs_err=0.0, **k9_bounds(inp, nreps))
+        label += chain_line(rec, ms, plain, None, nreps * b)
+        if not n_padding:
+            solve = k9_triangular(inp, nreps)
+            lib_err = (solve() - r["alpha"]).abs().max().item()
+            tol = K6_RTOL[dtype] * max(1.0, r["alpha"].abs().max().item()) * 100
+            if not lib_err <= tol:
+                raise AssertionError(f"{label}: the triangular solve's max |err| "
+                                     f"{lib_err:.3g} > {tol:.3g}")
+            rec.update(library_ms=cuda_ms(solve, 3), library_max_abs_err=lib_err)
+            del solve
+            label += (f"; library (bmm + solve_triangular, {nreps} passes) "
+                      f"{rec['library_ms']:.4f} ms (max |err| {lib_err:.3g})")
+        else:
+            rec["library_ms"] = None
+    say(label)
+    return rec
+
+
+def phase2_k9(dev):
+    """K9 at phase 11a's round (t = 3, b = 256 over 23 blocks, a round of
+    8 reps, no padding) for RR-BLUP and BayesL in float32 and float64,
+    timed with the yardstick; then bit for bit at t = 2 (a single block,
+    the exact form's chunk), 4, 5 and 8, a ragged b = 136 with a short last
+    group's padding, b = 300, 700 and 2,048 (two, four and eight markers a
+    thread)."""
+    recs = {}
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+        rec = check_k9(3, 256, 23, 8, dev, time_it=True, dtype=dtype, n_padding=0)
+        rec["regimes"] = {"BayesL": check_k9(3, 256, 23, 8, dev, bayesl=True,
+                                             time_it=True, dtype=dtype, n_padding=0)}
+        recs["mt_c0l_inner_rounds" + suffix] = rec
+        check_k9(3, 256, 23, 2, dev, bayesl=True, dtype=dtype)
+        check_k9(2, 256, 1, 1, dev, dtype=dtype, n_padding=0)
+        check_k9(4, 40, 6, 2, dev, bayesl=True, dtype=dtype)
+        check_k9(5, 72, 3, 2, dev, dtype=dtype)
+        check_k9(8, 40, 2, 1, dev, bayesl=True, dtype=dtype)
+        check_k9(3, 136, 8, 3, dev, bayesl=True, dtype=dtype, n_padding=17)
+        check_k9(2, 300, 2, 2, dev, dtype=dtype, n_padding=5)
+        check_k9(3, 700, 1, 1, dev, bayesl=True, dtype=dtype, n_padding=9)
+        check_k9(3, 2048, 1, 1, dev, dtype=dtype)
     return recs
 
 
@@ -1058,6 +1256,7 @@ def phase2(dev):
     check_gemv(4_000, 1_023, dev, missing=False, permuted=False, time_it=False)
     recs.update(phase2_k6(dev))
     recs.update(phase2_mt(dev))
+    recs.update(phase2_k9(dev))
     return recs
 
 
@@ -1236,7 +1435,8 @@ def phase4(dev):
     for where in (dev, torch.device("cpu")):
         t0 = time.perf_counter()
         gm = jt.setup_markers(store, store.obs_ids, where)
-        res = jt.run_st(gm, y, **priors, chain_length=1024, burnin=256, seed=5)
+        res = jt.run_st(gm, y, **priors, chain_length=PHASE4_SWEEPS,
+                        burnin=PHASE4_SWEEPS // 4, seed=5)
         ebv[where.type] = res["ebv"]
         acc[where.type] = float(np.corrcoef(res["ebv"], bv)[0, 1])
         say(f"{where.type}: EBV accuracy {acc[where.type]:.4f}, vare "
@@ -1252,7 +1452,8 @@ def phase4(dev):
     model = jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
         store, method="BayesC", storage="2bit"))
     out = jt.runMCMC(model, jt.Table({"ID": store.obs_ids, "y": y}),
-                     chain_length=1024, burnin=256, seed=5, output_folder="",
+                     chain_length=PHASE4_SWEEPS, burnin=PHASE4_SWEEPS // 4, seed=5,
+                     output_folder="",
                      printout_model_info=False)
     got = np.asarray(out["EBV_y"].EBV)
     rel = float(np.abs(got - ebv["cuda"]).max() / np.abs(ebv["cuda"]).max())
@@ -2553,9 +2754,9 @@ def mt_truth(X, seed, t=3, qtl_share=0.001):
 
 
 def mt_table(obs_ids, tbv, seed, n_train, n_herds=100, missing=MT_MISSING,
-             covariate=True):
+             covariate=True, re=MT_RE):
     """Phenotypes of t traits on individuals obs_ids with true breeding
-    values tbv (n, t): heritabilities MT_H2, residual correlation MT_RE, a
+    values tbv (n, t): heritabilities MT_H2, residual correlation re, a
     herd factor and an age covariate (covariate), each trait's records
     missing with probability `missing` independently (a row keeps at least
     one), n_train individuals in shuffled order. Returns (table, training
@@ -2567,7 +2768,7 @@ def mt_table(obs_ids, tbv, seed, n_train, n_herds=100, missing=MT_MISSING,
     var_g = tbv.var(axis=0)
     h2 = np.resize(np.asarray(MT_H2), t)
     sd_e = np.sqrt(var_g * (1 - h2) / h2)
-    Re = MT_RE * np.outer(sd_e, sd_e)
+    Re = re * np.outer(sd_e, sd_e)
     np.fill_diagonal(Re, sd_e ** 2)
     herd = rng.integers(1, n_herds + 1, n)
     herd_effect = rng.normal(0.0, 1.0, (n_herds, t)) * np.sqrt(var_g)
@@ -2648,7 +2849,7 @@ def run_mt(label, dev, geno, table, eq, kernels, on_model=None, lhs_times=False,
     say("  seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; results {rest:.3f}; windows " + ", ".join(f"{t:.4f}" for t in windows))
     line = f"  peak device memory {peak / 1e9:.2f} GB"
-    if geno is not None:
+    if geno is not None and geno.dense is not None:
         gm = data.gm
         store = gm.X.numel() * gm.X.element_size()
         grams = gm.grams.numel() * gm.grams.element_size()
@@ -2746,10 +2947,14 @@ def phase10(dev, n=50_000, p=100_000, n_train=45_000, chain_length=768, every=25
         if not np.isfinite(acc).all():
             raise AssertionError(f"{label}: non-finite accuracy")
         del data, g
+    launches.update(phase11(dev, geno, truth, launches["phase 10a"][
+        "mt_abc_inner_rounds_I"], n_train, chain_length, every))
     del geno
     torch.cuda.empty_cache()
     launches["phase 10d"] = phase10d(dev)
     launches["phase 10e"] = phase10e(dev)
+    launches["phase 11d"] = phase11d(dev, n, p)
+    launches["phase 11e"] = phase11e(dev)
     return launches
 
 
@@ -2810,7 +3015,7 @@ def phase10d(dev, n_iter=20, n_founders=1_000, gen_size=1_000, n_gen=5, n_herds=
     return counts
 
 
-def phase10e(dev, n=2_000, p=2_000, n_iter=1_000):
+def phase10e(dev, n=2_000, p=2_000, n_iter=500):
     """A statistical check: 3 traits at n x p, n_iter sweeps at fast_blocks
     = 8 on the card and on the CPU (plain versions), the card's EBV
     accuracy within ACC_MARGIN_10E of the CPU's on each trait; then the
@@ -2861,6 +3066,184 @@ def phase10e(dev, n=2_000, p=2_000, n_iter=1_000):
         counts.update(c)
     if any(v == 0 for v in counts.values()):
         raise AssertionError(f"phase 10e: kernels never launched: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 11
+
+SEM_LAMBDA = (0.5, 0.3, -0.2)   # phase 11c's y1 -> y2, y1 -> y3, y2 -> y3
+SEM_CAUSAL = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [1.0, 1.0, 0.0]])
+ACC_MARGIN_11E = 0.05           # card accuracy may trail the CPU's by this
+C0L = "mt_c0l_inner_rounds"     # K9
+
+
+def sem_table(table):
+    """Phase 11c's phenotypes: a table of 3 traits without missing records,
+    u1..u3 (genetic, herd, age and residual), made recursive with the known
+    SEM_LAMBDA: y1 = u1, y2 = l21 y1 + u2, y3 = l31 y1 + l32 y2 + u3."""
+    from jwas_tpu_torch.io.table import Table
+
+    l21, l31, l32 = SEM_LAMBDA
+    y1 = np.asarray(table["y1"], dtype=np.float64)
+    y2 = l21 * y1 + np.asarray(table["y2"], dtype=np.float64)
+    y3 = l31 * y1 + l32 * y2 + np.asarray(table["y3"], dtype=np.float64)
+    return Table({**{c: table[c] for c in table.columns}, "y1": y1, "y2": y2, "y3": y3})
+
+
+def phase11(dev, geno, truth, k7_launches, n_train, chain_length, every):
+    """Multi-trait RR-BLUP and BayesL (K9) and SEM on phase 10's store and
+    design: (a) RR-BLUP with the prior update every 256 iterations, (b)
+    BayesL, (c) SEM: BayesC sampler I (K7) with y1 -> y2, y1 -> y3,
+    y2 -> y3 on phenotypes made recursive with SEM_LAMBDA and no missing
+    record; see the module's docstring."""
+    import tempfile
+
+    import jwas_tpu_torch.engine.output_mt as om
+
+    say(f"== phase 11: multi-trait RR-BLUP, BayesL (K9) and SEM at N={len(truth)} x "
+        f"P={geno.n_markers}")
+    launches = {}
+    tbv = np.array([truth[s] for s in geno.obs_ids])
+    table, _, cand = mt_table(geno.obs_ids, tbv, 10, n_train)
+    eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
+    for label, method in (("11a RR-BLUP, prior update every 256", "RR-BLUP"),
+                          ("11b BayesL", "BayesL")):
+        kw = dict(update_priors_frequency=256) if method == "RR-BLUP" else {}
+        with tempfile.TemporaryDirectory() as folder:
+            out, counts, _, data, _ = run_mt(
+                label, dev, fresh(geno, method), table, eq, (C0L, K6), fast_blocks=True,
+                chain_length=chain_length, output_samples_frequency=every,
+                output_folder=folder if method == "RR-BLUP" else "", **kw)
+        acc = mt_accuracy(out, truth, cand)
+        say(f"  candidates' EBV accuracy a trait {np.round(acc, 4).tolist()}; K9 launches "
+            f"{counts[C0L]} (K7 in 10a {k7_launches}); G "
+            f"{np.round(np.asarray(out['marker effects variances geno'].Estimate), 6).tolist()}")
+        if not np.isfinite(acc).all() or counts[C0L] != k7_launches:
+            raise AssertionError(f"{label}: accuracy {acc}, {counts[C0L]} launches of K9")
+        launches[f"phase 11{label[2]}"] = counts
+        del data, out
+
+    # (c) SEM: BayesC sampler I on the recursive phenotypes (SEM's lambda
+    # is identified with independent residuals: the draw reads R's diagonal)
+    table_s, _, cand_s = mt_table(geno.obs_ids, tbv, 11, n_train, missing=0.0, re=0.0)
+    table_s = sem_table(table_s)
+    g = fresh(geno, "BayesC")
+    g.multi_trait_sampler = "I"
+    parts = {}
+    with timed_calls(parts, "SEM tables", om, "sem_tables"):
+        out, counts, cfg, data, _ = run_mt(
+            "11c SEM, BayesC sampler I", dev, g, table_s, eq,
+            ("mt_abc_inner_rounds_I", K6), fast_blocks=True, chain_length=chain_length,
+            output_samples_frequency=every, output_folder="", causal_structure=SEM_CAUSAL)
+    sc = out["structural coefficients"]
+    lam = np.asarray(sc.Estimate, dtype=np.float64)
+    direct, indirect, overall = (np.asarray(out[k].Estimate, dtype=np.float64) for k in (
+        "marker effects geno", "indirect marker effects geno", "overall marker effects geno"))
+    err = float(np.abs(overall - (direct + indirect)).max() / np.abs(overall).max())
+    acc = mt_accuracy(out, truth, cand_s)
+    say(f"  lambda {dict(zip(sc.Edge, np.round(lam, 4).tolist()))} against the truth "
+        f"{list(SEM_LAMBDA)}; overall = direct + indirect to {err:.3g} of the largest; "
+        f"SEM tables {parts['SEM tables']:.3f} s at P = {cfg.n_markers}; candidates' EBV "
+        f"accuracy a trait {np.round(acc, 4).tolist()}")
+    if (cfg.sem_edges != ((1, 0), (2, 0), (2, 1)) or not np.isfinite(lam).all()
+            or not err <= 1e-5 or not np.isfinite(acc).all()):
+        raise AssertionError(f"phase 11c: edges {cfg.sem_edges}, lambda {lam}, {err}")
+    launches["phase 11c"] = counts
+    del data, out, g
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase11d(dev, n, p, n_gblup=20_000, n_train=18_000, n_iter=200):
+    """Multi-trait GBLUP on the first n_gblup individuals of phase 10's
+    scores (their relationship matrix built on the card; reduced from N as
+    phase 8b is: the float64 eigh), n_train phenotyped on 3 traits (10%
+    of each missing), n_iter iterations: seconds of the matrix, the eigh and
+    an iteration, accuracy."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.setup as es
+
+    say(f"== phase 11d: multi-trait GBLUP, 3 traits at N={n_gblup} x P={p}")
+    codes = dense_codes(n, p, 7, dev)[:n_gblup]
+    t0 = time.perf_counter()
+    g = jt.get_genotypes(codes, method="GBLUP", storage="f32", device=dev)
+    torch.cuda.synchronize()
+    t_grm = time.perf_counter() - t0
+    X = codes.T.float()
+    del codes
+    tbv = mt_truth(X - X.mean(dim=1, keepdim=True), seed=10)
+    del X
+    torch.cuda.empty_cache()
+    table, _, cand = mt_table(g.obs_ids, tbv, 12, n_train)
+    truth = dict(zip(g.obs_ids, tbv))
+    parts = {}
+    with timed_calls(parts, "eigh", torch.linalg, "eigh"), \
+            timed_calls(parts, "eigenbasis", es, "gblup_eigen"):
+        out, counts, cfg, data, windows = run_mt(
+            "11d GBLUP", dev, g, table,
+            "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3)), (K6,),
+            chain_length=n_iter, output_samples_frequency=n_iter // 4, output_folder="")
+    acc = mt_accuracy(out, truth, cand)
+    say(f"  relationship matrix {t_grm:.3f} s, eigh {parts['eigh']:.3f} s, L and the "
+        f"output map {parts['eigenbasis'] - parts['eigh']:.3f} s; "
+        f"{np.mean(windows[1:]) / (n_iter // 4) * 1e3:.3f} ms an iteration after the "
+        f"first window; L {tuple(data.gm.L.shape)}; candidates' EBV accuracy a trait "
+        f"{np.round(acc, 4).tolist()}")
+    if data.gm.L.shape != (n_train, n_train) or not np.isfinite(acc).all():
+        raise AssertionError(f"phase 11d: L {tuple(data.gm.L.shape)}, accuracy {acc}")
+    del g, data, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase11e(dev, n=2_000, p=2_000, n_iter=500, n_f64=64):
+    """A statistical check: 3 traits at n x p, multi-trait BayesL for
+    n_iter sweeps at fast_blocks = 8 on the card (K9) and on the CPU (its
+    plain version), the card's EBV accuracy within ACC_MARGIN_11E of the
+    CPU's on each trait; then n_f64 sweeps of K9's float64 build
+    (double_precision)."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.io.table import Table
+
+    say(f"== phase 11e: statistical check, multi-trait BayesL at n={n} x p={p}")
+    rng = np.random.default_rng(113)
+    X = rng.binomial(2, rng.uniform(0.1, 0.9, p), (n, p)).astype(np.float32)
+    tbv = mt_truth(torch.as_tensor(X.T - X.mean(axis=0)[:, None]), seed=114, qtl_share=0.02)
+    ids = np.array([f"i{k}" for k in range(n)], dtype=object)
+    table, train, cand = mt_table(ids, tbv, 115, int(0.9 * n), n_herds=10)
+    truth = dict(zip(ids, tbv))
+    genotypes = Table({"ID": ids, **{f"m{j}": X[:, j] for j in range(p)}})
+    eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
+    res, launches = {}, {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        geno = jt.get_genotypes(genotypes, method="BayesL", storage="f32", device=d)
+        t0 = time.perf_counter()
+        jt.reset_launches()
+        model = jt.build_model(eq, genotypes=geno)
+        jt.set_covariate(model, "age")
+        out = jt.runMCMC(model, table, device=d, chain_length=n_iter, burnin=n_iter // 5,
+                         output_samples_frequency=8, fast_blocks=8, seed=5,
+                         output_folder="", printout_model_info=False)
+        launches[where] = {k.__name__: k.launches for k in jt.KERNELS}
+        res[where] = (mt_accuracy(out, truth, list(ids)), time.perf_counter() - t0,
+                      np.round(np.asarray(out["residual variance"].Estimate), 3).tolist())
+    for where, (acc, sec, R) in res.items():
+        say(f"{where}: EBV accuracy a trait {np.round(acc, 4).tolist()} ({sec:.1f} s); "
+            f"R {R}")
+    card, cpu = np.array(res["card"][0]), np.array(res["cpu"][0])
+    if not (np.isfinite(card).all() and np.isfinite(cpu).all()
+            and (card >= cpu - ACC_MARGIN_11E).all()):
+        raise AssertionError(f"phase 11e: card accuracy {card} vs CPU {cpu} "
+                             f"(margin {ACC_MARGIN_11E})")
+    counts = {k: launches["card"][k] for k in (C0L, K6)}
+    geno = jt.get_genotypes(genotypes, method="BayesL", storage="f64", device=dev)
+    _, c, _, _, _ = run_mt("11e float64, BayesL", dev, geno, table, eq, (C0L + "_f64",),
+                           chain_length=n_f64, output_samples_frequency=8, fast_blocks=8,
+                           double_precision=True, output_folder="")
+    counts.update(c)
+    if any(v == 0 for v in counts.values()):
+        raise AssertionError(f"phase 11e: kernels never launched: {counts}")
     return counts
 
 

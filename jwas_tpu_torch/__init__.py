@@ -12,8 +12,10 @@ the leading ones on the card where they fit. Random effects (set_random:
 i.i.d., pedigree and user-given Vinv groups) run beside the genotypes or
 without them (the pedigree-BLUP animal model). Multi-trait models (several
 equations) run BayesC and BayesB on a dense store with samplers I and II
-(hand-written kernels K7 and K8), the mega-trait constraint, missing
-phenotypes and t x t covariances, or no genotypes. It imports torch, numpy
+(hand-written kernels K7 and K8), RR-BLUP and BayesL (their marker chain
+the hand-written kernel K9) and GBLUP, the mega-trait constraint, missing
+phenotypes, t x t covariances, the prior update and structural equations
+(causal_structure), or no genotypes. It imports torch, numpy
 and scipy only; never jax, pandas or jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
@@ -42,7 +44,8 @@ from jwas_tpu_torch.models.model import (Model, add_genotypes, build_model, desc
 from jwas_tpu_torch.ops.grouped import build_grouped_markers, pick_stable_blocks
 from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds, bayesr_inner_rounds,
                                              mt_abc_inner_rounds_I,
-                                             mt_abc_inner_rounds_II)
+                                             mt_abc_inner_rounds_II,
+                                             mt_c0l_inner_rounds)
 from jwas_tpu_torch.ops.location import gibbs_pass_lambda
 from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 
@@ -52,7 +55,8 @@ prepare_streaming_genotypes = prepare_packed_genotypes
 # the kernel wrappers, each counting its own launches (the inner rounds
 # and K6 also their float64 build's, launches_f64)
 KERNELS = (abc_inner_rounds, bayesr_inner_rounds, packed_rhs, packed_matvec,
-           gibbs_pass_lambda, mt_abc_inner_rounds_I, mt_abc_inner_rounds_II)
+           gibbs_pass_lambda, mt_abc_inner_rounds_I, mt_abc_inner_rounds_II,
+           mt_c0l_inner_rounds)
 
 
 def reset_launches() -> None:
@@ -67,7 +71,8 @@ __all__ = [
     "abc_inner_rounds", "add_genotypes", "bayesr_inner_rounds",
     "build_grouped_markers", "build_model", "describe", "getMCMCinfo",
     "get_genotypes", "get_info", "get_pedigree", "gibbs_pass_lambda",
-    "mt_abc_inner_rounds_I", "mt_abc_inner_rounds_II", "outputEBV",
+    "mt_abc_inner_rounds_I", "mt_abc_inner_rounds_II", "mt_c0l_inner_rounds",
+    "outputEBV",
     "outputMCMCsamples", "pack_codes", "packed_matvec", "packed_rhs",
     "pick_stable_blocks", "prepare_packed_genotypes",
     "prepare_streaming_genotypes", "read_csv", "reset_launches", "runMCMC",

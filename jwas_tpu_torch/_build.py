@@ -80,6 +80,11 @@ _SIGNATURES = {
     "jt_mt_inner_rounds_II": [_P] * 13 + [_I] * 5 + [_P],
     "jt_mt_inner_rounds_II_f64": [_P] * 13 + [_I] * 5 + [_P],
     "jt_gibbs_pass_slice": [],
+    # grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma, zs, scratch, t, b,
+    # nblocks, nreps, stream: csrc/mt_c0l_rounds.cu (K9); float32 and
+    # float64 builds
+    "jt_mt_c0l_inner_rounds": [_P] * 10 + [_I] * 4 + [_P],
+    "jt_mt_c0l_inner_rounds_f64": [_P] * 10 + [_I] * 4 + [_P],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
     # rows_per_cta, stream
     "jt_packed_rhs": [_P] * 5 + [_I] * 5 + [_P],

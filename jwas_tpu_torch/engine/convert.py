@@ -11,7 +11,8 @@ become a GBLUPMarkers (eigenvectors have arbitrary signs, so a test gives
 both packages the same ones); chain-state arrays (BayesL's gamma_l among
 them) become flat tensors; the random-effect state (the groups' configs,
 W'R^-1W, each group's dense Vinv and covariance) becomes the port's; the
-multi-trait chain's state and data (mt_state_from_jax, mt_data_from_jax)
+multi-trait chain's state and data (mt_state_from_jax, mt_data_from_jax;
+BayesL's gamma_l, SEM's Lambda, GBLUP's eigenbasis among them)
 become the port's MTChainState and MTData.
 """
 
@@ -119,7 +120,9 @@ def from_jax_random_effects(re_groups, WtRinvW, Vinv, vc, *, device="cpu",
 def mt_state_from_jax(state, *, seed: int = 0, device="cpu", dtype=torch.float32):
     """jwas_tpu's MTChainState (numpy or JAX arrays) -> the port's
     MTChainState in dtype on device, with a generator seeded with seed
-    (the key is JAX's own)."""
+    (the key is JAX's own). gamma_l (BayesL's local shrinkage; ones for the
+    other methods, which ignore it) comes across; Lambda when SEM has
+    edges, else None."""
     from jwas_tpu_torch.engine.state import MTChainState
 
     def t(x):
@@ -127,15 +130,17 @@ def mt_state_from_jax(state, *, seed: int = 0, device="cpu", dtype=torch.float32
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    lam = np.asarray(state.Lambda)
     return MTChainState(gen=gen, sol=t(state.sol), alpha=t(state.alpha),
                         beta=t(state.beta), delta=t(state.delta), ycorr=t(state.ycorr),
                         R=t(state.R), varg=t(state.varg), pi=t(state.pi),
-                        vc=tuple(t(v) for v in state.vc))
+                        vc=tuple(t(v) for v in state.vc), gamma_l=t(state.gamma_l),
+                        Lambda=t(lam) if lam.size else None)
 
 
 def mt_data_from_jax(data, re_groups, trait_cols, *, group_blocks: int = 0,
-                     ebv_rows=None, device="cpu", dtype=torch.float32,
-                     budget: int = 1 << 30):
+                     ebv_rows=None, gblup: bool = False, device="cpu",
+                     dtype=torch.float32, budget: int = 1 << 30):
     """jwas_tpu's MTData (W3 (t, n, K), rinv, y, the dense MarkerBlocks
     fields X, xpx, grams, valid, Vinv, vc_scale, patterns, pattern_idx,
     scale_R, marker_scale; numpy or JAX arrays) and its cfg.re_groups ->
@@ -143,8 +148,9 @@ def mt_data_from_jax(data, re_groups, trait_cols, *, group_blocks: int = 0,
     (first, end) location column (engine/mcmc_mt.py::trait_columns of the
     model); group_blocks: blocks a group of the dense store (0: one group;
     an X of no columns: no markers); ebv_rows: the output IDs' columns of
-    the store (None: no EBVs from the markers); budget: bytes of the LHS
-    pieces (0: the route from W)."""
+    the store (None: no EBVs from the markers); gblup: X and xpx are
+    GBLUP's L and D (from_jax_gblup, the output map out_geno); budget:
+    bytes of the LHS pieces (0: the route from W)."""
     from jwas_tpu_torch.engine.mcmc import NoMarkers
     from jwas_tpu_torch.engine.mcmc_mt import MTData
     from jwas_tpu_torch.ops.location import MTLocationPieces
@@ -155,7 +161,11 @@ def mt_data_from_jax(data, re_groups, trait_cols, *, group_blocks: int = 0,
     W3 = np.asarray(data.W3)
     nt, n, K = W3.shape
     rinv = t(data.rinv)
-    if np.shape(data.X)[1] and np.shape(data.grams)[0]:
+    if gblup:
+        gm = from_jax_gblup(data.X, data.xpx, data.out_geno,
+                            rinv=None if data.rinv is None else np.asarray(data.rinv),
+                            device=device, dtype=dtype)
+    elif np.shape(data.X)[1] and np.shape(data.grams)[0]:
         gm = from_jax_marker_blocks(data.X, data.xpx, data.grams, data.valid,
                                     group_blocks, rinv=np.asarray(data.rinv),
                                     device=device, dtype=dtype)

@@ -1,15 +1,18 @@
-"""The multi-trait engine: BayesC and BayesB on a dense store, or no
-genotypes, with random effects: Gibbs step, chain loop, runMCMC's
-multi-trait branch.
+"""The multi-trait engine: BayesC, BayesB, RR-BLUP and BayesL on a dense
+store, GBLUP on its eigenbasis, or no genotypes, with random effects and
+SEM's structural equations: Gibbs step, chain loop, runMCMC's multi-trait
+branch.
 
 Counterpart of jwas_tpu/engine/mcmc_mt.py: _pattern_Ri (:83), make_mt_step
 (:97-525: the imputation of missing residuals :156-175, the location pass
-:177-199, the markers of BayesC and BayesB :206-309, pi :378-399, the
-marker-effect covariance :401-443, the random-effect covariances :456-464,
-the residual covariance :466-487), make_mt_run_window (:567-629),
-pi_dict_to_vector (:632), build_mt_data_and_state (:645-991, the parts of
-continuous traits without SEM or annotations) and run_mcmc_mt (:1232),
-single chain.
+:177-199, the markers of BayesC and BayesB :206-309, of RR-BLUP and BayesL
+:310-364, of GBLUP :365-376, pi :378-399, the marker-effect covariance and
+BayesL's local shrinkage :401-454, the random-effect covariances :456-464,
+the residual covariance :466-487, SEM's structural coefficients
+:489-516), make_mt_run_window (:567-629), pi_dict_to_vector (:632),
+build_mt_data_and_state (:645-991, the parts of continuous traits without
+annotations), _apply_update_priors_mt (:1015-1034) and run_mcmc_mt
+(:1232), single chain.
 
 - The residual precision of an observation is Ri_p rinv_i, Ri_p (t, t)
   of its missing pattern p (the static set of observed-trait masks); the
@@ -20,20 +23,25 @@ single chain.
   pair, where jwas_tpu takes one einsum over every record), plus the
   random-effect blocks G^-1[i, j] Vinv; the pass is K6 with vare 1
   (gibbs_pass_general).
-- The markers: samplers I (K7) or II (K8) over the dense store's groups
+- The markers: samplers I (K7) or II (K8) for BayesC / BayesB, the
+  RR-BLUP / BayesL chain (K9) over the dense store's groups
   (ops/multitrait.py), blocked (fast_blocks) or exact (one block a group,
-  one sweep an outer iteration); with G.constraint (mega-trait) the
-  single-trait sweep of each trait in turn through K1, against its own
-  residual. BayesB has one (t, t) covariance a locus, drawn as one
-  batched inverse-Wishart.
+  one sweep an outer iteration); GBLUP's joint draw of every
+  pseudo-marker (ops/multitrait.py::mt_gblup); with G.constraint
+  (mega-trait) the single-trait sweep of each trait in turn (K1, or
+  GBLUP's sweep), against its own residual. BayesB has one (t, t)
+  covariance a locus, drawn as one batched inverse-Wishart.
+- SEM (causal_structure): ycorr holds Lambda y minus the effects; after
+  the residual covariance, the structural coefficients are drawn from
+  the raw residuals (sem_lambda) and ycorr moves to the new Lambda y.
 - The EBVs of the output IDs are their rows of X alpha' over the store,
   one (n_store, p) x (p, t) product (never a dense (n_out, p) decode,
   reference fault R7).
 
 A random-effect group set with estimate_variance=False keeps its G (the
-reference draws it all the same, fault R10). Options of slice 7b (MT
-RR-BLUP, BayesL, GBLUP, SEM, the MT prior update) are refused in
-engine/setup.py.
+reference draws it all the same, fault R10). update_priors_frequency > 0
+refreshes the priors' scales from the running means between windows
+(apply_update_priors_mt).
 """
 
 from __future__ import annotations
@@ -50,16 +58,21 @@ from jwas_tpu_torch.engine.output_mt import build_mt_results
 from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
 from jwas_tpu_torch.engine.samples_io import MTSampleStream
 from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace, prepare_workspace,
-                                         resolve_device)
+                                         resolve_device, sem_edges)
 from jwas_tpu_torch.engine.state import MTChainState, MTEngineCfg, REGroupCfg
 from jwas_tpu_torch.models.model import describe
 from jwas_tpu_torch.ops import markers as mk
 from jwas_tpu_torch.ops import multitrait as mt
-from jwas_tpu_torch.ops.grouped import hbm_budget, sweep_blocks_abc_grouped
+from jwas_tpu_torch.ops.dists import sample_gamma_like
+from jwas_tpu_torch.ops.gblup import build_gblup_markers, sweep_gblup
+from jwas_tpu_torch.ops.grouped import (hbm_budget, sweep_blocks_abc_grouped,
+                                        sweep_blocks_c0l_grouped)
 from jwas_tpu_torch.ops.location import (MTLocationPieces, gibbs_pass_general,
                                          symmetric_upper)
-from jwas_tpu_torch.ops.variance import (sample_marker_covariance,
+from jwas_tpu_torch.ops.variance import (mt_covariance_effects,
+                                         sample_marker_covariance,
                                          sample_marker_covariance_bayesb,
+                                         sample_mt_bayesl_gamma,
                                          sample_pattern_pi, sample_pi_abc,
                                          sample_random_effect_vc,
                                          sample_residual_covariance)
@@ -75,7 +88,7 @@ class MTData(NamedTuple):
     W: torch.Tensor            # (t n, K) stacked location design
     lhs: MTLocationPieces      # W'R^-1W a pattern and trait pair
     y: torch.Tensor            # (t, n)
-    gm: object                 # DenseMarkers or NoMarkers
+    gm: object                 # DenseMarkers, GBLUPMarkers or NoMarkers
     rinv: Optional[torch.Tensor]      # (n,) inverse residual weights
     patterns: torch.Tensor     # (P, t) observed-trait masks, 0/1
     pattern_idx: torch.Tensor  # (n,) int64 pattern of each observation
@@ -96,6 +109,7 @@ class MTSampleOut(NamedTuple):
     ebv: torch.Tensor          # (t, n_out)
     genvar: torch.Tensor       # (t, t)
     h2: torch.Tensor           # (t,)
+    lam: Optional[torch.Tensor] = None   # (n_edges,) SEM's coefficients
 
 
 class MTAccum(NamedTuple):
@@ -117,6 +131,8 @@ class MTAccum(NamedTuple):
     ebv_m2: torch.Tensor
     vc_m: tuple = ()
     vc_m2: tuple = ()
+    lam_m: Optional[torch.Tensor] = None   # SEM's structural coefficients
+    lam_m2: Optional[torch.Tensor] = None
 
 
 def pattern_Ri(patterns, R):
@@ -166,24 +182,40 @@ def location_rhs(data: MTData, Ri_pat, ycorr_plus):
 
 
 def sample_markers(cfg: MTEngineCfg, state: MTChainState, data: MTData) -> MTChainState:
-    """The marker effects (K7 / K8, or K1 a trait under the constraint),
-    pi and the marker-effect covariance of one outer iteration
-    (mcmc_mt.py:201-443); the marker tensors are updated in place."""
-    t, bayesb = cfg.n_traits, cfg.method == "BayesB"
+    """The marker effects (K7 / K8, K9, GBLUP's joint draw, or a trait at
+    a time under the constraint), pi, the marker-effect covariance and
+    BayesL's local shrinkage of one outer iteration (mcmc_mt.py:201-454);
+    the marker tensors are updated in place."""
+    t, method = cfg.n_traits, cfg.method
+    bayesb, bayesl, gblup = method == "BayesB", method == "BayesL", method == "GBLUP"
+    c0l = method in ("RR-BLUP", "BayesL")
     gen, gm, ycorr = state.gen, data.gm, state.ycorr
-    alpha, beta, delta, pi, varg = (state.alpha, state.beta, state.delta,
-                                    state.pi, state.varg)
+    alpha, beta, delta, pi, varg, gamma_l = (state.alpha, state.beta, state.delta,
+                                             state.pi, state.varg, state.gamma_l)
     if cfg.constraint:
         # mega-trait: the single-trait sweep of each trait in turn, on
-        # its own residual row (mcmc_mt.py:206-255)
+        # its own residual row (mcmc_mt.py:206-255, :311-337, :366-372)
         for k in range(t):
-            var_eff = varg[:, k, k] if bayesb else varg[k, k]
-            pi_k = torch.where(gm.valid > 0, torch.clamp(pi[k], 1e-10, 1.0), 1.0)
-            d_k = delta[k].to(torch.int32)
-            sweep_blocks_abc_grouped(gm, alpha[k], beta[k], d_k, ycorr[k], state.R[k, k],
-                                     var_eff, pi_k, gen, nreps=cfg.nreps,
-                                     sync_every=cfg.sync_every)
-            delta[k] = d_k.to(delta.dtype)
+            if gblup:
+                sweep_gblup(gm, alpha[k], ycorr[k], state.R[k, k], varg[k, k], gen)
+            elif c0l:
+                sweep_blocks_c0l_grouped(gm, alpha[k], ycorr[k], state.R[k, k],
+                                         varg[k, k], gamma_l, gen, nreps=cfg.nreps,
+                                         sync_every=cfg.sync_every)
+            else:
+                var_eff = varg[:, k, k] if bayesb else varg[k, k]
+                pi_k = torch.where(gm.valid > 0, torch.clamp(pi[k], 1e-10, 1.0), 1.0)
+                d_k = delta[k].to(torch.int32)
+                sweep_blocks_abc_grouped(gm, alpha[k], beta[k], d_k, ycorr[k],
+                                         state.R[k, k], var_eff, pi_k, gen,
+                                         nreps=cfg.nreps, sync_every=cfg.sync_every)
+                delta[k] = d_k.to(delta.dtype)
+    elif gblup:
+        mt.mt_gblup(gm, alpha, ycorr, state.R, varg, gen)
+    elif c0l:
+        mt.sweep_blocks_mt_c0l_grouped(gm, alpha, ycorr, state.R, torch.linalg.inv(varg),
+                                       gamma_l, gen, nreps=cfg.nreps,
+                                       sync_every=cfg.sync_every)
     else:
         ginv = torch.linalg.inv(varg)
         mt.sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, state.R,
@@ -197,23 +229,60 @@ def sample_markers(cfg: MTEngineCfg, state: MTChainState, data: MTData) -> MTCha
     elif cfg.estimate_pi:
         pi = sample_pattern_pi(gen, delta, gm.valid)
 
-    # the marker-effect covariance (mcmc_mt.py:401-443)
+    # the marker-effect covariance, then BayesL's local shrinkage
+    # (mcmc_mt.py:401-454)
     if cfg.estimate_marker_variance and bayesb:
         varg = sample_marker_covariance_bayesb(gen, beta, cfg.df_marker,
                                                data.marker_scale, cfg.constraint)
     elif cfg.estimate_marker_variance:
-        varg = sample_marker_covariance(gen, beta, gm.valid, cfg.n_markers,
+        eff = mt_covariance_effects(method, alpha, beta, gamma_l,
+                                    gm.D if gblup else None)
+        varg = sample_marker_covariance(gen, eff, gm.valid, cfg.n_markers,
                                         cfg.df_marker, data.marker_scale,
                                         cfg.constraint)
+        if bayesl:
+            gamma_l = sample_mt_bayesl_gamma(gen, gamma_l, alpha, varg, gm.valid)
     return state._replace(alpha=alpha, beta=beta, delta=delta, ycorr=ycorr,
-                          pi=pi, varg=varg)
+                          pi=pi, varg=varg, gamma_l=gamma_l)
+
+
+def sem_lambda(y, ycorr, R, Lambda, edges, z):
+    """SEM's structural coefficients (get_Lambda, SEM.jl:125-165;
+    mcmc_mt.py:489-516): ycorr is Lambda y less the effects; the raw
+    residual ycorr - Lambda_old y + y, then lambda ~ N(F^-1 s, F^-1) with
+    F = I + (y_j y_j' / R_ii over edge pairs into the same trait i) (prior
+    N(0, 1)) and s_e = y_j' raw_i / R_ii for edge e = (i <- j); y the raw
+    phenotypes (t, n), z (m,) standard normals. Returns (Lambda, ycorr at
+    the new Lambda y)."""
+    t, m = R.shape[0], len(edges)
+    YY = y @ y.T
+    rows = torch.tensor([e[0] for e in edges], device=y.device)
+    cols = torch.tensor([e[1] for e in edges], device=y.device)
+
+    def lam_y(lam):
+        C = torch.zeros((t, t), dtype=y.dtype, device=y.device)
+        C[rows, cols] = lam
+        return y - C @ y
+
+    raw = ycorr - lam_y(Lambda) + y
+    Rd = torch.diagonal(R)
+    first = torch.eye(m, dtype=y.dtype, device=y.device)
+    for a, (i, j) in enumerate(edges):
+        for b, (i2, j2) in enumerate(edges):
+            if i == i2:
+                first[a, b] += YY[j, j2] / Rd[i]
+    second = torch.stack([y[j] @ raw[i] / Rd[i] for i, j in edges])
+    Finv = torch.linalg.inv(first)
+    Lc = torch.linalg.cholesky(0.5 * (Finv + Finv.T))
+    Lambda = Finv @ second + Lc @ z
+    return Lambda, raw - y + lam_y(Lambda)
 
 
 def make_mt_step(cfg: MTEngineCfg):
     """One outer iteration: imputation of the missing residuals, location
-    pass (K6), markers (K7 / K8, or K1 a trait under the constraint), pi,
-    the marker-effect covariance, the random-effect covariances, the
-    residual covariance. The marker state of the returned state is the
+    pass (K6), markers (sample_markers), pi, the marker-effect covariance,
+    the random-effect covariances, the residual covariance, SEM's
+    structural coefficients. The marker state of the returned state is the
     input's tensors, updated in place."""
     t = cfg.n_traits
 
@@ -253,7 +322,16 @@ def make_mt_step(cfg: MTEngineCfg):
             R = sample_residual_covariance(gen, state.ycorr, data.rinv, cfg.n_obs,
                                            cfg.df_residual, data.scale_R,
                                            cfg.r_constraint)
-        return state._replace(R=R, vc=tuple(vc))
+        state = state._replace(R=R, vc=tuple(vc))
+
+        # 4. SEM's structural coefficients (mcmc_mt.py:489-516)
+        if cfg.sem_edges:
+            z = torch.randn(len(cfg.sem_edges), generator=gen, dtype=R.dtype,
+                            device=R.device)
+            Lambda, ycorr = sem_lambda(data.y, state.ycorr, R, state.Lambda,
+                                       cfg.sem_edges, z)
+            state = state._replace(Lambda=Lambda, ycorr=ycorr)
+        return state
 
     return step
 
@@ -289,11 +367,13 @@ def make_mt_run_window(cfg: MTEngineCfg):
         varg_out = (state.varg[:cfg.n_markers].mean(dim=0) if state.varg.dim() == 3
                     else state.varg)
         out = MTSampleOut(R=state.R, varg=varg_out, pi=state.pi, ebv=ebv,
-                          genvar=genvar, h2=h2)
+                          genvar=genvar, h2=h2, lam=state.Lambda)
         if accumulate:
             n = accum.n + 1.0
             pairs = dict(sol=state.sol, alpha=state.alpha, R=state.R, varg=state.varg,
                          pi=state.pi, ebv=ebv)
+            if state.Lambda is not None:
+                pairs["lam"] = state.Lambda
             upd = {}
             for k, x in pairs.items():
                 upd[k + "_m"] = _welford(getattr(accum, k + "_m"), x, n)
@@ -318,11 +398,13 @@ def init_mt_accum(data: MTData, state: MTChainState) -> MTAccum:
     ebv = torch.zeros((state.R.shape[0], n_out), dtype=state.R.dtype,
                       device=state.R.device)
     vc = tuple(z(v) for v in state.vc)
+    lam = None if state.Lambda is None else z(state.Lambda)
     return MTAccum(n=0.0, sol_m=z(state.sol), sol_m2=z(state.sol),
                    alpha_m=z(state.alpha), alpha_m2=z(state.alpha),
                    delta_m=z(state.alpha), R_m=z(state.R), R_m2=z(state.R),
                    varg_m=z(state.varg), varg_m2=z(state.varg), pi_m=z(state.pi),
-                   pi_m2=z(state.pi), ebv_m=ebv, ebv_m2=ebv, vc_m=vc, vc_m2=vc)
+                   pi_m2=z(state.pi), ebv_m=ebv, ebv_m2=ebv, vc_m=vc, vc_m2=vc,
+                   lam_m=lam, lam_m2=lam)
 
 
 SAMPLE_KEYS = ("R", "varg", "pi", "genvar", "h2")
@@ -330,9 +412,13 @@ SAMPLE_KEYS = ("R", "varg", "pi", "genvar", "h2")
 
 def _read_back(state: MTChainState, out: MTSampleOut, stream, p: int) -> Dict:
     """A saved sample's values on the host, in one transfer: the tracks of
-    SAMPLE_KEYS and what the sample files need (sol, alpha, BayesB's
-    per-locus covariances, ebv, the random-effect covariances vc<g>)."""
+    SAMPLE_KEYS, SEM's lam and alpha (its indirect effects' samples), and
+    what the sample files need (sol, alpha, BayesB's per-locus covariances,
+    ebv, the random-effect covariances vc<g>)."""
     parts = {k: getattr(out, k) for k in SAMPLE_KEYS}
+    if out.lam is not None:
+        parts["lam"] = out.lam
+        parts["alpha"] = state.alpha[:, :p]
     if stream is not None and stream.enabled:
         if stream.loc_slices:
             parts["sol"] = state.sol
@@ -352,15 +438,35 @@ def _read_back(state: MTChainState, out: MTSampleOut, stream, p: int) -> Dict:
     return host
 
 
+def apply_update_priors_mt(cfg: MTEngineCfg, data: MTData, accum: MTAccum) -> MTData:
+    """The empirical-Bayes refresh of the priors from the running means
+    (_apply_update_priors_mt, mcmc_mt.py:1015-1034;
+    MCMC_BayesianAlphabet.jl:381-395): the marker scale mean G (df - t - 1)
+    (not BayesB's one a locus), each pedigree group's scale mean G0
+    (df - k - 1), the residual scale mean R (df - 2) / df."""
+    t = cfg.n_traits
+    fields = dict(scale_R=accum.R_m * (cfg.df_residual - 2.0) / cfg.df_residual)
+    if cfg.method not in ("BayesB", "none") and accum.varg_m.dim() == 2:
+        fields["marker_scale"] = accum.varg_m * (cfg.df_marker - t - 1.0)
+    if any(grp.random_type == "A" for grp in cfg.re_groups):
+        fields["vc_scale"] = tuple(
+            accum.vc_m[g] * (grp.df - len(grp.starts) - 1.0) if grp.random_type == "A"
+            else scale for g, (grp, scale) in enumerate(zip(cfg.re_groups, data.vc_scale)))
+    return data._replace(**fields)
+
+
 def run_mt_chain(cfg: MTEngineCfg, data: MTData, state: MTChainState, plan,
-                 stream=None, progress=None):
+                 stream=None, progress=None, update_priors_frequency: int = 0):
     """The single-chain loop (mcmc_mt.py:1270-1300): burn-in, then n_saved
     windows of thin_outer outer iterations, each ending with its sample read
-    back (and written by stream). Returns (state, accum, samples,
-    burnin_seconds, window_seconds)."""
+    back (and written by stream) and, every update_priors_frequency
+    iterations, the priors refreshed (apply_update_priors_mt). Returns
+    (state, accum, samples, burnin_seconds, window_seconds); samples holds
+    SEM's lam and alpha (t, p) a saved window when the chain has edges."""
     run_window = make_mt_run_window(cfg)
     accum = init_mt_accum(data, state)
-    samples = {k: [] for k in SAMPLE_KEYS}
+    samples = {k: [] for k in SAMPLE_KEYS + (("lam", "alpha") if cfg.sem_edges else ())}
+    prior_epoch = 0
     window_seconds = []
     t0 = time.perf_counter()
     if plan.burnin_outer > 0:
@@ -373,12 +479,15 @@ def run_mt_chain(cfg: MTEngineCfg, data: MTData, state: MTChainState, plan,
         state, accum, out = run_window(state, data, accum, plan.thin_outer)
         host = _read_back(state, out, stream, cfg.n_markers)
         window_seconds.append(time.perf_counter() - t_w)
-        for k in SAMPLE_KEYS:
+        iters = (plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps
+        if update_priors_frequency > 0 and iters // update_priors_frequency > prior_epoch:
+            prior_epoch = iters // update_priors_frequency
+            data = apply_update_priors_mt(cfg, data, accum)
+        for k in samples:
             samples[k].append(host[k])
         if stream is not None:
             stream.write_sample(host)
         if progress is not None:
-            iters = (plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps
             progress.update(iters, vare=host["R"], varg=host["varg"], pi=host["pi"])
     return state, accum, samples, t_burnin, window_seconds
 
@@ -419,26 +528,32 @@ def trait_columns(model, t: int):
 
 
 def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
-    """The dense and no-marker parts of jwas_tpu's build_mt_data_and_state
-    (mcmc_mt.py:645-991): the static missing patterns, the store's blocks
-    (setup_dense_markers' choice) and the chain's dtype, the t x t priors
-    (R.constraint and G.constraint transform theirs, :730-749), the
-    sampler ("auto" is sampler I), the random-effect groups, the output
-    IDs' store columns and prediction-equation rows, the starting values
-    and the state: every marker included, the pattern priors from the Pi
-    dict, BayesB's covariances one a locus. Returns (cfg, data, state)."""
+    """The dense, GBLUP and no-marker parts of jwas_tpu's
+    build_mt_data_and_state (mcmc_mt.py:645-991): the static missing
+    patterns, the store's blocks (setup_dense_markers' choice; GBLUP: the
+    workspace's eigenbasis, no blocks, nreps 1) and the chain's dtype, the
+    t x t priors (R.constraint and G.constraint transform theirs,
+    :730-749; BayesL divides the marker prior by 4 (t + 1), :934-945), the
+    sampler ("auto" is sampler I), SEM's edges (:830-850), the
+    random-effect groups, the output IDs' store columns and
+    prediction-equation rows, the starting values and the state: every
+    marker included, the pattern priors from the Pi dict, BayesB's
+    covariances one a locus, BayesL's local shrinkage 8 Gamma((t + 1) / 2)
+    a real marker. Returns (cfg, data, state)."""
     model, g = ws.model, ws.geno
     t, n, K = ws.n_traits, ws.n_obs, ws.W.shape[1]
     dtype = torch.float64 if opts.double_precision else torch.float32
     method = "none" if g is None else g.method
     constraint = g is not None and bool(g.G.constraint)
     sampler = getattr(g, "multi_trait_sampler", "I") if g is not None else "I"
-    if method != "none" and not constraint:
+    if method not in ("none", "GBLUP") and not constraint:
         mt.check_traits(t)
         b, gb, _ = mk.dense_blocks(len(ws.obs_ids), opts.fast_blocks, g.n_markers)
         mt.check_block_size(b)
-        mt.check_scratch("II" if sampler == "II" else "I", t, b, gb,
-                         torch.finfo(dtype).bits // 8, hbm_budget(device))
+        chain = ("C0L" if method in ("RR-BLUP", "BayesL")
+                 else "II" if sampler == "II" else "I")
+        mt.check_scratch(chain, t, b, gb, torch.finfo(dtype).bits // 8,
+                         hbm_budget(device))
 
     def dev(x, dt=dtype):
         return torch.as_tensor(np.asarray(x), dtype=dt).to(device)
@@ -449,9 +564,14 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     pattern_masks = tuple(tuple(bool(v) for v in row) for row in uniq)
     rinv = None if ws.rinv is None else dev(ws.rinv)
 
+    edges = sem_edges(opts, model, t, pattern_masks)
     if g is None:
         empty = torch.zeros(0, dtype=dtype, device=device)
         gm = NoMarkers(xpx=empty, valid=empty, rinv=rinv, n_obs=n)
+        nreps = 1
+    elif method == "GBLUP":
+        gm = build_gblup_markers(ws.gblup_L, ws.gblup_D, ws.gblup_out, rinv=ws.rinv)
+        rinv = gm.rinv
         nreps = 1
     else:
         gm = setup_dense_markers(g.dense, g.obs_ids, ws.obs_ids, device,
@@ -461,7 +581,8 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         nreps = 1 if gm.exact else max(1, min(
             opts.nreps if opts.nreps is not None else gm.grams.shape[1],
             opts.chain_length))
-    p, p_pad = (0, 0) if g is None else (g.n_markers, gm.valid.shape[0])
+    p, p_pad = (0, 0) if g is None else (int(gm.valid.sum().item()) if method == "GBLUP"
+                                         else g.n_markers, gm.valid.shape[0])
 
     re_cfgs = tuple(REGroupCfg(starts=grp.starts, n_levels=grp.n_levels, df=grp.df,
                                has_vinv=grp.Vinv is not None,
@@ -486,6 +607,10 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     if r_constraint:
         df_R -= t
         scale_R0 = np.diag(np.diag(scale_R0 / (df_R - 1.0))) * (df_R - 2.0) / df_R
+    if method == "BayesL":
+        # MTBayesL's prior on the scaled effects (mcmc_mt.py:943-945)
+        marker_var0 = marker_var0 / (4.0 * (t + 1))
+        marker_scale0 = marker_scale0 / (4.0 * (t + 1))
     cfg = MTEngineCfg(
         method=method, n_obs=n, n_markers=p, n_traits=t,
         estimate_pi=g is not None and bool(g.estimate_pi),
@@ -497,7 +622,7 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         pattern_masks=pattern_masks,
         missing_phenotypes=bool(opts.missing_phenotypes) and len(pattern_masks) > 1,
         constraint=constraint, r_constraint=r_constraint,
-        mt_sampler="II" if sampler == "II" else "I")
+        mt_sampler="II" if sampler == "II" else "I", sem_edges=edges)
 
     W = dev(ws.W)
     patterns = dev(uniq.astype(np.float64))
@@ -547,10 +672,17 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     varg = dev(marker_var0)
     if method == "BayesB":
         varg = varg.expand(p_pad, t, t).clone()
+    gamma_l = None
+    if method == "BayesL":
+        gamma_l = torch.where(gm.valid > 0,
+                              sample_gamma_like(gen, (t + 1) / 2.0, gm.valid) * 8.0, 1.0)
     state = MTChainState(gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(),
                          delta=delta, ycorr=ycorr, R=dev(np.atleast_2d(ws.vare0)),
                          varg=varg, pi=pi,
-                         vc=tuple(dev(np.atleast_2d(grp.G0)) for grp in ws.re_groups))
+                         vc=tuple(dev(np.atleast_2d(grp.G0)) for grp in ws.re_groups),
+                         gamma_l=gamma_l,
+                         Lambda=torch.zeros(len(edges), dtype=dtype, device=device)
+                         if edges else None)
     return cfg, data, state
 
 
@@ -573,13 +705,15 @@ def run_mcmc_mt(model, df, opts: MCMCOptions, device) -> Dict:
     progress = ProgressPrinter(opts.printout_frequency, opts.chain_length)
     try:
         with maybe_profile(opts):
-            _, accum, samples, _, _ = run_mt_chain(cfg, data, state, plan, stream,
-                                                   progress)
+            _, accum, samples, _, _ = run_mt_chain(
+                cfg, data, state, plan, stream, progress,
+                int(opts.update_priors_frequency or 0))
     finally:
         stream.close()
     accum = accum._replace(**{k: _host(v) if torch.is_tensor(v) else
                               tuple(_host(x) for x in v)
-                              for k, v in accum._asdict().items() if k != "n"})
+                              for k, v in accum._asdict().items()
+                              if k != "n" and v is not None})
     results = build_mt_results(ws, cfg, accum, samples, opts)
     if stream.enabled and stream.write_markers and ws.geno is not None:
         results["_marker_sample_files"] = {

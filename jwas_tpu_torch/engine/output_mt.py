@@ -2,15 +2,20 @@
 files.
 
 Counterpart of jwas_tpu/engine/output_mt.py (build_mt_results, output.jl:
-108-212) for continuous traits without SEM or annotations: "location
+108-212) for continuous traits without annotations: "location
 parameters", "residual variance" (trait pairs), "marker effects <name>"
 (a row a trait and marker, with Model_Frequency), "marker effects
 variances <name>" (BayesB: the mean over the loci of the per-locus
 posterior means and SDs), "pi_<name>" (the patterns "[1.0, 0.0]"..., or
 one a trait under the constraint), "polygenic effects covariance matrix"
 and "random effect variances <term>", "EBV_<trait>" a trait,
-"genetic_variance" and "heritability". Each is a Table with the
-reference's columns, written to output_folder as <key>.txt.
+"genetic_variance" and "heritability"; with SEM's causal structure
+(SEM.jl:179-316, jwas_tpu's :139-184) "structural coefficients" (an edge
+"yj->yi" a row) and "indirect marker effects <name>" and "overall marker
+effects <name>" from the saved samples (indirect = sum over i < t of
+C^i alpha, overall = alpha + indirect, C the sample's coefficients). GBLUP's
+pseudo-markers are numbered from 1. Each is a Table with the reference's
+columns, written to output_folder as <key>.txt.
 """
 
 from __future__ import annotations
@@ -28,6 +33,41 @@ def _cov_table(names, m, sd) -> Table:
     return Table({"Covariance": [f"{a}_{b}" for a in names for b in names],
                   "Estimate": np.asarray(m, dtype=np.float64).reshape(-1),
                   "SD": np.asarray(sd, dtype=np.float64).reshape(-1)})
+
+
+def sem_tables(ws, cfg, accum, samples) -> Dict[str, Table]:
+    """SEM's tables: the structural coefficients' posterior means and SDs,
+    and the indirect and overall marker effects from the saved samples'
+    coefficients and effects (samples["lam"], samples["alpha"], (t, p)
+    each), their means and SDs over the samples."""
+    traits = list(ws.model.lhs_vec)
+    t, edges = cfg.n_traits, cfg.sem_edges
+    out = {"structural coefficients": Table({
+        "Edge": [f"{traits[j]}->{traits[i]}" for i, j in edges],
+        "Estimate": np.asarray(accum.lam_m, dtype=np.float64),
+        "SD": np.asarray(_sd(accum.lam_m, accum.lam_m2), dtype=np.float64)})}
+    g = ws.geno
+    if g is None or not samples["lam"]:
+        return out
+    lam = np.asarray(samples["lam"], dtype=np.float64)          # (S, m)
+    alpha = np.asarray(samples["alpha"], dtype=np.float64)      # (S, t, p)
+    C = np.zeros((len(lam), t, t))
+    rows, cols = zip(*edges)
+    C[:, rows, cols] = lam
+    indirect = np.zeros_like(alpha)
+    Ci = np.broadcast_to(np.eye(t), C.shape)
+    for _ in range(t - 1):
+        Ci = Ci @ C
+        indirect += Ci @ alpha
+    p = alpha.shape[2]
+    for key, x in (("indirect", indirect), ("overall", alpha + indirect)):
+        m = x.mean(axis=0)
+        out[f"{key} marker effects {g.name}"] = Table({
+            "Trait": np.repeat(np.asarray(traits, dtype=object), p),
+            "Marker_ID": list(result_marker_ids(g, p)) * t,
+            "Estimate": m.reshape(-1),
+            "SD": np.sqrt(np.abs((x ** 2).mean(axis=0) - m ** 2)).reshape(-1)})
+    return out
 
 
 def build_mt_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
@@ -83,6 +123,8 @@ def build_mt_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
             results["heritability"] = Table({"Covariance": traits,
                                              "Estimate": h2.mean(axis=0),
                                              "SD": h2.std(axis=0)})
+    if cfg.sem_edges:
+        results.update(sem_tables(ws, cfg, accum, samples))
     if opts.output_folder:
         os.makedirs(opts.output_folder, exist_ok=True)
         for key, table in results.items():

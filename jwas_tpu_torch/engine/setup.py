@@ -7,8 +7,9 @@ and default), REGroupData (:119), Workspace (:134), _default_priors
 on its continuous, dense-location branch for the 2-bit and the dense
 stores, GBLUP's relationship matrix and models without genotypes, with
 random-effect groups, single-trait and multi-trait (t x t residual and
-marker-effect priors, the joint pattern Pi; BayesC, BayesB and models
-without genotypes, on dense stores): ID reconciliation (phenotyped
+marker-effect priors, the joint pattern Pi; BayesC, BayesB, RR-BLUP,
+BayesL and GBLUP on dense stores or a relationship matrix, models without
+genotypes, SEM's causal structure, sem_edges): ID reconciliation (phenotyped
 individuals without genotypes, or not in the pedigree, are removed),
 default output IDs (the genotyped individuals, else the pedigree's), the
 whole-data table with output-only rows, training rows, priors, the
@@ -107,7 +108,6 @@ _UNPORTED = {
     "n_chains": (1, "ops layer"), "mesh": (None, "multi-GPU"),
     "checkpoint_frequency": (0, "ops layer"), "resume": (False, "ops layer"),
     "single_step_analysis": (False, "sparse location MME, solve and single-step"),
-    "causal_structure": (None, "multi-trait, slice 7b"),
     "RRM": (None, "RRM"), "use_pallas": ("auto", "ground rules for the port"),
 }
 
@@ -131,7 +131,7 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def reject_unported(opts: MCMCOptions, n_traits: int = 1) -> None:
+def reject_unported(opts: MCMCOptions) -> None:
     """NotImplementedError naming the first option that is set to what the
     port does not run yet."""
     for name, (default, label) in _UNPORTED.items():
@@ -143,9 +143,33 @@ def reject_unported(opts: MCMCOptions, n_traits: int = 1) -> None:
     if opts.sparse_location is True:
         raise not_ported("runMCMC option sparse_location=True",
                          "sparse location MME, solve and single-step")
-    if n_traits > 1 and int(opts.update_priors_frequency or 0) > 0:
-        raise not_ported("update_priors_frequency > 0 with several traits",
-                         "multi-trait, slice 7b")
+
+
+def sem_edges(opts: MCMCOptions, model: Model, t: int,
+              pattern_masks) -> Tuple[Tuple[int, int], ...]:
+    """SEM's causal edges (SEM_setup, SEM.jl:53-62; jwas_tpu/engine/
+    mcmc_mt.py:830-850): the option's causal_structure, else the model's;
+    a (t, t) lower-triangular 0/1 matrix whose entry (i, j) = 1 puts trait
+    j's phenotype in trait i's equation, with no missing phenotype (every
+    missing pattern observes every trait). The edges in row-major order,
+    () without a structure; the model keeps the matrix, as jwas_tpu's
+    does."""
+    causal = opts.causal_structure
+    if causal is None:
+        causal = model.causal_structure
+    if causal is None or causal is False:
+        return ()
+    causal = np.asarray(causal, dtype=np.float64)
+    if causal.shape != (t, t):
+        raise ValueError(f"causal_structure must be {t}x{t}")
+    if np.any(np.triu(causal) != 0):
+        raise ValueError("the causal structure needs to be a lower triangular matrix")
+    if not np.all(np.isin(causal, (0.0, 1.0))):
+        raise ValueError("causal_structure entries must be 0 or 1")
+    if not all(all(row) for row in pattern_masks):
+        raise ValueError("missing phenotypes are not allowed in SEM")
+    model.causal_structure = causal
+    return tuple((i, j) for i in range(t) for j in range(t) if causal[i, j] == 1.0)
 
 
 @dataclass
@@ -351,9 +375,7 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         raise ValueError(
             "sparse_location=True supports single-trait (non-RRM, non-SEM) "
             "models only; multi-trait/RRM/SEM MMEs use the dense location path")
-    reject_unported(opts, t)
-    if t > 1 and model.M and model.M[0].method not in ("BayesC", "BayesB"):
-        raise not_ported(f"multi-trait {model.M[0].method}", "multi-trait, slice 7b")
+    reject_unported(opts)
     if device is not None:
         device = resolve_device(device)
     g0 = model.M[0] if model.M else None

@@ -73,7 +73,7 @@ class EngineCfg:
 
 class MTChainState(NamedTuple):
     """State of a multi-trait chain (jwas_tpu/engine/state.py MTChainState,
-    the fields of continuous traits without SEM or annotations)."""
+    the fields of continuous traits without annotations)."""
 
     gen: torch.Generator      # the chain's only source of randomness
     sol: torch.Tensor         # (K,) location parameters
@@ -86,9 +86,15 @@ class MTChainState(NamedTuple):
     varg: torch.Tensor        # (t, t) marker-effect covariance; BayesB
                               # (p_pad, t, t), one a locus
     pi: torch.Tensor          # (2^t,) pattern priors (bit k = trait k);
-                              # mega-trait (t,) P(excluded) a trait
+                              # mega-trait (t,) P(excluded) a trait;
+                              # RR-BLUP, BayesL, GBLUP: every marker in
+                              # every trait
     vc: Tuple[torch.Tensor, ...] = ()  # a (k, k) covariance a random-effect
                               # group
+    gamma_l: Optional[torch.Tensor] = None  # (p_pad,) BayesL's local
+                              # shrinkage, 1 for padding (None otherwise)
+    Lambda: Optional[torch.Tensor] = None   # (n_edges,) SEM's structural
+                              # coefficients (None without SEM)
 
 
 @dataclass(frozen=True)
@@ -105,3 +111,6 @@ class MTEngineCfg(EngineCfg):
                                        # single-trait sweep a trait
     r_constraint: bool = False         # diagonal residual covariance
     mt_sampler: str = "I"              # "I" | "II"
+    sem_edges: Tuple[Tuple[int, int], ...] = ()   # causal edges (i <- j):
+                                       # trait j's phenotype in trait i's
+                                       # equation, row-major

@@ -51,9 +51,10 @@ class GBLUPMarkers(NamedTuple):
         return self.L.device
 
     def matvec_store(self, v):
-        """The output map times v, (n_out,)."""
+        """The output map times v: (n_out,) for v (n,), (n_out, t) for the
+        t traits' effects (n, t)."""
         with full_precision_matmul():
-            return torch.mv(self.out_map, v)
+            return self.out_map @ v
 
 
 def gblup_eigen(G, train_rows, out_rows, dtype):

@@ -29,7 +29,11 @@ jwas_tpu/ops/multitrait.py:214 and :354) have their plain versions in
 ops/multitrait.py; their layouts are (gb, t, b) for the state and rhs and
 (nreps * b, t or 2^t, gb) for the draws. They run the same window schedule
 with d a vector of t values a marker; mt_abc_inner_rounds_window_ref
-models it.
+models it. The multi-trait RR-BLUP / BayesL chain (K9 of
+csrc/mt_c0l_rounds.cu, counterpart of the lax.scan of
+jwas_tpu/ops/multitrait.py:467) is a serial chain, one barrier a step, in
+the same layouts; its plain version is ops/multitrait.py::
+mt_c0l_inner_rounds_ref.
 
 Layouts are block-major, unlike the JAX package's j-major ones:
 grams (nblocks, b, b) with grams[k, j] = row j of block k's Gram;
@@ -276,7 +280,45 @@ def mt_abc_inner_rounds_II(grams, xpx, valid, alpha, beta, delta, rhs, Rinv,
                             mt_abc_inner_rounds_II)
 
 
-for _k in (mt_abc_inner_rounds_I, mt_abc_inner_rounds_II):
+def mt_c0l_inner_rounds(grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma, zs,
+                        nreps: int):
+    """Run nreps rounds of the multi-trait RR-BLUP / BayesL chain (K9,
+    csrc/mt_c0l_rounds.cu) on every block: grams (gb, b, b); xpx, valid,
+    gamma (gb, b) (gamma ones for RR-BLUP, valid 0 or 1); alpha, rhs
+    (gb, t, b), updated in place and returned; Rinv, Ginv (t, t),
+    row-major; zs (nreps b, t, gb). CUDA tensors launch the kernel on a
+    scratch tensor of its constants (ops/multitrait.py::scratch_values) and
+    raise if it cannot run (2 <= t <= 8, b <= 2048); CPU tensors take the
+    plain version (ops/multitrait.py::mt_c0l_inner_rounds_ref)."""
+    if grams.device.type == "cpu":
+        return mt.mt_c0l_inner_rounds_ref(grams, xpx, valid, alpha, rhs, Rinv, Ginv,
+                                          gamma, zs, nreps)
+    what = "mt_c0l_inner_rounds"
+    if grams.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {grams.device}")
+    nblocks, b, _ = grams.shape
+    t = alpha.shape[1]
+    mt.check_traits(t)
+    mt.check_block_size(b)
+    state = (nblocks, t, b)
+    args = dict(grams=grams, xpx=xpx, valid=valid, alpha=alpha, rhs=rhs, Rinv=Rinv,
+                Ginv=Ginv, gamma=gamma, zs=zs)
+    build = _check_cuda_args(what, args, {
+        "grams": (nblocks, b, b), "alpha": state, "rhs": state, "Rinv": (t, t),
+        "Ginv": (t, t), "zs": (nreps * b, t, nblocks)}, int_names=())
+    scratch = torch.empty(mt.scratch_values("C0L", t, b, nblocks),
+                          dtype=grams.dtype, device=grams.device)
+    lib = _build.library()
+    err = getattr(lib, f"jt_mt_c0l_inner_rounds{build}")(
+        *(x.data_ptr() for x in args.values()), scratch.data_ptr(), t, b, nblocks,
+        nreps, _build.stream_of(grams))
+    _build.check(err, what)
+    mt_c0l_inner_rounds.launches += 1
+    mt_c0l_inner_rounds.launches_f64 += build == "_f64"
+    return alpha, rhs
+
+
+for _k in (mt_abc_inner_rounds_I, mt_abc_inner_rounds_II, mt_c0l_inner_rounds):
     _k.launches = 0          # every launch
     _k.launches_f64 = 0      # the float64 build's
 

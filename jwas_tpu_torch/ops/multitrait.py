@@ -1,6 +1,6 @@
-"""Multi-trait BayesC / BayesB marker samplers: the marker updates of
-samplers I and II, their plain inner chains, and the group-sequential sweep
-over a dense store.
+"""Multi-trait marker samplers: the marker updates of BayesC / BayesB's
+samplers I and II and of RR-BLUP / BayesL, their plain inner chains, the
+group-sequential sweeps over a dense store, and multi-trait GBLUP.
 
 Counterpart of jwas_tpu/ops/multitrait.py: _take_logpi (:38, a global
 log pi only), pattern_index and all_patterns (:46-56), the marker updates
@@ -15,6 +15,14 @@ ops/dense.py::sweep_draws.
 The kernels run the chain on a window schedule (32 markers of a block
 evaluated together); ops/inner_rounds.py::mt_abc_inner_rounds_window_ref
 models it and equals mt_abc_inner_rounds_ref bit for bit.
+
+RR-BLUP / BayesL: _mt_c0l_marker_update (:414) as mt_c0l_marker_update_ref,
+the chain of mt_c0l_blocks (:436, its scan :467) as
+mt_c0l_inner_rounds_ref, the plain version of K9 (csrc/mt_c0l_rounds.cu,
+a serial chain: every slab draw changes an effect), and the grouped sweep
+sweep_blocks_mt_c0l_grouped; the exact form mt_c0l_exact (:478) is that
+sweep over a store of one block a group with nreps = 1. GBLUP: mt_gblup
+(:508), batched t x t algebra over the pseudo-markers, no chain.
 
 A joint inclusion pattern s = sum_k delta_k 2^k (bit k = trait k) indexes
 log_pi, (2^t,). Marker state is (t, p_pad) as in the JAX package; a group
@@ -39,8 +47,9 @@ import torch
 from jwas_tpu_torch.ops import inner_rounds as ir
 from jwas_tpu_torch.ops import grouped as gr
 
-MAX_TRAITS = 8          # K7 and K8 are instantiated for t = 2..8
+MAX_TRAITS = 8          # K7, K8 and K9 are instantiated for t = 2..8
 MAX_BLOCK = 2048        # and take b <= 256 threads x 8 markers a thread
+KERNEL_OF = {"I": "K7", "II": "K8", "C0L": "K9"}   # sampler -> its chain
 SCRATCH_SHARE = 0.25    # their constants' scratch: at most this of the card
 
 
@@ -319,45 +328,198 @@ def sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, R, ginv, pi,
     return alpha, beta, delta, ycorr
 
 
+# ------------------------------------------------------ RR-BLUP / BayesL
+
+
+def mt_c0l_constants(xpx, Rinv, Ginv, gamma):
+    """A marker's constants of the RR-BLUP / BayesL update, as K9's
+    prologue computes them: Lhs = xpx Rinv + Ginv / gamma (..., t, t) and
+    sqrt(1 / Lhs_kk) (..., t), for xpx and gamma of shape (...)."""
+    lhs = xpx[..., None, None] * Rinv + Ginv / gamma[..., None, None]
+    one = torch.ones((), dtype=lhs.dtype, device=lhs.device)
+    return lhs, torch.sqrt(torch.div(one, torch.diagonal(lhs, dim1=-2, dim2=-1)))
+
+
+def mt_c0l_marker_update_ref(w, alpha, Rinv, lhs, sq, z):
+    """The multi-trait RR-BLUP / BayesL update of one marker of each of B
+    blocks (_mt_c0l_marker_update, MTBayesC0L.jl:31-50), in its order of
+    operations: Rhs = Rinv w; for k in order, r = Rhs_k - sum_m Lhs[k, m]
+    a[m] (ascending m), a[k] = (r / Lhs_kk + a[k]) + z_k sqrt(1 / Lhs_kk).
+
+    w, alpha, z: (B, t); Rinv (t, t); lhs (B, t, t) and sq (B, t) from
+    mt_c0l_constants. Returns the new alpha, (B, t)."""
+    t = w.shape[1]
+    wl = w.unbind(1)
+    Rhs = []
+    for k in range(t):
+        acc = Rinv[k, 0] * wl[0]
+        for m in range(1, t):
+            acc = acc + Rinv[k, m] * wl[m]
+        Rhs.append(acc)
+    a = list(alpha.unbind(1))
+    for k in range(t):
+        acc = lhs[:, k, 0] * a[0]
+        for m in range(1, t):
+            acc = acc + lhs[:, k, m] * a[m]
+        mu = (Rhs[k] - acc) / lhs[:, k, k] + a[k]
+        a[k] = mu + z[:, k] * sq[:, k]
+    return torch.stack(a, 1)
+
+
+def mt_c0l_inner_rounds_ref(grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma, zs,
+                            nreps: int):
+    """Plain version of K9: nreps rounds of each block's chain of b
+    dependent RR-BLUP / BayesL marker steps, all gb blocks at once, in the
+    layout of mt_abc_inner_rounds_ref.
+
+    grams (gb, b, b); xpx, valid, gamma (gb, b) (gamma ones for RR-BLUP);
+    alpha, rhs (gb, t, b), updated in place and returned; Rinv, Ginv
+    (t, t); zs (nreps b, t, gb). Step j: w = rhs_j + xpx_j a_old, the
+    marker update, alpha masked by valid, then rhs += (a_old - a_new) times
+    Gram row j."""
+    b = grams.shape[1]
+    lhs, sq = mt_c0l_constants(xpx, Rinv, Ginv, gamma)        # (gb, b, t, t), (gb, b, t)
+    for s in range(nreps * b):
+        j = s % b
+        a_old = alpha[:, :, j].clone()
+        w = rhs[:, :, j] + xpx[:, j, None] * a_old
+        a_new = mt_c0l_marker_update_ref(w, a_old, Rinv, lhs[:, j], sq[:, j], zs[s].T)
+        a_new = a_new * valid[:, j, None]
+        alpha[:, :, j] = a_new
+        rhs.add_((a_old - a_new)[:, :, None] * grams[:, j, None, :])
+    return alpha, rhs
+
+
+def sweep_blocks_mt_c0l_grouped(gm, alpha, ycorr, R, ginv, gamma,
+                                gen: Optional[torch.Generator], nreps: int = 1,
+                                sync_every: Optional[int] = None,
+                                draws: Optional[Callable] = None):
+    """Group-sequential multi-trait RR-BLUP / BayesL sweep over a dense
+    store (mt_c0l_blocks under grouped_dense_sweep).
+
+    alpha (t, p_pad) and ycorr (t, n_obs) in the store's dtype are updated
+    in place and returned. R (t, t) residual covariance; ginv (t, t)
+    inverse marker-effect covariance; gamma (p_pad,) BayesL's local
+    shrinkage (None: RR-BLUP, every gamma 1). Round r of group g takes its
+    (reps b, t, gb) normal panel from draws(g, r, reps) -> (zs,) when given
+    (tests inject the JAX package's), else from gen, in group and round
+    order. A round gathers the group's alpha into (gb, t, b), runs K9 on
+    its (gb, t, b) rhs, and scatters it back."""
+    t = alpha.shape[0]
+    nblocks, b, _ = gm.grams.shape
+    gb = nblocks // gm.ngroups
+    G = gb * b
+    dtype = alpha.dtype
+    # K9 reads row-major (t, t) matrices: torch.linalg.inv returns
+    # column-major ones on a CUDA device
+    Rinv = torch.linalg.inv(R).contiguous()
+    ginv = ginv.contiguous()
+    xpx_b, valid_b = gm.xpx.view(nblocks, b), gm.valid.view(nblocks, b)
+    gamma_b = (torch.ones((nblocks, b), dtype=dtype, device=alpha.device)
+               if gamma is None else gamma.view(nblocks, b))
+    if draws is None:
+        def draws(g, r, reps):
+            return (torch.randn((reps * b, t, gb), generator=gen, dtype=dtype,
+                                device=ycorr.device),)
+
+    def round_fn(g, r, reps, rhs):
+        cols = slice(g * G, (g + 1) * G)
+        blk = slice(g * gb, (g + 1) * gb)
+        a_g = _blocked(alpha[:, cols], t, gb, b)
+        a_start = a_g.clone()
+        rhs_g = rhs.view(gb, b, t).transpose(1, 2).contiguous()
+        (zs,) = draws(g, r, reps)
+        ir.mt_c0l_inner_rounds(gm.grams[blk], xpx_b[blk], valid_b[blk], a_g, rhs_g,
+                               Rinv, ginv, gamma_b[blk].contiguous(), zs, reps)
+        alpha[:, cols] = a_g.transpose(0, 1).reshape(t, G)
+        return (a_start - a_g).transpose(1, 2).reshape(G, t)
+
+    gr.walk_groups(gm, ycorr, nreps, sync_every, round_fn)
+    return alpha, ycorr
+
+
+# ------------------------------------------------------------------- GBLUP
+
+
+def mt_gblup(gm, alpha, ycorr, R, varg, gen: Optional[torch.Generator], z=None):
+    """Multi-trait GBLUP on the eigenbasis (jwas_tpu's mt_gblup, GBLUP.jl:
+    52-72): every pseudo-marker's (t,) effect drawn jointly, one batched
+    (t, t) inverse and Cholesky factor over the m pseudo-markers, exact
+    because L is orthogonal.
+
+    gm: a GBLUPMarkers (L (n_obs, m), D (m,), rinv); alpha (t, m) and ycorr
+    (t, n_obs) are updated in place and returned; R, varg (t, t). ycorr +=
+    L alpha; RHS = (L' diag(rinv) ycorr') R^-1 (m, t); lhs_i = R^-1 rinv_i
+    + varg^-1 / D_i (rinv[:m], the reference's pairing of a pseudo-marker
+    with an observation's weight); Sigma = lhs^-1 symmetrised; alpha =
+    Sigma RHS + chol(Sigma) z; ycorr -= L alpha. z (m, t) standard normals
+    (tests inject the JAX package's), else drawn from gen."""
+    from jwas_tpu_torch.ops.grouped import full_precision_matmul
+
+    t, m = alpha.shape
+    L, D = gm.L, gm.D
+    rv = (torch.ones(ycorr.shape[1], dtype=alpha.dtype, device=alpha.device)
+          if gm.rinv is None else gm.rinv)
+    iR0 = torch.linalg.inv(R)
+    iGM = torch.linalg.inv(varg)
+    with full_precision_matmul():
+        ycorr += alpha @ L.T
+        RHS = (L.T @ (ycorr * rv).T) @ iR0                        # (m, t)
+        lhs = iR0 * rv[:m, None, None] + iGM / D[:, None, None]
+        sigma = torch.linalg.inv(lhs)
+        sigma = 0.5 * (sigma + sigma.transpose(-1, -2))
+        mu = torch.einsum("mij,mj->mi", sigma, RHS)
+        if z is None:
+            z = torch.randn((m, t), generator=gen, dtype=alpha.dtype, device=alpha.device)
+        chol = torch.linalg.cholesky(sigma)
+        alpha.copy_((mu + torch.einsum("mij,mj->mi", chol, z)).T)
+        ycorr -= alpha @ L.T
+    return alpha, ycorr
+
+
 def check_traits(t: int) -> None:
-    """K7 and K8 are instantiated for 2 to MAX_TRAITS traits."""
+    """K7, K8 and K9 are instantiated for 2 to MAX_TRAITS traits."""
     if not 2 <= t <= MAX_TRAITS:
         raise NotImplementedError(
-            f"{t} traits: the multi-trait samplers I and II (K7, K8) run 2 to "
-            f"{MAX_TRAITS} traits ({1 << MAX_TRAITS} inclusion patterns); more is "
+            f"{t} traits: the multi-trait marker chains (samplers I and II, K7 and "
+            f"K8; RR-BLUP and BayesL, K9) run 2 to {MAX_TRAITS} traits; more is "
             f"not ported (ROADMAP.md: samplers I and II above 8 traits)")
 
 
 def check_block_size(b: int) -> None:
-    """K7 and K8 take blocks of up to MAX_BLOCK markers
-    (csrc/mt_inner_rounds.cu: kThreads x kMaxRows)."""
+    """K7, K8 and K9 take blocks of up to MAX_BLOCK markers
+    (csrc/mt_inner_rounds.cu and csrc/mt_c0l_rounds.cu: kThreads x
+    kMaxRows)."""
     if b > MAX_BLOCK:
         raise NotImplementedError(
-            f"blocks of {b} markers: the multi-trait samplers I and II (K7, K8) take "
+            f"blocks of {b} markers: the multi-trait marker chains (K7, K8, K9) take "
             f"up to {MAX_BLOCK} (an int fast_blocks up to {MAX_BLOCK}; the default "
             f"block size passes it above ~4.2 million records); more is not ported "
             f"(ROADMAP.md: samplers I and II above 2,048 markers a block)")
 
 
 def scratch_values(sampler: str, t: int, b: int, nblocks: int) -> int:
-    """Values of the constants' scratch of a K7 / K8 call on nblocks blocks
-    of b markers (csrc/mt_inner_rounds.cu: nblocks x ceil(b / 32) windows
-    of 32 markers, E values a marker: t (8 + 3 (t - 1)) for sampler I,
-    2^t (t (t + 1) + 1) for sampler II)."""
+    """Values of the constants' scratch of a K7 / K8 / K9 call on nblocks
+    blocks of b markers: K7 and K8 (csrc/mt_inner_rounds.cu) nblocks x
+    ceil(b / 32) windows of 32 markers, E values a marker: t (8 + 3 (t - 1))
+    for sampler I, 2^t (t (t + 1) + 1) for sampler II; K9 ("C0L",
+    csrc/mt_c0l_rounds.cu) t t + t a marker (its Lhs and sqrt(1 / Lhs_kk))."""
+    if sampler == "C0L":
+        return nblocks * b * (t * t + t)
     e = t * (8 + 3 * (t - 1)) if sampler == "I" else (1 << t) * (t * (t + 1) + 1)
     return nblocks * -(-b // 32) * 32 * e
 
 
 def check_scratch(sampler: str, t: int, b: int, gb: int, itemsize: int,
                   budget: int) -> None:
-    """A group round's K7 / K8 call on gb blocks allocates its constants'
-    scratch (scratch_values); it may take SCRATCH_SHARE of the card's
-    memory (budget bytes, grouped.hbm_budget)."""
+    """A group round's K7 / K8 / K9 call on gb blocks allocates its
+    constants' scratch (scratch_values); it may take SCRATCH_SHARE of the
+    card's memory (budget bytes, grouped.hbm_budget)."""
     nbytes = scratch_values(sampler, t, b, gb) * itemsize
     if nbytes > SCRATCH_SHARE * budget:
         raise NotImplementedError(
             f"sampler {sampler} at {t} traits, blocks of {b} markers and {gb} blocks a "
-            f"group: K{7 if sampler == 'I' else 8}'s constants' scratch would take "
+            f"group: {KERNEL_OF[sampler]}'s constants' scratch would take "
             f"{nbytes / 1e9:.3g} GB, above {SCRATCH_SHARE:g} of the card's "
             f"{budget / 1e9:.3g} GB; a smaller fast_blocks or fewer traits fit; more "
             f"is not ported (ROADMAP.md: samplers I and II with a scratch above a "

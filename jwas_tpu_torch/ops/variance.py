@@ -17,9 +17,12 @@ packages the same draws. The residual variance takes the residual weights
 The multi-trait draws of jwas_tpu/engine/mcmc_mt.py: the residual
 covariance (:466-487, inverse-Wishart, or with R.constraint one
 chi-square a trait on the diagonal), the marker-effect covariance of
-BayesC (:428-443) and BayesB's one a locus (:401-427, one batched
-inverse-Wishart draw over the loci), and the Dirichlet over the 2^t
-pattern counts (:395-399).
+BayesC, RR-BLUP, BayesL and GBLUP (:428-443, on mt_covariance_effects:
+BayesC's beta, the others' alpha, BayesL's alpha / sqrt(gamma), GBLUP's
+alpha / sqrt(D)) and BayesB's one a locus (:401-427, one batched
+inverse-Wishart draw over the loci), multi-trait BayesL's local shrinkage
+(:444-454, mt_bayesl_gamma) and the Dirichlet over the 2^t pattern counts
+(:395-399).
 """
 
 from __future__ import annotations
@@ -193,17 +196,55 @@ def sample_residual_covariance(gen, ycorr, rinv, n_obs: int, df: float, scale,
 
 def sample_marker_covariance(gen, beta, valid, n_markers: int, df: float, scale,
                              constraint: bool = False, bartlett=None):
-    """Multi-trait BayesC's (t, t) marker-effect covariance from the real
-    markers' beta (t, p_pad): InverseWishart(df + p, scale + B B');
-    constraint: diagonal, one scaled inverse chi-square a trait. Padding
-    markers are left out (jwas_tpu's blocked path counts their beta,
-    which the prior alone draws)."""
+    """The (t, t) marker-effect covariance from the real markers' effects
+    (t, p_pad) (mt_covariance_effects: BayesC's beta, the others' weighted
+    alpha): InverseWishart(df + p, scale + B B'); constraint: diagonal, one
+    scaled inverse chi-square a trait. Padding markers are left out
+    (jwas_tpu's blocked BayesC counts their beta, which the prior alone
+    draws)."""
     b = beta * valid
     SSE = b @ b.T
     if constraint:
         return torch.diag(_diag_chi2(gen, torch.diagonal(SSE), n_markers, df,
                                      torch.diagonal(scale)))
     return sample_inv_wishart(gen, df + n_markers, scale + SSE, bartlett)
+
+
+def mt_covariance_effects(method: str, alpha, beta, gamma_l=None, D=None):
+    """The (t, p_pad) effects whose sum of squares enters the multi-trait
+    marker covariance (mcmc_mt.py:428-435): BayesC's beta, RR-BLUP's
+    alpha, BayesL's alpha / sqrt(gamma) and GBLUP's alpha / sqrt(D), each
+    marker's effect weighted by its prior scale."""
+    if method == "BayesC":
+        return beta
+    if method == "BayesL":
+        return alpha / torch.sqrt(gamma_l)
+    if method == "GBLUP":
+        return alpha / torch.sqrt(D)
+    return alpha
+
+
+def mt_bayesl_gamma(gamma, alpha, Ginv, valid, g, u):
+    """Multi-trait BayesL's local shrinkage after one Metropolis-Hastings
+    step (mcmc_mt.py:444-454): Q = alpha_j' Ginv alpha_j a marker, the
+    candidate 1 / (8 g), g Gamma((t + 1) / 2) draws, accepted where u <
+    exp(Q / 4 (2 / gamma - candidate)) as 2 / candidate; padding kept at
+    1. alpha (t, p_pad); gamma, valid, g, u (p_pad,)."""
+    Q = torch.einsum("tp,sp,ts->p", alpha, alpha, Ginv)
+    candidate = 1.0 / (g * 8.0)
+    accept = torch.exp(Q / 4.0 * (2.0 / gamma - candidate))
+    new = torch.where(u < accept, 2.0 / candidate, gamma)
+    return torch.where(valid > 0, new, torch.ones_like(new))
+
+
+def sample_mt_bayesl_gamma(gen, gamma, alpha, varg, valid):
+    """mt_bayesl_gamma with Ginv = varg^-1, its Gamma((t + 1) / 2)
+    candidates, then its uniforms, drawn from gen, one of each a marker,
+    padding included, as jwas_tpu draws them."""
+    t = alpha.shape[0]
+    g = sample_gamma_like(gen, (t + 1) / 2.0, gamma)
+    u = torch.rand(gamma.shape, generator=gen, dtype=gamma.dtype, device=gamma.device)
+    return mt_bayesl_gamma(gamma, alpha, torch.linalg.inv(varg), valid, g, u)
 
 
 def sample_marker_covariance_bayesb(gen, beta, df: float, scale,

@@ -1,6 +1,6 @@
 """Where the time goes in the port's main paths at full width, on one GPU.
 
-    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense,Methods,GBLUP,MT,MTPedigree]
+    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense,Methods,GBLUP,MT,MTPedigree,MTC0L]
 
 Run it from the root of the repository: it imports chip_smoke.py.
 
@@ -63,7 +63,11 @@ locus): step 2 for a call of two outer iterations after an unprofiled one
 of three, each. MTPedigree is phase 10d (the 3-trait animal model, K =
 18,303, 20 iterations; the pedigree, workspace and LHS pieces' set-up
 included in the profiled call): step 2, the LHS assembly's kernels,
-K6 and the GEMVs with W among the device rows. Each is a start-of-chain measurement: pi has not settled after three outer
+K6 and the GEMVs with W among the device rows. MTC0L is chip_smoke.py's
+phase 11a and 11b on phase 10's store and design (runMCMC multi-trait
+RR-BLUP and BayesL at fast_blocks = True: K9 and the two products of a
+round): step 2 for a call of two outer iterations after an unprofiled one
+of three, each. Each is a start-of-chain measurement: pi has not settled after three outer
 iterations. Imports torch, numpy, the port and chip_smoke.py; never jax.
 """
 
@@ -317,8 +321,9 @@ def profile_gblup(dev, n=20_000, n_train=18_000):
              100, top=16)
 
 
-def profile_mt(dev, pedigree=False):
-    """chip_smoke.py's phase 10a (pedigree: 10d) under torch.profiler."""
+def profile_mt(dev, pedigree=False, c0l=False):
+    """chip_smoke.py's phase 10a (pedigree: 10d; c0l: 11a and 11b) under
+    torch.profiler."""
     if pedigree:
         profiled("MTPedigree", lambda: cs.phase10d(dev), 20, top=20)
         return
@@ -334,9 +339,11 @@ def profile_mt(dev, pedigree=False):
         g.multi_trait_sampler = sampler
         return g
 
-    for name, method, sampler in (("MT", "BayesC", "I"), ("MT sampler II", "BayesC", "II"),
-                                  ("MT BayesB", "BayesB", "I")):
-        kernels = (f"mt_abc_inner_rounds_{sampler}",)
+    paths = ((("MTC0L RR-BLUP", "RR-BLUP", "I"), ("MTC0L BayesL", "BayesL", "I")) if c0l
+             else (("MT", "BayesC", "I"), ("MT sampler II", "BayesC", "II"),
+                   ("MT BayesB", "BayesB", "I")))
+    for name, method, sampler in paths:
+        kernels = (cs.C0L,) if c0l else (f"mt_abc_inner_rounds_{sampler}",)
         cs.run_mt(f"{name}, unprofiled", dev, genotypes(method, sampler), table, eq,
                   kernels, chain_length=768, **kw)
         profiled(name, lambda: cs.run_mt(f"{name}, profiled", dev, genotypes(method, sampler),
@@ -349,7 +356,7 @@ def main():
         raise SystemExit("profile_paths: torch.cuda.is_available() is false")
     names = (sys.argv[1] if len(sys.argv) > 1 else "BayesC,BayesR").split(",")
     for name in names:
-        if name not in PATHS and name not in ("runMCMC", "MT", "MTPedigree"):
+        if name not in PATHS and name not in ("runMCMC", "MT", "MTPedigree", "MTC0L"):
             raise SystemExit(f"unknown path {name!r}; choose from {sorted(PATHS)}")
     dev = torch.device("cuda", 0)
     cs.say(subprocess.run(
@@ -365,9 +372,9 @@ def main():
     if "GBLUP" in names:
         profile_gblup(dev)
         names = [n for n in names if n != "GBLUP"]
-    for name in ("MT", "MTPedigree"):
+    for name in ("MT", "MTPedigree", "MTC0L"):
         if name in names:
-            profile_mt(dev, pedigree=name == "MTPedigree")
+            profile_mt(dev, pedigree=name == "MTPedigree", c0l=name == "MTC0L")
             names = [n for n in names if n != name]
             torch.cuda.empty_cache()
     if not names:

@@ -809,3 +809,76 @@ def test_location_pass_limit_is_refused_on_the_card(cuda):
                            MCMCOptions(sparse_location=False, output_folder=""),
                            device=cuda)
     assert ws.W.shape[1] == limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mt_c0l_kernel_matches_plain(cuda, dtype):
+    """K9, the multi-trait RR-BLUP / BayesL chain, against its plain version
+    (ops/multitrait.py::mt_c0l_inner_rounds_ref) on the card: alpha and rhs
+    equal bit for bit (the kernel rounds as the plain version does and adds
+    the rhs changes in the sequential chain's order) at t = 2, 3, 4, 5 and
+    8, b = 256 (one marker a thread), 700 (four) and 2,048 (eight),
+    RR-BLUP (gamma 1) and BayesL (a random gamma a marker), with padding
+    markers (valid 0, zero Gram rows) that stay at 0; a second launch gives
+    the same bits."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import k9_inputs
+    from jwas_tpu_torch.ops.inner_rounds import mt_c0l_inner_rounds
+    from jwas_tpu_torch.ops.multitrait import mt_c0l_inner_rounds_ref
+
+    order = ("grams", "xpx", "valid", "alpha", "rhs", "Rinv", "Ginv", "gamma", "zs")
+    for t in (2, 3, 4, 5, 8):
+        for b, nblocks, nreps in ((256, 4, 2), (700, 2, 1), (2048, 1, 1)):
+            for bayesl in (False, True):
+                inp = k9_inputs(t, b, nblocks, nreps, bayesl, 5 + t, cuda, dtype,
+                                n_padding=5)
+                outs = []
+                for _ in range(2):
+                    a = {k: v.clone() for k, v in inp.items()}
+                    n0 = mt_c0l_inner_rounds.launches
+                    mt_c0l_inner_rounds(*(a[k] for k in order), nreps)
+                    assert mt_c0l_inner_rounds.launches == n0 + 1
+                    outs.append(a)
+                r = {k: v.clone() for k, v in inp.items()}
+                mt_c0l_inner_rounds_ref(*(r[k] for k in order), nreps)
+                torch.cuda.synchronize()
+                case = (dtype, t, b, nblocks, bayesl)
+                for k in ("alpha", "rhs"):
+                    assert torch.equal(outs[0][k], outs[1][k]), (case, k)
+                    assert torch.equal(outs[0][k], r[k]), (case, k)
+                assert not outs[0]["alpha"][-1, :, -5:].any(), case
+
+
+def test_mt_rr_blup_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
+    """A short multi-trait RR-BLUP runMCMC on the card (K9, fast_blocks 16,
+    a remainder round) against the same chain with K9's wrapper replaced by
+    its plain version on the card: the same draws, the same results bit for
+    bit."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.ops import inner_rounds as ir
+    from jwas_tpu_torch.ops import multitrait as tmt
+
+    rng = np.random.default_rng(4)
+    n, p = 300, 160
+    X = rng.integers(0, 3, (n, p)).astype(np.float32)
+    beta = rng.normal(size=(p, 2)) * (rng.uniform(size=(p, 1)) < 0.1)
+    y = (X - X.mean(0)) @ beta + rng.normal(size=(n, 2))
+    table = jt.Table({"ID": np.array([f"a{i}" for i in range(n)], dtype=object),
+                      "y1": y[:, 0], "y2": y[:, 1]})
+    outs = {}
+    n0 = ir.mt_c0l_inner_rounds.launches
+    for how in ("kernel", "plain"):
+        if how == "plain":
+            assert ir.mt_c0l_inner_rounds.launches > n0
+            monkeypatch.setattr(ir, "mt_c0l_inner_rounds", tmt.mt_c0l_inner_rounds_ref)
+        geno = jt.get_genotypes(X, method="RR-BLUP", storage="f32", device=cuda)
+        model = jt.build_model("y1 = intercept + geno\ny2 = intercept + geno",
+                               genotypes=geno)
+        outs[how] = jt.runMCMC(model, table, device=cuda, chain_length=40, fast_blocks=16,
+                               nreps=6, sync_every=4, seed=3, output_folder="",
+                               printout_model_info=False)
+    for key, col in (("EBV_y1", "EBV"), ("EBV_y2", "EBV"), ("marker effects geno", "Estimate"),
+                     ("residual variance", "Estimate")):
+        got, want = np.asarray(outs["kernel"][key][col]), np.asarray(outs["plain"][key][col])
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want, err_msg=key)

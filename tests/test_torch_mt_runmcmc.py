@@ -17,8 +17,9 @@ blocked chains run p = 256 (see CHAINS). The result tables' keys and
 columns and the sample files' names and headers equal jwas_tpu's. A model with residual
 weights, an i.i.d. and a pedigree random effect with t x t covariances and
 double_precision runs through both, and one outer iteration of it equals
-jwas_tpu's on jwas_tpu's draws. The refusals of slice 7b's methods
-and options, SEM, and the 2-bit store.
+jwas_tpu's on jwas_tpu's draws. Slice 7b's methods and options run; K9's
+limits (9 traits, blocks above 2,048) are refused at set-up, as are
+several traits on the 2-bit store.
 """
 
 import os
@@ -105,29 +106,51 @@ CHAINS = {
     "missing": (dict(fast_blocks=16, nreps=4), 600, (0.5, 0.3), 256),
     "BayesB": (dict(method="BayesB", fast_blocks=16, nreps=4), 600, (0.5, 0.4), 256),
     "fast_blocks_16": (dict(fast_blocks=16, nreps=4), 1200, (0.5, 0.4), 256),
+    # slice 7b, run by tests/test_torch_mt_c0l.py, test_torch_mt_gblup.py
+    # and test_torch_sem.py: RR-BLUP and BayesL through K9's plain version,
+    # GBLUP's joint draw, SEM's y1 -> y2 beside sampler I
+    "RR-BLUP": (dict(method="RR-BLUP", fast_blocks=16, nreps=4), 600, (0.5, 0.4), 256),
+    "BayesL": (dict(method="BayesL", fast_blocks=16, nreps=4), 600, (0.5, 0.4), 256),
+    "GBLUP": (dict(method="GBLUP"), 300, (0.5, 0.4), 250),
+    "SEM": (dict(causal_structure=[[0.0, 0.0], [1.0, 0.0]], fast_blocks=16, nreps=4), 600,
+            (0.5, 0.4), 256),
 }
 TRACKS = ("residual_variance", "marker_effects_variances_geno")
 
 
-def chain_means(pkg, name, folder, seed=11, p=None):
+def chain_means(pkg, name, folder, seed=11, p=None, outs=None):
     """One chain of CHAINS[name] by pkg (p markers: CHAINS' unless given):
-    its EBV accuracy a trait and the means of its saved R and G samples."""
+    its EBV accuracy a trait and the means of its saved R and G samples;
+    outs, when given, receives its results under pkg's name."""
     kw, chain_length, _, p_default = CHAINS[name]
     p = p or p_default
     sim = _sim(0.3 if name == "missing" else 0.0, p)
     out = _run(pkg, sim, folder, chain_length=chain_length, **dict(kw, seed=seed))
+    if outs is not None:
+        outs[pkg.__name__] = out
     return ([_acc(out, sim, k) for k in range(2)],
             {v: _track(folder, v, 2).mean(axis=0) for v in TRACKS})
 
 
-def check_chain(name, tmp_path):
+def check_chain(name, tmp_path, files=False):
     """CHAINS[name] by both packages: each above the accuracy floors, R and
-    G within the bounds."""
+    G within the bounds; files: the port's result tables have jwas_tpu's
+    keys and columns, its sample files jwas_tpu's names and headers."""
     floors = CHAINS[name][2]
-    res = {}
+    res, outs = {}, {}
     for pkg in (jt, jw):
-        acc, res[pkg.__name__] = chain_means(pkg, name, str(tmp_path / pkg.__name__))
+        acc, res[pkg.__name__] = chain_means(pkg, name, str(tmp_path / pkg.__name__),
+                                             outs=outs)
         assert acc[0] > floors[0] and acc[1] > floors[1], (pkg.__name__, acc)
+    if files:
+        port, ref = outs["jwas_tpu_torch"], outs["jwas_tpu"]
+        keys = sorted(k for k in ref if not k.startswith("_"))
+        assert sorted(k for k in port if not k.startswith("_")) == keys
+        for k in keys:
+            assert list(port[k].columns) == list(ref[k].columns), k
+            assert len(port[k]) == len(ref[k]), k
+        assert _headers(str(tmp_path / "jwas_tpu_torch")) == _headers(
+            str(tmp_path / "jwas_tpu"))
     for var in TRACKS:
         mp, mj = res["jwas_tpu_torch"][var], res["jwas_tpu"][var]
         sd = CALIBRATED_SD[name]
@@ -536,26 +559,34 @@ def test_weights_random_effects_step_matches_jwas_tpu_on_its_draws(method, sampl
 
 
 def test_refusals_of_slice_7b_and_the_2bit_store():
-    """MT RR-BLUP, BayesL and GBLUP, SEM and the MT prior update raise
-    NotImplementedError naming slice 7b; more than one trait on the 2-bit
-    store raises jwas_tpu's ValueError."""
+    """Slice 7b's methods and options run (RR-BLUP, BayesL, GBLUP, SEM, the
+    MT prior update raise nothing); what K9 cannot run is refused at
+    set-up with NotImplementedError: 9 traits and blocks above 2,048
+    markers; more than one trait on the 2-bit store raises jwas_tpu's
+    ValueError, sparse_location=True its single-trait ValueError."""
     sim = simulate_genomic_data_mt(n=60, p=30, n_qtl=5, seed=1)
     eq = "y1 = intercept + geno\ny2 = intercept + geno"
 
-    def run(method="BayesC", storage="f32", **kw):
+    def run(method="BayesC", storage="f32", eq=eq, table=sim["phenotypes"], **kw):
         geno = jt.get_genotypes(sim["genotypes"], method=method, storage=storage,
                                 device="cpu")
-        return jt.runMCMC(jt.build_model(eq, genotypes=geno), sim["phenotypes"],
+        return jt.runMCMC(jt.build_model(eq, genotypes=geno), table,
                           device="cpu", chain_length=10, output_folder="",
                           printout_model_info=False, **kw)
 
     for method in ("RR-BLUP", "BayesL", "GBLUP"):
-        with pytest.raises(NotImplementedError, match="multi-trait, slice 7b"):
-            run(method)
-    with pytest.raises(NotImplementedError, match="multi-trait, slice 7b"):
-        run(causal_structure=np.array([[0.0, 0.0], [1.0, 0.0]]))
-    with pytest.raises(NotImplementedError, match="multi-trait, slice 7b"):
-        run(update_priors_frequency=5)
+        run(method)
+    run(causal_structure=np.array([[0.0, 0.0], [1.0, 0.0]]))
+    run(update_priors_frequency=5)
+    rng = np.random.default_rng(1)
+    table = sim["phenotypes"].copy()
+    for k in range(3, 10):
+        table[f"y{k}"] = rng.normal(size=len(table))
+    with pytest.raises(NotImplementedError, match="9 traits"):
+        run("RR-BLUP", eq="\n".join(f"y{k} = intercept + geno" for k in range(1, 10)),
+            table=table, fast_blocks=8)
+    with pytest.raises(NotImplementedError, match="blocks of 2056 markers"):
+        run("BayesL", fast_blocks=2056)
     with pytest.raises(ValueError, match="single-trait analysis only"):
         run(storage="2bit")
     with pytest.raises(ValueError, match="sparse_location=True supports single-trait"):
@@ -620,6 +651,32 @@ CALIBRATED_SD = {
                  "marker_effects_variances_geno": [[0.0242, 0.0324], [0.0324, 0.0639]]},  # 6 seeds
         "jwas_tpu": {"residual_variance": [[0.1065, 0.0474], [0.0474, 0.1164]],
                  "marker_effects_variances_geno": [[0.023, 0.0467], [0.0467, 0.0979]]},  # 6 seeds
+    },
+    "RR-BLUP": {
+        "jwas_tpu_torch": {"residual_variance": [[0.0929, 0.0788], [0.0788, 0.1653]],
+                 "marker_effects_variances_geno": [[0.0019, 0.0022], [0.0022, 0.0051]]},  # 6 seeds
+        "jwas_tpu": {"residual_variance": [[0.0597, 0.1379], [0.1379, 0.1548]],
+                 "marker_effects_variances_geno": [[0.0027, 0.0037], [0.0037, 0.0041]]},  # 6 seeds
+    },
+    # G to six decimals: its entries are ~0.002
+    "BayesL": {
+        "jwas_tpu_torch": {"residual_variance": [[0.0929, 0.1112], [0.1112, 0.1137]],
+                 "marker_effects_variances_geno": [[7.1e-05, 7.9e-05], [7.9e-05, 0.000109]]},
+        "jwas_tpu": {"residual_variance": [[0.0698, 0.0949], [0.0949, 0.1262]],
+                 "marker_effects_variances_geno": [[8.2e-05, 0.000102],
+                                                   [0.000102, 0.000145]]},
+    },  # 6 seeds each
+    "GBLUP": {
+        "jwas_tpu_torch": {"residual_variance": [[0.1438, 0.1279], [0.1279, 0.1827]],
+                 "marker_effects_variances_geno": [[0.3622, 0.4007], [0.4007, 0.3085]]},  # 6 seeds
+        "jwas_tpu": {"residual_variance": [[0.1478, 0.1576], [0.1576, 0.173]],
+                 "marker_effects_variances_geno": [[0.2735, 0.2405], [0.2405, 0.2815]]},  # 6 seeds
+    },
+    "SEM": {
+        "jwas_tpu_torch": {"residual_variance": [[0.0905, 0.1672], [0.1672, 0.3208]],
+                 "marker_effects_variances_geno": [[0.0466, 0.0414], [0.0414, 0.0969]]},  # 6 seeds
+        "jwas_tpu": {"residual_variance": [[0.092, 0.1004], [0.1004, 0.1788]],
+                 "marker_effects_variances_geno": [[0.0223, 0.0262], [0.0262, 0.067]]},  # 6 seeds
     },
 }
 

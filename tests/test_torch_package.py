@@ -145,17 +145,13 @@ def _refusals(monkeypatch):
     expect(lambda: check_traits(9))
     for name, (default, _) in es._UNPORTED.items():
         value = {"n_chains": 2, "mesh": object(), "checkpoint_frequency": 5,
-                 "resume": True, "single_step_analysis": True,
-                 "causal_structure": np.zeros((2, 2)), "RRM": object(),
+                 "resume": True, "single_step_analysis": True, "RRM": object(),
                  "use_pallas": True}[name]
-        eq = "y1 = intercept + geno" + ("\ny2 = intercept + geno" if name in (
-            "causal_structure",) else "")
         extra = {"pedigree": object()} if name == "single_step_analysis" else {}
-        expect(lambda: run(eq, **{name: value}, **extra))
+        expect(lambda: run("y1 = intercept + geno", **{name: value}, **extra))
     expect(lambda: run("y1 = intercept + geno", sparse_location=True))
-    expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", method="RR-BLUP"))
-    expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno",
-                       update_priors_frequency=2))
+    expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", method="RR-BLUP",
+                       fast_blocks=4096))
     expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", fast_blocks=4096))
     monkeypatch.setattr(location, "pass_limit", lambda device, dtype=None: 40)
     expect(lambda: run("y1 = intercept + x\ny2 = intercept + x"))
