@@ -880,11 +880,15 @@ def mt_bounds(inp, nreps):
 # quadratic form (3) and score (4), the argmax tree's 3 compare-and-selects
 # (6), the chosen factor's load from shared memory, C z (3), g + C z, the
 # pattern mask, valid, d and its test (5), the axpy (2): 36, one load, a
-# ballot and a shuffle. Hopper's latencies in cycles, float32 / float64: an
+# ballot and a shuffle. K9 ("c0l", csrc/mt_c0l_rounds.cu): the owner's rhs
+# takes the last d (2), the affine map's t products and t - 1 sums of a
+# trait and + c (4), d = a_old - a_new (1): 7, and d's shuffle to the next
+# lane. Hopper's latencies in cycles, float32 / float64: an
 # add, product, compare or select 4 / 8; ex2 (MUFU, float32 in both) 20; a
 # shared-memory load 30; a shuffle or ballot 30.
 MT_STEP_OPS = {"I": dict(arith=52, mufu=3, lds=0, warp=2),
-               "II": dict(arith=36, mufu=0, lds=1, warp=2)}
+               "II": dict(arith=36, mufu=0, lds=1, warp=2),
+               "c0l": dict(arith=7, mufu=0, lds=0, warp=1)}
 MT_LATENCY = {torch.float32: dict(arith=4, mufu=20, lds=30, warp=30),
               torch.float64: dict(arith=8, mufu=20, lds=30, warp=30)}
 
@@ -899,7 +903,8 @@ def sm_clock_mhz() -> float:
 
 def mt_step_floor_ns(sampler, dtype, clock_mhz):
     """The latency of one changing step's dependent operations at t = 3
-    (MT_STEP_OPS x MT_LATENCY) at the SM clock, in ns."""
+    (MT_STEP_OPS x MT_LATENCY; sampler "I", "II" or "c0l" for K9) at the SM
+    clock, in ns."""
     lat = MT_LATENCY[dtype]
     cycles = sum(n * lat[op] for op, n in MT_STEP_OPS[sampler].items())
     return cycles / clock_mhz * 1e3
@@ -995,10 +1000,12 @@ def mt_registers(log):
         if m and name:
             k = re.search(r"(mt_chain|consts_II|consts_I)I([fd])Li(\d)E(?:Lb([01])ELi(\d+)E)?",
                           name)
-            c = re.search(r"c0l_chainI([fd])Li(\d)ELi(\d+)E", name)
+            c = re.search(r"c0l_(?:chainI([fd])Li(\d)ELi(\d+)E|constsI([fd])Li(\d)E)", name)
             if c:
-                rows.append(("K9", {"f": "float32", "d": "float64"}[c.group(1)],
-                             int(c.group(2)), int(c.group(3)), int(m.group(1))) + spills)
+                chain = c.group(1) is not None
+                dt, t = (c.group(1), c.group(2)) if chain else (c.group(4), c.group(5))
+                rows.append(("K9", {"f": "float32", "d": "float64"}[dt], int(t),
+                             int(c.group(3)) if chain else None, int(m.group(1))) + spills)
             elif k:
                 kernel = ("K8" if k.group(4) == "1" or k.group(1) == "consts_II" else "K7")
                 rows.append((kernel, {"f": "float32", "d": "float64"}[k.group(2)],
@@ -1113,9 +1120,9 @@ def check_k9(t, b, nblocks, nreps, dev, bayesl=False, time_it=False,
     alpha and rhs equal bit for bit, a second launch equal bit for bit,
     padding markers at 0. time_it: the kernel's device ms (CUDA events),
     the plain version's ms (host clock around the synchronised call), ns a
-    dependent step, the byte bound and the library yardstick's ms
-    (k9_triangular, held against the plain version to K6_RTOL of the
-    largest effect)."""
+    dependent step, the byte bound, the step floor at t = 3
+    (mt_step_floor_ns "c0l") and the library yardstick's ms (k9_triangular,
+    held against the plain version to K6_RTOL of the largest effect)."""
     from jwas_tpu_torch.ops.inner_rounds import mt_c0l_inner_rounds
     from jwas_tpu_torch.ops.multitrait import mt_c0l_inner_rounds_ref
 
@@ -1153,6 +1160,9 @@ def check_k9(t, b, nblocks, nreps, dev, bayesl=False, time_it=False,
         ms = cuda_ms(lambda: mt_c0l_inner_rounds(*(k_in[k] for k in order), nreps), 5)
         rec = dict(max_abs_err=0.0, **k9_bounds(inp, nreps))
         label += chain_line(rec, ms, plain, None, nreps * b)
+        # modelled, not measured: on this line only, not in the kernels line
+        label += (f"; step floor at t = 3 "
+                  f"{mt_step_floor_ns('c0l', dtype, sm_clock_mhz()):.1f} ns")
         if not n_padding:
             solve = k9_triangular(inp, nreps)
             lib_err = (solve() - r["alpha"]).abs().max().item()
@@ -1176,7 +1186,7 @@ def phase2_k9(dev):
     timed with the yardstick; then bit for bit at t = 2 (a single block,
     the exact form's chunk), 4, 5 and 8, a ragged b = 136 with a short last
     group's padding, b = 300, 700 and 2,048 (two, four and eight markers a
-    thread)."""
+    thread) and b = 264 (a warp owning two runs in a row)."""
     recs = {}
     for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
         rec = check_k9(3, 256, 23, 8, dev, time_it=True, dtype=dtype, n_padding=0)
@@ -1192,6 +1202,9 @@ def phase2_k9(dev):
         check_k9(2, 300, 2, 2, dev, dtype=dtype, n_padding=5)
         check_k9(3, 700, 1, 1, dev, bayesl=True, dtype=dtype, n_padding=9)
         check_k9(3, 2048, 1, 1, dev, dtype=dtype)
+        # nine runs a rep over eight warps: warp 0 owns the last run of a
+        # rep and the first of the next
+        check_k9(2, 264, 1, 2, dev, bayesl=True, dtype=dtype, n_padding=5)
     return recs
 
 

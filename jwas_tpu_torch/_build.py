@@ -40,9 +40,9 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Sources whose kernels nvcc optimises in parallel, on every core: K7 /
 # K8's 140 instantiations build in about 2 minutes so, and in more than 15
-# on one thread. Not the others: it changes their code (K4 spills with it
-# and takes twice the time).
-_SPLIT = {"mt_inner_rounds": ["-split-compile=0"]}
+# on one thread; K9's 70 in 47 s (144 s on one thread). Not the others: it
+# changes their code (K4 spills with it and takes twice the time).
+_SPLIT = {"mt_inner_rounds": ["-split-compile=0"], "mt_c0l_rounds": ["-split-compile=0"]}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

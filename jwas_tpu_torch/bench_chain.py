@@ -1,5 +1,6 @@
 """Time the inner-chain kernels K1 (abc_inner_rounds) and K3
-(bayesr_inner_rounds) at the main path's shape on one GPU, beside what a
+(bayesr_inner_rounds) at the main path's shape on one GPU, and K9
+(mt_c0l_inner_rounds) at chip_smoke.py phase 11a's round, beside what a
 dependent step must cost there.
 
     python3 -m jwas_tpu_torch.bench_chain [--b 128] [--nblocks 128] [--reps 8]
@@ -23,7 +24,11 @@ chip_smoke.py. It prints
      the roofline bound of chip_smoke.chain_bounds; each result is first
      held against the plain version;
   3. the host's time for one call of each wrapper (argument checks,
-     pointers, launch), with the device kept busy so that no call waits.
+     pointers, launch), with the device kept busy so that no call waits;
+  4. K9 at phase 11a's round (t = 3, b = 256, 8 reps) over 23 blocks and
+     over one (a single CTA: the step without other CTAs beside it), in
+     float32 and float64: ms a launch, ns a step, each result first held
+     against the plain version bit for bit. Its probes (f)-(l) are in 1.
 
 Imports torch, the port and chip_smoke.py; never jax.
 """
@@ -42,7 +47,15 @@ PROBES = {
     5: "(d) K3: (b) + (c)",
     6: "(e) K1: a whole changing step of the kernel",
     7: "(e) K3: a whole changing step of the kernel",
+    8: "(f) K9 first design's serial step: 256 threads, barrier, global loads, divisions",
+    9: "(g) K9 first design's step arithmetic on registers",
+    10: "(h) barrier of 256 threads + shared-memory round trip",
+    11: "(i) K9 affine-map step arithmetic on registers",
+    12: "(j) hand-off by a tagged word in shared memory, two warps",
+    13: "(k) K9 affine-map step: (i) + shuffle",
+    14: "(l) K9 affine-map step as the kernel runs it in a run",
 }
+K9_PROBES = range(8, 15)
 PROBE_STEPS = 1024 * 64
 
 
@@ -88,6 +101,41 @@ def host_us(fn, calls=100, batches=5):
     return statistics.median(times)
 
 
+def k9_cases(dev, t=3, b=256, reps=8):
+    """K9 at phase 11a's round over 23 blocks and over one, float32 and
+    float64 (RR-BLUP inputs of chip_smoke.k9_inputs, no padding): held
+    against the plain version bit for bit, then ms a launch (CUDA events
+    over 20 launches) and ns a step."""
+    import torch
+
+    import chip_smoke as cs
+    from jwas_tpu_torch.ops import inner_rounds as ir
+    from jwas_tpu_torch.ops import multitrait as mt
+
+    order = ("grams", "xpx", "valid", "alpha", "rhs", "Rinv", "Ginv", "gamma", "zs")
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for nblocks in (23, 1):
+            inp = cs.k9_inputs(t, b, nblocks, reps, False, 34, dev, dtype, n_padding=0)
+            got = {k: v.clone() for k, v in inp.items()}
+            want = {k: v.clone() for k, v in inp.items()}
+            ir.mt_c0l_inner_rounds(*(got[k] for k in order), reps)
+            mt.mt_c0l_inner_rounds_ref(*(want[k] for k in order), reps)
+            exact = all(torch.equal(got[k], want[k]) for k in ("alpha", "rhs"))
+            if not exact:
+                raise AssertionError(f"K9 {dtype} nblocks={nblocks}: not the plain "
+                                     "version's bits")
+            a = {k: v.clone() for k, v in inp.items()}
+            ms = cs.cuda_ms(lambda: ir.mt_c0l_inner_rounds(*(a[k] for k in order), reps), 20)
+            name = f"K9 {str(dtype).replace('torch.', '')} t={t} b={b} reps={reps} nblocks={nblocks}"
+            out[name] = dict(ms=ms, step_ns=ms * 1e6 / (reps * b), equals_plain_bit_for_bit=exact,
+                             **cs.k9_bounds(inp, reps))
+            print(f"{name}: {ms:.4f} ms a launch, {ms * 1e6 / (reps * b):.1f} ns a step "
+                  f"(bit for bit the plain version); bound {out[name]['bound_ms']:.4f} ms",
+                  flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--b", type=int, default=128)
@@ -119,6 +167,7 @@ def main():
     for which, what in PROBES.items():
         probes[what] = probe_ns(lib, which, dev)
         print(f"probe {what}: {probes[what]:.1f} ns a step", flush=True)
+    out = k9_cases(dev)
 
     k1 = ("alpha", "beta", "delta", "rhs")
     k3 = ("alpha", "delta", "rhs")
@@ -136,7 +185,6 @@ def main():
             ir.bayesr_inner_rounds_window_ref, k3,
             cs.k3_inputs(n, b, nblocks, reps, 9, dev, from_zero=True)),
     }
-    out = {}
     for name, (kernel, plain, window_ref, outs, inp) in cases.items():
         fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
         got, want = fresh(), fresh()

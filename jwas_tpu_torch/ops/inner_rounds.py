@@ -31,9 +31,11 @@ ops/multitrait.py; their layouts are (gb, t, b) for the state and rhs and
 with d a vector of t values a marker; mt_abc_inner_rounds_window_ref
 models it. The multi-trait RR-BLUP / BayesL chain (K9 of
 csrc/mt_c0l_rounds.cu, counterpart of the lax.scan of
-jwas_tpu/ops/multitrait.py:467) is a serial chain, one barrier a step, in
-the same layouts; its plain version is ops/multitrait.py::
-mt_c0l_inner_rounds_ref.
+jwas_tpu/ops/multitrait.py:467) is serial (every step changes an effect):
+its step is a per-marker affine map, runs of 32 markers a warp hand d on
+by shuffle and through a ring of tagged slots, in the same layouts; its
+plain version is ops/multitrait.py::mt_c0l_inner_rounds_ref and
+mt_c0l_inner_rounds_window_ref models its schedule.
 
 Layouts are block-major, unlike the JAX package's j-major ones:
 grams (nblocks, b, b) with grams[k, j] = row j of block k's Gram;
@@ -480,3 +482,191 @@ def mt_abc_inner_rounds_window_ref(sampler: str, grams, xpx, valid, alpha, beta,
 
     _window_schedule(grams, rhs, nreps, window, evaluate, commit, stats)
     return alpha, beta, delta, rhs
+
+
+# ------------------------------------------- K9's run schedule, plain
+
+C0L_RING = 128     # slots of K9's ring of the steps' d (csrc/mt_c0l_rounds.cu: kRing)
+
+
+def mt_c0l_layout(b: int):
+    """K9's threads a CTA and markers a thread (rows) for blocks of b
+    markers: one thread a marker up to 256, then 2, 4 or 8 (b <= 2,048)."""
+    threads = min(-(-b // 32) * 32, 256)
+    rows = 1
+    while rows * threads < b:
+        rows *= 2
+    return threads, rows
+
+
+def mt_c0l_inner_rounds_window_ref(grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma,
+                                   zs, nreps: int, nbuf=None, ring: int = C0L_RING,
+                                   seed: int = 0, stats=None):
+    """ops/multitrait.py::mt_c0l_inner_rounds_ref on K9's schedule
+    (csrc/mt_c0l_rounds.cu): same arguments, same in-place contract, the
+    same result bit for bit.
+
+    Thread i of a CTA owns markers i, i + T, ... (mt_c0l_layout), their
+    rhs values its own. A run is 32 consecutive markers of a rep (the last
+    one of a rep may be shorter), owned by one warp: lane l steps marker
+    j0 + l on its own registers, the warp shuffles its d to every lane and
+    each adds d G[j][i] to its rhs of that row at once; the warp then
+    publishes d in a ring of `ring` slots. The warp's inputs for the run
+    (P, c = Q a_old + S z, a_old, Gram blocks) are staged in one of nbuf
+    buffers (2 to a buffer a warp; run u in buffer u mod nbuf) once the
+    run u - nbuf is over. Every other warp adds the ring's d's to its rhs
+    values lazily, strictly in ascending steps, as they come: the owner of
+    the next run, its run set up first, on that run's row alone (its other
+    rows after its own run); the rest on all their rows. A warp publishes
+    how many steps all its rows have taken, and a run starts only when
+    every warp has taken the steps whose slots it will overwrite.
+
+    The warps are generators, interleaved in a random order from `seed`,
+    each at a random speed: the result must not depend on it. It raises if
+    a warp reads a slot that was overwritten, stages over a buffer in use,
+    or all of them wait (a deadlock). stats, when given, receives the
+    counts of runs, waits and back-pressure stalls."""
+    import random
+
+    gb, t, b = alpha.shape
+    P, Q, S = mt.mt_c0l_constants(xpx, Rinv, Ginv, gamma, valid)
+    nt, R = mt_c0l_layout(b)
+    nwarps = nt // 32
+    nruns = -(-b // 32)
+    total = nreps * nruns
+    most = max(nwarps, 2)
+    nbuf = most if nbuf is None else nbuf
+    if not 2 <= nbuf <= most or ring < 96:
+        raise ValueError(f"nbuf {nbuf} (2..{most}), ring {ring} (>= 96)")
+    slots = {}                 # slot -> (step, d (gb, t))
+    done = [0] * nwarps        # steps every row of a warp has taken
+    published = [0]            # steps whose d is out
+    count = dict(runs=0, waits=0, stalls=0)
+    buffers = {}               # buffer -> staged run
+
+    def run_of(v):
+        rep, rho = divmod(v, nruns)
+        j0 = 32 * rho
+        return rep * b + j0, j0, min(32, b - j0), rho % nwarps, rho // nwarps
+
+    def owned(w, r):
+        idx = w * 32 + r * nt + torch.arange(32, device=grams.device)
+        return idx[idx < b]
+
+    def apply(w, r, s, d):
+        idx = owned(w, r)
+        if len(idx):
+            rhs[:, :, idx] += d[:, :, None] * grams[:, s % b, idx][:, None, :]
+
+    def read(s):
+        while True:
+            got = slots.get(s % ring)
+            if got is not None and got[0] == s:
+                return got[1]
+            if got is not None and got[0] > s:
+                raise AssertionError(f"the slot of step {s} was overwritten")
+            count["waits"] += 1
+            yield
+
+    def have(s):
+        got = slots[s % ring]
+        if got[0] != s:
+            raise AssertionError(f"the slot of step {s} holds step {got[0]}")
+        return got[1]
+
+    def stage(u):
+        s0, j0, n, _, _ = run_of(u)
+        if u >= nbuf and published[0] < sum(run_of(u - nbuf)[:3:2]):
+            raise AssertionError(f"run {u} staged over run {u - nbuf}, still running")
+        idx = slice(j0, j0 + n)
+        a_old = alpha[:, :, idx].transpose(1, 2).reshape(gb * n, t)
+        z = zs[s0:s0 + n].permute(2, 0, 1).reshape(gb * n, t)
+        c = mt.mt_c0l_offset(Q[:, idx].reshape(-1, t, t), S[:, idx].reshape(-1, t, t),
+                             a_old, z)
+        buffers[u % nbuf] = dict(run=u, c=c.view(gb, n, t), a_old=a_old.view(gb, n, t))
+
+    def warp(w):
+        own = [u for u in range(total) if run_of(u)[3] == w]
+        k, applied, staged = 0, 0, set()
+
+        def prefetch(last):
+            if k < len(own) and own[k] not in staged and own[k] - nbuf <= last:
+                stage(own[k])
+                staged.add(own[k])
+
+        prefetch(-1)
+        for v in range(total):
+            s0, j0, n, wv, r = run_of(v)
+            nxt = own[k] if k < len(own) else None
+            if wv == w:
+                if v not in staged:
+                    stage(v)
+                    staged.add(v)
+                while min(done) < s0 + n - ring:
+                    count["stalls"] += 1
+                    yield
+                for l in range(n):
+                    st = buffers[v % nbuf]
+                    if st["run"] != v:
+                        raise AssertionError(f"run {v}'s buffer was staged over")
+                    i = j0 + l
+                    a_new = mt.mt_c0l_map(P[:, i], rhs[:, :, i], st["c"][:, l])
+                    d = st["a_old"][:, l] - a_new
+                    alpha[:, :, i] = a_new
+                    old = slots.get((s0 + l) % ring)
+                    if old is not None and min(done) <= old[0]:
+                        raise AssertionError(f"step {s0 + l} overwrote step {old[0]}, "
+                                             "still unread")
+                    slots[(s0 + l) % ring] = (s0 + l, d)
+                    published[0] = s0 + l + 1
+                    apply(w, r, s0 + l, d)
+                    yield
+                for r2 in range(R):
+                    if r2 != r:
+                        for s in range(applied, s0 + n):
+                            apply(w, r2, s, have(s))
+                applied = done[w] = s0 + n
+                count["runs"] += 1
+                k += 1
+            elif nxt == v + 1:
+                # the next run is set up before this one ends
+                if nxt not in staged:
+                    stage(nxt)
+                    staged.add(nxt)
+                s0n, _, nn, _, r_next = run_of(nxt)
+                while min(done) < s0n + nn - ring:
+                    count["stalls"] += 1
+                    yield
+                for l in range(n):
+                    d = yield from read(s0 + l)
+                    apply(w, r_next, s0 + l, d)
+                if R == 1:
+                    applied = done[w] = s0 + n
+            else:
+                for r2 in range(R):
+                    for l in range(n):
+                        d = yield from read(s0 + l)
+                        apply(w, r2, s0 + l, d)
+                applied = done[w] = s0 + n
+            prefetch(v)
+        if applied != nreps * b:
+            raise AssertionError(f"warp {w} took {applied} of {nreps * b} steps")
+
+    rng = random.Random(seed)
+    live = [warp(w) for w in range(nwarps)]
+    # uneven speeds: some warps run far more often than others
+    speed = {id(g): rng.random() ** 4 + 1e-3 for g in live}
+    idle = 0
+    while live:
+        g = rng.choices(live, [speed[id(x)] for x in live])[0]
+        before = (published[0], sum(done))
+        try:
+            next(g)
+        except StopIteration:
+            live.remove(g)
+        idle = 0 if (published[0], sum(done)) != before else idle + 1
+        if idle > 1000 * nwarps + 10_000:
+            raise AssertionError("K9's schedule deadlocked: every warp waits")
+    if stats is not None:
+        stats.update(count)
+    return alpha, rhs

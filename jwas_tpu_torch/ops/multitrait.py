@@ -18,8 +18,10 @@ models it and equals mt_abc_inner_rounds_ref bit for bit.
 
 RR-BLUP / BayesL: _mt_c0l_marker_update (:414) as mt_c0l_marker_update_ref,
 the chain of mt_c0l_blocks (:436, its scan :467) as
-mt_c0l_inner_rounds_ref, the plain version of K9 (csrc/mt_c0l_rounds.cu,
-a serial chain: every slab draw changes an effect), and the grouped sweep
+mt_c0l_inner_rounds_ref, the plain version of K9 (csrc/mt_c0l_rounds.cu:
+every slab draw changes an effect, so the chain is serial; the trait loop
+runs as a per-marker affine map, mt_c0l_constants, whose constants do not
+depend on the chain), and the grouped sweep
 sweep_blocks_mt_c0l_grouped; the exact form mt_c0l_exact (:478) is that
 sweep over a store of one block a group with nreps = 1. GBLUP: mt_gblup
 (:508), batched t x t algebra over the pseudo-markers, no chain.
@@ -331,39 +333,84 @@ def sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, R, ginv, pi,
 # ------------------------------------------------------ RR-BLUP / BayesL
 
 
-def mt_c0l_constants(xpx, Rinv, Ginv, gamma):
-    """A marker's constants of the RR-BLUP / BayesL update, as K9's
-    prologue computes them: Lhs = xpx Rinv + Ginv / gamma (..., t, t) and
-    sqrt(1 / Lhs_kk) (..., t), for xpx and gamma of shape (...)."""
-    lhs = xpx[..., None, None] * Rinv + Ginv / gamma[..., None, None]
+def mt_c0l_constants(xpx, Rinv, Ginv, gamma, valid):
+    """A marker's constants of the RR-BLUP / BayesL update as an affine map,
+    as K9's prologue computes them, for xpx, gamma and valid of shape (...).
+
+    With Lhs = xpx Rinv + Ginv / gamma = D + L + U (its diagonal, strictly
+    lower and strictly upper parts) and T = D + L, the reference's trait
+    loop (for k in order: a[k] = (Rhs_k - sum_m Lhs[k, m] a[m]) / Lhs_kk +
+    a[k] + z_k sqrt(1 / Lhs_kk), Rhs = Rinv (rhs + xpx a_old)) is exactly
+    T a_new = Rinv rhs + (xpx Rinv - U) a_old + e o z with e_k = Lhs_kk
+    sqrt(1 / Lhs_kk). Returns (P, Q, S), each (..., t, t): P = T^-1 Rinv,
+    Q = T^-1 (xpx Rinv - U) (above the diagonal -Ginv / gamma), S = T^-1
+    diag(e), each by forward substitution (row k: the right-hand side,
+    minus Lhs[k, q] X[q] for q < k in order, over Lhs_kk) and multiplied by
+    valid, so that a padding marker's effect is 0. Then a_new = P rhs + c
+    with c = Q a_old + S z (mt_c0l_marker_update_ref)."""
+    t = Rinv.shape[0]
+    x_rinv = xpx[..., None, None] * Rinv
+    g_gam = Ginv / gamma[..., None, None]
+    lhs = x_rinv + g_gam
     one = torch.ones((), dtype=lhs.dtype, device=lhs.device)
-    return lhs, torch.sqrt(torch.div(one, torch.diagonal(lhs, dim1=-2, dim2=-1)))
+    diag = torch.diagonal(lhs, dim1=-2, dim2=-1)
+    e = diag * torch.sqrt(torch.div(one, diag))
+    upper = torch.ones(t, t, dtype=torch.bool, device=lhs.device).triu(1)
+
+    def solve(B):                       # T X = B, row by row
+        X = []
+        for k in range(t):
+            acc = B[..., k, :]
+            for q in range(k):
+                acc = acc - lhs[..., k, q, None] * X[q]
+            X.append(acc / diag[..., k, None])
+        return torch.stack(X, -2)
+
+    v = valid[..., None, None]
+    P = solve(Rinv.expand(lhs.shape))
+    Q = solve(torch.where(upper, -g_gam, x_rinv))
+    S = solve(torch.diag_embed(e))
+    return P * v, Q * v, S * v
 
 
-def mt_c0l_marker_update_ref(w, alpha, Rinv, lhs, sq, z):
+def mt_c0l_offset(Q, S, alpha, z):
+    """c = Q a_old + S z for one marker of each of B blocks: Q, S (B, t, t),
+    alpha and z (B, t); c_k = (sum_m Q[k, m] a[m]) + (sum_m S[k, m] z[m]),
+    each sum in ascending m. Returns (B, t)."""
+    t = alpha.shape[1]
+    out = []
+    for k in range(t):
+        qa = Q[:, k, 0] * alpha[:, 0]
+        sz = S[:, k, 0] * z[:, 0]
+        for m in range(1, t):
+            qa = qa + Q[:, k, m] * alpha[:, m]
+            sz = sz + S[:, k, m] * z[:, m]
+        out.append(qa + sz)
+    return torch.stack(out, 1)
+
+
+def mt_c0l_marker_update_ref(rhs, alpha, P, Q, S, z):
     """The multi-trait RR-BLUP / BayesL update of one marker of each of B
-    blocks (_mt_c0l_marker_update, MTBayesC0L.jl:31-50), in its order of
-    operations: Rhs = Rinv w; for k in order, r = Rhs_k - sum_m Lhs[k, m]
-    a[m] (ascending m), a[k] = (r / Lhs_kk + a[k]) + z_k sqrt(1 / Lhs_kk).
+    blocks (_mt_c0l_marker_update, MTBayesC0L.jl:31-50, with w = rhs + xpx
+    a_old) as the affine map of mt_c0l_constants: a_new_k = (sum_m P[k, m]
+    rhs[m], ascending m) + c_k, c = mt_c0l_offset(Q, S, alpha, z).
 
-    w, alpha, z: (B, t); Rinv (t, t); lhs (B, t, t) and sq (B, t) from
-    mt_c0l_constants. Returns the new alpha, (B, t)."""
-    t = w.shape[1]
-    wl = w.unbind(1)
-    Rhs = []
+    rhs, alpha, z: (B, t); P, Q, S (B, t, t). Returns the new alpha, (B, t)
+    (0 where the constants carry valid 0)."""
+    return mt_c0l_map(P, rhs, mt_c0l_offset(Q, S, alpha, z))
+
+
+def mt_c0l_map(P, rhs, c):
+    """The chain's part of a step: a_new_k = (sum_m P[k, m] rhs[m],
+    ascending m) + c_k; P (B, t, t), rhs and c (B, t)."""
+    t = rhs.shape[1]
+    out = []
     for k in range(t):
-        acc = Rinv[k, 0] * wl[0]
+        acc = P[:, k, 0] * rhs[:, 0]
         for m in range(1, t):
-            acc = acc + Rinv[k, m] * wl[m]
-        Rhs.append(acc)
-    a = list(alpha.unbind(1))
-    for k in range(t):
-        acc = lhs[:, k, 0] * a[0]
-        for m in range(1, t):
-            acc = acc + lhs[:, k, m] * a[m]
-        mu = (Rhs[k] - acc) / lhs[:, k, k] + a[k]
-        a[k] = mu + z[:, k] * sq[:, k]
-    return torch.stack(a, 1)
+            acc = acc + P[:, k, m] * rhs[:, m]
+        out.append(acc + c[:, k])
+    return torch.stack(out, 1)
 
 
 def mt_c0l_inner_rounds_ref(grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma, zs,
@@ -374,17 +421,16 @@ def mt_c0l_inner_rounds_ref(grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma, zs
 
     grams (gb, b, b); xpx, valid, gamma (gb, b) (gamma ones for RR-BLUP);
     alpha, rhs (gb, t, b), updated in place and returned; Rinv, Ginv
-    (t, t); zs (nreps b, t, gb). Step j: w = rhs_j + xpx_j a_old, the
-    marker update, alpha masked by valid, then rhs += (a_old - a_new) times
-    Gram row j."""
+    (t, t); zs (nreps b, t, gb). Step j: the affine map of
+    mt_c0l_marker_update_ref on rhs_j (valid folded into its constants),
+    then rhs += (a_old - a_new) times Gram row j."""
     b = grams.shape[1]
-    lhs, sq = mt_c0l_constants(xpx, Rinv, Ginv, gamma)        # (gb, b, t, t), (gb, b, t)
+    P, Q, S = mt_c0l_constants(xpx, Rinv, Ginv, gamma, valid)    # (gb, b, t, t) each
     for s in range(nreps * b):
         j = s % b
         a_old = alpha[:, :, j].clone()
-        w = rhs[:, :, j] + xpx[:, j, None] * a_old
-        a_new = mt_c0l_marker_update_ref(w, a_old, Rinv, lhs[:, j], sq[:, j], zs[s].T)
-        a_new = a_new * valid[:, j, None]
+        a_new = mt_c0l_marker_update_ref(rhs[:, :, j], a_old, P[:, j], Q[:, j], S[:, j],
+                                         zs[s].T)
         alpha[:, :, j] = a_new
         rhs.add_((a_old - a_new)[:, :, None] * grams[:, j, None, :])
     return alpha, rhs
@@ -503,9 +549,10 @@ def scratch_values(sampler: str, t: int, b: int, nblocks: int) -> int:
     blocks of b markers: K7 and K8 (csrc/mt_inner_rounds.cu) nblocks x
     ceil(b / 32) windows of 32 markers, E values a marker: t (8 + 3 (t - 1))
     for sampler I, 2^t (t (t + 1) + 1) for sampler II; K9 ("C0L",
-    csrc/mt_c0l_rounds.cu) t t + t a marker (its Lhs and sqrt(1 / Lhs_kk))."""
+    csrc/mt_c0l_rounds.cu) 3 t t a marker (its affine map's P, Q and S,
+    mt_c0l_constants)."""
     if sampler == "C0L":
-        return nblocks * b * (t * t + t)
+        return nblocks * b * 3 * t * t
     e = t * (8 + 3 * (t - 1)) if sampler == "I" else (1 << t) * (t * (t + 1) + 1)
     return nblocks * -(-b // 32) * 32 * e
 

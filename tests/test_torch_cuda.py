@@ -817,8 +817,9 @@ def test_mt_c0l_kernel_matches_plain(cuda, dtype):
     (ops/multitrait.py::mt_c0l_inner_rounds_ref) on the card: alpha and rhs
     equal bit for bit (the kernel rounds as the plain version does and adds
     the rhs changes in the sequential chain's order) at t = 2, 3, 4, 5 and
-    8, b = 256 (one marker a thread), 700 (four) and 2,048 (eight),
-    RR-BLUP (gamma 1) and BayesL (a random gamma a marker), with padding
+    8, b = 256 (one marker a thread), 264 (two; nine runs of 32 over eight
+    warps, so that one warp owns two runs in a row), 700 (four) and 2,048
+    (eight), RR-BLUP (gamma 1) and BayesL (a random gamma a marker), with padding
     markers (valid 0, zero Gram rows) that stay at 0; a second launch gives
     the same bits."""
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -828,7 +829,7 @@ def test_mt_c0l_kernel_matches_plain(cuda, dtype):
 
     order = ("grams", "xpx", "valid", "alpha", "rhs", "Rinv", "Ginv", "gamma", "zs")
     for t in (2, 3, 4, 5, 8):
-        for b, nblocks, nreps in ((256, 4, 2), (700, 2, 1), (2048, 1, 1)):
+        for b, nblocks, nreps in ((256, 4, 2), (264, 1, 2), (700, 2, 1), (2048, 1, 1)):
             for bayesl in (False, True):
                 inp = k9_inputs(t, b, nblocks, nreps, bayesl, 5 + t, cuda, dtype,
                                 n_padding=5)

@@ -88,8 +88,10 @@ def test_marker_update_matches_jax(t, bayesl):
     want = jmt._mt_c0l_marker_update(
         jnp.asarray(w), jnp.asarray(a), jnp.asarray(xpx), jnp.asarray(Rinv),
         jnp.asarray(Ginv[:, :, None] / gamma[None, None, :]), jnp.asarray(z))
-    lhs, sq = tmt.mt_c0l_constants(_t(xpx), _t(Rinv), _t(Ginv), _t(gamma))
-    got = tmt.mt_c0l_marker_update_ref(_t(w.T), _t(a.T), _t(Rinv), lhs, sq, _t(z.T))
+    P, Q, S = tmt.mt_c0l_constants(_t(xpx), _t(Rinv), _t(Ginv), _t(gamma),
+                                   torch.ones(B, dtype=torch.float32))
+    rhs = _t(w.T) - _t(xpx)[:, None] * _t(a.T)
+    got = tmt.mt_c0l_marker_update_ref(rhs, _t(a.T), P, Q, S, _t(z.T))
     np.testing.assert_allclose(got.numpy().T, np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
