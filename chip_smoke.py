@@ -41,8 +41,12 @@ Phases, each printed as it ends:
      ragged b with a short last group's padding, b = 300 and 1,040 (two
      and eight markers a thread): alpha, beta, delta and rhs bit for bit
      the sequential plain version, a second launch bit for bit, padding
-     at 0; the registers and spills of every K7 / K8 / K9 instantiation
-     (phase 1); K9, the multi-trait RR-BLUP / BayesL chain, at phase 11a's
+     at 0; K7 and K8 with a per-marker pattern prior (one (2^t,) row a
+     marker, csrc/mt_inner_rounds_pm.cu) at t = 2 and 3, b = 40, 256, 300
+     and 2,048 (padding at 0 and not), both builds, bit for bit, rows
+     equal to a global prior giving the global form's bits, and timed
+     beside the global form at t = 2 and 3 at phase 10a's round; the
+     registers and spills of every K7 / K8 / K9 instantiation (phase 1); K9, the multi-trait RR-BLUP / BayesL chain, at phase 11a's
      round (t = 3, b = 256 over 23 blocks, 8 reps) for RR-BLUP and BayesL
      in float32 and float64, timed, with ns a dependent step, its byte
      bound and its library yardstick (the Gibbs pass as a batched
@@ -78,8 +82,9 @@ Phases, each printed as it ends:
      and with half of the groups on the card, each of the two twice, in the
      order streamed, hybrid, hybrid, streamed: the chains equal bit for bit;
      seconds per outer iteration, the copies' GB/s and, from a profiled
-     chain, the device's busy share and the share of the copies' device
-     time during which a kernel ran;
+     chain of the first streamed and the first hybrid run, the device's
+     busy share and the share of the copies' device time during which a
+     kernel ran;
   7. dense genotypes at full width, N = 50,000 x P = 100,000 (the JWAS
      calibration row of BASELINE.md): Binomial(2, f) scores generated on
      the device as int8, phase 5's design (45,000 phenotyped in shuffled
@@ -167,7 +172,26 @@ Phases, each printed as it ends:
      relationship matrix, the eigh and ms an iteration. (e) Multi-trait
      BayesL at n = 2,000 x p = 2,000, 500 sweeps at fast_blocks = 8 on the
      card and on the CPU, the card's accuracy within 0.05 of the CPU's on
-     each trait; then 64 sweeps of K9's float64 build.
+     each trait; then 64 sweeps of K9's float64 build;
+ 12. latent traits and annotations on phase 10's store and genetic values
+     (45,000 phenotyped, herd and age, 5,000 candidates, h2 0.5, three
+     windows of 256 sweeps at fast_blocks = True): (a) single-trait binary
+     BayesC, prevalence 0.2; (b) a 4-category trait (cut at the 0.3, 0.6,
+     0.85 quantiles of the liability), then a censored one (the top 40%
+     right-censored); (c) annotated BayesC and BayesR with 4 annotations,
+     the first marking 20% of the markers, every QTL among them; (d)
+     2-trait annotated BayesC (h2 0.5 / 0.4, 10% missing) with sampler I
+     then II, K7 and K8 with a per-marker prior; (e) 3 traits, continuous,
+     binary and 4-category, sampler I, R's binary entry by Korsgaard's
+     draw. Each: seconds a window, peak memory, launches, the candidates'
+     accuracy a trait, the latent step's and the annotation update's
+     device ms, host ms and device operations an iteration (CUDA events;
+     torch.profiler on the first call); vare exactly 1 for a categorical
+     trait, R_bb 1 within 1e-5, the first annotation's slope. (f) A
+     statistical check at n = 2,000 x p = 2,000, 500 sweeps at fast_blocks
+     = 8 on the card and on the CPU of (a)'s, (c)'s BayesC, (d)'s sampler
+     I and (e)'s models, the card within 0.05 of the CPU on each trait;
+     then 64 float64 sweeps of (d)'s model with samplers I and II.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -250,7 +274,14 @@ SOURCES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def say(*args):
+    """Print a line; a phase's heading ("== ...") with the script's seconds
+    so far."""
+    if args and str(args[0]).startswith("== "):
+        args = args + (f"[{time.perf_counter() - _T0:.1f} s]",)
     print(*args, flush=True)
 
 
@@ -803,7 +834,7 @@ def random_spd_lhs(dev, K=2_000, seed=14):
 
 
 def mt_inputs(t, b, nblocks, nreps, sampler, per_locus, seed, dev,
-              dtype=torch.float32, n_padding=3, regime="dense"):
+              dtype=torch.float32, n_padding=3, regime="dense", per_marker=False):
     """K7 / K8 inputs: Gram tiles of 4b-observation blocks, the last
     n_padding markers of the last block padding (valid 0, zero Gram rows,
     xpx 1; a short last group's), random covariances (Ginv shared or one a
@@ -811,7 +842,10 @@ def mt_inputs(t, b, nblocks, nreps, sampler, per_locus, seed, dev,
     for II. regime "dense": random pattern priors, a third of the
     indicators on (most steps change an effect); "sparse": the all-out
     pattern at prior 0.99 from alpha = 0, 4% of the markers with an effect
-    of sd 0.5 in the data (few steps change one)."""
+    of sd 0.5 in the data (few steps change one). per_marker: log_pi
+    (nblocks, b, 2^t), one row a marker, the regime's prior reweighted at
+    random (2-trait annotated BayesC's form; the padding's row [1, 0, ..]
+    clipped to 1e-12)."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     f = dict(generator=g, device=dev, dtype=torch.float64)
@@ -839,10 +873,18 @@ def mt_inputs(t, b, nblocks, nreps, sampler, per_locus, seed, dev,
         delta.zero_()
         pi = torch.full((2 ** t,), 0.01 / (2 ** t - 1), device=dev, dtype=torch.float64)
         pi[0] = 0.99
+    log_pi = torch.log(pi / pi.sum())
+    if per_marker:
+        rows = (pi / pi.sum()) * (0.3 + 2.7 * torch.rand((nblocks, b, 2 ** t), **f))
+        rows = rows / rows.sum(-1, keepdim=True)
+        pad = torch.full((2 ** t,), 1e-12, device=dev, dtype=torch.float64)
+        pad[0] = 1.0
+        rows[valid == 0] = pad
+        log_pi = torch.log(rows)
     u = torch.rand((nreps * b, t if sampler == "I" else 2 ** t, nblocks), **f)
     inp = dict(grams=grams, xpx=xpx, valid=valid, alpha=beta * delta, beta=beta,
                delta=delta, rhs=rhs.transpose(1, 2), Rinv=torch.linalg.inv(A @ A.T / t + eye),
-               Ginv=Ginv, log_pi=torch.log(pi / pi.sum()),
+               Ginv=Ginv, log_pi=log_pi,
                draw_a=u if sampler == "I" else -torch.log(-torch.log(u)),
                zs=torch.randn((nreps * b, t, nblocks), **f))
     return {k: v.to(dtype).contiguous() for k, v in inp.items()}
@@ -911,7 +953,8 @@ def mt_step_floor_ns(sampler, dtype, clock_mhz):
 
 
 def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
-             dtype=torch.float32, n_padding=3, regime="dense"):
+             dtype=torch.float32, n_padding=3, regime="dense", per_marker=False,
+             window=True):
     """K7 (sampler "I") or K8 ("II") against its sequential plain version
     (ops/multitrait.py::mt_abc_inner_rounds_ref) on the card: alpha, beta,
     delta and rhs equal bit for bit, a second launch equal bit for bit,
@@ -920,7 +963,9 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
     check compares with), ns a dependent step, the byte bound, the step
     floor at t = 3 (mt_step_floor_ns) and the window model's counts
     (ops/inner_rounds.py::mt_abc_inner_rounds_window_ref, which must equal
-    the plain version bit for bit too)."""
+    the plain version bit for bit too; window=False leaves it out). per_marker:
+    the per-marker prior's instantiation (csrc/mt_inner_rounds_pm.cu), its
+    launch counted."""
     import functools
 
     from jwas_tpu_torch.ops import inner_rounds as ir
@@ -929,7 +974,7 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
     kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
     what = f"K{7 if sampler == 'I' else 8}"
     inp = mt_inputs(t, b, nblocks, nreps, sampler, per_locus, 11 + t, dev, dtype,
-                    n_padding, regime)
+                    n_padding, regime, per_marker)
     fresh = lambda: {k: v.clone() for k, v in inp.items()}  # noqa: E731
     state = ("alpha", "beta", "delta", "rhs")
 
@@ -939,10 +984,14 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
                                        "draw_a", "zs")), nreps)
 
     outs = []
+    pm0 = kernel.launches_pm
     for _ in range(2):
         a = fresh()
         run(a)
         outs.append(a)
+    if kernel.launches_pm - pm0 != (2 if per_marker else 0):
+        raise AssertionError(f"{what}: the per-marker instantiation ran "
+                             f"{kernel.launches_pm - pm0} times of {2 * per_marker}")
     r = fresh()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -953,6 +1002,7 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
     err = max((a[k] - r[k]).abs().max().item() for k in state)
     label = (f"{what} sampler {sampler} {str(dtype).replace('torch.', '')} t={t} b={b} "
              f"nblocks={nblocks} reps={nreps}{' per-locus Ginv' if per_locus else ''}"
+             f"{' per-marker prior' if per_marker else ''}"
              f"{' padding ' + str(n_padding) if n_padding else ''} {regime}")
     for k in state:
         if not torch.equal(outs[0][k], outs[1][k]):
@@ -970,8 +1020,8 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
     if time_it:
         k_in = fresh()
         ms = cuda_ms(lambda: run(k_in), 5)
-        window = functools.partial(ir.mt_abc_inner_rounds_window_ref, sampler)
-        stats = window_stats(window, inp, state, r, nreps)
+        model = functools.partial(ir.mt_abc_inner_rounds_window_ref, sampler)
+        stats = window_stats(model, inp, state, r, nreps) if window else None
         rec = dict(max_abs_err=err, **mt_bounds(inp, nreps))
         label += chain_line(rec, ms, plain, stats, nreps * b)
         # modelled, not measured: on this line only, not in the kernels line
@@ -984,7 +1034,8 @@ def check_mt(sampler, t, b, nblocks, nreps, dev, time_it=False, per_locus=False,
 def mt_registers(log):
     """K7 / K8 / K9 instantiations in nvcc's -Xptxas -v output (_build.build_log):
     [(kernel, dtype, t, rows a thread or None for the pre-pass, registers,
-    spill store bytes, spill load bytes)]."""
+    spill store bytes, spill load bytes)]; kernel "K7" / "K8", or "K7 pm" /
+    "K8 pm" for the per-marker prior's chain."""
     import re
     rows, name = [], None
     for line in log.splitlines():
@@ -998,8 +1049,8 @@ def mt_registers(log):
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"(mt_chain|consts_II|consts_I)I([fd])Li(\d)E(?:Lb([01])ELi(\d+)E)?",
-                          name)
+            k = re.search(r"(mt_chain|consts_II|consts_I)I([fd])Li(\d)E"
+                          r"(?:Lb([01])E(?:Lb([01])E)?Li(\d+)E)?", name)
             c = re.search(r"c0l_(?:chainI([fd])Li(\d)ELi(\d+)E|constsI([fd])Li(\d)E)", name)
             if c:
                 chain = c.group(1) is not None
@@ -1008,8 +1059,9 @@ def mt_registers(log):
                              int(c.group(3)) if chain else None, int(m.group(1))) + spills)
             elif k:
                 kernel = ("K8" if k.group(4) == "1" or k.group(1) == "consts_II" else "K7")
+                kernel += " pm" if k.group(5) == "1" else ""
                 rows.append((kernel, {"f": "float32", "d": "float64"}[k.group(2)],
-                             int(k.group(3)), int(k.group(5)) if k.group(5) else None,
+                             int(k.group(3)), int(k.group(6)) if k.group(6) else None,
                              int(m.group(1))) + spills)
             name = None
     return sorted(rows, key=lambda r: (r[0], r[1], r[2], r[3] or 0))
@@ -1040,7 +1092,56 @@ def phase2_mt(dev):
             check_mt(sampler, 2, 300, 2, 2, dev, dtype=dtype, n_padding=5, regime="sparse")
             check_mt(sampler, 3, 700, 1, 1, dev, per_locus=True, dtype=dtype, n_padding=9)
             check_mt(sampler, 3, 1040, 1, 1, dev, per_locus=True, dtype=dtype)
+        # the per-marker prior (2-trait annotated BayesC, phase 12d): t = 2
+        # and 3 at b = 40, 256, 300 and 2,048, padding at 0 and not, both
+        # builds; rows all equal to a global prior give the global form's
+        # bits; its time beside the global form's at phase 10a's round
+        for dtype in (torch.float32, torch.float64):
+            for t, b, nblocks, nreps, n_padding in ((2, 40, 6, 2, 3), (3, 40, 3, 2, 0),
+                                                    (2, 256, 4, 1, 0), (3, 256, 2, 1, 3),
+                                                    (2, 300, 2, 1, 5), (3, 300, 1, 1, 0),
+                                                    (2, 2048, 1, 1, 0)):
+                check_mt(sampler, t, b, nblocks, nreps, dev, dtype=dtype,
+                         n_padding=n_padding, per_marker=True)
+            check_mt_equal_rows(sampler, dev, dtype)
+        rec = recs[name]
+        rec["per_marker"] = {}
+        for t in (2, 3):
+            # the global form at t = 3 is the float32 record timed above
+            glob = rec if t == 3 else check_mt(sampler, t, 256, 23, 8, dev, time_it=True,
+                                               window=False)
+            pm = check_mt(sampler, t, 256, 23, 8, dev, time_it=True, per_marker=True,
+                          window=False)
+            rec["per_marker"][f"t{t}"] = dict(
+                ms=pm["ms"], global_ms=glob["ms"], plain_ms=pm["plain_ms"],
+                bound_ms=pm["bound_ms"], bound_by=pm["bound_by"],
+                max_abs_err=pm["max_abs_err"])
+            say(f"  K{7 if sampler == 'I' else 8} t={t} at phase 10a's round: per-marker "
+                f"prior {pm['ms']:.4f} ms, global {glob['ms']:.4f} ms "
+                f"({pm['ms'] / glob['ms'] - 1:+.1%})")
     return recs
+
+
+def check_mt_equal_rows(sampler, dev, dtype, t=3, b=256, nblocks=3, nreps=2):
+    """K7 / K8 with a per-marker prior whose rows all equal the global
+    vector: the global form's bits, both launches on the card."""
+    from jwas_tpu_torch.ops import inner_rounds as ir
+
+    kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
+    inp = mt_inputs(t, b, nblocks, nreps, sampler, False, 29, dev, dtype)
+    names = ("grams", "xpx", "valid", "alpha", "beta", "delta", "rhs", "Rinv", "Ginv",
+             "log_pi", "draw_a", "zs")
+    glob = {k: v.clone() for k, v in inp.items()}
+    pm = {k: v.clone() for k, v in inp.items()}
+    pm["log_pi"] = inp["log_pi"].expand(nblocks, b, 2 ** t).contiguous()
+    kernel(*(glob[k] for k in names), nreps)
+    kernel(*(pm[k] for k in names), nreps)
+    for k in ("alpha", "beta", "delta", "rhs"):
+        if not torch.equal(glob[k], pm[k]):
+            raise AssertionError(f"K{7 if sampler == 'I' else 8} {dtype}: per-marker rows "
+                                 f"equal to the global prior changed {k}")
+    say(f"K{7 if sampler == 'I' else 8} sampler {sampler} {str(dtype).replace('torch.', '')} "
+        f"t={t} b={b}: per-marker rows equal to the global prior give its bits")
 
 
 def k9_inputs(t, b, nblocks, nreps, bayesl, seed, dev, dtype=torch.float32, n_padding=3):
@@ -1526,7 +1627,7 @@ def phase5_problem(packed, freqs, tbv, seed=5, n_train=45_000, n_herds=100):
 
 
 def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + geno",
-               on_markers=None, around_chain=None, on_model=None, **kw):
+               on_markers=None, around_chain=None, on_model=None, model_kw=None, **kw):
     """runMCMC at full width on phase5_problem's data (or another table and
     equation; store a Packed2BitStore, the Genotypes of a dense store or
     None, no genotypes), with the set-up (workspace; Grams on the
@@ -1536,7 +1637,8 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
     context manager around_chain when one is given. Returns (results, seconds
     by part, what the timed parts returned: "store and Grams" the grouped
     store, "chain" run_chain's tuple, whose last item holds the seconds of
-    each saved sample's window)."""
+    each saved sample's window). model_kw: build_model's keywords
+    (categorical_trait, censored_trait)."""
     import jwas_tpu_torch as jt
     import jwas_tpu_torch.engine.mcmc as em
 
@@ -1565,7 +1667,7 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
     try:
         genotypes = (store if store is None or hasattr(store, "dense") else
                      jt.get_genotypes(store, method=method, storage="2bit"))
-        model = jt.build_model(eq, genotypes=genotypes)
+        model = jt.build_model(eq, genotypes=genotypes, **(model_kw or {}))
         if "age" in table.columns:
             jt.set_covariate(model, "age")
         if on_model is not None:
@@ -1843,8 +1945,9 @@ def phase6b(dev, kept, fast_blocks=128):
     group resident and with half of them resident (the split set through
     JWAS_HBM_BYTES), each twice, in the order streamed, hybrid, hybrid,
     streamed. Alpha, the EBVs and the vare / varg / pi tracks must equal the
-    resident run's bit for bit. Each streamed run is then profiled for two
-    outer iterations: busy shares and the copies' overlap with kernels."""
+    resident run's bit for bit. The first streamed and the first hybrid run
+    are then profiled for two outer iterations: busy shares and the copies'
+    overlap with kernels (their repeats are not: the script's time)."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.io.packed import Packed2BitStore
     from jwas_tpu_torch.io.table import Table
@@ -1910,7 +2013,7 @@ def phase6b(dev, kept, fast_blocks=128):
                                  **{k: np.asarray(samples[k]) for k in ("vare", "varg", "pi")})
             del built, state, out
             busy = {}
-            if offload:
+            if offload and not name.endswith("again"):   # the repeats are not profiled
                 _, _, prof_built = run_phase5(store, table, around_chain=busy_shares(busy),
                                               **dict(kw, chain_length=2 * b))
                 busy["windows"] = prof_built["chain"][-1]
@@ -2047,13 +2150,14 @@ def dense_gemv_line(X, G, dev):
         f"{bound / ms_rhs:.1%} and {bound / ms_mv:.1%} of it reached)")
 
 
-def run_dense(label, dev, geno, table, tbv, train, cand, kernels, **kw):
+def run_dense(label, dev, geno, table, tbv, train, cand, kernels, keep=None, **kw):
     """runMCMC on a dense store at full width (run_phase5's timing):
     prints seconds, windows, peak memory against store + Grams +
     PHASE7_MARGIN_BYTES, launches, EBV accuracy and the output IDs' EBVs
     against X alpha computed directly; raises where a check fails.
     Returns (the store's shape and schedule, the launches of kernels
-    (names, or name_f64 for the float64 builds' counts))."""
+    (names, or name_f64 for the float64 builds' counts)). keep: a dict that
+    receives the results ("out") and the windows' seconds ("windows")."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.ops.inner_rounds import gram_resident
 
@@ -2077,6 +2181,8 @@ def run_dense(label, dev, geno, table, tbv, train, cand, kernels, **kw):
                      gm.X.dtype) else "global")
     grams_bytes = gm.grams.numel() * gm.grams.element_size()
     windows = built.pop("chain")[-1]
+    if keep is not None:
+        keep.update(out=out, windows=windows)
     del gm, built
     peak = torch.cuda.max_memory_allocated(dev)
     store_bytes = X.numel() * X.element_size()
@@ -2802,14 +2908,17 @@ def mt_table(obs_ids, tbv, seed, n_train, n_herds=100, missing=MT_MISSING,
     return Table(cols), list(ids[train]), list(ids[cand])
 
 
-def run_mt(label, dev, geno, table, eq, kernels, on_model=None, lhs_times=False, **kw):
+def run_mt(label, dev, geno, table, eq, kernels, on_model=None, lhs_times=False,
+           model_kw=None, **kw):
     """runMCMC's multi-trait branch on phase 10's data, its set-up and chain
     timed inside it (the workspace, the store's blocks and Grams, the chain
     data, the chain; the results the rest). Prints seconds by part and a
     window, peak memory against store + Grams + PHASE7_MARGIN_BYTES (with a
     store), launches and, with lhs_times, the LHS assembly's device ms both
     ways. Raises where a check fails. Returns (results, launches of
-    kernels, the chain's cfg and data, windows)."""
+    kernels (name, name_f64 for the float64 builds', name_pm for K7 / K8
+    with a per-marker prior), the chain's cfg and data, windows). model_kw:
+    build_model's keywords (categorical_trait, censored_trait)."""
     import jwas_tpu_torch as jt
     import jwas_tpu_torch.engine.mcmc_mt as em
 
@@ -2835,7 +2944,7 @@ def run_mt(label, dev, geno, table, eq, kernels, on_model=None, lhs_times=False,
     torch.cuda.reset_peak_memory_stats(dev)
     jt.reset_launches()
     try:
-        model = jt.build_model(eq, genotypes=geno)
+        model = jt.build_model(eq, genotypes=geno, **(model_kw or {}))
         if "age" in table.columns:
             jt.set_covariate(model, "age")
         if on_model is not None:
@@ -2851,6 +2960,8 @@ def run_mt(label, dev, geno, table, eq, kernels, on_model=None, lhs_times=False,
     counts = {k.__name__: k.launches for k in jt.KERNELS}
     counts.update({k.__name__ + "_f64": k.launches_f64 for k in jt.KERNELS
                    if hasattr(k, "launches_f64")})
+    counts.update({k.__name__ + "_pm": k.launches_pm for k in jt.KERNELS
+                   if hasattr(k, "launches_pm")})
     cfg, data, _ = built["chain data (store and Grams included)"]
     windows = built["chain"][-1]
     # the chain data's set-up holds the store's blocks and Grams
@@ -2962,8 +3073,10 @@ def phase10(dev, n=50_000, p=100_000, n_train=45_000, chain_length=768, every=25
         del data, g
     launches.update(phase11(dev, geno, truth, launches["phase 10a"][
         "mt_abc_inner_rounds_I"], n_train, chain_length, every))
+    launches.update(phase12(dev, geno, tbv, n_train, chain_length, every))
     del geno
     torch.cuda.empty_cache()
+    launches.update(phase12f(dev))
     launches["phase 10d"] = phase10d(dev)
     launches["phase 10e"] = phase10e(dev)
     launches["phase 11d"] = phase11d(dev, n, p)
@@ -3260,6 +3373,353 @@ def phase11e(dev, n=2_000, p=2_000, n_iter=500, n_f64=64):
     return counts
 
 
+# ---------------------------------------------------------------- phase 12
+
+PREVALENCE_12A = 0.2              # 12a's binary trait: the top 20% affected
+CAT_QUANTILES = (0.3, 0.6, 0.85)  # 12b's 4 categories (tests/test_threshold_traits.py)
+CENSORED_SHARE = 0.4              # 12b's censored trait: the top 40% right-censored
+ANNO_SHARE = 0.2                  # 12c's first annotation marks 20% of the markers
+PI_MT_ANNO = {(0.0, 0.0): 0.9, (1.0, 0.0): 0.03, (0.0, 1.0): 0.03, (1.0, 1.0): 0.04}
+ACC_MARGIN_12F = 0.05             # card accuracy may trail the CPU's by this
+
+
+def qtl_mask(p, seed, dev, share=0.001):
+    """mt_truth's QTL (its generator's first draw): a (p,) bool numpy mask."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (torch.rand(p, generator=g, device=dev) < share).cpu().numpy()
+
+
+def anno_columns(qtl, seed, k=4, share=ANNO_SHARE):
+    """(p, k) annotations: column 1 marks a random `share` of the markers
+    that holds every QTL (tests/test_annotations.py:18-36), the others are
+    random normals."""
+    rng = np.random.default_rng(seed)
+    p = len(qtl)
+    first = qtl.astype(np.float64)
+    extra = max(int(share * p) - int(qtl.sum()), 0)
+    first[rng.choice(np.flatnonzero(~qtl), extra, replace=False)] = 1.0
+    return np.column_stack([first, rng.normal(size=(p, k - 1))])
+
+
+def latent_table(obs_ids, tbv, seed, n_train, kind, n_herds=100, h2=0.5):
+    """A single trait's records on individuals obs_ids: the liability tbv +
+    herd + 0.5 age + noise at heritability h2 (against the noise), then
+    kind "binary" (the top PREVALENCE_12A coded 2, the rest 1),
+    "categorical" (1..4 cut at the CAT_QUANTILES of the liability),
+    "censored" (the top CENSORED_SHARE right-censored at its lower bound:
+    columns y_l and y_u) or "continuous"; n_train individuals in shuffled
+    order. Returns (table, training IDs, candidate IDs)."""
+    from jwas_tpu_torch.io.table import Table
+
+    n = len(obs_ids)
+    ids = np.array(obs_ids, dtype=object)
+    rng = np.random.default_rng(seed)
+    sd = float(np.std(tbv))
+    herd = rng.integers(1, n_herds + 1, n)
+    age = np.round(rng.uniform(1.0, 5.0, n), 2)
+    liab = (tbv + rng.normal(0.0, 0.3 * sd, n_herds)[herd - 1] + 0.1 * sd * age
+            + rng.normal(0.0, sd * np.sqrt((1 - h2) / h2), n))
+    cols = {}
+    if kind == "binary":
+        cols["y"] = 1 + (liab > np.quantile(liab, 1 - PREVALENCE_12A)).astype(np.int64)
+    elif kind == "categorical":
+        cols["y"] = 1 + np.searchsorted(np.quantile(liab, CAT_QUANTILES), liab)
+    elif kind == "censored":
+        cut = np.quantile(liab, 1 - CENSORED_SHARE)
+        cols["y_l"] = np.where(liab > cut, cut, liab)
+        cols["y_u"] = np.where(liab > cut, np.inf, liab)
+    else:
+        cols["y"] = liab
+    order = rng.permutation(n)
+    train, cand = order[:n_train], order[n_train:]
+    table = Table({"ID": ids[train], **{k: v[train] for k, v in cols.items()},
+                   "herd": herd[train], "age": age[train]})
+    return table, list(ids[train]), list(ids[cand])
+
+
+def latent_mt_table(table):
+    """mt_table's 3 traits with y2 made binary (above its median) and y3
+    ordered categorical (cut at the CAT_QUANTILES), missing records kept."""
+    for name, cuts in (("y2", (0.5,)), ("y3", CAT_QUANTILES)):
+        y = np.asarray(table[name], dtype=np.float64)
+        seen = np.isfinite(y)
+        table[name] = np.where(seen, 1 + np.searchsorted(np.quantile(y[seen], cuts), y),
+                               np.nan)
+    return table
+
+
+class CallTimer:
+    """For the duration of a with-block, owner.attr timed at each call:
+    CUDA events around it on the current stream (device ms, including any
+    gap in which the device waits for the host's launches), the host's
+    seconds to issue it, and, of its second call, the device operations
+    and the host's largest costs (torch.profiler); the times leave out the
+    first two calls."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr = owner, attr
+        self.events, self.host, self.launches, self.calls = [], [], 0, 0
+        self.top = []
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.fn = fn = getattr(self.owner, self.attr)
+
+        def call(*a, **k):
+            self.calls += 1
+            if self.calls == 1:
+                return fn(*a, **k)
+            if self.calls == 2:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    out = fn(*a, **k)
+                    torch.cuda.synchronize()
+                self.launches = sum(1 for e in prof.events()
+                                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                host = [e for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CPU]
+                self.top = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in
+                            sorted(host, key=lambda e: e.self_cpu_time_total)[-4:][::-1]]
+                return out
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            self.host.append(time.perf_counter() - t0)
+            self.events.append((s, e))
+            return out
+
+        setattr(self.owner, self.attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+
+    def line(self, what):
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in self.events]
+        if not ms:
+            return f"{what}: not called"
+        return (f"{what}: device {np.mean(ms):.4f} ms an iteration (events, {len(ms)} "
+                f"iterations), host {np.mean(self.host) * 1e3:.4f} ms to issue, "
+                f"{self.launches} device operations an iteration; host's largest "
+                f"(profiled call, self ms, calls): "
+                + ", ".join(f"{k} {v:.3f} x{c}" for k, v, c in self.top))
+
+
+@contextlib.contextmanager
+def latent_timers(mt=False, anno=None, korsgaard=False):
+    """CallTimers of the latent step (engine/mcmc.py::latent_step or
+    engine/mcmc_mt.py::mt_latent_step), the annotation update anno (a
+    function name of ops/annotations.py) and Korsgaard's draw."""
+    import jwas_tpu_torch.engine.mcmc as em
+    import jwas_tpu_torch.engine.mcmc_mt as emt
+    from jwas_tpu_torch.ops import annotations as an
+    from jwas_tpu_torch.ops import variance as tv
+
+    timers = {}
+    with contextlib.ExitStack() as stack:
+        timers["latent step"] = stack.enter_context(
+            CallTimer(emt, "mt_latent_step") if mt else CallTimer(em, "latent_step"))
+        if anno:
+            timers["annotation update"] = stack.enter_context(CallTimer(an, anno))
+        if korsgaard:
+            timers["Korsgaard's R"] = stack.enter_context(
+                CallTimer(tv, "sample_conditional_inv_wishart_korsgaard"))
+        yield timers
+
+
+def say_timers(timers, latent=True):
+    for what, tm in timers.items():
+        if what != "latent step" or latent:
+            say("  " + tm.line(what))
+
+
+def slope_line(out, label, steps=False):
+    """The first annotation's posterior slope (step 1's with steps), which
+    must be above 0: that column marks the markers holding every QTL."""
+    c = out["annotation coefficients geno"]
+    rows = np.asarray(c.Annotation) == "Annotation_1"
+    if steps:
+        rows &= np.asarray(c.Step) == 1
+    slope = float(np.asarray(c.Estimate, dtype=np.float64)[rows][0])
+    say(f"  {label}: the first annotation's slope {slope:.4f}; pi "
+        f"{np.round(np.atleast_1d(np.asarray(out['pi_geno'].Estimate, dtype=np.float64)), 5).tolist()}")
+    if not slope > 0:
+        raise AssertionError(f"{label}: the first annotation's slope {slope} is not above 0")
+    return slope
+
+
+def phase12(dev, geno, tbv, n_train, chain_length, every):
+    """Latent traits and annotations on phase 10's store and truth; see the
+    module's docstring."""
+    import dataclasses
+
+    say(f"== phase 12: latent traits and annotations at N={geno.dense.shape[1]} x "
+        f"P={geno.dense.shape[0]}")
+    launches = {}
+    tbv1 = tbv[:, 0]
+    abc, br = ("abc_inner_rounds", K6), ("bayesr_inner_rounds", K6)
+    kw = dict(fast_blocks=True, chain_length=chain_length, output_samples_frequency=every,
+              heterogeneous_residuals=False)
+    st = (("12a binary BayesC", "binary"), ("12b 4-category BayesC", "categorical"),
+          ("12b censored BayesC", "censored"))
+    for label, kind in st:
+        table, train, cand = latent_table(geno.obs_ids, tbv1, 120, n_train, kind)
+        keep = {}
+        model_kw = (dict(censored_trait=["y"]) if kind == "censored"
+                    else dict(categorical_trait=["y"]))
+        with latent_timers() as timers:
+            _, launches[f"phase {label.split()[0]} {kind}"] = run_dense(
+                label, dev, fresh(geno, "BayesC"), table, tbv1, train, cand, abc,
+                keep=keep, model_kw=model_kw, **kw)
+        say_timers(timers)
+        vare = float(np.asarray(keep["out"]["residual variance"].Estimate)[0])
+        say(f"  posterior mean of vare {vare!r}")
+        if kind != "censored" and vare != 1.0:
+            raise AssertionError(f"{label}: a categorical trait's vare {vare} is not 1")
+    # 12c: annotations on the markers, the first marking 20% holding every QTL
+    A = anno_columns(qtl_mask(geno.dense.shape[0], 10, dev), 121)
+    table, train, cand = latent_table(geno.obs_ids, tbv1, 122, n_train, "continuous")
+    for label, method, anno in (("12c annotated BayesC", "BayesC", "anno_bayesc_update"),
+                                ("12c annotated BayesR", "BayesR", "anno_bayesr_update")):
+        g = dataclasses.replace(fresh(geno, method), annotations=A, estimate_pi=True)
+        if method == "BayesC":
+            g.pi = 0.9
+        keep = {}
+        with latent_timers(anno=anno) as timers:
+            _, launches[f"phase {label}"] = run_dense(
+                label, dev, g, table, tbv1, train, cand,
+                abc if method == "BayesC" else br, keep=keep, **kw)
+        say_timers(timers, latent=False)
+        slope_line(keep["out"], label, steps=method == "BayesR")
+    # 12d: 2-trait annotated BayesC, samplers I and II with a per-marker prior
+    table2, _, cand2 = mt_table(geno.obs_ids, tbv[:, :2], 123, n_train)
+    truth2 = dict(zip(geno.obs_ids, tbv[:, :2]))
+    eq2 = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2))
+    for sampler in ("I", "II"):
+        name = f"mt_abc_inner_rounds_{sampler}"
+        g = dataclasses.replace(fresh(geno, "BayesC"), annotations=A, estimate_pi=True,
+                                pi=dict(PI_MT_ANNO), multi_trait_sampler=sampler)
+        label = f"12d 2-trait annotated BayesC, sampler {sampler}"
+        with latent_timers(anno="anno_bayesc_mt_update") as timers:
+            out, launches[f"phase 12d {sampler}"], _, _, _ = run_mt(
+                label, dev, g, table2, eq2, (name, name + "_pm", K6), output_folder="",
+                **{k: v for k, v in kw.items() if k != "heterogeneous_residuals"})
+        say_timers(timers, latent=False)
+        say(f"  candidates' EBV accuracy a trait "
+            f"{np.round(mt_accuracy(out, truth2, cand2, t=2), 4).tolist()}")
+        slope_line(out, label, steps=True)
+    # 12e: 3 traits, one continuous, one binary, one 4-category
+    table3, _, cand3 = mt_table(geno.obs_ids, tbv, 124, n_train)
+    table3 = latent_mt_table(table3)
+    truth3 = dict(zip(geno.obs_ids, tbv))
+    eq3 = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
+    with latent_timers(mt=True, korsgaard=True) as timers:
+        out, launches["phase 12e"], _, _, _ = run_mt(
+            "12e 3-trait BayesC, continuous + binary + 4-category, sampler I", dev,
+            fresh(geno, "BayesC"), table3, eq3, ("mt_abc_inner_rounds_I", K6),
+            model_kw=dict(categorical_trait=["y2", "y3"]), output_folder="",
+            **{k: v for k, v in kw.items() if k != "heterogeneous_residuals"})
+    say_timers(timers)
+    R = np.asarray(out["residual variance"].Estimate, dtype=np.float64).reshape(3, 3)
+    say(f"  candidates' EBV accuracy a trait "
+        f"{np.round(mt_accuracy(out, truth3, cand3), 4).tolist()}; R "
+        f"{np.round(R, 4).tolist()}; R_bb {R[1, 1]!r}")
+    if abs(R[1, 1] - 1.0) > 1e-5:
+        raise AssertionError(f"12e: the binary trait's R_bb {R[1, 1]} is not 1")
+    return launches
+
+
+def phase12f(dev, n=2_000, p=2_000, n_iter=500, n_f64=64):
+    """A statistical check of phase 12's models at n x p: 12a's binary
+    BayesC, 12c's annotated BayesC, 12d's 2-trait annotated BayesC
+    (sampler I) and 12e's 3-trait model, n_iter sweeps at fast_blocks = 8
+    on the card and on the CPU (plain versions), the card's EBV accuracy
+    within ACC_MARGIN_12F of the CPU's on each trait; then n_f64 sweeps of
+    12d's model with double_precision, samplers I and II (the float64
+    builds of K7 and K8 with a per-marker prior)."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.io.table import Table
+
+    say(f"== phase 12f: statistical check of phase 12's models at n={n} x p={p}")
+    rng = np.random.default_rng(125)
+    X = rng.binomial(2, rng.uniform(0.1, 0.9, p), (n, p)).astype(np.float32)
+    Xc = torch.as_tensor(X.T - X.mean(axis=0)[:, None])
+    tbv = mt_truth(Xc, seed=126, qtl_share=0.02)
+    A = anno_columns(qtl_mask(p, 126, torch.device("cpu"), 0.02), 127)
+    ids = np.array([f"i{k}" for k in range(n)], dtype=object)
+    genotypes = Table({"ID": ids, **{f"m{j}": X[:, j] for j in range(p)}})
+    binary, _, _ = latent_table(ids, tbv[:, 0], 128, int(0.9 * n), "binary", n_herds=10)
+    cont, _, _ = latent_table(ids, tbv[:, 0], 129, int(0.9 * n), "continuous", n_herds=10)
+    two, _, _ = mt_table(ids, tbv[:, :2], 130, int(0.9 * n), n_herds=10)
+    three = latent_mt_table(mt_table(ids, tbv, 131, int(0.9 * n), n_herds=10)[0])
+    eq = lambda t: "\n".join(f"y{k} = intercept + herd + age + geno"  # noqa: E731
+                             for k in range(1, t + 1)) if t > 1 else \
+        "y = intercept + herd + age + geno"
+    # each model's card run must launch its marker kernel: K1, K7 with a
+    # per-marker prior, K7 with the global one
+    models = (("12a binary BayesC", binary, 1, {}, dict(categorical_trait=["y"]),
+               "abc_inner_rounds"),
+              ("12c annotated BayesC", cont, 1, dict(annotations=A, Pi=0.9), {},
+               "abc_inner_rounds"),
+              ("12d annotated 2-trait BayesC, sampler I", two, 2,
+               dict(annotations=A, Pi=dict(PI_MT_ANNO)), {}, "mt_abc_inner_rounds_I_pm"),
+              ("12e 3 traits, binary and 4-category", three, 3, {},
+               dict(categorical_trait=["y2", "y3"]), "mt_abc_inner_rounds_I"))
+    counts = {}
+    for label, table, t, gkw, mkw, kernel in models:
+        res = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            geno = jt.get_genotypes(genotypes, method="BayesC", storage="f32", device=d,
+                                    **gkw)
+            t0 = time.perf_counter()
+            jt.reset_launches()
+            model = jt.build_model(eq(t), genotypes=geno, **mkw)
+            jt.set_covariate(model, "age")
+            out = jt.runMCMC(model, table, device=d, chain_length=n_iter,
+                             burnin=n_iter // 5, output_samples_frequency=8, fast_blocks=8,
+                             seed=5, output_folder="", printout_model_info=False)
+            if where == "card":
+                run = {k.__name__: k.launches for k in jt.KERNELS}
+                run.update({k.__name__ + "_pm": k.launches_pm for k in jt.KERNELS
+                            if hasattr(k, "launches_pm")})
+                if not run.get(kernel) or not run.get(K6):
+                    raise AssertionError(f"phase 12f {label}: the card run launched "
+                                         f"{kernel} {run.get(kernel)} and {K6} "
+                                         f"{run.get(K6)} times")
+                for k, v in run.items():
+                    counts[k] = counts.get(k, 0) + v
+            truth = dict(zip(ids, tbv[:, :t]))
+            acc = ([float(np.corrcoef(np.asarray(out["EBV_y"].EBV, dtype=np.float64),
+                                      [truth[s][0] for s in out["EBV_y"].ID])[0, 1])]
+                   if t == 1 else mt_accuracy(out, truth, list(ids), t=t))
+            res[where] = (np.array(acc), time.perf_counter() - t0)
+        say(f"{label}: " + "; ".join(f"{w} EBV accuracy a trait "
+                                     f"{np.round(a, 4).tolist()} ({sec:.1f} s)"
+                                     for w, (a, sec) in res.items()))
+        card, cpu = res["card"][0], res["cpu"][0]
+        if not (np.isfinite(card).all() and np.isfinite(cpu).all()
+                and (card >= cpu - ACC_MARGIN_12F).all()):
+            raise AssertionError(f"phase 12f {label}: card accuracy {card} vs CPU {cpu} "
+                                 f"(margin {ACC_MARGIN_12F})")
+    for sampler in ("I", "II"):
+        name = f"mt_abc_inner_rounds_{sampler}_f64"
+        geno = jt.get_genotypes(genotypes, method="BayesC", storage="f64", device=dev,
+                                annotations=A, Pi=dict(PI_MT_ANNO),
+                                multi_trait_sampler=sampler)
+        _, c, _, _, _ = run_mt(f"12f float64, annotated 2-trait BayesC, sampler {sampler}",
+                               dev, geno, two, eq(2),
+                               (name, f"mt_abc_inner_rounds_{sampler}_pm", K6 + "_f64"),
+                               chain_length=n_f64, output_samples_frequency=8,
+                               fast_blocks=8, double_precision=True, output_folder="")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return {"phase 12f": counts}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3313,12 +3773,19 @@ def main():
     # BayesL, BayesA through K1; GBLUP K6 only), phase 9's (the animal
     # model beside the markers, pedigree BLUP, the card's chain of 9c),
     # phase 10's (K7 in 10a and 10c, K8 in 10b, K1 in the mega-trait run,
-    # the float64 builds of K7 and K8 in 10e); K6 in every one
+    # the float64 builds of K7 and K8 in 10e), phase 12's (K1, K3, K7 and
+    # K8, the latter two with a per-marker prior in 12d and 12f); K6 in
+    # every one
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name],
                     launches=sum(c.get(name, 0) for c in launches.values()),
                     launches_by_phase={ph: c.get(name, 0) for ph, c in launches.items()},
                     **recs[name]) for name in REPLACES]
+    for k in kernels:                 # K7 / K8's per-marker prior's launches
+        if "per_marker" in k:
+            k["per_marker"]["launches"] = sum(c.get(k["name"] + "_pm", 0)
+                                              for c in launches.values())
+            k["per_marker"]["source"] = "jwas_tpu_torch/csrc/mt_inner_rounds_pm.cu"
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

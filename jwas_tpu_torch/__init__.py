@@ -15,7 +15,12 @@ equations) run BayesC and BayesB on a dense store with samplers I and II
 (hand-written kernels K7 and K8), RR-BLUP and BayesL (their marker chain
 the hand-written kernel K9) and GBLUP, the mega-trait constraint, missing
 phenotypes, t x t covariances, the prior update and structural equations
-(causal_structure), or no genotypes. It imports torch, numpy
+(causal_structure), or no genotypes. Latent traits (build_model's
+categorical_trait and censored_trait: binary, ordered categorical and
+censored, single- and multi-trait) and annotations (get_genotypes's
+annotations: annotated BayesC and BayesR, and 2-trait annotated BayesC,
+whose per-marker pattern prior K7 and K8 take) run on dense stores. It
+imports torch, numpy
 and scipy only; never jax, pandas or jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
@@ -53,7 +58,8 @@ from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
 prepare_streaming_genotypes = prepare_packed_genotypes
 
 # the kernel wrappers, each counting its own launches (the inner rounds
-# and K6 also their float64 build's, launches_f64)
+# and K6 also their float64 build's, launches_f64; K7 and K8 their
+# per-marker prior's, launches_pm)
 KERNELS = (abc_inner_rounds, bayesr_inner_rounds, packed_rhs, packed_matvec,
            gibbs_pass_lambda, mt_abc_inner_rounds_I, mt_abc_inner_rounds_II,
            mt_c0l_inner_rounds)
@@ -64,6 +70,8 @@ def reset_launches() -> None:
         k.launches = 0
         if hasattr(k, "launches_f64"):
             k.launches_f64 = 0
+        if hasattr(k, "launches_pm"):
+            k.launches_pm = 0
 
 
 __all__ = [

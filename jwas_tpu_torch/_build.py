@@ -39,10 +39,12 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Sources whose kernels nvcc optimises in parallel, on every core: K7 /
-# K8's 140 instantiations build in about 2 minutes so, and in more than 15
+# K8's 140 instantiations build in about 2 minutes so (their per-marker
+# prior's, mt_inner_rounds_pm.cu, beside them), and in more than 15
 # on one thread; K9's 70 in 47 s (144 s on one thread). Not the others: it
 # changes their code (K4 spills with it and takes twice the time).
-_SPLIT = {"mt_inner_rounds": ["-split-compile=0"], "mt_c0l_rounds": ["-split-compile=0"]}
+_SPLIT = {"mt_inner_rounds": ["-split-compile=0"], "mt_inner_rounds_pm": ["-split-compile=0"],
+          "mt_c0l_rounds": ["-split-compile=0"]}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -79,6 +81,12 @@ _SIGNATURES = {
     "jt_mt_inner_rounds_I_f64": [_P] * 13 + [_I] * 5 + [_P],
     "jt_mt_inner_rounds_II": [_P] * 13 + [_I] * 5 + [_P],
     "jt_mt_inner_rounds_II_f64": [_P] * 13 + [_I] * 5 + [_P],
+    # the same with log_pi (nblocks, b, 2^t), one row a marker, t <= 4:
+    # csrc/mt_inner_rounds_pm.cu
+    "jt_mt_inner_rounds_I_pm": [_P] * 13 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_I_pm_f64": [_P] * 13 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_II_pm": [_P] * 13 + [_I] * 5 + [_P],
+    "jt_mt_inner_rounds_II_pm_f64": [_P] * 13 + [_I] * 5 + [_P],
     "jt_gibbs_pass_slice": [],
     # grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma, zs, scratch, t, b,
     # nblocks, nreps, stream: csrc/mt_c0l_rounds.cu (K9); float32 and

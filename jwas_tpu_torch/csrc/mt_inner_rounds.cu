@@ -56,7 +56,8 @@
 //    ahead into one of two: the window's constants (while two buffers of
 //    them fit: always for K7, t <= 4 for K8; K8 at t >= 5 reads them from
 //    the scratch, which the pre-pass has just written to L2), its draws
-//    (uniforms or Gumbels, and normals), its markers' xpx and the 32 x 32
+//    (uniforms or Gumbels, and normals), its markers' xpx, their 2^t pattern
+//    priors where the prior is one a marker (kPM), and the 32 x 32
 //    diagonal block of its Gram rows. The window's marker holds the
 //    constants an evaluation reads in registers where they fit beside the
 //    state (t <= 3 or 4).
@@ -77,7 +78,13 @@
 // (ops/multitrait.py::scratch_values), 16-byte aligned.
 //
 // Two builds a kernel, float32 and float64 (runMCMC's double_precision),
-// each instantiated for t = 2..8 traits.
+// each instantiated for t = 2..8 traits with one (2^t,) pattern prior. A
+// prior of one (2^t,) row a marker (2-trait annotated BayesC's, jwas_tpu's
+// MarkerSpecificPiPrior, multitrait.py:38-43) is the kPM instantiation, t
+// = 2..4, built from mt_inner_rounds_pm.cu (this file with
+// JT_MT_PER_MARKER_PRIOR defined, its own nvcc in parallel): a marker's row
+// is staged with its window's draws and read at stride kWindow; the global
+// prior's code is unchanged.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -124,7 +131,7 @@ template <typename T> struct Args {
   T* rhs;
   const T* Rinv;       // (t, t)
   const T* Ginv;       // (t, t), or (nblocks, b, t, t) when per_locus
-  const T* log_pi;     // (2^t,)
+  const T* log_pi;     // (2^t,), or (nblocks, b, 2^t) per marker (kPM)
   const T* draw_a;     // K7: us (nreps b, t, nblocks); K8: gum (nreps b, 2^t, nblocks)
   const T* zs;         // (nreps b, t, nblocks)
   T* scratch;          // the constants, written by the pre-pass
@@ -136,9 +143,11 @@ constexpr int kMaxRows = 8;          // markers a thread owns: b <= 2048
                                      // (ops/multitrait.py::MAX_BLOCK)
 constexpr int kPrepThreads = 256;
 constexpr size_t kSmemCap = 232448;  // the H100's shared memory a block
+constexpr int kMaxPriorTraits = 4;   // a per-marker pattern prior: t <= 4
+                                     // (ops/multitrait.py::MAX_PRIOR_TRAITS)
 
 // Sizes of the per-marker constants, draws and shared memory.
-template <class T, int NT, bool kII>
+template <class T, int NT, bool kII, bool kPM = false>
 struct Plan {
   static constexpr int S = 1 << NT;
   static constexpr int kTri = NT * (NT + 1) / 2;
@@ -148,7 +157,8 @@ struct Plan {
   static constexpr int kTrait = 8 + 3 * (NT - 1);   // K7: one trait's
   static constexpr int E = kII ? S * kPat : NT * kTrait;   // a marker's
   static constexpr int D = kII ? S + NT : 2 * NT;          // draws a marker
-  static constexpr int kInputs = D + 1;                     // and its xpx
+  // and its xpx, then its S pattern priors where they are per marker
+  static constexpr int kInputs = D + 1 + (kPM ? S : 0);
   static constexpr size_t kLists = sizeof(jt::ChainLists<Vec<T, NT>>);
   // log_pi and Rinv, rounded up to 16 bytes
   static constexpr size_t kShared = ((S + NT * NT) * sizeof(T) + 15) / 16 * 16;
@@ -358,9 +368,10 @@ __device__ __forceinline__ bool exact_inclusion(T u, T x) {
 // picked by the row: the window's code is compiled once, not once a row).
 // cst and drw point at this lane's constants and draws of the current
 // window (stride kWindow), lp and Rv at log_pi and Rinv in shared memory.
-template <class T, int NT, bool kII, int R>
+template <class T, int NT, bool kII, bool kPM, int R>
 struct MtMarkers {
-  using P = Plan<T, NT, kII>;
+  using P = Plan<T, NT, kII, kPM>;
+  static constexpr int kLp = kPM ? kWindow : 1;   // stride of lp
   using V = Vec<T, NT>;
   static constexpr unsigned kValid = 1u << NT;
   static constexpr unsigned kDelta = kValid - 1;
@@ -372,7 +383,7 @@ struct MtMarkers {
   unsigned cur_bits;
   const T* cst;
   const T* drw;
-  const T* lp;
+  const T* lp;                      // log pi: shared, or the window's marker's row
   const T* Rv;
   V a_new, b_new;                   // the candidate of the last eval
   unsigned d_new;
@@ -403,6 +414,7 @@ struct MtMarkers {
         cur_bits = bits[rr];
       }
     cur_xpx = drw[P::D * kWindow];  // staged with the draws
+    if constexpr (kPM) lp = drw + (P::D + 1) * kWindow;   // and its priors
   }
 
   // w = rhs + x a_old and rw = w Rinv (rw[i] = sum_m w[m] Rinv[m][i])
@@ -425,10 +437,10 @@ struct MtMarkers {
   __device__ __forceinline__ void priors(int k, unsigned de, T (&out)[4]) const {
     const unsigned prev = k > 0 ? 1u << (k - 1) : 0u;
     const unsigned rest = de & ~(1u << k) & ~prev;
-    out[0] = lp[rest];
-    out[1] = lp[rest | prev];
-    out[2] = lp[rest | 1u << k];
-    out[3] = lp[rest | prev | 1u << k];
+    out[0] = lp[rest * kLp];
+    out[1] = lp[(rest | prev) * kLp];
+    out[2] = lp[(rest | 1u << k) * kLp];
+    out[3] = lp[(rest | prev | 1u << k) * kLp];
   }
 
   // sampler I: the trait loop of mt_marker_update_I_ref on the constants.
@@ -515,7 +527,7 @@ struct MtMarkers {
     T quad = mul_rn(rr[0], g[0]);
 #pragma unroll
     for (int a = 1; a < NT; ++a) quad = add_rn(quad, mul_rn(rr[a], g[a]));
-    return add_rn(mul_rn(T(-0.5), sub_rn(con(c + P::kTri), quad)), lp[s]);
+    return add_rn(mul_rn(T(-0.5), sub_rn(con(c + P::kTri), quad)), lp[s * kLp]);
   }
 
   // sampler II: the scores of all patterns, the first argmax with the
@@ -665,10 +677,10 @@ __device__ __forceinline__ Vec<T, NT> shfl(const Vec<T, NT>& d, int src) {
 // Copies window (rep, wi)'s constants (when staged), draws, xpx and Gram
 // diagonal block to dst, all threads of the CTA but the warp busy_warp;
 // lanes past b get zeros.
-template <class T, int NT, bool kII>
+template <class T, int NT, bool kII, bool kPM>
 __device__ __forceinline__ void stage(const Args<T>& A, const T* scratch, int nw,
                                       int rep, int wi, T* dst, int busy_warp) {
-  using P = Plan<T, NT, kII>;
+  using P = Plan<T, NT, kII, kPM>;
   constexpr int kA = kII ? P::S : NT;        // draw_a values a step
   // the warp that runs the current window copies nothing, unless it is the
   // only one
@@ -694,9 +706,11 @@ __device__ __forceinline__ void stage(const Args<T>& A, const T* scratch, int nw
     const int f = i / kWindow, l = i % kWindow;
     if (l < nact) {
       const size_t s = static_cast<size_t>(rep) * A.b + j0 + l;
-      const T* src = f < kA  ? A.draw_a + (s * kA + f) * A.nblocks + k
+      const size_t jm = static_cast<size_t>(k) * A.b + j0 + l;   // the marker
+      const T* src = f < kA     ? A.draw_a + (s * kA + f) * A.nblocks + k
                      : f < P::D ? A.zs + (s * NT + f - kA) * A.nblocks + k
-                                : A.xpx + static_cast<size_t>(k) * A.b + j0 + l;
+                     : f == P::D ? A.xpx + jm
+                                 : A.log_pi + jm * P::S + (f - P::D - 1);
       __pipeline_memcpy_async(dst + i, src, sizeof(T));
     } else {
       dst[i] = T(0);
@@ -715,10 +729,10 @@ __device__ __forceinline__ void stage(const Args<T>& A, const T* scratch, int nw
 
 // ------------------------------------------------------- the chain
 
-template <class T, int NT, bool kII, int R>
+template <class T, int NT, bool kII, bool kPM, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 mt_chain(Args<T> A, const T* __restrict__ scratch, int nw) {
-  using P = Plan<T, NT, kII>;
+  using P = Plan<T, NT, kII, kPM>;
   using V = Vec<T, NT>;
   extern __shared__ float4 smem4[];
   unsigned char* raw = reinterpret_cast<unsigned char*>(smem4);
@@ -737,10 +751,11 @@ mt_chain(Args<T> A, const T* __restrict__ scratch, int nw) {
   const int b = A.b;
   const T* G = A.grams + static_cast<size_t>(k) * b * b;
 
-  for (int i = tid; i < P::S; i += nt) lp[i] = A.log_pi[i];
+  if constexpr (!kPM)
+    for (int i = tid; i < P::S; i += nt) lp[i] = A.log_pi[i];
   for (int i = tid; i < NT * NT; i += nt) Rv[i] = A.Rinv[i];
 
-  MtMarkers<T, NT, kII, R> m;
+  MtMarkers<T, NT, kII, kPM, R> m;
   V rhs[R];
   m.lp = lp;
   m.Rv = Rv;
@@ -750,7 +765,7 @@ mt_chain(Args<T> A, const T* __restrict__ scratch, int nw) {
     const bool own = i < b;
     const size_t base = static_cast<size_t>(k) * NT * b + i;
     unsigned bits = own && A.valid[static_cast<size_t>(k) * b + i] != T(0)
-                        ? MtMarkers<T, NT, kII, R>::kValid : 0u;
+                        ? MtMarkers<T, NT, kII, kPM, R>::kValid : 0u;
 #pragma unroll
     for (int mm = 0; mm < NT; ++mm) {
       rhs[r].v[mm] = own ? A.rhs[base + mm * b] : T(0);
@@ -766,7 +781,7 @@ mt_chain(Args<T> A, const T* __restrict__ scratch, int nw) {
   int srep = 0, swi = 0;
   auto stage_next = [&](int into, int busy_warp) {
     if (srep < A.nreps)
-      stage<T, NT, kII>(A, scratch, nw, srep, swi, buffer(into), busy_warp);
+      stage<T, NT, kII, kPM>(A, scratch, nw, srep, swi, buffer(into), busy_warp);
     __pipeline_commit();
     if (++swi == nw) {
       swi = 0;
@@ -884,12 +899,12 @@ mt_chain(Args<T> A, const T* __restrict__ scratch, int nw) {
 
 // ------------------------------------------------------- launch
 
-template <class T, int NT, bool kII, int R>
+template <class T, int NT, bool kII, bool kPM, int R>
 int launch_rows(const Args<T>& A, int threads, int nw, const T* scratch,
                 const jt::ChainPlan& p, cudaStream_t stream) {
-  using P = Plan<T, NT, kII>;
+  using P = Plan<T, NT, kII, kPM>;
   static bool ready[jt::kMaxDevices];
-  auto kern = mt_chain<T, NT, kII, R>;
+  auto kern = mt_chain<T, NT, kII, kPM, R>;
   if (!(p.dev < jt::kMaxDevices && ready[p.dev])) {
     const int err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(P::smem));
@@ -900,9 +915,12 @@ int launch_rows(const Args<T>& A, int threads, int nw, const T* scratch,
   return cudaGetLastError();
 }
 
-template <class T, int NT, bool kII>
+template <class T, int NT, bool kII, bool kPM>
 int launch_t(const Args<T>& A, cudaStream_t stream) {
-  using P = Plan<T, NT, kII>;
+  using P = Plan<T, NT, kII, kPM>;
+  if constexpr (kPM && NT > kMaxPriorTraits) {
+    return cudaErrorInvalidValue;
+  } else {
   jt::ChainPlan p{};
   int err = cudaGetDevice(&p.dev);
   if (err != 0) return err;
@@ -924,45 +942,54 @@ int launch_t(const Args<T>& A, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != 0) return err;
   switch (rows) {
-    case 1: return launch_rows<T, NT, kII, 1>(A, threads, nw, A.scratch, p, stream);
-    case 2: return launch_rows<T, NT, kII, 2>(A, threads, nw, A.scratch, p, stream);
-    case 4: return launch_rows<T, NT, kII, 4>(A, threads, nw, A.scratch, p, stream);
-    default: return launch_rows<T, NT, kII, 8>(A, threads, nw, A.scratch, p, stream);
+    case 1: return launch_rows<T, NT, kII, kPM, 1>(A, threads, nw, A.scratch, p, stream);
+    case 2: return launch_rows<T, NT, kII, kPM, 2>(A, threads, nw, A.scratch, p, stream);
+    case 4: return launch_rows<T, NT, kII, kPM, 4>(A, threads, nw, A.scratch, p, stream);
+    default: return launch_rows<T, NT, kII, kPM, 8>(A, threads, nw, A.scratch, p, stream);
+  }
   }
 }
 
-template <typename T, bool kII>
+template <typename T, bool kII, bool kPM>
 int launch(int t, const Args<T>& A, void* stream) {
   if (A.b < 1 || A.nblocks < 1 || A.nreps < 1) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(A.grams) % 16 || reinterpret_cast<uintptr_t>(A.scratch) % 16)
     return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (t) {
-    case 2: return launch_t<T, 2, kII>(A, st);
-    case 3: return launch_t<T, 3, kII>(A, st);
-    case 4: return launch_t<T, 4, kII>(A, st);
-    case 5: return launch_t<T, 5, kII>(A, st);
-    case 6: return launch_t<T, 6, kII>(A, st);
-    case 7: return launch_t<T, 7, kII>(A, st);
-    case 8: return launch_t<T, 8, kII>(A, st);
+    case 2: return launch_t<T, 2, kII, kPM>(A, st);
+    case 3: return launch_t<T, 3, kII, kPM>(A, st);
+    case 4: return launch_t<T, 4, kII, kPM>(A, st);
+    case 5: return launch_t<T, 5, kII, kPM>(A, st);
+    case 6: return launch_t<T, 6, kII, kPM>(A, st);
+    case 7: return launch_t<T, 7, kII, kPM>(A, st);
+    case 8: return launch_t<T, 8, kII, kPM>(A, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-#define JT_MT_ENTRY(NAME, T, KII)                                                   \
+#define JT_MT_ENTRY(NAME, T, KII, KPM)                                              \
   extern "C" int NAME(const T* grams, const T* xpx, const T* valid, T* alpha,       \
                       T* beta, T* delta, T* rhs, const T* Rinv, const T* Ginv,      \
                       const T* log_pi, const T* draw_a, const T* zs, T* scratch,   \
                       int t, int b, int nblocks, int nreps, int per_locus,          \
                       void* stream) {                                               \
-    return launch<T, KII>(t, Args<T>{grams, xpx, valid, alpha, beta, delta, rhs,   \
-                                     Rinv, Ginv, log_pi, draw_a, zs, scratch, b,   \
-                                     nblocks, nreps, per_locus}, stream);          \
+    return launch<T, KII, KPM>(t, Args<T>{grams, xpx, valid, alpha, beta, delta,   \
+                                          rhs, Rinv, Ginv, log_pi, draw_a, zs,     \
+                                          scratch, b, nblocks, nreps, per_locus},  \
+                               stream);                                            \
   }
 
-JT_MT_ENTRY(jt_mt_inner_rounds_I, float, false)
-JT_MT_ENTRY(jt_mt_inner_rounds_I_f64, double, false)
-JT_MT_ENTRY(jt_mt_inner_rounds_II, float, true)
-JT_MT_ENTRY(jt_mt_inner_rounds_II_f64, double, true)
+#ifndef JT_MT_PER_MARKER_PRIOR
+JT_MT_ENTRY(jt_mt_inner_rounds_I, float, false, false)
+JT_MT_ENTRY(jt_mt_inner_rounds_I_f64, double, false, false)
+JT_MT_ENTRY(jt_mt_inner_rounds_II, float, true, false)
+JT_MT_ENTRY(jt_mt_inner_rounds_II_f64, double, true, false)
+#else   // mt_inner_rounds_pm.cu: the per-marker prior, t <= kMaxPriorTraits
+JT_MT_ENTRY(jt_mt_inner_rounds_I_pm, float, false, true)
+JT_MT_ENTRY(jt_mt_inner_rounds_I_pm_f64, double, false, true)
+JT_MT_ENTRY(jt_mt_inner_rounds_II_pm, float, true, true)
+JT_MT_ENTRY(jt_mt_inner_rounds_II_pm_f64, double, true, true)
+#endif

@@ -13,7 +13,11 @@ them) become flat tensors; the random-effect state (the groups' configs,
 W'R^-1W, each group's dense Vinv and covariance) becomes the port's; the
 multi-trait chain's state and data (mt_state_from_jax, mt_data_from_jax;
 BayesL's gamma_l, SEM's Lambda, GBLUP's eigenbasis among them)
-become the port's MTChainState and MTData.
+become the port's MTChainState and MTData; the latent traits' and the
+annotations' data and state (latent_data_from_jax, latent_state_from_jax:
+liab, thresholds, the categories, the censoring bounds, A, the probit
+coefficients and their variance, a per-marker pi) come across to either
+engine.
 """
 
 from __future__ import annotations
@@ -117,12 +121,42 @@ def from_jax_random_effects(re_groups, WtRinvW, Vinv, vc, *, device="cpu",
     return cfg, symmetric_upper(t(WtRinvW)), Vt, tuple(t(v) for v in vc)
 
 
+def _opt(x, dtype, device):
+    """An optional array -> a tensor; None or an empty array -> None."""
+    if x is None or np.size(x) == 0:
+        return None
+    return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+
+
+def latent_data_from_jax(data, *, device="cpu", dtype=torch.float32) -> dict:
+    """jwas_tpu's STData / MTData latent and annotation fields
+    (category_obs, cens_lower, cens_upper, anno_A; numpy or JAX arrays,
+    None where absent) -> the port's fields of the same names: the
+    categories int64, the rest dtype. Use as data._replace(**...)."""
+    return dict(category_obs=_opt(data.category_obs, torch.int64, device),
+                cens_lower=_opt(data.cens_lower, dtype, device),
+                cens_upper=_opt(data.cens_upper, dtype, device),
+                anno_A=_opt(data.anno_A, dtype, device))
+
+
+def latent_state_from_jax(state, *, device="cpu", dtype=torch.float32) -> dict:
+    """jwas_tpu's ChainState / MTChainState liab, thresholds, ann_coeffs,
+    ann_var and pi (a per-marker (p_pad,) or (p_pad, 4) one among them)
+    -> tensors in dtype; an absent or empty one -> None (pi is kept).
+    Use as state._replace(**...)."""
+    out = {k: _opt(getattr(state, k), dtype, device)
+           for k in ("liab", "thresholds", "ann_coeffs", "ann_var")}
+    out["pi"] = torch.as_tensor(np.array(state.pi), dtype=dtype).to(device)
+    return out
+
+
 def mt_state_from_jax(state, *, seed: int = 0, device="cpu", dtype=torch.float32):
     """jwas_tpu's MTChainState (numpy or JAX arrays) -> the port's
     MTChainState in dtype on device, with a generator seeded with seed
     (the key is JAX's own). gamma_l (BayesL's local shrinkage; ones for the
     other methods, which ignore it) comes across; Lambda when SEM has
-    edges, else None."""
+    edges, else None; the latent and annotation state as
+    latent_state_from_jax gives it."""
     from jwas_tpu_torch.engine.state import MTChainState
 
     def t(x):
@@ -135,7 +169,9 @@ def mt_state_from_jax(state, *, seed: int = 0, device="cpu", dtype=torch.float32
                         beta=t(state.beta), delta=t(state.delta), ycorr=t(state.ycorr),
                         R=t(state.R), varg=t(state.varg), pi=t(state.pi),
                         vc=tuple(t(v) for v in state.vc), gamma_l=t(state.gamma_l),
-                        Lambda=t(lam) if lam.size else None)
+                        Lambda=t(lam) if lam.size else None,
+                        **{k: v for k, v in latent_state_from_jax(
+                            state, device=device, dtype=dtype).items() if k != "pi"})
 
 
 def mt_data_from_jax(data, re_groups, trait_cols, *, group_blocks: int = 0,

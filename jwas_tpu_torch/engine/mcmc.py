@@ -34,6 +34,16 @@ sweep_blocks_c0l_grouped); BayesA is BayesB with pi 0 (engine/setup.py::
 normalize_method); GBLUP draws every pseudo-marker at once between two
 GEMVs with L (ops/gblup.py), fast_blocks ignored.
 
+Latent traits (binary, ordered categorical, censored; jwas_tpu/engine/
+mcmc.py:126-157, set-up :995-1072): each outer iteration first draws the
+liabilities (ops/threshold.py, a tail-safe truncated normal where jwas_tpu's
+collapses, fault R13) and a categorical trait's free thresholds; the chain
+then runs on the liabilities, and a categorical trait's residual variance
+stays 1. Annotations (annotated BayesC and BayesR on a dense store,
+:421-437): the probit update of ops/annotations.py replaces the pi draw,
+and its per-marker prior goes to K1 as its (nblocks, b) log pi and to K3
+as its (nblocks, b, 4) one.
+
 Two entry points share the chain loop (run_chain) and the initial state:
 runMCMC(model, df, ...) takes a model from build_model and the phenotypes
 and returns the result tables, as jwas_tpu's does; run_st takes a store set
@@ -47,6 +57,7 @@ are its output map times alpha, as jwas_tpu's.
 from __future__ import annotations
 
 import time
+from dataclasses import replace
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -61,7 +72,9 @@ from jwas_tpu_torch.engine.state import ChainState, EngineCfg, REGroupCfg
 from jwas_tpu_torch.io.genotypes import DEFAULT_BAYESR_PI, bayesr_pi  # noqa: F401
 from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
 from jwas_tpu_torch.models.model import Model, describe
+from jwas_tpu_torch.ops import annotations as an
 from jwas_tpu_torch.ops import markers as mk
+from jwas_tpu_torch.ops import threshold as th
 from jwas_tpu_torch.ops.dense import DenseMarkers, build_dense_markers
 from jwas_tpu_torch.ops.dists import sample_gamma_like
 from jwas_tpu_torch.ops.gblup import GBLUPMarkers, build_gblup_markers, sweep_gblup
@@ -92,6 +105,8 @@ from jwas_tpu_torch.ops.variance import (
 # the chain's methods; BayesA runs as BayesB (engine/setup.py::normalize_method)
 METHODS = ("BayesC", "BayesB", "BayesR", "RR-BLUP", "BayesL", "GBLUP")
 PI_METHODS = ("BayesC", "BayesB", "BayesR")    # those with a pi to estimate
+LATENT = ("categorical", "categorical(binary)", "censored")
+CATEGORICAL = ("categorical", "categorical(binary)")
 
 
 class NoMarkers(NamedTuple):
@@ -126,6 +141,12 @@ class STData(NamedTuple):
     Vinv: tuple = ()           # a random-effect group's (q, q) Vinv,
                                # exactly symmetric; None for "I"
     vc_scale: tuple = ()       # a group's (k, k) prior scale
+    category_obs: Optional[torch.Tensor] = None  # (n,) int64 categories of a
+                                                 # categorical trait, 0 missing
+    cens_lower: Optional[torch.Tensor] = None    # (n,) a censored trait's
+    cens_upper: Optional[torch.Tensor] = None    # liability bounds (+-BIG)
+    anno_A: Optional[torch.Tensor] = None        # (p_pad, k) annotation design
+                                                 # [1, annotations], padding 0
 
 
 class SampleOut(NamedTuple):
@@ -159,6 +180,8 @@ class Accum(NamedTuple):
     ebv_m2: torch.Tensor
     vc_m: tuple = ()           # a (k, k) mean a random-effect group
     vc_m2: tuple = ()
+    ann_m: Optional[torch.Tensor] = None    # the annotation coefficients'
+    ann_m2: Optional[torch.Tensor] = None
 
 
 class ChainPlan(NamedTuple):
@@ -245,17 +268,51 @@ def setup_markers(store: Packed2BitStore, obs_ids, device="cuda",
     )
 
 
+def latent_step(cfg: EngineCfg, state: ChainState, data: STData,
+                z_of=None, u_thr=None) -> ChainState:
+    """A latent trait's liabilities, then a categorical trait's free
+    thresholds when it has more than 2 categories (jwas_tpu/engine/
+    mcmc.py:126-157): the bounds from the thresholds (or the censoring
+    bounds), the liabilities (sample_liabilities with R = vare, one pass;
+    z_of its truncated normals, default from the chain's generator:
+    ops/threshold.py::truncated_normals), the
+    thresholds from 2 on (u_thr: their uniforms, default drawn)."""
+    trait_type = cfg.trait_types[0]
+    if trait_type == "censored":
+        lb, ub = data.cens_lower, data.cens_upper
+    else:
+        lb, ub = th.bounds_from_thresholds(state.thresholds, data.category_obs)
+    liab, ycorr = th.sample_liabilities(
+        state.liab.view(1, -1), state.ycorr.view(1, -1), state.vare.view(1, 1),
+        lb.view(1, -1), ub.view(1, -1), (0,), 1,
+        th.truncated_normals(state.gen) if z_of is None else z_of)
+    liab, ycorr = liab[0], ycorr[0]
+    thresholds = state.thresholds
+    n_cat = cfg.cat_counts[0] if cfg.cat_counts else 0
+    if trait_type == "categorical" and n_cat > 2:
+        if u_thr is None:
+            thresholds = th.draw_thresholds(state.gen, thresholds, liab,
+                                            data.category_obs, n_cat, 2)
+        else:
+            thresholds = th.sample_thresholds_t(thresholds, liab, data.category_obs,
+                                                n_cat, 2, u_thr)
+    return state._replace(liab=liab, ycorr=ycorr, thresholds=thresholds)
+
+
 def make_st_step(cfg: EngineCfg):
-    """One outer iteration: location pass (over W'R^-1W plus the random
-    effects' blocks), marker sweep (nreps effective sweeps of the grouped
-    schedule; one for the exact sweep's store and GBLUP; none without
-    markers), pi, marker variance (then BayesL's local shrinkage), its
-    scale, the random-effect covariances, the residual variance. The marker
-    state of the returned state is the input's tensors, updated in place.
-    BayesB is BayesC's sweep with one variance a marker."""
+    """One outer iteration: a latent trait's liabilities and thresholds
+    (latent_step), location pass (over W'R^-1W plus the random effects'
+    blocks), marker sweep (nreps effective sweeps of the grouped schedule;
+    one for the exact sweep's store and GBLUP; none without markers), pi
+    (or the annotation probits), marker variance (then BayesL's local
+    shrinkage), its scale, the random-effect covariances, the residual
+    variance. The marker state of the returned state is the input's
+    tensors, updated in place. BayesB is BayesC's sweep with one variance a
+    marker."""
     method = cfg.method
     bayesr, bayesb = method == "BayesR", method == "BayesB"
     bayesl, gblup = method == "BayesL", method == "GBLUP"
+    latent = cfg.trait_types[0] in LATENT
 
     def markers(state: ChainState, data: STData) -> ChainState:
         gen, gm, ycorr = state.gen, data.gm, state.ycorr
@@ -265,9 +322,11 @@ def make_st_step(cfg: EngineCfg):
         beta = state.beta
         delta = state.delta
         if bayesr:
-            pad_row = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=state.pi.dtype,
-                                   device=real.device)
-            pi_mat = torch.where(real[:, None], state.pi[None, :], pad_row)
+            pi_mat = state.pi                       # annotated: (p_pad, 4) already
+            if pi_mat.dim() == 1:
+                pad_row = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=state.pi.dtype,
+                                       device=real.device)
+                pi_mat = torch.where(real[:, None], state.pi[None, :], pad_row)
             alpha, delta, ycorr = sweep_blocks_bayesr_grouped(
                 gm, state.alpha, state.delta, ycorr, state.vare, state.varg,
                 pi_mat, gen, nreps=cfg.nreps, sync_every=cfg.sync_every,
@@ -288,9 +347,15 @@ def make_st_step(cfg: EngineCfg):
                 sync_every=cfg.sync_every,
             )
 
-        # 2b. pi (Pi.jl:7-17)
+        # 2b. pi (Pi.jl:7-17), or the annotation probits in its place
+        # (jwas_tpu/engine/mcmc.py:421-437)
         pi = state.pi
-        if cfg.estimate_pi and bayesr:
+        ann_coeffs, ann_var = state.ann_coeffs, state.ann_var
+        if cfg.anno_steps:
+            update = an.anno_bayesc_update if cfg.anno_steps == 1 else an.anno_bayesr_update
+            ann_coeffs, ann_var, pi = update(data.anno_A, delta, ann_coeffs, ann_var,
+                                             gm.valid, an.ProbitDraws(gen))
+        elif cfg.estimate_pi and bayesr:
             pi = sample_pi_bayesr(gen, delta, gm.valid)
         elif cfg.estimate_pi:
             pi_s = sample_pi_abc(gen, delta, cfg.n_markers, gm.valid)
@@ -325,10 +390,15 @@ def make_st_step(cfg: EngineCfg):
         elif cfg.estimate_scale:
             scale_g = sample_scale_st(gen, varg, cfg.df_marker)
         return state._replace(alpha=alpha, beta=beta, delta=delta, ycorr=ycorr,
-                              varg=varg, pi=pi, scale_g=scale_g, gamma_l=gamma_l)
+                              varg=varg, pi=pi, scale_g=scale_g, gamma_l=gamma_l,
+                              ann_coeffs=ann_coeffs, ann_var=ann_var)
 
     def step(state: ChainState, data: STData) -> ChainState:
         gen, gm = state.gen, data.gm
+
+        # 0. a latent trait's liabilities and thresholds
+        if latent:
+            state = latent_step(cfg, state, data)
 
         # 1. location parameters (MCMC_BayesianAlphabet.jl:196-220), K6
         lhs = (assemble_lhs_lambda(cfg.re_groups, data.WtW, data.Vinv, state.vc,
@@ -368,11 +438,18 @@ def _welford(m, x, n):
     return m + (x - m) / n
 
 
-def _pi_summary(cfg: EngineCfg, state: ChainState):
+def _pi_summary(cfg: EngineCfg, data: STData, state: ChainState):
     """The pi a sample reports: BayesR's (4,) class prior, BayesC's and
     BayesB's P(excluded) of the first marker (their common value when pi
     is estimated), none (0,) for the methods without a pi, whose sample
-    file rows jwas_tpu writes empty."""
+    file rows jwas_tpu writes empty; under annotations the mean of the
+    per-marker prior over the real markers (jwas_tpu/engine/mcmc.py:
+    621-633)."""
+    if cfg.anno_steps:
+        real = data.gm.valid > 0
+        pi = state.pi if state.pi.dim() == 2 else state.pi[:, None]
+        mean = torch.where(real[:, None], pi, 0.0).sum(0) / cfg.n_markers
+        return mean if state.pi.dim() == 2 else mean[0]
     if cfg.method in ("BayesC", "BayesB"):
         return state.pi[0]
     return state.pi
@@ -413,7 +490,7 @@ def make_run_window(cfg: EngineCfg):
         genvar = (torch.var(ebv, unbiased=False) if ebv.numel() > 1
                   else torch.zeros((), dtype=ebv.dtype, device=ebv.device))
         out = SampleOut(vare=state.vare, varg=_varg_summary(cfg, data, state),
-                        pi=_pi_summary(cfg, state),
+                        pi=_pi_summary(cfg, data, state),
                         ebv=ebv, genvar=genvar,
                         h2=genvar / (genvar + state.vare))
         if accumulate:
@@ -439,6 +516,10 @@ def make_run_window(cfg: EngineCfg):
                 ebv_m2=_welford(accum.ebv_m2, ebv ** 2, n),
                 vc_m=tuple(_welford(m, v, n) for m, v in zip(accum.vc_m, state.vc)),
                 vc_m2=tuple(_welford(m, v ** 2, n) for m, v in zip(accum.vc_m2, state.vc)),
+                ann_m=(None if accum.ann_m is None
+                       else _welford(accum.ann_m, state.ann_coeffs, n)),
+                ann_m2=(None if accum.ann_m2 is None
+                        else _welford(accum.ann_m2, state.ann_coeffs ** 2, n)),
             )
         return state, accum, out
 
@@ -450,18 +531,19 @@ def _init_accum(cfg: EngineCfg, data: STData, state: ChainState) -> Accum:
         return torch.zeros_like(t, dtype=state.alpha.dtype)
 
     s = z(state.vare)
-    pi = z(_pi_summary(cfg, state))
+    pi = z(_pi_summary(cfg, data, state))
     if isinstance(data.gm, NoMarkers):
         n_out = data.out_W.shape[0]
     else:
         n_out = data.y.shape[0] if data.ebv_rows is None else data.ebv_rows.shape[0]
     ebv = torch.zeros(n_out, dtype=state.alpha.dtype, device=state.alpha.device)
     vc = tuple(z(v) for v in state.vc)
+    ann = None if state.ann_coeffs is None else z(state.ann_coeffs)
     return Accum(n=0.0, sol_m=z(state.sol), sol_m2=z(state.sol),
                  alpha_m=z(state.alpha), alpha_m2=z(state.alpha),
                  delta_m=z(state.alpha), vare_m=s, vare_m2=s, varg_m=s,
                  varg_m2=s, pi_m=pi, pi_m2=pi, scale_m=s, scale_m2=s,
-                 ebv_m=ebv, ebv_m2=ebv, vc_m=vc, vc_m2=vc)
+                 ebv_m=ebv, ebv_m2=ebv, vc_m=vc, vc_m2=vc, ann_m=ann, ann_m2=ann)
 
 
 def _reject_unsupported(**unsupported) -> None:
@@ -635,6 +717,10 @@ def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
             parts["ebv"] = out.ebv
         if stream.re_vars:
             parts.update((f"vc{g}", v) for g, v in enumerate(state.vc))
+        if stream.latent:
+            parts["liab"] = state.liab
+            if state.thresholds is not None:
+                parts["thresholds"] = state.thresholds
     flat = torch.cat([t.reshape(-1).to(dtype) for t in parts.values()])
     flat = flat.cpu().numpy()
     host, i = {}, 0
@@ -792,6 +878,74 @@ def run_st(gm, y, *, vare0: float, scale_R: float,
     }
 
 
+def latent_setup_st(ws: Workspace, seed: Optional[int]):
+    """A single-trait latent trait's data and starting values
+    (jwas_tpu/engine/mcmc.py:995-1043): a categorical trait's categories
+    (n,) and thresholds [-BIG, linspace(0, 1, K)[:-1].., BIG] ([-BIG, 0,
+    BIG] binary), or a censored trait's bounds from its <name>_l / _u
+    columns (a missing one infinite, clipped to +-BIG); the liabilities
+    start from truncated normals of sd sqrt(vare0) within the bounds,
+    drawn by scipy.stats.truncnorm on numpy's default_rng(seed) (0 for
+    None), as the reference draws them. Returns a dict of numpy arrays:
+    category_obs (None when censored), lower, upper, thresholds (None when
+    censored), liab, and n_cat."""
+    from scipy.stats import truncnorm
+
+    from jwas_tpu_torch.io.table import to_numeric
+
+    BIG = th.BIG
+    trait_type, name, n = ws.model.traits_type[0], ws.model.lhs_vec[0], ws.n_obs
+    rng = np.random.default_rng(seed if seed is not None else 0)
+    out = dict(category_obs=None, thresholds=None, n_cat=0)
+    if trait_type in CATEGORICAL:
+        cats = np.asarray(np.nan_to_num(ws.y[:n]), dtype=np.int64)
+        n_cat = int(cats.max())
+        thr = (np.concatenate([[-BIG], np.linspace(0, 1, n_cat)[:-1], [BIG]])
+               if trait_type == "categorical" else np.array([-BIG, 0.0, BIG]))
+        lb = np.where(cats > 0, thr[np.maximum(cats - 1, 0)], -BIG)
+        ub = np.where(cats > 0, thr[np.minimum(cats, len(thr) - 1)], BIG)
+        out.update(category_obs=cats, thresholds=thr, n_cat=n_cat)
+    else:
+        lb = to_numeric(ws.df[f"{name}_l"], errors="coerce")
+        ub = to_numeric(ws.df[f"{name}_u"], errors="coerce")
+        lb = np.clip(np.nan_to_num(lb, nan=-np.inf), -BIG, BIG)
+        ub = np.clip(np.nan_to_num(ub, nan=np.inf), -BIG, BIG)
+    s0 = np.sqrt(float(ws.vare0))
+    a, b = np.clip(lb / s0, -30, 30), np.clip(ub / s0, -30, 30)
+    liab = np.where(lb < ub, truncnorm.rvs(a, np.maximum(b, a + 1e-6), scale=s0,
+                                           random_state=rng, size=n), lb)
+    out.update(lower=lb, upper=ub, liab=liab)
+    return out
+
+
+def annotation_design(g, p_pad: int) -> np.ndarray:
+    """The annotation design A = [1, annotations] (p_pad, 1 + k), the
+    padding's rows 0 (annotation_setup.jl:70-100)."""
+    ann = np.asarray(g.annotations, dtype=np.float64)
+    p = ann.shape[0]
+    A = np.zeros((p_pad, 1 + ann.shape[1]))
+    A[:p, 0] = 1.0
+    A[:p, 1:] = ann
+    return A
+
+
+def annotation_start_st(g, k: int):
+    """The probits' starting coefficients and slope variance
+    (jwas_tpu/engine/mcmc.py:1057-1072): annotated BayesC's intercept is
+    Phi^-1 of the mean inclusion 1 - pi (clipped to [1e-12, 1 - 1e-12]),
+    its slopes 0, variance 1; annotated BayesR's (k, 3) zeros and (3,)
+    ones. Returns (steps, coeffs, var) as numpy arrays."""
+    from scipy.stats import norm
+
+    if g.method == "BayesC":
+        pi = np.full(g.n_markers, float(g.pi)) if np.ndim(g.pi) == 0 else (
+            np.asarray(g.pi, dtype=np.float64))
+        c0 = np.zeros(k)
+        c0[0] = norm.ppf(float(np.clip(np.mean(1.0 - pi), 1e-12, 1 - 1e-12)))
+        return 1, c0, np.asarray(1.0)
+    return 3, np.zeros((k, 3)), np.ones(3)
+
+
 def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     """The 2-bit grouped, the dense, the GBLUP and the no-marker branches
     of jwas_tpu's _build_st_data_and_state (:762-868, the random-effect
@@ -855,13 +1009,44 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         for name in ws.prediction_terms:
             term = ws.model.term_dict[name]
             out_W[:, term.start_pos:term.start_pos + term.n_levels] += ws.output_X[name]
-    data = make_data(gm, ws.y, ws.W, ws.scale_R, ebv_rows=ws.output_store_rows,
+    trait_type = ws.model.traits_type[0]
+    lat = latent_setup_st(ws, opts.seed) if trait_type in LATENT else None
+    anno = g is not None and g.annotations is not None and g.method in ("BayesC",
+                                                                         "BayesR")
+    cfg = replace(cfg, trait_types=(trait_type,),
+                  cat_counts=(lat["n_cat"],) if lat else (),
+                  estimate_residual_variance=cfg.estimate_residual_variance
+                  and trait_type not in CATEGORICAL)
+    data = make_data(gm, ws.y if lat is None else lat["liab"], ws.W, ws.scale_R,
+                     ebv_rows=ws.output_store_rows,
                      out_W=out_W, Vinv=[grp.Vinv for grp in ws.re_groups],
                      vc_scale=[grp.scale for grp in ws.re_groups])
+
+    def on_dev(x, dt=dtype):
+        return None if x is None else torch.as_tensor(np.asarray(x), dtype=dt).to(device)
+
+    if lat is not None and trait_type == "censored":
+        data = data._replace(cens_lower=on_dev(lat["lower"]), cens_upper=on_dev(lat["upper"]))
+    elif lat is not None:
+        data = data._replace(category_obs=on_dev(lat["category_obs"], torch.int64))
+    if anno:
+        A = annotation_design(g, gm.valid.shape[0])
+        steps, c0, v0 = annotation_start_st(g, A.shape[1])
+        cfg = replace(cfg, anno_steps=steps)
+        data = data._replace(anno_A=on_dev(A))
     state = initial_state(cfg, data, vare0=ws.vare0, marker_var0=ws.marker_var0,
                           marker_scale0=ws.marker_scale0, pi0=ws.pi0, seed=opts.seed,
                           sol0=sol0, alpha0=None if g is None else g.starting_alpha,
                           vc0=[grp.G0 for grp in ws.re_groups])
+    if lat is not None:
+        state = state._replace(liab=data.y.clone(), thresholds=on_dev(lat["thresholds"]))
+    if anno:
+        state = state._replace(ann_coeffs=on_dev(c0), ann_var=on_dev(v0))
+        if g.method == "BayesR":          # one (4,) prior a marker, padding [1, 0, 0, 0]
+            real = gm.valid > 0
+            pad = torch.zeros(4, dtype=dtype, device=device)
+            pad[0] = 1.0
+            state = state._replace(pi=torch.where(real[:, None], state.pi[None, :], pad))
     return cfg, data, state
 
 
@@ -874,10 +1059,13 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     matrix (with residual weights, heterogeneous_residuals, and float64,
     double_precision), or no genotypes; with the random effects of
     set_random (i.i.d., pedigree and Vinv groups; the pedigree also as
-    the option pedigree=). A model of several equations runs the
+    the option pedigree=); latent traits (build_model's categorical_trait,
+    censored_trait) and annotations (get_genotypes's annotations: BayesC
+    and BayesR on a dense store). A model of several equations runs the
     multi-trait chain (engine/mcmc_mt.py: BayesC and BayesB on a dense
-    store, samplers I and II, the mega-trait constraint, or no genotypes).
-    kwargs are MCMCOptions' fields.
+    store, samplers I and II, the mega-trait constraint, latent traits,
+    2-trait annotated BayesC, or no genotypes). kwargs are MCMCOptions'
+    fields.
 
     device: where the chain runs, the GPU unless the caller asks for the
     CPU (device="cpu" runs the kernels' plain versions); without a GPU the
@@ -914,7 +1102,8 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
         stream.close()
     accum = accum._replace(**{k: _host(v) if torch.is_tensor(v) else
                               tuple(_host(t) for t in v)
-                              for k, v in accum._asdict().items() if k != "n"})
+                              for k, v in accum._asdict().items()
+                              if k != "n" and v is not None})
     results = build_results(ws, cfg, accum, samples, opts)
     if stream.enabled and stream.write_markers and ws.geno is not None:
         results["_marker_sample_file"] = stream.writer.path(

@@ -10,9 +10,19 @@ Counterpart of jwas_tpu/engine/mcmc_mt.py: _pattern_Ri (:83), make_mt_step
 BayesL's local shrinkage :401-454, the random-effect covariances :456-464,
 the residual covariance :466-487, SEM's structural coefficients
 :489-516), make_mt_run_window (:567-629), pi_dict_to_vector (:632),
-build_mt_data_and_state (:645-991, the parts of continuous traits without
-annotations), _apply_update_priors_mt (:1015-1034) and run_mcmc_mt
-(:1232), single chain.
+build_mt_data_and_state (:645-991), _apply_update_priors_mt (:1015-1034)
+and run_mcmc_mt (:1232), single chain.
+
+- Latent traits (binary, ordered categorical, censored; :112-148, set-up
+  :758-830): each outer iteration first draws their liabilities
+  (ops/threshold.py::sample_liabilities, 5 Gibbs passes when more than one
+  trait is latent, tail-safe where jwas_tpu's truncated normal collapses,
+  fault R13) and each categorical trait's free thresholds; with a binary
+  trait R is Korsgaard's conditional draw, its variance pinned at 1.
+- 2-trait annotated BayesC (:379-390, :852-888): a three-step tree probit
+  (ops/annotations.py::anno_bayesc_mt_update) replaces the Dirichlet draw
+  and gives every marker its own (4,) pattern prior, which K7 / K8 take
+  per marker (csrc/mt_inner_rounds_pm.cu).
 
 - The residual precision of an observation is Ri_p rinv_i, Ri_p (t, t)
   of its missing pattern p (the static set of observed-trait masks); the
@@ -52,8 +62,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from jwas_tpu_torch.engine.mcmc import (NoMarkers, chain_plan, setup_dense_markers,
-                                        _welford)
+from jwas_tpu_torch.engine.mcmc import (LATENT, NoMarkers, annotation_design, chain_plan,
+                                        setup_dense_markers, _welford)
 from jwas_tpu_torch.engine.output_mt import build_mt_results
 from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
 from jwas_tpu_torch.engine.samples_io import MTSampleStream
@@ -61,8 +71,10 @@ from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace, prepare_workspa
                                          resolve_device, sem_edges)
 from jwas_tpu_torch.engine.state import MTChainState, MTEngineCfg, REGroupCfg
 from jwas_tpu_torch.models.model import describe
+from jwas_tpu_torch.ops import annotations as an
 from jwas_tpu_torch.ops import markers as mk
 from jwas_tpu_torch.ops import multitrait as mt
+from jwas_tpu_torch.ops import threshold as th
 from jwas_tpu_torch.ops.dists import sample_gamma_like
 from jwas_tpu_torch.ops.gblup import build_gblup_markers, sweep_gblup
 from jwas_tpu_torch.ops.grouped import (hbm_budget, sweep_blocks_abc_grouped,
@@ -100,6 +112,11 @@ class MTData(NamedTuple):
     Vinv: tuple = ()           # a group's (q, q) Vinv, exactly symmetric;
                                # None for "I"
     vc_scale: tuple = ()       # a group's (k, k) prior scale
+    category_obs: Optional[torch.Tensor] = None  # (t, n) int64 categories,
+                                                 # 0 missing or not categorical
+    cens_lower: Optional[torch.Tensor] = None    # (t, n) censoring bounds,
+    cens_upper: Optional[torch.Tensor] = None    # +-BIG elsewhere
+    anno_A: Optional[torch.Tensor] = None        # (p_pad, k) annotation design
 
 
 class MTSampleOut(NamedTuple):
@@ -133,6 +150,8 @@ class MTAccum(NamedTuple):
     vc_m2: tuple = ()
     lam_m: Optional[torch.Tensor] = None   # SEM's structural coefficients
     lam_m2: Optional[torch.Tensor] = None
+    ann_m: Optional[torch.Tensor] = None   # the tree probit's coefficients
+    ann_m2: Optional[torch.Tensor] = None
 
 
 def pattern_Ri(patterns, R):
@@ -222,8 +241,12 @@ def sample_markers(cfg: MTEngineCfg, state: MTChainState, data: MTData) -> MTCha
                                        ginv, pi, gen, sampler=cfg.mt_sampler,
                                        nreps=cfg.nreps, sync_every=cfg.sync_every)
 
-    # pi (mcmc_mt.py:378-399)
-    if cfg.estimate_pi and cfg.constraint:
+    # pi (mcmc_mt.py:378-399), or the tree probit in its place
+    ann_coeffs, ann_var = state.ann_coeffs, state.ann_var
+    if cfg.anno_steps:
+        ann_coeffs, ann_var, pi = an.anno_bayesc_mt_update(
+            data.anno_A, delta, ann_coeffs, ann_var, gm.valid, an.ProbitDraws(gen))
+    elif cfg.estimate_pi and cfg.constraint:
         pi = torch.stack([sample_pi_abc(gen, delta[k], cfg.n_markers, gm.valid)
                           for k in range(t)]).to(pi.dtype)
     elif cfg.estimate_pi:
@@ -243,7 +266,39 @@ def sample_markers(cfg: MTEngineCfg, state: MTChainState, data: MTData) -> MTCha
         if bayesl:
             gamma_l = sample_mt_bayesl_gamma(gen, gamma_l, alpha, varg, gm.valid)
     return state._replace(alpha=alpha, beta=beta, delta=delta, ycorr=ycorr,
-                          pi=pi, varg=varg, gamma_l=gamma_l)
+                          pi=pi, varg=varg, gamma_l=gamma_l, ann_coeffs=ann_coeffs,
+                          ann_var=ann_var)
+
+
+def mt_latent_step(cfg: MTEngineCfg, state: MTChainState, data: MTData,
+                   z_of=None, u_thr=None) -> MTChainState:
+    """The latent traits' liabilities and thresholds (mcmc_mt.py:112-148):
+    each latent trait's bounds (censoring, or its thresholds), then
+    sample_liabilities over them with n_gibbs 5 when more than one trait
+    is latent (z_of: its truncated normals, default from the chain's
+    generator), then each categorical trait with more than 2 categories
+    its free thresholds from 3 on (u_thr(k): trait k's uniforms, default
+    drawn)."""
+    t, n = state.ycorr.shape
+    lower = torch.full((t, n), -th.BIG, dtype=state.ycorr.dtype, device=state.ycorr.device)
+    upper = torch.full_like(lower, th.BIG)
+    for k in cfg.latent_traits:
+        if cfg.trait_types[k] == "censored":
+            lower[k], upper[k] = data.cens_lower[k], data.cens_upper[k]
+        else:
+            lower[k], upper[k] = th.bounds_from_thresholds(state.thresholds[k],
+                                                           data.category_obs[k])
+    n_gibbs = 5 if len(cfg.latent_traits) > 1 else 1
+    liab, ycorr = th.sample_liabilities(
+        state.liab, state.ycorr, state.R, lower, upper, cfg.latent_traits, n_gibbs,
+        th.truncated_normals(state.gen) if z_of is None else z_of)
+    thresholds = state.thresholds.clone()
+    for k in cfg.latent_traits:
+        if cfg.trait_types[k] == "categorical" and cfg.cat_counts[k] > 2:
+            args = (thresholds[k], liab[k], data.category_obs[k], cfg.cat_counts[k], 3)
+            thresholds[k] = (th.draw_thresholds(state.gen, *args) if u_thr is None
+                             else th.sample_thresholds_t(*args, u_thr(k)))
+    return state._replace(liab=liab, ycorr=ycorr, thresholds=thresholds)
 
 
 def sem_lambda(y, ycorr, R, Lambda, edges, z):
@@ -279,8 +334,9 @@ def sem_lambda(y, ycorr, R, Lambda, edges, z):
 
 
 def make_mt_step(cfg: MTEngineCfg):
-    """One outer iteration: imputation of the missing residuals, location
-    pass (K6), markers (sample_markers), pi, the marker-effect covariance,
+    """One outer iteration: the latent traits' liabilities and thresholds
+    (mt_latent_step), imputation of the missing residuals, location pass
+    (K6), markers (sample_markers), pi, the marker-effect covariance,
     the random-effect covariances, the residual covariance, SEM's
     structural coefficients. The marker state of the returned state is the
     input's tensors, updated in place."""
@@ -288,6 +344,8 @@ def make_mt_step(cfg: MTEngineCfg):
 
     def step(state: MTChainState, data: MTData) -> MTChainState:
         gen, n = state.gen, data.y.shape[1]
+        if cfg.latent_traits:
+            state = mt_latent_step(cfg, state, data)
         ycorr = state.ycorr
         if cfg.missing_phenotypes:
             ycorr = impute_missing(ycorr, state.R, data.pattern_rows,
@@ -319,9 +377,11 @@ def make_mt_step(cfg: MTEngineCfg):
         # 3.2 residual covariance (mcmc_mt.py:466-487)
         R = state.R
         if cfg.estimate_residual_variance:
+            # with binary traits Korsgaard's draw (r_constraint first)
+            kw = dict(binary=cfg.binary_traits) if cfg.binary_traits else {}
             R = sample_residual_covariance(gen, state.ycorr, data.rinv, cfg.n_obs,
                                            cfg.df_residual, data.scale_R,
-                                           cfg.r_constraint)
+                                           cfg.r_constraint, **kw)
         state = state._replace(R=R, vc=tuple(vc))
 
         # 4. SEM's structural coefficients (mcmc_mt.py:489-516)
@@ -366,7 +426,9 @@ def make_mt_run_window(cfg: MTEngineCfg):
         h2 = torch.diagonal(genvar) / (torch.diagonal(genvar) + torch.diagonal(state.R))
         varg_out = (state.varg[:cfg.n_markers].mean(dim=0) if state.varg.dim() == 3
                     else state.varg)
-        out = MTSampleOut(R=state.R, varg=varg_out, pi=state.pi, ebv=ebv,
+        pi_out = (state.pi[:cfg.n_markers].mean(dim=0) if state.pi.dim() == 2
+                  else state.pi)
+        out = MTSampleOut(R=state.R, varg=varg_out, pi=pi_out, ebv=ebv,
                           genvar=genvar, h2=h2, lam=state.Lambda)
         if accumulate:
             n = accum.n + 1.0
@@ -374,6 +436,8 @@ def make_mt_run_window(cfg: MTEngineCfg):
                          pi=state.pi, ebv=ebv)
             if state.Lambda is not None:
                 pairs["lam"] = state.Lambda
+            if state.ann_coeffs is not None:
+                pairs["ann"] = state.ann_coeffs
             upd = {}
             for k, x in pairs.items():
                 upd[k + "_m"] = _welford(getattr(accum, k + "_m"), x, n)
@@ -399,12 +463,13 @@ def init_mt_accum(data: MTData, state: MTChainState) -> MTAccum:
                       device=state.R.device)
     vc = tuple(z(v) for v in state.vc)
     lam = None if state.Lambda is None else z(state.Lambda)
+    ann = None if state.ann_coeffs is None else z(state.ann_coeffs)
     return MTAccum(n=0.0, sol_m=z(state.sol), sol_m2=z(state.sol),
                    alpha_m=z(state.alpha), alpha_m2=z(state.alpha),
                    delta_m=z(state.alpha), R_m=z(state.R), R_m2=z(state.R),
                    varg_m=z(state.varg), varg_m2=z(state.varg), pi_m=z(state.pi),
                    pi_m2=z(state.pi), ebv_m=ebv, ebv_m2=ebv, vc_m=vc, vc_m2=vc,
-                   lam_m=lam, lam_m2=lam)
+                   lam_m=lam, lam_m2=lam, ann_m=ann, ann_m2=ann)
 
 
 SAMPLE_KEYS = ("R", "varg", "pi", "genvar", "h2")
@@ -429,6 +494,9 @@ def _read_back(state: MTChainState, out: MTSampleOut, stream, p: int) -> Dict:
         if stream.ebv:
             parts["ebv"] = out.ebv
         parts.update((f"vc{g}", v) for g, v in enumerate(state.vc))
+        if stream.latent:
+            parts["liab"] = state.liab
+            parts["thresholds"] = state.thresholds
     dtype = state.R.dtype
     flat = torch.cat([x.reshape(-1).to(dtype) for x in parts.values()]).cpu().numpy()
     host, i = {}, 0
@@ -503,6 +571,86 @@ def pi_dict_to_vector(pi, t: int) -> np.ndarray:
     else:
         vec[-1] = 1.0
     return vec
+
+
+def latent_setup_mt(ws: Workspace, seed: Optional[int]) -> Dict:
+    """The latent traits' data and starting values (mcmc_mt.py:758-823):
+    a categorical trait's categories (t, n; 0 where missing) and
+    thresholds [-BIG, 0, linspace(1, max(10 R_kk, 2), K - 1)[:-1].., BIG]
+    ([-BIG, 0, BIG] binary), padded with BIG to (t, max(3, K + 1)); a
+    censored trait's bounds from its <name>_l / _u columns; +-BIG
+    elsewhere. The liabilities start from truncated normals of sd
+    sqrt(R0_kk) within the bounds, scipy.stats.truncnorm on numpy's
+    default_rng(seed + 7) (seed None: 7), the other rows from y (0 where
+    missing). Returns a dict of numpy arrays: category_obs, lower, upper,
+    thresholds, liab, and cat_counts (a trait's K, 0 for the others)."""
+    from scipy.stats import truncnorm
+
+    from jwas_tpu_torch.io.table import to_numeric
+
+    model, t, n, BIG = ws.model, ws.n_traits, ws.n_obs, th.BIG
+    y = ws.y.reshape(t, n)
+    y_mask = ws.y_mask.reshape(t, n)
+    R0 = np.atleast_2d(np.asarray(ws.vare0, dtype=np.float64))
+    cats = np.zeros((t, n), np.int64)
+    lower, upper = np.full((t, n), -BIG), np.full((t, n), BIG)
+    counts, rows = [0] * t, {}
+    latent = [k for k, tt in enumerate(model.traits_type) if tt in LATENT]
+    for k in latent:
+        tt = model.traits_type[k]
+        if tt in ("categorical", "categorical(binary)"):
+            cats[k] = np.where(y_mask[k], np.nan_to_num(y[k]), 0.0).astype(np.int64)
+            counts[k] = int(cats[k].max())
+            if tt == "categorical":
+                inner = np.linspace(1.0, max(10.0 * float(R0[k, k]), 2.0),
+                                    counts[k] - 1)[:-1]
+                rows[k] = np.concatenate([[-BIG, 0.0], inner, [BIG]])
+            else:
+                rows[k] = np.array([-BIG, 0.0, BIG])
+            thr = rows[k]
+            lower[k] = np.where(cats[k] > 0, thr[np.maximum(cats[k] - 1, 0)], -BIG)
+            upper[k] = np.where(cats[k] > 0, thr[np.minimum(cats[k], len(thr) - 1)], BIG)
+        else:
+            name = model.lhs_vec[k]
+            lo = to_numeric(ws.df[f"{name}_l"], errors="coerce")
+            hi = to_numeric(ws.df[f"{name}_u"], errors="coerce")
+            lower[k] = np.clip(np.nan_to_num(lo, nan=-np.inf), -BIG, BIG)
+            upper[k] = np.clip(np.nan_to_num(hi, nan=np.inf), -BIG, BIG)
+    t_max = max(3, max((counts[k] + 1 for k in latent), default=3))
+    thresholds = np.full((t, t_max), BIG)
+    for k, thr in rows.items():
+        thresholds[k, :len(thr)] = thr
+    liab = np.where(y_mask, y, 0.0).astype(np.float64)
+    rng = np.random.default_rng((seed if seed is not None else 0) + 7)
+    for k in latent:
+        s0 = np.sqrt(float(R0[k, k]))
+        a, b = np.clip(lower[k] / s0, -30, 30), np.clip(upper[k] / s0, -30, 30)
+        liab[k] = np.where(lower[k] < upper[k],
+                           truncnorm.rvs(a, np.maximum(b, a + 1e-6), scale=s0,
+                                         random_state=rng, size=n), lower[k])
+    return dict(category_obs=cats, lower=lower, upper=upper, thresholds=thresholds,
+                liab=liab, cat_counts=counts)
+
+
+def annotation_start_mt(pi, t: int, k: int) -> np.ndarray:
+    """The tree probit's starting coefficients (k, 3) (mcmc_mt.py:867-888):
+    intercepts Phi^-1 of p1 = 1 - pi_00, p2 = pi_11 / p1, p3 = pi_10 /
+    (p1 (1 - p2)) from the starting Pi dict (each clipped to [1e-6,
+    1 - 1e-6]), slopes 0. Refuses a dict without mass in {10, 11}, {01, 11}
+    and 11."""
+    from scipy.stats import norm
+
+    v = pi_dict_to_vector(pi, t)             # 00, 10, 01, 11
+    if v[1] + v[3] <= 0 or v[2] + v[3] <= 0 or v[3] <= 0:
+        raise ValueError("Annotated multi-trait BayesC requires positive startup "
+                         "prior mass in states {10,11}, {01,11} and 11")
+    eps = 1e-6
+    p1 = float(np.clip(1.0 - v[0], eps, 1 - eps))
+    p2 = float(np.clip(v[3] / p1, eps, 1 - eps))
+    p3 = float(np.clip(v[1] / max(p1 * (1.0 - p2), eps), eps, 1 - eps))
+    c0 = np.zeros((k, 3))
+    c0[0, :] = norm.ppf([p1, p2, p3])
+    return c0
 
 
 def _sync_every(opts: MCMCOptions) -> Optional[int]:
@@ -611,6 +759,18 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         # MTBayesL's prior on the scaled effects (mcmc_mt.py:943-945)
         marker_var0 = marker_var0 / (4.0 * (t + 1))
         marker_scale0 = marker_scale0 / (4.0 * (t + 1))
+    trait_types = tuple(model.traits_type)
+    lat = latent_setup_mt(ws, opts.seed)
+    latent = tuple(k for k, tt in enumerate(trait_types) if tt in LATENT)
+    binary = tuple(k for k, tt in enumerate(trait_types) if tt == "categorical(binary)")
+    if len(binary) == t and bool(model.R.estimate_variance):
+        raise ValueError("all traits binary: residual covariance cannot be estimated; "
+                         "set R estimate_variance=false")
+    anno = (g is not None and g.annotations is not None and method == "BayesC"
+            and t == 2 and not constraint)
+    if anno:
+        mt.check_prior_traits(t)
+        ann_c0 = annotation_start_mt(g.pi, t, 1 + g.annotations.shape[1])
     cfg = MTEngineCfg(
         method=method, n_obs=n, n_markers=p, n_traits=t,
         estimate_pi=g is not None and bool(g.estimate_pi),
@@ -622,7 +782,9 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         pattern_masks=pattern_masks,
         missing_phenotypes=bool(opts.missing_phenotypes) and len(pattern_masks) > 1,
         constraint=constraint, r_constraint=r_constraint,
-        mt_sampler="II" if sampler == "II" else "I", sem_edges=edges)
+        mt_sampler="II" if sampler == "II" else "I", sem_edges=edges,
+        trait_types=trait_types, cat_counts=tuple(lat["cat_counts"]),
+        anno_steps=3 if anno else 0, latent_traits=latent, binary_traits=binary)
 
     W = dev(ws.W)
     patterns = dev(uniq.astype(np.float64))
@@ -648,7 +810,11 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         out_W=out_W,
         Vinv=tuple(None if grp.Vinv is None else symmetric_upper(dev(grp.Vinv))
                    for grp in ws.re_groups),
-        vc_scale=tuple(dev(grp.scale) for grp in ws.re_groups))
+        vc_scale=tuple(dev(grp.scale) for grp in ws.re_groups),
+        category_obs=dev(lat["category_obs"], torch.int64) if latent else None,
+        cens_lower=dev(lat["lower"]) if latent else None,
+        cens_upper=dev(lat["upper"]) if latent else None,
+        anno_A=dev(annotation_design(g, p_pad)) if anno else None)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0 if opts.seed is None else int(opts.seed))
@@ -663,12 +829,21 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         sol = dev(sv)
     alpha = torch.zeros((t, p_pad), dtype=dtype, device=device)
     delta = (gm.valid[None, :] > 0).expand(t, p_pad).to(dtype).clone()
-    ycorr = data.y - (W @ sol).view(t, n)
-    ycorr = torch.where(dev(y_mask, torch.bool), ycorr, 0.0)
+    # the latent traits start from their liabilities, which every record
+    # has (mcmc_mt.py:946-955); a missing residual starts at 0
+    keep = y_mask.copy()
+    keep[list(latent)] = True
+    y_eff = data.y if not latent else torch.where(
+        dev(np.isin(np.arange(t), latent)[:, None], torch.bool), dev(lat["liab"]), data.y)
+    ycorr = torch.where(dev(keep, torch.bool), y_eff - (W @ sol).view(t, n), 0.0)
     if constraint:
         pi = torch.zeros(t, dtype=dtype, device=device)
     else:
         pi = dev(pi_dict_to_vector(None if g is None else g.pi, t))
+    if anno:                            # one (4,) prior a marker, padding [1, 0, 0, 0]
+        pad = torch.zeros(4, dtype=dtype, device=device)
+        pad[0] = 1.0
+        pi = torch.where(gm.valid[:, None] > 0, pi[None, :], pad)
     varg = dev(marker_var0)
     if method == "BayesB":
         varg = varg.expand(p_pad, t, t).clone()
@@ -682,7 +857,11 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                          vc=tuple(dev(np.atleast_2d(grp.G0)) for grp in ws.re_groups),
                          gamma_l=gamma_l,
                          Lambda=torch.zeros(len(edges), dtype=dtype, device=device)
-                         if edges else None)
+                         if edges else None,
+                         liab=dev(lat["liab"]) if latent else None,
+                         thresholds=dev(lat["thresholds"]) if latent else None,
+                         ann_coeffs=dev(ann_c0) if anno else None,
+                         ann_var=dev(np.ones(3)) if anno else None)
     return cfg, data, state
 
 

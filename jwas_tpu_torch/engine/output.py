@@ -9,7 +9,10 @@ variances <name>" (BayesB's: the posterior mean of its variances' mean
 over the markers), "pi_<name>" (where pi is estimated: BayesC, BayesB,
 BayesR), "ScaleEffectVar<name>" (the marker tables only with genotypes),
 "polygenic effects covariance matrix" (a pedigree group) and "random
-effect variances <term>" (another group; :151-166), "EBV_<trait>",
+effect variances <term>" (another group; :151-166), "annotation
+coefficients <name>" (annotated BayesC by annotation, BayesR and 2-trait
+BayesC by annotation and step, :104-130; pi_<name> then holds the mean of
+the per-marker prior), "EBV_<trait>",
 "genetic_variance" and "heritability". Each is a Table with the reference's columns, written to
 output_folder as <key>.txt (spaces as "_") as the reference writes it.
 """
@@ -51,6 +54,22 @@ def result_marker_ids(g, p: int):
     return [str(i + 1) for i in range(p)] if g.method == "GBLUP" else list(g.marker_ids)
 
 
+def annotation_table(ann_m, ann_m2) -> Table:
+    """The annotation probits' posterior coefficients (output.jl:151-173):
+    rows Intercept, Annotation_1.. of a (k,) mean; of a (k, steps) one, an
+    annotation's steps 1.. in turn, with a Step column."""
+    ann_m = np.asarray(ann_m)
+    sd = _sd(ann_m, ann_m2)
+    k = ann_m.shape[0]
+    names = ["Intercept"] + [f"Annotation_{i}" for i in range(1, k)]
+    if ann_m.ndim == 1:
+        return Table({"Annotation": names, "Estimate": ann_m, "SD": sd})
+    steps = ann_m.shape[1]
+    return Table({"Annotation": np.repeat(np.asarray(names, dtype=object), steps),
+                  "Step": np.tile(np.arange(1, steps + 1), k),
+                  "Estimate": ann_m.reshape(-1), "SD": sd.reshape(-1)})
+
+
 def build_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
     """The result tables of a chain from its host-side accumulators (numpy
     fields of engine.mcmc.Accum) and saved sample tracks."""
@@ -86,6 +105,9 @@ def build_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
         results[f"pi_{g.name}"] = _one("pi", accum.pi_m, accum.pi_m2, name="pi")
     if cfg.estimate_scale and g is not None:
         results[f"ScaleEffectVar{g.name}"] = _one(trait, accum.scale_m, accum.scale_m2)
+    if cfg.anno_steps:
+        results[f"annotation coefficients {g.name}"] = annotation_table(accum.ann_m,
+                                                                        accum.ann_m2)
 
     # random-effect covariances (jwas_tpu/engine/output.py:151-166)
     for grp, m, m2 in zip(ws.re_groups, accum.vc_m, accum.vc_m2):

@@ -2,12 +2,15 @@
 files.
 
 Counterpart of jwas_tpu/engine/output_mt.py (build_mt_results, output.jl:
-108-212) for continuous traits without annotations: "location
+108-212): "location
 parameters", "residual variance" (trait pairs), "marker effects <name>"
 (a row a trait and marker, with Model_Frequency), "marker effects
 variances <name>" (BayesB: the mean over the loci of the per-locus
 posterior means and SDs), "pi_<name>" (the patterns "[1.0, 0.0]"..., or
-one a trait under the constraint), "polygenic effects covariance matrix"
+one a trait under the constraint; under annotations the mean over the
+markers of the per-marker prior's posterior mean and SD), "annotation
+coefficients <name>" (2-trait annotated BayesC's tree probit, by
+annotation and step, :81-105), "polygenic effects covariance matrix"
 and "random effect variances <term>", "EBV_<trait>" a trait,
 "genetic_variance" and "heritability"; with SEM's causal structure
 (SEM.jl:179-316, jwas_tpu's :139-184) "structural coefficients" (an edge
@@ -25,7 +28,8 @@ from typing import Dict
 
 import numpy as np
 
-from jwas_tpu_torch.engine.output import _sd, check_finite_posteriors, result_marker_ids
+from jwas_tpu_torch.engine.output import (_sd, annotation_table, check_finite_posteriors,
+                                          result_marker_ids)
 from jwas_tpu_torch.io.table import Table
 
 
@@ -99,12 +103,17 @@ def build_mt_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
         if vm.ndim == 3:
             vm, vsd = vm[:p].mean(axis=0), vsd[:p].mean(axis=0)
         results[f"marker effects variances {g.name}"] = _cov_table(traits, vm, vsd)
-        if cfg.estimate_pi:
+        if cfg.estimate_pi or cfg.anno_steps:
             labels = (traits if cfg.constraint else
                       ["[" + ", ".join(str(float((s >> k) & 1)) for k in range(t)) + "]"
                        for s in range(2 ** t)])
-            results[f"pi_{g.name}"] = Table({"pi": labels, "Estimate": accum.pi_m,
-                                             "SD": _sd(accum.pi_m, accum.pi_m2)})
+            pm, psd = np.asarray(accum.pi_m), _sd(accum.pi_m, accum.pi_m2)
+            if pm.ndim == 2:                 # one prior a marker
+                pm, psd = pm[:p].mean(axis=0), psd[:p].mean(axis=0)
+            results[f"pi_{g.name}"] = Table({"pi": labels, "Estimate": pm, "SD": psd})
+        if cfg.anno_steps:
+            results[f"annotation coefficients {g.name}"] = annotation_table(accum.ann_m,
+                                                                            accum.ann_m2)
     for grp, m, m2 in zip(ws.re_groups, accum.vc_m, accum.vc_m2):
         key = ("polygenic effects covariance matrix" if grp.random_type == "A"
                else f"random effect variances {grp.term_array[0]}")

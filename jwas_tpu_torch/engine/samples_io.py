@@ -15,7 +15,9 @@ polygenic_effects_variance (the pedigree groups', :174-180), and with
 genotypes marker_effects_<geno>_<trait>, marker_effects_variances_<geno>
 and pi_<geno>; EBV_<trait>, genetic_variance, heritability. BayesB's
 marker_effects_variances_<geno> row holds every marker's variance when the
-marker effects are written, else their mean (jwas_tpu's :190-195).
+marker effects are written, else their mean (jwas_tpu's :190-195). A
+latent trait adds liabilities_<trait> and, when categorical,
+threshold_<trait> (:154-160, :209-212, :381-385, :429-433).
 
 A sample arrives as host arrays read back in one transfer, in the chain's
 dtype (engine/mcmc.py::_read_back); the stream says which of sol, alpha (with
@@ -104,6 +106,7 @@ class STSampleStream:
         self.write_markers = False
         self.ebv = False
         self.re_vars = []
+        self.latent = ()
         if not self.enabled:
             return
         self.heritability = bool(opts.output_heritability)
@@ -143,8 +146,30 @@ class STSampleStream:
             if opts.output_heritability:
                 w.register("genetic_variance", _trait_pair_header(self.traits))
                 w.register("heritability", self.traits)
+        # (trait index, name, categorical) of each latent trait
+        latent = (cfg.latent_traits if hasattr(cfg, "latent_traits") else
+                  (0,) if cfg.trait_types[0] != "continuous" else ())
+        self.latent = tuple((k, self.traits[k], cfg.trait_types[k] != "censored")
+                            for k in latent)
+        for k, trait, categorical in self.latent:
+            w.register(f"liabilities_{trait}")
+            if categorical:
+                w.register(f"threshold_{trait}")
         self.trait = self.traits[0]
         self.writer = w
+
+    def write_latent(self, host: Dict[str, np.ndarray]) -> None:
+        """A sample's liabilities and thresholds of the latent traits: host's
+        liab (n,) or (t, n) and thresholds (T,) or (t, T)."""
+        if not self.latent:
+            return
+        liab = np.atleast_2d(host["liab"])
+        thr = np.atleast_2d(host["thresholds"]) if "thresholds" in host else None
+        for k, trait, categorical in self.latent:
+            row = k if liab.shape[0] > 1 else 0
+            self.writer.write(f"liabilities_{trait}", liab[row])
+            if categorical:
+                self.writer.write(f"threshold_{trait}", thr[row])
 
     def write_sample(self, host: Dict[str, np.ndarray]) -> None:
         """One saved sample: host holds vare, varg, pi, genvar, h2 and, as
@@ -172,6 +197,7 @@ class STSampleStream:
             if self.heritability:
                 w.write("genetic_variance", host["genvar"])
                 w.write("heritability", host["h2"])
+        self.write_latent(host)
 
     def close(self):
         if self.writer is not None:
@@ -219,3 +245,4 @@ class MTSampleStream(STSampleStream):
             if self.heritability:
                 w.write("genetic_variance", host["genvar"])
                 w.write("heritability", host["h2"])
+        self.write_latent(host)

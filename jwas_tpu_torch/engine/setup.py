@@ -242,12 +242,23 @@ def _default_priors(model: Model, df: Table) -> np.ndarray:
     for g in model.M:
         if g.G.val is None and g.genetic_variance.val is None:
             g.genetic_variance.val = varg[0, 0] if t == 1 else varg
+    # a latent trait's residual (jwas_tpu/engine/setup.py:192-207): a
+    # single-trait categorical one is 1 and not estimated; a binary trait's
+    # row and column of R are the unit vector
+    is_cat = model.traits_type in (["categorical"], ["categorical(binary)"])
     if model.R.val is None and t == 1:
-        model.R.val = float(vare[0, 0])
+        model.R.val = 1.0 if is_cat else float(vare[0, 0])
         model.R.scale = model.R.val * (model.R.df - 2.0) / model.R.df
+        if is_cat:
+            model.R.estimate_variance = False
     elif model.R.val is None:
-        model.R.val = vare.copy()
-        model.R.scale = vare * (model.R.df - t - 1.0)
+        vmat = vare.copy()
+        for i, tt in enumerate(model.traits_type):
+            if tt == "categorical(binary)":
+                vmat[i, :] = vmat[:, i] = 0.0
+                vmat[i, i] = 1.0
+        model.R.val = vmat
+        model.R.scale = vmat * (model.R.df - t - 1.0)
     for re in model.random_effects:
         if re.G.val is None:
             k = len(re.term_array)
@@ -332,6 +343,54 @@ def normalize_method(g: Genotypes, model: Model) -> None:
         raise ValueError("BayesR supports single-trait analysis only")
 
 
+def add_censored_trait_columns(model: Model, df: Table) -> None:
+    """A censored trait's column from its bounds <name>_l and <name>_u
+    (_add_censored_trait_columns, jwas_tpu/engine/setup.py:300-328;
+    add_censored_trait_column!, categorical_and_censored_trait.jl:263-296):
+    the bound that is finite where one is, a uniform point between them
+    (numpy's default_rng(0)) where both are, missing where neither is; a
+    missing bound becomes infinite. In place."""
+    rng = np.random.default_rng(0)
+    for ti, tt in enumerate(model.traits_type):
+        if tt != "censored":
+            continue
+        name = model.lhs_vec[ti]
+        for suffix in ("_l", "_u"):
+            if f"{name}{suffix}" not in df.columns:
+                raise ValueError(f"censored trait {name} requires columns {name}_l and "
+                                 f"{name}_u in the phenotype data frame")
+        lo = to_numeric(df[f"{name}_l"], errors="coerce")
+        hi = to_numeric(df[f"{name}_u"], errors="coerce")
+        both_missing = np.isnan(lo) & np.isnan(hi)
+        lo = np.where(np.isnan(lo), -np.inf, lo)
+        hi = np.where(np.isnan(hi), np.inf, hi)
+        y = np.where(np.isinf(lo) & np.isinf(hi), np.nan,
+                     np.where(np.isinf(lo), hi,
+                              np.where(np.isinf(hi), lo,
+                                       lo + rng.uniform(size=len(lo)) * (hi - lo))))
+        df[name] = np.where(both_missing, np.nan, y)
+        df[f"{name}_l"] = lo
+        df[f"{name}_u"] = hi
+
+
+def detect_binary_traits(model: Model, df: Table) -> None:
+    """A categorical trait must use the categories 1..K; K = 2 makes it
+    "categorical(binary)" (_detect_binary_traits, jwas_tpu/engine/
+    setup.py:331-345; input_data_validation.jl:258-274). In place on the
+    model."""
+    for ti, tt in enumerate(model.traits_type):
+        if tt != "categorical":
+            continue
+        name = model.lhs_vec[ti]
+        vals = to_numeric(df[name], errors="coerce")
+        cats = sorted(set(int(v) for v in vals[np.isfinite(vals)] if int(v) != 0))
+        if cats != list(range(1, len(cats) + 1)):
+            raise ValueError(f"categorical trait {name} must use categories 1..K; "
+                             f"got {cats}")
+        if len(cats) == 2:
+            model.traits_type[ti] = "categorical(binary)"
+
+
 def prediction_terms_of(model: Model, pe) -> List[str]:
     """The terms of a prediction equation, e.g. "herd" or "y:herd"
     (prediction_setup, output.jl:29-59); by default (False) the pedigree's
@@ -364,6 +423,8 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     df = Table({c: df[c] for c in df.columns})   # the caller's table stays
     id_col = df.columns[0]
     df[id_col] = np.array([str(x).strip() for x in df[id_col].tolist()], dtype=object)
+    add_censored_trait_columns(model, df)
+    detect_binary_traits(model, df)
     if opts.pedigree is not None and model.ped is None:
         model.ped = opts.pedigree
     for g in model.M:

@@ -3,7 +3,8 @@
 Counterpart of jwas_tpu/engine/state.py (ChainState :18, REGroupCfg :60,
 EngineCfg :75), trimmed to the fields the single-trait methods read on the
 packed or a dense store, GBLUP's eigenbasis or no markers (method "none"),
-with random-effect groups. The
+with random-effect groups, latent traits' liabilities and thresholds, and
+annotations' probit coefficients. The
 JAX package's threefry key becomes one torch.Generator per chain, on the
 chain's device. Marker state tensors are updated in place by the sweep.
 """
@@ -31,13 +32,22 @@ class ChainState(NamedTuple):
                               # sigma^2, class k has variance gamma_k sigma^2;
                               # BayesB: (p_pad,), one a marker)
     pi: torch.Tensor          # BayesC/B (p_pad,) P(excluded), 1 for padding;
-                              # BayesR (4,) class prior; RR-BLUP, BayesL,
+                              # BayesR (4,) class prior, annotated (p_pad, 4)
+                              # with padding [1, 0, 0, 0]; RR-BLUP, BayesL,
                               # GBLUP (0,)
     scale_g: torch.Tensor     # 0-d prior scale of varg
     gamma_l: Optional[torch.Tensor] = None  # (p_pad,) BayesL's local
                               # shrinkage, 1 for padding (ones otherwise)
     vc: Tuple[torch.Tensor, ...] = ()  # a (k, k) covariance a random-effect
                               # group
+    liab: Optional[torch.Tensor] = None        # (n,) a latent trait's
+                              # liabilities (None for a continuous trait)
+    thresholds: Optional[torch.Tensor] = None  # (n_cat + 1,) a categorical
+                              # trait's [-BIG, 0, t2.., BIG]
+    ann_coeffs: Optional[torch.Tensor] = None  # annotated BayesC (k,),
+                              # BayesR (k, 3): the probits' coefficients
+    ann_var: Optional[torch.Tensor] = None     # their slope variance: 0-d,
+                              # (3,)
 
 
 @dataclass(frozen=True)
@@ -69,11 +79,17 @@ class EngineCfg:
     df_residual: float
     df_marker: float
     re_groups: Tuple[REGroupCfg, ...] = ()
+    trait_types: Tuple[str, ...] = ("continuous",)   # a trait's "continuous",
+                              # "categorical", "categorical(binary)" or
+                              # "censored"
+    cat_counts: Tuple[int, ...] = ()   # a categorical trait's categories
+    anno_steps: int = 0       # the annotation probit's steps: 0 (none), 1
+                              # (BayesC), 3 (BayesR, 2-trait BayesC)
 
 
 class MTChainState(NamedTuple):
-    """State of a multi-trait chain (jwas_tpu/engine/state.py MTChainState,
-    the fields of continuous traits without annotations)."""
+    """State of a multi-trait chain (jwas_tpu/engine/state.py
+    MTChainState)."""
 
     gen: torch.Generator      # the chain's only source of randomness
     sol: torch.Tensor         # (K,) location parameters
@@ -85,7 +101,8 @@ class MTChainState(NamedTuple):
     R: torch.Tensor           # (t, t) residual covariance
     varg: torch.Tensor        # (t, t) marker-effect covariance; BayesB
                               # (p_pad, t, t), one a locus
-    pi: torch.Tensor          # (2^t,) pattern priors (bit k = trait k);
+    pi: torch.Tensor          # (2^t,) pattern priors (bit k = trait k),
+                              # annotated (p_pad, 2^t) one row a marker;
                               # mega-trait (t,) P(excluded) a trait;
                               # RR-BLUP, BayesL, GBLUP: every marker in
                               # every trait
@@ -95,6 +112,13 @@ class MTChainState(NamedTuple):
                               # shrinkage, 1 for padding (None otherwise)
     Lambda: Optional[torch.Tensor] = None   # (n_edges,) SEM's structural
                               # coefficients (None without SEM)
+    liab: Optional[torch.Tensor] = None     # (t, n) the traits' liabilities
+                              # (a continuous trait's row unused); None
+                              # without latent traits
+    thresholds: Optional[torch.Tensor] = None  # (t, Tmax) thresholds a trait
+    ann_coeffs: Optional[torch.Tensor] = None  # 2-trait annotated BayesC:
+                              # (k, 3) the tree probit's coefficients
+    ann_var: Optional[torch.Tensor] = None     # (3,) its slope variances
 
 
 @dataclass(frozen=True)
@@ -114,3 +138,5 @@ class MTEngineCfg(EngineCfg):
     sem_edges: Tuple[Tuple[int, int], ...] = ()   # causal edges (i <- j):
                                        # trait j's phenotype in trait i's
                                        # equation, row-major
+    latent_traits: Tuple[int, ...] = ()   # traits with liabilities
+    binary_traits: Tuple[int, ...] = ()   # residual variance pinned at 1

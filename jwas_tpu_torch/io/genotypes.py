@@ -85,7 +85,8 @@ class Genotypes:
     genetic_variance: VarianceSpec = field(
         default_factory=lambda: VarianceSpec(val=None))
     name: str = "geno"
-    annotations: Optional[np.ndarray] = None    # not ported: always None
+    annotations: Optional[np.ndarray] = None    # (p, k) annotation design of
+                                                # the kept markers, no intercept
     starting_alpha: Optional[np.ndarray] = None  # (p,) starting marker effects
     multi_trait_sampler: str = "I"   # "auto" | "I" | "II" (MTBayesABC.jl:20-25;
                                      # "auto" runs sampler I, as jwas_tpu does)
@@ -125,8 +126,10 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
 
     method: every single-trait method on a dense store; on the 2-bit
     store only "BayesC", "BayesB" and "BayesR", the others raising
-    ValueError as jwas_tpu does. Annotations raise NotImplementedError
-    (ROADMAP.md: latent traits and annotations). GBLUP keeps the relationship matrix (grm)
+    ValueError as jwas_tpu does. annotations: a (p, k) array (one row a
+    raw marker, before QC), or a CSV path, Table or DataFrame whose first
+    column holds the marker IDs (validate_annotations), for BayesC and
+    BayesR on a dense store; estimatePi is then True. GBLUP keeps the relationship matrix (grm)
     of the input, or of its genotypes, in place of a store; G must then be
     the genetic variance. device: where a dense store or the relationship
     matrix is written (the GPU unless the caller asks for another; "cpu"
@@ -149,9 +152,9 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
         raise ValueError("storage='2bit' supports BayesC/BayesB/BayesR only")
     if packed and annotations is not None:
         raise ValueError("annotations are not supported with storage='2bit'")
-    if annotations is not None:
-        raise NotImplementedError("annotations are not ported yet (ROADMAP.md: "
-                                  "latent traits and annotations)")
+    if annotations is not None and method not in ("BayesC", "BayesR"):
+        raise ValueError('annotations are only supported with method="BayesC" or '
+                         'method="BayesR"')
     if method == "BayesR":
         Pi = bayesr_pi(Pi).copy()
 
@@ -185,8 +188,14 @@ def get_genotypes(file, G=None, *, method: str = "BayesC", Pi=0.0,
             device, separator=separator, header=header,
             quality_control=quality_control, MAF=MAF,
             missing_value=missing_value, center=center,
-            integer=storage == "int8")
+            integer=storage == "int8", annotations=annotations, method=method)
         fields = dict(dense=X, col_means=means, storage=storage)
+        if annotations is not None:
+            fields["annotations"], freqs = freqs
+            if not estimatePi:
+                warnings.warn(f"estimatePi=False is ignored when annotations are "
+                              f"provided; Annotated {method} requires estimatePi=True.")
+                estimatePi = True
 
     starting_alpha = None
     if starting_value is not None:
@@ -233,9 +242,64 @@ def _device(device) -> torch.device:
     return device
 
 
+def validate_annotations(annotations, marker_ids, n_markers: int, method: str):
+    """The annotation design's checks (_validate_annotations,
+    jwas_tpu/io/genotypes.py:135-189; validate_annotations_input,
+    readgenotypes.jl:56-158): a numeric (p, k) array or tensor, one row a
+    raw marker, or a CSV path (io/table.py, no pandas), Table or DataFrame
+    whose first column, when it holds strings or is named marker_id,
+    markerid, id or snp, is the marker ID: its rows are aligned to
+    marker_ids and every marker must be there. BayesC and BayesR only;
+    finite, p rows, no constant column, full rank beside an intercept.
+    Returns the (p, k) float64 design."""
+    from jwas_tpu_torch.io.table import as_table, read_csv, to_numeric
+
+    if isinstance(annotations, str):
+        annotations = read_csv(annotations)
+    if not (torch.is_tensor(annotations) or isinstance(annotations, np.ndarray)) and (
+            hasattr(annotations, "columns")):
+        tab = as_table(annotations)
+        cols = tab.columns
+        first = tab[cols[0]]
+        if first.dtype == object or str(cols[0]).lower() in (
+                "marker_id", "markerid", "id", "snp"):
+            row_of = {str(m): i for i, m in enumerate(first.tolist())}
+            missing = [m for m in marker_ids if m not in row_of]
+            if missing:
+                raise ValueError(f"annotations are missing marker(s) {missing[:5]}"
+                                 + ("..." if len(missing) > 5 else ""))
+            rows = np.asarray([row_of[m] for m in marker_ids], dtype=np.int64)
+            cols = cols[1:]
+        else:
+            rows = np.arange(len(tab))
+        ann = np.stack([to_numeric(tab[c])[rows] for c in cols], axis=1) if cols else (
+            np.zeros((len(rows), 0)))
+    else:
+        ann = np.asarray(annotations.cpu() if torch.is_tensor(annotations) else annotations)
+    if method not in ("BayesC", "BayesR"):
+        raise ValueError('annotations are only supported with method="BayesC" or '
+                         'method="BayesR"')
+    ann = np.asarray(ann, dtype=np.float64)
+    if ann.ndim != 2 or not np.isfinite(ann).all():
+        raise ValueError("annotations must be a finite numeric matrix with one row "
+                         "per marker")
+    if ann.shape[0] != n_markers:
+        raise ValueError(f"annotations rows ({ann.shape[0]}) must match the number "
+                         f"of raw markers ({n_markers})")
+    const_cols = [j for j in range(ann.shape[1]) if np.unique(ann[:, j]).size == 1]
+    if const_cols:
+        raise ValueError(f"annotations contain constant column(s) {const_cols}; "
+                         f"remove them (an intercept is added automatically)")
+    design = np.hstack([np.ones((ann.shape[0], 1)), ann])
+    if np.linalg.matrix_rank(design) != design.shape[1]:
+        raise ValueError("annotations are collinear after adding the intercept; "
+                         "remove duplicate or perfectly collinear annotation columns")
+    return ann
+
+
 def dense_store(file, dtype, device, *, separator=",", header=True,
                 quality_control=True, MAF=0.01, missing_value=9.0, center=True,
-                integer=False):
+                integer=False, annotations=None, method="BayesC"):
     """The dense branch of jwas_tpu's get_genotypes
     (jwas_tpu/io/genotypes.py:311-453) on a device, a chunk of columns at a
     time, in two passes: the columns' statistics, then the kept columns,
@@ -247,13 +311,21 @@ def dense_store(file, dtype, device, *, separator=",", header=True,
     dropped. integer: every value must be within isclose of an integer
     score (jwas_tpu's int8 check), and the rounded scores are the store's.
     Returns (obs_ids, marker_ids, store, col_means (p_kept,) float64,
-    allele frequencies (p_kept,) float64)."""
+    allele frequencies (p_kept,) float64); with annotations (checked
+    against the raw markers by validate_annotations) the last is the pair
+    (the kept markers' annotation rows, allele frequencies)."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     obs_ids, marker_ids, mat = _as_matrix(file, separator, header, np_dtype)
-    return (obs_ids,) + _store_of(mat, marker_ids, dtype, _device(device),
-                                  quality_control=quality_control, MAF=MAF,
-                                  missing_value=missing_value, center=center,
-                                  integer=integer, round_missing=integer)
+    if annotations is not None:
+        annotations = validate_annotations(annotations, marker_ids, mat.shape[1],
+                                           method)
+    ids, store, means, freqs, kept = _store_of(
+        mat, marker_ids, dtype, _device(device), quality_control=quality_control,
+        MAF=MAF, missing_value=missing_value, center=center, integer=integer,
+        round_missing=integer)
+    if annotations is not None:
+        freqs = (annotations[kept], freqs)
+    return obs_ids, ids, store, means, freqs
 
 
 def _store_of(mat, marker_ids, dtype, device, *, quality_control, MAF,
@@ -261,7 +333,8 @@ def _store_of(mat, marker_ids, dtype, device, *, quality_control, MAF,
     """dense_store's two passes over an (n, p) matrix; round_missing: the
     imputed means are rounded (storage="int8", also without integer's
     check, as jwas_tpu's GBLUP branch does). Returns (marker_ids, store,
-    col_means, allele frequencies) of the kept markers."""
+    col_means, allele frequencies) of the kept markers and the (p,) mask
+    of the kept ones."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     n, p = mat.shape
     step = max(1, _CHUNK_BYTES // (8 * max(n, 1)))
@@ -323,7 +396,7 @@ def _store_of(mat, marker_ids, dtype, device, *, quality_control, MAF,
         k += x.shape[1]
     marker_ids = [m for m, kk in zip(marker_ids, kept) if kk]
     return (marker_ids, store, means[keep].cpu().numpy(),
-            freqs[keep].cpu().numpy())
+            freqs[keep].cpu().numpy(), kept)
 
 
 GRM_RIDGE = 1e-5            # jwas_tpu's diagonal term and its retry step
@@ -354,7 +427,7 @@ def relationship_matrix(file, dtype, device, *, separator=",", header=True,
             freqs = G.sum(0, dtype=torch.float64) / max(n, 1) / 2.0
             return obs_ids, marker_ids, G, freqs.cpu().numpy()
         del G
-    marker_ids, X, _, freqs = _store_of(
+    marker_ids, X, _, freqs, _ = _store_of(
         mat, marker_ids, dtype, device, quality_control=quality_control,
         MAF=MAF, missing_value=missing_value, center=center, integer=False,
         round_missing=round_missing)

@@ -97,8 +97,11 @@ def build_model(model_equations: str, R=None, *, df: float = 4.0,
     fixed factor unless set_covariate makes it a covariate, "A*B" is an
     interaction, and a name equal to a genotype set's name fits that
     marker set. R: the residual variance's prior mean, a scalar or a t x t
-    covariance (default: half the phenotypic variance). Latent traits and
-    more than one genotype category are not ported.
+    covariance (default: half the phenotypic variance). censored_trait and
+    categorical_trait name the latent traits (build_MME.jl:196-199): a
+    censored trait reads its bounds from the columns <name>_l and <name>_u,
+    a categorical trait its categories 1..K (binary when K is 2, set by
+    runMCMC). More than one genotype category is not ported.
     """
     if not isinstance(model_equations, str) or not model_equations.strip():
         raise ValueError("model equations are wrong; pass e.g. 'y = intercept + age'")
@@ -106,10 +109,6 @@ def build_model(model_equations: str, R=None, *, df: float = 4.0,
         raise ValueError("estimate scale for residual variance is not supported")
     eqs = [e.strip() for e in model_equations.replace(";", "\n").splitlines() if e.strip()]
     t = len(eqs)
-    if censored_trait or categorical_trait:
-        raise NotImplementedError(
-            "censored_trait and categorical_trait (latent traits) are not "
-            "ported yet (ROADMAP.md: latent traits and annotations)")
     R_arr = None
     if R is not None:
         R_arr = np.atleast_2d(np.asarray(R, dtype=np.float64))
@@ -155,7 +154,9 @@ def build_model(model_equations: str, R=None, *, df: float = 4.0,
         R=VarianceSpec(val=R_val, df=df_R, scale=scale_R,
                        estimate_variance=estimate_variance,
                        estimate_scale=estimate_scale, constraint=constraint),
-        traits_type=["continuous"] * t,
+        traits_type=["censored" if lhs in censored_trait
+                     else "categorical" if lhs in categorical_trait
+                     else "continuous" for lhs in lhs_vec],
     )
     for g in used_genos:
         _attach(model, g)

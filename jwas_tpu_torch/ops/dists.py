@@ -101,3 +101,48 @@ def sample_pi_beta(gen: torch.Generator, n_included, n_total,
     n_included = n_included.to(dtype)
     return sample_beta(gen, _param(n_total, n_included) - n_included + 1.0,
                        n_included + 1.0)
+
+
+BIG = 1e30      # stands in for +/- infinity in liability bounds, as in jwas_tpu
+
+
+def _ndtr(x):
+    """Phi(x) as erfc(-x / sqrt 2) / 2: accurate on the lower tail, where
+    torch.special.ndtr's 1 + erf loses the digits (Phi(-8) 2% low)."""
+    return 0.5 * torch.special.erfc(-x * 0.7071067811865476)
+
+
+def truncated_normal_from_uniform(u, a, b):
+    """The standard normal truncated to [a, b] at the uniform u, by the
+    inverse CDF in float64, cast back to a's dtype: for a >= 0 on the
+    upper tail's side, -ndtri(Phi(-a) - u (Phi(-a) - Phi(-b))), for b <= 0
+    on the lower tail's, ndtri(Phi(a) + u (Phi(b) - Phi(a))), and that
+    form too for an interval around 0. Each side takes Phi where it is far
+    from 1, so the tails hold in float64 to |a| ~ 37 (where float32's erf
+    collapses the draw to the bound past |a| ~ 5, fault R13). Past that,
+    where both Phi underflow to the same value, the draw is the bound
+    nearer the mass. The result lies in [a, b]; |bounds| >= BIG are
+    infinite. u, a, b broadcast."""
+    dtype = a.dtype
+    a64 = a.to(torch.float64).clamp(-BIG, BIG)
+    b64 = torch.as_tensor(b, device=a.device).to(torch.float64).clamp(-BIG, BIG)
+    u64 = torch.as_tensor(u, device=a.device).to(torch.float64)
+    upper = a64 >= 0
+    pa = _ndtr(torch.where(upper, -a64, a64))
+    pb = _ndtr(torch.where(upper, -b64, b64))
+    x = torch.special.ndtri(pa + u64 * (pb - pa))
+    x = torch.where(upper, -x, x)
+    x = torch.where(pa == pb, torch.where(upper, a64, b64), x)
+    x = torch.minimum(torch.maximum(x, a64), b64)
+    return x.to(dtype)
+
+
+def sample_truncated_normal(gen: torch.Generator, mean, std, lower, upper):
+    """mean + std z, z the standard normal truncated to [(lower - mean) /
+    std, (upper - mean) / std] (truncated_normal_from_uniform on float64
+    uniforms from gen), in mean's dtype on its device. An entry whose
+    bounds are equal is the caller's to handle."""
+    a = ((lower - mean) / std).clamp(-BIG, BIG)
+    b = ((upper - mean) / std).clamp(-BIG, BIG)
+    u = torch.rand(a.shape, generator=gen, dtype=torch.float64, device=a.device)
+    return mean + std * truncated_normal_from_uniform(u, a, b)

@@ -235,6 +235,9 @@ def _mt_inner_rounds(sampler, grams, xpx, valid, alpha, beta, delta, rhs,
     mt.check_traits(t)
     mt.check_block_size(b)
     per_locus = Ginv.dim() == 4
+    per_marker = log_pi.dim() == 3
+    if per_marker:
+        mt.check_prior_traits(t)
     state = (nblocks, t, b)
     args = dict(grams=grams, xpx=xpx, valid=valid, alpha=alpha, beta=beta,
                 delta=delta, rhs=rhs, Rinv=Rinv, Ginv=Ginv, log_pi=log_pi,
@@ -243,18 +246,19 @@ def _mt_inner_rounds(sampler, grams, xpx, valid, alpha, beta, delta, rhs,
         "grams": (nblocks, b, b), "alpha": state, "beta": state, "delta": state,
         "rhs": state, "Rinv": (t, t),
         "Ginv": (nblocks, b, t, t) if per_locus else (t, t),
-        "log_pi": (1 << t,),
+        "log_pi": (nblocks, b, 1 << t) if per_marker else (1 << t,),
         "draw_a": (nreps * b, t if sampler == "I" else 1 << t, nblocks),
         "zs": (nreps * b, t, nblocks)}, int_names=())
     scratch = torch.empty(mt.scratch_values(sampler, t, b, nblocks),
                           dtype=grams.dtype, device=grams.device)
     lib = _build.library()
-    err = getattr(lib, f"jt_mt_inner_rounds_{sampler}{build}")(
+    err = getattr(lib, f"jt_mt_inner_rounds_{sampler}{'_pm' * per_marker}{build}")(
         *(x.data_ptr() for x in args.values()), scratch.data_ptr(), t, b, nblocks,
         nreps, int(per_locus), _build.stream_of(grams))
     _build.check(err, what)
     wrapper.launches += 1
     wrapper.launches_f64 += build == "_f64"
+    wrapper.launches_pm += per_marker
     return alpha, beta, delta, rhs
 
 
@@ -263,10 +267,12 @@ def mt_abc_inner_rounds_I(grams, xpx, valid, alpha, beta, delta, rhs, Rinv,
     """Run nreps rounds of multi-trait sampler I's chain (K7) on every
     block: grams (gb, b, b); xpx, valid (gb, b); alpha, beta, delta, rhs
     (gb, t, b), updated in place and returned; Rinv (t, t); Ginv (t, t) or
-    (gb, b, t, t); log_pi (2^t,); us, zs (nreps b, t, gb); delta and valid
-    hold 0 or 1. CUDA tensors launch the kernel on a scratch tensor of its
-    constants (ops/multitrait.py::scratch_values) and raise if it cannot
-    run (2 <= t <= 8, b <= 2048); CPU tensors take the plain version
+    (gb, b, t, t); log_pi (2^t,), or (gb, b, 2^t) one row a marker (the
+    kernel's per-marker instantiation, csrc/mt_inner_rounds_pm.cu, t <= 4);
+    us, zs (nreps b, t, gb); delta and valid hold 0 or 1. CUDA tensors
+    launch the kernel on a scratch tensor of its constants
+    (ops/multitrait.py::scratch_values) and raise if it cannot run (2 <= t
+    <= 8, b <= 2048); CPU tensors take the plain version
     (ops/multitrait.py::mt_abc_inner_rounds_ref)."""
     return _mt_inner_rounds("I", grams, xpx, valid, alpha, beta, delta, rhs,
                             Rinv, Ginv, log_pi, us, zs, nreps,
@@ -323,6 +329,8 @@ def mt_c0l_inner_rounds(grams, xpx, valid, alpha, rhs, Rinv, Ginv, gamma, zs,
 for _k in (mt_abc_inner_rounds_I, mt_abc_inner_rounds_II, mt_c0l_inner_rounds):
     _k.launches = 0          # every launch
     _k.launches_f64 = 0      # the float64 build's
+for _k in (mt_abc_inner_rounds_I, mt_abc_inner_rounds_II):
+    _k.launches_pm = 0       # the per-marker prior's
 
 
 # ------------------------------------------------ the window schedule, plain
@@ -463,14 +471,15 @@ def mt_abc_inner_rounds_window_ref(sampler: str, grams, xpx, valid, alpha, beta,
         x = xpx[:, sl].reshape(-1)
         w = flat(rhs[:, :, sl]) + x[:, None] * flat(a_old)
         g = Ginv[:, sl].reshape(-1, t, t) if per_locus else Ginv
+        lp = log_pi[:, sl].reshape(nblocks * n, -1) if log_pi.dim() == 3 else log_pi
         draws = draw_a[steps].permute(2, 0, 1).reshape(nblocks * n, -1)
         z = zs[steps].permute(2, 0, 1).reshape(nblocks * n, t)
         if sampler == "I":
             cand = mt.mt_marker_update_I_ref(w, flat(beta[:, :, sl]),
                                              flat(delta[:, :, sl]), flat(a_old), x,
-                                             Rinv, g, log_pi, draws, z)
+                                             Rinv, g, lp, draws, z)
         else:
-            cand = mt.mt_marker_update_II_ref(w, x, Rinv, g, log_pi, draws, z)
+            cand = mt.mt_marker_update_II_ref(w, x, Rinv, g, lp, draws, z)
         b_new, d_new, a_new = (c.reshape(nblocks, n, t).transpose(1, 2) for c in cand)
         v = valid[:, None, sl]
         a_new = a_new * v

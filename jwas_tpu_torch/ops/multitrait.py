@@ -3,7 +3,7 @@ samplers I and II and of RR-BLUP / BayesL, their plain inner chains, the
 group-sequential sweeps over a dense store, and multi-trait GBLUP.
 
 Counterpart of jwas_tpu/ops/multitrait.py: _take_logpi (:38, a global
-log pi only), pattern_index and all_patterns (:46-56), the marker updates
+(2^t,) log pi or one row a marker, take_log_pi), pattern_index and all_patterns (:46-56), the marker updates
 _mt_abc_marker_update_I (:64) and _mt_abc_marker_update_II (:274), and
 the blocked sweeps mt_abc_blocks_I (:162) / mt_abc_blocks_II (:308) walked
 over groups as jwas_tpu/engine/mcmc_mt.py:263-299 walks them through
@@ -50,6 +50,7 @@ from jwas_tpu_torch.ops import inner_rounds as ir
 from jwas_tpu_torch.ops import grouped as gr
 
 MAX_TRAITS = 8          # K7, K8 and K9 are instantiated for t = 2..8
+MAX_PRIOR_TRAITS = 4    # K7 and K8 with a per-marker prior for t = 2..4
 MAX_BLOCK = 2048        # and take b <= 256 threads x 8 markers a thread
 KERNEL_OF = {"I": "K7", "II": "K8", "C0L": "K9"}   # sampler -> its chain
 SCRATCH_SHARE = 0.25    # their constants' scratch: at most this of the card
@@ -73,6 +74,15 @@ def log_pattern_prior(pi, dtype):
     return torch.log(torch.clamp(pi.to(dtype), 1e-12, 1.0))
 
 
+def take_log_pi(log_pi, idx):
+    """The pattern priors log_pi[idx] (B,): a global (2^t,) log_pi or one
+    row a marker (B, 2^t) (_take_logpi, GlobalPiPrior /
+    MarkerSpecificPiPrior, MTBayesABC.jl:6-18)."""
+    if log_pi.dim() == 2:
+        return log_pi.gather(1, idx[:, None])[:, 0]
+    return log_pi[idx]
+
+
 def _ginv_entry(Ginv, a: int, c: int):
     """Ginv[a, c]: a 0-d tensor of a shared (t, t) Ginv, a (B,) one of a
     per-locus (B, t, t)."""
@@ -84,7 +94,8 @@ def mt_marker_update_I_ref(w, beta, delta, alpha, xpx, Rinv, Ginv, log_pi, u, z)
     (_mt_abc_marker_update_I, MTBayesABC.jl:85-120).
 
     w, beta, delta, alpha, u, z: (B, t); xpx: (B,); Rinv (t, t); Ginv
-    (t, t) or per-locus (B, t, t); log_pi (2^t,). Trait k, in order: its
+    (t, t) or per-locus (B, t, t); log_pi (2^t,) or one row a marker
+    (B, 2^t). Trait k, in order: its
     inclusion from the two-state log-odds with the pattern prior at the
     other traits' current indicators, then its effect from the included or
     excluded conditional, given the other traits' current effects.
@@ -115,7 +126,7 @@ def mt_marker_update_I_ref(w, beta, delta, alpha, xpx, Rinv, Ginv, log_pi, u, z)
             rw = rw + w[m] * Rinv[m, k]
         g_hat1 = (rw - c12) * inv_lhs1
         idx0 = sum(delta[m].to(torch.int64) * (1 << m) for m in nok)
-        lp0, lp1 = log_pi[idx0], log_pi[idx0 + (1 << k)]
+        lp0, lp1 = take_log_pi(log_pi, idx0), take_log_pi(log_pi, idx0 + (1 << k))
         log_d0 = -0.5 * (torch.log(g_kk) - g_hat0 * g_hat0 * g_kk) + lp0
         log_d1 = -0.5 * (torch.log(c11) - g_hat1 * g_hat1 * c11) + lp1
         prob1 = one / (one + torch.exp(log_d0 - log_d1))
@@ -178,7 +189,8 @@ def mt_marker_update_II_ref(w, xpx, Rinv, Ginv, log_pi, gum, z):
     each of B blocks (_mt_abc_marker_update_II, MTBayesABC.jl:165-209).
 
     w, z: (B, t); xpx (B,); Rinv (t, t); Ginv (t, t) or per-locus
-    (B, t, t); log_pi (2^t,); gum (B, 2^t) Gumbel noise. Pattern s has
+    (B, t, t); log_pi (2^t,) or one row a marker (B, 2^t); gum (B, 2^t)
+    Gumbel noise. Pattern s has
     LHS D_s Rinv D_s xpx + Ginv and rhs D_s Rinv w; its log weight is
     -(logdet - rhs' g_hat) / 2 + log pi_s, g_hat = LHS^-1 rhs. The pattern
     is the first argmax of log weight + Gumbel, and beta = g_hat +
@@ -210,7 +222,8 @@ def mt_marker_update_II_ref(w, xpx, Rinv, Ginv, log_pi, gum, z):
     quad = rhs[0] * g[0]
     for a in range(1, t):
         quad = quad + rhs[a] * g[a]
-    score = -0.5 * (logdet - quad) + log_pi[:, None] + gum.T       # (S, B)
+    lp = log_pi.T if log_pi.dim() == 2 else log_pi[:, None]
+    score = -0.5 * (logdet - quad) + lp + gum.T                   # (S, B)
     which = torch.argmax(score, dim=0)                            # (B,)
     cols = torch.arange(B, device=dev)
     C = _cholesky([[inv[a][c][which, cols] for c in range(t)] for a in range(t)])
@@ -235,7 +248,8 @@ def mt_abc_inner_rounds_ref(sampler: str, grams, xpx, valid, alpha, beta,
 
     grams (gb, b, b); xpx, valid (gb, b); alpha, beta, delta, rhs
     (gb, t, b), updated in place and returned; Rinv (t, t); Ginv (t, t) or
-    (gb, b, t, t); log_pi (2^t,); us, zs (nreps b, t, gb); gum
+    (gb, b, t, t); log_pi (2^t,) or one row a marker (gb, b, 2^t); us, zs
+    (nreps b, t, gb); gum
     (nreps b, 2^t, gb). Step j: w = rhs_j + xpx_j a_old, the marker update,
     alpha and delta masked by valid (beta is not), then rhs += (a_old -
     a_new) times Gram row j."""
@@ -247,13 +261,14 @@ def mt_abc_inner_rounds_ref(sampler: str, grams, xpx, valid, alpha, beta,
         x_j = xpx[:, j]
         w = rhs[:, :, j] + x_j[:, None] * a_old
         g_j = Ginv[:, j] if per_locus else Ginv
+        lp_j = log_pi[:, j] if log_pi.dim() == 3 else log_pi
         if sampler == "I":
             b_new, d_new, a_new = mt_marker_update_I_ref(
                 w, beta[:, :, j], delta[:, :, j], a_old, x_j, Rinv, g_j,
-                log_pi, draw_a[s].T, zs[s].T)
+                lp_j, draw_a[s].T, zs[s].T)
         else:
             b_new, d_new, a_new = mt_marker_update_II_ref(
-                w, x_j, Rinv, g_j, log_pi, draw_a[s].T, zs[s].T)
+                w, x_j, Rinv, g_j, lp_j, draw_a[s].T, zs[s].T)
         v = valid[:, j, None]
         a_new = a_new * v
         beta[:, :, j] = b_new
@@ -279,7 +294,9 @@ def sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, R, ginv, pi,
     alpha, beta, delta (t, p_pad) and ycorr (t, n_obs) in the store's
     dtype are updated in place and returned. R (t, t) residual covariance;
     ginv (t, t) inverse marker-effect covariance (BayesC) or (p_pad, t, t)
-    one a locus (BayesB); pi (2^t,) pattern priors. Round r of group g takes
+    one a locus (BayesB); pi (2^t,) pattern priors, or (p_pad, 2^t) one row
+    a marker (2-trait annotated BayesC; t <= MAX_PRIOR_TRAITS, the padding's
+    rows [1, 0, ...]). Round r of group g takes
     its panels from draws(g, r, reps) when given (tests inject the JAX
     package's): for sampler "I" (us, zs), for "II" (gum, zs), each
     (reps b, t or 2^t, gb); else from gen, in group and round order. A
@@ -297,6 +314,7 @@ def sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, R, ginv, pi,
     Rinv = torch.linalg.inv(R).contiguous()
     ginv = ginv.contiguous()
     log_pi = log_pattern_prior(pi, dtype)
+    per_marker = log_pi.dim() == 2
     per_locus = ginv.dim() == 3
     xpx_b, valid_b = gm.xpx.view(nblocks, b), gm.valid.view(nblocks, b)
     kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
@@ -318,10 +336,11 @@ def sweep_blocks_mt_abc_grouped(gm, alpha, beta, delta, ycorr, R, ginv, pi,
         b_g = _blocked(beta[:, cols], t, gb, b)
         d_g = _blocked(delta[:, cols], t, gb, b)
         g_g = ginv[cols].view(gb, b, t, t) if per_locus else ginv
+        lp_g = log_pi[cols].view(gb, b, 1 << t) if per_marker else log_pi
         rhs_g = rhs.view(gb, b, t).transpose(1, 2).contiguous()
         draw_a, zs = draws(g, r, reps)
         kernel(gm.grams[blk], xpx_b[blk], valid_b[blk], a_g, b_g, d_g, rhs_g,
-               Rinv, g_g, log_pi, draw_a, zs, reps)
+               Rinv, g_g, lp_g, draw_a, zs, reps)
         for state, new in ((alpha, a_g), (beta, b_g), (delta, d_g)):
             state[:, cols] = new.transpose(0, 1).reshape(t, G)
         return (a_start - a_g).transpose(1, 2).reshape(G, t)
@@ -530,6 +549,16 @@ def check_traits(t: int) -> None:
             f"{t} traits: the multi-trait marker chains (samplers I and II, K7 and "
             f"K8; RR-BLUP and BayesL, K9) run 2 to {MAX_TRAITS} traits; more is "
             f"not ported (ROADMAP.md: samplers I and II above 8 traits)")
+
+
+def check_prior_traits(t: int) -> None:
+    """K7 and K8 take a per-marker pattern prior for 2 to MAX_PRIOR_TRAITS
+    traits (csrc/mt_inner_rounds_pm.cu)."""
+    if t > MAX_PRIOR_TRAITS:
+        raise NotImplementedError(
+            f"a per-marker pattern prior at {t} traits: samplers I and II (K7, K8) "
+            f"take one for 2 to {MAX_PRIOR_TRAITS} traits; more is not ported "
+            f"(ROADMAP.md: a per-marker pattern prior above 4 traits)")
 
 
 def check_block_size(b: int) -> None:

@@ -39,6 +39,7 @@ from jwas_tpu_torch.ops.dists import (
     sample_scaled_inv_chi2,
 )
 from jwas_tpu_torch.ops.markers import BAYESR_GAMMA
+from jwas_tpu_torch.ops.threshold import sample_conditional_inv_wishart_korsgaard
 
 
 def sample_residual_variance_st(gen, ycorr, n_obs: int, df: float, scale,
@@ -182,15 +183,22 @@ def _diag_chi2(gen, sse_diag, n, df: float, scale_diag):
 
 
 def sample_residual_covariance(gen, ycorr, rinv, n_obs: int, df: float, scale,
-                               constraint: bool = False, bartlett=None):
+                               constraint: bool = False, bartlett=None, binary=()):
     """R | ycorr ~ InverseWishart(df + n, scale + Y' R^-1 Y) over the (t, n)
     residuals (the missing ones imputed); constraint: diagonal, one scaled
-    inverse chi-square a trait."""
+    inverse chi-square a trait; else with binary traits (their indices)
+    Korsgaard's conditional draw with their variances pinned at 1, on the
+    precision inv(scale + SSE) symmetrised (jwas_tpu/engine/mcmc_mt.py:
+    474-483; bartlett: that of X1 over the other traits)."""
     yw = ycorr if rinv is None else ycorr * rinv
     SSE = yw @ ycorr.T
     if constraint:
         return torch.diag(_diag_chi2(gen, torch.diagonal(SSE), n_obs, df,
                                      torch.diagonal(scale)))
+    if binary:
+        prec = torch.linalg.inv_ex(scale + SSE)[0]
+        return sample_conditional_inv_wishart_korsgaard(
+            gen, df + n_obs, 0.5 * (prec + prec.T), tuple(binary), bartlett)
     return sample_inv_wishart(gen, df + n_obs, scale + SSE, bartlett)
 
 

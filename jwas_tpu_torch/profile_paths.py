@@ -1,6 +1,6 @@
 """Where the time goes in the port's main paths at full width, on one GPU.
 
-    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense,Methods,GBLUP,MT,MTPedigree,MTC0L]
+    python3 -m jwas_tpu_torch.profile_paths [BayesC,BayesC0999,BayesR,runMCMC,Streamed,Hybrid,Dense,Methods,GBLUP,MT,MTPedigree,MTC0L,MTAnno]
 
 Run it from the root of the repository: it imports chip_smoke.py.
 
@@ -67,7 +67,11 @@ K6 and the GEMVs with W among the device rows. MTC0L is chip_smoke.py's
 phase 11a and 11b on phase 10's store and design (runMCMC multi-trait
 RR-BLUP and BayesL at fast_blocks = True: K9 and the two products of a
 round): step 2 for a call of two outer iterations after an unprofiled one
-of three, each. Each is a start-of-chain measurement: pi has not settled after three outer
+of three, each. MTAnno is chip_smoke.py's phase 12d on the same store: 2
+traits with 4 annotations, runMCMC annotated BayesC, sampler I (K7) then
+sampler II (K8), each with its per-marker pattern prior: step 2 for a call
+of two outer iterations after an unprofiled one of three, each, the tree
+probit's operations among the device rows. Each is a start-of-chain measurement: pi has not settled after three outer
 iterations. Imports torch, numpy, the port and chip_smoke.py; never jax.
 """
 
@@ -321,27 +325,36 @@ def profile_gblup(dev, n=20_000, n_train=18_000):
              100, top=16)
 
 
-def profile_mt(dev, pedigree=False, c0l=False):
-    """chip_smoke.py's phase 10a (pedigree: 10d; c0l: 11a and 11b) under
-    torch.profiler."""
+def profile_mt(dev, pedigree=False, c0l=False, anno=False):
+    """chip_smoke.py's phase 10a (pedigree: 10d; c0l: 11a and 11b; anno:
+    12d) under torch.profiler."""
+    import dataclasses
+
     if pedigree:
         profiled("MTPedigree", lambda: cs.phase10d(dev), 20, top=20)
         return
     codes = cs.dense_codes(50_000, 100_000, 7, dev)
     geno = jt.get_genotypes(codes, method="BayesC", storage="f32", device=dev)
     del codes
-    table, _, _ = cs.mt_table(geno.obs_ids, cs.mt_truth(geno.dense, seed=10), 10, 45_000)
-    eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in (1, 2, 3))
+    tbv = cs.mt_truth(geno.dense, seed=10)
+    t = 2 if anno else 3
+    table, _, _ = cs.mt_table(geno.obs_ids, tbv[:, :t], 123 if anno else 10, 45_000)
+    eq = "\n".join(f"y{k} = intercept + herd + age + geno" for k in range(1, t + 1))
     kw = dict(fast_blocks=True, output_samples_frequency=256, output_folder="")
+    A = cs.anno_columns(cs.qtl_mask(geno.dense.shape[0], 10, dev), 121) if anno else None
 
     def genotypes(method, sampler):
         g = cs.fresh(geno, method)
         g.multi_trait_sampler = sampler
+        if anno:
+            g = dataclasses.replace(g, annotations=A, estimate_pi=True,
+                                    pi=dict(cs.PI_MT_ANNO))
         return g
 
     paths = ((("MTC0L RR-BLUP", "RR-BLUP", "I"), ("MTC0L BayesL", "BayesL", "I")) if c0l
-             else (("MT", "BayesC", "I"), ("MT sampler II", "BayesC", "II"),
-                   ("MT BayesB", "BayesB", "I")))
+             else (("MTAnno sampler I", "BayesC", "I"), ("MTAnno sampler II", "BayesC", "II"))
+             if anno else (("MT", "BayesC", "I"), ("MT sampler II", "BayesC", "II"),
+                           ("MT BayesB", "BayesB", "I")))
     for name, method, sampler in paths:
         kernels = (cs.C0L,) if c0l else (f"mt_abc_inner_rounds_{sampler}",)
         cs.run_mt(f"{name}, unprofiled", dev, genotypes(method, sampler), table, eq,
@@ -356,7 +369,8 @@ def main():
         raise SystemExit("profile_paths: torch.cuda.is_available() is false")
     names = (sys.argv[1] if len(sys.argv) > 1 else "BayesC,BayesR").split(",")
     for name in names:
-        if name not in PATHS and name not in ("runMCMC", "MT", "MTPedigree", "MTC0L"):
+        if name not in PATHS and name not in ("runMCMC", "MT", "MTPedigree", "MTC0L",
+                                              "MTAnno"):
             raise SystemExit(f"unknown path {name!r}; choose from {sorted(PATHS)}")
     dev = torch.device("cuda", 0)
     cs.say(subprocess.run(
@@ -372,9 +386,10 @@ def main():
     if "GBLUP" in names:
         profile_gblup(dev)
         names = [n for n in names if n != "GBLUP"]
-    for name in ("MT", "MTPedigree", "MTC0L"):
+    for name in ("MT", "MTPedigree", "MTC0L", "MTAnno"):
         if name in names:
-            profile_mt(dev, pedigree=name == "MTPedigree", c0l=name == "MTC0L")
+            profile_mt(dev, pedigree=name == "MTPedigree", c0l=name == "MTC0L",
+                       anno=name == "MTAnno")
             names = [n for n in names if n != name]
             torch.cuda.empty_cache()
     if not names:

@@ -750,6 +750,60 @@ def test_mt_inner_rounds_kernels_match_plain(cuda, sampler):
             assert not outs[0]["delta"][-1, :, -3:].any()
 
 
+@pytest.mark.parametrize("sampler", ["I", "II"])
+def test_mt_inner_rounds_per_marker_prior_matches_plain(cuda, sampler):
+    """K7 and K8 with a per-marker pattern prior (csrc/mt_inner_rounds_pm.cu,
+    log_pi (nblocks, b, 2^t)) against their plain versions on the card, bit
+    for bit, float32 and float64, at t = 2 and 3, b = 40, 256, 300 and
+    2,048, with and without padding; a second launch gives the same bits;
+    rows that all equal a global prior give the global form's bits; t = 5
+    is refused before a launch."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import mt_inputs
+    from jwas_tpu_torch.ops import inner_rounds as ir
+    from jwas_tpu_torch.ops.multitrait import mt_abc_inner_rounds_ref
+
+    kernel = ir.mt_abc_inner_rounds_I if sampler == "I" else ir.mt_abc_inner_rounds_II
+    state = ("alpha", "beta", "delta", "rhs")
+    for dtype in (torch.float32, torch.float64):
+        for t, b, nblocks, nreps, n_padding in ((2, 40, 5, 2, 3), (3, 40, 3, 2, 0),
+                                                (2, 256, 3, 2, 0), (3, 256, 2, 1, 3),
+                                                (3, 300, 2, 1, 5), (2, 2048, 1, 1, 3)):
+            inp = mt_inputs(t, b, nblocks, nreps, sampler, False, 17 + t, cuda, dtype,
+                            n_padding=n_padding, per_marker=True)
+            assert inp["log_pi"].shape == (nblocks, b, 2 ** t)
+            outs = []
+            for _ in range(2):
+                a = {k: v.clone() for k, v in inp.items()}
+                n0 = kernel.launches_pm
+                kernel(*a.values(), nreps)
+                assert kernel.launches_pm == n0 + 1
+                outs.append(a)
+            r = {k: v.clone() for k, v in inp.items()}
+            mt_abc_inner_rounds_ref(sampler, **r, nreps=nreps)
+            torch.cuda.synchronize()
+            case = (sampler, dtype, t, b, nblocks, n_padding)
+            for k in state:
+                assert torch.equal(outs[0][k], outs[1][k]), (case, k)
+                assert torch.equal(outs[0][k], r[k]), (case, k)
+            if n_padding:
+                assert not outs[0]["alpha"][-1, :, -n_padding:].any()
+        inp = mt_inputs(3, 256, 3, 2, sampler, False, 23, cuda, dtype)
+        glob = {k: v.clone() for k, v in inp.items()}
+        pm = {k: v.clone() for k, v in inp.items()}
+        pm["log_pi"] = inp["log_pi"].expand(3, 256, 8).contiguous()
+        kernel(*glob.values(), 2)
+        kernel(*pm.values(), 2)
+        for k in state:
+            assert torch.equal(glob[k], pm[k]), (sampler, dtype, k)
+    inp = mt_inputs(5, 40, 1, 1, sampler, False, 3, cuda, per_marker=False)
+    inp["log_pi"] = inp["log_pi"].expand(1, 40, 32).contiguous()
+    n0 = kernel.launches
+    with pytest.raises(NotImplementedError, match="per-marker pattern prior above 4"):
+        kernel(*inp.values(), 1)
+    assert kernel.launches == n0
+
+
 def test_mt_inner_rounds_block_limit(cuda):
     """At the largest block, b = MAX_BLOCK (eight markers a thread), K7 and
     K8 equal their plain versions bit for bit in float32 and float64; a

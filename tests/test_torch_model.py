@@ -10,6 +10,7 @@ as a Table.
 """
 
 import os
+import re
 
 import jax
 import numpy as np
@@ -216,9 +217,14 @@ def test_unported_model_features_raise(data):
     store = jt.Packed2BitStore.load(data["store_path"])
     # several equations build a multi-trait model (ported, engine/mcmc_mt.py)
     assert jt.build_model("y = intercept\nz = intercept").n_models == 2
-    for kw in (dict(censored_trait=["y"]), dict(categorical_trait=["y"])):
-        with pytest.raises(NotImplementedError, match="latent traits and annotations"):
-            jt.build_model("y = intercept", **kw)
+    # latent traits and annotations are ported: the model records the
+    # traits' types, the annotations go through jwas_tpu's checks, and the
+    # 2-bit store refuses annotations as jwas_tpu's does
+    for kw, tt in ((dict(censored_trait=["y"]), "censored"),
+                   (dict(categorical_trait=["y"]), "categorical")):
+        assert jt.build_model("y = intercept", **kw).traits_type == [tt]
+    with pytest.raises(ValueError, match="storage='2bit'"):
+        jt.get_genotypes(store, annotations=np.eye(200, 2))
     from jwas_tpu_torch.engine.setup import normalize_method
     for storage in ("f32", "f64", "int8"):
         for method in ("RR-BLUP", "BayesA", "BayesL", "GBLUP"):
@@ -230,7 +236,9 @@ def test_unported_model_features_raise(data):
             normalize_method(ours, jt.build_model("y = intercept"))
             assert (ours.method, ours.pi, ours.estimate_pi) == (
                 "BayesB" if method == "BayesA" else method, 0.0, False)
-        with pytest.raises(NotImplementedError, match="latent traits and annotations"):
+        with pytest.raises(ValueError) as ref_err:
+            jwas_tpu.get_genotypes(data["geno"], storage=storage, annotations=np.ones((200, 1)))
+        with pytest.raises(ValueError, match=re.escape(str(ref_err.value)[:30])):
             jt.get_genotypes(data["geno"], storage=storage, device="cpu",
                              annotations=np.ones((200, 1)))
     assert jt.get_genotypes(store, method="BayesB").method == "BayesB"

@@ -120,7 +120,7 @@ def _refusals(monkeypatch):
     import jwas_tpu_torch as jt
     import jwas_tpu_torch.engine.setup as es
     from jwas_tpu_torch.ops import location
-    from jwas_tpu_torch.ops.multitrait import check_traits
+    from jwas_tpu_torch.ops.multitrait import check_prior_traits, check_traits
 
     rng = np.random.default_rng(1)
     X = rng.integers(0, 3, (30, 10)).astype(float)
@@ -140,8 +140,7 @@ def _refusals(monkeypatch):
         return jt.runMCMC(model, table, device="cpu", chain_length=4, output_folder="",
                           printout_model_info=False, **kw)
 
-    expect(lambda: jt.build_model("y = intercept", categorical_trait=["y"]))
-    expect(lambda: jt.get_genotypes(X, annotations=np.ones((10, 1)), device="cpu"))
+    expect(lambda: check_prior_traits(5))
     expect(lambda: check_traits(9))
     for name, (default, _) in es._UNPORTED.items():
         value = {"n_chains": 2, "mesh": object(), "checkpoint_frequency": 5,
