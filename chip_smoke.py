@@ -61,8 +61,8 @@ Phases, each printed as it ends:
      three outer iterations of BayesC and then of BayesR on the same store
      and Grams, with the launch count of every kernel in each path;
   4. a statistical check: a small simulation run through run_st, BayesC
-     on the card and on the CPU (plain versions; 512 sweeps, 1,024 until
-     phase 11 came), BayesR on the card (1,024); EBV accuracy must hold. Then runMCMC on the same data through a Table:
+     on the card and on the CPU (plain versions; 256 sweeps: 1,024 until
+     phase 11, 512 until phase 13 came), BayesR on the card (1,024); EBV accuracy must hold. Then runMCMC on the same data through a Table:
      its EBVs must equal run_st's on the card;
   5. runMCMC, the user's entry point, at full width: phase 3's device store
      (its Gram tiles freed) as a Packed2BitStore, 45,000 of its 50,000
@@ -132,9 +132,9 @@ Phases, each printed as it ends:
      phenotyped, u ~ N(0, A) by the Mendelian recursion, K = 19,902, 100
      iterations profiled: ms an iteration, busy and K6's shares, accuracy;
      (c) a statistical check: a pedigree of 1,000, 600 genotyped at
-     p = 2,000, "ID dam" and an i.i.d. herd, BayesC from pi = 0.99, 1,000
-     sweeps (2,000 until phase 10 came: the depth cut keeps the script's
-     time) at fast_blocks = 8 on the card and on the CPU: the card's EBV
+     p = 2,000, "ID dam" and an i.i.d. herd, BayesC from pi = 0.99, 300
+     sweeps (2,000 until phase 10, 1,000 until phase 13 came: the depth
+     cuts keep the script's time) at fast_blocks = 8 on the card and on the CPU: the card's EBV
      accuracy within 0.05 of the
      CPU's, the 2 x 2 covariances' posterior means side by side. Every path
      above launches K6 for its location pass;
@@ -152,8 +152,8 @@ Phases, each printed as it ends:
      herd + ID on a pedigree of 6,000 with a 3 x 3 G, K = 18,303, 20
      iterations: ms an iteration by part (LHS assembly, K6, the rest),
      the LHS both ways, accuracy. (e) 3 traits at n = 2,000 x p = 2,000,
-     500 sweeps (1,000 until phase 11 came) at fast_blocks = 8 on the
-     card and on the CPU: the
+     200 sweeps (1,000 until phase 11, 500 until phase 13 came) at
+     fast_blocks = 8 on the card and on the CPU: the
      card's accuracy within 0.05 of the CPU's on each trait; then the
      float64 builds of K7 and K8 for 64 sweeps each;
  11. multi-trait RR-BLUP, BayesL, SEM and GBLUP: on phase 10's store and
@@ -170,7 +170,8 @@ Phases, each printed as it ends:
      trait. (d) Multi-trait GBLUP on the first 20,000 individuals (18,000
      phenotyped; reduced from N as phase 8b is), 200 iterations: the
      relationship matrix, the eigh and ms an iteration. (e) Multi-trait
-     BayesL at n = 2,000 x p = 2,000, 500 sweeps at fast_blocks = 8 on the
+     BayesL at n = 2,000 x p = 2,000, 200 sweeps (500 until phase 13
+     came) at fast_blocks = 8 on the
      card and on the CPU, the card's accuracy within 0.05 of the CPU's on
      each trait; then 64 sweeps of K9's float64 build;
  12. latent traits and annotations on phase 10's store and genetic values
@@ -188,10 +189,47 @@ Phases, each printed as it ends:
      device ms, host ms and device operations an iteration (CUDA events;
      torch.profiler on the first call); vare exactly 1 for a categorical
      trait, R_bb 1 within 1e-5, the first annotation's slope. (f) A
-     statistical check at n = 2,000 x p = 2,000, 500 sweeps at fast_blocks
-     = 8 on the card and on the CPU of (a)'s, (c)'s BayesC, (d)'s sampler
-     I and (e)'s models, the card within 0.05 of the CPU on each trait;
-     then 64 float64 sweeps of (d)'s model with samplers I and II.
+     statistical check at n = 2,000 x p = 2,000, 300 sweeps (500 until
+     phase 13 came) at fast_blocks = 8 on the card and on the CPU of
+     (a)'s, (c)'s BayesC, (d)'s sampler I and (e)'s models, the card
+     within 0.05 of the CPU on each trait; then 64 float64 sweeps of (d)'s
+     model with samplers I and II;
+ 13. the sparse location path, solve and single-step, on a generational
+     pedigree of 100,000 animals (tests/integration/test_ssbr_scale.py's
+     design: 2,000 a generation, parents from the two before;
+     get_pedigree timed), u ~ N(0, A) through hAi: (a) y = intercept + ID
+     with 30,000 phenotyped (tests/test_sparse_mme.py's 100,001-level
+     design): solve with CG and with Jacobi on the card (seconds,
+     iterations, relative residual, BLUP accuracy; CG against Jacobi r
+     >= 0.999 and accuracy >= 0.55 raise), then runMCMC of the model for
+     3 windows of 64 sweeps (cut from 256 for the script's time) on the
+     sparse path: a sweep's device ms,
+     PO-CG iterations, device operations and an iteration's byte bound,
+     fault R3's counters, two 8-sweep chains of one seed bit for bit;
+     (b) single-step BayesC at full width: the youngest 20,000 genotyped
+     at P = 50,000 (Binomial(2, f) on the card, 50 QTL), 10,000 of them
+     and 40,000 non-genotyped phenotyped (y = intercept + herd + geno,
+     100 herds, h2 0.5 split between 0.6 u and the markers), EBVs for the
+     other 10,000 genotyped and the non-genotyped phenotyped; K = 80,102
+     (epsilon's 80,000 levels: the sparse path on its own), the imputed
+     60,000 x 50,000 store (12 GB), the exact sweep as the gated test runs
+     it (K1 with nblocks = 1 at b = 256, its global Gram branch; the
+     blocked schedule diverged here: ssbr_genotypes), 3 windows of 8
+     sweeps (cut from 256 for the script's time): seconds by part (pedigree, A^-1 partition,
+     imputation with its CG iterations and worst residual, J, workspace,
+     store, chain, results), a window, a PO-CG draw's ms, iterations and
+     operations against K1's and the GEMVs', K1's launches, peak memory;
+     raises if K1 never launched, the imputation's residual > 1e-6, a
+     draw is not finite, the chain's peak > store + 4 GB or an accuracy
+     < 0.3; (c) 13b's generator at 5,000 animals, 1,000 genotyped, p =
+     2,000 (700 genotyped and 1,300 others phenotyped), pi held at 0.98
+     (ssbr_genotypes), 500 sweeps at fast_blocks = 8 on the card and on
+     the CPU:
+     single-trait SSBR on the sparse path (K1) and 2-trait SSBR on the
+     dense path (K6, K7; on the generator's first 2,000 animals, 800
+     non-genotyped phenotyped, K = 2,044: at 5,000 animals, K = 8,044,
+     the CPU's plain location pass took ~1.5 s an outer iteration), the
+     card within 0.05 of the CPU.
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -218,7 +256,7 @@ DELTA_AGREE = 0.999   # K1: inclusion indicators equal on >= 99.9% of markers
 # PHASE4_SWEEPS (burn-in a quarter) to keep the script's time; both paths
 # print their accuracy beside the floor
 ACC_FLOOR = 0.6043
-PHASE4_SWEEPS = 512
+PHASE4_SWEEPS = 256
 ACC_MARGIN = 0.05     # kernel path may trail the plain path by at most this
 # EBV accuracy of jwas_tpu.runMCMC BayesR (storage='2bit', default class
 # prior) on the phase-4 data, measured on the CPU with the same chain
@@ -1946,7 +1984,7 @@ def phase6b(dev, kept, fast_blocks=128):
     JWAS_HBM_BYTES), each twice, in the order streamed, hybrid, hybrid,
     streamed. Alpha, the EBVs and the vare / varg / pi tracks must equal the
     resident run's bit for bit. The first streamed and the first hybrid run
-    are then profiled for two outer iterations: busy shares and the copies'
+    are then profiled for one outer iteration: busy shares and the copies'
     overlap with kernels (their repeats are not: the script's time)."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.io.packed import Packed2BitStore
@@ -2015,7 +2053,7 @@ def phase6b(dev, kept, fast_blocks=128):
             busy = {}
             if offload and not name.endswith("again"):   # the repeats are not profiled
                 _, _, prof_built = run_phase5(store, table, around_chain=busy_shares(busy),
-                                              **dict(kw, chain_length=2 * b))
+                                              **dict(kw, chain_length=b))
                 busy["windows"] = prof_built["chain"][-1]
                 del prof_built
         finally:
@@ -2033,7 +2071,7 @@ def phase6b(dev, kept, fast_blocks=128):
         if busy:
             overlap = ("none" if busy["overlap"] is None
                        else f"{busy['overlap']:.4f}")
-            line += (f"; profiled chain of 2 outer iterations ({busy['wall']:.2f} s, "
+            line += (f"; profiled chain of 1 outer iteration ({busy['wall']:.2f} s, "
                      f"windows {', '.join(f'{t:.4f}' for t in busy['windows'])}): "
                      f"kernels busy {busy['kernels']:.4f}, copies {busy['copies']:.4f} "
                      f"of the wall time; share of the copies' device time with a "
@@ -2774,7 +2812,7 @@ def iteration_parts(busy, n_iter):
     return {k: v / n_iter * 1e3 for k, v in parts.items()}
 
 
-def phase9c(dev, p=2_000, n_iter=1_000):
+def phase9c(dev, p=2_000, n_iter=300):
     """Phase 9c; see the module's docstring."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.io.table import Table
@@ -3141,7 +3179,7 @@ def phase10d(dev, n_iter=20, n_founders=1_000, gen_size=1_000, n_gen=5, n_herds=
     return counts
 
 
-def phase10e(dev, n=2_000, p=2_000, n_iter=500):
+def phase10e(dev, n=2_000, p=2_000, n_iter=200):
     """A statistical check: 3 traits at n x p, n_iter sweeps at fast_blocks
     = 8 on the card and on the CPU (plain versions), the card's EBV
     accuracy within ACC_MARGIN_10E of the CPU's on each trait; then the
@@ -3322,7 +3360,7 @@ def phase11d(dev, n, p, n_gblup=20_000, n_train=18_000, n_iter=200):
     return counts
 
 
-def phase11e(dev, n=2_000, p=2_000, n_iter=500, n_f64=64):
+def phase11e(dev, n=2_000, p=2_000, n_iter=200, n_f64=64):
     """A statistical check: 3 traits at n x p, multi-trait BayesL for
     n_iter sweeps at fast_blocks = 8 on the card (K9) and on the CPU (its
     plain version), the card's EBV accuracy within ACC_MARGIN_11E of the
@@ -3632,7 +3670,7 @@ def phase12(dev, geno, tbv, n_train, chain_length, every):
     return launches
 
 
-def phase12f(dev, n=2_000, p=2_000, n_iter=500, n_f64=64):
+def phase12f(dev, n=2_000, p=2_000, n_iter=300, n_f64=64):
     """A statistical check of phase 12's models at n x p: 12a's binary
     BayesC, 12c's annotated BayesC, 12d's 2-trait annotated BayesC
     (sampler I) and 12e's 3-trait model, n_iter sweeps at fast_blocks = 8
@@ -3720,6 +3758,417 @@ def phase12f(dev, n=2_000, p=2_000, n_iter=500, n_f64=64):
     return {"phase 12f": counts}
 
 
+# ---------------------------------------------------------------- phase 13
+
+ACC_FLOOR_13A = 0.55      # tests/test_sparse_mme.py::test_solve_sparse_100k_levels
+AGREE_13A = 0.999         # its bound on CG's BLUPs against Jacobi's
+ACC_FLOOR_13B = 0.3       # tests/integration/test_ssbr_scale.py's bound
+IMPUTE_RESIDUAL_13B = 1e-6
+ACC_MARGIN_13C = 0.05     # card accuracy may trail the CPU's by this
+
+
+def ssbr_pedigree(n, gen, seed):
+    """tests/integration/test_ssbr_scale.py:41-52's generational pedigree:
+    the first gen animals founders, animal k's parents drawn uniformly from
+    k - 2 gen .. k - 2 (the two generations before). Returns (ids, sire,
+    dam), -1 for an unknown parent."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(n)
+    lo, hi = np.maximum(k - 2 * gen, 0), np.maximum(k - 1, 1)
+    anc = np.stack([rng.integers(lo, hi), rng.integers(lo, hi)])
+    founder = k < gen
+    ids = np.array([f"a{i}" for i in range(n)], dtype=object)
+    return ids, np.where(founder, -1, anc[0]), np.where(founder, -1, anc[1])
+
+
+def polygenic_values(ped, ids, seed):
+    """u ~ N(0, A) through the exact factor, u = hAi^-1 z (hAi lower
+    triangular in the pedigree's order), scaled to sd 1; in ids' order."""
+    from scipy.sparse.linalg import spsolve_triangular
+
+    z = np.random.default_rng(seed).normal(size=len(ids))
+    u = spsolve_triangular(ped.a_inverse_factor().tocsr(), z, lower=True)
+    u = u / u.std()
+    return u[[ped.id_index[s] for s in ids]]
+
+
+def ssbr_problem(dev, ped, ids, u, n_geno, p, n_pheno_geno, n_pheno_nongeno,
+                 n_qtl=50, n_herds=100, seed=133, two_traits=False):
+    """13b's data on a pedigree (ids in order, u its polygenic values):
+    the youngest n_geno animals genotyped, Binomial(2, f) at p markers on
+    the device, n_qtl QTL with N(0, 1) effects; breeding values 0.6 u plus
+    the genotyped animals' marker value (sd 1), as the gated test makes
+    them; n_pheno_geno genotyped (the older ones) and the last
+    n_pheno_nongeno non-genotyped phenotyped, y = herd + bv + noise of bv's
+    variance (h2 0.5), 100 herds; the other genotyped animals are the
+    candidates. two_traits: y2 = 0.8 bv + noise of 0.9 bv's sd. Returns a
+    dict: the Genotypes' codes (n_geno, p) int8, the genotyped IDs, the
+    Table, truth (ID -> bv), the candidates, the non-genotyped phenotyped
+    IDs and the phenotypes' variance."""
+    from jwas_tpu_torch.io.table import Table
+
+    n = len(ids)
+    codes = dense_codes(n_geno, p, seed, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    qtl = torch.randperm(p, generator=g, device=dev)[:n_qtl]
+    beta = torch.zeros(p, device=dev)
+    beta[qtl] = torch.randn(n_qtl, generator=g, device=dev)
+    Xq = codes[:, qtl].to(torch.float64)
+    gv = ((Xq - Xq.mean(0)) @ beta[qtl].double()).cpu().numpy()
+    gv = (gv - gv.mean()) / gv.std()
+    bv = 0.6 * u
+    bv[n - n_geno:] += gv
+    rng = np.random.default_rng(seed + 2)
+    geno_rows = np.arange(n - n_geno, n)
+    pheno = np.concatenate([np.arange(n - n_geno - n_pheno_nongeno, n - n_geno),
+                            geno_rows[:n_pheno_geno]])
+    cand = geno_rows[n_pheno_geno:]
+    sd = float(np.std(bv[pheno]))
+    herd = rng.integers(1, n_herds + 1, n)
+    y = rng.normal(0.0, 0.5 * sd, n_herds + 1)[herd] + bv + rng.normal(0.0, sd, n)
+    cols = {"ID": ids[pheno], "y1" if two_traits else "y": y[pheno],
+            "herd": np.array([f"h{h}" for h in herd[pheno]], dtype=object)}
+    if two_traits:
+        cols["y2"] = 0.8 * bv[pheno] + rng.normal(0.0, 0.9 * sd, len(pheno))
+    return dict(codes=codes, geno_ids=list(ids[geno_rows]), table=Table(cols),
+                truth=dict(zip(ids, bv)), cand=list(ids[cand]),
+                nongeno_pheno=list(ids[pheno[:n_pheno_nongeno]]),
+                var_y=float(np.var(y[pheno], ddof=1)))
+
+
+def ssbr_genotypes(prob, dev, two_traits=False, fixed_pi=False):
+    """get_genotypes on the problem's codes, written to dev, named by the
+    genotyped animals' IDs; the genetic variance 0.3 var(y) as the gated
+    test gives it (two traits: runMCMC's default). pi starts at 0.99 (the
+    2-trait pattern prior: 0.99 on none), as phase 9c's does: most
+    phenotyped rows are imputed conditional means of the genotyped ones,
+    so the store holds far fewer independent rows than records, while the
+    blocked schedule's stale set is capped by the records (0.4 n); at
+    13b's shape the blocked chain diverged from pi = 0 and from 0.99 on
+    the card, so 13b runs the exact sweep, as the gated test does. fixed_pi: pi held at 0.98 (the pattern prior 0.97 on none, 0.02
+    on both), estimatePi off, for 13c's blocked chains: with pi estimated
+    they diverged on the CPU as well once pi fell below ~0.92 (p = 2,000
+    over 700 genotyped records)."""
+    import jwas_tpu_torch as jt
+
+    codes = prob["codes"] if dev.type == "cuda" else prob["codes"].cpu()
+    if two_traits:
+        pi = ({(0.0, 0.0): 0.97, (1.0, 0.0): 0.005, (0.0, 1.0): 0.005, (1.0, 1.0): 0.02}
+              if fixed_pi else
+              {(0.0, 0.0): 0.99, (1.0, 0.0): 0.0025, (0.0, 1.0): 0.0025, (1.0, 1.0): 0.005})
+    else:
+        pi = 0.98 if fixed_pi else 0.99
+    geno = jt.get_genotypes(codes, None if two_traits else prob["var_y"] * 0.3,
+                            method="BayesC", Pi=pi, estimatePi=not fixed_pi, device=dev,
+                            G_is_marker_variance=False)
+    geno.obs_ids = list(prob["geno_ids"])
+    return geno
+
+
+def accuracy(ebv_table, truth, ids, col="EBV"):
+    ebv = dict(zip(ebv_table.ID, np.asarray(getattr(ebv_table, col), dtype=np.float64)))
+    return float(np.corrcoef([ebv[s] for s in ids], [truth[s] for s in ids])[0, 1])
+
+
+def po_cg_bound_ms(sl):
+    """The byte bound of one PO-CG iteration on the sparse path: the CSR
+    arrays of W, W' and each group's Vinv read once, and 8 vectors of K
+    (x, r, p, the preconditioner and the free mask read; x, r, p written)
+    and 2 of n."""
+    from jwas_tpu_torch.ops.sparse_mme import csr_bytes
+
+    item = sl.free.element_size()
+    nbytes = (csr_bytes(sl.W) + csr_bytes(sl.Wt) + sum(csr_bytes(g.V) for g in sl.groups)
+              + 8 * sl.n_loc * item + 2 * sl.n_obs * item)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+@contextlib.contextmanager
+def capture_chain_data(store):
+    """engine.mcmc._build_st_data_and_state wrapped so that store["ws"] and
+    store["data"] hold the chain's workspace and STData."""
+    import jwas_tpu_torch.engine.mcmc as em
+
+    fn = em._build_st_data_and_state
+
+    def call(*a, **k):
+        store["ws"] = a[0]
+        out = fn(*a, **k)
+        store["data"] = out[1]
+        return out
+
+    em._build_st_data_and_state = call
+    try:
+        yield
+    finally:
+        em._build_st_data_and_state = fn
+
+
+def phase13a(dev, ped, ids, u, n_pheno=30_000, chain_length=192, every=64):
+    """Phase 13a; see the module's docstring."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.mcmc as em
+    from jwas_tpu_torch.engine.solve import solve
+    from jwas_tpu_torch.io.table import Table
+
+    say(f"== phase 13a: the sparse location path at {len(ids) + 1} levels")
+    rng = np.random.default_rng(134)
+    obs = rng.choice(len(ids), n_pheno, replace=False)
+    table = Table({"ID": ids[obs], "y": 5.0 + u[obs] + rng.normal(size=n_pheno)})
+
+    def fresh():
+        m = jt.build_model("y = intercept + ID")
+        jt.set_random(m, "ID", ped, 1.0)
+        return m
+
+    est = {}
+    for solver, kw in (("CG", dict(maxiter=500, tolerance=1e-10)),
+                       ("Jacobi", dict(maxiter=2000, tolerance=1e-12))):
+        t0 = time.perf_counter()
+        out = solve(fresh(), table, solver=solver, device=dev, **kw)
+        sec = time.perf_counter() - t0
+        info = solve.last
+        est[solver] = np.asarray(out.Estimate, dtype=np.float64)[1:]
+        say(f"solve {solver}: {sec:.2f} s, {info['iterations']} iterations, relative "
+            f"residual {info['relative_residual']:.3g} (K = {info['K']}, LHS "
+            f"{info['lhs_nnz']} nonzeros); BLUP accuracy "
+            f"{np.corrcoef(est[solver], u)[0, 1]:.4f}")
+    acc = float(np.corrcoef(est["CG"], u)[0, 1])
+    agree = float(np.corrcoef(est["CG"], est["Jacobi"])[0, 1])
+    keep = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CallTimer(em, "sparse_location_step") as timer, capture_chain_data(keep):
+        out, seconds, built = run_phase5(None, table, eq="y = intercept + ID",
+                                     on_model=lambda m: jt.set_random(m, "ID", ped, 1.0),
+                                     device=dev, chain_length=chain_length,
+                                     output_samples_frequency=every, output_folder="")
+    peak = torch.cuda.max_memory_allocated(dev)
+    cg = out["_location_cg"]
+    sl = keep["data"].sl
+    bound, nbytes = po_cg_bound_ms(sl)
+    ms = [s.elapsed_time(e) for s, e in timer.events]
+    it_per = cg["iterations"] / cg["solves"]
+    chain_acc = accuracy(out["EBV_y"], dict(zip(ids, u)), list(ids))
+    say("runMCMC seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; windows of {every} sweeps " + ", ".join(f"{t:.4f}" for t in built["chain"][-1])
+        + f"; peak device memory {peak / 1e9:.2f} GB")
+    say(f"a sweep: {np.mean(ms):.3f} ms of device time for the location draw (events, "
+        f"{len(ms)} sweeps), host {np.mean(timer.host) * 1e3:.3f} ms, "
+        f"{timer.launches} device operations (profiled sweep); PO-CG "
+        f"{it_per:.1f} iterations a draw, {np.mean(ms) / it_per:.4f} ms and "
+        f"{timer.launches / it_per:.1f} operations an iteration against a byte bound of "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB); {cg['host_reads']} host reads of the "
+        f"stopping test in {cg['solves']:.0f} draws")
+    say(f"R3 counters: {cg['not_converged']:.0f} of {cg['solves']:.0f} draws unconverged, "
+        f"worst relative residual {cg['worst_residual']:.3g}; EBV accuracy of the chain "
+        f"{chain_acc:.4f}; CG against Jacobi r = {agree:.6f}; vare "
+        f"{out['residual variance'].Estimate[0]:.4g}, sigma^2_u "
+        f"{out['polygenic effects covariance matrix'].Estimate[0]:.4g} (truth 1, 1)")
+    reps = [jt.runMCMC(fresh(), table, device=dev, chain_length=8, seed=7, output_folder="",
+                       printout_model_info=False)["location parameters"] for _ in range(2)]
+    same = bool(np.array_equal(np.asarray(reps[0].Estimate), np.asarray(reps[1].Estimate)))
+    say(f"two 8-sweep chains of one seed: location parameters bit for bit {same}")
+    # the floor holds the BLUPs (the reference test's); the chain's EBVs are
+    # the mean of its 3 saved samples, reported
+    if not (agree >= AGREE_13A and acc >= ACC_FLOOR_13A and np.isfinite(chain_acc)):
+        raise AssertionError(f"phase 13a: CG vs Jacobi {agree:.6f}, accuracy {acc:.4f}, "
+                             f"chain {chain_acc:.4f}")
+    if not (cg["not_converged"] == 0 and np.isfinite(cg["worst_residual"]) and same
+            and np.isfinite(np.asarray(out["EBV_y"].EBV, dtype=np.float64)).all()):
+        raise AssertionError(f"phase 13a: CG counters {cg}, repeat bit for bit {same}")
+    return {}
+
+
+def phase13b(dev, ped, ids, u, ped_seconds=0.0, p=50_000, n_geno=20_000,
+             n_pheno_geno=10_000, n_pheno_nongeno=40_000, chain_length=24, every=8):
+    """Phase 13b; see the module's docstring."""
+    import jwas_tpu_torch as jt
+    import jwas_tpu_torch.engine.mcmc as em
+    from jwas_tpu_torch.ops import grouped
+
+    say(f"== phase 13b: single-step BayesC, {len(ids)}-animal pedigree, {n_geno} "
+        f"genotyped at P={p}")
+    t0 = time.perf_counter()
+    prob = ssbr_problem(dev, ped, ids, u, n_geno, p, n_pheno_geno=n_pheno_geno,
+                        n_pheno_nongeno=n_pheno_nongeno)
+    geno = ssbr_genotypes(prob, dev)
+    del prob["codes"]
+    torch.cuda.empty_cache()
+    say(f"data and get_genotypes: {time.perf_counter() - t0:.2f} s (store "
+        f"{tuple(geno.dense.shape)}); {len(prob['table'])} phenotyped")
+    chain_peak = {}
+
+    @contextlib.contextmanager
+    def around_chain():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+        yield
+        torch.cuda.synchronize()
+        chain_peak.update(peak=torch.cuda.max_memory_allocated(dev), start=start)
+
+    keep = {}
+    jt.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with CallTimer(em, "sparse_location_step") as t_loc, \
+                CallTimer(grouped, "abc_inner_rounds") as t_k1, capture_chain_data(keep):
+            out, seconds, built = run_phase5(
+                geno, prob["table"], eq="y = intercept + herd + geno",
+                around_chain=around_chain(),
+                on_model=lambda m: jt.outputEBV(m, prob["cand"] + prob["nongeno_pheno"]),
+                device=dev, chain_length=chain_length, output_samples_frequency=every,
+                fast_blocks=False, single_step_analysis=True, pedigree=ped, output_folder="")
+    except Exception:
+        if "data" in keep:           # what the set-up made, for the diagnosis
+            d = keep["data"]
+            say(f"phase 13b failed: single-step set-up {keep['ws'].ssbr}; the store "
+                f"finite: {bool(torch.isfinite(d.gm.X).all())}; the CG's counters "
+                f"{d.sl.stats.read()}")
+        raise
+    peak_all = torch.cuda.max_memory_allocated(dev)
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    ssbr = out["_single_step"]
+    cg = out["_location_cg"]
+    gm = built.pop("store and Grams")
+    windows = built.pop("chain")[-1]
+    X = gm.X
+    store_bytes = X.numel() * X.element_size()
+    K = keep["data"].sl.n_loc
+    bound, nbytes = po_cg_bound_ms(keep["data"].sl)
+    say(f"K = {K} ({ssbr['nongenotyped']} epsilon levels, sparse path); store "
+        f"{tuple(X.shape)} ({store_bytes / 1e9:.2f} GB), b = {gm.grams.shape[1]}, "
+        f"{gm.ngroups} groups")
+    results = seconds["runMCMC"] - sum(v for k, v in seconds.items() if k != "runMCMC")
+    say(f"seconds: pedigree (13a's get_pedigree) {ped_seconds:.2f}, A^-1 partition "
+        f"{ssbr['partition_s']:.2f}, imputation {ssbr['imputation_s']:.2f} ({ssbr['solver']}, "
+        f"chunks of {ssbr['chunk']} markers, {ssbr['cg_iterations']} CG iterations over the "
+        f"chunks, worst relative residual {ssbr['cg_worst_residual']:.3g}), J "
+        f"{ssbr['J_s']:.2f}, workspace in all {seconds['workspace']:.2f}, store and Grams "
+        f"{seconds['store and Grams']:.2f}, chain {seconds['chain']:.2f}, results "
+        f"{results:.2f}; windows " + ", ".join(f"{t:.4f}" for t in windows))
+    nn = ssbr["nongenotyped"]
+    if ssbr["cg_iterations"]:
+        imp_bytes = 6 * nn * ssbr["chunk"] * 8
+        say(f"imputation CG: {ssbr['imputation_s'] / ssbr['cg_iterations'] * 1e3:.2f} ms an "
+            f"iteration of a {ssbr['chunk']}-column chunk (wall, set-up included) against a "
+            f"byte bound of {imp_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms (X, R, P read and "
+            f"written in float64, {imp_bytes / 1e9:.2f} GB, A_nn's CSR aside)")
+    lms = [s.elapsed_time(e) for s, e in t_loc.events]
+    k1 = [s.elapsed_time(e) for s, e in t_k1.events]
+    rounds = counts["abc_inner_rounds"] / max(len(windows), 1)
+    it_per = cg["iterations"] / max(cg["solves"], 1)
+    say(f"an outer iteration: the PO-CG draw {np.mean(lms) if lms else float('nan'):.3f} ms "
+        f"({it_per:.1f} iterations, {t_loc.launches} device operations, byte bound of an "
+        f"iteration {bound:.4f} ms), K1 {np.mean(k1):.4f} ms a call x {rounds:.0f} calls = "
+        f"{np.mean(k1) * rounds:.1f} ms; R3: {cg['not_converged']:.0f} unconverged, worst "
+        f"{cg['worst_residual']:.3g}")
+    dense_gemv_line(X, gm.G, dev)
+    limit = store_bytes + PHASE7_MARGIN_BYTES
+    acc_c = accuracy(out["EBV_y"], prob["truth"], prob["cand"])
+    acc_n = accuracy(out["EBV_y"], prob["truth"], prob["nongeno_pheno"])
+    say(f"peak device memory {peak_all / 1e9:.2f} GB (set-up included); the chain's "
+        f"{chain_peak['peak'] / 1e9:.2f} GB (store {store_bytes / 1e9:.2f} + "
+        f"{PHASE7_MARGIN_BYTES / 1e9:.0f} GB = {limit / 1e9:.2f} GB allowed); launches {counts}")
+    say(f"EBV accuracy: genotyped candidates {acc_c:.4f}, non-genotyped phenotyped "
+        f"{acc_n:.4f}; vare {out['residual variance'].Estimate[0]:.4g}, epsilon's variance "
+        f"{out['random effect variances y:ϵ'].Estimate[0]:.4g}")
+    values = [np.asarray(out[k].Estimate, dtype=np.float64) for k in
+              ("residual variance", "marker effects geno", "location parameters")]
+    values.append(np.asarray(out["EBV_y"].EBV, dtype=np.float64))
+    if counts["abc_inner_rounds"] == 0:
+        raise AssertionError("phase 13b: K1 never launched")
+    if not ssbr["cg_worst_residual"] <= IMPUTE_RESIDUAL_13B:
+        raise AssertionError(f"phase 13b: imputation residual {ssbr['cg_worst_residual']}")
+    if not (all(np.isfinite(v).all() for v in values) and np.isfinite(cg["worst_residual"])):
+        raise AssertionError("phase 13b: non-finite results or PO-CG draws")
+    if chain_peak["peak"] > limit:
+        raise AssertionError(f"phase 13b: the chain's peak {chain_peak['peak'] / 1e9:.2f} GB "
+                             f"> {limit / 1e9:.2f} GB")
+    if not (acc_c >= ACC_FLOOR_13B and acc_n >= ACC_FLOOR_13B):
+        raise AssertionError(f"phase 13b: accuracy {acc_c:.4f} / {acc_n:.4f} < {ACC_FLOOR_13B}")
+    del gm, built, geno, X, keep
+    torch.cuda.empty_cache()
+    return {"abc_inner_rounds": counts["abc_inner_rounds"]}
+
+
+def phase13c(dev, n_ped=5_000, gen=100, n_geno=1_000, p=2_000, n_iter=500,
+             n_pheno_geno=700, n_pheno_nongeno=1_300, n_ped_mt=2_000, n_pheno_nongeno_mt=800):
+    """Phase 13c; see the module's docstring."""
+    import jwas_tpu_torch as jt
+
+    say(f"== phase 13c: single-step card against CPU, {n_ped} animals ({n_ped_mt} for 2 "
+        f"traits), {n_geno} genotyped at p={p}")
+
+    def pedigree(n):
+        ids, sire, dam = ssbr_pedigree(n, gen, 135)
+        ped = jt.get_pedigree(pedigree_table(ids, sire, dam))
+        return ped, ids, polygenic_values(ped, ids, 136)
+
+    runs = (("single-trait SSBR, sparse path", False, dict(sparse_location=True),
+             ("abc_inner_rounds",), pedigree(n_ped), n_pheno_nongeno),
+            ("2-trait SSBR, dense path", True, {},
+             ("mt_abc_inner_rounds_I", K6), pedigree(n_ped_mt), n_pheno_nongeno_mt))
+    counts = {}
+    for label, two, kw, kernels, (ped, ids, u), nongeno in runs:
+        prob = ssbr_problem(dev, ped, ids, u, n_geno, p, n_pheno_geno=n_pheno_geno,
+                            n_pheno_nongeno=nongeno, n_herds=20, seed=137,
+                            two_traits=two)
+        eq = ("y1 = intercept + herd + geno\ny2 = intercept + herd + geno" if two
+              else "y = intercept + herd + geno")
+        res = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            jt.reset_launches()
+            model = jt.build_model(eq, genotypes=ssbr_genotypes(prob, d, two, fixed_pi=True))
+            jt.outputEBV(model, prob["cand"] + prob["nongeno_pheno"])
+            t0 = time.perf_counter()
+            out = jt.runMCMC(model, prob["table"], device=d, chain_length=n_iter,
+                             burnin=n_iter // 5, fast_blocks=8, seed=5, output_folder="",
+                             single_step_analysis=True, pedigree=ped,
+                             printout_model_info=False, **kw)
+            traits = ("y1", "y2") if two else ("y",)
+            acc = [accuracy(out[f"EBV_{t}"], prob["truth"], who) for t in traits
+                   for who in (prob["cand"], prob["nongeno_pheno"])]
+            res[where] = dict(acc=np.array(acc), seconds=time.perf_counter() - t0,
+                              launches={k.__name__: k.launches for k in jt.KERNELS},
+                              cg=out.get("_location_cg"))
+        say(f"{label}: " + "; ".join(
+            f"{w} EBV accuracy (candidates, non-genotyped) a trait "
+            f"{np.round(r['acc'], 4).tolist()} ({r['seconds']:.1f} s)" for w, r in res.items())
+            + (f"; card PO-CG {res['card']['cg']}" if res["card"]["cg"] else ""))
+        card, cpu = res["card"]["acc"], res["cpu"]["acc"]
+        if not (np.isfinite(card).all() and np.isfinite(cpu).all()
+                and (card >= cpu - ACC_MARGIN_13C).all()):
+            raise AssertionError(f"phase 13c {label}: card {card} vs CPU {cpu}")
+        missing = [k for k in kernels if res["card"]["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"phase 13c {label}: kernels never launched: {missing}")
+        for k in kernels:
+            counts[k] = counts.get(k, 0) + res["card"]["launches"][k]
+        del prob
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase13(dev):
+    """Phase 13: the sparse location path, solve and single-step."""
+    import jwas_tpu_torch as jt
+
+    ids, sire, dam = ssbr_pedigree(100_000, 2_000, 131)
+    t0 = time.perf_counter()
+    ped = jt.get_pedigree(pedigree_table(ids, sire, dam))
+    ped_seconds = time.perf_counter() - t0
+    u = polygenic_values(ped, ids, 132)
+    say(f"phase 13: get_pedigree of {len(ids)} animals in {ped_seconds:.2f} s")
+    launches = {"phase 13a": phase13a(dev, ped, ids, u),
+                "phase 13b": phase13b(dev, ped, ids, u, ped_seconds)}
+    launches["phase 13c"] = phase13c(dev)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -3765,6 +4214,7 @@ def main():
     launches["phase 9b"] = phase9b(dev)
     launches["phase 9c"] = phase9c(dev)
     launches.update(phase10(dev))
+    launches.update(phase13(dev))
 
     # launches: phase 3's (run_st, both methods), phase 4's (K6 of the
     # card's chains), phase 5's (runMCMC), phase 6's (runMCMC BayesB;

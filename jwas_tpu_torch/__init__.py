@@ -19,15 +19,23 @@ phenotypes, t x t covariances, the prior update and structural equations
 categorical_trait and censored_trait: binary, ordered categorical and
 censored, single- and multi-trait) and annotations (get_genotypes's
 annotations: annotated BayesC and BayesR, and 2-trait annotated BayesC,
-whose per-marker pattern prior K7 and K8 take) run on dense stores. It
-imports torch, numpy
-and scipy only; never jax, pandas or jwas_tpu.
+whose per-marker pattern prior K7 and K8 take) run on dense stores. A
+single-trait model above 20,000 location levels (or with
+sparse_location=True) takes the sparse location path: its design and
+random-effect structures as CSR tensors and a joint PO-CG draw of the
+location parameters. Single-step (runMCMC(..., single_step_analysis=True,
+pedigree=ped)) imputes the non-genotyped animals' genotypes into the dense
+store and adds the J covariate and the imputation residual epsilon
+(engine/single_step.py, with get_Hi and the APY helpers); solve(model, df,
+solver=...) solves the MME of a model without markers. It imports torch,
+numpy and scipy only; never jax, pandas or jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
 get_pedigree and get_info, get_genotypes (storage "2bit", or a dense one
 written to a device) or prepare_packed_genotypes, build_model,
 set_covariate, set_random, outputEBV, describe and runMCMC(model, df),
-which returns the result tables and writes the result and sample files. Below them: Packed2BitStore.load (a stored 2-bit
+which returns the result tables and writes the result and sample files,
+and solve(model, df). Below them: Packed2BitStore.load (a stored 2-bit
 store), engine.mcmc.setup_markers and setup_dense_markers (block sizes,
 row order, Gram tiles, on a device) and engine.mcmc.run_st (the chain with
 explicit priors). On a CUDA device the chain runs hand-written kernels
@@ -39,6 +47,7 @@ inbreeding is host C++ (csrc/pedigree.cpp), built with g++ on first use.
 """
 
 from jwas_tpu_torch.engine.mcmc import runMCMC, run_st, setup_dense_markers, setup_markers
+from jwas_tpu_torch.engine.solve import solve
 from jwas_tpu_torch.io.genotypes import Genotypes, get_genotypes
 from jwas_tpu_torch.io.packed import Packed2BitStore, pack_codes, prepare_packed_genotypes
 from jwas_tpu_torch.io.pedigree import Pedigree, get_info, get_pedigree
@@ -85,5 +94,5 @@ __all__ = [
     "pick_stable_blocks", "prepare_packed_genotypes",
     "prepare_streaming_genotypes", "read_csv", "reset_launches", "runMCMC",
     "run_st", "set_covariate", "set_random", "setup_dense_markers",
-    "setup_markers",
+    "setup_markers", "solve",
 ]

@@ -7,12 +7,15 @@
 // oracle): the per-animal ancestor walk is a scalar pointer chase, ~30x
 // faster here than in Python.
 //
-// Parallelism: animal i's walk reads only F of animals with codes < i, so
-// animals whose parents all precede the current block are independent. The
-// pedigree is split greedily into maximal blocks [begin, i) with every
-// in-block parent < begin (generations, for generational pedigrees);
-// unique (sire, dam) families within a block are walked in parallel
-// (OpenMP) with thread-local scratch, then sibling F values are filled.
+// Parallelism: animal i's walk reads only F of its ancestors. An animal's
+// level is 0 without known parents, else one more than its parents'
+// highest, so every ancestor of an animal lies on a lower level and the
+// animals of one level are independent: the levels are walked in order,
+// the unique (sire, dam) families of a level in parallel (OpenMP) with
+// thread-local scratch, then sibling F values are filled. (Contiguous
+// blocks of codes, the first design, serialise a pedigree whose parents
+// may be the animal just before, as when parents are drawn from the two
+// generations before.) Each F is the same walk whatever the schedule.
 //
 // Built by jwas_tpu_torch/_build.py::host_library with
 // g++ -O3 -std=c++17 -shared -fPIC [-fopenmp] into jwas_tpu_torch/_build/
@@ -33,35 +36,53 @@ namespace {
 // One Meuwissen-Luo ancestor walk for animal i (known parents). L: caller
 // scratch of size n, zeroed on entry and left zeroed on exit. eps > 0
 // truncates traversal below path coefficient eps (the truncated node's own
-// contribution is still added).
+// contribution is still added). Ancestors are taken in decreasing code
+// order, from a max-heap while they are few against the codes below the
+// next one, then by a scan of those codes (when the walk reaches most of
+// them, as in an old, deep pedigree): the same order, the same sums.
+inline void visit(const int64_t* sire, const int64_t* dam, const double* F,
+                  int64_t j, double eps, std::vector<double>& L, double& f,
+                  std::priority_queue<int64_t>* heap) {
+    double Lj = L[j];
+    L[j] = 0.0;
+    int64_t sj = sire[j], dj = dam[j];
+    double fs = sj >= 0 ? F[sj] : -1.0;
+    double fd = dj >= 0 ? F[dj] : -1.0;
+    f += Lj * Lj * (0.5 - 0.25 * (fs + fd));
+    if (Lj < eps) return;     // truncate: contribution kept,
+                              // parents not traversed
+    // parents have smaller codes, so they are taken after j; accumulate
+    // contributions before their single visit
+    if (sj >= 0) {
+        if (heap != nullptr && L[sj] == 0.0) heap->push(sj);
+        L[sj] += 0.5 * Lj;
+    }
+    if (dj >= 0) {
+        if (heap != nullptr && L[dj] == 0.0) heap->push(dj);
+        L[dj] += 0.5 * Lj;
+    }
+}
+
 double walk_f(const int64_t* sire, const int64_t* dam, const double* F,
               int64_t i, double eps, std::vector<double>& L,
               std::priority_queue<int64_t>& heap) {
+    constexpr int64_t kScanRatio = 32;    // scan once the heap holds more
+                                          // than 1/32 of the codes below
     L[i] = 1.0;
     heap.push(i);
     double f = -1.0;
     while (!heap.empty()) {
         int64_t j = heap.top();
+        if (static_cast<int64_t>(heap.size()) * kScanRatio > j) {
+            while (!heap.empty()) heap.pop();
+            for (int64_t k = j; k >= 0; --k) {
+                if (L[k] != 0.0) visit(sire, dam, F, k, eps, L, f, nullptr);
+            }
+            break;
+        }
         heap.pop();
-        double Lj = L[j];
-        if (Lj == 0.0) continue;  // duplicate heap entry already drained
-        L[j] = 0.0;
-        int64_t sj = sire[j], dj = dam[j];
-        double fs = sj >= 0 ? F[sj] : -1.0;
-        double fd = dj >= 0 ? F[dj] : -1.0;
-        f += Lj * Lj * (0.5 - 0.25 * (fs + fd));
-        if (Lj < eps) continue;   // truncate: contribution kept,
-                                  // parents not traversed
-        // parents have smaller codes, so they are popped after j;
-        // accumulate contributions before their single pop
-        if (sj >= 0) {
-            if (L[sj] == 0.0) heap.push(sj);
-            L[sj] += 0.5 * Lj;
-        }
-        if (dj >= 0) {
-            if (L[dj] == 0.0) heap.push(dj);
-            L[dj] += 0.5 * Lj;
-        }
+        if (L[j] == 0.0) continue;  // duplicate heap entry already drained
+        visit(sire, dam, F, j, eps, L, f, &heap);
     }
     return f;
 }
@@ -76,19 +97,26 @@ extern "C" {
 // error far below practical significance while capping walk depth).
 void jt_inbreeding_ml(const int64_t* sire, const int64_t* dam, int64_t n,
                       double eps, double* F) {
-    // --- block decomposition: [begin, i) with all in-block parents < begin
-    std::vector<int64_t> starts;
-    starts.push_back(0);
+    // --- levels: 0 without known parents, else 1 + the parents' highest;
+    // `order` holds the animals level by level, ascending codes within one
+    std::vector<int64_t> level(static_cast<size_t>(n), 0);
+    int64_t top = 0;
     for (int64_t i = 0; i < n; ++i) {
-        int64_t begin = starts.back();
-        if ((sire[i] >= begin && sire[i] < i)
-            || (dam[i] >= begin && dam[i] < i)) {
-            starts.push_back(i);
-        }
+        int64_t lv = 0;
+        if (sire[i] >= 0) lv = level[sire[i]] + 1;
+        if (dam[i] >= 0 && level[dam[i]] + 1 > lv) lv = level[dam[i]] + 1;
+        level[i] = lv;
+        if (lv > top) top = lv;
     }
-    starts.push_back(n);
+    std::vector<int64_t> starts(static_cast<size_t>(top) + 2, 0);
+    for (int64_t i = 0; i < n; ++i) ++starts[level[i] + 1];
+    for (int64_t l = 0; l <= top; ++l) starts[l + 1] += starts[l];
+    std::vector<int64_t> order(static_cast<size_t>(n));
+    {
+        std::vector<int64_t> fill(starts.begin(), starts.end() - 1);
+        for (int64_t i = 0; i < n; ++i) order[fill[level[i]]++] = i;
+    }
 
-    // full siblings share F: memoize by (sire, dam) across the pedigree
     std::unordered_map<uint64_t, double> fam;
     std::vector<uint64_t> keys;
     std::vector<int64_t> reps;                 // representative animal
@@ -96,7 +124,8 @@ void jt_inbreeding_ml(const int64_t* sire, const int64_t* dam, int64_t n,
         int64_t lo = starts[b], hi = starts[b + 1];
         keys.clear();
         reps.clear();
-        for (int64_t i = lo; i < hi; ++i) {
+        for (int64_t o = lo; o < hi; ++o) {
+            int64_t i = order[o];
             int64_t s = sire[i], d = dam[i];
             if (s < 0 || d < 0) {
                 F[i] = 0.0;
@@ -142,7 +171,8 @@ void jt_inbreeding_ml(const int64_t* sire, const int64_t* dam, int64_t n,
                 }
             }
         }
-        for (int64_t i = lo; i < hi; ++i) {
+        for (int64_t o = lo; o < hi; ++o) {
+            int64_t i = order[o];
             int64_t s = sire[i], d = dam[i];
             if (s < 0 || d < 0) continue;
             uint64_t key = (static_cast<uint64_t>(s + 1) << 32)

@@ -57,6 +57,7 @@ are its output map times alpha, as jwas_tpu's.
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import replace
 from typing import Dict, NamedTuple, Optional
 
@@ -74,6 +75,7 @@ from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
 from jwas_tpu_torch.models.model import Model, describe
 from jwas_tpu_torch.ops import annotations as an
 from jwas_tpu_torch.ops import markers as mk
+from jwas_tpu_torch.ops import sparse_mme as sm
 from jwas_tpu_torch.ops import threshold as th
 from jwas_tpu_torch.ops.dense import DenseMarkers, build_dense_markers
 from jwas_tpu_torch.ops.dists import sample_gamma_like
@@ -147,6 +149,9 @@ class STData(NamedTuple):
     cens_upper: Optional[torch.Tensor] = None    # liability bounds (+-BIG)
     anno_A: Optional[torch.Tensor] = None        # (p_pad, k) annotation design
                                                  # [1, annotations], padding 0
+    sl: object = None          # the sparse location path's SparseLoc
+                               # (ops/sparse_mme.py); W is then its CSR
+                               # design, WtW None, each Vinv a CSR tensor
 
 
 class SampleOut(NamedTuple):
@@ -299,6 +304,25 @@ def latent_step(cfg: EngineCfg, state: ChainState, data: STData,
     return state._replace(liab=liab, ycorr=ycorr, thresholds=thresholds)
 
 
+def sparse_location_step(cfg: EngineCfg, state: ChainState, data: STData) -> ChainState:
+    """The location parameters on the sparse path (jwas_tpu/engine/
+    mcmc.py:160-178): rhs = W' R^-1 (ycorr + W sol), then one PO-CG joint
+    draw from the previous sol (ops/sparse_mme.py) at cfg.cg_tol and
+    cfg.cg_maxiter, with each group's G^-1 and its Cholesky factor, its
+    normals from the chain's generator; no host sync outside the CG's
+    stopping test."""
+    sl = data.sl
+    ycorr = state.ycorr + sm.spmv(sl.W, state.sol)
+    w = ycorr if sl.rinv is None else sl.rinv * ycorr
+    rhs = sm.spmv(sl.Wt, w)
+    gis = [torch.linalg.inv_ex(v)[0] for v in state.vc]
+    chols = [torch.linalg.cholesky_ex(0.5 * (g + g.T))[0] for g in gis]
+    sol = sm.sample_location_po(state.gen, sl, cfg.re_groups, rhs, gis, state.vare, chols,
+                                x0=state.sol, tol=cfg.cg_tol, maxiter=cfg.cg_maxiter)
+    ycorr -= sm.spmv(sl.W, sol)
+    return state._replace(sol=sol, ycorr=ycorr)
+
+
 def make_st_step(cfg: EngineCfg):
     """One outer iteration: a latent trait's liabilities and thresholds
     (latent_step), location pass (over W'R^-1W plus the random effects'
@@ -400,14 +424,19 @@ def make_st_step(cfg: EngineCfg):
         if latent:
             state = latent_step(cfg, state, data)
 
-        # 1. location parameters (MCMC_BayesianAlphabet.jl:196-220), K6
-        lhs = (assemble_lhs_lambda(cfg.re_groups, data.WtW, data.Vinv, state.vc,
-                                   state.vare) if cfg.re_groups else data.WtW)
-        ycorr = state.ycorr + data.W @ state.sol
-        w = ycorr if gm.rinv is None else gm.rinv * ycorr
-        sol = gibbs_pass_lambda(lhs, state.sol, data.W.T @ w, state.vare, gen)
-        ycorr -= data.W @ sol
-        state = state._replace(sol=sol, ycorr=ycorr)
+        # 1. location parameters (MCMC_BayesianAlphabet.jl:196-220), K6; on
+        # the sparse path the PO-CG joint draw (jwas_tpu/engine/mcmc.py:160-178)
+        if cfg.sparse_loc:
+            state = sparse_location_step(cfg, state, data)
+        else:
+            lhs = (assemble_lhs_lambda(cfg.re_groups, data.WtW, data.Vinv, state.vc,
+                                       state.vare) if cfg.re_groups else data.WtW)
+            ycorr = state.ycorr + data.W @ state.sol
+            w = ycorr if gm.rinv is None else gm.rinv * ycorr
+            sol = gibbs_pass_lambda(lhs, state.sol, data.W.T @ w, state.vare, gen)
+            ycorr -= data.W @ sol
+            state = state._replace(sol=sol, ycorr=ycorr)
+        sol = state.sol
 
         # 2. markers, pi, their variance and its scale
         if method != "none":
@@ -463,6 +492,12 @@ def _varg_summary(cfg: EngineCfg, data: STData, state: ChainState):
     return torch.sum(torch.where(data.gm.valid > 0, state.varg, 0.0)) / cfg.n_markers
 
 
+def loc_part(W, sol):
+    """W sol for a dense or, on the sparse path, a CSR W (ops/sparse_mme.py::
+    spmv, the same sums run after run)."""
+    return sm.spmv(W, sol) if W.layout == torch.sparse_csr else W @ sol
+
+
 def sample_ebv(data: STData, state: ChainState):
     """EBVs of a sample (getEBV, output.jl:281-306): prediction-equation
     terms plus X alpha, the latter one pass over the store in store order
@@ -470,13 +505,13 @@ def sample_ebv(data: STData, state: ChainState):
     columns selected; without markers the prediction-equation terms
     alone."""
     if isinstance(data.gm, NoMarkers):
-        return data.out_W @ state.sol
+        return loc_part(data.out_W, state.sol)
     if data.ebv_rows is not None and data.ebv_rows.numel() == 0:
         return torch.zeros(0, dtype=state.alpha.dtype, device=state.alpha.device)
     xa = data.gm.matvec_store(state.alpha)
     rows = data.gm.row_perm if data.ebv_rows is None else data.ebv_rows
     ebv = xa[:data.gm.n_obs] if rows is None else xa[rows]
-    return ebv if data.out_W is None else data.out_W @ state.sol + ebv
+    return ebv if data.out_W is None else loc_part(data.out_W, state.sol) + ebv
 
 
 def make_run_window(cfg: EngineCfg):
@@ -604,15 +639,28 @@ def make_cfg(gm, method: str, *, nreps, sync_every, chain_length: int, df_R,
 
 
 def make_data(gm, y, W, scale_R, ebv_rows=None, out_W=None, Vinv=(),
-              vc_scale=()) -> STData:
+              vc_scale=(), sl=None) -> STData:
     """The chain's device data in the store's dtype; y (n,) and W (n, K;
     None: an intercept) in observation order; the residual weights are the
     store's (gm.rinv). Vinv, vc_scale: a random-effect group's dense (q, q)
     structure (None: the identity) and (k, k) prior scale. W'R^-1W and
     each Vinv are made exactly symmetric (symmetric_upper), so that the
-    location pass may read rows for columns."""
+    location pass may read rows for columns. sl: the sparse location
+    path's SparseLoc, whose CSR design and Vinvs take the place of W's and
+    Vinv's (no W'R^-1W); out_W may then be a CSR tensor."""
     dev, f32, n = gm.device, gm.xpx.dtype, gm.n_obs
     y = torch.as_tensor(np.asarray(y), dtype=f32).to(dev)
+    if sl is not None:
+        if tuple(y.shape) != (n,) or sl.n_obs != n:
+            raise ValueError(f"y and the sparse design must have {n} rows")
+        return STData(
+            W=sl.W, WtW=None, y=y, gm=gm, sl=sl,
+            ebv_rows=None if ebv_rows is None else torch.as_tensor(
+                np.asarray(ebv_rows), dtype=torch.int64).to(dev),
+            out_W=out_W, scale_r=torch.tensor(float(np.mean(scale_R)), dtype=f32, device=dev),
+            Vinv=tuple(grp.V for grp in sl.groups),
+            vc_scale=tuple(torch.as_tensor(np.asarray(v), dtype=f32).to(dev)
+                           for v in vc_scale))
     W = (torch.ones((n, 1), dtype=f32, device=dev) if W is None
          else torch.as_tensor(np.asarray(W), dtype=f32).to(dev))
     if tuple(y.shape) != (n,) or W.ndim != 2 or W.shape[0] != n:
@@ -683,7 +731,7 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
         pi = torch.as_tensor(pi_np, dtype=f32).to(dev)
     if method == "BayesB":
         varg = torch.where(real, varg, one)
-    ycorr = data.y - data.W @ sol
+    ycorr = data.y - loc_part(data.W, sol)
     if method == "GBLUP":
         ycorr -= torch.mv(gm.L, alpha)
     elif method != "none":
@@ -700,10 +748,15 @@ def initial_state(cfg: EngineCfg, data: STData, *, vare0, marker_var0,
 SAMPLE_KEYS = ("vare", "varg", "pi", "genvar", "h2")
 
 
-def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
+CG_KEYS = ("solves", "iterations", "not_converged", "worst_residual")
+
+
+def _read_back(state: ChainState, out: SampleOut, stream, p: int, cg=None) -> Dict:
     """A saved sample's values on the host, in one transfer: the tracks of
     SAMPLE_KEYS and what the sample files need (sol, alpha, BayesB's
-    per-marker variances, ebv, the random-effect covariances vc<g>)."""
+    per-marker variances, ebv, the random-effect covariances vc<g>), and
+    the sparse path's CG counters (cg, ops/sparse_mme.py::CGStats: fault
+    R3) under CG_KEYS."""
     parts = {k: getattr(out, k) for k in SAMPLE_KEYS}
     dtype = state.alpha.dtype
     if stream is not None and stream.enabled:
@@ -721,6 +774,8 @@ def _read_back(state: ChainState, out: SampleOut, stream, p: int) -> Dict:
             parts["liab"] = state.liab
             if state.thresholds is not None:
                 parts["thresholds"] = state.thresholds
+    if cg is not None:
+        parts.update(zip(CG_KEYS, cg.tensors()))
     flat = torch.cat([t.reshape(-1).to(dtype) for t in parts.values()])
     flat = flat.cpu().numpy()
     host, i = {}, 0
@@ -777,7 +832,10 @@ def run_chain(cfg: EngineCfg, data: STData, state: ChainState, plan: ChainPlan,
         if upf > 0 and iters_done // upf > prior_epoch:
             prior_epoch = iters_done // upf
             data, state = apply_update_priors(cfg, data, state, accum)
-        host = _read_back(state, out, stream, cfg.n_markers)
+        cg = None if data.sl is None else data.sl.stats
+        host = _read_back(state, out, stream, cfg.n_markers, cg)
+        if cg is not None:
+            cg.host = {k: float(host[k]) for k in CG_KEYS}
         window_seconds.append(time.perf_counter() - t_w)
         for k in SAMPLE_KEYS:
             samples[k].append(host[k])
@@ -946,6 +1004,22 @@ def annotation_start_st(g, k: int):
     return 3, np.zeros((k, 3)), np.ones(3)
 
 
+def prediction_rows(ws: Workspace):
+    """The sparse path's (n_out, K) prediction-equation rows as scipy CSR,
+    from the workspace's sparse per-term rows (jwas_tpu/engine/mcmc.py:
+    962-979); never a dense (n_out, K) matrix."""
+    import scipy.sparse as sp
+
+    rows, cols, vals = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)], [np.zeros(0)]
+    for name in ws.prediction_terms:
+        Xt = sp.coo_matrix(ws.output_X[name])
+        rows.append(Xt.row)
+        cols.append(Xt.col + ws.model.term_dict[name].start_pos)
+        vals.append(Xt.data)
+    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                         shape=(len(ws.output_ids), ws.n_loc))
+
+
 def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     """The 2-bit grouped, the dense, the GBLUP and the no-marker branches
     of jwas_tpu's _build_st_data_and_state (:762-868, the random-effect
@@ -959,7 +1033,8 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     location parameters, :1131-1141; the genotypes' starting_alpha: the
     marker effects, :1142-1145). Returns (cfg, data, state)."""
     g = ws.geno
-    K = ws.W.shape[1]
+    K = ws.n_loc
+    sparse = ws.W_sparse is not None
     dtype = torch.float64 if opts.double_precision else torch.float32
     sol0 = None
     if opts.starting_value is not None and opts.starting_value is not False:
@@ -993,7 +1068,10 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     re_groups = [REGroupCfg(starts=grp.starts, n_levels=grp.n_levels, df=grp.df,
                             has_vinv=grp.Vinv is not None,
                             random_type=grp.random_type,
-                            estimate_variance=grp.estimate_variance)
+                            estimate_variance=grp.estimate_variance,
+                            factor_rows=(0 if not sparse or grp.Vinv is None else
+                                         grp.n_levels if grp.Vinv_factor is None
+                                         else grp.Vinv_factor.shape[0]))
                  for grp in ws.re_groups]
     cfg = make_cfg(gm, "none" if g is None else g.method, nreps=opts.nreps,
                    sync_every=sync_every, chain_length=opts.chain_length,
@@ -1004,8 +1082,10 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                    estimate_residual_variance=bool(ws.model.R.estimate_variance),
                    re_groups=re_groups)
     out_W = None
-    if ws.prediction_terms or g is None:
-        out_W = np.zeros((len(ws.output_ids), ws.W.shape[1]))
+    if (ws.prediction_terms or g is None) and sparse:
+        out_W = sm.csr(prediction_rows(ws), dtype, device)     # (jwas_tpu :593-597)
+    elif ws.prediction_terms or g is None:
+        out_W = np.zeros((len(ws.output_ids), K))
         for name in ws.prediction_terms:
             term = ws.model.term_dict[name]
             out_W[:, term.start_pos:term.start_pos + term.n_levels] += ws.output_X[name]
@@ -1017,10 +1097,15 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
                   cat_counts=(lat["n_cat"],) if lat else (),
                   estimate_residual_variance=cfg.estimate_residual_variance
                   and trait_type not in CATEGORICAL)
+    if sparse:
+        cfg = replace(cfg, sparse_loc=True, cg_maxiter=int(opts.cg_maxiter),
+                      cg_tol=1e-8 if opts.double_precision else 1e-6)
+    sl = None if not sparse else sm.build_sparse_loc(ws.W_sparse, ws.rinv, ws.re_groups,
+                                                      re_groups, dtype, device)
     data = make_data(gm, ws.y if lat is None else lat["liab"], ws.W, ws.scale_R,
                      ebv_rows=ws.output_store_rows,
                      out_W=out_W, Vinv=[grp.Vinv for grp in ws.re_groups],
-                     vc_scale=[grp.scale for grp in ws.re_groups])
+                     vc_scale=[grp.scale for grp in ws.re_groups], sl=sl)
 
     def on_dev(x, dt=dtype):
         return None if x is None else torch.as_tensor(np.asarray(x), dtype=dt).to(device)
@@ -1105,6 +1190,17 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
                               for k, v in accum._asdict().items()
                               if k != "n" and v is not None})
     results = build_results(ws, cfg, accum, samples, opts)
+    if data.sl is not None:
+        results["_location_cg"] = cg = dict(data.sl.stats.host or {},
+                                            host_reads=data.sl.stats.host_reads)
+        if cg.get("not_converged", 0) > 0:
+            warnings.warn(
+                f"{int(cg['not_converged'])} of {int(cg['solves'])} location draws' CG "
+                f"stopped at cg_maxiter={cfg.cg_maxiter} above its tolerance "
+                f"{cfg.cg_tol:.0e} (worst relative residual "
+                f"{cg['worst_residual']:.2e}); raise cg_maxiter")
+    if ws.ssbr is not None:
+        results["_single_step"] = dict(ws.ssbr)
     if stream.enabled and stream.write_markers and ws.geno is not None:
         results["_marker_sample_file"] = stream.writer.path(
             f"marker_effects_{ws.geno.name}_{model.lhs_vec[0]}")

@@ -12,7 +12,8 @@ BayesR), "ScaleEffectVar<name>" (the marker tables only with genotypes),
 effect variances <term>" (another group; :151-166), "annotation
 coefficients <name>" (annotated BayesC by annotation, BayesR and 2-trait
 BayesC by annotation and step, :104-130; pi_<name> then holds the mean of
-the per-marker prior), "EBV_<trait>",
+the per-marker prior), "EBV_<trait>" (single-step's: the markers' part
+plus J sol_J + epsilon, from the sparse path's CSR prediction rows),
 "genetic_variance" and "heritability". Each is a Table with the reference's columns, written to
 output_folder as <key>.txt (spaces as "_") as the reference writes it.
 """
@@ -78,13 +79,14 @@ def build_results(ws, cfg, accum, samples, opts) -> Dict[str, Table]:
     check_finite_posteriors(accum.vare_m)
     results: Dict[str, Table] = {}
 
+    # one row a location parameter (K ~ 80,000 for single-step): columns
+    # from arrays, float64 as the reference's float() of each value
     rows = [name.split(":", 2) for name in model.term_names()]
-    sol_sd = _sd(accum.sol_m, accum.sol_m2)
     results["location parameters"] = Table({
         "Trait": [r[0] for r in rows], "Effect": [r[1] for r in rows],
         "Level": [r[2] for r in rows],
-        "Estimate": [float(x) for x in accum.sol_m],
-        "SD": [float(x) for x in sol_sd]})
+        "Estimate": np.asarray(accum.sol_m, dtype=np.float64),
+        "SD": np.asarray(_sd(accum.sol_m, accum.sol_m2), dtype=np.float64)})
     results["residual variance"] = _one(f"{trait}_{trait}", accum.vare_m,
                                         accum.vare_m2)
 

@@ -4,8 +4,13 @@ Counterpart of jwas_tpu/engine/setup.py: MCMCOptions (:33-103, every field
 and default), REGroupData (:119), Workspace (:134), _default_priors
 (:163-222), _genetic2marker (:225-262), set_marker_hyperparameters
 (:265-284), normalize_method (:287-297) and prepare_workspace (:348-669),
-on its continuous, dense-location branch for the 2-bit and the dense
-stores, GBLUP's relationship matrix and models without genotypes, with
+for the 2-bit and the dense stores, GBLUP's relationship matrix and
+models without genotypes, on the dense location path or, for a single
+trait above 20,000 location levels or with sparse_location=True, the
+sparse one (:445-467: the design kept as scipy CSR, the groups' Vinv and
+the prediction rows sparse), with single-step's set-up (ssbr_setup,
+engine/single_step.py: the dense store of the data's individuals imputed,
+J and epsilon added), with
 random-effect groups, single-trait and multi-trait (t x t residual and
 marker-effect priors, the joint pattern Pi; BayesC, BayesB, RR-BLUP,
 BayesL and GBLUP on dense stores or a relationship matrix, models without
@@ -48,6 +53,7 @@ from jwas_tpu_torch.ops.markers import BAYESR_GAMMA, dense_blocks
 from jwas_tpu_torch.utils.memory import (check_marker_memory_guard,
                                          estimate_dense_memory,
                                          estimate_gblup_memory,
+                                         estimate_imputation_memory,
                                          estimate_marker_memory)
 
 
@@ -107,9 +113,10 @@ class MCMCOptions:
 _UNPORTED = {
     "n_chains": (1, "ops layer"), "mesh": (None, "multi-GPU"),
     "checkpoint_frequency": (0, "ops layer"), "resume": (False, "ops layer"),
-    "single_step_analysis": (False, "sparse location MME, solve and single-step"),
     "RRM": (None, "RRM"), "use_pallas": ("auto", "ground rules for the port"),
 }
+SPARSE_LEVELS = 20_000      # a single-trait model above this many location
+                            # levels takes the sparse path on its own
 
 
 def not_ported(what: str, label: str) -> NotImplementedError:
@@ -140,9 +147,6 @@ def reject_unported(opts: MCMCOptions) -> None:
             not isinstance(value, np.ndarray) and value == default)
         if not same:
             raise not_ported(f"runMCMC option {name}={value!r}", label)
-    if opts.sparse_location is True:
-        raise not_ported("runMCMC option sparse_location=True",
-                         "sparse location MME, solve and single-step")
 
 
 def sem_edges(opts: MCMCOptions, model: Model, t: int,
@@ -178,13 +182,16 @@ class REGroupData:
 
     starts: Tuple[int, ...]             # first location column of each term
     n_levels: int                       # q, shared by the terms
-    Vinv: Optional[np.ndarray]          # dense (q, q); None: the identity
+    Vinv: Optional[np.ndarray]          # dense (q, q), scipy CSR on the
+                                        # sparse location path; None: the
+                                        # identity
     G0: np.ndarray                      # (k, k) starting covariance
     df: float
     scale: np.ndarray                   # (k, k) prior scale
     term_array: List[str]
     random_type: str                    # "A" | "V" | "I"
     estimate_variance: bool = True
+    Vinv_factor: object = None          # scipy F with Vinv = F'F, or None
 
 
 @dataclass
@@ -218,6 +225,15 @@ class Workspace:
     gblup_D: Optional[torch.Tensor] = None    # eigenvectors over the training
     gblup_out: Optional[torch.Tensor] = None  # rows, |eigenvalues|, (n_out, n)
                                               # output map, in the chain's dtype
+    W_sparse: object = None             # the sparse location path: scipy
+                                        # CSR (n, K) design; W is then (n, 0)
+    ssbr: Optional[dict] = None         # single-step's set-up seconds and
+                                        # imputation (ssbr_setup)
+
+    @property
+    def n_loc(self) -> int:
+        """K, the location parameters."""
+        return (self.W if self.W_sparse is None else self.W_sparse).shape[1]
 
 
 def _default_priors(model: Model, df: Table) -> np.ndarray:
@@ -432,7 +448,8 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     validate_args(model, opts)
     validate_phenotypes(opts, df.columns)
     t = model.n_models
-    if opts.sparse_location is True and t != 1:
+    if opts.sparse_location is True and (
+            t != 1 or opts.RRM is not None or opts.causal_structure is not None):
         raise ValueError(
             "sparse_location=True supports single-trait (non-RRM, non-SEM) "
             "models only; multi-trait/RRM/SEM MMEs use the dense location path")
@@ -441,9 +458,11 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         device = resolve_device(device)
     g0 = model.M[0] if model.M else None
 
-    # ID reconciliation (input_data_validation.jl:198-294)
+    # ID reconciliation (input_data_validation.jl:198-294); single-step
+    # keeps the non-genotyped
+    ssbr = bool(opts.single_step_analysis)
     geno_ids = set(g0.obs_ids) if g0 is not None else None
-    if g0 is not None:
+    if g0 is not None and not ssbr:
         keep = np.array([s in geno_ids for s in df[id_col].tolist()], dtype=bool)
         if not keep.all():
             print(f"{int((~keep).sum())} phenotyped individuals are not genotyped; removed.")
@@ -458,7 +477,9 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     # default output IDs (check_outputID, input_data_validation.jl:143-196)
     if opts.outputEBV or opts.output_heritability:
         output_ids = model.output_ids
-        if output_ids is None and g0 is not None:
+        if output_ids is None and g0 is not None and ssbr and opts.output_heritability:
+            output_ids = list(model.ped.ids)        # every pedigree member (:170-174)
+        elif output_ids is None and g0 is not None:
             output_ids = list(g0.obs_ids)
         elif output_ids is None and model.ped is not None:
             output_ids = list(model.ped.ids)
@@ -466,7 +487,7 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
             output_ids = list(dict.fromkeys(str(x) for x in df[id_col].tolist()))
         elif output_ids is None:
             output_ids = []
-        if g0 is not None:
+        if g0 is not None and not ssbr:
             output_ids = [s for s in output_ids if s in geno_ids]
         elif model.ped is not None:
             output_ids = [s for s in output_ids if s in model.ped.id_index]
@@ -485,6 +506,22 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     train_rows = np.where(~miss.all(axis=1))[0]
 
     _default_priors(model, df_whole[train_rows])
+    ssbr_info = None
+    if ssbr:
+        # genotypes imputed, J and epsilon added (engine/single_step.py)
+        from jwas_tpu_torch.engine.single_step import ssbr_setup
+
+        def imputation_guard(nn, chunk, rows):
+            """The memory guard at the imputation's peak, before it allocates."""
+            X = g0.dense
+            est = estimate_imputation_memory(
+                n_markers=X.shape[0], n_geno=X.shape[1], n_rows=rows, n_nongeno=nn,
+                chunk=chunk, store_itemsize=X.element_size())
+            check_marker_memory_guard(est, policy=opts.memory_guard,
+                                      ratio=opts.memory_guard_ratio,
+                                      device=X.device if X.device.type == "cuda" else None)
+
+        ssbr_info = ssbr_setup(model, df_whole, opts, check_memory=imputation_guard)
     set_marker_hyperparameters(model)
 
     # design over the whole table, then the training rows
@@ -492,19 +529,24 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     n_whole = len(df_whole)
     row_sel = np.concatenate([m * n_whole + train_rows for m in range(t)])
     K = X_whole.shape[1]
-    if opts.sparse_location is None and t == 1 and K > 20_000:
-        raise not_ported(
-            f"{K} location levels: jwas_tpu's sparse location path "
-            f"(sparse_location=None, K > 20,000)",
-            "sparse location MME, solve and single-step")
-    limit = 0 if device is None else location.pass_limit(
+    # the sparse location path (jwas_tpu/engine/setup.py:445-467): auto for
+    # a single trait above SPARSE_LEVELS levels, not RRM, not SEM
+    sparse = bool(opts.sparse_location is True or (
+        opts.sparse_location is None and t == 1 and K > SPARSE_LEVELS
+        and opts.RRM is None and opts.causal_structure is None))
+    limit = 0 if device is None or sparse else location.pass_limit(
         device, torch.float64 if opts.double_precision else torch.float32)
     if limit and K > limit:
         raise not_ported(
             f"{K} location parameters on the dense location path: the location "
             f"pass (K6) takes at most {limit} on {device}, and a dense model above "
             f"that", "a location pass above K6's limit")
-    W = np.asarray(X_whole[row_sel, :].todense())
+    W_sparse = None
+    if sparse:
+        W_sparse = X_whole[row_sel, :].tocsr()      # never made dense
+        W = np.zeros((len(row_sel), 0))
+    else:
+        W = np.asarray(X_whole[row_sel, :].todense())
     df_train = df_whole[train_rows]
     obs_ids = [str(x) for x in df_train[id_col].tolist()]
     y, y_mask = stack_phenotypes(model, df_train)
@@ -518,7 +560,8 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     for name in prediction_terms:
         term = model.term_dict[name]
         rows = [term.i_model * n_whole + id_rows[s] for s in output_ids]
-        output_X[name] = np.asarray(term.X[rows, :].todense())
+        Xt = term.X[rows, :]
+        output_X[name] = Xt.tocsr() if sparse else np.asarray(Xt.todense())
     for term in model.terms:
         term.X = term.X[row_sel, :]
 
@@ -529,6 +572,7 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         rinv = 1.0 / w
 
     # random-effect groups (jwas_tpu/engine/setup.py:569-600), Vinv dense
+    # (scipy CSR on the sparse path)
     re_groups = []
     for re in model.random_effects:
         terms = [model.term_dict[s] for s in re.term_array]
@@ -537,7 +581,9 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
             raise ValueError("terms in one random-effect group must share levels")
         re_groups.append(REGroupData(
             starts=tuple(trm.start_pos for trm in terms), n_levels=q,
-            Vinv=None if re.Vinv is None else np.asarray(re.Vinv.todense()),
+            Vinv=None if re.Vinv is None else (
+                re.Vinv.tocsr() if sparse else np.asarray(re.Vinv.todense())),
+            Vinv_factor=re.Vinv_factor,
             G0=np.asarray(re.G.val, dtype=np.float64), df=float(re.G.df),
             scale=np.asarray(re.G.scale, dtype=np.float64),
             term_array=list(re.term_array), random_type=re.random_type,
@@ -550,11 +596,19 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         y_mask=y_mask, geno=g0, vare0=as_prior(model.R.val),
         scale_R=as_prior(model.R.scale), df_R=float(model.R.df),
         output_ids=list(output_ids), prediction_terms=prediction_terms,
-        output_X=output_X, obs_ids=obs_ids, rinv=rinv, re_groups=re_groups)
+        output_X=output_X, obs_ids=obs_ids, rinv=rinv, re_groups=re_groups,
+        W_sparse=W_sparse, ssbr=ssbr_info)
+    n_loc = K
+    # the sparse path's design: its CSR structures (the PO draw's and the
+    # prediction rows), not a dense (n, K)
+    design_bytes = None if not sparse else 24 * (W_sparse.nnz + sum(
+        0 if grp.Vinv is None else grp.Vinv.nnz + grp.Vinv.shape[0]
+        for grp in re_groups))
     if g0 is None:
         return Workspace(marker_var0=np.asarray(0.0), marker_scale0=np.asarray(0.0),
                          df_marker=4.0, pi0=None, **common)
 
+    geno_ids = set(g0.obs_ids)            # single-step: now every row's
     missing_geno = [s for s in obs_ids if s not in geno_ids]
     if missing_geno:
         raise ValueError(f"individual {missing_geno[0]} has no genotypes")
@@ -567,14 +621,15 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
     if g0.grm is not None:
         est = estimate_gblup_memory(
             n_geno=g0.grm.shape[0], n_obs=len(obs_ids), n_out=len(output_ids),
-            n_loc=W.shape[1], itemsize=itemsize, grm_itemsize=g0.grm.element_size())
+            n_loc=n_loc, itemsize=itemsize, grm_itemsize=g0.grm.element_size(),
+            design_bytes=design_bytes)
     elif g0.dense is not None:
         b, gb, _ = dense_blocks(len(obs_ids), opts.fast_blocks, g0.n_markers)
         est = estimate_dense_memory(
             n_store=g0.dense.shape[1], n_obs=len(obs_ids), n_markers=g0.n_markers,
-            block_size=b, group_blocks=gb, n_loc=W.shape[1],
+            block_size=b, group_blocks=gb, n_loc=n_loc,
             itemsize=itemsize, store_itemsize=g0.dense.element_size(),
-            method=g0.method)
+            method=g0.method, design_bytes=design_bytes)
     else:
         store = g0.packed_store
         b, gb, _, resident = plan_store(len(obs_ids), store.packed, opts.fast_blocks,
@@ -582,7 +637,7 @@ def prepare_workspace(model: Model, df, opts: MCMCOptions,
         est = estimate_marker_memory(
             n_obs=len(obs_ids), n_markers=store.n_markers, block_size=b,
             group_blocks=gb, bytes_per_marker=store.packed.shape[1],
-            n_loc=W.shape[1], resident_groups=resident)
+            n_loc=n_loc, resident_groups=resident, design_bytes=design_bytes)
     check_marker_memory_guard(est, policy=opts.memory_guard,
                               ratio=opts.memory_guard_ratio,
                               device=device)

@@ -3,8 +3,8 @@
 Counterpart of jwas_tpu/engine/state.py (ChainState :18, REGroupCfg :60,
 EngineCfg :75), trimmed to the fields the single-trait methods read on the
 packed or a dense store, GBLUP's eigenbasis or no markers (method "none"),
-with random-effect groups, latent traits' liabilities and thresholds, and
-annotations' probit coefficients. The
+with random-effect groups, latent traits' liabilities and thresholds,
+annotations' probit coefficients and the sparse location path's CG. The
 JAX package's threefry key becomes one torch.Generator per chain, on the
 chain's device. Marker state tensors are updated in place by the sweep.
 """
@@ -61,6 +61,10 @@ class REGroupCfg:
     has_vinv: bool            # False: the identity ("I")
     random_type: str          # "A" | "V" | "I"
     estimate_variance: bool   # False: G stays at its starting value
+    factor_rows: int = 0      # the sparse location path: rows m of the
+                              # factor F (Vinv = F'F), the length of its
+                              # normals z_g (the pedigree's size for
+                              # single-step's epsilon); 0 otherwise
 
 
 @dataclass(frozen=True)
@@ -85,6 +89,12 @@ class EngineCfg:
     cat_counts: Tuple[int, ...] = ()   # a categorical trait's categories
     anno_steps: int = 0       # the annotation probit's steps: 0 (none), 1
                               # (BayesC), 3 (BayesR, 2-trait BayesC)
+    sparse_loc: bool = False  # the sparse location path (ops/sparse_mme.py:
+                              # CSR design, the PO-CG joint draw)
+    cg_tol: float = 1e-6      # its CG's relative tolerance: 1e-6 in float32,
+                              # 1e-8 in float64 (jwas_tpu/engine/mcmc.py:
+                              # 1102-1105)
+    cg_maxiter: int = 200     # its CG's iteration cap
 
 
 class MTChainState(NamedTuple):

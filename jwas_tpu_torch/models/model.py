@@ -55,6 +55,10 @@ class RandomEffect:
     Vinv: Optional[sp.spmatrix]     # None: the identity ("I")
     names: List[str]                # level names, Vinv's row order
     random_type: str                # "A" | "V" | "I"
+    Vinv_factor: Optional[sp.spmatrix] = None   # F with Vinv = F'F (the
+                                    # pedigree's hAi; single-step's epsilon:
+                                    # hAi's column slice), for the sparse
+                                    # location path's joint draw
 
 
 @dataclass
@@ -193,16 +197,20 @@ def set_covariate(model: Model, *cov_strs: str) -> None:
 
 
 def set_random(model: Model, random_str: str, arg=None, G=None, *, Vinv=None,
-               names: Sequence[str] = (), df: float = 4.0,
+               names: Sequence[str] = (), Vinv_factor=None, df: float = 4.0,
                estimate_variance: bool = True, estimate_scale: bool = False,
                constraint: bool = False) -> None:
     """Declare a random-effect group (random_effects.jl:40-54, :93-191):
-    set_random(model, "ID dam", ped, G) (pedigree, "A"; A^-1 from ped),
-    set_random(model, "litter", G) (i.i.d., "I") or
+    set_random(model, "ID dam", ped, G) (pedigree, "A"; A^-1 from ped, its
+    factor hAi kept), set_random(model, "litter", G) (i.i.d., "I") or
     set_random(model, "x", G, Vinv=Vi, names=[...]) (user-given Vinv,
-    "V"). G: the (k, k) covariance of the group's k terms (None: the
-    default of runMCMC); its prior has df + k degrees of freedom and scale
-    G (df + k - k - 1)."""
+    dense or scipy sparse, "V"; Vinv_factor: a sparse F with Vinv = F'F,
+    which the sparse location path's joint draw uses in place of a dense
+    Cholesky factor). G: the (k, k) covariance of the group's k terms
+    (None: the default of runMCMC); its prior has df + k degrees of
+    freedom and scale G (df + k - k - 1). The terms "ϵ" and "eps"
+    (single-step's imputation residual, added by ssbr_setup) need not be
+    in the equations."""
     ped = None
     if isinstance(arg, Pedigree):
         ped = arg
@@ -229,7 +237,7 @@ def set_random(model: Model, random_str: str, arg=None, G=None, *, Vinv=None,
         found = False
         for m, eq in enumerate(model.model_vec):
             parts = [s.strip() for s in eq.split("=")[1].split("+")]
-            if trm in parts:
+            if trm in parts or trm in ("ϵ", "eps"):
                 term_array.append(f"{model.lhs_vec[m]}:{trm}")
                 found = True
         if not found:
@@ -239,7 +247,8 @@ def set_random(model: Model, random_str: str, arg=None, G=None, *, Vinv=None,
 
     if ped is not None:
         random_type, level_names = "A", list(ped.ids)
-        Vinv_mat = ped.a_inverse()
+        Vinv_factor = ped.a_inverse_factor()
+        Vinv_mat = (Vinv_factor.T @ Vinv_factor).tocsc()
         model.ped_term_vec = list(term_array)
     elif Vinv is not None:
         if len(names) == 0:
@@ -264,7 +273,8 @@ def set_random(model: Model, random_str: str, arg=None, G=None, *, Vinv=None,
         G=VarianceSpec(val=G_arr, df=df_final, scale=scale,
                        estimate_variance=estimate_variance,
                        estimate_scale=estimate_scale, constraint=constraint),
-        Vinv=Vinv_mat, names=level_names, random_type=random_type))
+        Vinv=Vinv_mat, names=level_names, random_type=random_type,
+        Vinv_factor=None if Vinv_factor is None else sp.csc_matrix(Vinv_factor)))
 
 
 def outputEBV(model: Model, ids: Sequence[str]) -> None:

@@ -4,7 +4,10 @@ Counterpart of jwas_tpu/engine/mcmc.py:86-106 (assemble_lhs_lambda),
 jwas_tpu/ops/location.py:18-37 (gibbs_pass_lambda, a lax.scan over the K
 location parameters) and :42-60 (gibbs_pass_general, the multi-trait pass:
 K6 with vare 1), and of the multi-trait LHS of jwas_tpu/engine/mcmc_mt.py:
-177-199 (MTLocationPieces, assemble_lhs_mt). On a CUDA tensor the pass is one launch of the
+177-199 (MTLocationPieces, assemble_lhs_mt), and the solvers of solve
+(jacobi :63, gauss_seidel :80: a K6 pass with its normals zero,
+gibbs_solver :97: K6 passes and their running mean). On a CUDA tensor the
+pass is one launch of the
 hand-written kernel csrc/gibbs_pass.cu (K6: a wavefront over the SMs, one
 block a slice of S = 160 parameters, the slices' products handed on
 through a scratch buffer; float32 and float64 builds, K up to 20,480); on
@@ -274,3 +277,58 @@ class MTLocationPieces:
                     else:
                         block.diagonal().add_(Gi[i, j])
         return LHS
+
+
+def jacobi(A, b, x0=None, p: float = 0.7, tolerance: float = 1e-6, maxiter: int = 1000):
+    """Damped Jacobi iteration (solver.jl:59-78; jwas_tpu/ops/location.py:63)
+    on A's device: x <- p ((b - A x) / diag(A) + x) + (1 - p) x until
+    sum((b - A x)^2) / n <= tolerance (x the iterate before the update),
+    one read of the test an iteration. A: a dense tensor (the sparse path
+    runs its own loop, engine/solve.py). Returns x."""
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    D = torch.diagonal(A)
+    n = b.shape[0]
+    for _ in range(maxiter):
+        err = b - A @ x
+        x = p * (err / D + x) + (1 - p) * x
+        if bool(torch.sum(err * err) / n <= tolerance):
+            break
+    return x
+
+
+
+
+def gauss_seidel(A, b, x0=None, tolerance: float = 1e-6, maxiter: int = 1000):
+    """Gauss-Seidel iteration (solver.jl:80-102; jwas_tpu/ops/location.py:80):
+    each sweep x_i += (b_i - A[:, i]'x) / A_ii in order is one pass of K6
+    with its normals zero (a zero diagonal's x_i stays), until
+    sum((b - A x)^2) / n <= tolerance, at most maxiter + 1 sweeps. A: a
+    dense (K, K) tensor, exactly symmetric (symmetric_upper). Returns x."""
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    zs = torch.zeros_like(b)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    n = b.shape[0]
+    for _ in range(maxiter + 1):
+        x = gibbs_pass_lambda(A, x, b, one, None, zs=zs)
+        err = b - A @ x
+        if bool(torch.sum(err * err) / n <= tolerance):
+            break
+    return x
+
+
+def gibbs_solver(A, b, vare=None, niter: int = 5000, seed: int = 0):
+    """Multi-pass Gibbs returning the running mean of the passes
+    (solver.jl:105-140; jwas_tpu/ops/location.py:97): niter passes of K6,
+    x_i ~ N((b_i - A[:, i]'x) / A_ii + x_i, vare / A_ii) (vare None: 1,
+    the general form), the normals from a generator seeded with seed on
+    A's device. A: dense, exactly symmetric. Returns the mean."""
+    gen = torch.Generator(device=A.device)
+    gen.manual_seed(int(seed))
+    v = torch.ones((), dtype=b.dtype, device=b.device) if vare is None else torch.as_tensor(
+        float(vare), dtype=b.dtype).to(b.device)
+    x = torch.zeros_like(b)
+    mean = torch.zeros_like(b)
+    for it in range(1, int(niter) + 1):
+        x = gibbs_pass_lambda(A, x, b, v, gen)
+        mean += (x - mean) / it
+    return mean

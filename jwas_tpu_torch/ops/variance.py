@@ -166,11 +166,18 @@ def sample_random_effect_vc(gen, sols, Vinv, df: float, scale, bartlett=None):
     """The (k, k) covariance of a random-effect group (sampleVCs,
     variance_components.jl:115-147): sols (k, q) holds its k terms'
     effects, Vinv (q, q) its structure (None: the identity, an i.i.d.
-    group); S = sols Vinv sols', symmetrised, and the draw is
+    group; a CSR tensor on the sparse location path); S = sols Vinv sols',
+    symmetrised, and the draw is
     InverseWishart(df + q, scale + S). bartlett: injected Bartlett factor
     (tests)."""
     q = sols.shape[1]
-    S = sols @ sols.T if Vinv is None else sols @ (Vinv @ sols.T)
+    if Vinv is None:
+        S = sols @ sols.T
+    elif Vinv.layout == torch.sparse_csr:       # the sparse location path
+        from jwas_tpu_torch.ops.sparse_mme import spmv
+        S = sols @ spmv(Vinv, sols.T)
+    else:
+        S = sols @ (Vinv @ sols.T)
     S = 0.5 * (S + S.T)
     return sample_inv_wishart(gen, df + q, scale + S, bartlett)
 

@@ -77,11 +77,14 @@ def estimate_marker_memory(n_obs: int, n_markers: int, block_size: int,
                            bytes_per_marker: Optional[int] = None,
                            n_loc: int = 0, n_traits: int = 1,
                            resident_groups: Optional[int] = None,
-                           itemsize: int = 4) -> MarkerMemoryEstimate:
+                           itemsize: int = 4,
+                           design_bytes: Optional[int] = None) -> MarkerMemoryEstimate:
     """Device bytes of the 2-bit grouped marker path for n_obs training
     observations: blocks of block_size, groups of group_blocks blocks, a
     store of bytes_per_marker bytes a marker (default ceil(n_obs / 4)),
-    resident_groups of its groups on the device (None: all)."""
+    resident_groups of its groups on the device (None: all). design_bytes:
+    the sparse location path's CSR structures in place of the dense
+    design."""
     b, G = block_size, block_size * group_blocks
     bpm = (n_obs + 3) // 4 if bytes_per_marker is None else bytes_per_marker
     ngroups = max(1, -(-n_markers // G))
@@ -92,7 +95,8 @@ def estimate_marker_memory(n_obs: int, n_markers: int, block_size: int,
         bytes_staging=(RING_DEPTH * G * bpm if k < ngroups
                        else G * bpm if n_markers % G else 0),
         bytes_decode=_sub_chunk(G, b, n_obs, _DECODE_BYTES) * n_obs * 4,
-        bytes_design=n_obs * n_traits * n_loc * itemsize,
+        bytes_design=(n_obs * n_traits * n_loc * itemsize if design_bytes is None
+                      else design_bytes),
     )
 
 
@@ -100,7 +104,8 @@ def estimate_dense_memory(n_store: int, n_obs: int, n_markers: int,
                           block_size: int, group_blocks: int, n_loc: int = 0,
                           itemsize: int = 4,
                           store_itemsize: Optional[int] = None,
-                          method: str = "BayesC") -> MarkerMemoryEstimate:
+                          method: str = "BayesC",
+                          design_bytes: Optional[int] = None) -> MarkerMemoryEstimate:
     """Device bytes of a dense store's chain: the (n_markers, n_store)
     store in the chain's itemsize, its source when that is of another
     itemsize (store_itemsize), Gram tiles of blocks of block_size in groups
@@ -114,13 +119,14 @@ def estimate_dense_memory(n_store: int, n_obs: int, n_markers: int,
         bytes_genotypes=store * itemsize, bytes_grams=p_pad * b * itemsize,
         bytes_staging=store * src,
         bytes_decode=min(_GRAM_BYTES, store * itemsize),
-        bytes_design=n_obs * n_loc * itemsize,
+        bytes_design=n_obs * n_loc * itemsize if design_bytes is None else design_bytes,
         bytes_state=p_pad * itemsize if method == "BayesL" else 0)
 
 
 def estimate_gblup_memory(n_geno: int, n_obs: int, n_out: int, n_loc: int = 0,
                           itemsize: int = 4,
-                          grm_itemsize: int = 4) -> MarkerMemoryEstimate:
+                          grm_itemsize: int = 4,
+                          design_bytes: Optional[int] = None) -> MarkerMemoryEstimate:
     """Device bytes of GBLUP's set-up and chain (ops/gblup.py::gblup_eigen):
     G (n_geno^2 at grm_itemsize); the float64 block G_tt of the n_obs
     training rows, its eigenvectors and the eigensolver's workspace
@@ -132,8 +138,21 @@ def estimate_gblup_memory(n_geno: int, n_obs: int, n_out: int, n_loc: int = 0,
         bytes_grams=0,
         bytes_staging=4 * block * 8,
         bytes_decode=n_out * n_obs * 8,
-        bytes_design=n_obs * n_loc * itemsize,
+        bytes_design=n_obs * n_loc * itemsize if design_bytes is None else design_bytes,
         bytes_output=(block + n_out * n_obs) * itemsize)
+
+
+def estimate_imputation_memory(n_markers: int, n_geno: int, n_rows: int,
+                               n_nongeno: int, chunk: int,
+                               store_itemsize: int = 4) -> MarkerMemoryEstimate:
+    """Device bytes at single-step's peak (engine/single_step.py::
+    ssbr_setup): the genotyped animals' store (n_markers, n_geno) and the
+    imputed store of the data's n_rows individuals beside it, and the
+    blocked CG's working blocks, 8 float64 (n_nongeno, chunk) arrays."""
+    return MarkerMemoryEstimate(
+        bytes_genotypes=n_markers * (n_geno + n_rows) * store_itemsize,
+        bytes_grams=0, bytes_staging=8 * 8 * n_nongeno * chunk, bytes_decode=0,
+        bytes_design=0)
 
 
 def check_marker_memory_guard(estimate: MarkerMemoryEstimate,

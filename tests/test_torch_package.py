@@ -85,14 +85,14 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok": true' not in proc.stdout
 
 
-# jwas_tpu's public names that ROADMAP.md Queue 1 items 9-11 bring
-NOT_YET = {"solve", "GWAS", "dataset", "generate_full_phi", "PSRF",
+# jwas_tpu's public names that ROADMAP.md Queue 1 items 10-11 bring
+NOT_YET = {"GWAS", "dataset", "generate_full_phi", "PSRF",
            "PSRF_per_parameter", "traceplot", "LOOCV", "lsmeans", "getEBV"}
 
 
 def test_public_names_match_jwas_tpu():
     """Every name of jwas_tpu.__all__ is an attribute of the port, but for
-    the ten that ROADMAP.md Queue 1 items 9-11 bring; add_genotypes warns
+    the nine that ROADMAP.md Queue 1 items 10-11 bring; add_genotypes warns
     that it is deprecated."""
     import warnings
 
@@ -148,12 +148,22 @@ def _refusals(monkeypatch):
                  "use_pallas": True}[name]
         extra = {"pedigree": object()} if name == "single_step_analysis" else {}
         expect(lambda: run("y1 = intercept + geno", **{name: value}, **extra))
-    expect(lambda: run("y1 = intercept + geno", sparse_location=True))
     expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", method="RR-BLUP",
                        fast_blocks=4096))
     expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", fast_blocks=4096))
     monkeypatch.setattr(location, "pass_limit", lambda device, dtype=None: 40)
     expect(lambda: run("y1 = intercept + x\ny2 = intercept + x"))
+    # multi-trait single-step stays on the dense path: its 30 non-genotyped
+    # animals' epsilon levels make K = 64 there, above the limit
+    ids = np.array([str(i + 1) for i in range(60)], dtype=object)
+    founders = np.array(["0"] * 60, dtype=object)
+    ped = jt.get_pedigree(jt.Table({"ID": ids, "S": founders, "D": founders}))
+    ssbr = jt.Table({"ID": ids[:30], "y1": rng.normal(size=30), "y2": rng.normal(size=30)})
+    expect(lambda: jt.runMCMC(
+        jt.build_model("y1 = intercept + geno\ny2 = intercept + geno",
+                       genotypes=jt.get_genotypes(X, device="cpu")),
+        ssbr, device="cpu", chain_length=4, output_folder="", printout_model_info=False,
+        single_step_analysis=True, pedigree=ped))
     return [re.search(r"ROADMAP\.md: ([^)]+)\)", t) for t in texts], texts
 
 

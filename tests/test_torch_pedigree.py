@@ -8,7 +8,9 @@ C++, csrc/pedigree.cpp) against jwas_tpu's, on the CPU.
     deep 300-animal pedigree: the C++ code and the plain Python copy
     against jwas_tpu's, to 1e-12 (the same sums in the same order:
     floating-point equal up to the last bits); inbreeding_tolerance = 1e-8
-    within 1e-6 of the exact values and equal to jwas_tpu's truncated walk.
+    within 1e-6 of the exact values and equal to jwas_tpu's truncated walk;
+    a deep generational pedigree (parents from the two generations before)
+    bit for bit the Python walk.
 (3) A^-1 against jwas_tpu's a_inverse() to 1e-12; A^-1 A = I to 1e-8; its
     factor F with F'F = A^-1.
 (4) A CSV (with and without a header, other missing strings), a Table, an
@@ -96,6 +98,32 @@ def test_inbreeding_matches_jwas_tpu():
     ref = jwas_tpu.get_pedigree(df, inbreeding_tolerance=1e-8)
     np.testing.assert_allclose(trunc.inbreeding, ref.inbreeding, rtol=0, atol=1e-12)
     assert exact.inbreeding.max() > 0.05
+
+
+def test_inbreeding_of_a_deep_generational_pedigree():
+    """A generational pedigree whose parents come from the two generations
+    before (tests/integration/test_ssbr_scale.py:41-52's design, 3,000
+    animals, 100 a generation; a parent may be the animal just before):
+    the C++ code, which walks levels of independent animals in parallel
+    and scans the codes below once an ancestor set grows dense, equals the
+    plain Python walk bit for bit and jwas_tpu's to 1e-12, exact and with
+    inbreeding_tolerance = 1e-8."""
+    rng = np.random.default_rng(31)
+    n, gen = 3_000, 100
+    ids = np.array([f"a{k}" for k in range(n)])
+    lo, hi = np.maximum(np.arange(n) - 2 * gen, 0), np.maximum(np.arange(n) - 1, 1)
+    anc = np.stack([rng.integers(lo, hi), rng.integers(lo, hi)])
+    sire = np.where(np.arange(n) < gen, "0", ids[anc[0]])
+    dam = np.where(np.arange(n) < gen, "0", ids[anc[1]])
+    df = pd.DataFrame({"ID": ids, "Sire": sire, "Dam": dam})
+    ped = jt.get_pedigree(_table(df))
+    assert np.array_equal(ped.inbreeding, tped._inbreeding_meuwissen_luo_py(ped.sire, ped.dam))
+    np.testing.assert_allclose(ped.inbreeding, jwas_tpu.get_pedigree(df).inbreeding,
+                               rtol=0, atol=1e-12)
+    trunc = jt.get_pedigree(_table(df), inbreeding_tolerance=1e-8)
+    np.testing.assert_allclose(trunc.inbreeding, jwas_tpu.get_pedigree(
+        df, inbreeding_tolerance=1e-8).inbreeding, rtol=0, atol=1e-12)
+    assert ped.inbreeding.mean() > 0.0
 
 
 def test_a_inverse_matches_jwas_tpu_and_inverts_a():
