@@ -55,6 +55,16 @@ Phases, each printed as it ends:
      too; then at t = 2 (one block), 4, 5 and 8, a ragged b = 136 with a
      short last group's padding, b = 300, 700 and 2,048: alpha and rhs bit
      for bit the plain version, a second launch bit for bit, padding at 0;
+     K10, the random-regression marker chain, at phase 14's shape (nind
+     10,000 and a ragged 9,999, 10 test days, c = 3, p = 256, the same
+     draws fed to both) for BayesC's labels and the RR-BLUP form, at c = 1
+     and 5 and at one block of 37 individuals, float32 and float64: alpha
+     and beta within rtol 1e-5, atol 1e-6, the grid within rtol 1e-4, atol
+     1e-5 (float64: 1e-10 / 1e-12, 1e-9 / 1e-11), delta equal on >= 99.9%
+     of the markers (float64: all), a second launch bit for bit, the plain
+     version's ms at p = 256; then K10 alone at phase 14's full shape
+     (p = 50,000, X 2.0 GB in float32): ms a sweep, ns a step, its byte
+     bound, and the registers and spills of its ten instantiations;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -62,7 +72,7 @@ Phases, each printed as it ends:
      and Grams, with the launch count of every kernel in each path;
   4. a statistical check: a small simulation run through run_st, BayesC
      on the card and on the CPU (plain versions; 256 sweeps: 1,024 until
-     phase 11, 512 until phase 13 came), BayesR on the card (1,024); EBV accuracy must hold. Then runMCMC on the same data through a Table:
+     phase 11, 512 until phase 13 came; 192 fell below the floor), BayesR on the card (1,024); EBV accuracy must hold. Then runMCMC on the same data through a Table:
      its EBVs must equal run_st's on the card;
   5. runMCMC, the user's entry point, at full width: phase 3's device store
      (its Gram tiles freed) as a Packed2BitStore, 45,000 of its 50,000
@@ -80,7 +90,8 @@ Phases, each printed as it ends:
      (b) BayesC through runMCMC on phase 3's problem at fast_blocks = 128,
      the store resident, then streamed from a pinned host copy with no group
      and with half of the groups on the card, each of the two twice, in the
-     order streamed, hybrid, hybrid, streamed: the chains equal bit for bit;
+     order streamed, hybrid, hybrid, streamed, two outer iterations each
+     (three until phase 14 came): the chains equal bit for bit;
      seconds per outer iteration, the copies' GB/s and, from a profiled
      chain of the first streamed and the first hybrid run, the device's
      busy share and the share of the copies' device time during which a
@@ -132,18 +143,18 @@ Phases, each printed as it ends:
      phenotyped, u ~ N(0, A) by the Mendelian recursion, K = 19,902, 100
      iterations profiled: ms an iteration, busy and K6's shares, accuracy;
      (c) a statistical check: a pedigree of 1,000, 600 genotyped at
-     p = 2,000, "ID dam" and an i.i.d. herd, BayesC from pi = 0.99, 300
-     sweeps (2,000 until phase 10, 1,000 until phase 13 came: the depth
-     cuts keep the script's time) at fast_blocks = 8 on the card and on the CPU: the card's EBV
+     p = 2,000, "ID dam" and an i.i.d. herd, BayesC from pi = 0.99, 250
+     sweeps (2,000 until phase 10, 1,000 until phase 13, 300 until phase 14
+     came: the depth cuts keep the script's time) at fast_blocks = 8 on the card and on the CPU: the card's EBV
      accuracy within 0.05 of the
      CPU's, the 2 x 2 covariances' posterior means side by side. Every path
      above launches K6 for its location pass;
  10. multi-trait: phase 7's 20 GB float32 store made again with 3 traits
      (h2 0.5, 0.4, 0.3, genetic correlation 0.5, residual 0.2, 10% of
      each trait missing: 7 missing patterns), 45,000 phenotyped, 5,000
-     candidates, y1..y3 = intercept + herd + age + geno (K = 306), three
-     outer iterations of runMCMC at fast_blocks = True (b = 256, gb = 23)
-     each: (a) BayesC, sampler I (K7), with the result files, and the
+     candidates, y1..y3 = intercept + herd + age + geno (K = 306), two
+     outer iterations of runMCMC (three until phase 14 came) at
+     fast_blocks = True (b = 256, gb = 23) each: (a) BayesC, sampler I (K7), with the result files, and the
      location LHS assembly's device ms from the pieces and from W; (b)
      sampler II (K8); (c) BayesB (one 3 x 3 covariance a locus) and the
      mega-trait BayesC (K1 a trait); each: seconds by part and a window,
@@ -152,12 +163,14 @@ Phases, each printed as it ends:
      herd + ID on a pedigree of 6,000 with a 3 x 3 G, K = 18,303, 20
      iterations: ms an iteration by part (LHS assembly, K6, the rest),
      the LHS both ways, accuracy. (e) 3 traits at n = 2,000 x p = 2,000,
-     200 sweeps (1,000 until phase 11, 500 until phase 13 came) at
+     150 sweeps (1,000 until phase 11, 500 until phase 13, 200 until phase
+     14 came) at
      fast_blocks = 8 on the card and on the CPU: the
      card's accuracy within 0.05 of the CPU's on each trait; then the
      float64 builds of K7 and K8 for 64 sweeps each;
  11. multi-trait RR-BLUP, BayesL, SEM and GBLUP: on phase 10's store and
-     design (before it is freed), three windows of 256 sweeps each at
+     design (before it is freed), two windows of 256 sweeps each (three
+     until phase 14 came) at
      fast_blocks = True: (a) RR-BLUP (K9) with update_priors_frequency =
      256, result files written; (b) BayesL (K9, a gamma a marker); (c) SEM:
      BayesC sampler I (K7) with y1 -> y2, y1 -> y3, y2 -> y3 on the same
@@ -170,13 +183,14 @@ Phases, each printed as it ends:
      trait. (d) Multi-trait GBLUP on the first 20,000 individuals (18,000
      phenotyped; reduced from N as phase 8b is), 200 iterations: the
      relationship matrix, the eigh and ms an iteration. (e) Multi-trait
-     BayesL at n = 2,000 x p = 2,000, 200 sweeps (500 until phase 13
-     came) at fast_blocks = 8 on the
+     BayesL at n = 2,000 x p = 2,000, 150 sweeps (500 until phase 13,
+     200 until phase 14 came) at fast_blocks = 8 on the
      card and on the CPU, the card's accuracy within 0.05 of the CPU's on
      each trait; then 64 sweeps of K9's float64 build;
  12. latent traits and annotations on phase 10's store and genetic values
-     (45,000 phenotyped, herd and age, 5,000 candidates, h2 0.5, three
-     windows of 256 sweeps at fast_blocks = True): (a) single-trait binary
+     (45,000 phenotyped, herd and age, 5,000 candidates, h2 0.5, two
+     windows of 256 sweeps (three until phase 14 came) at fast_blocks =
+     True): (a) single-trait binary
      BayesC, prevalence 0.2; (b) a 4-category trait (cut at the 0.3, 0.6,
      0.85 quantiles of the liability), then a censored one (the top 40%
      right-censored); (c) annotated BayesC and BayesR with 4 annotations,
@@ -189,8 +203,8 @@ Phases, each printed as it ends:
      device ms, host ms and device operations an iteration (CUDA events;
      torch.profiler on the first call); vare exactly 1 for a categorical
      trait, R_bb 1 within 1e-5, the first annotation's slope. (f) A
-     statistical check at n = 2,000 x p = 2,000, 300 sweeps (500 until
-     phase 13 came) at fast_blocks = 8 on the card and on the CPU of
+     statistical check at n = 2,000 x p = 2,000, 150 sweeps (500 until
+     phase 13, 300 until phase 14 came) at fast_blocks = 8 on the card and on the CPU of
      (a)'s, (c)'s BayesC, (d)'s sampler I and (e)'s models, the card
      within 0.05 of the CPU on each trait; then 64 float64 sweeps of (d)'s
      model with samplers I and II;
@@ -202,7 +216,8 @@ Phases, each printed as it ends:
      design): solve with CG and with Jacobi on the card (seconds,
      iterations, relative residual, BLUP accuracy; CG against Jacobi r
      >= 0.999 and accuracy >= 0.55 raise), then runMCMC of the model for
-     3 windows of 64 sweeps (cut from 256 for the script's time) on the
+     3 windows of 32 sweeps (cut from 256 for the script's time, from 64
+     when phase 14 came) on the
      sparse path: a sweep's device ms,
      PO-CG iterations, device operations and an iteration's byte bound,
      fault R3's counters, two 8-sweep chains of one seed bit for bit;
@@ -223,13 +238,34 @@ Phases, each printed as it ends:
      draw is not finite, the chain's peak > store + 4 GB or an accuracy
      < 0.3; (c) 13b's generator at 5,000 animals, 1,000 genotyped, p =
      2,000 (700 genotyped and 1,300 others phenotyped), pi held at 0.98
-     (ssbr_genotypes), 500 sweeps at fast_blocks = 8 on the card and on
+     (ssbr_genotypes), 300 sweeps (500 until phase 14 came) at
+     fast_blocks = 8 on the card and on
      the CPU:
      single-trait SSBR on the sparse path (K1) and 2-trait SSBR on the
      dense path (K6, K7; on the generator's first 2,000 animals, 800
      non-genotyped phenotyped, K = 2,044: at 5,000 animals, K = 8,044,
      the CPU's plain location pass took ~1.5 s an outer iteration), the
-     card within 0.05 of the CPU.
+     card within 0.05 of the CPU;
+ 14. random regression (RRM), tests/test_rrm.py's _rrm_sim scaled up: (a)
+     10,000 animals x 10 test days, 15% of the cells unrecorded (~85,000
+     records), P = 50,000 Binomial(2, f) markers made on the card into a
+     2.0 GB float32 store, c = 3 (Legendre order 2), 50 QTL with c-vector
+     effects, noise sd = sd(U), a permanent-environment effect of sd 0.8
+     sd(U); y = intercept + time + ID + geno with time a covariate and ID
+     i.i.d. (test_rrm_with_iid_random_effect's model, K = 10,002), BayesC,
+     3 windows of 32 sweeps, files written: seconds by part (data, Phi and
+     mPhiPhi, workspace, chain, results), a window's seconds, an outer
+     iteration's device ms by part (K10's call, K6's pass, the LHS, the
+     rest; CUDA events), K10's ns a marker step against its bound, peak
+     memory, the trajectory EBVs' accuracy against the simulated U; raises
+     if K10 or K6 never launched, a posterior mean is not finite, the peak
+     exceeds X + W + W'W + 4 GB or the accuracy is below 0.55
+     (tests/test_rrm.py:84's floor); (b) the card against the CPU at
+     _rrm_sim's shape (250 animals, p = 100, 5 days, c = 2, 600 sweeps)
+     with BayesC, and test_rrm_with_pedigree_polygenic_effect's model
+     at its 200 sweeps (RR-BLUP, ID on a pedigree of 150, p = 60, 4
+     days): the card's trajectory accuracy within 0.05 of the CPU's; then 100 float64 sweeps
+     of the BayesC model on the card (K10's and K6's float64 builds).
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -293,6 +329,10 @@ REPLACES = {
     # :467; the exact form's :498)
     "mt_c0l_inner_rounds": "jwas_tpu/ops/multitrait.py:467",
     "mt_c0l_inner_rounds_f64": "jwas_tpu/ops/multitrait.py:467",
+    # not a Pallas kernel: the lax.scan of sweep_rrm_abc (:67, its scan :119
+    # over body :82)
+    "sweep_rrm_abc": "jwas_tpu/ops/rrm.py:67",
+    "sweep_rrm_abc_f64": "jwas_tpu/ops/rrm.py:67",
 }
 SOURCES = {
     "abc_inner_rounds": "jwas_tpu_torch/csrc/abc_inner_rounds.cu",
@@ -309,6 +349,8 @@ SOURCES = {
     "mt_abc_inner_rounds_II_f64": "jwas_tpu_torch/csrc/mt_inner_rounds.cu",
     "mt_c0l_inner_rounds": "jwas_tpu_torch/csrc/mt_c0l_rounds.cu",
     "mt_c0l_inner_rounds_f64": "jwas_tpu_torch/csrc/mt_c0l_rounds.cu",
+    "sweep_rrm_abc": "jwas_tpu_torch/csrc/rrm_sweep.cu",
+    "sweep_rrm_abc_f64": "jwas_tpu_torch/csrc/rrm_sweep.cu",
 }
 
 
@@ -1347,6 +1389,190 @@ def phase2_k9(dev):
     return recs
 
 
+# ---------------------------------------------------------------- K10
+
+K10_RTOL = {torch.float32: (1e-5, 1e-6, 1e-4, 1e-5),    # alpha / beta rtol, atol;
+            torch.float64: (1e-10, 1e-12, 1e-9, 1e-11)}  # the grid's rtol, atol
+
+
+def rrm_inputs(nind, ntimes, c, p, seed, dev, dtype=torch.float32, miss=0.15,
+               estimate_delta=True):
+    """A K10 call at a test-day shape: Binomial(2, f) genotypes centered,
+    marker-major (p, nind), f ~ U(0.1, 0.9); the Legendre basis over
+    ntimes days; miss of the cells unobserved; a residual grid of unit
+    variance (0 where unobserved), coefficients from N(0, 0.01), vare 1, a
+    c x c marker covariance 0.01 (I + 0.3 off the diagonal), a random prior
+    over the labels; the sweep's draws from a generator of seed."""
+    from jwas_tpu_torch.ops.rrm import build_m_phiphi, draw_sweep_normals, generate_full_phi
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f = 0.1 + 0.8 * torch.rand((p, 1), generator=g, device=dev, dtype=torch.float64)
+    codes = ((torch.rand((p, nind), generator=g, device=dev, dtype=torch.float64) < f).to(dtype)
+             + (torch.rand((p, nind), generator=g, device=dev, dtype=torch.float64) < f).to(dtype))
+    X = codes - codes.mean(1, keepdim=True)
+    del codes
+    phi = torch.as_tensor(generate_full_phi(np.arange(ntimes), c), dtype=dtype).to(dev)
+    mask = (torch.rand((ntimes, nind), generator=g, device=dev) >= miss).to(dtype)
+    varg = 0.01 * (0.7 * torch.eye(c, dtype=torch.float64) + 0.3)
+    L = 2**c
+    pi = torch.softmax(torch.randn(L, generator=g, device=dev, dtype=torch.float64), 0)
+    gumbel, zs = draw_sweep_normals(g, p, c, X, estimate_delta)
+    return dict(
+        X=X, phi=phi, mphiphi=build_m_phiphi(X, phi, mask), obs_mask=mask,
+        alpha=(0.1 * torch.randn((c, p), generator=g, device=dev, dtype=torch.float64)).to(dtype),
+        Wgrid=torch.randn((ntimes, nind), generator=g, device=dev, dtype=dtype) * mask,
+        vare=torch.ones((), dtype=dtype, device=dev),
+        Ginv=torch.linalg.inv(varg).to(dtype).to(dev).contiguous(),
+        log_pi=torch.log(pi).to(dtype), gumbel=gumbel, zs=zs)
+
+
+K10_ORDER = ("X", "phi", "mphiphi", "obs_mask", "alpha", "Wgrid", "vare", "Ginv", "log_pi")
+
+
+def k10_bounds(inp):
+    """K10's bound: every input read once (X, the Grams, the grid, the
+    mask, the draws, alpha) and alpha, beta, delta and the grid written
+    once, over 3.35 TB/s; or a step's operations, 4 ntimes nind for the
+    grid's update and the next partial sum plus ~2^c (c^3 + 4 c^2) for the
+    labels, over the type's peak."""
+    p, nind = inp["X"].shape
+    ntimes, c = inp["phi"].shape
+    nbytes = sum(t.numel() * t.element_size() for t in inp.values() if t is not None)
+    nbytes += (3 * c * p + ntimes * nind) * inp["X"].element_size()
+    flops = F64_FLOPS if inp["X"].dtype == torch.float64 else F32_FLOPS
+    ops = p * (4 * ntimes * nind + 2**c * (c**3 + 4 * c * c))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / flops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+
+
+def check_k10(nind, ntimes, c, p, dev, dtype=torch.float32, estimate_delta=True, seed=41):
+    """K10 (ops/rrm.py::sweep_rrm_abc) against its plain version
+    (sweep_rrm_abc_ref) on the card, the same draws fed to both: alpha and
+    beta within rtol 1e-5, atol 1e-6 and the grid within rtol 1e-4, atol
+    1e-5 (tests/test_pallas_sweep.py:42-45) in float32, 1e-10 / 1e-12 and
+    1e-9 / 1e-11 in float64; delta equal on >= DELTA_AGREE of the markers
+    in float32, on all in float64; a second launch equal bit for bit; the
+    plain version's ms (host clock around the synchronised call)."""
+    from jwas_tpu_torch.ops.rrm import sweep_rrm_abc, sweep_rrm_abc_ref
+
+    inp = rrm_inputs(nind, ntimes, c, p, seed, dev, dtype, estimate_delta=estimate_delta)
+    args = [inp[k] for k in K10_ORDER]
+    kw = dict(estimate_delta=estimate_delta, gumbel=inp["gumbel"], zs=inp["zs"])
+    got = sweep_rrm_abc(*args, None, **kw)
+    grid = sweep_rrm_abc.last_grid
+    again = sweep_rrm_abc(*args, None, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sweep_rrm_abc_ref(*args, inp["gumbel"], inp["zs"], estimate_delta)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    rtol, atol, grtol, gatol = K10_RTOL[dtype]
+    name = str(dtype).replace("torch.", "")
+    label = (f"K10 {'BayesC' if estimate_delta else 'RR-BLUP'} {name} nind={nind} "
+             f"ntimes={ntimes} c={c} p={p} (blocks, individuals a block) = {grid}")
+    agree = (got[2] == want[2]).all(0).double().mean().item()
+    need = DELTA_AGREE if dtype == torch.float32 else 1.0
+    errs = [(got[k] - want[k]).abs().max().item() for k in range(4)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = same and agree >= need and all(bool(torch.isfinite(t).all()) for t in got)
+    if agree == 1.0:
+        ok = ok and all(torch.allclose(got[k], want[k], rtol=rtol, atol=atol) for k in (0, 1))
+        ok = ok and torch.allclose(got[3], want[3], rtol=grtol, atol=gatol)
+    label += (f": delta agreement {agree:.5f} (need {need}), max |err| alpha {errs[0]:.3g}, "
+              f"beta {errs[1]:.3g}, grid {errs[3]:.3g} (rtol / atol {rtol} / {atol}, grid "
+              f"{grtol} / {gatol}); a second launch {'equal' if same else 'DIFFERENT'} bit "
+              f"for bit; plain {plain:.1f} ms")
+    if not ok:
+        raise AssertionError(label)
+    say(label)
+    return dict(max_abs_err=max(errs[0], errs[1]), grid_max_abs_err=errs[3],
+                delta_agreement=agree, plain_ms=plain, plain_p=p)
+
+
+def time_k10(nind, ntimes, c, p, dev, dtype, seed=51):
+    """K10 alone at a full shape: device ms a sweep (3 launches after a
+    warm-up), ns a step, its bound; two launches equal bit for bit, every
+    output finite."""
+    from jwas_tpu_torch.ops.rrm import sweep_rrm_abc
+
+    inp = rrm_inputs(nind, ntimes, c, p, seed, dev, dtype)
+    args = [inp[k] for k in K10_ORDER]
+    kw = dict(gumbel=inp["gumbel"], zs=inp["zs"])
+    a, b = sweep_rrm_abc(*args, None, **kw), sweep_rrm_abc(*args, None, **kw)
+    if not (all(torch.equal(x, y) for x, y in zip(a, b))
+            and all(bool(torch.isfinite(x).all()) for x in a)):
+        raise AssertionError(f"K10 at nind={nind} p={p}: two launches differ or a draw "
+                             f"is not finite")
+    del a, b
+    ms = cuda_ms(lambda: sweep_rrm_abc(*args, None, **kw), 3)
+    rec = dict(ms=ms, step_ns=ms * 1e6 / p, **k10_bounds(inp))
+    del inp, args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def k10_registers(log):
+    """K10's instantiations in nvcc's -Xptxas -v output: [(dtype, c,
+    registers, spill store bytes, spill load bytes)]."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = int(m.group(1)), int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"rrm_sweep_kernelI([fd])Li(\d)E", name)
+            if k:
+                rows.append(({"f": "float32", "d": "float64"}[k.group(1)], int(k.group(2)),
+                             int(m.group(1))) + spills)
+            name = None
+    return sorted(rows)
+
+
+def phase2_k10(dev, nind=10_000, ntimes=10, p=50_000):
+    """K10 at phase 14's shape, c = 3, p = 256 markers (and a ragged nind
+    - 1), BayesC and RR-BLUP, float32 and float64; c = 1 and c = 5; then
+    timed at phase 14's full shape (p = 50,000: X 2.0 GB in float32) in
+    both builds: ms a sweep, ns a step, the bound; the plain version's ms
+    at p = 256; registers and spills of every instantiation."""
+    from jwas_tpu_torch import _build
+
+    recs = {}
+    for dtype, name in ((torch.float32, "sweep_rrm_abc"), (torch.float64, "sweep_rrm_abc_f64")):
+        rec = check_k10(nind, ntimes, 3, 256, dev, dtype)
+        rec["regimes"] = {"RR-BLUP": check_k10(nind, ntimes, 3, 256, dev, dtype,
+                                               estimate_delta=False)}
+        check_k10(nind - 1, ntimes, 3, 256, dev, dtype, seed=42)
+        check_k10(nind - 1, ntimes, 3, 256, dev, dtype, estimate_delta=False, seed=43)
+        for c in (1, 5):
+            check_k10(nind, ntimes, c, 256, dev, dtype, seed=44 + c)
+            check_k10(nind - 1, ntimes, c, 256, dev, dtype, estimate_delta=False, seed=46 + c)
+        check_k10(37, 3, 2, 64, dev, dtype, seed=50)            # one block, n < 64
+        rec.update(time_k10(nind, ntimes, 3, p, dev, dtype))
+        rec["full_shape"] = dict(nind=nind, ntimes=ntimes, c=3, p=p)
+        say(f"K10 {name} at phase 14's shape (nind {nind}, ntimes {ntimes}, c 3, p {p}): "
+            f"{rec['ms']:.3f} ms a sweep, {rec['step_ns']:.1f} ns a step, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.2%} "
+            f"of it reached); plain {rec['plain_ms']:.1f} ms at p = 256")
+        recs[name] = rec
+        torch.cuda.empty_cache()
+    regs = k10_registers(_build.build_log)
+    for dtype, c, r, st, ld in regs:
+        say(f"K10 {dtype} c={c}: {r} registers, {st} / {ld} bytes spill stores / loads")
+    for name, dt in (("sweep_rrm_abc", "float32"), ("sweep_rrm_abc_f64", "float64")):
+        recs[name]["registers"] = {str(c): dict(registers=r, spill_stores=st, spill_loads=ld)
+                                   for d, c, r, st, ld in regs if d == dt}
+    return recs
+
+
 def phase2(dev):
     say("== phase 2: kernels against their plain versions on the card")
     check_k1(64, 8, 256, 3, dev, time_it=False)    # tests/test_pallas_sweep.py:21
@@ -1409,6 +1635,7 @@ def phase2(dev):
     recs.update(phase2_k6(dev))
     recs.update(phase2_mt(dev))
     recs.update(phase2_k9(dev))
+    recs.update(phase2_k10(dev))
     return recs
 
 
@@ -2038,7 +2265,7 @@ def phase6b(dev, kept, fast_blocks=128):
             torch.cuda.empty_cache()
             jt.reset_launches()
             kw = dict(method="BayesC", eq="y = intercept + geno", device=dev,
-                      fast_blocks=fast_blocks, chain_length=3 * b,
+                      fast_blocks=fast_blocks, chain_length=2 * b,
                       output_samples_frequency=b, output_folder="",
                       host_offload_genotypes=offload)
             out, seconds, built = run_phase5(store, table, on_markers=on_markers, **kw)
@@ -2812,7 +3039,7 @@ def iteration_parts(busy, n_iter):
     return {k: v / n_iter * 1e3 for k, v in parts.items()}
 
 
-def phase9c(dev, p=2_000, n_iter=300):
+def phase9c(dev, p=2_000, n_iter=250):
     """Phase 9c; see the module's docstring."""
     import jwas_tpu_torch as jt
     from jwas_tpu_torch.io.table import Table
@@ -3061,7 +3288,7 @@ def mt_accuracy(out, truth, ids, t=3):
     return acc
 
 
-def phase10(dev, n=50_000, p=100_000, n_train=45_000, chain_length=768, every=256):
+def phase10(dev, n=50_000, p=100_000, n_train=45_000, chain_length=512, every=256):
     """Multi-trait: (a) BayesC sampler I, (b) sampler II, (c) BayesB and the
     mega-trait BayesC on phase 7's store with 3 traits; see the module's
     docstring."""
@@ -3179,7 +3406,7 @@ def phase10d(dev, n_iter=20, n_founders=1_000, gen_size=1_000, n_gen=5, n_herds=
     return counts
 
 
-def phase10e(dev, n=2_000, p=2_000, n_iter=200):
+def phase10e(dev, n=2_000, p=2_000, n_iter=150):
     """A statistical check: 3 traits at n x p, n_iter sweeps at fast_blocks
     = 8 on the card and on the CPU (plain versions), the card's EBV
     accuracy within ACC_MARGIN_10E of the CPU's on each trait; then the
@@ -3360,7 +3587,7 @@ def phase11d(dev, n, p, n_gblup=20_000, n_train=18_000, n_iter=200):
     return counts
 
 
-def phase11e(dev, n=2_000, p=2_000, n_iter=200, n_f64=64):
+def phase11e(dev, n=2_000, p=2_000, n_iter=150, n_f64=64):
     """A statistical check: 3 traits at n x p, multi-trait BayesL for
     n_iter sweeps at fast_blocks = 8 on the card (K9) and on the CPU (its
     plain version), the card's EBV accuracy within ACC_MARGIN_11E of the
@@ -3670,7 +3897,7 @@ def phase12(dev, geno, tbv, n_train, chain_length, every):
     return launches
 
 
-def phase12f(dev, n=2_000, p=2_000, n_iter=300, n_f64=64):
+def phase12f(dev, n=2_000, p=2_000, n_iter=150, n_f64=64):
     """A statistical check of phase 12's models at n x p: 12a's binary
     BayesC, 12c's annotated BayesC, 12d's 2-trait annotated BayesC
     (sampler I) and 12e's 3-trait model, n_iter sweeps at fast_blocks = 8
@@ -3905,7 +4132,7 @@ def capture_chain_data(store):
         em._build_st_data_and_state = fn
 
 
-def phase13a(dev, ped, ids, u, n_pheno=30_000, chain_length=192, every=64):
+def phase13a(dev, ped, ids, u, n_pheno=30_000, chain_length=96, every=32):
     """Phase 13a; see the module's docstring."""
     import jwas_tpu_torch as jt
     import jwas_tpu_torch.engine.mcmc as em
@@ -4094,7 +4321,7 @@ def phase13b(dev, ped, ids, u, ped_seconds=0.0, p=50_000, n_geno=20_000,
     return {"abc_inner_rounds": counts["abc_inner_rounds"]}
 
 
-def phase13c(dev, n_ped=5_000, gen=100, n_geno=1_000, p=2_000, n_iter=500,
+def phase13c(dev, n_ped=5_000, gen=100, n_geno=1_000, p=2_000, n_iter=300,
              n_pheno_geno=700, n_pheno_nongeno=1_300, n_ped_mt=2_000, n_pheno_nongeno_mt=800):
     """Phase 13c; see the module's docstring."""
     import jwas_tpu_torch as jt
@@ -4169,6 +4396,316 @@ def phase13(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+class EventTimer:
+    """For the duration of a with-block, owner.attr timed at each call after
+    the first by CUDA events on the current stream (device ms, including
+    any gap in which the device waits for the host), read at the end."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr, self.events, self.calls = owner, attr, [], 0
+
+    def __enter__(self):
+        self.fn = fn = getattr(self.owner, self.attr)
+
+        def call(*a, **k):
+            self.calls += 1
+            if self.calls == 1:
+                return fn(*a, **k)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            self.events.append((s, e))
+            return out
+
+        setattr(self.owner, self.attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return float(np.mean([s.elapsed_time(e) for s, e in self.events])) if self.events \
+            else float("nan")
+
+
+RRM_ACC_FLOOR = 0.55       # tests/test_rrm.py:84's floor of the trajectory accuracy
+
+
+def rrm_table(ids, ind, t_idx, times, y):
+    """The long data as runMCMC(RRM=Phi) reads it: ID first, time, y."""
+    import jwas_tpu_torch as jt
+    return jt.Table({"ID": np.asarray(ids, dtype=object)[ind], "time": times[t_idx], "y": y})
+
+
+def rrm_problem(dev, n, p, ntimes, c, seed, n_qtl=50, miss=0.15, pe_share=0.8):
+    """A test-day design, tests/test_rrm.py's _rrm_sim scaled up: Binomial(2,
+    f) genotypes made on the device (dense_codes) and written to the
+    float32 store, n_qtl QTL with c-vector N(0, 1) effects on the Legendre
+    basis over days 1..ntimes, U = Phi (effects X') the true trajectories,
+    miss of the cells unrecorded, y = 1 + 0.3 t + U + pe + e with a
+    permanent-environment effect pe ~ N(0, (pe_share sd U)^2) an animal
+    (test_rrm_with_iid_random_effect's) and e ~ N(0, sd(U)^2); records
+    ordered by animal in the store's order (so the store is used in place)."""
+    import jwas_tpu_torch as jt
+
+    t0 = time.perf_counter()
+    geno = jt.get_genotypes(dense_codes(n, p, seed, dev), method="BayesC", storage="f32",
+                            device=dev)
+    rng = np.random.default_rng(seed)
+    times = np.arange(1.0, ntimes + 1)
+    phi = jt.generate_full_phi(times, c)
+    qtl = rng.choice(geno.n_markers, n_qtl, replace=False)
+    eff = torch.as_tensor(rng.normal(size=(c, n_qtl)), dtype=torch.float32, device=dev)
+    U = (torch.as_tensor(phi, dtype=torch.float32, device=dev)
+         @ (eff @ geno.dense[torch.as_tensor(qtl, device=dev)])).double().cpu().numpy()
+    sig = U.std()
+    pe = rng.normal(0.0, pe_share * sig, n)
+    keep = rng.uniform(size=(n, ntimes)) >= miss
+    ind, t_idx = np.nonzero(keep)
+    y = (1.0 + 0.3 * times[t_idx] + U[t_idx, ind] + pe[ind]
+         + rng.normal(0.0, sig, len(ind)))
+    table = rrm_table(geno.obs_ids, ind, t_idx, times, y)
+    torch.cuda.synchronize()
+    return dict(geno=geno, phi=phi, U=U, times=times, table=table, pe_var=float(np.var(pe)),
+                sig=sig, seconds=time.perf_counter() - t0, n_records=len(y))
+
+
+def trajectory_accuracy(out, U, ids, times):
+    """The EBV trajectories' correlation with the true ones over every
+    (animal, day) cell, recorded or not (tests/test_rrm.py:73-84)."""
+    traj = out["EBV_trajectory"]
+    row = {(s, float(t)): k for k, (s, t) in enumerate(zip(traj.ID, traj.time))}
+    ebv = np.asarray(traj.EBV, dtype=np.float64)
+    got = np.array([[ebv[row[(s, float(t))]] for s in ids] for t in times])
+    return float(np.corrcoef(got.reshape(-1), U.reshape(-1))[0, 1])
+
+
+def phase14a(dev, n=10_000, ntimes=10, p=50_000, c=3, chain_length=96, every=32):
+    """Phase 14a: RRM at full width; see the module's docstring."""
+    import tempfile
+
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.engine import mcmc_rrm
+    from jwas_tpu_torch.ops.sparse_mme import csr_bytes
+
+    say(f"== phase 14: random regression (RRM), {n} animals x {ntimes} test days, P = {p}, "
+        f"c = {c}")
+    prob = rrm_problem(dev, n, p, ntimes, c, seed=141)
+    geno = prob["geno"]
+    say(f"data (codes on the card, get_genotypes' float32 store of "
+        f"{geno.dense.numel() * 4 / 1e9:.2f} GB, {prob['n_records']} records of "
+        f"{n * ntimes} cells): {prob['seconds']:.2f} s")
+    model = jt.build_model("y = intercept + time + ID + geno", genotypes=geno)
+    jt.set_covariate(model, "time")
+    jt.set_random(model, "ID", 0.64 * prob["sig"] ** 2)
+    jt.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    keep = {}
+    build = mcmc_rrm.run_window
+
+    def run_window(cfg, state, data, *a, **k):       # the chain's data, for its sizes
+        keep.setdefault("data", data)
+        return build(cfg, state, data, *a, **k)
+
+    mcmc_rrm.run_window = run_window
+    try:
+        with tempfile.TemporaryDirectory() as folder, \
+                EventTimer(mcmc_rrm, "rrm_step") as t_step, \
+                EventTimer(mcmc_rrm, "sweep_rrm_abc") as t_k10, \
+                EventTimer(mcmc_rrm, "gibbs_pass_lambda") as t_k6, \
+                EventTimer(mcmc_rrm, "assemble_lhs_lambda") as t_lhs:
+            t0 = time.perf_counter()
+            out = jt.runMCMC(model, prob["table"], device=dev, chain_length=chain_length,
+                             output_samples_frequency=every, seed=142, RRM=prob["phi"],
+                             output_folder=folder, printout_model_info=False)
+            seconds = time.perf_counter() - t0
+            files = len(os.listdir(folder))
+    finally:
+        mcmc_rrm.run_window = build
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    counts["sweep_rrm_abc_f64"] = jt.sweep_rrm_abc.launches_f64
+    data = keep["data"]
+    K = data.WtW.shape[0]
+    x_bytes = data.X.numel() * data.X.element_size()
+    w_bytes = csr_bytes(data.W) + csr_bytes(data.Wt)
+    wtw_bytes = data.WtW.numel() * data.WtW.element_size()
+    rrm = out["_rrm"]
+    s = rrm["seconds"]
+    say(f"K = {K}; runMCMC {seconds:.2f} s: design {s['design']:.2f}, Phi and mPhiPhi "
+        f"{s['phi_mphiphi']:.2f}, workspace {s['workspace']:.2f}, chain {s['chain']:.2f}, "
+        f"results {s['results']:.2f} s ({files} files); windows of {every} sweeps "
+        + ", ".join(f"{w:.2f}" for w in rrm["windows"]) + " s")
+    k10, k6, lhs, step = t_k10.ms(), t_k6.ms(), t_lhs.ms(), t_step.ms()
+    bound = k10_bounds(dict(X=data.X, mphiphi=data.mphiphi, Wgrid=data.obs_mask,
+                            obs_mask=data.obs_mask, phi=data.phi))["bound_ms"]
+    say(f"an outer iteration on the device: {step:.3f} ms = K10's call (its draws included) "
+        f"{k10:.3f} ms ({k10 * 1e6 / p:.1f} ns a marker step; bound {bound:.4f} ms) + K6 "
+        f"{k6:.3f} ms a pass + the LHS {lhs:.3f} ms + the rest {step - k10 - k6 - lhs:.3f} ms")
+    budget = x_bytes + w_bytes + wtw_bytes + 4e9
+    say(f"peak device memory {peak / 1e9:.2f} GB (X {x_bytes / 1e9:.2f} + W and W' "
+        f"{w_bytes / 1e9:.3f} + W'W {wtw_bytes / 1e9:.2f} + 4 GB = {budget / 1e9:.2f} allowed)")
+    acc = trajectory_accuracy(out, prob["U"], geno.obs_ids, prob["times"])
+    pe = float(out["random effect variances y:ID"].Estimate[0])
+    vare = float(out["residual variance"].Estimate[0])
+    say(f"trajectory EBV accuracy {acc:.4f} (floor {RRM_ACC_FLOOR}); pe variance {pe:.4f} "
+        f"(truth {prob['pe_var']:.4f}); residual variance {vare:.4f} (truth "
+        f"{prob['sig'] ** 2:.4f}); pi {np.round(np.asarray(out['pi_geno'].Estimate), 4).tolist()}"
+        f"; launches {{K10: {counts['sweep_rrm_abc']}, K6: {counts[K6]}}}")
+    finite = all(np.isfinite(np.asarray(t[col], dtype=np.float64)).all()
+                 for key, t in out.items() if not key.startswith("_")
+                 for col in ("Estimate", "EBV") if col in t.columns)
+    if counts["sweep_rrm_abc"] == 0 or counts[K6] == 0:
+        raise AssertionError(f"phase 14: a kernel never launched: {counts}")
+    if not finite:
+        raise AssertionError("phase 14: a posterior mean is not finite")
+    if peak > budget:
+        raise AssertionError(f"phase 14: peak {peak / 1e9:.2f} GB above {budget / 1e9:.2f}")
+    if not acc >= RRM_ACC_FLOOR:
+        raise AssertionError(f"phase 14: trajectory accuracy {acc:.4f} < {RRM_ACC_FLOOR}")
+    del out, prob, geno, model, data, keep
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rrm_sim(seed=3, nind=250, p=100, ntimes=5, c=2, miss=0.15):
+    """tests/test_rrm.py's _rrm_sim in numpy: (table, X (nind, p), U,
+    ids, times, Phi)."""
+    import jwas_tpu_torch as jt
+
+    rng = np.random.default_rng(seed)
+    freqs = rng.uniform(0.1, 0.9, p)
+    X = rng.binomial(2, freqs[None, :], size=(nind, p)).astype(float)
+    times = np.arange(1.0, ntimes + 1)
+    phi = jt.generate_full_phi(times, ncoeff=c)
+    effects = np.zeros((c, p))
+    qtl = rng.choice(p, 10, replace=False)
+    effects[:, qtl] = rng.normal(0, 1.0, (c, 10))
+    U = phi @ (effects @ (X - X.mean(axis=0)).T)
+    sig = U.std()
+    ids = [f"i{k}" for k in range(nind)]
+    rows = [(ik, ti, 1.0 + 0.3 * tval + U[ti, ik] + rng.normal(0, sig))
+            for ti, tval in enumerate(times) for ik in range(nind) if rng.uniform() >= miss]
+    ind = np.array([r[0] for r in rows])
+    t_idx = np.array([r[1] for r in rows])
+    y = np.array([r[2] for r in rows])
+    return rrm_table(ids, ind, t_idx, times, y), X, U, ids, times, phi
+
+
+def rrm_pedigree_sim(seed=4, n_founders=30, gen_size=60, n_gen=2, p=60, n_qtl=8,
+                     ntimes=4):
+    """test_rrm_with_pedigree_polygenic_effect's design: a pedigree
+    (phase9_pedigree), genotypes gene-dropped from Binomial(2, f) founders,
+    TBV from n_qtl QTL at h2 0.5, each animal recorded on ntimes days, y =
+    1 + TBV + N(0, 1). Returns (table, X, TBV, Pedigree, ids, times, Phi)."""
+    import jwas_tpu_torch as jt
+
+    rng = np.random.default_rng(seed)
+    ids, sire, dam, _ = phase9_pedigree(n_founders, [gen_size] * n_gen, seed)
+    n = len(ids)
+    f = rng.uniform(0.1, 0.9, p)
+    hap = np.zeros((n, 2, p), dtype=np.int64)
+    hap[:n_founders] = rng.uniform(size=(n_founders, 2, p)) < f
+    for i in range(n_founders, n):
+        for k, par in enumerate((sire[i], dam[i])):
+            hap[i, k] = hap[par, rng.integers(0, 2, p), np.arange(p)]
+    X = hap.sum(1).astype(float)
+    beta = np.zeros(p)
+    beta[rng.choice(p, n_qtl, replace=False)] = rng.normal(size=n_qtl)
+    tbv = (X - X.mean(0)) @ beta
+    tbv *= 1.0 / tbv.std()
+    times = np.arange(1.0, ntimes + 1)
+    ind = np.repeat(np.arange(n), ntimes)
+    t_idx = np.tile(np.arange(ntimes), n)
+    y = 1.0 + tbv[ind] + rng.normal(0.0, 1.0, len(ind))
+    ped = jt.get_pedigree(pedigree_table(ids, sire, dam))
+    return (rrm_table(list(ids), ind, t_idx, times, y), X, tbv, ped, list(ids), times,
+            jt.generate_full_phi(times, ncoeff=2))
+
+
+def phase14b(dev, n_iter=600, n_iter_ped=200, n_f64=100):
+    """Phase 14b: the card against the CPU; see the module's docstring."""
+    import jwas_tpu_torch as jt
+
+    say(f"== phase 14b: RRM card against CPU at tests/test_rrm.py's shapes, {n_iter} sweeps")
+    table, X, U, ids, times, phi = rrm_sim()
+    ptable, pX, tbv, ped, pids, ptimes, pphi = rrm_pedigree_sim()
+    counts = {}
+
+    def bayesc(d, **kw):
+        g = jt.get_genotypes(X, method="BayesC", device=d,
+                             double_precision=kw.get("double_precision", False))
+        g.obs_ids = list(ids)
+        m = jt.build_model("y = intercept + time + geno", genotypes=g)
+        return m, table, phi, U
+
+    def pedigree(d, **kw):
+        g = jt.get_genotypes(pX, method="RR-BLUP", device=d)
+        g.obs_ids = list(pids)
+        m = jt.build_model("y = intercept + ID + geno", genotypes=g)
+        jt.set_random(m, "ID", ped)
+        U_ped = np.broadcast_to(tbv, (len(ptimes), len(pids)))
+        return m, ptable, pphi, U_ped
+
+    for label, make, idset, tset, sweeps in (
+            ("BayesC, y = intercept + time + geno", bayesc, ids, times, n_iter),
+            (f"RR-BLUP, y = intercept + ID + geno, ID on the pedigree, {n_iter_ped} sweeps",
+             pedigree, pids, ptimes, n_iter_ped)):
+        res = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            jt.reset_launches()
+            model, tab, ph, truth = make(d)
+            t0 = time.perf_counter()
+            # the CPU's plain sweep is a loop of small operations: one
+            # thread runs it ~5x faster than the host's cores together
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1 if where == "cpu" else threads)
+            try:
+                out = jt.runMCMC(model, tab, device=d, chain_length=sweeps,
+                                 burnin=sweeps // 4, seed=9, RRM=ph, output_folder="",
+                                 printout_model_info=False)
+            finally:
+                torch.set_num_threads(threads)
+            res[where] = dict(acc=trajectory_accuracy(out, truth, idset, tset),
+                              seconds=time.perf_counter() - t0,
+                              launches={k.__name__: k.launches for k in jt.KERNELS})
+        say(f"{label}: " + "; ".join(f"{w} trajectory accuracy {r['acc']:.4f} "
+                                     f"({r['seconds']:.1f} s)" for w, r in res.items()))
+        if not (np.isfinite(res["card"]["acc"])
+                and res["card"]["acc"] >= res["cpu"]["acc"] - ACC_MARGIN):
+            raise AssertionError(f"phase 14b {label}: card {res['card']['acc']} vs CPU "
+                                 f"{res['cpu']['acc']}")
+        for k in ("sweep_rrm_abc", K6):
+            if res["card"]["launches"][k] == 0:
+                raise AssertionError(f"phase 14b {label}: {k} never launched")
+            counts[k] = counts.get(k, 0) + res["card"]["launches"][k]
+    # the float64 builds of K10 and K6 on the BayesC chain
+    jt.reset_launches()
+    model, tab, ph, truth = bayesc(dev, double_precision=True)
+    out = jt.runMCMC(model, tab, device=dev, chain_length=n_f64, burnin=n_f64 // 4, seed=9,
+                     RRM=ph, double_precision=True, output_folder="", printout_model_info=False)
+    acc = trajectory_accuracy(out, truth, ids, times)
+    n64 = jt.sweep_rrm_abc.launches_f64
+    say(f"float64 BayesC, {n_f64} sweeps: trajectory accuracy {acc:.4f}, K10's float64 "
+        f"build {n64} launches, K6's {jt.gibbs_pass_lambda.launches_f64}")
+    if n64 == 0 or not np.isfinite(acc):
+        raise AssertionError(f"phase 14b float64: launches {n64}, accuracy {acc}")
+    counts["sweep_rrm_abc_f64"] = n64
+    counts[K6 + "_f64"] = jt.gibbs_pass_lambda.launches_f64
+    return counts
+
+
+def phase14(dev):
+    """Phase 14: random regression at full width, then card against CPU."""
+    return {"phase 14a": phase14a(dev), "phase 14b": phase14b(dev)}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -4215,6 +4752,7 @@ def main():
     launches["phase 9c"] = phase9c(dev)
     launches.update(phase10(dev))
     launches.update(phase13(dev))
+    launches.update(phase14(dev))
 
     # launches: phase 3's (run_st, both methods), phase 4's (K6 of the
     # card's chains), phase 5's (runMCMC), phase 6's (runMCMC BayesB;

@@ -27,7 +27,10 @@ location parameters. Single-step (runMCMC(..., single_step_analysis=True,
 pedigree=ped)) imputes the non-genotyped animals' genotypes into the dense
 store and adds the J covariate and the imputation residual epsilon
 (engine/single_step.py, with get_Hi and the APY helpers); solve(model, df,
-solver=...) solves the MME of a model without markers. It imports torch,
+solver=...) solves the MME of a model without markers. runMCMC(model, df,
+RRM=Phi), Phi from generate_full_phi, runs the random regression model of
+a longitudinal trait (test days, growth curves) on a dense store, its
+marker chain the hand-written kernel K10. It imports torch,
 numpy and scipy only; never jax, pandas or jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
@@ -41,7 +44,8 @@ row order, Gram tiles, on a device) and engine.mcmc.run_st (the chain with
 explicit priors). On a CUDA device the chain runs hand-written kernels
 (csrc/), built with nvcc on first use: the BayesC/B or BayesR inner rounds
 (float32 and float64 builds) between two GEMVs, the packed ones on the
-2-bit store, and the location parameters' Gibbs pass (K6). On the CPU
+2-bit store, the location parameters' Gibbs pass (K6), the multi-trait
+chains (K7-K9) and the random-regression chain (K10). On the CPU
 (device="cpu") it runs their plain PyTorch versions. The pedigree's
 inbreeding is host C++ (csrc/pedigree.cpp), built with g++ on first use.
 """
@@ -62,16 +66,17 @@ from jwas_tpu_torch.ops.inner_rounds import (abc_inner_rounds, bayesr_inner_roun
                                              mt_c0l_inner_rounds)
 from jwas_tpu_torch.ops.location import gibbs_pass_lambda
 from jwas_tpu_torch.ops.packed_gemv import packed_matvec, packed_rhs
+from jwas_tpu_torch.ops.rrm import generate_full_phi, sweep_rrm_abc
 
 # jwas_tpu's name for the packed store's preparation (jwas_tpu/__init__.py:44)
 prepare_streaming_genotypes = prepare_packed_genotypes
 
-# the kernel wrappers, each counting its own launches (the inner rounds
-# and K6 also their float64 build's, launches_f64; K7 and K8 their
+# the kernel wrappers, each counting its own launches (the inner rounds,
+# K6 and K10 also their float64 build's, launches_f64; K7 and K8 their
 # per-marker prior's, launches_pm)
 KERNELS = (abc_inner_rounds, bayesr_inner_rounds, packed_rhs, packed_matvec,
            gibbs_pass_lambda, mt_abc_inner_rounds_I, mt_abc_inner_rounds_II,
-           mt_c0l_inner_rounds)
+           mt_c0l_inner_rounds, sweep_rrm_abc)
 
 
 def reset_launches() -> None:
@@ -86,7 +91,8 @@ def reset_launches() -> None:
 __all__ = [
     "Genotypes", "KERNELS", "Model", "Packed2BitStore", "Pedigree", "Table",
     "abc_inner_rounds", "add_genotypes", "bayesr_inner_rounds",
-    "build_grouped_markers", "build_model", "describe", "getMCMCinfo",
+    "build_grouped_markers", "build_model", "describe", "generate_full_phi",
+    "getMCMCinfo",
     "get_genotypes", "get_info", "get_pedigree", "gibbs_pass_lambda",
     "mt_abc_inner_rounds_I", "mt_abc_inner_rounds_II", "mt_c0l_inner_rounds",
     "outputEBV",
@@ -94,5 +100,5 @@ __all__ = [
     "pick_stable_blocks", "prepare_packed_genotypes",
     "prepare_streaming_genotypes", "read_csv", "reset_launches", "runMCMC",
     "run_st", "set_covariate", "set_random", "setup_dense_markers",
-    "setup_markers", "solve",
+    "setup_markers", "solve", "sweep_rrm_abc",
 ]

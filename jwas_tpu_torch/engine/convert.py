@@ -17,7 +17,9 @@ become the port's MTChainState and MTData; the latent traits' and the
 annotations' data and state (latent_data_from_jax, latent_state_from_jax:
 liab, thresholds, the categories, the censoring bounds, A, the probit
 coefficients and their variance, a per-marker pi) come across to either
-engine.
+engine; the random-regression model's data, configuration and state
+(rrm_data_from_jax, rrm_state_from_jax) become the port's RRMCfg, RRMData
+and RRMState.
 """
 
 from __future__ import annotations
@@ -221,3 +223,58 @@ def mt_data_from_jax(data, re_groups, trait_cols, *, group_blocks: int = 0,
         Vinv=tuple(symmetric_upper(t(v)) if g.has_vinv else None
                    for g, v in zip(re_groups, data.Vinv)),
         vc_scale=tuple(t(v) for v in data.vc_scale))
+
+
+def rrm_data_from_jax(data, cfg, *, device="cpu", dtype=torch.float32):
+    """jwas_tpu's RRMData (dense W (n_obs, K), WtW, y, X (nind, p), phi,
+    mphiphi, obs_mask, time_idx, ind_idx, Vinv, vc_scale; numpy or JAX
+    arrays) and its RRMCfg -> the port's (RRMCfg, RRMData) in dtype on
+    device: W and W' as CSR, W'W and each Vinv exactly symmetric, X
+    marker-major (p, nind), each observation's grid cell
+    time_idx * nind + ind_idx. The groups draw their covariance, as
+    jwas_tpu's step does (fault R10)."""
+    import dataclasses
+
+    import scipy.sparse as sp
+
+    from jwas_tpu_torch.engine.mcmc_rrm import RRMCfg, RRMData
+    from jwas_tpu_torch.ops.sparse_mme import csr
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.array(x), dtype=dt).to(device)
+
+    W = sp.csr_matrix(np.asarray(data.W, dtype=np.float64))
+    nind = np.shape(data.obs_mask)[1]
+    cell = (np.asarray(data.time_idx, dtype=np.int64) * nind
+            + np.asarray(data.ind_idx, dtype=np.int64))
+    groups = tuple(REGroupCfg(starts=tuple(g.starts), n_levels=g.n_levels, df=g.df,
+                              has_vinv=g.has_vinv, random_type=g.random_type,
+                              estimate_variance=True) for g in cfg.re_groups)
+    port_cfg = RRMCfg(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(RRMCfg)
+                         if f.name != "re_groups"}, re_groups=groups)
+    return port_cfg, RRMData(
+        W=csr(W, dtype, device), Wt=csr(W.T.tocsr(), dtype, device),
+        WtW=symmetric_upper(t(data.WtW)),
+        X=t(np.ascontiguousarray(np.asarray(data.X).T)), phi=t(data.phi),
+        mphiphi=t(data.mphiphi), obs_mask=t(data.obs_mask),
+        cell=torch.as_tensor(cell).to(device),
+        Vinv=tuple(symmetric_upper(t(v)) if g.has_vinv else None
+                   for g, v in zip(cfg.re_groups, data.Vinv)),
+        vc_scale=tuple(t(v) for v in data.vc_scale))
+
+
+def rrm_state_from_jax(state, *, seed: int = 0, device="cpu", dtype=torch.float32):
+    """jwas_tpu's RRMState (numpy or JAX arrays) -> the port's RRMState in
+    dtype on device, with a generator seeded with seed (the key is JAX's
+    own)."""
+    from jwas_tpu_torch.engine.mcmc_rrm import RRMState
+
+    def t(x):
+        return torch.as_tensor(np.array(x), dtype=dtype).to(device)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return RRMState(gen=gen, sol=t(state.sol), alpha=t(state.alpha), beta=t(state.beta),
+                    delta=t(state.delta), ycorr=t(state.ycorr), vare=t(state.vare),
+                    varg=t(state.varg), pi=t(state.pi),
+                    marker_scale=t(state.marker_scale), vc=tuple(t(v) for v in state.vc))

@@ -67,9 +67,10 @@ import torch
 from jwas_tpu_torch.engine.output import build_results
 from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
 from jwas_tpu_torch.engine.samples_io import STSampleStream
-from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace,
-                                         prepare_workspace, resolve_device)
+from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace, prepare_workspace,
+                                         reject_unported, resolve_device)
 from jwas_tpu_torch.engine.state import ChainState, EngineCfg, REGroupCfg
+from jwas_tpu_torch.engine.validation import validate_args
 from jwas_tpu_torch.io.genotypes import DEFAULT_BAYESR_PI, bayesr_pi  # noqa: F401
 from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
 from jwas_tpu_torch.models.model import Model, describe
@@ -776,8 +777,13 @@ def _read_back(state: ChainState, out: SampleOut, stream, p: int, cg=None) -> Di
                 parts["thresholds"] = state.thresholds
     if cg is not None:
         parts.update(zip(CG_KEYS, cg.tensors()))
-    flat = torch.cat([t.reshape(-1).to(dtype) for t in parts.values()])
-    flat = flat.cpu().numpy()
+    return to_host(parts, dtype)
+
+
+def to_host(parts: Dict[str, torch.Tensor], dtype) -> Dict[str, np.ndarray]:
+    """The tensors of parts on the host in one transfer, as dtype, each in
+    its own shape."""
+    flat = torch.cat([t.reshape(-1).to(dtype) for t in parts.values()]).cpu().numpy()
     host, i = {}, 0
     for k, t in parts.items():
         host[k] = flat[i:i + t.numel()].reshape(t.shape)
@@ -1149,8 +1155,11 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     and BayesR on a dense store). A model of several equations runs the
     multi-trait chain (engine/mcmc_mt.py: BayesC and BayesB on a dense
     store, samplers I and II, the mega-trait constraint, latent traits,
-    2-trait annotated BayesC, or no genotypes). kwargs are MCMCOptions'
-    fields.
+    2-trait annotated BayesC, or no genotypes). RRM=Phi runs the random
+    regression model of a longitudinal trait (engine/mcmc_rrm.py: long
+    data with a 'time' column, BayesC, BayesB, RR-BLUP or BayesL on a dense
+    store, its marker chain K10; the keys of jwas_tpu's RRM results,
+    "EBV_trajectory" among them). kwargs are MCMCOptions' fields.
 
     device: where the chain runs, the GPU unless the caller asks for the
     CPU (device="cpu" runs the kernels' plain versions); without a GPU the
@@ -1165,6 +1174,17 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     NotImplementedError (prepare_workspace checks both, then the device).
     """
     opts = MCMCOptions(**kwargs)
+    if opts.RRM is not None:
+        # jwas_tpu's order (engine/mcmc.py:1441-1470): the ValueErrors of
+        # validate_args, then run_mcmc_rrm, before the multi-trait branch
+        from jwas_tpu_torch.engine.mcmc_rrm import run_mcmc_rrm
+        validate_args(model, opts)
+        reject_unported(opts)
+        device = resolve_device(device)
+        model.mcmc_info = opts
+        if opts.printout_model_info:
+            describe(model)
+        return run_mcmc_rrm(model, df, opts, device)
     if model.n_models != 1:
         from jwas_tpu_torch.engine.mcmc_mt import run_mcmc_mt
         return run_mcmc_mt(model, df, opts, device)

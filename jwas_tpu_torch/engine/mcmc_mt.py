@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from jwas_tpu_torch.engine.mcmc import (LATENT, NoMarkers, annotation_design, chain_plan,
-                                        setup_dense_markers, _welford)
+                                        setup_dense_markers, to_host, _welford)
 from jwas_tpu_torch.engine.output_mt import build_mt_results
 from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
 from jwas_tpu_torch.engine.samples_io import MTSampleStream
@@ -497,13 +497,7 @@ def _read_back(state: MTChainState, out: MTSampleOut, stream, p: int) -> Dict:
         if stream.latent:
             parts["liab"] = state.liab
             parts["thresholds"] = state.thresholds
-    dtype = state.R.dtype
-    flat = torch.cat([x.reshape(-1).to(dtype) for x in parts.values()]).cpu().numpy()
-    host, i = {}, 0
-    for k, x in parts.items():
-        host[k] = flat[i:i + x.numel()].reshape(x.shape)
-        i += x.numel()
-    return host
+    return to_host(parts, state.R.dtype)
 
 
 def apply_update_priors_mt(cfg: MTEngineCfg, data: MTData, accum: MTAccum) -> MTData:

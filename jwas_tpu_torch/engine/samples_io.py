@@ -3,7 +3,9 @@
 Counterpart of jwas_tpu/engine/samples_io.py: MARKER_FILE_MAX_P and
 resolve_write_markers (:29-43), MCMCSampleWriter (:46-91) and the
 single-trait STSampleStream (:98-216) and the multi-trait MTSampleStream
-(:322-437, its files a trait where the single-trait stream has one) for the single-trait methods on the
+(:322-437, its files a trait where the single-trait stream has one) and
+the random-regression RRMSampleStream (:244-310, a marker-effect file a
+Legendre coefficient) for the single-trait methods on the
 2-bit or a dense store or GBLUP's eigenbasis (its pseudo-markers numbered
 "1".."n", :141; the pi row empty for the methods without a pi), or without
 genotypes. One comma-separated file per parameter, MCMC_samples_<var>.txt
@@ -246,3 +248,67 @@ class MTSampleStream(STSampleStream):
                 w.write("genetic_variance", host["genvar"])
                 w.write("heritability", host["h2"])
         self.write_latent(host)
+
+
+class RRMSampleStream:
+    """Random-regression sample files (jwas_tpu's RRMSampleStream,
+    samples_io.py:244-310; MCMC_BayesianAlphabet_RRM.jl:99,201): the
+    residual variance, the location terms of outputMCMCsamples, each
+    random-effect group's covariance, the marker effects a Legendre
+    coefficient (marker_effects_<geno>_coeff<k>, marker IDs as the
+    header), the c x c marker covariance (coefficient-pair header) and pi
+    over the 2^c labels (no header). Disabled when output_folder is
+    empty."""
+
+    def __init__(self, model, geno, cfg, opts):
+        self.enabled = bool(opts.output_folder)
+        self.writer = None
+        self.loc_slices = []
+        self.write_markers = False
+        if not self.enabled:
+            return
+        self.geno_name = geno.name
+        self.ncoeff = cfg.ncoeff
+        trait = model.lhs_vec[0]
+        w = MCMCSampleWriter(opts.output_folder)
+        w.register("residual_variance", _trait_pair_header([trait]))
+        for trm_str in model.output_samples_terms:
+            trm = model.term_dict.get(trm_str)
+            if trm is None:
+                continue
+            w.register(trm_str, [f"{trm_str}:{s}" for s in trm.names])
+            self.loc_slices.append((trm_str, trm.start_pos, trm.n_levels))
+        self.re_vars = []
+        for grp in model.random_effects:
+            var = "_".join(grp.term_array) + "_variances"
+            w.register(var, _trait_pair_header(list(grp.term_array)))
+            self.re_vars.append(var)
+        self.write_markers = resolve_write_markers(cfg.n_markers, opts.output_marker_samples)
+        coeffs = [f"coeff{i + 1}" for i in range(cfg.ncoeff)]
+        if self.write_markers:
+            for cname in coeffs:
+                w.register(f"marker_effects_{geno.name}_{cname}", geno.marker_ids)
+        w.register(f"marker_effects_variances_{geno.name}", _trait_pair_header(coeffs))
+        w.register(f"pi_{geno.name}")
+        self.writer = w
+
+    def write_sample(self, host: Dict[str, np.ndarray]) -> None:
+        """One saved sample: host holds vare, varg (c, c), pi and, as the
+        stream asked, sol, alpha (c, p) and the group covariances vc<g>."""
+        if not self.enabled:
+            return
+        w = self.writer
+        w.write("residual_variance", host["vare"])
+        for trm_str, start, nlev in self.loc_slices:
+            w.write(trm_str, host["sol"][start:start + nlev])
+        for g, var in enumerate(self.re_vars):
+            w.write(var, host[f"vc{g}"])
+        if self.write_markers:
+            for i in range(self.ncoeff):
+                w.write(f"marker_effects_{self.geno_name}_coeff{i + 1}", host["alpha"][i])
+        w.write(f"marker_effects_variances_{self.geno_name}", host["varg"])
+        w.write(f"pi_{self.geno_name}", host["pi"])
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()

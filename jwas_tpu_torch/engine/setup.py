@@ -113,7 +113,7 @@ class MCMCOptions:
 _UNPORTED = {
     "n_chains": (1, "ops layer"), "mesh": (None, "multi-GPU"),
     "checkpoint_frequency": (0, "ops layer"), "resume": (False, "ops layer"),
-    "RRM": (None, "RRM"), "use_pallas": ("auto", "ground rules for the port"),
+    "use_pallas": ("auto", "ground rules for the port"),
 }
 SPARSE_LEVELS = 20_000      # a single-trait model above this many location
                             # levels takes the sparse path on its own

@@ -31,8 +31,8 @@ freed once G exists.
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass, field
-from typing import List, Optional, Union
+from dataclasses import dataclass, field, replace
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -90,6 +90,26 @@ class Genotypes:
     starting_alpha: Optional[np.ndarray] = None  # (p,) starting marker effects
     multi_trait_sampler: str = "I"   # "auto" | "I" | "II" (MTBayesABC.jl:20-25;
                                      # "auto" runs sampler I, as jwas_tpu does)
+
+    def aligned_to(self, obs_ids: Sequence[str]) -> "Genotypes":
+        """This marker set with the dense store's columns in the order of
+        obs_ids (align_genotypes, tools4genotypes.jl:288-323; jwas_tpu's
+        Genotypes.aligned_to, io/genotypes.py:96): the marker-major
+        (p, len(obs_ids)) store, each marker's row contiguous, on the
+        store's device; the store itself when the order is already its own
+        (no copy). A set without a dense store, or an ID without genotypes,
+        raises ValueError."""
+        if self.dense is None:
+            raise ValueError("aligned_to takes a dense store")
+        index = {s: i for i, s in enumerate(self.obs_ids)}
+        try:
+            rows = np.array([index[s] for s in obs_ids], dtype=np.int64)
+        except KeyError as e:
+            raise ValueError(f"individual {e} has no genotypes") from None
+        same = len(rows) == len(self.obs_ids) and np.array_equal(rows, np.arange(len(rows)))
+        dense = self.dense if same else self.dense[:, torch.as_tensor(
+            rows, device=self.dense.device)]
+        return replace(self, obs_ids=list(obs_ids), n_obs=len(rows), dense=dense)
 
 
 def bayesr_pi(Pi) -> np.ndarray:

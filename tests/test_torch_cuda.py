@@ -937,3 +937,85 @@ def test_mt_rr_blup_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
         got, want = np.asarray(outs["kernel"][key][col]), np.asarray(outs["plain"][key][col])
         assert np.isfinite(got).all()
         np.testing.assert_array_equal(got, want, err_msg=key)
+
+
+# K10 (nind, ntimes, c, p): phase 14's shape and a ragged nind, one block
+# with n < 64 individuals, 32 time points at c = 5, one time point at c = 1
+K10_CASES = ((10_000, 10, 3, 256), (9_999, 10, 3, 128), (37, 3, 2, 64),
+             (2_000, 32, 5, 64), (500, 1, 1, 100))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("estimate_delta", [True, False], ids=["BayesC", "RR-BLUP"])
+def test_rrm_sweep_kernel_matches_plain(cuda, dtype, estimate_delta):
+    """K10 against its plain version on the same inputs and draws
+    (chip_smoke.check_k10's tolerances: tests/test_pallas_sweep.py:42-45 in
+    float32, every delta equal in float64; a second launch bit for bit)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    for seed, (nind, ntimes, c, p) in enumerate(K10_CASES):
+        chip_smoke.check_k10(nind, ntimes, c, p, cuda, dtype, estimate_delta, seed=60 + seed)
+
+
+def test_rrm_sweep_limits_on_the_card(cuda):
+    """A block's slice above its shared memory, c above 5 and ntimes above
+    32 are refused by sweep_limit_error (and so by the wrapper and at
+    runMCMC's set-up)."""
+    from jwas_tpu_torch.ops.rrm import sweep_limit_error
+
+    assert sweep_limit_error(10_000, 10, 3, torch.float32, cuda) is None
+    assert "shared memory" in sweep_limit_error(5_000_000, 32, 3, torch.float64, cuda)
+    assert "coefficients" in sweep_limit_error(100, 10, 6, torch.float32, cuda)
+    assert "time points" in sweep_limit_error(100, 33, 3, torch.float32, cuda)
+
+
+def test_rrm_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
+    """runMCMC(RRM=Phi) on the card, float64, BayesC with an i.i.d.
+    permanent-environment effect: K10 against the same chain with K10's
+    wrapper replaced by its plain version on the card (the same draws from
+    the same generator): the same results within 1e-8."""
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.engine import mcmc_rrm
+    from jwas_tpu_torch.ops import rrm
+
+    rng = np.random.default_rng(5)
+    n, p, ntimes, c = 300, 120, 6, 3
+    X = rng.binomial(2, rng.uniform(0.1, 0.9, p), size=(n, p)).astype(np.float64)
+    times = np.arange(1.0, ntimes + 1)
+    phi = jt.generate_full_phi(times, c)
+    eff = rng.normal(size=(c, p)) * (rng.uniform(size=p) < 0.1)
+    U = phi @ (eff @ (X - X.mean(0)).T)
+    keep = rng.uniform(size=(ntimes, n)) >= 0.15
+    t_idx, i_idx = np.nonzero(keep.T)[1], np.nonzero(keep.T)[0]
+    y = 1.0 + 0.3 * times[t_idx] + U[t_idx, i_idx] + rng.normal(0, U.std(), len(t_idx))
+    ids = np.array([f"i{k}" for k in range(n)], dtype=object)
+    table = jt.Table({"ID": ids[i_idx], "time": times[t_idx], "y": y})
+
+    def plain(X, phi, mpp, mask, alpha, W, vare, Ginv, log_pi, gen, estimate_delta=True,
+              gumbel=None, zs=None):
+        gumbel, zs = rrm.draw_sweep_normals(gen, X.shape[0], phi.shape[1], W, estimate_delta)
+        return rrm.sweep_rrm_abc_ref(X, phi, mpp, mask, alpha, W, vare, Ginv, log_pi,
+                                     gumbel, zs, estimate_delta)
+
+    outs = {}
+    n0 = rrm.sweep_rrm_abc.launches_f64
+    for how in ("kernel", "plain"):
+        if how == "plain":
+            assert rrm.sweep_rrm_abc.launches_f64 > n0
+            monkeypatch.setattr(mcmc_rrm, "sweep_rrm_abc", plain)
+        geno = jt.get_genotypes(X, method="BayesC", device=cuda, double_precision=True)
+        geno.obs_ids = list(ids)
+        model = jt.build_model("y = intercept + time + ID + geno", genotypes=geno)
+        jt.set_covariate(model, "time")
+        jt.set_random(model, "ID", 0.5)
+        outs[how] = jt.runMCMC(model, table, device=cuda, chain_length=60, burnin=10,
+                               output_samples_frequency=5, seed=3, RRM=phi,
+                               double_precision=True, output_folder="",
+                               printout_model_info=False)
+    for key, col in (("EBV_trajectory", "EBV"), ("marker effects geno", "Estimate"),
+                     ("residual variance", "Estimate"), ("pi_geno", "Estimate"),
+                     ("random effect variances y:ID", "Estimate")):
+        got, want = np.asarray(outs["kernel"][key][col]), np.asarray(outs["plain"][key][col])
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10, err_msg=key)

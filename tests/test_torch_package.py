@@ -85,14 +85,14 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok": true' not in proc.stdout
 
 
-# jwas_tpu's public names that ROADMAP.md Queue 1 items 10-11 bring
-NOT_YET = {"GWAS", "dataset", "generate_full_phi", "PSRF",
-           "PSRF_per_parameter", "traceplot", "LOOCV", "lsmeans", "getEBV"}
+# jwas_tpu's public names that ROADMAP.md Queue 1 item 11 brings
+NOT_YET = {"GWAS", "dataset", "PSRF", "PSRF_per_parameter", "traceplot", "LOOCV",
+           "lsmeans", "getEBV"}
 
 
 def test_public_names_match_jwas_tpu():
     """Every name of jwas_tpu.__all__ is an attribute of the port, but for
-    the nine that ROADMAP.md Queue 1 items 10-11 bring; add_genotypes warns
+    the eight that ROADMAP.md Queue 1 item 11 brings; add_genotypes warns
     that it is deprecated."""
     import warnings
 
@@ -148,6 +148,15 @@ def _refusals(monkeypatch):
                  "use_pallas": True}[name]
         extra = {"pedigree": object()} if name == "single_step_analysis" else {}
         expect(lambda: run("y1 = intercept + geno", **{name: value}, **extra))
+    # RRM: checkpoints (the ops layer) and K10's limits, on long data
+    long = jt.Table({"ID": np.repeat(table["ID"], 3), "time": np.tile([1.0, 2.0, 3.0], 30),
+                     "y1": rng.normal(size=90)})
+    for phi, extra in ((jt.generate_full_phi([1.0, 2.0, 3.0], 2), {"checkpoint_frequency": 2}),
+                       (jt.generate_full_phi([1.0, 2.0, 3.0], 6), {})):
+        expect(lambda: jt.runMCMC(
+            jt.build_model("y1 = intercept + geno", genotypes=jt.get_genotypes(
+                X, device="cpu")), long, device="cpu", chain_length=4, output_folder="",
+            printout_model_info=False, RRM=phi, **extra))
     expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", method="RR-BLUP",
                        fast_blocks=4096))
     expect(lambda: run("y1 = intercept + geno\ny2 = intercept + geno", fast_blocks=4096))
