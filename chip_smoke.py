@@ -58,13 +58,22 @@ Phases, each printed as it ends:
      K10, the random-regression marker chain, at phase 14's shape (nind
      10,000 and a ragged 9,999, 10 test days, c = 3, p = 256, the same
      draws fed to both) for BayesC's labels and the RR-BLUP form, at c = 1
-     and 5 and at one block of 37 individuals, float32 and float64: alpha
-     and beta within rtol 1e-5, atol 1e-6, the grid within rtol 1e-4, atol
-     1e-5 (float64: 1e-10 / 1e-12, 1e-9 / 1e-11), delta equal on >= 99.9%
-     of the markers (float64: all), a second launch bit for bit, the plain
-     version's ms at p = 256; then K10 alone at phase 14's full shape
-     (p = 50,000, X 2.0 GB in float32): ms a sweep, ns a step, its byte
-     bound, and the registers and spills of its ten instantiations;
+     and 5, at one block of 37 individuals, and at p ragged against its
+     chunk b (4 b + 1, 37 < b; float64 c = 5 over two chunks and a ragged
+     third), and above phase 14's herd (40,000, 100,000 at c = 5, 300,000
+     and the most individuals it takes: its genotype rows read in tiles
+     of individuals, chunks down to b = 1; the plan asserted), float32
+     and float64: alpha and beta within rtol 1e-5, atol
+     1e-6, the grid within rtol 1e-4, atol 1e-5 (float64: 1e-10 / 1e-12,
+     1e-9 / 1e-11), delta equal on >= 99.9% of the markers (float64: all),
+     a second launch bit for bit, the plain version's ms at p = 256; then
+     K10 alone at phase 14's full shape (p = 50,000, X 2.0 GB in float32):
+     ms a sweep, ns a marker, its byte bound, the chunk b, the
+     cross-Grams' build seconds and bytes, the probes (a chunk's exchange
+     and fixed cost, the wait and the partials' loads in it, the next
+     chunk's inputs alone, the chain's ns a marker), the most individuals
+     it takes at 10 time points (raises below the first design's 547,000
+     / 283,000), and the registers and spills of its ten instantiations;
   3. the main paths at full width: a 2-bit store of N = 50,000 x
      P = 2,097,152 generated on the device, its Gram tiles, then run_st
      (single-trait, b = 128, gb = 128, nreps = 128, sync_every = 8) for
@@ -253,8 +262,9 @@ Phases, each printed as it ends:
      effects, noise sd = sd(U), a permanent-environment effect of sd 0.8
      sd(U); y = intercept + time + ID + geno with time a covariate and ID
      i.i.d. (test_rrm_with_iid_random_effect's model, K = 10,002), BayesC,
-     3 windows of 32 sweeps, files written: seconds by part (data, Phi and
-     mPhiPhi, workspace, chain, results), a window's seconds, an outer
+     3 windows of 128 sweeps (32 until K10's chunked design), files
+     written: seconds by part (data, Phi, mPhiPhi and K10's cross-Grams,
+     workspace, chain, results), a window's seconds, an outer
      iteration's device ms by part (K10's call, K6's pass, the LHS, the
      rest; CUDA events), K10's ns a marker step against its bound, peak
      memory, the trajectory EBVs' accuracy against the simulated U; raises
@@ -1447,19 +1457,39 @@ def k10_bounds(inp):
                 bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
 
 
-def check_k10(nind, ntimes, c, p, dev, dtype=torch.float32, estimate_delta=True, seed=41):
+def k10_cross_grams(inp, dev, max_chunk=64):
+    """K10's chunk b for the call's shape (sweep_chunk, at most
+    max_chunk), its cross-Grams built and packed (build_rrm_cross_grams,
+    pack_cross_grams) and the seconds they took."""
+    from jwas_tpu_torch.ops.rrm import build_rrm_cross_grams, pack_cross_grams, sweep_chunk
+
+    nind = inp["X"].shape[1]
+    ntimes, c = inp["phi"].shape
+    b = sweep_chunk(nind, ntimes, c, inp["X"].dtype, dev, max_chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cg = pack_cross_grams(build_rrm_cross_grams(inp["X"], inp["phi"], inp["obs_mask"], b))
+    torch.cuda.synchronize()
+    return b, cg, time.perf_counter() - t0
+
+
+def check_k10(nind, ntimes, c, p, dev, dtype=torch.float32, estimate_delta=True, seed=41,
+              max_chunk=64):
     """K10 (ops/rrm.py::sweep_rrm_abc) against its plain version
     (sweep_rrm_abc_ref) on the card, the same draws fed to both: alpha and
     beta within rtol 1e-5, atol 1e-6 and the grid within rtol 1e-4, atol
     1e-5 (tests/test_pallas_sweep.py:42-45) in float32, 1e-10 / 1e-12 and
     1e-9 / 1e-11 in float64; delta equal on >= DELTA_AGREE of the markers
     in float32, on all in float64; a second launch equal bit for bit; the
-    plain version's ms (host clock around the synchronised call)."""
+    plain version's ms (host clock around the synchronised call); the
+    chunk b (at most max_chunk), the cross-Grams' build seconds and
+    bytes."""
     from jwas_tpu_torch.ops.rrm import sweep_rrm_abc, sweep_rrm_abc_ref
 
     inp = rrm_inputs(nind, ntimes, c, p, seed, dev, dtype, estimate_delta=estimate_delta)
     args = [inp[k] for k in K10_ORDER]
-    kw = dict(estimate_delta=estimate_delta, gumbel=inp["gumbel"], zs=inp["zs"])
+    b, cg, cg_s = k10_cross_grams(inp, dev, max_chunk)
+    kw = dict(estimate_delta=estimate_delta, gumbel=inp["gumbel"], zs=inp["zs"], cross_grams=cg)
     got = sweep_rrm_abc(*args, None, **kw)
     grid = sweep_rrm_abc.last_grid
     again = sweep_rrm_abc(*args, None, **kw)
@@ -1471,7 +1501,8 @@ def check_k10(nind, ntimes, c, p, dev, dtype=torch.float32, estimate_delta=True,
     rtol, atol, grtol, gatol = K10_RTOL[dtype]
     name = str(dtype).replace("torch.", "")
     label = (f"K10 {'BayesC' if estimate_delta else 'RR-BLUP'} {name} nind={nind} "
-             f"ntimes={ntimes} c={c} p={p} (blocks, individuals a block) = {grid}")
+             f"ntimes={ntimes} c={c} p={p} (blocks, individuals a block, chunk b, tile of "
+             f"individuals) = {grid}")
     agree = (got[2] == want[2]).all(0).double().mean().item()
     need = DELTA_AGREE if dtype == torch.float32 else 1.0
     errs = [(got[k] - want[k]).abs().max().item() for k in range(4)]
@@ -1480,35 +1511,53 @@ def check_k10(nind, ntimes, c, p, dev, dtype=torch.float32, estimate_delta=True,
     if agree == 1.0:
         ok = ok and all(torch.allclose(got[k], want[k], rtol=rtol, atol=atol) for k in (0, 1))
         ok = ok and torch.allclose(got[3], want[3], rtol=grtol, atol=gatol)
+    cg_bytes = cg.numel() * cg.element_size()
     label += (f": delta agreement {agree:.5f} (need {need}), max |err| alpha {errs[0]:.3g}, "
               f"beta {errs[1]:.3g}, grid {errs[3]:.3g} (rtol / atol {rtol} / {atol}, grid "
               f"{grtol} / {gatol}); a second launch {'equal' if same else 'DIFFERENT'} bit "
-              f"for bit; plain {plain:.1f} ms")
+              f"for bit; plain {plain:.1f} ms; cross-Grams {cg_bytes / 1e6:.2f} MB in "
+              f"{cg_s:.4f} s")
     if not ok:
         raise AssertionError(label)
     say(label)
     return dict(max_abs_err=max(errs[0], errs[1]), grid_max_abs_err=errs[3],
-                delta_agreement=agree, plain_ms=plain, plain_p=p)
+                delta_agreement=agree, plain_ms=plain, plain_p=p, chunk=b, grid=grid)
 
 
-def time_k10(nind, ntimes, c, p, dev, dtype, seed=51):
+def time_k10(nind, ntimes, c, p, dev, dtype, seed=51, max_chunk=64):
     """K10 alone at a full shape: device ms a sweep (3 launches after a
-    warm-up), ns a step, its bound; two launches equal bit for bit, every
-    output finite."""
-    from jwas_tpu_torch.ops.rrm import sweep_rrm_abc
+    warm-up), ns a marker, its bound; two launches equal bit for bit, every
+    output finite; the chunk b (at most max_chunk), the cross-Grams' build
+    seconds and bytes (beside the bound, not in it); and the probes (ops/rrm.py::_launch's bits): a
+    chunk's fixed cost without its chain and without the next chunk's
+    inputs (the update, the partial sums, the exchange), of it the wait on
+    the counter and the loads of the blocks' partials, the next chunk's
+    inputs alone, and the chain's ns a marker (the sweep less the fixed
+    cost, over p)."""
+    from jwas_tpu_torch.ops import rrm
 
     inp = rrm_inputs(nind, ntimes, c, p, seed, dev, dtype)
     args = [inp[k] for k in K10_ORDER]
-    kw = dict(gumbel=inp["gumbel"], zs=inp["zs"])
-    a, b = sweep_rrm_abc(*args, None, **kw), sweep_rrm_abc(*args, None, **kw)
-    if not (all(torch.equal(x, y) for x, y in zip(a, b))
+    b, cg, cg_s = k10_cross_grams(inp, dev, max_chunk)
+    kw = dict(gumbel=inp["gumbel"], zs=inp["zs"], cross_grams=cg)
+    a, b2 = rrm.sweep_rrm_abc(*args, None, **kw), rrm.sweep_rrm_abc(*args, None, **kw)
+    if not (all(torch.equal(x, y) for x, y in zip(a, b2))
             and all(bool(torch.isfinite(x).all()) for x in a)):
         raise AssertionError(f"K10 at nind={nind} p={p}: two launches differ or a draw "
                              f"is not finite")
-    del a, b
-    ms = cuda_ms(lambda: sweep_rrm_abc(*args, None, **kw), 3)
-    rec = dict(ms=ms, step_ns=ms * 1e6 / p, **k10_bounds(inp))
-    del inp, args
+    del a, b2
+    ms = cuda_ms(lambda: rrm.sweep_rrm_abc(*args, None, **kw), 3)
+    probe = {bits: cuda_ms(lambda: rrm._launch(args[0], args[1], args[2], cg, *args[3:],
+                                               inp["gumbel"], inp["zs"], True, bits), 3)
+             for bits in (1, 9, 11, 15)}
+    nq = -(-p // b)
+    rec = dict(ms=ms, step_ns=ms * 1e6 / p, chunk=b, cross_gram_s=cg_s,
+               cross_gram_bytes=cg.numel() * cg.element_size(),
+               chunk_us=probe[9] * 1e3 / nq, wait_us=(probe[9] - probe[11]) * 1e3 / nq,
+               loads_us=(probe[11] - probe[15]) * 1e3 / nq,
+               prepare_us=(probe[1] - probe[9]) * 1e3 / nq,
+               chain_ns=(ms - probe[9]) * 1e6 / p, **k10_bounds(inp))
+    del inp, args, cg
     torch.cuda.empty_cache()
     return rec
 
@@ -1537,13 +1586,63 @@ def k10_registers(log):
     return sorted(rows)
 
 
+def k10_edge(ntimes, c, dtype, dev):
+    """The most individuals K10 takes on this card at ntimes and c
+    (ops/rrm.py::sweep_limit_error, bisected)."""
+    from jwas_tpu_torch.ops.rrm import sweep_limit_error
+
+    lo, hi = 64, 1 << 24
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if sweep_limit_error(mid, ntimes, c, dtype, dev) is None:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+# K10 above phase 14's herd (nind, ntimes, c, p; nind None: the most
+# individuals K10 takes, k10_edge): a block's genotype rows of a chunk
+# beyond its shared memory, so read in tiles of individuals; the last two
+# with a chunk b below phase 14's herd's (on an H100: 32 and 1 in float32,
+# 8 and 1 in float64), p ragged against b
+K10_LARGE = ((40_000, 10, 3, 130), (100_000, 10, 5, 37), (300_000, 10, 3, 40),
+             (None, 10, 3, 5))
+
+
+def check_k10_large(dev, dtype, estimate_delta=True, seed=70):
+    """check_k10 at K10_LARGE's herds; raises unless each launch's plan
+    read the rows in tiles (its tile below the slice) and the last two
+    took a chunk b below the one at 10,000 individuals. Returns the
+    records."""
+    from jwas_tpu_torch.ops.rrm import sweep_chunk
+
+    recs = []
+    for i, (nind, ntimes, c, p) in enumerate(K10_LARGE):
+        nind = nind or k10_edge(ntimes, c, dtype, dev)
+        rec = check_k10(nind, ntimes, c, p, dev, dtype, estimate_delta, seed=seed + i)
+        _, slice_, b, xt = rec["grid"]
+        if xt >= slice_ or (i >= 2 and b >= sweep_chunk(10_000, ntimes, c, dtype, dev)):
+            raise AssertionError(f"K10 at nind={nind} c={c}: plan {rec['grid']} does not read "
+                                 f"the rows in tiles or keeps the chunk of 10,000 individuals")
+        recs.append(dict(rec, nind=nind))
+    return recs
+
+
 def phase2_k10(dev, nind=10_000, ntimes=10, p=50_000):
     """K10 at phase 14's shape, c = 3, p = 256 markers (and a ragged nind
-    - 1), BayesC and RR-BLUP, float32 and float64; c = 1 and c = 5; then
-    timed at phase 14's full shape (p = 50,000: X 2.0 GB in float32) in
-    both builds: ms a sweep, ns a step, the bound; the plain version's ms
-    at p = 256; registers and spills of every instantiation."""
+    - 1), BayesC and RR-BLUP, float32 and float64; c = 1 and c = 5; p
+    ragged against the chunk b (4 b + 1 and 37 < b; float64 c = 5 over
+    two chunks and a ragged third); above phase 14's herd, the rows read
+    in tiles and smaller chunks (check_k10_large); then timed at phase
+    14's full shape
+    (p = 50,000: X 2.0 GB in float32) in both builds: ms a sweep, ns a
+    marker, the bound, the cross-Grams, the probes (time_k10); the plain
+    version's ms at p = 256; the most individuals it takes at 10 time
+    points (no fewer than the first design's); registers and spills of
+    every instantiation."""
     from jwas_tpu_torch import _build
+    from jwas_tpu_torch.ops.rrm import sweep_chunk
 
     recs = {}
     for dtype, name in ((torch.float32, "sweep_rrm_abc"), (torch.float64, "sweep_rrm_abc_f64")):
@@ -1556,14 +1655,39 @@ def phase2_k10(dev, nind=10_000, ntimes=10, p=50_000):
             check_k10(nind, ntimes, c, 256, dev, dtype, seed=44 + c)
             check_k10(nind - 1, ntimes, c, 256, dev, dtype, estimate_delta=False, seed=46 + c)
         check_k10(37, 3, 2, 64, dev, dtype, seed=50)            # one block, n < 64
+        b = rec["chunk"]
+        check_k10(nind, ntimes, 3, 4 * b + 1, dev, dtype, seed=52)         # p ragged against b
+        check_k10(nind, ntimes, 3, 37, dev, dtype, estimate_delta=False, seed=53)   # p < b
+        if dtype == torch.float64:
+            b5 = sweep_chunk(nind, ntimes, 5, dtype, dev)
+            check_k10(nind, ntimes, 5, 2 * b5 + 7, dev, dtype, seed=54)
+        # above phase 14's herd: the rows read in tiles, smaller chunks
+        rec["large_herds"] = [dict(nind=r["nind"], grid=r["grid"])
+                              for r in check_k10_large(dev, dtype)]
+        check_k10_large(dev, dtype, estimate_delta=False, seed=80)
         rec.update(time_k10(nind, ntimes, 3, p, dev, dtype))
         rec["full_shape"] = dict(nind=nind, ntimes=ntimes, c=3, p=p)
-        say(f"K10 {name} at phase 14's shape (nind {nind}, ntimes {ntimes}, c 3, p {p}): "
-            f"{rec['ms']:.3f} ms a sweep, {rec['step_ns']:.1f} ns a step, bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.2%} "
-            f"of it reached); plain {rec['plain_ms']:.1f} ms at p = 256")
+        say(f"K10 {name} at phase 14's shape (nind {nind}, ntimes {ntimes}, c 3, p {p}, "
+            f"chunk b = {rec['chunk']}): {rec['ms']:.3f} ms a sweep, {rec['step_ns']:.1f} ns "
+            f"a marker, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+            f"{rec['bound_ms'] / rec['ms']:.2%} of it reached); cross-Grams "
+            f"{rec['cross_gram_bytes'] / 1e6:.1f} MB built in {rec['cross_gram_s']:.4f} s "
+            f"(beside the bound, not in it); plain {rec['plain_ms']:.1f} ms at p = 256")
+        say(f"K10 {name} probes: a chunk's exchange and fixed cost {rec['chunk_us']:.2f} us "
+            f"(the wait on the counter {rec['wait_us']:.2f}, the loads of the blocks' partials "
+            f"{rec['loads_us']:.2f}), the next chunk's inputs alone {rec['prepare_us']:.2f} us "
+            f"(hidden by the chain), the chain {rec['chain_ns']:.1f} ns a marker")
         recs[name] = rec
         torch.cuda.empty_cache()
+    for (dtype, name), first in zip(((torch.float32, "sweep_rrm_abc"),
+                                      (torch.float64, "sweep_rrm_abc_f64")), (547_000, 283_000)):
+        edge = k10_edge(ntimes, 3, dtype, dev)
+        say(f"K10 {name}: the most individuals it takes at {ntimes} time points, c = 3: {edge:,} "
+            f"(the first design's: {first:,})")
+        if edge < first:
+            raise AssertionError(f"K10 {name} refuses {first} individuals, which its first "
+                                 f"design took")
+        recs[name]["edge_individuals"] = edge
     regs = k10_registers(_build.build_log)
     for dtype, c, r, st, ld in regs:
         say(f"K10 {dtype} c={c}: {r} registers, {st} / {ld} bytes spill stores / loads")
@@ -4485,7 +4609,7 @@ def trajectory_accuracy(out, U, ids, times):
     return float(np.corrcoef(got.reshape(-1), U.reshape(-1))[0, 1])
 
 
-def phase14a(dev, n=10_000, ntimes=10, p=50_000, c=3, chain_length=96, every=32):
+def phase14a(dev, n=10_000, ntimes=10, p=50_000, c=3, chain_length=384, every=128):
     """Phase 14a: RRM at full width; see the module's docstring."""
     import tempfile
 
@@ -4537,6 +4661,12 @@ def phase14a(dev, n=10_000, ntimes=10, p=50_000, c=3, chain_length=96, every=32)
     wtw_bytes = data.WtW.numel() * data.WtW.element_size()
     rrm = out["_rrm"]
     s = rrm["seconds"]
+    cg = data.cross_grams
+    if cg is not None:
+        from jwas_tpu_torch.ops.rrm import _chunk_of
+        say(f"K10's cross-Grams: chunk b = {_chunk_of(cg)}, "
+            f"{cg.numel() * cg.element_size() / 1e6:.1f} MB (built in set-up, within Phi and "
+            f"mPhiPhi's seconds)")
     say(f"K = {K}; runMCMC {seconds:.2f} s: design {s['design']:.2f}, Phi and mPhiPhi "
         f"{s['phi_mphiphi']:.2f}, workspace {s['workspace']:.2f}, chain {s['chain']:.2f}, "
         f"results {s['results']:.2f} s ({files} files); windows of {every} sweeps "

@@ -93,14 +93,15 @@ _SIGNATURES = {
     # float64 builds
     "jt_mt_c0l_inner_rounds": [_P] * 10 + [_I] * 4 + [_P],
     "jt_mt_c0l_inner_rounds_f64": [_P] * 10 + [_I] * 4 + [_P],
-    # X, phi, mpp, mask, alpha_in, W_in, vare, Ginv, log_pi, gumbel, zs,
-    # alpha_out, beta_out, delta_out, W_out, partial, counter, p, nind,
-    # ntimes, c, estimate_delta, ctas, stream: csrc/rrm_sweep.cu (K10);
-    # float32 and float64 builds and the blocks of a sweep (nind, ntimes,
-    # c, itemsize)
-    "jt_rrm_sweep": [_P] * 17 + [_I] * 6 + [_P],
-    "jt_rrm_sweep_f64": [_P] * 17 + [_I] * 6 + [_P],
-    "jt_rrm_sweep_ctas": [_I] * 4,
+    # X, phi, mpp, cg, mask, alpha_in, W_in, vare, Ginv, log_pi, gumbel,
+    # zs, alpha_out, beta_out, delta_out, W_out, partial, counter, p, nind,
+    # ntimes, c, estimate_delta, ctas, slice, b, xt, probe, stream:
+    # csrc/rrm_sweep.cu (K10); float32 and float64 builds, and the plan of
+    # a sweep (nind, ntimes, c, itemsize, the largest b asked -> out: ctas,
+    # slice, b, xt)
+    "jt_rrm_sweep": [_P] * 18 + [_I] * 10 + [_P],
+    "jt_rrm_sweep_f64": [_P] * 18 + [_I] * 10 + [_P],
+    "jt_rrm_sweep_plan": [_I] * 5 + [_P],
     # rows, means, w_pad, partial, out, G, bpm, has_missing, slab,
     # rows_per_cta, stream
     "jt_packed_rhs": [_P] * 5 + [_I] * 5 + [_P],

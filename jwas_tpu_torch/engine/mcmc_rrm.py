@@ -13,7 +13,9 @@ Tables in place of DataFrames. Long data (ID, time, y) is mapped onto a
    jwas_tpu keeps a dense (n_obs, K) W (85,000 x 10,002 at 10,000 animals
    x 10 test days); W'W is dense, as K6 reads it;
 2. ycorr scattered to the grid, the marker chain (ops/rrm.py::
-   sweep_rrm_abc: K10 on the card), the grid gathered back to ycorr;
+   sweep_rrm_abc: K10 on the card, a chunk of markers against their
+   cross-Grams, built once a run in set-up), the grid gathered back to
+   ycorr;
 3. pi over the 2^c labels, a Dirichlet draw on the label counts + 1 (the
    counts by a scatter-add), with BayesC / BayesB;
 4. each random-effect group's covariance (an inverse Wishart; a group set
@@ -55,7 +57,9 @@ from jwas_tpu_torch.ops.dists import (sample_dirichlet, sample_inv_wishart,
                                       sample_scaled_inv_chi2)
 from jwas_tpu_torch.ops.location import (assemble_lhs_lambda, gibbs_pass_lambda,
                                          symmetric_upper)
-from jwas_tpu_torch.ops.rrm import _labels, build_m_phiphi, sweep_limit_error, sweep_rrm_abc
+from jwas_tpu_torch.ops.rrm import (_labels, build_m_phiphi, build_rrm_cross_grams,
+                                    pack_cross_grams, sweep_chunk, sweep_limit_error,
+                                    sweep_rrm_abc)
 from jwas_tpu_torch.ops.sparse_mme import csr, spmv
 
 RRM_METHODS = ("BayesC", "BayesB", "RR-BLUP", "BayesL")
@@ -73,6 +77,8 @@ class RRMData(NamedTuple):
     cell: torch.Tensor        # (n_obs,) int64: time * nind + individual
     Vinv: Tuple[Optional[torch.Tensor], ...] = ()   # a group's (q, q), None: I
     vc_scale: Tuple[torch.Tensor, ...] = ()         # a group's (k, k) prior scale
+    cross_grams: Optional[torch.Tensor] = None      # K10's, packed (pack_cross_grams);
+                                                    # None on the CPU (plain sweep)
 
 
 @dataclass(frozen=True)
@@ -137,7 +143,8 @@ def rrm_step(cfg: RRMCfg, state: RRMState, data: RRMData) -> RRMState:
     log_pi = torch.log(torch.clamp(state.pi, 1e-30, 1.0))
     alpha, beta, delta, grid = sweep_rrm_abc(
         data.X, data.phi, data.mphiphi, data.obs_mask, state.alpha, to_grid(data, ycorr),
-        state.vare, Ginv, log_pi, gen, estimate_delta=cfg.method in LABEL_METHODS)
+        state.vare, Ginv, log_pi, gen, estimate_delta=cfg.method in LABEL_METHODS,
+        cross_grams=data.cross_grams)
     ycorr = from_grid(data, grid)
 
     pi = state.pi
@@ -382,6 +389,10 @@ def run_mcmc_rrm(model, df, opts: MCMCOptions, device) -> Dict:
     phi = t(phi_np)
     mask_t = t(obs_mask)
     mphiphi = build_m_phiphi(X, phi, mask_t)
+    cross_grams = None
+    if device.type == "cuda":
+        cross_grams = pack_cross_grams(build_rrm_cross_grams(
+            X, phi, mask_t, sweep_chunk(nind, ntimes, ncoeff, dtype, device)))
     _sync(device)
     seconds["phi_mphiphi"] = time.perf_counter() - t0
 
@@ -398,7 +409,7 @@ def run_mcmc_rrm(model, df, opts: MCMCOptions, device) -> Dict:
         WtW=symmetric_upper(t((W_host.T @ W_host).toarray())), X=X, phi=phi,
         mphiphi=mphiphi, obs_mask=mask_t,
         cell=torch.as_tensor(cell, dtype=torch.int64).to(device), Vinv=tuple(Vinvs),
-        vc_scale=tuple(t(v) for v in vc_scales))
+        vc_scale=tuple(t(v) for v in vc_scales), cross_grams=cross_grams)
     gen = torch.Generator(device=device)
     gen.manual_seed(0 if opts.seed is None else int(opts.seed))
     state = RRMState(

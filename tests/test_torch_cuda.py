@@ -940,9 +940,12 @@ def test_mt_rr_blup_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
 
 
 # K10 (nind, ntimes, c, p): phase 14's shape and a ragged nind, one block
-# with n < 64 individuals, 32 time points at c = 5, one time point at c = 1
+# with n < 64 individuals, 32 time points at c = 5, one time point at c = 1;
+# p ragged against the chunk b (b = 64 at phase 14's shape, c = 3: 4 b + 1,
+# and p < b)
 K10_CASES = ((10_000, 10, 3, 256), (9_999, 10, 3, 128), (37, 3, 2, 64),
-             (2_000, 32, 5, 64), (500, 1, 1, 100))
+             (2_000, 32, 5, 64), (500, 1, 1, 100), (10_000, 10, 3, 257),
+             (10_000, 10, 3, 37))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -950,12 +953,22 @@ K10_CASES = ((10_000, 10, 3, 256), (9_999, 10, 3, 128), (37, 3, 2, 64),
 def test_rrm_sweep_kernel_matches_plain(cuda, dtype, estimate_delta):
     """K10 against its plain version on the same inputs and draws
     (chip_smoke.check_k10's tolerances: tests/test_pallas_sweep.py:42-45 in
-    float32, every delta equal in float64; a second launch bit for bit)."""
+    float32, every delta equal in float64; a second launch bit for bit);
+    in float64 also c = 5 over two chunks of its b and a ragged third;
+    then above phase 14's herd (chip_smoke.K10_LARGE: 40,000 individuals
+    to the most it takes), where a block's genotype rows of a chunk exceed
+    its shared memory and are read in tiles of individuals, and nearer the
+    edge the chunk b shrinks (to 1), the plan asserted from the launch."""
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
+    from jwas_tpu_torch.ops.rrm import sweep_chunk
 
     for seed, (nind, ntimes, c, p) in enumerate(K10_CASES):
         chip_smoke.check_k10(nind, ntimes, c, p, cuda, dtype, estimate_delta, seed=60 + seed)
+    if dtype == torch.float64:
+        b = sweep_chunk(10_000, 10, 5, dtype, cuda)
+        chip_smoke.check_k10(10_000, 10, 5, 2 * b + 7, cuda, dtype, estimate_delta, seed=59)
+    chip_smoke.check_k10_large(cuda, dtype, estimate_delta, seed=70 if estimate_delta else 80)
 
 
 def test_rrm_sweep_limits_on_the_card(cuda):
@@ -965,6 +978,10 @@ def test_rrm_sweep_limits_on_the_card(cuda):
     from jwas_tpu_torch.ops.rrm import sweep_limit_error
 
     assert sweep_limit_error(10_000, 10, 3, torch.float32, cuda) is None
+    # the first design's edges (547,000 and 283,000 individuals at 10 time
+    # points) are still taken
+    assert sweep_limit_error(547_000, 10, 3, torch.float32, cuda) is None
+    assert sweep_limit_error(283_000, 10, 3, torch.float64, cuda) is None
     assert "shared memory" in sweep_limit_error(5_000_000, 32, 3, torch.float64, cuda)
     assert "coefficients" in sweep_limit_error(100, 10, 6, torch.float32, cuda)
     assert "time points" in sweep_limit_error(100, 33, 3, torch.float32, cuda)
@@ -993,7 +1010,7 @@ def test_rrm_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
     table = jt.Table({"ID": ids[i_idx], "time": times[t_idx], "y": y})
 
     def plain(X, phi, mpp, mask, alpha, W, vare, Ginv, log_pi, gen, estimate_delta=True,
-              gumbel=None, zs=None):
+              gumbel=None, zs=None, cross_grams=None):
         gumbel, zs = rrm.draw_sweep_normals(gen, X.shape[0], phi.shape[1], W, estimate_delta)
         return rrm.sweep_rrm_abc_ref(X, phi, mpp, mask, alpha, W, vare, Ginv, log_pi,
                                      gumbel, zs, estimate_delta)

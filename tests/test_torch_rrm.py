@@ -2,7 +2,9 @@
 
 jwas_tpu_torch.ops.rrm (generate_full_phi, build_m_phiphi and the plain
 version of K10, sweep_rrm_abc_ref, fed the draws jwas_tpu's sweep_rrm_abc
-makes), engine/mcmc_rrm.py's set-up and one step's deterministic parts
+makes; K10's cross-Grams, build_rrm_cross_grams, against an einsum, and
+its chunk algebra, sweep_rrm_abc_chunked_ref, against the plain version
+and jwas_tpu at p ragged against the chunk), engine/mcmc_rrm.py's set-up and one step's deterministic parts
 given jwas_tpu's state (engine/convert.py::rrm_data_from_jax,
 rrm_state_from_jax), the four chains of tests/test_rrm.py through the
 port's runMCMC(device="cpu") with the reference's assertions and the
@@ -15,6 +17,7 @@ beta rtol 1e-5, atol 1e-6; the grid rtol 1e-4, atol 1e-5), every delta
 equal; float64 within 1e-10, every delta equal.
 """
 
+import functools
 import os
 import sys
 
@@ -150,6 +153,121 @@ def test_plain_sweep_matches_jwas_tpu(method, c, dtype):
     np.testing.assert_allclose(got[3], want[3], **tol[1])
     if not estimate:
         np.testing.assert_array_equal(got[2], 1.0)
+
+
+def _assert_sweeps_equal(got, want, dtype, grid=True):
+    """test_plain_sweep_matches_jwas_tpu's tolerances: every delta equal."""
+    got = [np.asarray(g, dtype=np.float64) for g in got]
+    want = [np.asarray(w, dtype=np.float64) for w in want]
+    np.testing.assert_array_equal(got[2], want[2])
+    tol = (dict(rtol=1e-10, atol=1e-12), dict(rtol=1e-10, atol=1e-12)) if dtype == "float64" \
+        else (dict(rtol=1e-5, atol=1e-6), dict(rtol=1e-4, atol=1e-5))
+    for k in (0, 1):
+        np.testing.assert_allclose(got[k], want[k], **tol[0])
+    if grid:
+        np.testing.assert_allclose(got[3], want[3], **tol[1])
+
+
+@pytest.mark.parametrize("p,b", [(5, 8), (8, 8), (9, 8), (23, 8), (13, 4)])
+@pytest.mark.parametrize("c", [1, 3])
+def test_build_rrm_cross_grams_matches_einsum(c, p, b):
+    """K10's cross-Grams against a numpy einsum of phi' (X_k' diag(mask_t)
+    X_s) phi: the upper triangle of each chunk's (b, b) blocks, zero below
+    it and for the last chunk's padding; the diagonal blocks equal
+    build_m_phiphi; float32 within 1e-5 of float64; pack_cross_grams'
+    layout, in both dtypes."""
+    rng = np.random.default_rng(c * 100 + p + b)
+    nind, ntimes = 37, 6
+    X = rng.normal(size=(nind, p))
+    phi = rng.normal(size=(ntimes, c))
+    mask = (rng.uniform(size=(ntimes, nind)) < 0.7).astype(float)
+    full = np.einsum("ti,ik,is,ta,td->ksad", mask, X, X, phi, phi)
+    args = (torch.as_tensor(X.T.copy()), torch.as_tensor(phi), torch.as_tensor(mask))
+    got = rrm.build_rrm_cross_grams(*args, b).numpy()
+    nq = -(-p // b)
+    assert got.shape == (nq, b, b, c, c)
+    want = np.zeros_like(got)
+    for q in range(nq):
+        for k in range(b):
+            for s_ in range(k, b):
+                if q * b + s_ < p:
+                    want[q, k, s_] = full[q * b + k, q * b + s_]
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    diag = got[:, np.arange(b), np.arange(b)].reshape(nq * b, c, c)[:p]
+    np.testing.assert_allclose(diag, rrm.build_m_phiphi(*args).numpy(), rtol=1e-12, atol=1e-12)
+    got32 = rrm.build_rrm_cross_grams(*(a.float() for a in args), b).numpy()
+    np.testing.assert_allclose(got32, want, rtol=1e-5, atol=1e-5)
+    # K10's packed layout: the pairs k < s in row order, the entries a <= d,
+    # zeros to whole 8-byte words
+    for dtype, cg in ((torch.float64, torch.as_tensor(got)), (torch.float32, torch.as_tensor(got32))):
+        packed = rrm.pack_cross_grams(cg).numpy()
+        entries = [(a, d) for a in range(c) for d in range(a, c)]
+        words = 8 // cg.element_size()
+        assert packed.shape == (nq, b * (b - 1) // 2, -(-len(entries) // words) * words)
+        pairs = [(k, s_) for k in range(b) for s_ in range(k + 1, b)]
+        for q in range(nq):
+            for i, (k, s_) in enumerate(pairs):
+                np.testing.assert_array_equal(packed[q, i, :len(entries)],
+                                              [cg[q, k, s_, a, d] for a, d in entries])
+        np.testing.assert_array_equal(packed[:, :, len(entries):], 0.0)
+
+
+_CHUNK_B = 8
+_RAGGED_P = (5, 8, 9, 23)          # p < b, p = b, p = b + 1, p = 2b + 7
+
+
+@functools.lru_cache(maxsize=None)
+def _jwas_sweep_at(method, c, dtype):
+    """jwas_tpu's sweep_rrm_abc at p = 2b + 7 on _sweep_inputs, and the
+    draws it makes, replayed (numpy)."""
+    jax = _jax()
+    jax.config.update("jax_enable_x64", dtype == "float64")
+    import jax.numpy as jnp
+
+    p = max(_RAGGED_P)
+    inp = _sweep_inputs(c, p=p)
+    jdt = jnp.float64 if dtype == "float64" else jnp.float32
+    key = jax.random.PRNGKey(11 + c)
+    J = {k: jnp.asarray(v, jdt) for k, v in inp.items()}
+    zeros = jnp.zeros((c, p), jdt)
+    want = jrrm.sweep_rrm_abc(J["X"], J["phi"], J["mphiphi"], J["obs_mask"], J["alpha"],
+                              zeros, zeros, J["Wgrid"], J["vare"], J["Ginv"], J["log_pi"],
+                              key, estimate_delta=method == "BayesC")
+    gum, zs = _replay_draws(jax, key, p, c, jdt)
+    return inp, [np.asarray(w) for w in want], gum, zs
+
+
+@pytest.mark.parametrize("p", _RAGGED_P)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("c", [1, 2, 3, 5])
+@pytest.mark.parametrize("method", ["BayesC", "RR-BLUP"])
+def test_chunked_sweep_matches_plain_and_jwas_tpu(method, c, dtype, p):
+    """K10's chunk algebra (sweep_rrm_abc_chunked_ref, chunks of b = 8
+    against build_rrm_cross_grams) on jwas_tpu's replayed draws, at p
+    ragged against b: equal to sweep_rrm_abc_ref on the first p markers
+    (every output), and to jwas_tpu's sweep: a sweep is sequential, so the
+    first p markers' alpha, beta and delta are those of jwas_tpu's pass
+    over 2b + 7 markers, and at p = 2b + 7 the grid too."""
+    inp, want, gum, zs = _jwas_sweep_at(method, c, dtype)
+    estimate = method == "BayesC"
+    tdt = torch.float64 if dtype == "float64" else torch.float32
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=tdt)
+
+    X = t(inp["X"][:, :p].T)
+    phi, mask = t(inp["phi"]), t(inp["obs_mask"])
+    args = (t(inp["mphiphi"][:p]), mask, t(inp["alpha"][:, :p]), t(inp["Wgrid"]),
+            t(inp["vare"]), t(inp["Ginv"]), t(inp["log_pi"]),
+            t(gum[:p]) if estimate else None, t(zs[:p]))
+    cg = rrm.build_rrm_cross_grams(X, phi, mask, _CHUNK_B)
+    got = rrm.sweep_rrm_abc_chunked_ref(X, phi, args[0], cg, *args[1:], estimate)
+    plain = rrm.sweep_rrm_abc_ref(X, phi, *args, estimate)
+    _assert_sweeps_equal([g.numpy() for g in got], [w.numpy() for w in plain], dtype)
+    _assert_sweeps_equal([g.numpy() for g in got], [w[:, :p] for w in want[:3]] + [want[3]],
+                         dtype, grid=p == max(_RAGGED_P))
+    if not estimate:
+        np.testing.assert_array_equal(got[2].numpy(), 1.0)
 
 
 # ------------------------------------------------------------ set-up and step
