@@ -80,7 +80,8 @@ Phases, each printed as it ends:
      three outer iterations of BayesC and then of BayesR on the same store
      and Grams, with the launch count of every kernel in each path;
   4. a statistical check: a small simulation run through run_st, BayesC
-     on the card and on the CPU (plain versions; 256 sweeps: 1,024 until
+     on the card and on the CPU (plain versions, in a worker process started
+     before the build and stopped at the end; 256 sweeps: 1,024 until
      phase 11, 512 until phase 13 came; 192 fell below the floor), BayesR on the card (1,024); EBV accuracy must hold. Then runMCMC on the same data through a Table:
      its EBVs must equal run_st's on the card;
   5. runMCMC, the user's entry point, at full width: phase 3's device store
@@ -276,6 +277,43 @@ Phases, each printed as it ends:
      at its 200 sweeps (RR-BLUP, ID on a pedigree of 150, p = 60, 4
      days): the card's trajectory accuracy within 0.05 of the CPU's; then 100 float64 sweeps
      of the BayesC model on the card (K10's and K6's float64 builds).
+ 15. GWAS, the diagnostics and several chains: (a) at N = 50,000 x P = 100,000
+     (JWAS's calibration row), a 2-bit store made on the card, 0.1% QTL,
+     phase 5's design (45,000 phenotyped, herd, age, 5,000 candidates):
+     runMCMC BayesC at its default block size (b = 136) with n_chains = 2,
+     output_chain_samples and output_marker_samples, 45 outer iterations,
+     5 burnt in (40 samples a chain); GWAS(file) (model frequencies), GWAS
+     over 1 Mb windows of a 10-chromosome map (100 markers a window) with
+     local EBVs and the variance proportions, and the window correlations
+     of chain 1's and chain 2's marker-effect files; PSRF_per_parameter of
+     the chains' residual variances and first 1,000 marker effects; LOOCV's
+     eBV branch on 2,000 candidates x 2,000 markers in float64 on the card.
+     Seconds by part (the chains, writing the files, reading them, BV, the
+     windows, the correlation, PSRF), BV's TFLOP/s, GWAS's peak memory, the
+     PSRF table, the candidates' pooled EBV accuracy; raises if K2, K4, K5
+     or K6 never launched, a result is not finite, numSNP does not sum to
+     P, a WPPA leaves [0, 1], the local EBVs summed over the windows miss
+     X mean(alpha) (64 candidates decoded directly) by more than 1e-4
+     relative, the QTL windows' mean WPPA is not above the others', a
+     window among the 3 largest estimate_cov has estimate_cor <= 0.5, or
+     GWAS's peak exceeds the store + 1 GB + 4 GB; (b) on phase 3's
+     north-star store, before it is freed (run after phase 6b): runMCMC
+     BayesC from pi = 0.999 (fast_blocks = 128; from pi = 0 the blocked
+     chain at p = 42 n gave EBVs uncorrelated with the truth on the card)
+     with the marker samples, 13 outer
+     iterations, 5 burnt in, then GWAS with 1 Mb windows over 20
+     chromosomes and local EBVs: seconds by part with the file's writing and
+     reading apart, BV's TFLOP/s, the same checks where they apply, above
+     all the peak (no dense (n, p) matrix); (c) phase 4's data (2,000 x
+     8,192) through a short runMCMC on the card (20 samples), then GWAS on
+     the card and on the CPU (fixed windows, sliding ones over the first
+     1,024 markers, local EBVs, the correlation of the file and a rolled
+     copy): prGenVar
+     within rtol 1e-4, atol 1e-6, WPPA equal but where a proportion lies
+     within 1e-5 of the threshold, local EBVs within 1e-4; LOOCV's two
+     branches within 1e-8 relative; tests/test_multichain.py:10's model,
+     three chains of 600 sweeps on the card: EBV accuracy > 0.85, vare's
+     PSRF in (0.8, 1.3).
 
 Then one JSON line with the kernels, the card's line, and last
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -1926,25 +1964,43 @@ def stat_store(codes):
     )
 
 
-def phase4(dev):
+def phase4_chain(where, threads=None):
+    """Phase 4's BayesC chain through run_st on where (the plain versions on
+    the CPU). Returns the EBVs, the posterior means of vare, varg and pi
+    and the seconds."""
+    import jwas_tpu_torch as jt
+
+    if threads:
+        torch.set_num_threads(threads)
+    codes, y, bv = stat_data()
+    store = stat_store(codes)
+    t0 = time.perf_counter()
+    gm = jt.setup_markers(store, store.obs_ids, torch.device(where))
+    res = jt.run_st(gm, y, **default_priors(y, store.sum2pq), chain_length=PHASE4_SWEEPS,
+                    burnin=PHASE4_SWEEPS // 4, seed=5)
+    return dict(ebv=res["ebv"], vare=res["vare"], varg=res["varg"], pi=res["pi"],
+                seconds=time.perf_counter() - t0)
+
+
+def phase4(dev, cpu_chain):
+    """Phase 4; see the module's docstring. cpu_chain: the CPU chain's
+    result from phase4_chain("cpu") run in a worker process (an
+    AsyncResult)."""
     import jwas_tpu_torch as jt
 
     say("== phase 4: statistical check, kernel path vs plain path")
     jt.reset_launches()
     codes, y, bv = stat_data()
     store = stat_store(codes)
-    priors = default_priors(y, store.sum2pq)
     acc, ebv = {}, {}
-    for where in (dev, torch.device("cpu")):
-        t0 = time.perf_counter()
-        gm = jt.setup_markers(store, store.obs_ids, where)
-        res = jt.run_st(gm, y, **priors, chain_length=PHASE4_SWEEPS,
-                        burnin=PHASE4_SWEEPS // 4, seed=5)
-        ebv[where.type] = res["ebv"]
-        acc[where.type] = float(np.corrcoef(res["ebv"], bv)[0, 1])
-        say(f"{where.type}: EBV accuracy {acc[where.type]:.4f}, vare "
+    chains = {"cuda": phase4_chain(dev), "cpu": cpu_chain.get()}
+    for where, res in chains.items():
+        ebv[where] = res["ebv"]
+        acc[where] = float(np.corrcoef(res["ebv"], bv)[0, 1])
+        aside = ", in a worker process" if where == "cpu" else ""
+        say(f"{where}: EBV accuracy {acc[where]:.4f}, vare "
             f"{res['vare']:.4g}, varg {res['varg']:.4g}, pi {res['pi']:.4f} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"({res['seconds']:.1f} s{aside})")
     if acc["cuda"] < acc["cpu"] - ACC_MARGIN or acc["cuda"] < ACC_FLOOR:
         raise AssertionError(
             f"phase 4: kernel-path accuracy {acc['cuda']:.4f} vs plain "
@@ -2025,8 +2081,8 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
     on the grouped store before the chain runs, which runs inside the
     context manager around_chain when one is given. Returns (results, seconds
     by part, what the timed parts returned: "store and Grams" the grouped
-    store, "chain" run_chain's tuple, whose last item holds the seconds of
-    each saved sample's window). model_kw: build_model's keywords
+    store, "chain" run_chain's tuple (state, accum, samples, burn-in
+    seconds, window seconds) of chain 0 of run_chains). model_kw: build_model's keywords
     (categorical_trait, censored_trait)."""
     import jwas_tpu_torch as jt
     import jwas_tpu_torch.engine.mcmc as em
@@ -2048,11 +2104,11 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
         return call
 
     saved = (em.prepare_workspace, em.setup_markers, em.setup_dense_markers,
-             em.run_chain)
+             em.run_chains)
     em.prepare_workspace = timed("workspace", em.prepare_workspace)
     em.setup_markers = timed("store and Grams", em.setup_markers)
     em.setup_dense_markers = timed("store and Grams", em.setup_dense_markers)
-    em.run_chain = timed("chain", em.run_chain)
+    em.run_chains = timed("chain", em.run_chains)
     try:
         genotypes = (store if store is None or hasattr(store, "dense") else
                      jt.get_genotypes(store, method=method, storage="2bit"))
@@ -2069,7 +2125,10 @@ def run_phase5(store, table, method="BayesC", eq="y = intercept + herd + age + g
         seconds["runMCMC"] = time.perf_counter() - t0
     finally:
         (em.prepare_workspace, em.setup_markers, em.setup_dense_markers,
-         em.run_chain) = saved
+         em.run_chains) = saved
+    if "chain" in built:
+        states, accums, samples, _, t_burnin, windows = built["chain"]
+        built["chain"] = (states[0], accums[0], samples, t_burnin, windows)
     return out, seconds, built
 
 
@@ -3323,8 +3382,8 @@ def run_mt(label, dev, geno, table, eq, kernels, on_model=None, lhs_times=False,
             return out
         return call
 
-    names = ("prepare_workspace", "setup_dense_markers", "build_mt_data_and_state",
-             "run_mt_chain")
+    names = ("prepare_workspace", "setup_dense_markers", "build_mt_data_and_states",
+             "run_mt_chains")
     saved = {k: getattr(em, k) for k in names}
     for k, part in zip(names, ("workspace", "store and Grams",
                                "chain data (store and Grams included)", "chain")):
@@ -4237,11 +4296,11 @@ def po_cg_bound_ms(sl):
 
 @contextlib.contextmanager
 def capture_chain_data(store):
-    """engine.mcmc._build_st_data_and_state wrapped so that store["ws"] and
+    """engine.mcmc._build_st_data_and_states wrapped so that store["ws"] and
     store["data"] hold the chain's workspace and STData."""
     import jwas_tpu_torch.engine.mcmc as em
 
-    fn = em._build_st_data_and_state
+    fn = em._build_st_data_and_states
 
     def call(*a, **k):
         store["ws"] = a[0]
@@ -4249,11 +4308,11 @@ def capture_chain_data(store):
         store["data"] = out[1]
         return out
 
-    em._build_st_data_and_state = call
+    em._build_st_data_and_states = call
     try:
         yield
     finally:
-        em._build_st_data_and_state = fn
+        em._build_st_data_and_states = fn
 
 
 def phase13a(dev, ped, ids, u, n_pheno=30_000, chain_length=96, every=32):
@@ -4836,13 +4895,484 @@ def phase14(dev):
     return {"phase 14a": phase14a(dev), "phase 14b": phase14b(dev)}
 
 
+# ---------------------------------------------------------------- phase 15
+
+# device memory GWAS may use beyond the store: its decode budget
+# (ops/grouped.py::_DECODE_BYTES, 1 GB of float32 columns) and a margin
+PHASE15_DECODE_BYTES = 1 << 30
+PHASE15_MARGIN_BYTES = 4e9
+PHASE15_THRESHOLD = 0.001      # GWAS's default WPPA threshold
+PHASE15_NEAR = 1e-5            # a proportion this close (relative) to it may flip
+PATH_ABC_15 = ("abc_inner_rounds", "packed_rhs", "packed_matvec", K6)
+PATH_DENSE_15 = ("abc_inner_rounds", K6)    # BayesC on a dense store
+
+
+def gwas_map(p, n_chr, span=100_000_000, ids=None):
+    """A map of p markers (ids, default m1..) over n_chr chromosomes of
+    span bp, each chromosome's markers consecutive and evenly spaced.
+    Returns the Table and each marker's fixed 1 Mb window (1-based,
+    numbered over the chromosomes in turn: every window holds markers)."""
+    import jwas_tpu_torch as jt
+
+    per = -(-p // n_chr)
+    spacing = span // per
+    j = np.arange(p)
+    chrom, pos = j // per + 1, (j % per) * spacing + 1
+    nwin = np.array([int(pos[chrom == c].max() // 1_000_000) + 1
+                     for c in range(1, n_chr + 1)])
+    first = np.concatenate([[0], np.cumsum(nwin)[:-1]])
+    window = first[chrom - 1] + pos // 1_000_000 + 1
+    ids = np.array([f"m{i + 1}" for i in j] if ids is None else ids, dtype=object)
+    return jt.Table({"markerID": ids, "chromosome": chrom, "position": pos}), window
+
+
+def gwas_parts(seconds, fn):
+    """fn() (a GWAS call) with the seconds of its sample-file reads and of
+    its X A products (BV) split out of its wall time and added to
+    seconds["read"] and seconds["BV"]. Returns fn()'s value, the wall time
+    minus both, and the parts (with "samples": the last file's samples)."""
+    from jwas_tpu_torch.analysis import gwas
+
+    local = {}
+    read = gwas.read_marker_samples
+
+    def reading(path):
+        t0 = time.perf_counter()
+        out = read(path)
+        local["read"] = local.get("read", 0.0) + time.perf_counter() - t0
+        local["samples"] = out[1]
+        return out
+
+    gwas.read_marker_samples = reading
+    try:
+        with timed_calls(local, "BV", gwas.Columns, "matmul"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        gwas.read_marker_samples = read
+    for k in ("read", "BV"):
+        seconds[k] = seconds.get(k, 0.0) + local.get(k, 0.0)
+    return out, wall - local.get("read", 0.0) - local.get("BV", 0.0), local
+
+
+def check_gwas(label, res, p, S, props, lebv=None, direct=None, cols=None):
+    """The checks every full-width GWAS passes: numSNP sums to p, prGenVar
+    and WPPA finite, WPPA in [0, 1], the variance proportions finite, and
+    the local EBVs summed over the windows equal X mean(alpha) (direct, for
+    the store columns cols) within 1e-4 relative."""
+    n_snp = int(np.sum(res["numSNP"]))
+    wppa, pr = np.asarray(res["WPPA"]), np.asarray(res["prGenVar"])
+    if n_snp != p:
+        raise AssertionError(f"{label}: numSNP sums to {n_snp}, not {p}")
+    if not (np.isfinite(pr).all() and np.isfinite(wppa).all() and np.isfinite(props).all()):
+        raise AssertionError(f"{label}: non-finite prGenVar, WPPA or proportions")
+    if not ((wppa >= 0) & (wppa <= 1)).all():
+        raise AssertionError(f"{label}: WPPA outside [0, 1]")
+    if props.shape[1] != S:
+        raise AssertionError(f"{label}: {props.shape[1]} samples, not {S}")
+    if lebv is None:
+        return None
+    total = np.zeros(len(lebv[lebv.columns[0]]), dtype=np.float64)
+    for c in lebv.columns:
+        total += np.asarray(lebv[c], dtype=np.float64)
+    err = float(np.abs(total[cols] - direct).max() / np.abs(direct).max())
+    if not err <= 1e-4:
+        raise AssertionError(f"{label}: local EBVs sum to X alpha within {err:.3g}, not 1e-4")
+    return err
+
+
+def phase15a(dev, n=50_000, p=100_000, n_train=45_000, n_outer=45, n_burn=5):
+    """Phase 15a; see the module's docstring."""
+    import tempfile
+
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.analysis import diagnostics, gwas
+    from jwas_tpu_torch.engine.samples_io import STSampleStream
+    from jwas_tpu_torch.ops.grouped import resolve_blocks
+
+    b, gb = resolve_blocks(n_train, False, p, warn=False)
+    say(f"== phase 15a: two chains, GWAS and the diagnostics at N={n} x P={p} "
+        f"(b={b}, gb={gb}, {n_outer} outer iterations, {n_burn} burnt in)")
+    torch.cuda.empty_cache()
+    packed, freqs = device_store(n, p, 15, dev)
+    freqs = freqs.double().cpu().numpy()
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    qtl = torch.rand(p, generator=g, device=dev) < 0.001
+    beta = torch.randn(p, generator=g, device=dev) * qtl
+    truth_store = jt.Packed2BitStore(
+        obs_ids=[f"ind{i + 1}" for i in range(n)], marker_ids=[f"m{j + 1}" for j in range(p)],
+        packed=packed, means=2.0 * freqs, allele_freq=freqs, n_obs=n, n_markers=p,
+        has_missing=False)
+    tbv = gwas.genotype_columns(truth_store, None, dev).matmul(
+        beta[:, None].float())[:, 0].double().cpu().numpy()
+    qtl = torch.nonzero(qtl).flatten().cpu().numpy()
+    store, table, _, _, cand = phase5_problem(packed, freqs, tbv, n_train=n_train)
+    map_t, window_of = gwas_map(p, 10, ids=store.marker_ids)
+    S = (n_outer - n_burn)
+    seconds = {}
+    jt.reset_launches()
+    with tempfile.TemporaryDirectory() as folder:
+        with timed_calls(seconds, "writing the files", STSampleStream, "write_sample"):
+            t0 = time.perf_counter()
+            model = jt.build_model("y = intercept + herd + age + geno",
+                                   genotypes=jt.get_genotypes(store, method="BayesC",
+                                                              storage="2bit"))
+            jt.set_covariate(model, "age")
+            out = jt.runMCMC(model, table, device=dev, chain_length=n_outer * b,
+                             burnin=n_burn * b, output_samples_frequency=b, seed=15,
+                             n_chains=2, output_chain_samples=True,
+                             output_marker_samples=True, output_folder=folder,
+                             printout_model_info=False)
+            torch.cuda.synchronize()
+            seconds["the chains (runMCMC, set-up included)"] = (
+                time.perf_counter() - t0 - seconds["writing the files"])
+        counts = {k.__name__: k.launches for k in jt.KERNELS}
+        f0 = out["_marker_sample_file"]
+        chain_files = [os.path.join(c, os.path.basename(f0))
+                       for c in out["_chain_sample_folders"]]
+        vare_files = [os.path.join(c, "MCMC_samples_residual_variance.txt")
+                      for c in out["_chain_sample_folders"]]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        mf, t_mf, _ = gwas_parts(seconds, lambda: jt.GWAS(f0))
+        (res, props, lebv), t_win, parts = gwas_parts(seconds, lambda: jt.GWAS(
+            model, map_t, f0, local_EBV=True, output_winVarProps=True, device=dev))
+        t_bv = parts["BV"]
+        corr, t_cor, _ = gwas_parts(seconds, lambda: jt.GWAS(
+            model, map_t, chain_files, genetic_correlation=True, device=dev))
+        seconds["the windows"] = t_win + t_mf
+        seconds["the correlation"] = t_cor
+        peak = torch.cuda.max_memory_allocated(dev)
+        read_psrf = {}
+        with timed_calls(read_psrf, "read", diagnostics, "read_sample_file"):
+            t0 = time.perf_counter()
+            psrf_v = jt.PSRF_per_parameter(*vare_files)
+            psrf_m = jt.PSRF_per_parameter(*chain_files, max_params=1000)
+            seconds["PSRF"] = time.perf_counter() - t0 - read_psrf["read"]
+        seconds["reading the files"] = seconds.pop("read") + read_psrf["read"]
+        col_of = {s: i for i, s in enumerate(store.obs_ids)}
+        check_cols = [col_of[s] for s in cand[:64]]
+        direct = direct_ebv(packed, store.means, parts["samples"].mean(axis=0), check_cols)
+    flops = 2.0 * n * p * S
+    say("seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()
+                                if k != "BV") + f", BV {seconds['BV']:.3f}")
+    say(f"BV = X A over the 2-bit store: {2 * n * p * S / 1e12:.3f} TFLOP in {t_bv:.3f} s "
+        f"({flops / t_bv / 1e12:.2f} TFLOP/s, decoded chunks of "
+        f"{PHASE15_DECODE_BYTES // (4 * n)} markers and torch.mm); {len(res)} windows, "
+        f"{len(corr)} correlation windows")
+    store_bytes = packed.numel()
+    limit = store_bytes + PHASE15_DECODE_BYTES + PHASE15_MARGIN_BYTES
+    say(f"GWAS peak device memory {peak / 1e9:.3f} GB (allocated before it "
+        f"{base / 1e9:.3f} GB; store {store_bytes / 1e9:.3f} + 1.07 decode + 4 GB = "
+        f"{limit / 1e9:.3f} GB allowed); launches {counts}")
+    psrf = dict(zip(out["PSRF"]["parameter"], out["PSRF"]["PSRF"]))
+    say("PSRF table: " + ", ".join(f"{k} {v:.4f}" for k, v in psrf.items()))
+    ebv = dict(zip(out["EBV_y"]["ID"], np.asarray(out["EBV_y"]["EBV"], dtype=np.float64)))
+    truth = dict(zip(store.obs_ids, tbv))
+    acc = float(np.corrcoef([ebv[s] for s in cand], [truth[s] for s in cand])[0, 1])
+    wppa = dict(zip(np.asarray(res["window"]), np.asarray(res["WPPA"])))
+    qtl_w = set(window_of[qtl].tolist())
+    w_q = float(np.mean([wppa[w] for w in qtl_w]))
+    w_o = float(np.mean([v for w, v in wppa.items() if w not in qtl_w]))
+    order = np.argsort(-np.asarray(corr["estimate_cov"]), kind="stable")[:3]
+    top_cor = np.asarray(corr["estimate_cor"])[order]
+    say(f"pooled EBV accuracy of the {len(cand)} candidates {acc:.4f}; WPPA: the "
+        f"{len(qtl_w)} QTL windows' mean {w_q:.4f}, the other {len(wppa) - len(qtl_w)} "
+        f"{w_o:.4f}; the top WPPA windows {np.asarray(res['window'])[:5].tolist()}; "
+        f"estimate_cor of the 3 largest estimate_cov {np.round(top_cor, 4).tolist()}; "
+        f"model frequency mean {float(np.mean(mf['modelfrequency'])):.4f}")
+    say(f"PSRF_per_parameter: vare {np.round(np.asarray(psrf_v['PSRF']), 4).tolist()}, "
+        f"{len(psrf_m)} of the first 1,000 marker effects moving, median "
+        f"{float(np.median(psrf_m['PSRF'])):.4f}, max {float(np.max(psrf_m['PSRF'])):.4f}")
+    err = check_gwas("phase 15a", res, p, S, props, lebv, direct, check_cols)
+    say(f"local EBVs summed over the windows against X mean(alpha) decoded directly "
+        f"(64 candidates): max relative error {err:.3g}")
+    # LOOCV's eBV branch on 2,000 candidates x 2,000 markers, float64 on the card
+    rng = np.random.default_rng(15)
+    cj = np.sort(rng.choice(p, 2_000, replace=False))
+    ci = np.asarray([col_of[s] for s in cand[:2_000]])
+    cols = gwas.genotype_columns(store, None, dev)
+    X = cols.rows(torch.as_tensor(cj, device=dev))[:, torch.as_tensor(ci, device=dev)].T
+    y_c = tbv[ci] + rng.normal(0.0, float(np.std(tbv)), len(ci))
+    vara = float(out["marker effects variances geno"]["Estimate"][0])
+    vare = float(out["residual variance"]["Estimate"][0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = jt.LOOCV(X.double(), y_c, vara, vare, verbose=False, device=dev)
+    t_loocv = time.perf_counter() - t0
+    say(f"LOOCV (eBV branch, {len(ci)} candidates x {len(cj)} markers, float64 on the "
+        f"card) {t_loocv:.3f} s: mean square {float(e @ e / len(e)):.4g}, accuracy "
+        f"{float(np.corrcoef(y_c, y_c + e)[0, 1]):.4f}")
+    values = [np.asarray(out[k]["Estimate"], dtype=np.float64) for k in
+              ("residual variance", "marker effects variances geno", "pi_geno",
+               "marker effects geno", "location parameters")]
+    values += [np.asarray(out["EBV_y"]["EBV"], dtype=np.float64), np.asarray(list(psrf.values())),
+               np.asarray(corr["estimate_cov"]), np.asarray(corr["estimate_cor"]),
+               np.asarray(psrf_v["PSRF"]), np.asarray(psrf_m["PSRF"]), e, np.asarray([acc])]
+    if not all(np.isfinite(v).all() for v in values):
+        raise AssertionError("phase 15a: non-finite results")
+    if any(counts[k] == 0 for k in PATH_ABC_15):
+        raise AssertionError(f"phase 15a: kernels never launched: {counts}")
+    if not w_q > w_o:
+        raise AssertionError(f"phase 15a: QTL windows' WPPA {w_q:.4f} <= others' {w_o:.4f}")
+    if not (top_cor > 0.5).all():
+        raise AssertionError(f"phase 15a: estimate_cor {top_cor} of the top covariances")
+    if peak > limit:
+        raise AssertionError(f"phase 15a: GWAS peak {peak / 1e9:.3f} GB > {limit / 1e9:.3f}")
+    if set(psrf) != {"vare", "h2", "genvar", "varg", "pi[0]"}:
+        raise AssertionError(f"phase 15a: PSRF table {psrf}")
+    del packed, store, model, cols, X
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in PATH_ABC_15}
+
+
+def phase15b(dev, kept, n_outer=13, n_burn=5, n_chr=20):
+    """Phase 15b (on phase 3's store, before it is freed); see the module's
+    docstring."""
+    import tempfile
+
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.engine.samples_io import STSampleStream
+
+    p, n = kept["packed"].shape[0], kept["tbv"].shape[0]
+    say(f"== phase 15b: GWAS over the north-star store, N={n} x P={p}, "
+        f"{n_outer} outer iterations ({n_burn} burnt in), 1 Mb windows on {n_chr} "
+        "chromosomes")
+    store, table, _, _, cand = phase5_problem(kept["packed"], kept["freqs"], kept["tbv"])
+    map_t, _ = gwas_map(p, n_chr, ids=store.marker_ids)
+    S = n_outer - n_burn
+    b = 128
+    torch.cuda.empty_cache()
+    jt.reset_launches()
+    with tempfile.TemporaryDirectory() as folder:
+        seconds = {}
+        geno = jt.get_genotypes(store, method="BayesC", storage="2bit", Pi=0.999)
+        with timed_calls(seconds, "writing the files", STSampleStream, "write_sample"):
+            out, parts, built = run_phase5(geno, table, device=dev, fast_blocks=b,
+                                           chain_length=n_outer * b, burnin=n_burn * b,
+                                           output_samples_frequency=b,
+                                           output_marker_samples=True, output_folder=folder)
+        counts = {k.__name__: k.launches for k in jt.KERNELS}
+        model_geno = built.pop("store and Grams")
+        del built, model_geno
+        seconds.update({k: v for k, v in parts.items() if k != "runMCMC"})
+        seconds["chain"] -= seconds["writing the files"]
+        f0 = out["_marker_sample_file"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (res, props, lebv), t_win, gparts = gwas_parts(seconds, lambda: jt.GWAS(
+            None, map_t, f0, genotypes=store, local_EBV=True, output_winVarProps=True,
+            device=dev))
+        seconds["the windows"] = t_win
+        seconds["reading the files"] = seconds.pop("read")
+        peak = torch.cuda.max_memory_allocated(dev)
+        col_of = {s: i for i, s in enumerate(store.obs_ids)}
+        check_cols = [col_of[s] for s in cand[:64]]
+        direct = direct_ebv(kept["packed"], store.means, gparts["samples"].mean(axis=0),
+                            check_cols)
+        size = os.path.getsize(f0)
+    t_bv = gparts["BV"]
+    say("seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    say(f"marker-effect sample file {size / 1e6:.1f} MB ({S} samples x {p} markers); "
+        f"BV = X A {2 * n * p * S / 1e12:.3f} TFLOP in {t_bv:.3f} s "
+        f"({2 * n * p * S / t_bv / 1e12:.2f} TFLOP/s); {len(res)} windows")
+    store_bytes = kept["packed"].numel()
+    limit = store_bytes + PHASE15_DECODE_BYTES + PHASE15_MARGIN_BYTES
+    say(f"GWAS peak device memory {peak / 1e9:.3f} GB (allocated before it "
+        f"{base / 1e9:.3f} GB; store {store_bytes / 1e9:.3f} + 1.07 + 4 GB = "
+        f"{limit / 1e9:.3f} GB allowed); launches {counts}")
+    err = check_gwas("phase 15b", res, p, S, props, lebv, direct, check_cols)
+    ebv = dict(zip(out["EBV_y"]["ID"], np.asarray(out["EBV_y"]["EBV"], dtype=np.float64)))
+    truth = dict(zip(store.obs_ids, kept["tbv"]))
+    acc = float(np.corrcoef([ebv[s] for s in cand], [truth[s] for s in cand])[0, 1])
+    say(f"local EBVs against X mean(alpha): max relative error {err:.3g}; WPPA mean "
+        f"{float(np.mean(res['WPPA'])):.4f}, top windows "
+        f"{np.asarray(res['window'])[:5].tolist()}; candidates' EBV accuracy {acc:.4f}; "
+        f"vare {float(out['residual variance']['Estimate'][0]):.4g}, pi "
+        f"{float(out['pi_geno']['Estimate'][0]):.6f}")
+    if peak > limit:
+        raise AssertionError(f"phase 15b: GWAS peak {peak / 1e9:.3f} GB > {limit / 1e9:.3f}")
+    if any(counts[k] == 0 for k in PATH_ABC_15):
+        raise AssertionError(f"phase 15b: kernels never launched: {counts}")
+    if not np.isfinite(acc):
+        raise AssertionError("phase 15b: non-finite EBVs")
+    del res, props, lebv, store, geno
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in PATH_ABC_15}
+
+
+def near_threshold_ok(props_ref, wppa_ref, wppa, windows):
+    """WPPA equal but where a sample's proportion lies within PHASE15_NEAR
+    (relative) of the threshold: there by at most 1/S a such sample."""
+    S = props_ref.shape[1]
+    near = (np.abs(props_ref - PHASE15_THRESHOLD) <= PHASE15_NEAR * PHASE15_THRESHOLD).sum(1)
+    return bool((np.abs(wppa - wppa_ref) <= near[windows - 1] / S + 1e-12).all())
+
+
+def gwas_card_vs_cpu(dev, model, map_file, map_one, f, f2, store):
+    """GWAS on the card and on the CPU: fixed windows over map_file and
+    sliding ones over map_one (a chromosome), with the variance proportions
+    and local EBVs, and the correlation of two files. Returns the largest
+    differences; raises where they exceed 15c's tolerances."""
+    import jwas_tpu_torch as jt
+
+    worst = {}
+    for sliding in (False, True):
+        runs = [jt.GWAS(model, map_one if sliding else map_file, f, genotypes=store,
+                        sliding_window=sliding, output_winVarProps=True, local_EBV=True,
+                        device=d)
+                for d in (dev, torch.device("cpu"))]
+        (res, props, lebv), (res_c, props_c, lebv_c) = runs
+        o, oc = np.argsort(res["window"]), np.argsort(res_c["window"])
+        w = np.asarray(res["window"])[o]
+        if not np.array_equal(w, np.asarray(res_c["window"])[oc]):
+            raise AssertionError("phase 15c: the card's windows differ from the CPU's")
+        pr, pr_c = np.asarray(res["prGenVar"])[o], np.asarray(res_c["prGenVar"])[oc]
+        if not (np.allclose(pr, pr_c, rtol=1e-4, atol=1e-6)
+                and np.allclose(props, props_c, rtol=1e-4, atol=1e-6)):
+            raise AssertionError(f"phase 15c: prGenVar differs (sliding {sliding})")
+        if not near_threshold_ok(props_c, np.asarray(res_c["WPPA"])[oc],
+                                 np.asarray(res["WPPA"])[o], w):
+            raise AssertionError(f"phase 15c: WPPA differs (sliding {sliding})")
+        d_ebv = max(float(np.abs(np.asarray(lebv[c]) - np.asarray(lebv_c[c])).max())
+                    for c in lebv.columns)
+        if not d_ebv <= 1e-4:
+            raise AssertionError(f"phase 15c: local EBVs differ by {d_ebv:.3g}")
+        key = "sliding" if sliding else "fixed"
+        worst[key] = dict(windows=len(w), prGenVar=float(np.abs(pr - pr_c).max()),
+                          local_EBV=d_ebv,
+                          WPPA=float(np.abs(np.asarray(res["WPPA"])[o]
+                                            - np.asarray(res_c["WPPA"])[oc]).max()))
+    cor = [jt.GWAS(model, map_file, [f, f2], genotypes=store, genetic_correlation=True,
+                   device=d) for d in (dev, torch.device("cpu"))]
+    for c in ("estimate_cov", "std_cov", "estimate_cor", "std_cor"):
+        a, b = np.asarray(cor[0][c]), np.asarray(cor[1][c])
+        if not np.allclose(a, b, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"phase 15c: correlation column {c} differs")
+        worst[c] = float(np.abs(a - b).max())
+    return worst
+
+
+def phase15c(dev):
+    """Phase 15c; see the module's docstring."""
+    import tempfile
+
+    import jwas_tpu_torch as jt
+    from jwas_tpu_torch.io.datasets import simulate_genomic_data
+
+    say("== phase 15c: GWAS, LOOCV and three chains, the card against the CPU")
+    t_data = time.perf_counter()
+    codes, y, bv = stat_data()
+    store = stat_store(codes)
+    n, p = codes.shape
+    t_data = time.perf_counter() - t_data
+    jt.reset_launches()
+    with tempfile.TemporaryDirectory() as folder:
+        t_chain = time.perf_counter()
+        model = jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
+            store, method="BayesC", storage="2bit"))
+        out = jt.runMCMC(model, jt.Table({"ID": store.obs_ids, "y": y}), device=dev,
+                         fast_blocks=8, chain_length=8 * 30, burnin=8 * 10,
+                         output_samples_frequency=8, seed=5, output_marker_samples=True,
+                         output_folder=os.path.join(folder, "res"),
+                         printout_model_info=False)
+        t_chain = time.perf_counter() - t_chain
+        gwas_counts = {k.__name__: k.launches for k in jt.KERNELS}
+        if any(gwas_counts[k] == 0 for k in PATH_ABC_15):
+            raise AssertionError(f"phase 15c: kernels never launched: {gwas_counts}")
+        f = out["_marker_sample_file"]
+        with open(f) as fh:
+            lines = fh.read().splitlines()
+        f2 = os.path.join(folder, "MCMC_samples_marker_effects_geno_y2.txt")
+        with open(f2, "w") as fh:           # the same samples, rolled by one row
+            fh.write("\n".join([lines[0]] + lines[2:] + lines[1:2]) + "\n")
+        map_t, _ = gwas_map(p, 4, span=20_000_000)
+        map_file = os.path.join(folder, "map.csv")
+        map_t.to_csv(map_file)
+        t0 = time.perf_counter()
+        worst = gwas_card_vs_cpu(dev, model, map_file, map_t.take(np.arange(p // 8)),
+                                 f, f2, store)
+        t_gwas = time.perf_counter() - t0
+    say(f"data {t_data:.1f} s, the card's chain and its files {t_chain:.1f} s; GWAS card "
+        f"against CPU ({len(lines) - 1} samples; {t_gwas:.1f} s): "
+        + "; ".join(f"{k} {v}" for k, v in worst.items()))
+    vara = float(out["marker effects variances geno"]["Estimate"][0])
+    vare = float(out["residual variance"]["Estimate"][0])
+    loocv = {}
+    t_loocv = time.perf_counter()
+    for branch, (rows, cols) in (("eMEM", (500, 50)), ("eBV", (300, 600))):
+        X = codes[:rows, :cols].astype(np.float64)
+        got = jt.LOOCV(X, y[:rows], vara, vare, verbose=False, device=dev)
+        ref = jt.LOOCV(X, y[:rows], vara, vare, verbose=False, device="cpu")
+        loocv[branch] = float(np.abs(got - ref).max() / np.abs(ref).max())
+        if not loocv[branch] <= 1e-8:
+            raise AssertionError(f"phase 15c: LOOCV {branch} differs by {loocv[branch]:.3g}")
+    say(f"LOOCV card against CPU ({time.perf_counter() - t_loocv:.1f} s), max relative "
+        f"difference: {loocv}")
+    # tests/test_multichain.py:10-22's model, three chains on the card
+    sim = simulate_genomic_data(n=300, p=120, n_qtl=12, h2=0.5, seed=61)
+    geno = jt.get_genotypes(sim["genotypes"], method="BayesC", name="geno", device=dev)
+    jt.reset_launches()
+    t0 = time.perf_counter()
+    mc = jt.runMCMC(jt.build_model("y = intercept + geno", genotypes=geno),
+                    sim["phenotypes"], chain_length=600, burnin=120, seed=3, n_chains=3,
+                    output_samples_frequency=5, output_folder="", device=dev,
+                    printout_model_info=False)
+    t_mc = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in jt.KERNELS}
+    acc = float(np.corrcoef(np.asarray(mc["EBV_y"]["EBV"], float), sim["true_bv"])[0, 1])
+    psrf = dict(zip(mc["PSRF"]["parameter"], mc["PSRF"]["PSRF"]))
+    say(f"3 chains of 600 sweeps on the card in {t_mc:.1f} s: EBV accuracy {acc:.4f} "
+        f"(> 0.85), PSRF {({k: round(v, 4) for k, v in psrf.items()})} (vare in 0.8..1.3); "
+        f"launches {counts}")
+    if not acc > 0.85 or not 0.8 < psrf["vare"] < 1.3:
+        raise AssertionError(f"phase 15c: three chains' accuracy {acc:.4f}, PSRF {psrf}")
+    if any(counts[k] == 0 for k in PATH_DENSE_15):
+        raise AssertionError(f"phase 15c: the three chains never launched: {counts}")
+    return ({k: gwas_counts[k] for k in PATH_ABC_15},
+            {k: counts[k] for k in PATH_DENSE_15})
+
+
+def phase15(dev):
+    """Phase 15a and 15c (15b runs on phase 3's store); 15c's launches of
+    its GWAS chain and of its three chains apart."""
+    launches = {"phase 15a": phase15a(dev)}
+    launches["phase 15c gwas"], launches["phase 15c chains"] = phase15c(dev)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    import multiprocessing
+
+    import jwas_tpu_torch  # noqa: F401  (the port must import before a worker starts)
+
+    dev = torch.device("cuda", 0)
+    # phase 4's CPU chain (plain versions) runs in a worker process while
+    # nvcc builds the kernels; the worker is stopped on every way out
+
+    workers = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        cpu_chain = workers.apply_async(phase4_chain, ("cpu", 2))
+        return run_phases(dev, cpu_chain)
+    finally:
+        workers.terminate()
+        workers.join()
+
+
+def run_phases(dev, cpu_chain):
     from jwas_tpu_torch import _build
     from jwas_tpu_torch.io.pedigree import _inbreeding_meuwissen_luo
 
-    dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -4869,10 +5399,11 @@ def main():
 
     recs = phase2(dev)
     launches, kept = phase3(dev)
-    launches["phase 4"] = phase4(dev)
+    launches["phase 4"] = phase4(dev, cpu_chain)
     launches["phase 5"] = phase5(dev, kept)
     launches["phase 6a"] = phase6a(dev, kept)
     launches["phase 6b"] = phase6b(dev, kept)
+    launches["phase 15b"] = phase15b(dev, kept)
     del kept
     torch.cuda.empty_cache()
     launches.update(phase7(dev))
@@ -4883,6 +5414,7 @@ def main():
     launches.update(phase10(dev))
     launches.update(phase13(dev))
     launches.update(phase14(dev))
+    launches.update(phase15(dev))
 
     # launches: phase 3's (run_st, both methods), phase 4's (K6 of the
     # card's chains), phase 5's (runMCMC), phase 6's (runMCMC BayesB;

@@ -30,8 +30,19 @@ store and adds the J covariate and the imputation residual epsilon
 solver=...) solves the MME of a model without markers. runMCMC(model, df,
 RRM=Phi), Phi from generate_full_phi, runs the random regression model of
 a longitudinal trait (test days, growth curves) on a dense store, its
-marker chain the hand-written kernel K10. It imports torch,
-numpy and scipy only; never jax, pandas or jwas_tpu.
+marker chain the hand-written kernel K10. runMCMC(..., n_chains=K) runs K
+chains of a single- or multi-trait model on one device, sharing the store
+and its Gram tiles, chain k seeded seed + k, and returns the pooled
+posterior means with a "PSRF" table (output_chain_samples=True writes
+each chain's sample files under chain_<k>/). After a run, GWAS reads the
+marker-effect sample file and takes window variance proportions, WPPA,
+local EBVs and window genetic correlations from decoded genotype columns
+on the device (analysis/gwas.py); PSRF, PSRF_per_parameter, traceplot,
+LOOCV (float64 on the device), lsmeans and getEBV are the diagnostics
+(analysis/diagnostics.py), and dataset the packaged example tables
+(io/datasets.py, with the simulators of known truth). It imports torch,
+numpy and scipy only (matplotlib inside traceplot); never jax, pandas or
+jwas_tpu.
 
 Entry points, as in jwas_tpu: read_csv (a pandas-free column table),
 get_pedigree and get_info, get_genotypes (storage "2bit", or a dense one
@@ -50,8 +61,12 @@ chains (K7-K9) and the random-regression chain (K10). On the CPU
 inbreeding is host C++ (csrc/pedigree.cpp), built with g++ on first use.
 """
 
+from jwas_tpu_torch.analysis.diagnostics import (LOOCV, PSRF, PSRF_per_parameter, getEBV,
+                                                 lsmeans, traceplot)
+from jwas_tpu_torch.analysis.gwas import GWAS
 from jwas_tpu_torch.engine.mcmc import runMCMC, run_st, setup_dense_markers, setup_markers
 from jwas_tpu_torch.engine.solve import solve
+from jwas_tpu_torch.io.datasets import dataset
 from jwas_tpu_torch.io.genotypes import Genotypes, get_genotypes
 from jwas_tpu_torch.io.packed import Packed2BitStore, pack_codes, prepare_packed_genotypes
 from jwas_tpu_torch.io.pedigree import Pedigree, get_info, get_pedigree
@@ -89,16 +104,17 @@ def reset_launches() -> None:
 
 
 __all__ = [
-    "Genotypes", "KERNELS", "Model", "Packed2BitStore", "Pedigree", "Table",
+    "GWAS", "Genotypes", "KERNELS", "LOOCV", "Model", "PSRF", "PSRF_per_parameter",
+    "Packed2BitStore", "Pedigree", "Table",
     "abc_inner_rounds", "add_genotypes", "bayesr_inner_rounds",
-    "build_grouped_markers", "build_model", "describe", "generate_full_phi",
-    "getMCMCinfo",
-    "get_genotypes", "get_info", "get_pedigree", "gibbs_pass_lambda",
+    "build_grouped_markers", "build_model", "dataset", "describe", "generate_full_phi",
+    "getEBV", "getMCMCinfo",
+    "get_genotypes", "get_info", "get_pedigree", "gibbs_pass_lambda", "lsmeans",
     "mt_abc_inner_rounds_I", "mt_abc_inner_rounds_II", "mt_c0l_inner_rounds",
     "outputEBV",
     "outputMCMCsamples", "pack_codes", "packed_matvec", "packed_rhs",
     "pick_stable_blocks", "prepare_packed_genotypes",
     "prepare_streaming_genotypes", "read_csv", "reset_launches", "runMCMC",
     "run_st", "set_covariate", "set_random", "setup_dense_markers",
-    "setup_markers", "solve", "sweep_rrm_abc",
+    "setup_markers", "solve", "sweep_rrm_abc", "traceplot",
 ]

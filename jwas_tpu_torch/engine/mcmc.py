@@ -15,7 +15,11 @@ local shrinkage :446-472, its scale :476-484, the random-effect
 covariances :486-507, the weighted residual variance :509-518),
 make_run_window (:580-668), _init_accum (:671), _apply_update_priors
 (:691-715), _build_st_data_and_state (:762-868, the groups :916-944, the
-state :1128-1224) and the single-chain loop of runMCMC (:1435-1569).
+state :1128-1224), the single-chain loop of runMCMC (:1435-1569) and
+its several chains (_run_multichain and _apply_update_priors_mc,
+:1227-1432): run_chains runs K states on one device, sharing the store,
+its Gram tiles and the workspace, a window each in turn (jwas_tpu vmaps
+them); the pooled means and a "PSRF" table come back with the results.
 
 The location pass is one launch of K6 on the card (ops/location.py), on
 every path; with random effects the LHS is assembled from the group
@@ -44,11 +48,11 @@ stays 1. Annotations (annotated BayesC and BayesR on a dense store,
 and its per-marker prior goes to K1 as its (nblocks, b) log pi and to K3
 as its (nblocks, b, 4) one.
 
-Two entry points share the chain loop (run_chain) and the initial state:
-runMCMC(model, df, ...) takes a model from build_model and the phenotypes
-and returns the result tables, as jwas_tpu's does; run_st takes a store set
-up by setup_markers and the priors explicitly and returns numpy posterior
-means. BayesB runs BayesC's sweep with one variance a marker. The EBVs of
+Two entry points share the chain loop (run_chains; run_chain runs one)
+and the initial state: runMCMC(model, df, ...) takes a model from
+build_model and the phenotypes and returns the result tables, as
+jwas_tpu's does; run_st takes a store set up by setup_markers and the
+priors explicitly and returns numpy posterior means. BayesB runs BayesC's sweep with one variance a marker. The EBVs of
 the output IDs are the output IDs' rows of the X alpha pass over the store
 (K5), in place of jwas_tpu's dense (n_out, p) decode (:600-601); GBLUP's
 are its output map times alpha, as jwas_tpu's.
@@ -66,13 +70,14 @@ import torch
 
 from jwas_tpu_torch.engine.output import build_results
 from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
-from jwas_tpu_torch.engine.samples_io import STSampleStream
+from jwas_tpu_torch.engine.samples_io import STSampleStream, multichain_streams
 from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace, prepare_workspace,
                                          reject_unported, resolve_device)
 from jwas_tpu_torch.engine.state import ChainState, EngineCfg, REGroupCfg
 from jwas_tpu_torch.engine.validation import validate_args
 from jwas_tpu_torch.io.genotypes import DEFAULT_BAYESR_PI, bayesr_pi  # noqa: F401
 from jwas_tpu_torch.io.packed import Packed2BitStore, store_has_missing
+from jwas_tpu_torch.io.table import Table
 from jwas_tpu_torch.models.model import Model, describe
 from jwas_tpu_torch.ops import annotations as an
 from jwas_tpu_torch.ops import markers as mk
@@ -811,46 +816,141 @@ def apply_update_priors(cfg: EngineCfg, data: STData, state: ChainState,
     return data, state
 
 
-def run_chain(cfg: EngineCfg, data: STData, state: ChainState, plan: ChainPlan,
-              stream=None, progress=None, update_priors_frequency: int = 0):
-    """The single-chain loop (jwas_tpu/engine/mcmc.py:1484-1560): burn-in,
-    then n_saved windows of thin_outer outer iterations, each ending with
-    its sample read back (and written to the sample files by stream). With
-    update_priors_frequency K > 0 the priors are refreshed
-    (apply_update_priors) at the end of each window in which the sweep
-    count passes a multiple of K.
-    Returns (state, accum, samples, burnin_seconds, window_seconds)."""
+def pool_accums(accums):
+    """The pooled posterior means of equal-length chains: the mean over the
+    chains of each running mean (exact: every chain saw n samples;
+    jwas_tpu/engine/mcmc.py:1398-1399). Works on Accum and MTAccum."""
+    if len(accums) == 1:
+        return accums[0]
+
+    def mean(xs):
+        return torch.stack(list(xs)).mean(dim=0)
+
+    fields = {}
+    for name in accums[0]._fields:
+        vals = [getattr(a, name) for a in accums]
+        if name == "n" or vals[0] is None:
+            fields[name] = vals[0]
+        elif isinstance(vals[0], tuple):
+            fields[name] = tuple(mean(v) for v in zip(*vals))
+        else:
+            fields[name] = mean(vals)
+    return type(accums[0])(**fields)
+
+
+def apply_update_priors_mc(cfg: EngineCfg, data: STData, states, accums):
+    """The prior refresh of several chains (_apply_update_priors_mc,
+    jwas_tpu/engine/mcmc.py:1227-1250): each chain's marker-variance scale
+    from its own running mean, the shared residual and pedigree-group
+    scales from the chains' pooled means. Returns (data, states)."""
+    data, _ = apply_update_priors(cfg, data, states[0], pool_accums(accums))
+    return data, [apply_update_priors(cfg, data, s, a)[1] for s, a in zip(states, accums)]
+
+
+def run_chains(cfg: EngineCfg, data: STData, states, plan: ChainPlan, stream=None,
+               chain_streams=(), progress=None, update_priors_frequency: int = 0):
+    """K chains on one device (jwas_tpu/engine/mcmc.py:1253-1432, where
+    they are vmapped): they share data (the store, its Gram tiles, the
+    workspace) and each has its own state and generator. Each chain burns
+    in, then every window each chain in turn runs its thin_outer outer
+    iterations, so that the prior refresh (apply_update_priors_mc) sees
+    every chain at the same window; each chain's sample is read back, chain
+    0's written by stream (the top-level files) and chain k's by
+    chain_streams[k] (chain_<k+1>/). samples holds every chain's draws,
+    window by window, chain by chain, so that posterior SDs pool over
+    (sample, chain); tracks holds each window's (K,) vare, h2, genvar,
+    varg and (K, m) pi for the PSRF table. Returns (states, accums,
+    samples, tracks, burnin_seconds, window_seconds)."""
+    K = len(states)
+    states = list(states)
     run_window = make_run_window(cfg)
-    accum = _init_accum(cfg, data, state)
+    accums = [_init_accum(cfg, data, s) for s in states]
     samples = {k: [] for k in SAMPLE_KEYS}
+    tracks = {k: [] for k in SAMPLE_KEYS}
     window_seconds = []
     upf, prior_epoch = int(update_priors_frequency or 0), 0
     t0 = time.perf_counter()
     if plan.burnin_outer > 0:
-        state, accum, out = run_window(state, data, accum, plan.burnin_outer,
-                                       accumulate=False)
+        for k in range(K):
+            states[k], accums[k], out = run_window(states[k], data, accums[k],
+                                                   plan.burnin_outer, accumulate=False)
         out.vare.item()              # waits for the device
     t_burnin = time.perf_counter() - t0
     for w in range(plan.n_saved):
         t_w = time.perf_counter()
-        state, accum, out = run_window(state, data, accum, plan.thin_outer)
+        outs = []
+        for k in range(K):
+            states[k], accums[k], out = run_window(states[k], data, accums[k],
+                                                   plan.thin_outer)
+            outs.append(out)
         iters_done = (plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps
         if upf > 0 and iters_done // upf > prior_epoch:
             prior_epoch = iters_done // upf
-            data, state = apply_update_priors(cfg, data, state, accum)
+            data, states = apply_update_priors_mc(cfg, data, states, accums)
         cg = None if data.sl is None else data.sl.stats
-        host = _read_back(state, out, stream, cfg.n_markers, cg)
+        hosts = [_read_back(states[k], outs[k], stream, cfg.n_markers,
+                            cg if k == K - 1 else None) for k in range(K)]
         if cg is not None:
-            cg.host = {k: float(host[k]) for k in CG_KEYS}
+            cg.host = {k: float(hosts[-1][k]) for k in CG_KEYS}
         window_seconds.append(time.perf_counter() - t_w)
-        for k in SAMPLE_KEYS:
-            samples[k].append(host[k])
+        for key in SAMPLE_KEYS:
+            samples[key].extend(h[key] for h in hosts)
+            tracks[key].append(np.stack([np.asarray(h[key]) for h in hosts]))
         if stream is not None:
-            stream.write_sample(host)
+            stream.write_sample(hosts[0])
+        for cs, h in zip(chain_streams, hosts):
+            cs.write_sample(h)
         if progress is not None:
-            progress.update(iters_done, vare=host["vare"], varg=host["varg"],
-                            pi=host["pi"])
-    return state, accum, samples, t_burnin, window_seconds
+            progress.update(iters_done, vare=hosts[0]["vare"], varg=hosts[0]["varg"],
+                            pi=hosts[0]["pi"])
+    return states, accums, samples, tracks, t_burnin, window_seconds
+
+
+def run_chain(cfg: EngineCfg, data: STData, state: ChainState, plan: ChainPlan,
+              stream=None, progress=None, update_priors_frequency: int = 0):
+    """One chain through run_chains (jwas_tpu/engine/mcmc.py:1484-1560):
+    burn-in, then n_saved windows of thin_outer outer iterations, each
+    ending with its sample read back (and written by stream), the priors
+    refreshed every update_priors_frequency sweeps. Returns (state, accum,
+    samples, burnin_seconds, window_seconds)."""
+    states, accums, samples, _, t_burnin, window_seconds = run_chains(
+        cfg, data, [state], plan, stream, progress=progress,
+        update_priors_frequency=update_priors_frequency)
+    return states[0], accums[0], samples, t_burnin, window_seconds
+
+
+def psrf_table(series) -> Table:
+    """A Table of parameter and PSRF from (name, (n_saved, K) draws) pairs
+    (jwas_tpu/engine/mcmc.py:1413-1431): a series whose chains are all
+    constant is left out, and one PSRF cannot take (fewer than two
+    samples) is skipped."""
+    from jwas_tpu_torch.analysis.diagnostics import PSRF
+
+    names, values = [], []
+    for name, arr, skip_constant in series:
+        if skip_constant and np.allclose(arr.std(axis=0), 0.0):
+            continue
+        try:
+            with np.errstate(all="ignore"):
+                values.append(float(PSRF(*[arr[:, c] for c in range(arr.shape[1])])))
+        except ValueError:
+            continue
+        names.append(name)
+    return Table({"parameter": np.asarray(names, dtype=object),
+                  "PSRF": np.asarray(values, dtype=np.float64)})
+
+
+def st_psrf(tracks) -> Table:
+    """The single-trait PSRF table: vare, h2, genvar, varg, then each pi
+    component that moves (pi[c]: BayesC's P(excluded) is pi[0], BayesR's
+    four class shares pi[0]..pi[3])."""
+    series = [(name, np.stack(tracks[name]), False) for name in ("vare", "h2", "genvar",
+                                                                  "varg")]
+    pi = np.stack(tracks["pi"])
+    if pi.ndim == 2:                                    # BayesC: (n_saved, K)
+        pi = pi[:, :, None]
+    series += [(f"pi[{c}]", pi[:, :, c], True) for c in range(pi.shape[2])]
+    return psrf_table(series)
 
 
 def _host(t):
@@ -1027,6 +1127,12 @@ def prediction_rows(ws: Workspace):
 
 
 def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
+    """(cfg, data, state) of a single chain (_build_st_data_and_states)."""
+    cfg, data, states = _build_st_data_and_states(ws, opts, device, 1)
+    return cfg, data, states[0]
+
+
+def _build_st_data_and_states(ws: Workspace, opts: MCMCOptions, device, n_chains: int):
     """The 2-bit grouped, the dense, the GBLUP and the no-marker branches
     of jwas_tpu's _build_st_data_and_state (:762-868, the random-effect
     groups :916-944, state :1128-1224): setup_markers' or
@@ -1037,7 +1143,10 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     and starting covariances, the residence of a 2-bit store
     (host_offload_genotypes) and the starting values (starting_value: the
     location parameters, :1131-1141; the genotypes' starting_alpha: the
-    marker effects, :1142-1145). Returns (cfg, data, state)."""
+    marker effects, :1142-1145). Returns (cfg, data, states): a state a
+    chain, chain k's generator seeded seed + k (jwas_tpu/engine/mcmc.py:
+    1262-1264; seed None counts as 0), every other starting value (a
+    latent trait's liabilities among them) the same in every chain."""
     g = ws.geno
     K = ws.n_loc
     sparse = ws.W_sparse is not None
@@ -1125,27 +1234,35 @@ def _build_st_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         steps, c0, v0 = annotation_start_st(g, A.shape[1])
         cfg = replace(cfg, anno_steps=steps)
         data = data._replace(anno_A=on_dev(A))
-    state = initial_state(cfg, data, vare0=ws.vare0, marker_var0=ws.marker_var0,
-                          marker_scale0=ws.marker_scale0, pi0=ws.pi0, seed=opts.seed,
-                          sol0=sol0, alpha0=None if g is None else g.starting_alpha,
-                          vc0=[grp.G0 for grp in ws.re_groups])
-    if lat is not None:
-        state = state._replace(liab=data.y.clone(), thresholds=on_dev(lat["thresholds"]))
-    if anno:
-        state = state._replace(ann_coeffs=on_dev(c0), ann_var=on_dev(v0))
-        if g.method == "BayesR":          # one (4,) prior a marker, padding [1, 0, 0, 0]
-            real = gm.valid > 0
-            pad = torch.zeros(4, dtype=dtype, device=device)
-            pad[0] = 1.0
-            state = state._replace(pi=torch.where(real[:, None], state.pi[None, :], pad))
-    return cfg, data, state
+    def chain_state(seed):
+        state = initial_state(cfg, data, vare0=ws.vare0, marker_var0=ws.marker_var0,
+                              marker_scale0=ws.marker_scale0, pi0=ws.pi0, seed=seed,
+                              sol0=sol0, alpha0=None if g is None else g.starting_alpha,
+                              vc0=[grp.G0 for grp in ws.re_groups])
+        if lat is not None:
+            state = state._replace(liab=data.y.clone(),
+                                   thresholds=on_dev(lat["thresholds"]))
+        if anno:
+            state = state._replace(ann_coeffs=on_dev(c0), ann_var=on_dev(v0))
+            if g.method == "BayesR":      # one (4,) prior a marker, padding [1, 0, 0, 0]
+                real = gm.valid > 0
+                pad = torch.zeros(4, dtype=dtype, device=device)
+                pad[0] = 1.0
+                state = state._replace(pi=torch.where(real[:, None], state.pi[None, :], pad))
+        return state
+
+    seed0 = 0 if opts.seed is None else int(opts.seed)
+    return cfg, data, [chain_state(seed0 + k) for k in range(n_chains)]
 
 
 def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     """Run MCMC for a model from build_model on phenotypes df (a Table, a
     {name: array} mapping or a DataFrame whose first column holds the IDs):
-    the reference's runMCMC (JWAS.jl:161-511), single chain, single-trait
-    BayesC, BayesB or BayesR on the 2-bit store or a dense store, and
+    the reference's runMCMC (JWAS.jl:161-511), one chain or n_chains
+    (run_chains: the pooled means, a "PSRF" table and, with
+    output_chain_samples, each chain's sample files under chain_<k>/ listed
+    in "_chain_sample_folders"; random regression ignores n_chains, as
+    jwas_tpu does), single-trait BayesC, BayesB or BayesR on the 2-bit store or a dense store, and
     RR-BLUP, BayesA, BayesL or GBLUP on a dense store or a relationship
     matrix (with residual weights, heterogeneous_residuals, and float64,
     double_precision), or no genotypes; with the random effects of
@@ -1193,18 +1310,23 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     model.mcmc_info = opts
     if opts.printout_model_info:
         describe(model)
-    cfg, data, state = _build_st_data_and_state(ws, opts, device)
+    n_chains = int(opts.n_chains)
+    cfg, data, states = _build_st_data_and_states(ws, opts, device, n_chains)
     plan = chain_plan(opts.chain_length, opts.burnin, opts.output_samples_frequency,
                       cfg.nreps)
     stream = STSampleStream(ws, cfg, opts)
+    chain_streams = multichain_streams(STSampleStream, ws, cfg, opts, n_chains)
     progress = ProgressPrinter(opts.printout_frequency, opts.chain_length)
     try:
         with maybe_profile(opts):
-            _, accum, samples, _, _ = run_chain(
-                cfg, data, state, plan, stream, progress,
+            _, accums, samples, tracks, _, _ = run_chains(
+                cfg, data, states, plan, stream, chain_streams, progress,
                 update_priors_frequency=opts.update_priors_frequency)
     finally:
         stream.close()
+        for cs in chain_streams:
+            cs.close()
+    accum = pool_accums(accums)
     accum = accum._replace(**{k: _host(v) if torch.is_tensor(v) else
                               tuple(_host(t) for t in v)
                               for k, v in accum._asdict().items()
@@ -1224,4 +1346,8 @@ def runMCMC(model: Model, df, *, device="cuda", **kwargs) -> Dict:
     if stream.enabled and stream.write_markers and ws.geno is not None:
         results["_marker_sample_file"] = stream.writer.path(
             f"marker_effects_{ws.geno.name}_{model.lhs_vec[0]}")
+    if chain_streams:
+        results["_chain_sample_folders"] = [cs.writer.folder for cs in chain_streams]
+    if n_chains > 1 and plan.n_saved > 1:
+        results["PSRF"] = st_psrf(tracks)
     return results

@@ -10,8 +10,10 @@ Counterpart of jwas_tpu/engine/mcmc_mt.py: _pattern_Ri (:83), make_mt_step
 BayesL's local shrinkage :401-454, the random-effect covariances :456-464,
 the residual covariance :466-487, SEM's structural coefficients
 :489-516), make_mt_run_window (:567-629), pi_dict_to_vector (:632),
-build_mt_data_and_state (:645-991), _apply_update_priors_mt (:1015-1034)
-and run_mcmc_mt (:1232), single chain.
+build_mt_data_and_state (:645-991), _apply_update_priors_mt (:1015-1034),
+_run_mt_multichain (:1037-1230, here run_mt_chains: K states on one
+device, a window each in turn; the single chain, :1270-1300, is its one
+state) and run_mcmc_mt (:1232).
 
 - Latent traits (binary, ordered categorical, censored; :112-148, set-up
   :758-830): each outer iteration first draws their liabilities
@@ -63,13 +65,15 @@ import numpy as np
 import torch
 
 from jwas_tpu_torch.engine.mcmc import (LATENT, NoMarkers, annotation_design, chain_plan,
-                                        setup_dense_markers, to_host, _welford)
+                                        pool_accums, psrf_table, setup_dense_markers,
+                                        to_host, _welford)
 from jwas_tpu_torch.engine.output_mt import build_mt_results
 from jwas_tpu_torch.engine.progress import ProgressPrinter, maybe_profile
-from jwas_tpu_torch.engine.samples_io import MTSampleStream
+from jwas_tpu_torch.engine.samples_io import MTSampleStream, multichain_streams
 from jwas_tpu_torch.engine.setup import (MCMCOptions, Workspace, prepare_workspace,
                                          resolve_device, sem_edges)
 from jwas_tpu_torch.engine.state import MTChainState, MTEngineCfg, REGroupCfg
+from jwas_tpu_torch.io.table import Table
 from jwas_tpu_torch.models.model import describe
 from jwas_tpu_torch.ops import annotations as an
 from jwas_tpu_torch.ops import markers as mk
@@ -517,41 +521,79 @@ def apply_update_priors_mt(cfg: MTEngineCfg, data: MTData, accum: MTAccum) -> MT
     return data._replace(**fields)
 
 
-def run_mt_chain(cfg: MTEngineCfg, data: MTData, state: MTChainState, plan,
-                 stream=None, progress=None, update_priors_frequency: int = 0):
-    """The single-chain loop (mcmc_mt.py:1270-1300): burn-in, then n_saved
-    windows of thin_outer outer iterations, each ending with its sample read
-    back (and written by stream) and, every update_priors_frequency
-    iterations, the priors refreshed (apply_update_priors_mt). Returns
-    (state, accum, samples, burnin_seconds, window_seconds); samples holds
-    SEM's lam and alpha (t, p) a saved window when the chain has edges."""
+def run_mt_chains(cfg: MTEngineCfg, data: MTData, states, plan, stream=None,
+                  chain_streams=(), progress=None, update_priors_frequency: int = 0):
+    """K multi-trait chains on one device (_run_mt_multichain, mcmc_mt.py:
+    1037-1230), as engine/mcmc.py::run_chains runs single-trait ones: shared
+    data, a state and generator a chain, a window each in turn, the priors
+    refreshed from the chains' pooled means (apply_update_priors_mt), each
+    chain's draws appended to samples one by one (posterior SDs over
+    (sample, chain), mcmc_mt.py:1142-1147), SEM's lam and alpha from chain
+    0, chain 0's sample written by stream and chain k's by
+    chain_streams[k]. tracks holds each window's (K, t) h2 and (K, t, t)
+    genvar, R and varg. Returns (states, accums, samples, tracks,
+    burnin_seconds, window_seconds)."""
+    K = len(states)
+    states = list(states)
     run_window = make_mt_run_window(cfg)
-    accum = init_mt_accum(data, state)
+    accums = [init_mt_accum(data, s) for s in states]
     samples = {k: [] for k in SAMPLE_KEYS + (("lam", "alpha") if cfg.sem_edges else ())}
+    tracks = {k: [] for k in ("h2", "genvar", "R", "varg")}
     prior_epoch = 0
     window_seconds = []
     t0 = time.perf_counter()
     if plan.burnin_outer > 0:
-        state, accum, out = run_window(state, data, accum, plan.burnin_outer,
-                                       accumulate=False)
+        for k in range(K):
+            states[k], accums[k], out = run_window(states[k], data, accums[k],
+                                                   plan.burnin_outer, accumulate=False)
         out.R.cpu()                  # waits for the device
     t_burnin = time.perf_counter() - t0
     for w in range(plan.n_saved):
         t_w = time.perf_counter()
-        state, accum, out = run_window(state, data, accum, plan.thin_outer)
-        host = _read_back(state, out, stream, cfg.n_markers)
+        hosts = []
+        for k in range(K):
+            states[k], accums[k], out = run_window(states[k], data, accums[k],
+                                                   plan.thin_outer)
+            hosts.append(_read_back(states[k], out, stream, cfg.n_markers))
         window_seconds.append(time.perf_counter() - t_w)
         iters = (plan.burnin_outer + (w + 1) * plan.thin_outer) * plan.nreps
         if update_priors_frequency > 0 and iters // update_priors_frequency > prior_epoch:
             prior_epoch = iters // update_priors_frequency
-            data = apply_update_priors_mt(cfg, data, accum)
-        for k in samples:
-            samples[k].append(host[k])
+            data = apply_update_priors_mt(cfg, data, pool_accums(accums))
+        for key in SAMPLE_KEYS:
+            samples[key].extend(h[key] for h in hosts)
+        if cfg.sem_edges:
+            samples["lam"].append(hosts[0]["lam"])
+            samples["alpha"].append(hosts[0]["alpha"])
+        for key in tracks:
+            tracks[key].append(np.stack([h[key] for h in hosts]))
         if stream is not None:
-            stream.write_sample(host)
+            stream.write_sample(hosts[0])
+        for cs, h in zip(chain_streams, hosts):
+            cs.write_sample(h)
         if progress is not None:
-            progress.update(iters, vare=host["R"], varg=host["varg"], pi=host["pi"])
-    return state, accum, samples, t_burnin, window_seconds
+            progress.update(iters, vare=hosts[0]["R"], varg=hosts[0]["varg"],
+                            pi=hosts[0]["pi"])
+    return states, accums, samples, tracks, t_burnin, window_seconds
+
+
+def mt_psrf(tracks, t: int) -> Table:
+    """The multi-trait PSRF table (mcmc_mt.py:1194-1228): per trait h2[k],
+    genvar[k], R[k] and varg[k] (the diagonals), then each pair's genetic
+    correlation gencor[i,j] from the genvar draws; series constant in
+    every chain are left out."""
+    series = []
+    for name, diag in (("h2", False), ("genvar", True), ("R", True), ("varg", True)):
+        arr = np.stack(tracks[name])                       # (n_saved, K, ...)
+        series += [(f"{name}[{k}]", arr[:, :, k, k] if diag else arr[:, :, k], True)
+                   for k in range(t)]
+    gv = np.stack(tracks["genvar"])
+    for i in range(t):
+        for j in range(i + 1, t):
+            denom = np.sqrt(np.abs(gv[:, :, i, i] * gv[:, :, j, j]))
+            series.append((f"gencor[{i},{j}]",
+                           gv[:, :, i, j] / np.where(denom == 0, 1.0, denom), True))
+    return psrf_table(series)
 
 
 def pi_dict_to_vector(pi, t: int) -> np.ndarray:
@@ -670,6 +712,12 @@ def trait_columns(model, t: int):
 
 
 def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
+    """(cfg, data, state) of a single chain (build_mt_data_and_states)."""
+    cfg, data, states = build_mt_data_and_states(ws, opts, device, 1)
+    return cfg, data, states[0]
+
+
+def build_mt_data_and_states(ws: Workspace, opts: MCMCOptions, device, n_chains: int):
     """The dense, GBLUP and no-marker parts of jwas_tpu's
     build_mt_data_and_state (mcmc_mt.py:645-991): the static missing
     patterns, the store's blocks (setup_dense_markers' choice; GBLUP: the
@@ -681,7 +729,10 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
     prediction-equation rows, the starting values and the state: every
     marker included, the pattern priors from the Pi dict, BayesB's
     covariances one a locus, BayesL's local shrinkage 8 Gamma((t + 1) / 2)
-    a real marker. Returns (cfg, data, state)."""
+    a real marker. Returns (cfg, data, states): a state a chain, chain k's
+    generator seeded seed + k (seed None counts as 0; mcmc_mt.py:1047-1048)
+    and BayesL's shrinkage drawn from it, the other starting values the
+    same in every chain."""
     model, g = ws.model, ws.geno
     t, n, K = ws.n_traits, ws.n_obs, ws.W.shape[1]
     dtype = torch.float64 if opts.double_precision else torch.float32
@@ -810,53 +861,57 @@ def build_mt_data_and_state(ws: Workspace, opts: MCMCOptions, device):
         cens_upper=dev(lat["upper"]) if latent else None,
         anno_A=dev(annotation_design(g, p_pad)) if anno else None)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0 if opts.seed is None else int(opts.seed))
-    sol = torch.zeros(K, dtype=dtype, device=device)
-    if opts.starting_value is not None and opts.starting_value is not False:
-        sv = np.asarray(opts.starting_value, dtype=np.float64).reshape(-1)
-        if len(sv) != K:
-            raise ValueError(
-                f"length of starting values for non-marker location parameters "
-                f"is wrong (expected {K}, got {len(sv)}); the order is "
-                f"model.term_names()")
-        sol = dev(sv)
-    alpha = torch.zeros((t, p_pad), dtype=dtype, device=device)
-    delta = (gm.valid[None, :] > 0).expand(t, p_pad).to(dtype).clone()
-    # the latent traits start from their liabilities, which every record
-    # has (mcmc_mt.py:946-955); a missing residual starts at 0
-    keep = y_mask.copy()
-    keep[list(latent)] = True
-    y_eff = data.y if not latent else torch.where(
-        dev(np.isin(np.arange(t), latent)[:, None], torch.bool), dev(lat["liab"]), data.y)
-    ycorr = torch.where(dev(keep, torch.bool), y_eff - (W @ sol).view(t, n), 0.0)
-    if constraint:
-        pi = torch.zeros(t, dtype=dtype, device=device)
-    else:
-        pi = dev(pi_dict_to_vector(None if g is None else g.pi, t))
-    if anno:                            # one (4,) prior a marker, padding [1, 0, 0, 0]
-        pad = torch.zeros(4, dtype=dtype, device=device)
-        pad[0] = 1.0
-        pi = torch.where(gm.valid[:, None] > 0, pi[None, :], pad)
-    varg = dev(marker_var0)
-    if method == "BayesB":
-        varg = varg.expand(p_pad, t, t).clone()
-    gamma_l = None
-    if method == "BayesL":
-        gamma_l = torch.where(gm.valid > 0,
-                              sample_gamma_like(gen, (t + 1) / 2.0, gm.valid) * 8.0, 1.0)
-    state = MTChainState(gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(),
-                         delta=delta, ycorr=ycorr, R=dev(np.atleast_2d(ws.vare0)),
-                         varg=varg, pi=pi,
-                         vc=tuple(dev(np.atleast_2d(grp.G0)) for grp in ws.re_groups),
-                         gamma_l=gamma_l,
-                         Lambda=torch.zeros(len(edges), dtype=dtype, device=device)
-                         if edges else None,
-                         liab=dev(lat["liab"]) if latent else None,
-                         thresholds=dev(lat["thresholds"]) if latent else None,
-                         ann_coeffs=dev(ann_c0) if anno else None,
-                         ann_var=dev(np.ones(3)) if anno else None)
-    return cfg, data, state
+    def chain_state(seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        sol = torch.zeros(K, dtype=dtype, device=device)
+        if opts.starting_value is not None and opts.starting_value is not False:
+            sv = np.asarray(opts.starting_value, dtype=np.float64).reshape(-1)
+            if len(sv) != K:
+                raise ValueError(
+                    f"length of starting values for non-marker location parameters "
+                    f"is wrong (expected {K}, got {len(sv)}); the order is "
+                    f"model.term_names()")
+            sol = dev(sv)
+        alpha = torch.zeros((t, p_pad), dtype=dtype, device=device)
+        delta = (gm.valid[None, :] > 0).expand(t, p_pad).to(dtype).clone()
+        # the latent traits start from their liabilities, which every record
+        # has (mcmc_mt.py:946-955); a missing residual starts at 0
+        keep = y_mask.copy()
+        keep[list(latent)] = True
+        y_eff = data.y if not latent else torch.where(
+            dev(np.isin(np.arange(t), latent)[:, None], torch.bool), dev(lat["liab"]), data.y)
+        ycorr = torch.where(dev(keep, torch.bool), y_eff - (W @ sol).view(t, n), 0.0)
+        if constraint:
+            pi = torch.zeros(t, dtype=dtype, device=device)
+        else:
+            pi = dev(pi_dict_to_vector(None if g is None else g.pi, t))
+        if anno:                            # one (4,) prior a marker, padding [1, 0, 0, 0]
+            pad = torch.zeros(4, dtype=dtype, device=device)
+            pad[0] = 1.0
+            pi = torch.where(gm.valid[:, None] > 0, pi[None, :], pad)
+        varg = dev(marker_var0)
+        if method == "BayesB":
+            varg = varg.expand(p_pad, t, t).clone()
+        gamma_l = None
+        if method == "BayesL":
+            gamma_l = torch.where(gm.valid > 0,
+                                  sample_gamma_like(gen, (t + 1) / 2.0, gm.valid) * 8.0, 1.0)
+        state = MTChainState(gen=gen, sol=sol, alpha=alpha, beta=alpha.clone(),
+                             delta=delta, ycorr=ycorr, R=dev(np.atleast_2d(ws.vare0)),
+                             varg=varg, pi=pi,
+                             vc=tuple(dev(np.atleast_2d(grp.G0)) for grp in ws.re_groups),
+                             gamma_l=gamma_l,
+                             Lambda=torch.zeros(len(edges), dtype=dtype, device=device)
+                             if edges else None,
+                             liab=dev(lat["liab"]) if latent else None,
+                             thresholds=dev(lat["thresholds"]) if latent else None,
+                             ann_coeffs=dev(ann_c0) if anno else None,
+                             ann_var=dev(np.ones(3)) if anno else None)
+        return state
+
+    seed0 = 0 if opts.seed is None else int(opts.seed)
+    return cfg, data, [chain_state(seed0 + k) for k in range(n_chains)]
 
 
 def _host(x):
@@ -865,24 +920,31 @@ def _host(x):
 
 def run_mcmc_mt(model, df, opts: MCMCOptions, device) -> Dict:
     """runMCMC's multi-trait branch (jwas_tpu/engine/mcmc.py:1474-1476 ->
-    mcmc_mt.py:1232), single chain, on device (resolve_device's rule)."""
+    mcmc_mt.py:1232), one chain or n_chains (run_mt_chains, with the
+    "PSRF" table and, with output_chain_samples, "_chain_sample_folders"),
+    on device (resolve_device's rule)."""
     ws = prepare_workspace(model, df, opts, device=device)
     device = resolve_device(device)
     model.mcmc_info = opts
     if opts.printout_model_info:
         describe(model)
-    cfg, data, state = build_mt_data_and_state(ws, opts, device)
+    n_chains = int(opts.n_chains)
+    cfg, data, states = build_mt_data_and_states(ws, opts, device, n_chains)
     plan = chain_plan(opts.chain_length, opts.burnin, opts.output_samples_frequency,
                       cfg.nreps)
     stream = MTSampleStream(ws, cfg, opts)
+    chain_streams = multichain_streams(MTSampleStream, ws, cfg, opts, n_chains)
     progress = ProgressPrinter(opts.printout_frequency, opts.chain_length)
     try:
         with maybe_profile(opts):
-            _, accum, samples, _, _ = run_mt_chain(
-                cfg, data, state, plan, stream, progress,
+            _, accums, samples, tracks, _, _ = run_mt_chains(
+                cfg, data, states, plan, stream, chain_streams, progress,
                 int(opts.update_priors_frequency or 0))
     finally:
         stream.close()
+        for cs in chain_streams:
+            cs.close()
+    accum = pool_accums(accums)
     accum = accum._replace(**{k: _host(v) if torch.is_tensor(v) else
                               tuple(_host(x) for x in v)
                               for k, v in accum._asdict().items()
@@ -892,4 +954,8 @@ def run_mcmc_mt(model, df, opts: MCMCOptions, device) -> Dict:
         results["_marker_sample_files"] = {
             trait: stream.writer.path(f"marker_effects_{ws.geno.name}_{trait}")
             for trait in model.lhs_vec}
+    if chain_streams:
+        results["_chain_sample_folders"] = [cs.writer.folder for cs in chain_streams]
+    if n_chains > 1 and plan.n_saved > 1:
+        results["PSRF"] = mt_psrf(tracks, cfg.n_traits)
     return results

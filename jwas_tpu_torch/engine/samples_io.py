@@ -21,6 +21,15 @@ marker effects are written, else their mean (jwas_tpu's :190-195). A
 latent trait adds liabilities_<trait> and, when categorical,
 threshold_<trait> (:154-160, :209-212, :381-385, :429-433).
 
+read_sample_file is the numeric reader of these files (jwas_tpu/analysis/
+diagnostics.py:71-103, _read_sample_file): the header row is decided by
+the writer's file-name convention, marker_effects_variances_ sniffed (a
+headerless row a sample from the single- and multi-trait streams, a
+coefficient-pair header from the RRM stream), and the rows parsed by
+numpy into float64. multichain_streams (:219-239) makes a chain's stream
+a chain_<k>/ folder for runMCMC(..., n_chains=K,
+output_chain_samples=True).
+
 A sample arrives as host arrays read back in one transfer, in the chain's
 dtype (engine/mcmc.py::_read_back); the stream says which of sol, alpha (with
 BayesB's per-marker variances), the EBVs and the group covariances (vc<g>)
@@ -29,8 +38,10 @@ it needs (loc_slices, write_markers, ebv, re_vars).
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, List, Optional, Sequence
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +64,13 @@ def resolve_write_markers(p: int, output_marker_samples) -> bool:
     return False
 
 
+def text_row(values) -> str:
+    """One line of a sample file: repr(float(v)) of each value, the
+    reference's format (samples_io.py:75-77), the values taken to Python
+    floats in one tolist()."""
+    return ",".join(map(repr, np.asarray(values, dtype=np.float64).reshape(-1).tolist())) + "\n"
+
+
 class MCMCSampleWriter:
     """Writer of the per-parameter sample files, one row a write."""
 
@@ -73,8 +91,7 @@ class MCMCSampleWriter:
         self._files[var] = f
 
     def write(self, var: str, values):
-        arr = np.asarray(values).reshape(-1)
-        self._files[var].write(",".join(repr(float(v)) for v in arr) + "\n")
+        self._files[var].write(text_row(values))
 
     def write_rows(self, var: str, matrix):
         """A 2-D array as one text row per matrix row, as the reference
@@ -82,7 +99,7 @@ class MCMCSampleWriter:
         covariance is t rows a sample."""
         f = self._files[var]
         for row in np.atleast_2d(np.asarray(matrix)):
-            f.write(",".join(repr(float(v)) for v in row) + "\n")
+            f.write(text_row(row))
 
     def close(self):
         for f in self._files.values():
@@ -312,3 +329,65 @@ class RRMSampleStream:
     def close(self):
         if self.writer is not None:
             self.writer.close()
+
+
+# the kinds the writers register without a header row; marker_effects_variances_
+# is headerless from STSampleStream / MTSampleStream but has a header from
+# RRMSampleStream, so it is sniffed
+HEADERLESS_KINDS = ("pi_", "liabilities_", "threshold_")
+
+
+def _sample_file_header(path: str) -> bool:
+    """Whether a sample file starts with a header row, by the writers'
+    convention for its kind, else by its first row (a header when a token
+    is not a number)."""
+    base = os.path.basename(path)
+    stem = base[13:] if base.startswith("MCMC_samples_") else base
+    if not stem.startswith("marker_effects_variances_"):
+        if any(stem.startswith(k) for k in HEADERLESS_KINDS):
+            return False
+        if stem.startswith(("marker_effects_", "EBV_")):
+            return True
+    with open(path) as fh:
+        first = fh.readline().strip()
+    for tok in first.split(","):
+        try:
+            float(tok)
+        except ValueError:
+            return True
+    return False
+
+
+def read_sample_file(path: str, header: Optional[bool] = None, columns: int = 0
+                     ) -> Tuple[List[str], np.ndarray]:
+    """One sample file as (labels, (n_samples, k) float64 array). header
+    None follows the writers' convention (_sample_file_header), so a
+    marker-effect file whose IDs are all numeric still has its IDs taken
+    as labels; True or False overrides it. Without a header the labels are
+    "0".."k-1", as pandas names the columns. columns > 0 reads only the
+    first that many columns. Blank lines are skipped."""
+    if header is None:
+        header = _sample_file_header(path)
+    with open(path) as fh, warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # loadtxt's "no data"
+        first = fh.readline().rstrip("\r\n").split(",")
+        width = min(len(first), columns) if columns > 0 else len(first)
+        if not header:
+            fh.seek(0)
+        data = np.loadtxt(fh, delimiter=",", dtype=np.float64, ndmin=2,
+                          usecols=range(width) if width < len(first) else None)
+    labels = first[:width] if header else [str(j) for j in range(data.shape[1])]
+    if data.size == 0:
+        data = np.zeros((0, width))
+    return labels, data
+
+
+def multichain_streams(stream_cls, ws, cfg, opts, n_chains: int) -> list:
+    """A stream a chain, writing under <output_folder>/chain_<k>/ (k = 1..K),
+    when output_chain_samples is set and output_folder is not empty; the
+    inputs of analysis.diagnostics.PSRF_per_parameter."""
+    if not opts.output_folder or not bool(opts.output_chain_samples):
+        return []
+    return [stream_cls(ws, cfg, dataclasses.replace(
+        opts, output_folder=os.path.join(opts.output_folder, f"chain_{k + 1}")))
+        for k in range(n_chains)]

@@ -111,8 +111,9 @@ class MCMCOptions:
 # option -> (its one accepted value, the part of ROADMAP.md that brings
 # the others)
 _UNPORTED = {
-    "n_chains": (1, "ops layer"), "mesh": (None, "multi-GPU"),
-    "checkpoint_frequency": (0, "ops layer"), "resume": (False, "ops layer"),
+    "mesh": (None, "multi-GPU"),
+    "checkpoint_frequency": (0, "ops layer: checkpoint and resume"),
+    "resume": (False, "ops layer: checkpoint and resume"),
     "use_pallas": ("auto", "ground rules for the port"),
 }
 SPARSE_LEVELS = 20_000      # a single-trait model above this many location

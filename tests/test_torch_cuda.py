@@ -1036,3 +1036,114 @@ def test_rrm_chain_on_card_equals_the_plain_chain(cuda, monkeypatch):
         got, want = np.asarray(outs["kernel"][key][col]), np.asarray(outs["plain"][key][col])
         assert np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10, err_msg=key)
+
+
+def _gwas_inputs(tmp_path, n=600, p=1200, S=12, seed=19):
+    """A 2-bit store, a marker-effect sample file (sparse draws), a rolled
+    copy of it and a map of 3 chromosomes, 1 Mb windows of ~25 markers."""
+    rng = np.random.default_rng(seed)
+    codes = rng.binomial(2, rng.uniform(0.1, 0.9, p), size=(n, p)).astype(np.uint8)
+    codes[rng.random((n, p)) < 0.01] = 3                      # missing codes
+    known = np.where(codes == 3, np.nan, codes)
+    means = np.nanmean(known, axis=0)
+    store = Packed2BitStore(
+        obs_ids=[f"i{k}" for k in range(n)], marker_ids=[f"m{j}" for j in range(p)],
+        packed=pack_codes(codes), means=means, allele_freq=means / 2, n_obs=n,
+        n_markers=p, has_missing=True)
+    samples = rng.normal(size=(S, p)) * (rng.random((S, p)) < 0.1)
+    files = []
+    for k, rows in enumerate((samples, np.roll(samples, 1, axis=0))):
+        path = str(tmp_path / f"MCMC_samples_marker_effects_geno_y{k}.txt")
+        with open(path, "w") as f:
+            f.write(",".join(store.marker_ids) + "\n")
+            f.writelines(",".join(repr(float(v)) for v in r) + "\n" for r in rows)
+        files.append(path)
+    j = np.arange(p)
+    map_path = str(tmp_path / "map.csv")
+    with open(map_path, "w") as f:
+        f.write("id,chr,pos\n")
+        f.writelines(f"m{i},{i // 400 + 1},{(i % 400) * 40_000 + 1}\n" for i in j)
+    return store, files, map_path
+
+
+def test_gwas_on_card_against_cpu(cuda, tmp_path):
+    """GWAS on the card against the CPU, as chip_smoke.py's phase 15c holds
+    it: prGenVar and the variance proportions within rtol 1e-4, atol 1e-6;
+    WPPA equal but where a proportion lies within 1e-5 (relative) of the
+    threshold (1/S a such sample); local EBVs within atol 1e-4; the
+    correlation's columns within rtol 1e-4, atol 1e-6; with the store's
+    bytes on the host and on the card."""
+    import jwas_tpu_torch as jt
+
+    store, (f, f2), map_path = _gwas_inputs(tmp_path)
+    on_card = Packed2BitStore(**{**store.__dict__,
+                                 "packed": torch.as_tensor(store.packed).to(cuda)})
+    for sliding in (False, True):
+        ref = jt.GWAS(None, map_path, f, genotypes=store, sliding_window=sliding,
+                      output_winVarProps=True, local_EBV=True, device="cpu")
+        for geno in (store, on_card):
+            got = jt.GWAS(None, map_path, f, genotypes=geno, sliding_window=sliding,
+                          output_winVarProps=True, local_EBV=True, device=cuda)
+            np.testing.assert_allclose(got[1], ref[1], rtol=1e-4, atol=1e-6)
+            o, oc = np.argsort(got[0]["window"]), np.argsort(ref[0]["window"])
+            np.testing.assert_allclose(np.asarray(got[0]["prGenVar"])[o],
+                                       np.asarray(ref[0]["prGenVar"])[oc], rtol=1e-4,
+                                       atol=1e-6)
+            near = (np.abs(ref[1] - 0.001) <= 1e-5 * 0.001).sum(axis=1)
+            w = np.asarray(ref[0]["window"])[oc] - 1
+            diff = np.abs(np.asarray(got[0]["WPPA"])[o] - np.asarray(ref[0]["WPPA"])[oc])
+            assert (diff <= near[w] / ref[1].shape[1] + 1e-12).all()
+            for c in ref[2].columns:
+                np.testing.assert_allclose(got[2][c], ref[2][c], atol=1e-4)
+    ref = jt.GWAS(None, map_path, [f, f2], genotypes=store, genetic_correlation=True,
+                  device="cpu")
+    got = jt.GWAS(None, map_path, [f, f2], genotypes=on_card, genetic_correlation=True,
+                  device=cuda)
+    for c in ("estimate_cov", "std_cov", "estimate_cor", "std_cor"):
+        np.testing.assert_allclose(got[c], ref[c], rtol=1e-4, atol=1e-6)
+
+
+def test_loocv_on_card_against_cpu(cuda):
+    """LOOCV's two branches in float64 on the card within 1e-8 (relative to
+    the largest residual) of the CPU's."""
+    import jwas_tpu_torch as jt
+
+    rng = np.random.default_rng(20)
+    for n, p in ((400, 60), (150, 500)):
+        X = rng.binomial(2, 0.4, size=(n, p)).astype(np.float64)
+        y = X @ (rng.normal(size=p) * 0.1) + rng.normal(size=n)
+        got = jt.LOOCV(X, y, 0.05, 1.0, verbose=False, device=cuda)
+        ref = jt.LOOCV(X, y, 0.05, 1.0, verbose=False, device="cpu")
+        assert np.abs(got - ref).max() <= 1e-8 * np.abs(ref).max()
+
+
+def test_several_chains_on_card(cuda):
+    """Two chains on the card: chain k's EBVs equal a single chain seeded
+    seed + k on the card (the chains share the store and Grams), and the
+    pooled EBVs are the mean of the two within 1e-5."""
+    import jwas_tpu_torch as jt
+
+    rng = np.random.default_rng(21)
+    n, p = 300, 500
+    codes = rng.binomial(2, rng.uniform(0.1, 0.9, p), size=(n, p)).astype(np.uint8)
+    means = codes.mean(axis=0)
+    store = Packed2BitStore(
+        obs_ids=[f"i{k}" for k in range(n)], marker_ids=[f"m{j}" for j in range(p)],
+        packed=pack_codes(codes), means=means, allele_freq=means / 2, n_obs=n,
+        n_markers=p, has_missing=False)
+    y = (codes - means) @ (rng.normal(size=p) * (rng.random(p) < 0.05))
+    table = jt.Table({"ID": np.array(store.obs_ids, dtype=object),
+                      "y": y + rng.normal(0.0, y.std(), n)})
+    run = dict(chain_length=64, burnin=16, output_samples_frequency=8, fast_blocks=8,
+               output_folder="", printout_model_info=False, device=cuda)
+
+    def model():
+        return jt.build_model("y = intercept + geno",
+                              genotypes=jt.get_genotypes(store, storage="2bit"))
+
+    multi = jt.runMCMC(model(), table, seed=4, n_chains=2, **run)
+    singles = [np.asarray(jt.runMCMC(model(), table, seed=4 + k, **run)["EBV_y"].EBV,
+                          dtype=np.float64) for k in range(2)]
+    np.testing.assert_allclose(np.asarray(multi["EBV_y"].EBV, dtype=np.float64),
+                               np.mean(singles, axis=0), rtol=1e-5, atol=1e-5)
+    assert np.isfinite(multi["PSRF"]["PSRF"]).all()

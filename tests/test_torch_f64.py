@@ -187,13 +187,13 @@ def test_double_precision_runmcmc_matches_jwas_tpu():
     jax.config.update("jax_enable_x64", False)
     import jwas_tpu_torch.engine.mcmc as em
     built = {}
-    saved = em.run_chain
+    saved = em.run_chains
 
-    def keep(cfg, data, state, *a, **k):
-        built["state"], built["data"] = state, data
-        return saved(cfg, data, state, *a, **k)
+    def keep(cfg, data, states, *a, **k):
+        built["state"], built["data"] = states[0], data
+        return saved(cfg, data, states, *a, **k)
 
-    em.run_chain = keep
+    em.run_chains = keep
     try:
         g = jt.get_genotypes(sim["genotypes"], storage="f64", device="cpu")
         out = jt.runMCMC(jt.build_model("y = intercept + geno", genotypes=g), table,
@@ -201,7 +201,7 @@ def test_double_precision_runmcmc_matches_jwas_tpu():
                          chain_length=2000, burnin=400, seed=7, output_folder="",
                          printout_model_info=False)
     finally:
-        em.run_chain = saved
+        em.run_chains = saved
     st, data = built["state"], built["data"]
     assert data.gm.X is g.dense and data.gm.grams.dtype == F64
     for t in (st.alpha, st.beta, st.ycorr, st.vare, st.varg, st.pi, st.sol, data.W,

@@ -176,8 +176,7 @@ def test_validate_args_gives_jwas_tpu_errors(data):
 
 
 UNPORTED = {
-    "n_chains": 2, "mesh": object(), "checkpoint_frequency": 10, "resume": True,
-    "use_pallas": False,
+    "mesh": object(), "checkpoint_frequency": 10, "resume": True, "use_pallas": False,
 }
 # options jwas_tpu rejects on the 2-bit store: its ValueError comes first
 REJECTED = {
@@ -193,12 +192,16 @@ def test_unported_options_raise_naming_themselves(data):
     """Options the port does not run yet raise NotImplementedError naming
     themselves; those jwas_tpu rejects raise its ValueError, through
     runMCMC, in both packages. sparse_location=True runs (the sparse
-    location path: one PO-CG draw a sweep)."""
+    location path: one PO-CG draw a sweep), and so does n_chains=2."""
     run = dict(chain_length=8, printout_model_info=False, output_folder="")
     model = jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
         jt.Packed2BitStore.load(data["store_path"])))
     out = jt.runMCMC(model, data["table"], device="cpu", sparse_location=True, **run)
     assert out["_location_cg"]["solves"] >= 1
+    model = jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
+        jt.Packed2BitStore.load(data["store_path"])))
+    out = jt.runMCMC(model, data["table"], device="cpu", n_chains=2, **run)
+    assert np.isfinite(np.asarray(out["EBV_y"].EBV, dtype=np.float64)).all()
     for option, value in UNPORTED.items():
         model = jt.build_model("y = intercept + geno", genotypes=jt.get_genotypes(
             jt.Packed2BitStore.load(data["store_path"])))

@@ -21,8 +21,10 @@ def test_import_leaves_out_jax_pandas_and_jwas_tpu():
             "'jwas_tpu_torch.')]; [importlib.import_module(m) for m in mods]; "
             "assert 'jwas_tpu_torch.utils.memory' in mods, mods; "
             "assert 'jwas_tpu_torch.io.pedigree' in mods, mods; "
+            "assert {'jwas_tpu_torch.analysis.gwas', 'jwas_tpu_torch.analysis.diagnostics', "
+            "'jwas_tpu_torch.io.datasets'} <= set(mods), mods; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
-            "{'jax', 'jaxlib', 'pandas', 'jwas_tpu'}); print(bad); "
+            "{'jax', 'jaxlib', 'pandas', 'jwas_tpu', 'matplotlib'}); print(bad); "
             "sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           env={**os.environ, "PYTHONPATH": REPO},
@@ -85,22 +87,20 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok": true' not in proc.stdout
 
 
-# jwas_tpu's public names that ROADMAP.md Queue 1 item 11 brings
-NOT_YET = {"GWAS", "dataset", "PSRF", "PSRF_per_parameter", "traceplot", "LOOCV",
-           "lsmeans", "getEBV"}
+# jwas_tpu's public names that the port does not have yet
+NOT_YET = set()
 
 
 def test_public_names_match_jwas_tpu():
-    """Every name of jwas_tpu.__all__ is an attribute of the port, but for
-    the eight that ROADMAP.md Queue 1 item 11 brings; add_genotypes warns
-    that it is deprecated."""
+    """Every name of jwas_tpu.__all__ is an attribute of the port;
+    add_genotypes warns that it is deprecated."""
     import warnings
 
     import jwas_tpu
     import jwas_tpu_torch as jt
 
     missing = sorted(n for n in jwas_tpu.__all__ if not hasattr(jt, n))
-    assert missing == sorted(NOT_YET), missing
+    assert missing == sorted(NOT_YET) == [], missing
     assert jt.prepare_streaming_genotypes is jt.prepare_packed_genotypes
     model = jt.build_model("y1 = intercept\ny2 = intercept")
     rng = np.random.default_rng(0)
